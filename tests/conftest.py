@@ -13,3 +13,8 @@ jax.config.update("jax_enable_x64", False)
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skipped without one")
