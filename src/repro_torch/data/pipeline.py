@@ -1,9 +1,16 @@
-"""Deterministic synthetic LM tokens (pure numpy, copied from the JAX
+"""Deterministic synthetic LM data (pure numpy, copied from the JAX
 package's `data/pipeline.py`, so both packages draw identical streams).
-The training batch functions come with the training slice."""
+
+Stateless: batch(step) is a pure function of (seed, step, shape), and each
+process materializes only its slice of the global batch.  The VLM patch
+and audio-frame stubs come with the other-families slice."""
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+
+from ..configs.base import ModelConfig, ShapeConfig
 
 
 def _keys(seed: int, step: int, rows: int, row0: int = 0) -> np.ndarray:
@@ -33,3 +40,20 @@ def synthetic_tokens(seed: int, step: int, batch: int, seq: int,
     # Zipf-ish marginal via inverse power transform
     toks = np.floor((vocab - 1) * np.power(u, 3.0)).astype(np.int32)
     return toks
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
+               seed: int = 1234, process_index: int = 0,
+               process_count: int = 1) -> Dict[str, np.ndarray]:
+    """The (host-local slice of the) training batch for `step`: tokens and
+    labels, (rows, seq_len) int32."""
+    if (cfg.family == "vlm" and cfg.num_patches) or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: VLM patch and encoder-frame inputs are not ported yet: they "
+            f"come with the other-families slice")
+    gb = shape.global_batch
+    assert gb % process_count == 0, "global batch must divide hosts"
+    local = gb // process_count
+    row0 = process_index * local
+    toks = synthetic_tokens(seed, step, local, shape.seq_len, cfg.vocab_size, row0=row0)
+    return {"tokens": toks, "labels": toks}

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All sources under `kernels/csrc/*.cu` compile in ONE `nvcc` call into one
-shared library with a plain C interface, loaded with `ctypes` (pointers and
-the CUDA stream pass as `c_void_p`, ints as `c_int`; every entry point
-returns `cudaGetLastError()` and the wrappers raise when it is not 0).  No
-PyTorch headers are compiled, so a cold build takes seconds, not minutes.
+Every source under `kernels/csrc/*.cu` compiles in its own `nvcc -c`, all
+started together, and one more `nvcc` links the objects into one shared
+library with a plain C interface, loaded with `ctypes` (pointers and the
+CUDA stream pass as `c_void_p`, ints as `c_int`; every entry point returns
+`cudaGetLastError()` and the wrappers raise when it is not 0).  No PyTorch
+headers are compiled, so a cold build takes as long as the slowest source.
 
 The build happens at first use, never at import, into `build/kernels/` at
 the checkout's root (listed in `.gitignore`).  The library's file name
@@ -30,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/gemm_tile.cuh `DType`
@@ -79,28 +80,52 @@ def build() -> Library:
     target = BUILD_DIR / f"libreprokernels-{_digest()}.so"
     build_s, log = 0.0, ""
     if not target.exists():
-        cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            log = _compile(Path(work), target)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     _declare(lib)
     _LIBRARY = Library(lib=lib, path=target, build_s=build_s, log=log)
     return _LIBRARY
 
 
+def _run(cmds):
+    """Run the commands at once; (output of each, in order).  Raises on the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+    return outs
+
+
+def _compile(work: Path, target: Path) -> str:
+    """One `nvcc -c` per source, all at once, then one link; the library is
+    moved into place only when whole."""
+    nvcc = _nvcc()
+    cu = sorted(CSRC.glob("*.cu"))
+    objs = [work / f"{src.stem}.o" for src in cu]
+    logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(cu, objs)])
+    tmp = work / "lib.so"
+    logs += _run([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                   *map(str, objs)]])
+    os.replace(tmp, target)
+    return "".join(logs)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_matmul.restype = i
+    lib.repro_fused_mlp_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_fused_mlp_bwd.restype = i
+    lib.repro_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.repro_flash_fwd.restype = i
+    lib.repro_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
     lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
@@ -162,3 +187,20 @@ def dispatch_device(what: str, t) -> str:
         raise ValueError(f"{what}: no kernel for device {t.device} "
                          f"(CPU runs the plain version, CUDA the kernel)")
     return kind
+
+
+if __name__ == "__main__":
+    # Time a cold build both ways: one nvcc per source, all at once, and a
+    # link (what `build` does), against one nvcc call over every source.
+    #   PYTHONPATH=src python -m repro_torch.kernels._build
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        _compile(work, work / "parallel.so")
+        t1 = time.perf_counter()
+        _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(work / "single.so"),
+               *map(str, sorted(CSRC.glob("*.cu")))]])
+        t2 = time.perf_counter()
+    print(f"cold build of {len(list(CSRC.glob('*.cu')))} sources: one nvcc per source at once "
+          f"and a link {t1 - t0:.1f} s; one nvcc call over all {t2 - t1:.1f} s")

@@ -31,16 +31,16 @@ static cudaError_t launch_fused(const void* x, const void* wg, const void* wu, v
   T* hp = static_cast<T*>(h);
   switch (act) {
     case ACT_SWIGLU:
-      gemm_tile_kernel<T, ACT_SWIGLU><<<grid, NTHREADS, 0, stream>>>(xp, gp, up, hp, nullptr, m, f,
-                                                                     k, k, vec);
+      gemm_tile_kernel<T, ACT_SWIGLU><<<grid, NTHREADS, 0, stream>>>(xp, nullptr, gp, up, hp,
+                                                                     nullptr, m, f, k, k, vec);
       break;
     case ACT_GELU:
-      gemm_tile_kernel<T, ACT_GELU><<<grid, NTHREADS, 0, stream>>>(xp, up, nullptr, hp, nullptr, m,
-                                                                   f, k, k, vec);
+      gemm_tile_kernel<T, ACT_GELU><<<grid, NTHREADS, 0, stream>>>(xp, nullptr, up, nullptr, hp,
+                                                                   nullptr, m, f, k, k, vec);
       break;
     case ACT_RELU2:
-      gemm_tile_kernel<T, ACT_RELU2><<<grid, NTHREADS, 0, stream>>>(xp, up, nullptr, hp, nullptr, m,
-                                                                    f, k, k, vec);
+      gemm_tile_kernel<T, ACT_RELU2><<<grid, NTHREADS, 0, stream>>>(xp, nullptr, up, nullptr, hp,
+                                                                    nullptr, m, f, k, k, vec);
       break;
     default:
       return cudaErrorInvalidValue;

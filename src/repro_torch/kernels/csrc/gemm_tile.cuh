@@ -11,12 +11,22 @@
 // The epilogue parks the accumulators in shared memory (reusing the operand
 // buffers) and writes the tile out with coalesced, masked stores, applying
 // the activation (fused MLP) or writing an f32 split-K partial (matmul).
+//
+// Operand layouts (the gradient GEMMs): TA = A arrives as its transpose At
+// (k x m, row-major), TB = B as Bt (n x k, row-major) — `w.T` and `x.T`
+// views, read in place.  A transposed tile is staged as it lies in memory
+// (BK x BM, or BN x BK) and read with `wmma::col_major` fragments, so no
+// operand is copied; TA = TB = false is the row-major code path unchanged.
+// PAIRS = 2 sums two products A0.B0 + A1.B1 into one accumulator (the
+// fused-MLP backward's dx = dg.Wg^T + du.Wu^T).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -53,6 +63,31 @@ __device__ __forceinline__ float relu2(float z) {
   const float r = fmaxf(z, 0.0f);
   return r * r;
 }
+// ... and their derivatives (ref.py `_dsilu`, `_dgelu`, `_drelu2`)
+__device__ __forceinline__ float dsilu(float z) {
+  const float s = 1.0f / (1.0f + expf(-z));
+  return s * (1.0f + z * (1.0f - s));
+}
+__device__ __forceinline__ float dgelu_tanh(float z) {
+  const float c = 0.7978845608028654f, a = 0.044715f;
+  const float t = tanhf(c * (z + a * z * z * z));
+  return 0.5f * (1.0f + t) + 0.5f * z * (1.0f - t * t) * c * (1.0f + 3.0f * a * z * z);
+}
+__device__ __forceinline__ float drelu2(float z) { return 2.0f * fmaxf(z, 0.0f); }
+
+// Shared-memory geometry of one k step: the A tile and NB B tiles, each as
+// it lies in memory (transposed operands stage transposed tiles).
+template <typename T, int NB, bool TA, bool TB> struct TileGeom {
+  static constexpr int P = Pad<T>::v;
+  static constexpr int LDA = TA ? BM + P : BK + P;
+  static constexpr int LDB = TB ? BK + P : BN + P;
+  static constexpr int LDC = BN + 4;
+  static constexpr int A_ELEMS = TA ? BK * LDA : BM * LDA;
+  static constexpr int B_ELEMS = TB ? BN * LDB : BK * LDB;
+  static constexpr int IN_BYTES = (A_ELEMS + NB * B_ELEMS) * (int)sizeof(T);
+  static constexpr int OUT_BYTES = NB * BM * LDC * (int)sizeof(float);
+  static constexpr int BYTES = IN_BYTES > OUT_BYTES ? IN_BYTES : OUT_BYTES;
+};
 
 // Stage rows [row0, row0+ROWS) x cols [col0, col0+COLS) of a row-major
 // matrix (leading dim ld, valid extent nrows x ncols) into shared memory
@@ -80,9 +115,9 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* __restrict__
 }
 
 // Tensor-core accumulation (bf16 operands, f32 accumulators).
-template <typename T, int NB> struct TileMma;
+template <typename T, int NB, bool TA = false, bool TB = false> struct TileMma;
 
-template <int NB> struct TileMma<__nv_bfloat16, NB> {
+template <int NB, bool TA, bool TB> struct TileMma<__nv_bfloat16, NB, TA, TB> {
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[NB][BN / 16];
 
   __device__ __forceinline__ void zero() {
@@ -92,20 +127,25 @@ template <int NB> struct TileMma<__nv_bfloat16, NB> {
       for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[nb][j], 0.0f);
   }
 
+  // As: the A tile (BM x BK row-major, or BK x BM when TA); Bs[nb]: B tiles
+  // (BK x BN row-major, or BN x BK when TB).
   __device__ __forceinline__ void step(const __nv_bfloat16* As, int lda,
                                        const __nv_bfloat16* const* Bs, int ldb) {
     using namespace nvcuda;
+    using LA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
+    using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
     const int warp = threadIdx.x / 32;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + warp * 16 * lda + kk, lda);
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
+      wmma::load_matrix_sync(a, TA ? As + kk * lda + warp * 16 : As + warp * 16 * lda + kk, lda);
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
         for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs[nb] + kk * ldb + j * 16, ldb);
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
+          wmma::load_matrix_sync(b, TB ? Bs[nb] + j * 16 * ldb + kk : Bs[nb] + kk * ldb + j * 16,
+                                 ldb);
           wmma::mma_sync(acc[nb][j], a, b, acc[nb][j]);
         }
       }
@@ -125,7 +165,7 @@ template <int NB> struct TileMma<__nv_bfloat16, NB> {
 
 // FMA accumulation (f32 operands): thread t owns rows (t/16)*8 + i and
 // columns t%16 + 16*j of the tile.
-template <int NB> struct TileMma<float, NB> {
+template <int NB, bool TA, bool TB> struct TileMma<float, NB, TA, TB> {
   float acc[NB][8][4];
 
   __device__ __forceinline__ void zero() {
@@ -143,12 +183,12 @@ template <int NB> struct TileMma<float, NB> {
     for (int kk = 0; kk < BK; ++kk) {
       float a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(tr * 8 + i) * lda + kk];
+      for (int i = 0; i < 8; ++i) a[i] = TA ? As[kk * lda + tr * 8 + i] : As[(tr * 8 + i) * lda + kk];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float b = Bs[nb][kk * ldb + tc + 16 * j];
+          const float b = TB ? Bs[nb][(tc + 16 * j) * ldb + kk] : Bs[nb][kk * ldb + tc + 16 * j];
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[nb][i][j] = fmaf(a[i], b, acc[nb][i][j]);
         }
@@ -167,61 +207,85 @@ template <int NB> struct TileMma<float, NB> {
   }
 };
 
-// C (m x n) = epilogue(A (m x k) . B0 (k x n) [, A . B1]).
+// Accumulate A . B[nb] over k in [k0, k1) for the output tile at (row0,
+// col0) into `mma`.  A is m x k (At: k x m when TA), B[nb] is k x n (Bt:
+// n x k when TB); every operand's leading dimension is its row length.
+template <typename T, int NB, bool TA, bool TB>
+__device__ __forceinline__ void gemm_mainloop(TileMma<T, NB, TA, TB>& mma, unsigned char* smem,
+                                              const T* __restrict__ A, const T* const* Bg, int m,
+                                              int n, int k, int k0, int k1, int row0, int col0,
+                                              int vec) {
+  using G = TileGeom<T, NB, TA, TB>;
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs[NB];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) Bs[nb] = As + G::A_ELEMS + nb * G::B_ELEMS;
+  for (int kt = k0; kt < k1; kt += BK) {
+    if (TA)
+      load_tile<T, BK, BM>(As, G::LDA, A, m, kt, row0, k1, m, vec);
+    else
+      load_tile<T, BM, BK>(As, G::LDA, A, k, row0, kt, m, k1, vec);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      if (TB)
+        load_tile<T, BN, BK>(Bs[nb], G::LDB, Bg[nb], k, col0, kt, n, k1, vec);
+      else
+        load_tile<T, BK, BN>(Bs[nb], G::LDB, Bg[nb], n, kt, col0, k1, n, vec);
+    }
+    __syncthreads();
+    mma.step(As, G::LDA, Bs, G::LDB);
+    __syncthreads();
+  }
+}
+
+// C (m x n) = epilogue(A (m x k) . B0 (k x n) [, A . B1]), or with PAIRS = 2
+// C = A . B0 + A1 . B1 (both pairs m x k by k x n, one accumulator).
 // grid = (ceil(n/BN), ceil(m/BM), splits).  With splits > 1 (ACT_NONE only)
 // block z covers k in [z*k_split, min(k, (z+1)*k_split)) and writes its f32
 // partial to work[z] (m x n); splitk_reduce then sums the partials.
-template <typename T, int ACT>
+template <typename T, int ACT, bool TA = false, bool TB = false, int PAIRS = 1>
 __global__ void __launch_bounds__(NTHREADS)
-gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B0, const T* __restrict__ B1,
-                 T* __restrict__ C, float* __restrict__ work, int m, int n, int k, int k_split,
-                 int vec) {
+gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ A1, const T* __restrict__ B0,
+                 const T* __restrict__ B1, T* __restrict__ C, float* __restrict__ work, int m,
+                 int n, int k, int k_split, int vec) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
-  constexpr int P = Pad<T>::v;
-  constexpr int LDA = BK + P, LDB = BN + P, LDC = BN + 4;
-  constexpr int IN_BYTES = (BM * LDA + NB * BK * LDB) * (int)sizeof(T);
-  constexpr int OUT_BYTES = NB * BM * LDC * (int)sizeof(float);
-  __shared__ __align__(128) unsigned char smem[IN_BYTES > OUT_BYTES ? IN_BYTES : OUT_BYTES];
-
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs[NB];
-  Bs[0] = As + BM * LDA;
-  if (NB == 2) Bs[NB - 1] = Bs[0] + BK * LDB;
-  const T* Bg[NB];
-  Bg[0] = B0;
-  if (NB == 2) Bg[NB - 1] = B1;
+  using G = TileGeom<T, NB, TA, TB>;
+  __shared__ __align__(128) unsigned char smem[G::BYTES];
 
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int k0 = blockIdx.z * k_split;
   const int k1 = min(k, k0 + k_split);
 
-  TileMma<T, NB> mma;
+  TileMma<T, NB, TA, TB> mma;
   mma.zero();
-  for (int kt = k0; kt < k1; kt += BK) {
-    load_tile<T, BM, BK>(As, LDA, A, k, row0, kt, m, k1, vec);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) load_tile<T, BK, BN>(Bs[nb], LDB, Bg[nb], n, kt, col0, k1, n, vec);
-    __syncthreads();
-    mma.step(As, LDA, Bs, LDB);
-    __syncthreads();
+  if (PAIRS == 2) {
+    const T* b0[1] = {B0};
+    const T* b1[1] = {B1};
+    gemm_mainloop<T, NB, TA, TB>(mma, smem, A, b0, m, n, k, k0, k1, row0, col0, vec);
+    gemm_mainloop<T, NB, TA, TB>(mma, smem, A1, b1, m, n, k, k0, k1, row0, col0, vec);
+  } else {
+    const T* Bg[NB];
+    Bg[0] = B0;
+    if (NB == 2) Bg[NB - 1] = B1;
+    gemm_mainloop<T, NB, TA, TB>(mma, smem, A, Bg, m, n, k, k0, k1, row0, col0, vec);
   }
 
   float* Cs[NB];
   Cs[0] = reinterpret_cast<float*>(smem);
-  if (NB == 2) Cs[NB - 1] = Cs[0] + BM * LDC;
-  mma.store(Cs, LDC);
+  if (NB == 2) Cs[NB - 1] = Cs[0] + BM * G::LDC;
+  mma.store(Cs, G::LDC);
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
     const int r = idx / BN, c = idx % BN;
     const int gr = row0 + r, gc = col0 + c;
     if (gr >= m || gc >= n) continue;
-    float v = Cs[0][r * LDC + c];
+    float v = Cs[0][r * G::LDC + c];
     if (ACT == ACT_NONE && gridDim.z > 1) {
       work[((size_t)blockIdx.z * m + gr) * n + gc] = v;
       continue;
     }
-    if (ACT == ACT_SWIGLU) v = silu(v) * Cs[NB - 1][r * LDC + c];
+    if (ACT == ACT_SWIGLU) v = silu(v) * Cs[NB - 1][r * G::LDC + c];
     if (ACT == ACT_GELU) v = gelu_tanh(v);
     if (ACT == ACT_RELU2) v = relu2(v);
     C[(size_t)gr * n + gc] = from_f<T>(v);

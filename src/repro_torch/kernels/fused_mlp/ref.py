@@ -4,7 +4,9 @@ and what the CUDA kernel is held against):
     swiglu:       h = silu(x @ w_gate) * (x @ w_up)     (gated, 2 GEMMs)
     gelu / relu2: h = act(x @ w_up)                     (plain, 1 GEMM)
 
-The derivative pairs of the JAX module come with the backward slice.
+`DACTS` holds each activation's derivative (the JAX module's derivative
+pairs): the backward recomputes the pre-activations and needs the slope as
+a plain function of them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,11 @@ def _silu(z):
     return z * torch.sigmoid(z)
 
 
+def _dsilu(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
 # tanh-approximate gelu (jax.nn.gelu's default)
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -30,11 +37,22 @@ def _gelu(z):
     return 0.5 * z * (1.0 + torch.tanh(_C * (z + _A * z * z * z)))
 
 
+def _dgelu(z):
+    t = torch.tanh(_C * (z + _A * z * z * z))
+    return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * _C * (1.0 + 3.0 * _A * z * z)
+
+
 def _relu2(z):
     return torch.square(torch.clamp_min(z, 0.0))
 
 
+def _drelu2(z):
+    return 2.0 * torch.clamp_min(z, 0.0)
+
+
+# mlp_type -> activation, and its derivative; swiglu's gates w_gate's GEMM
 ACTS = {"swiglu": _silu, "gelu": _gelu, "relu2": _relu2}
+DACTS = {"swiglu": _dsilu, "gelu": _dgelu, "relu2": _drelu2}
 
 
 def fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type: str = "swiglu"):

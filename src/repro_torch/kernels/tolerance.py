@@ -14,6 +14,12 @@ truncating accumulation may double the kernel's share, so a sum costs
 3 * n * u * sum|terms|; the epilogue (activation, softmax) carries that
 through by its slope.  The 2% covers second-order terms.
 
+Where a kernel rounds an intermediate to the input dtype before a further
+product (flash attention's P and dS, the fused-MLP backward's dg and du:
+bf16 inputs to the tensor cores), the plain version keeps it in f32, and
+the bound adds that rounding, half an ulp relative per element, carried
+through the product.
+
 Each `*_tol` function takes the kernel's inputs and the plain version's
 output and returns the per-element bound; `check` holds a result to it.
 """
@@ -21,13 +27,23 @@ from __future__ import annotations
 
 import torch
 
-from .fused_mlp.ref import ACTS, is_gated
+from .flash_attention.ref import _scores, attention_di
+from .fused_mlp.ref import ACTS, DACTS, is_gated
 
 U = 2.0 ** -24
 HALF_ULP = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: U}
 # Largest slope of the activation: silu 1.0998 (at z = 2.40), tanh-gelu
 # 1.1290 (at z = 1.42); relu2's slope 2|z| is taken per element.
 MAX_SLOPE = {"swiglu": 1.0999, "gelu": 1.129}
+# Largest |second derivative|: silu 0.5 (at z = 0), tanh-gelu 0.798 (at
+# z = 0), relu2 2 (z > 0).
+MAX_CURVE = {"swiglu": 0.501, "gelu": 0.8, "relu2": 2.0}
+
+
+def _rounds(dtype) -> float:
+    """Relative rounding of an intermediate the kernel stores in `dtype`
+    before a tensor-core product (none in f32)."""
+    return 0.0 if dtype == torch.float32 else HALF_ULP[dtype]
 
 
 def _bound(want: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -39,8 +55,14 @@ def _sum_err(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return 3.0 * x.shape[-1] * U * (x.float().abs() @ w.float().abs())
 
 
-def matmul_tol(a: torch.Tensor, b: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    return _bound(want, _sum_err(a, b))
+def matmul_tol(a: torch.Tensor, b: torch.Tensor, want: torch.Tensor, a1=None,
+               b1=None) -> torch.Tensor:
+    """A @ B (+ A1 @ B1): with a second pair, one sum of 2k terms."""
+    if a1 is None:
+        return _bound(want, _sum_err(a, b))
+    k2 = 2 * a.shape[-1]
+    return _bound(want, 3.0 * k2 * U * (a.float().abs() @ b.float().abs()
+                                        + a1.float().abs() @ b1.float().abs()))
 
 
 def fused_mlp_hidden_tol(x, w_gate, w_up, mlp_type: str, want: torch.Tensor) -> torch.Tensor:
@@ -87,6 +109,115 @@ def paged_decode_tol(q, k_pool, v_pool, slot_idx, lengths, want: torch.Tensor,
     e = (2.0 * delta + (4.0 * n + 128.0) * U) * w_abs_v
     e = torch.where((lengths > 0)[:, None, None, None], e, 0.0)
     return _bound(want, e.reshape(b, a, d))
+
+
+def fused_mlp_bwd_tol(x, w_gate, w_up, dh, mlp_type: str, want):
+    """Bounds on (dx, dwg, dwu) of the fused-MLP backward; `want` is the
+    plain version's (dx, dwg, dwu).  g and u carry their sum errors eg, eu
+    into dg = dh u act'(g) and du = dh act(g) (plain: du = dh act'(u))
+    through the slopes; the kernel then rounds dg and du to the input dtype
+    and the dx / dW products sum 2f (dx) or m (dW) terms."""
+    xf, dhf, wu = x.float(), dh.float().abs(), w_up.float()
+    r = _rounds(x.dtype)
+    u = xf @ wu
+    eu = _sum_err(x, w_up)
+    curve = MAX_CURVE[mlp_type]
+    if is_gated(mlp_type):
+        wg = w_gate.float()
+        g = xf @ wg
+        eg = _sum_err(x, w_gate)
+        dg = dhf * u.abs() * DACTS[mlp_type](g).abs()
+        du = dhf * ACTS[mlp_type](g).abs()
+        e_dg = dhf * (eu * DACTS[mlp_type](g).abs() + (u.abs() + eu) * curve * eg) \
+            + (r + 16.0 * U) * dg
+        e_du = dhf * MAX_SLOPE[mlp_type] * eg + (r + 16.0 * U) * du
+    else:
+        du = dhf * DACTS[mlp_type](u).abs()
+        e_du = dhf * curve * eu + (r + 16.0 * U) * du
+    f = w_up.shape[1]
+    e_dx = e_du @ wu.abs().T + 3.0 * 2 * f * U * (du @ wu.abs().T)
+    e_dwu = xf.abs().T @ e_du + 3.0 * x.shape[0] * U * (xf.abs().T @ du)
+    dx, dwg, dwu = want
+    if not is_gated(mlp_type):
+        return _bound(dx, e_dx), None, _bound(dwu, e_dwu)
+    e_dx = e_dx + e_dg @ wg.abs().T + 3.0 * 2 * f * U * (dg @ wg.abs().T)
+    e_dwg = xf.abs().T @ e_dg + 3.0 * x.shape[0] * U * (xf.abs().T @ dg)
+    return _bound(dx, e_dx), _bound(dwg, e_dwg), _bound(dwu, e_dwu)
+
+
+def _flash_parts(q, k, causal, scale):
+    """Scores (b, nkv, g, sq, skv), live mask, per-row score error delta
+    (d-term sums: 3 d u sum|q k| scale, the row's largest) and the number
+    of live keys per row."""
+    b, sq, a, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s, mask = _scores(q, k, causal, scale)
+    qa = q.float().abs().reshape(b, sq, nkv, a // nkv, d)
+    s_abs = torch.einsum("bqkgd,bskd->bkgqs", qa, k.float().abs()) * scale
+    if mask is not None:
+        s_abs = torch.where(mask, s_abs, 0.0)
+        n = mask.sum(-1).float()[:, None]                  # (sq, 1)
+    else:
+        n = torch.full((sq, 1), float(skv), device=q.device)
+    delta = 3.0 * d * U * s_abs.amax(-1, keepdim=True)
+    return s, mask, delta, n, scale
+
+
+def flash_attention_tol(q, k, v, want, causal: bool = True, scale=None):
+    """Bounds on (out, lse) of the flash forward; `want` is the plain
+    version's (out, lse).  A score error delta moves every softmax weight by
+    a factor within e^(+-2 delta); the softmax and its online rescaling add
+    (4 n + 128) u relative; the kernel rounds P to the input dtype before
+    P.V.  All act on sum_j w_j |v_j|.  lse = m + log(l) is off by delta and
+    (2 n + 64) u relative."""
+    out, lse = want
+    b, sq, a, d = q.shape
+    s, mask, delta, n, _ = _flash_parts(q, k, causal, scale)
+    w = torch.softmax(s, dim=-1)
+    if mask is not None:
+        w = torch.where(mask, w, 0.0)
+    w_abs_v = torch.einsum("bkgqs,bskd->bqkgd", w, v.float().abs()).reshape(b, sq, a, d)
+    rel = (2.0 * delta + (4.0 * n + 128.0) * U).squeeze(-1)  # (b, nkv, g, sq)
+    rel = rel.permute(0, 3, 1, 2).reshape(b, sq, a, 1) + _rounds(q.dtype)
+    e_lse = delta.squeeze(-1).reshape(b, a, sq) \
+        + ((2.0 * n + 64.0) * U).reshape(1, 1, sq) * (1.0 + lse.abs())
+    return _bound(out, rel * w_abs_v), 1.02 * e_lse
+
+
+def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scale=None):
+    """Bounds on (dq, dk, dv) of the flash backward; `want` is the plain
+    version's.  p = exp(s scale - lse) is off by a factor within
+    e^(+-2 delta); dP = do.v^T by 3 d u sum|do v|; dS = p (dP - di) scale
+    carries both, and the kernel rounds P (for dv) and dS (for dq, dk) to
+    the input dtype.  The final products sum skv (dq) or g sq (dk, dv)
+    terms."""
+    b, sq, a, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = a // nkv
+    s, mask, delta, _, scale = _flash_parts(q, k, causal, scale)
+    p = torch.exp(s - lse.reshape(b, nkv, g, sq)[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    r = _rounds(q.dtype)
+    doh = do.float().reshape(b, sq, nkv, g, d)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", doh, v.float())
+    e_dp = 3.0 * d * U * torch.einsum("bqkgd,bskd->bkgqs", doh.abs(), v.float().abs())
+    di = attention_di(o, do).reshape(b, nkv, g, sq)[..., None]
+    ds = (p * (dp - di) * scale).abs()
+    e_ds = p * (2.2 * delta * (dp - di).abs() + e_dp) * scale + (r + 8.0 * U) * ds
+    e_p = p * (2.2 * delta + r + 8.0 * U)
+    qa = q.float().abs().reshape(b, sq, nkv, g, d)
+    ka = k.float().abs()
+    e_dq = (torch.einsum("bkgqs,bskd->bqkgd", e_ds, ka)
+            + 3.0 * skv * U * torch.einsum("bkgqs,bskd->bqkgd", ds, ka)).reshape(b, sq, a, d)
+    e_dk = (torch.einsum("bkgqs,bqkgd->bskd", e_ds, qa)
+            + 3.0 * g * sq * U * torch.einsum("bkgqs,bqkgd->bskd", ds, qa))
+    doa = doh.abs()
+    e_dv = (torch.einsum("bkgqs,bqkgd->bskd", e_p, doa)
+            + 3.0 * g * sq * U * torch.einsum("bkgqs,bqkgd->bskd", p, doa))
+    dq, dk, dv = want
+    return _bound(dq, e_dq), _bound(dk, e_dk), _bound(dv, e_dv)
 
 
 def check(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):

@@ -1,5 +1,6 @@
-"""GQA attention: the naive score/AOV decomposition and the paged decode
-kernel over the serving slot pool.
+"""GQA attention: the naive score/AOV decomposition, the flash-attention
+kernels (training: cache-free, differentiable) and the paged decode kernel
+over the serving slot pool.
 
 Caches are updated in place: the JAX package returns new cache arrays
 (`dynamic_update_slice`, a one-hot `where`, donated buffers); the port
@@ -14,7 +15,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention.ops import paged_decode
+from ..kernels.flash_attention.ops import flash_attention, paged_decode
 from .layers import apply_rotary, dense_init
 from .linear import linear
 
@@ -90,8 +91,8 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         raise _unsupported("the block-table KV pool", "prefix-cache")
     if cache is not None and "k_scale" in cache:
         raise _unsupported("int8 KV caches", "low-precision")
-    if cfg.attn_impl not in ("naive", "paged"):
-        raise _unsupported(f"attn_impl={cfg.attn_impl!r}", "training")
+    if cfg.attn_impl not in ("naive", "paged", "flash"):
+        raise _unsupported(f"attn_impl={cfg.attn_impl!r}", "tuning")
     b, s, h = x.shape
     a, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     impl = cfg.linear_impl
@@ -123,7 +124,11 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
             cv[:, ci:ci + s].copy_(v)
         k, v = ck, cv
         kv_len = cache_index + s
-    if cfg.attn_impl == "paged" and cache is not None and s == 1:
+    if cfg.attn_impl == "flash" and cache is None:
+        # the flash kernels with their fused backward: the training path.
+        # Cache-backed prefill and decode stay on the paths below, as in JAX
+        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=True)
+    elif cfg.attn_impl == "paged" and cache is not None and s == 1:
         # paged decode kernel over the slot pool (identity slot map here;
         # the kernel's gather-by-slot path is exercised by its tests)
         lengths = torch.as_tensor(kv_len, device=x.device).to(torch.int32).expand(b)

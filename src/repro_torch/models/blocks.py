@@ -5,12 +5,17 @@ layers whose parameters are stacked on a leading axis (the JAX package's
 layout, so params convert one to one).  A Python loop over that axis
 replaces `lax.scan`: layer l reads the views `t[l]`.  This slice ports the
 `dense` kind (attention + MLP); the other kinds raise.
+
+`remat="full"` recomputes each layer in the backward
+(`torch.utils.checkpoint`, non-reentrant: the layer's params reach it by
+closure, as `jax.checkpoint` captures them); `"dots"` raises.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import apply_attention, init_attention
@@ -68,6 +73,17 @@ def tree_index(tree, i: int):
     return tree[i]
 
 
+def tree_unbind(tree, n: int):
+    """The n per-layer trees of a stacked tree, as views (`unbind`).  Unlike
+    n separate `t[i]`, whose backward each writes a zero-filled gradient of
+    the whole stack and adds it up, the backward of one `unbind` stacks the
+    n slices' gradients once."""
+    if isinstance(tree, dict):
+        per_key = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 # --- caches --------------------------------------------------------------------------
 
 KV_DTYPES = ("auto", "int8")
@@ -115,18 +131,33 @@ def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
     return x, cache
 
 
+REMATS = ("none", "full", "dots")
+
+
 def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
-                caches=None, cache_index=None):
+                caches=None, cache_index=None, remat: str = "none"):
     """Run all segments layer by layer.  segments_params: list of
     (kind, stacked_params); caches: list aligned with segments (or None),
-    updated in place.  Returns (x, caches)."""
+    updated in place.  remat: "none" keeps every layer's activations for
+    the backward, "full" recomputes each layer there (blocks.py:282-283 of
+    the JAX package).  Returns (x, caches)."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; valid: {list(REMATS)}")
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the GEMM outputs, recompute the rest) is not ported "
+            "yet: it comes with the remat-policy slice")
     for si, (kind, sp) in enumerate(segments_params):
         _check_kind(kind)
         seg_cache = None if caches is None else caches[si]
         n = sp["norm1"]["scale"].shape[0]
-        for layer in range(n):
+        for layer, p_l in enumerate(tree_unbind(sp, n)):
+            if remat == "full" and seg_cache is None:
+                def body(h, p_l=p_l, kind=kind):
+                    return _apply_core(p_l, h, cfg, kind, positions=positions)[0]
+                x = checkpoint(body, x, use_reentrant=False)
+                continue
             c_l = None if seg_cache is None else tree_index(seg_cache, layer)
-            x, _ = _apply_core(tree_index(sp, layer), x, cfg, kind,
-                               positions=positions, cache=c_l,
+            x, _ = _apply_core(p_l, x, cfg, kind, positions=positions, cache=c_l,
                                cache_index=cache_index)
     return x, caches

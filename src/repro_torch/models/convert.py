@@ -43,14 +43,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device,
             raise ValueError(f"params_from_jax: {path} has shape {arr.shape}, "
                              f"the port expects {tuple(want.shape)}")
         with warnings.catch_warnings():
-            # JAX hands out read-only buffers; .to() below copies, never writes
+            # JAX hands out read-only buffers; the copy below never writes them
             warnings.filterwarnings("ignore", message=".*not writable.*")
             t = torch.from_numpy(arr)
         node = out
         *parents, name = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        node[name] = t.to(device=device, dtype=want.dtype)
+        # always a copy: a float32 leaf on the CPU would otherwise share the
+        # JAX buffer, and the optimizer updates params in place
+        node[name] = t.to(device=device, dtype=want.dtype, copy=True)
     if leaves:
         raise ValueError(f"params_from_jax: leaves the port does not consume: {sorted(leaves)}")
     return out

@@ -5,10 +5,12 @@ Parameter layout (the JAX package's pytree, key for key):
   seg{i}       stacked params    one entry per stack_plan segment
   final_norm
   lm_head      (h, v)            untied output head
-GEMM weights and the embedding are held in the compute dtype, norm gains
-in float32 (see `convert.params_from_jax`).  The encoder-decoder, VLM and
-MTP parts come with the other-families slice; sharding constraints have
-no counterpart on one card and are dropped.
+For serving, GEMM weights and the embedding are held in the compute dtype
+(`convert.params_from_jax`); for training every leaf is a float32 master
+and `linear` casts per call, as JAX does.  Norm gains are float32 either
+way.  The encoder-decoder, VLM and MTP parts (and MTP's and MoE's extra
+losses) come with the other-families slice; sharding constraints have no
+counterpart on one card and are dropped.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, 
 
 
 def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
-             cache_index=None):
+             cache_index=None, remat: str = "none"):
     """tokens: (b, s) integer tensor.  Returns (logits, caches).
 
     cache_index: an int (prefill write offset) or a (b,) tensor of per-row
@@ -84,19 +86,45 @@ def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
 
     segs = [(kind, params[f"seg{i}"]) for i, (kind, n) in enumerate(stack_plan(cfg))]
     x, caches = apply_stack(segs, cfg, x, positions=positions, caches=caches,
-                            cache_index=cache_index)
+                            cache_index=cache_index, remat=remat)
 
     x = norm_apply(params["final_norm"], x, cfg.norm_type)
-    if cfg.tie_embeddings:
-        # the head is embed^T, which the kernels cannot take in place (they
-        # read row-major operands): compute (embed . x^T)^T instead, so the
-        # (v, h) table is read as it lies and only the activations transpose
-        xt = x.reshape(b * s, -1).T.contiguous()
-        logits = linear(params["embed"], xt, impl=cfg.linear_impl).T.reshape(b, s, -1)
-    else:
-        logits = linear(x, params["lm_head"], impl=cfg.linear_impl)
+    # a tied head is the view embed^T, which the tile GEMM reads in place
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = linear(x, head, impl=cfg.linear_impl)
     if cfg.padded_vocab_size != cfg.vocab_size:
         # mask the padded vocabulary tail, in the logits dtype (lm.py:162-165)
         pad_mask = torch.arange(cfg.padded_vocab_size, device=dev) < cfg.vocab_size
         logits = logits.masked_fill(~pad_mask, -1e30)
     return logits, caches
+
+
+# --- loss ----------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross entropy, in float32.  logits: (b, s, v);
+    labels: (b, s)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, remat: str = "none"):
+    """batch: dict(tokens, labels[, loss_mask]).  Returns (loss, metrics)
+    for the dense decoder (lm.py:197-221 of the JAX package; its MTP and
+    MoE aux-loss terms raise with the other-families slice)."""
+    if cfg.num_experts or batch.get("patch_embeds") is not None \
+            or batch.get("encoder_frames") is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE aux loss and VLM / encoder inputs are not ported yet: "
+            f"they come with the other-families slice")
+    logits, _ = apply_lm(params, batch["tokens"], cfg, remat=remat)
+    mask = batch.get("loss_mask")
+    loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
+                        None if mask is None else mask[:, 1:])
+    return loss, {"lm_loss": loss, "loss": loss}

@@ -12,15 +12,23 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.data.pipeline import make_batch
 from repro_torch.kernels import tolerance
-from repro_torch.kernels.flash_attention.ops import paged_decode
-from repro_torch.kernels.flash_attention.ref import paged_decode_ref
-from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_fwd, paged_decode)
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref, paged_decode_ref)
+from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_ref
+from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
 from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
-from repro_torch.models import apply_lm, init_lm
+from repro_torch.models import apply_lm, init_lm, lm_loss
+from repro_torch.models.linear import linear
+from repro_torch.optim.adamw import init_opt, tree_leaves
+from repro_torch.train.train_step import make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -112,7 +120,174 @@ def test_wrappers_raise_on_bad_operands(cuda):
     a = torch.zeros((8, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         matmul(a, a.T.contiguous())
-    with pytest.raises(ValueError):  # non-contiguous B
-        matmul(torch.zeros((8, 16), device=cuda), torch.zeros((8, 16), device=cuda).T)
+    with pytest.raises(ValueError):  # B neither row-major nor a transposed view
+        matmul(torch.zeros((8, 16), device=cuda), torch.zeros((16, 16), device=cuda)[:, ::2].T)
     with pytest.raises(ValueError):  # operands on two devices
         matmul(torch.zeros((8, 16), device=cuda), torch.zeros((16, 8)))
+    with pytest.raises(ValueError):  # a head dim the flash kernels do not instantiate
+        q = torch.zeros((1, 4, 2, 24), device=cuda)
+        flash_attention(q, q, q)
+
+
+# --- the training slice ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["dgrad", "wgrad", "dgrad pair"])
+@pytest.mark.parametrize("m,k,n", [(37, 70, 45), (130, 4096, 96), (64, 256, 2048),
+                                   (4096, 2048, 1024)])
+def test_matmul_transposed(cuda, dtype, layout, m, k, n):
+    """Transposed views read in place: dgrad g @ w^T (w stored (n, k)),
+    wgrad x^T @ g (x stored (k, m)), and two dgrad pairs in one sum."""
+    rng = np.random.default_rng(3)
+    if layout == "wgrad":
+        a, b = _rand(rng, (k, m), dtype, cuda).T, _rand(rng, (k, n), dtype, cuda, k ** -0.5)
+    else:
+        a, b = _rand(rng, (m, k), dtype, cuda), _rand(rng, (n, k), dtype, cuda, k ** -0.5).T
+    pair = ((_rand(rng, (m, k), dtype, cuda), _rand(rng, (n, k), dtype, cuda, k ** -0.5).T)
+            if layout == "dgrad pair" else (None, None))
+    before = matmul.launches
+    got = matmul(a, b, *pair)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, a1=pair[0], b1=pair[1])
+    _close(got, want, tolerance.matmul_tol(a, b, want, *pair))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
+@pytest.mark.parametrize("m,h,f", [(64, 256, 512), (19, 72, 200), (130, 128, 96)])
+def test_fused_mlp_bwd(cuda, dtype, mlp_type, m, h, f):
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (m, h), dtype, cuda)
+    wg = _rand(rng, (h, f), dtype, cuda, h ** -0.5)
+    wu = _rand(rng, (h, f), dtype, cuda, h ** -0.5)
+    dh = _rand(rng, (m, f), dtype, cuda)
+    before = (fused_mlp_bwd.launches, matmul.launches)
+    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    gemms = 3 if mlp_type == "swiglu" else 2
+    assert (fused_mlp_bwd.launches, matmul.launches) == (before[0] + 1, before[1] + gemms)
+    want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+    tols = tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)
+    for g, w, t in zip(got, want, tols):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _close(g, w, t)
+
+
+# (b, sq, skv, a, nkv, d, causal): causal with sq == skv, non-causal with
+# sq != skv, g in {1, 2, 4}, lengths off the 64-row tiles
+FLASH_CASES = [(2, 72, 72, 4, 4, 64, True), (1, 200, 200, 4, 2, 128, True),
+               (2, 40, 90, 8, 2, 16, False), (1, 130, 61, 4, 1, 32, False),
+               (1, 256, 256, 16, 8, 128, True)]
+
+
+def _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d):
+    return (_rand(rng, (b, sq, a, d), dtype, cuda), _rand(rng, (b, skv, nkv, d), dtype, cuda),
+            _rand(rng, (b, skv, nkv, d), dtype, cuda), _rand(rng, (b, sq, a, d), dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", FLASH_CASES)
+def test_flash_attention_fwd(cuda, dtype, b, sq, skv, a, nkv, d, causal):
+    rng = np.random.default_rng(5)
+    q, k, v, _ = _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d)
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    t_out, t_lse = tolerance.flash_attention_tol(q, k, v, want, causal=causal)
+    _close(out, want[0], t_out)
+    _close(lse, want[1], t_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", FLASH_CASES)
+def test_flash_attention_bwd(cuda, dtype, b, sq, skv, a, nkv, d, causal):
+    rng = np.random.default_rng(6)
+    q, k, v, do = _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d)
+    o, lse = flash_attention_ref(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    tols = tolerance.flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal=causal)
+    for g, w, t in zip(got, want, tols):
+        _close(g, w, t)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+# gradients of each autograd.Function against autograd through the plain
+# path on the same card: f32 sums in another order (~1e-6 relative); bf16
+# roundings of every output and of P / dS / dg / du (2^-8 relative each)
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["linear", "fused_mlp_hidden", "flash_attention"])
+def test_autograd_functions_match_the_plain_path(cuda, dtype, op):
+    rng = np.random.default_rng(7)
+    if op == "linear":
+        ins = [_rand(rng, (3, 45, 136), dtype, cuda), _rand(rng, (136, 72), torch.float32, cuda)]
+        kernel = lambda x, w: linear(x, w, impl="pallas")  # noqa: E731
+        plain = lambda x, w: x @ w.to(x.dtype)  # noqa: E731
+    elif op == "fused_mlp_hidden":
+        ins = [_rand(rng, (70, 128), dtype, cuda), _rand(rng, (128, 200), dtype, cuda, 0.1),
+               _rand(rng, (128, 200), dtype, cuda, 0.1)]
+        kernel = fused_mlp_hidden
+        plain = lambda x, wg, wu: fused_mlp_hidden_ref(x, wg, wu)  # noqa: E731
+    else:
+        ins = list(_flash_inputs(rng, dtype, cuda, 2, 100, 100, 4, 2, 64)[:3])
+        kernel = flash_attention
+        plain = lambda q, k, v: flash_attention_ref(q, k, v)[0]  # noqa: E731
+    grads = []
+    for fn in (kernel, plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        out.backward(torch.from_numpy(np.random.default_rng(8).standard_normal(
+            tuple(out.shape)).astype(np.float32)).to(device=cuda, dtype=out.dtype))
+        grads.append([t.grad for t in leaves])
+    for gk, gp in zip(*grads):
+        assert gk.dtype == gp.dtype and torch.isfinite(gk).all()
+        assert _rel(gk, gp) <= GRAD_REL[dtype], (op, _rel(gk, gp))
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda):
+    """internlm2-smoke in f32 on the card: the step-0 loss and gradients and
+    a two-step trajectory of (fused, flash) against (jnp, naive) on the same
+    params and batches (f32 sums in another order: ~1e-6 relative per GEMM,
+    carried through 3 layers; AdamW bounds each update by lr)."""
+    base = get_smoke_config("internlm2-1.8b")
+    kern = dataclasses.replace(base, linear_impl="fused", attn_impl="flash")
+    tc = TrainConfig(total_steps=2, warmup_steps=1, remat="none")
+    shape = ShapeConfig("t", 72, 2, "train")
+    runs = []
+    for cfg in (kern, base):
+        params = init_lm(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda,
+                         dtype=torch.float32)
+        batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in make_batch(cfg, shape, 0, 0).items()}
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = lm_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        step = make_train_step(cfg, tc)
+        opt = init_opt(params, tc)
+        losses = []
+        for s in range(2):
+            b = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in make_batch(cfg, shape, s, 0).items()}
+            params, opt, m = step(params, opt, b)
+            losses.append(m["loss"].item())
+        runs.append((loss.item(), grads, losses))
+    (lk, gk, tk), (lp, gp, tp) = runs
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert _rel(a, b) <= 1e-4
+    np.testing.assert_allclose(tk, tp, rtol=1e-4)

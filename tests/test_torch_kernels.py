@@ -5,20 +5,27 @@ interpret mode and the port's wrapper on CPU tensors (its plain PyTorch
 version); f32 throughout.  Tolerance 3e-5 (abs and rel): both sides sum in
 f32, in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ops import paged_decode as jax_paged_decode
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.fused_mlp.ops import fused_mlp_hidden as jax_fused_mlp_hidden
 from repro.kernels.matmul.ops import matmul as jax_matmul
 from repro_torch.kernels import _build, tolerance
-from repro_torch.kernels.flash_attention.ops import paged_decode
-from repro_torch.kernels.flash_attention.ref import paged_decode_ref
-from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
-from repro_torch.kernels.fused_mlp.ref import ACTS, fused_mlp_hidden_ref
-from repro_torch.kernels.matmul.ops import BLOCK_K, matmul, split_k
+from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_fwd, paged_decode)
+from repro_torch.kernels.flash_attention.ref import (attention_ref, flash_attention_bwd_ref,
+                                                     flash_attention_ref, paged_decode_ref)
+from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_ref
+from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
+from repro_torch.kernels.fused_mlp.ref import ACTS, DACTS, fused_mlp_hidden_ref
+from repro_torch.kernels.matmul.ops import BLOCK_K, matmul, split_k, transposed
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 TOL = dict(atol=3e-5, rtol=3e-5)
@@ -44,6 +51,39 @@ def test_matmul_flattens_leading_dims():
     got = matmul(torch.from_numpy(a), torch.from_numpy(b))
     assert got.shape == (2, 5, 40)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 70, 45), (64, 128, 200), (130, 33, 64)])
+@pytest.mark.parametrize("grad", ["dgrad", "wgrad"])
+def test_matmul_transposed_vs_jax(grad, m, k, n):
+    """The linear backward's GEMMs on transposed views: dgrad g @ w^T and
+    wgrad x^T @ g (JAX's models/linear.py:90-93)."""
+    rng = np.random.default_rng(4)
+    x, w, g = _np(rng, (m, k)), _np(rng, (k, n), k ** -0.5), _np(rng, (m, n))
+    if grad == "dgrad":
+        want = np.asarray(jax_matmul(jnp.asarray(g), jnp.asarray(w).T, interpret=True))
+        got = matmul(torch.from_numpy(g), torch.from_numpy(w).T)
+    else:
+        want = np.asarray(jax_matmul(jnp.asarray(x).T, jnp.asarray(g), interpret=True))
+        got = matmul(torch.from_numpy(x).T, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_matmul_second_pair_sums_into_one_product():
+    rng = np.random.default_rng(5)
+    a, a1, b, b1 = (torch.from_numpy(_np(rng, s)) for s in ((9, 40), (9, 40), (40, 70), (40, 70)))
+    got = matmul(a, b.T.contiguous().T, a1, b1)
+    np.testing.assert_allclose(got.numpy(), (a @ b + a1 @ b1).numpy(), **TOL)
+
+
+def test_operand_layouts():
+    """Row-major and transposed views are taken in place; other strides raise."""
+    w = torch.zeros(8, 16)
+    assert transposed("t", w) is False
+    assert transposed("t", w.T) is True
+    assert transposed("t", torch.zeros(1, 5).T) is False   # both layouts at once
+    with pytest.raises(ValueError, match="transposed views"):
+        transposed("t", torch.zeros(16, 16)[:, ::2])
 
 
 @pytest.mark.parametrize("m,n,k", [(64, 2048, 2048), (64, 1024, 2048), (64, 2048, 8192),
@@ -88,6 +128,111 @@ def test_paged_decode_vs_jax(s_max, g):
     assert np.all(got[[1, 5]] == 0.0)
 
 
+# flash attention: (b, sq, skv, a, nkv, d, causal).  Causal cases keep
+# sq == skv (training); non-causal ones cover sq != skv.  Lengths are not
+# multiples of 128 (the JAX kernels pad to it; the port masks).
+FLASH_CASES = [(2, 72, 72, 4, 4, 32, True), (1, 200, 200, 4, 2, 16, True),
+               (2, 40, 90, 8, 2, 32, False), (1, 130, 61, 4, 1, 16, False)]
+
+
+def _flash_inputs(rng, b, sq, skv, a, nkv, d):
+    return (_np(rng, (b, sq, a, d)), _np(rng, (b, skv, nkv, d)), _np(rng, (b, skv, nkv, d)),
+            _np(rng, (b, sq, a, d)))
+
+
+def _fold(x):
+    b, s, h, d = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", FLASH_CASES)
+def test_flash_forward_vs_jax(b, sq, skv, a, nkv, d, causal):
+    """Output against JAX's wrapper, lse against the Pallas kernel's residual
+    (folded, padded to its 128 blocks, kv_len masking the pad), GQA g = a /
+    nkv in {1, 2, 4}."""
+    rng = np.random.default_rng(6)
+    q, k, v, _ = _flash_inputs(rng, b, sq, skv, a, nkv, d)
+    want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=causal, interpret=True))
+    pad = lambda x, s: np.pad(_fold(x), ((0, 0), (0, -(-s // 128) * 128 - s), (0, 0)))  # noqa: E731
+    _, lse_want = flash_attention_pallas(
+        jnp.asarray(pad(q, sq)), jnp.asarray(pad(k, skv)), jnp.asarray(pad(v, skv)),
+        causal=causal, kv_len=skv, return_residuals=True, interpret=True)
+    out, lse = flash_attention_fwd(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want)[:, :sq].reshape(b, a, sq),
+                               **TOL)
+    assert torch.equal(flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                                       causal=causal), out)
+
+
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", FLASH_CASES)
+def test_flash_backward_vs_jax(b, sq, skv, a, nkv, d, causal):
+    """dq, dk, dv against jax.vjp of JAX's flash attention (its Pallas
+    backward kernels in interpret mode): through the port's autograd.Function
+    and through `flash_attention_bwd` directly."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = _flash_inputs(rng, b, sq, skv, a, nkv, d)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_attention(q_, k_, v_, causal=causal,
+                                                           interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(do))]
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    flash_attention(tq, tk, tv, causal=causal).backward(torch.from_numpy(do))
+    out, lse = flash_attention_ref(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal)
+    direct = flash_attention_bwd(*(torch.from_numpy(t) for t in (q, k, v)), out, lse,
+                                 torch.from_numpy(do), causal=causal)
+    for name, g, dg, w in zip("qkv", (tq.grad, tk.grad, tv.grad), direct, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", atol=1e-4, rtol=1e-4)
+        assert torch.equal(g, dg), f"d{name}"
+
+
+@pytest.mark.parametrize("causal,sq,skv", [(True, 50, 50), (True, 30, 70), (False, 30, 70)])
+def test_attention_ref_vs_jax(causal, sq, skv):
+    """The port's copy of the JAX oracle, bottom-right causal mask and all."""
+    rng = np.random.default_rng(8)
+    q, k, v = _np(rng, (4, sq, 16)), _np(rng, (2, skv, 16)), _np(rng, (2, skv, 16))
+    want = np.asarray(jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        causal=causal))
+    got = attention_ref(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if sq == skv:   # the kernels' top-left mask agrees where sq == skv
+        fo, _ = flash_attention_ref(*(torch.from_numpy(t[None].transpose(0, 2, 1, 3))
+                                      for t in (q, k, v)), causal=causal)
+        np.testing.assert_allclose(fo[0].transpose(0, 1).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
+@pytest.mark.parametrize("m,h,f", [(19, 72, 200), (64, 128, 256)])
+def test_fused_mlp_backward_vs_jax(mlp_type, m, h, f):
+    """(dx, dwg, dwu) against jax.vjp of JAX's fused MLP hidden (its Pallas
+    backward kernels in interpret mode), through `fused_mlp_bwd` and the
+    port's autograd.Function."""
+    rng = np.random.default_rng(9)
+    x, wg, wu = _np(rng, (m, h)), _np(rng, (h, f), h ** -0.5), _np(rng, (h, f), h ** -0.5)
+    dh = _np(rng, (m, f))
+    gated = mlp_type == "swiglu"
+    if gated:
+        _, vjp = jax.vjp(lambda a, b, c: jax_fused_mlp_hidden(a, b, c, mlp_type=mlp_type,
+                                                             interpret=True),
+                         jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wu))
+    else:
+        _, vjp = jax.vjp(lambda a, c: jax_fused_mlp_hidden(a, None, c, mlp_type=mlp_type,
+                                                          interpret=True),
+                         jnp.asarray(x), jnp.asarray(wu))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(dh))]
+    tx, twg, twu = (torch.from_numpy(t).requires_grad_(True) for t in (x, wg, wu))
+    fused_mlp_hidden(tx, twg, twu, mlp_type=mlp_type).backward(torch.from_numpy(dh))
+    dx, dwg, dwu = fused_mlp_bwd(*(torch.from_numpy(t) for t in (x, wg, wu, dh)),
+                                 mlp_type=mlp_type)
+    got = [dx, dwg, dwu] if gated else [dx, dwu]
+    grads = [tx.grad, twg.grad, twu.grad] if gated else [tx.grad, twu.grad]
+    assert (twg.grad is None) == (not gated)
+    for g, a, w in zip(got, grads, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+        assert torch.equal(g, a)
+
+
 def _tol_cases(dtype, rng):
     """Per kernel: (plain output, exact f64 result in dtype, a faulty result,
     the bound).  The fault is a kernel error the bound must catch: one k term
@@ -125,6 +270,61 @@ def _tol_cases(dtype, rng):
     yield ("paged_decode", want, exact.to(dtype),
            paged_decode_ref(q, kp, vp, slot_idx, (lengths - 1).clamp_min(0)),
            tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
+    yield from _tol_cases_grad(dtype, rng, t)
+
+
+def _tol_cases_grad(dtype, rng, t):
+    """The training slice's kernels: transposed matmul, the fused-MLP
+    backward (a dropped k term) and flash attention forward and backward
+    (the last key dropped; for dk and dv, the last query row's cotangent)."""
+    m, k, n = 64, 512, 96
+    g, w = t(_np(rng, (m, n))), t(_np(rng, (k, n), k ** -0.5))
+    want = matmul_ref(g, w.T)
+    w_drop = w.clone()
+    w_drop[:, 31] = 0
+    yield ("matmul dgrad", want, (g.double() @ w.double().T).to(dtype), matmul_ref(g, w_drop.T),
+           tolerance.matmul_tol(g, w.T, want))
+    x, wg, wu = t(_np(rng, (m, k))), t(_np(rng, (k, n), k ** -0.5)), t(_np(rng, (k, n), k ** -0.5))
+    dh = t(_np(rng, (m, n)))
+    x_drop = x.clone()
+    x_drop[:, 31] = 0
+    for mlp_type in ("swiglu", "gelu", "relu2"):
+        act, dact = ACTS[mlp_type], DACTS[mlp_type]
+        xd, wgd, wud, dhd = (a.double() for a in (x, wg, wu, dh))
+        if mlp_type == "swiglu":
+            gg, uu = xd @ wgd, xd @ wud
+            dg, du = dhd * uu * dact(gg), dhd * act(gg)
+            exact = (dg @ wgd.T + du @ wud.T, xd.T @ dg, xd.T @ du)
+        else:
+            du = dhd * dact(xd @ wud)
+            exact = (du @ wud.T, None, xd.T @ du)
+        want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+        tols = tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)
+        faulty = fused_mlp_bwd_ref(x_drop, wg, wu, dh, mlp_type)
+        for name, w_, e, f_, tl in zip(("dx", "dwg", "dwu"), want, exact, faulty, tols):
+            if w_ is not None:
+                yield (f"fused_mlp_bwd {mlp_type} {name}", w_, e.to(dtype), f_, tl)
+    b, s, a, nkv, d = 2, 72, 4, 2, 32
+    q, kk, vv, do = (t(x_) for x_ in _flash_inputs(rng, b, s, s, a, nkv, d))
+    for causal in (True, False):
+        want = flash_attention_ref(q, kk, vv, causal=causal)
+        exact = flash_attention_ref(q.double(), kk.double(), vv.double(), causal=causal)
+        faulty = flash_attention_ref(q, kk[:, :-1], vv[:, :-1], causal=causal)
+        tols = tolerance.flash_attention_tol(q, kk, vv, want, causal=causal)
+        for name, i in (("out", 0), ("lse", 1)):
+            yield (f"flash {causal=} {name}", want[i], exact[i].to(want[i].dtype), faulty[i],
+                   tols[i])
+        o, lse = want
+        gw = flash_attention_bwd_ref(q, kk, vv, o, lse, do, causal=causal)
+        ge = flash_attention_bwd_ref(*(x_.double() for x_ in (q, kk, vv, o, lse, do)),
+                                     causal=causal)
+        do_drop = do.clone()
+        do_drop[:, -1] = 0
+        gf = (flash_attention_bwd_ref(q, kk[:, :-1], vv[:, :-1], o, lse, do, causal=causal)[0],
+              *flash_attention_bwd_ref(q, kk, vv, o, lse, do_drop, causal=causal)[1:])
+        tols = tolerance.flash_attention_bwd_tol(q, kk, vv, o, lse, do, gw, causal=causal)
+        for name, w_, e, f_, tl in zip(("dq", "dk", "dv"), gw, ge, gf, tols):
+            yield (f"flash_bwd {causal=} {name}", w_, e.to(dtype), f_, tl)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -151,13 +351,19 @@ def test_tolerance_holds_dead_rows_to_zero():
 
 
 def test_cpu_runs_plain_versions_without_launching():
-    before = (matmul.launches, fused_mlp_hidden.launches, paged_decode.launches)
+    counters = (matmul, fused_mlp_hidden, fused_mlp_bwd, paged_decode, flash_attention_fwd,
+                flash_attention_bwd)
+    before = [c.launches for c in counters]
     x = torch.ones(4, 8)
     matmul(x, torch.ones(8, 8))
+    matmul(x.T, torch.ones(4, 8))
     fused_mlp_hidden(x, torch.ones(8, 16), torch.ones(8, 16))
+    fused_mlp_bwd(x, torch.ones(8, 16), torch.ones(8, 16), torch.ones(4, 16))
     paged_decode(torch.ones(2, 2, 8), torch.ones(2, 4, 1, 8), torch.ones(2, 4, 1, 8),
                  torch.tensor([0, 1]), torch.tensor([4, 2]))
-    assert (matmul.launches, fused_mlp_hidden.launches, paged_decode.launches) == before
+    q = torch.ones(1, 3, 2, 16, requires_grad=True)
+    flash_attention(q, torch.ones(1, 3, 1, 16), torch.ones(1, 3, 1, 16)).sum().backward()
+    assert [c.launches for c in counters] == before
 
 
 def test_other_devices_raise():
@@ -167,6 +373,14 @@ def test_other_devices_raise():
         matmul(a, torch.empty(8, 8, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_mlp_hidden(a, None, torch.empty(8, 8, device="meta"), mlp_type="gelu")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_mlp_bwd(a, None, torch.empty(8, 8, device="meta"), torch.empty(4, 8, device="meta"),
+                      mlp_type="gelu")
+    qm = torch.empty(1, 3, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_attention(qm, qm[:, :, :1], qm[:, :, :1])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_attention_bwd(qm, qm, qm, qm, torch.empty(1, 2, 3, device="meta"), qm)
 
 
 def test_build_is_lazy_and_keyed_by_sources():
@@ -174,7 +388,8 @@ def test_build_is_lazy_and_keyed_by_sources():
     sources and flags, so an edited source cannot load a stale build."""
     assert _build._LIBRARY is None or _build._LIBRARY.path.exists()
     names = {p.name for p in _build._sources()}
-    assert {"matmul.cu", "fused_mlp.cu", "paged_decode.cu", "gemm_tile.cuh"} <= names
+    assert {"matmul.cu", "fused_mlp.cu", "fused_mlp_bwd.cu", "flash_attention.cu",
+            "paged_decode.cu", "gemm_tile.cuh"} <= names
     assert len(_build._digest()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

@@ -273,8 +273,8 @@ def test_unported_paths_raise(smoke):
     with pytest.raises(ValueError, match="unknown linear_impl"):
         linear(x, torch.zeros(cfg.d_model, 4), impl="xla")
     p = tree_index(params["seg0"]["attn"], 0)
-    with pytest.raises(NotImplementedError, match="training"):
-        apply_gqa(p, x, dataclasses.replace(cfg, attn_impl="flash"), positions=torch.arange(2))
+    with pytest.raises(NotImplementedError, match="tuning"):
+        apply_gqa(p, x, dataclasses.replace(cfg, attn_impl="blocked"), positions=torch.arange(2))
     with pytest.raises(NotImplementedError, match="prefix-cache"):
         apply_gqa(p, x, cfg, positions=torch.arange(2), block_tables=torch.zeros(1, 1))
     with pytest.raises(NotImplementedError):
