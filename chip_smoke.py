@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
      bound and, where one PyTorch call computes the same function, that
      call: the serving slice's kernels at its shapes (internlm2-1.8b, 64-row
-     GEMMs, a 64-slot bf16 pool), then the training slice's at its shapes
+     GEMMs, a 64-slot bf16 pool), the prefix slice's (the block-table
+     kernel over a bf16 pool, the slot and block-table kernels over int8
+     pools, tables built by a BlockPool), then the training slice's at its shapes
      (4 x 1024 tokens: flash attention forward and backward, the fused
      SwiGLU forward and backward, every projection's forward, dgrad and
      wgrad);
@@ -22,7 +24,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      count over that run must be > 0 and match the path's shape, and one
      prefill through the plain path on the same weights bounds the logits'
      relative error;
-  5. train: internlm2-1.8b at full width and depth, float32 masters, bf16
+  5. prefix serve: the same model served from the block-table KV pool
+     (Engine(prefix_cache=True), 64-token blocks): a cold and a warm run of
+     32 burst requests (75% share a 64-token system prefix) through the
+     block-table kernel; a hit request's suffix prefill against a cold
+     prefill (logits and the suffix's K/V), with two planted faults the
+     bounds must see; a tight pool that must preempt and resume with
+     BlockPool.check() after every step; the slot engine, and both engines
+     over an int8 pool (the int8 kernels); launch counts per run;
+  6. token identity: at full width, 4 layers, float32, the greedy tokens of
+     the slot and prefix engines (roomy and tight) and of the int8 slot and
+     int8 prefix engines must be identical, but at a near tie;
+  7. train: internlm2-1.8b at full width and depth, float32 masters, bf16
      compute, linear_impl="fused", attn_impl="flash", AdamW, 4 x 1024
      tokens: the step-0 loss and every gradient leaf (per layer slice) of
      the kernel path against the plain path (jnp, naive) on the same params
@@ -88,6 +101,23 @@ TRAIN_GEMMS = {"q/o": ((2048, 2048), 48), "k/v": ((2048, 1024), 48),
 # mantissa bits), 0.121 and 0.354 for the others.
 TRAIN_LOSS_REL_BOUND = 5e-5
 TRAIN_GRAD_REL_BOUND = 0.03
+
+# The prefix-cache slice: internlm2-1.8b served from the block-table pool at
+# the H100 policy for max_batch 8, max_prompt 128, max_new 32 (64 rows x 192
+# deep, prompt buckets 64 / 128); the engine's block size falls back to the
+# lattice (no tuning cache in the port): 64 tokens.
+PREFIX_BLOCK = 64
+# A pool of 40 blocks (of 192) makes the 32-request workload preempt 3 rows
+# and resume them (the block trace depends on lengths and prompts only).
+TIGHT_BLOCKS = 40
+# The suffix prefill's K and V as written, every layer, against a cold
+# prefill's: the two paths round every GEMM output to bf16 after summing
+# in another order, as the logits do.
+SUFFIX_KV_REL_BOUND = 0.05
+# f32 token identity at reduced depth: a divergence passes only at a near
+# tie of the reference's top-2 logits (relative gap).
+REDUCED_LAYERS = 4
+TOKEN_GAP_REL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -596,6 +626,531 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
         print(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+# --- the prefix-cache slice: kernels ------------------------------------------------------
+
+def prefix_tables(b: int, bs: int, s_max: int, seed: int):
+    """Block tables as the prefix engine builds them: a BlockPool takes 64
+    rows' prompts of 72-128 tokens, 75% opening with one 64-token system
+    prefix (shared blocks), each grown by 0-32 decode tokens; every 7th row
+    is dead.  The physical ids are then relabelled by a random permutation.
+    Returns (tables (b, s_max // bs) int32 numpy, lengths (b,), number of
+    blocks); unallocated entries name the garbage block (id = blocks)."""
+    import numpy as np
+    from repro_torch.serving.engine import BlockPool
+    rng = np.random.default_rng(seed)
+    max_blocks = s_max // bs
+    nb = b * max_blocks
+    bp = BlockPool(nb, bs)
+    shared = rng.integers(0, 92544, 64)
+    seqs = []
+    for r in range(b):
+        if r % 7 == 3:
+            seqs.append(None)
+            continue
+        plen = int(rng.integers(72, 129))
+        toks = rng.integers(0, 92544, plen)
+        if rng.random() < 0.75:
+            toks[:64] = shared
+        seq, _ = bp.alloc_sequence(toks.tolist())
+        bp.commit(seq, toks.tolist())
+        for _ in range(int(rng.integers(0, 33))):
+            bp.prepare_append(seq)
+            bp.advance(seq)
+        seqs.append(seq)
+    bp.check()
+    perm = rng.permutation(nb)
+    tables = np.full((b, max_blocks), nb, np.int32)
+    for r, seq in enumerate(seqs):
+        if seq is not None:
+            tables[r, :len(seq.table)] = perm[seq.table]
+    lengths = np.asarray([0 if s is None else s.length for s in seqs], np.int32)
+    return tables, lengths, nb
+
+
+def unique_tokens(tables, lengths, bs: int) -> int:
+    """The (physical block, position) pairs the live rows read: a token of a
+    shared block counts once."""
+    return len({(int(tables[r, p // bs]), p % bs)
+                for r, n in enumerate(lengths) for p in range(int(n))})
+
+
+def unshared_tables(lengths, bs: int, max_blocks: int, nb: int, seed: int):
+    """Tables for `lengths` in which every row owns its blocks: distinct
+    physical ids, randomly permuted, out of `nb`; unallocated entries name
+    the garbage block (id = nb)."""
+    import numpy as np
+    ids = np.random.default_rng(seed).permutation(nb).tolist()
+    tables = np.full((len(lengths), max_blocks), nb, np.int32)
+    for r, n in enumerate(lengths):
+        for j in range(-(-int(n) // bs)):
+            tables[r, j] = ids.pop()
+    return tables
+
+
+def prefix_kernel_phase(torch) -> dict:
+    """The block-table kernel (bf16 pool), the slot kernel over an int8
+    pool and the block-table kernel over an int8 pool, at the prefix serve
+    phase's shapes (64 rows, 16 query / 8 kv heads, d 128, 64-token blocks,
+    192 deep), against their plain versions; timed beside their bytes
+    bound."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import (paged_decode_blocktable_ref,
+                                                         paged_decode_ref)
+    from repro_torch.kernels.tolerance import paged_decode_blocktable_tol, paged_decode_tol
+    from repro_torch.quant import quantize_kv
+
+    import numpy as np
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, a, nkv, d, bs, s_max = 64, 16, 8, 128, PREFIX_BLOCK, 192
+    tables_np, lengths_np, nb = prefix_tables(b, bs, s_max, seed=2)
+    tables = torch.as_tensor(tables_np, device=dev)
+    lengths = torch.as_tensor(lengths_np, device=dev)
+    live = int(lengths_np.sum())
+    unique = unique_tokens(tables_np, lengths_np, bs)
+    used = int(sum(-(-int(n) // bs) for n in lengths_np))   # table entries the rows read
+    first = tables_np[:, 0][lengths_np > 0]
+    top = int(np.bincount(first).argmax())
+    print(f"kernels at the prefix shapes (b={b} a={a} nkv={nkv} d={d}, {nb} blocks of {bs} "
+          f"+ garbage, {live} live tokens over {unique} unique (block, position) pairs, "
+          f"{int((lengths_np == 0).sum())} dead rows, {int((first == top).sum())} rows share "
+          f"block {top}; CUDA events, pools rotated past L2):")
+    q = (torch.randn((b, a, d), generator=gen, device=dev)).to(bf)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def int8_pair(shape):
+        (k, ks), (v, vs) = quantize_kv(randn(*shape)), quantize_kv(randn(*shape))
+        return k, v, ks, vs
+
+    slot_idx = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+    cases = [
+        ("paged_decode_blocktable", "bf16 block pool",
+         lambda: (randn(nb + 1, bs, nkv, d).to(bf), randn(nb + 1, bs, nkv, d).to(bf)),
+         2 * (nb + 1) * bs * nkv * d * 2, paged_decode_blocktable, paged_decode_blocktable_ref,
+         paged_decode_blocktable_tol, tables, 2),
+        ("paged_decode_int8", "int8 slot pool", lambda: int8_pair((b, s_max, nkv, d)),
+         2 * b * s_max * nkv * (d + 4), paged_decode, paged_decode_ref, paged_decode_tol,
+         slot_idx, 1),
+        ("paged_decode_blocktable_int8", "int8 block pool",
+         lambda: int8_pair((nb + 1, bs, nkv, d)), 2 * (nb + 1) * bs * nkv * (d + 4),
+         paged_decode_blocktable, paged_decode_blocktable_ref, paged_decode_blocktable_tol,
+         tables, 1)]
+    rows = {}
+    for name, what, make, nbytes, fn, ref, tol_fn, index, el in cases:
+        pools = copies(torch, make, nbytes)
+
+        def args(p):
+            kw = {} if len(p) == 2 else dict(k_scale=p[2], v_scale=p[3])
+            return (q, p[0], p[1], index, lengths), kw
+
+        a0, kw0 = args(pools[0])
+        want = ref(*a0, **kw0)
+        err = compare(torch, fn(*a0, **kw0), want, tol_fn(*a0, want, **kw0),
+                      f"{name} ({what})")
+        ms, host = time_ms(torch, [lambda p=p: (lambda a_, k_: fn(*a_, **k_))(*args(p))
+                                   for p in pools])
+        plain, _ = time_ms(torch, [lambda p=p: (lambda a_, k_: ref(*a_, **k_))(*args(p))
+                                   for p in pools])
+        # bytes: q in, out, the K and V (and an int8 pool's two scales) of
+        # each token read, once — a block shared by several rows is read
+        # from HBM once —, lengths, and the index: each row's table entries
+        # of its live blocks (its own memory) or its slot id
+        toks = unique if index is tables else live
+        scales = 0 if el == 2 else 2 * 4 * toks * nkv
+        entries = used if index is tables else b
+        bnd, by = bound(4.0 * a * d * live, 2.0 * 2 * b * a * d + 2.0 * toks * nkv * d * el
+                        + scales + 4.0 * b + 4.0 * entries)
+        print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}); 24 launches per "
+              f"decode step; host {host:.1f} us per call")
+        rows[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces=("src/repro/kernels/flash_attention/paged.py:160" if index is tables
+                      else "src/repro/kernels/flash_attention/paged.py:97"),
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+        del pools
+    # the table's own cost, apart from what sharing saves: the bf16
+    # block-table kernel over a table that shares no block (each row its
+    # own permuted blocks, the same lengths), against the float slot kernel
+    # (the paged_decode row) at the same lengths; both read every live
+    # token's K/V from HBM
+    own = torch.as_tensor(unshared_tables(lengths_np, bs, s_max // bs, nb, seed=3), device=dev)
+    timed = {}
+    for label, make, nbytes, fn, ref, tol_fn, index in [
+            ("paged_decode_blocktable (bf16 block pool, no shared block)",
+             lambda: (randn(nb + 1, bs, nkv, d).to(bf), randn(nb + 1, bs, nkv, d).to(bf)),
+             2 * (nb + 1) * bs * nkv * d * 2, paged_decode_blocktable,
+             paged_decode_blocktable_ref, paged_decode_blocktable_tol, own),
+            ("paged_decode (bf16 slot pool, the same lengths)",
+             lambda: (randn(b, s_max, nkv, d).to(bf), randn(b, s_max, nkv, d).to(bf)),
+             2 * b * s_max * nkv * d * 2, paged_decode, paged_decode_ref, paged_decode_tol,
+             slot_idx)]:
+        pools = copies(torch, make, nbytes)
+        want = ref(q, *pools[0], index, lengths)
+        compare(torch, fn(q, *pools[0], index, lengths), want,
+                tol_fn(q, *pools[0], index, lengths, want), label)
+        timed[fn], _ = time_ms(torch, [lambda p=p: fn(q, *p, index, lengths) for p in pools])
+        print(f"    {timed[fn]:.4f} ms")
+        del pools
+    shared_ms = rows["paged_decode_blocktable"]["ms"]
+    print(f"    the table's own cost: {timed[paged_decode_blocktable] / timed[paged_decode]:.3f}x "
+          f"the slot kernel's time at {live} live tokens, no sharing; the shared table "
+          f"({unique} unique tokens) takes {shared_ms / timed[paged_decode_blocktable]:.3f}x "
+          f"the unshared one's")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- the prefix-cache slice: serving ------------------------------------------------------
+
+def _decode_counters():
+    """(label, function, counter attribute) of each paged decode variant."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
+    return [("paged_decode", paged_decode, "launches"),
+            ("paged_decode_int8", paged_decode, "int8_launches"),
+            ("paged_decode_blocktable", paged_decode_blocktable, "launches"),
+            ("paged_decode_blocktable_int8", paged_decode_blocktable, "int8_launches")]
+
+
+def serve_run(torch, eng, reqs, label: str, decode_kernel: str, **kw):
+    """One engine run with every kernel's count set to 0 just before it and
+    read just after.  The counts must follow the path: matmul 5L + 1 and the
+    fused MLP L per forward pass (prefills + decode steps), `decode_kernel`
+    L per decode step and no other decode variant.  A roomy run must finish
+    every request at its length."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+    from repro_torch.kernels.matmul.ops import matmul
+    decs = _decode_counters()
+    matmul.launches = fused_mlp_hidden.launches = 0
+    for _, fn, attr in decs:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    done, stats = eng.run(reqs, **kw)
+    torch.cuda.synchronize()
+    counts = {"matmul": matmul.launches, "fused_mlp_hidden": fused_mlp_hidden.launches}
+    counts.update({n: getattr(fn, attr) for n, fn, attr in decs})
+    L = eng.cfg.num_layers
+    passes = stats.prefills + stats.decode_steps
+    want = {n: 0 for n, _, _ in decs}
+    want.update(matmul=passes * (5 * L + 1), fused_mlp_hidden=passes * L)
+    want[decode_kernel] = stats.decode_steps * L
+    print(f"  {label}: {stats.num_requests} requests, {stats.total_generated} tokens in "
+          f"{stats.wall_s:.3f} s ({stats.prefills} prefills, {stats.decode_steps} decode steps"
+          f", {stats.preemptions} preemptions, {stats.resumes} resumes)")
+    print(f"    tok/s {stats.tok_s:.1f} | TTFT p50 {stats.ttft_p50_s * 1e3:.2f} ms p99 "
+          f"{stats.ttft_p99_s * 1e3:.2f} ms (hit p50 {_ms(stats.ttft_hit_p50_s)}, cold p50 "
+          f"{_ms(stats.ttft_cold_p50_s)}) | ITL p50 {stats.itl_p50_s * 1e3:.2f} ms p99 "
+          f"{stats.itl_p99_s * 1e3:.2f} ms | cache_hit_rate {stats.cache_hit_rate:.3f}, "
+          f"{stats.cached_tokens} cached of {stats.prompt_tokens} prompt tokens "
+          f"({stats.cache_hit_requests} hit requests) | peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"    launches: {json.dumps({k: v for k, v in counts.items() if v or want[k]})}")
+    for name, n in counts.items():
+        if n != want[name]:
+            fail(f"{label}: {name}: {n} launches, the path implies {want[name]}")
+    if not kw.get("check_invariants"):
+        for r, c in zip(reqs, done):
+            if c.rid != r.rid or c.finish_reason != "length" or len(c.tokens) != r.max_new_tokens:
+                fail(f"{label}: request {r.rid}: {c.finish_reason} with {len(c.tokens)} of "
+                     f"{r.max_new_tokens} tokens ({c.detail})")
+    for c in done:
+        if not all(0 <= t < eng.cfg.vocab_size for t in c.tokens):
+            fail(f"{label}: request {c.rid}: token outside the vocabulary")
+    return done, stats, counts
+
+
+@contextlib.contextmanager
+def _host_timed(obj, names):
+    """Sum the host seconds spent in each named method of `obj` while the
+    block runs (the methods are wrapped on the instance, then restored)."""
+    spent = {n: 0.0 for n in names}
+
+    def timed(name, real):
+        def f(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return f
+
+    for n in names:
+        setattr(obj, n, timed(n, getattr(obj, n)))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            delattr(obj, n)
+
+
+def _ms(s) -> str:
+    return "n/a" if s is None else f"{s * 1e3:.2f} ms"
+
+
+def _pool_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size() for seg in eng.pool.caches for t in seg.values())
+
+
+def _prefix_requests(vocab: int):
+    from repro_torch.serving.engine import synthetic_requests
+    return synthetic_requests(32, pattern="burst", min_prompt=72, max_prompt=128, min_new=8,
+                              max_new=32, vocab=vocab, prefix_share=0.75, shared_prefix_len=64,
+                              seed=0)
+
+
+def _prefix_engine(params, cfg, dev, **kw):
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.serving.engine import Engine
+    eng = Engine(params, cfg, max_batch=8, max_prompt=128, max_new=32, use_paged_kernel=True,
+                 hw=H100_SXM, device=dev, **kw)
+    pol = eng.policy
+    if (pol.num_slots, pol.seq_max) != (64, 192):
+        fail(f"prefix policy: {pol.num_slots} rows x {pol.seq_max}, expected 64 x 192")
+    if kw.get("prefix_cache") and eng.pool.block_size != PREFIX_BLOCK:
+        fail(f"prefix engine picked block_size {eng.pool.block_size}, expected {PREFIX_BLOCK}")
+    return eng
+
+
+def prefix_serve_phase(torch) -> dict:
+    """internlm2-1.8b at full width and depth (bf16, fused linear, paged
+    kernels, H100 policy: 64 rows x 192, 64-token blocks) served from the
+    block-table pool: a cold and a warm run of 32 burst requests (75% share
+    a 64-token system prefix), the suffix-prefill logits check with its
+    planted faults, a tight pool that must preempt and resume, the slot
+    engine for comparison, and both engines with an int8 pool.  Returns the
+    new decode variants' launches over their runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_lm
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), linear_impl="fused")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    reqs = _prefix_requests(cfg.vocab_size)
+    eng = _prefix_engine(params, cfg, dev, prefix_cache=True)
+    print(f"prefix serve: {cfg.name} L={cfg.num_layers}, {eng.policy.num_slots} rows x "
+          f"{eng.policy.seq_max}, prompt buckets {list(eng.policy.prompt_buckets)}, "
+          f"{eng.pool.blocks.num_blocks} blocks of {eng.pool.block_size} tokens (+ garbage); "
+          f"{len(reqs)} burst requests, prompts {min(r.prompt_len for r in reqs)}-"
+          f"{max(r.prompt_len for r in reqs)}, 75% share a 64-token prefix")
+    step_s = eng.calibrate_step_s()
+    print(f"  calibrated decode step: {step_s * 1e3:.2f} ms; pool {_pool_bytes(eng) / 2**30:.3f}"
+          f" GiB bf16")
+    torch.cuda.reset_peak_memory_stats()
+    with _host_timed(eng.pool, ("prepare_append", "tables")) as host_s:
+        cold, cold_stats, counts = serve_run(torch, eng, reqs, "prefix cold",
+                                             "paged_decode_blocktable", check_invariants=True)
+    steps = max(cold_stats.decode_steps, 1)
+    print(f"    host per decode step: prepare_append {host_s['prepare_append'] / steps * 1e6:.1f}"
+          f" us ({cold_stats.total_generated - cold_stats.prefills} row appends in all), "
+          f"block tables {host_s['tables'] / steps * 1e6:.1f} us")
+    warm, warm_stats, _ = serve_run(torch, eng, reqs, "prefix warm", "paged_decode_blocktable")
+    if not 0.0 < cold_stats.cache_hit_rate < warm_stats.cache_hit_rate:
+        fail(f"cache_hit_rate cold {cold_stats.cache_hit_rate:.3f}, warm "
+             f"{warm_stats.cache_hit_rate:.3f}: the cache must hit cold and more warm")
+    eng.pool.blocks.check()
+    profile_phase(torch, eng, reqs, warm_stats.wall_s)
+    suffix_prefill_check(torch, eng, params, cfg, reqs)
+    launches = {"paged_decode_blocktable": counts["paged_decode_blocktable"]}
+    prefix_bytes = _pool_bytes(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    tight = _prefix_engine(params, cfg, dev, prefix_cache=True, num_blocks=TIGHT_BLOCKS)
+    done, stats, _ = serve_run(torch, tight, reqs, f"prefix tight ({TIGHT_BLOCKS} blocks, "
+                               f"BlockPool.check() after every step)", "paged_decode_blocktable",
+                               check_invariants=True)
+    preempt_checks(done, stats, "bf16 full depth")
+    print(f"    tokens vs the roomy run (printed; bounded in f32 below): {_agreement(cold, done)}")
+    del tight
+
+    slot = _prefix_engine(params, cfg, dev)
+    sdone, _, _ = serve_run(torch, slot, reqs, "slot engine", "paged_decode")
+    print(f"  bf16 full depth, prefix vs slot engine (printed, not bounded): "
+          f"{_agreement(sdone, cold)}")
+    pool_bytes = {"slot bf16": _pool_bytes(slot)}
+    del slot
+    torch.cuda.empty_cache()
+
+    for prefix, kernel in ((True, "paged_decode_blocktable_int8"), (False, "paged_decode_int8")):
+        kind = "prefix" if prefix else "slot"
+        eng8 = _prefix_engine(params, cfg, dev, prefix_cache=prefix, kv_dtype="int8")
+        torch.cuda.reset_peak_memory_stats()
+        done8, _, c8 = serve_run(torch, eng8, reqs, f"int8 {kind} engine", kernel)
+        launches[kernel] = c8[kernel]
+        pool_bytes[f"{kind} int8"] = _pool_bytes(eng8)
+        print(f"    tokens vs the bf16 {kind} engine (printed, not bounded): "
+              f"{_agreement(cold if prefix else sdone, done8)}")
+        del eng8
+        torch.cuda.empty_cache()
+    pool_bytes["prefix bf16"] = prefix_bytes
+    print(f"  KV pool bytes ({cfg.num_layers} layers): " + ", ".join(
+        f"{k} {v / 2**30:.3f} GiB" for k, v in sorted(pool_bytes.items())))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def suffix_prefill_check(torch, eng, params, cfg, reqs) -> None:
+    """(a) One hit request's suffix prefill on the warm cache against a cold
+    full prefill of the same prompt, bf16: the last-token logits within
+    LOGITS_REL_BOUND (relative norm over the vocabulary), and the suffix's
+    K and V as written (every layer) within SUFFIX_KV_REL_BOUND.  Two faults
+    planted in the same call must each break one of the bounds: the cached
+    prefix read one physical block off, and the start offset shifted by
+    one."""
+    import numpy as np
+    from repro_torch.serving.engine.kv_pool import gather_blocks
+    from repro_torch.serving.serve_step import make_prefill_step
+    pool, dev, V = eng.pool, eng.device, cfg.vocab_size
+    heads = [tuple(r.tokens[:64]) for r in reqs]
+    r = next(r for r, h in zip(reqs, heads) if heads.count(h) > 1)
+    tokens = np.asarray(r.tokens, np.int32)
+    n = len(tokens)
+    cold_logits, cold_caches = make_prefill_step(cfg, eng.policy.seq_max)(
+        params, {"tokens": torch.as_tensor(tokens[None], device=dev)})
+    row = pool.alloc()
+    seq = pool.alloc_sequence(row, tokens)
+    p = seq.num_cached
+    if p != 64:
+        fail(f"suffix check: request {r.rid} found {p} cached tokens, expected 64")
+    suffix = tokens[p:]
+    padded = np.zeros((1, eng.policy.prompt_bucket(len(suffix))), np.int32)
+    padded[0, :len(suffix)] = suffix
+    padded = torch.as_tensor(padded, device=dev)
+    cl = cold_logits[:, :V].float()
+
+    def reading(contig, start):
+        logits, contig = eng._prefill(params, padded, len(suffix), start, contig)
+        rel = ((logits[:, :V].float() - cl).norm() / cl.norm()).item()
+        num = den = 0.0
+        for seg, cseg in zip(contig, cold_caches):
+            for name in ("k", "v"):
+                got, want = seg[name][:, 0, p:n].float(), cseg[name][:, 0, p:n].float()
+                num += (got - want).norm().item() ** 2
+                den += want.norm().item() ** 2
+        return rel, (num / den) ** 0.5
+
+    off = pool._padded_table(seq)
+    off[0] = (off[0] + 1) % pool.blocks.num_blocks
+    readings = [
+        ("sound", reading(pool.gather(row), p)),
+        ("fault: the cached prefix read one block off",
+         reading(gather_blocks(pool.caches, pool._ids(off), pool.max_blocks, pool.block_size), p)),
+        ("fault: the start offset shifted by one", reading(pool.gather(row), p + 1))]
+    pool.release(row)
+    pool.blocks.check()
+    print(f"  suffix prefill (request {r.rid}: {n} tokens, {p} cached, suffix {len(suffix)}) vs "
+          f"a cold full prefill, bf16 (bounds: logits {LOGITS_REL_BOUND}, suffix K/V "
+          f"{SUFFIX_KV_REL_BOUND}):")
+    for what, (rel, kv) in readings:
+        print(f"    {what}: logits rel {rel:.3e}, suffix K/V rel {kv:.3e}")
+    rel, kv = readings[0][1]
+    if rel > LOGITS_REL_BOUND or kv > SUFFIX_KV_REL_BOUND:
+        fail("suffix prefill: the hit request's logits or K/V differ from a cold prefill")
+    unseen = [w for w, (rel, kv) in readings[1:]
+              if rel <= LOGITS_REL_BOUND and kv <= SUFFIX_KV_REL_BOUND]
+    if unseen:
+        fail(f"suffix prefill: the bounds do not see the planted faults {unseen}")
+
+
+def _first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None
+
+
+def _agreement(ref_done, done) -> str:
+    """How far two runs' tokens agree: identical requests, and the share of
+    tokens before each request's first divergence."""
+    same = sum(c.tokens == r.tokens for r, c in zip(ref_done, done))
+    lead = sum(len(c.tokens) if _first_divergence(r.tokens, c.tokens) is None
+               else _first_divergence(r.tokens, c.tokens) for r, c in zip(ref_done, done))
+    total = sum(len(c.tokens) for c in done)
+    return (f"identical {same}/{len(done)} requests, {100 * lead / max(total, 1):.1f}% of "
+            f"tokens before the first divergence")
+
+
+def preempt_checks(done, stats, label: str) -> None:
+    """A tight run must preempt and resume, and end every request at its
+    length or as preempted-retry-exhausted."""
+    reasons = {}
+    for c in done:
+        reasons[c.finish_reason] = reasons.get(c.finish_reason, 0) + 1
+    print(f"    {label}: {stats.preemptions} preemptions, {stats.resumes} resumes, "
+          f"finish reasons {reasons}")
+    if stats.preemptions <= 0 or stats.resumes <= 0:
+        fail(f"{label}: the tight pool did not preempt and resume")
+    if set(reasons) - {"length", "preempted-retry-exhausted"}:
+        fail(f"{label}: finish reasons {reasons}")
+
+
+def token_identity_phase(torch) -> None:
+    """(b) At full width, f32 and REDUCED_LAYERS layers: greedy tokens
+    identical between the slot engine and the prefix engine, roomy and
+    tight (a partial of the tight run a prefix of the roomy tokens), and
+    between the int8 slot and int8 prefix engines.  A divergence fails the
+    run unless the top-2 logits at that step (the reference engine's
+    config, a plain prefill of the agreed context) lie within TOKEN_GAP_REL
+    relative of each other."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serving.serve_step import make_prefill_step
+
+    import numpy as np
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=REDUCED_LAYERS,
+                              dtype="float32", linear_impl="fused")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    reqs = _prefix_requests(cfg.vocab_size)
+    print(f"token identity: {cfg.name} at full width, {REDUCED_LAYERS} layers, float32; "
+          f"the prefix workload through five engines")
+    runs = {}
+    for label, kw, kernel in (
+            ("slot", {}, "paged_decode"),
+            ("prefix", dict(prefix_cache=True), "paged_decode_blocktable"),
+            ("prefix tight", dict(prefix_cache=True, num_blocks=TIGHT_BLOCKS),
+             "paged_decode_blocktable"),
+            ("int8 slot", dict(kv_dtype="int8"), "paged_decode_int8"),
+            ("int8 prefix", dict(prefix_cache=True, kv_dtype="int8"),
+             "paged_decode_blocktable_int8")):
+        eng = _prefix_engine(params, cfg, dev, **kw)
+        done, stats, _ = serve_run(torch, eng, reqs, f"f32 {label}", kernel,
+                                   check_invariants=eng.prefix_cache)
+        runs[label] = (done, stats, eng.cfg)
+        del eng
+    preempt_checks(runs["prefix tight"][0], runs["prefix tight"][1], "f32 prefix tight")
+
+    def gap(ref_cfg, r, agreed):
+        ctx = torch.as_tensor(np.concatenate([r.tokens, np.asarray(agreed, np.int32)])[None],
+                              device=dev)
+        with torch.no_grad():
+            logits, _ = make_prefill_step(ref_cfg, ctx.shape[1])(params, {"tokens": ctx})
+        top = logits[0, :cfg.vocab_size].float().topk(2).values
+        return ((top[0] - top[1]) / top[0].abs()).item()
+
+    for ref, other in (("slot", "prefix"), ("slot", "prefix tight"), ("int8 slot", "int8 prefix")):
+        ref_done, _, ref_cfg = runs[ref]
+        for r, a, b in zip(reqs, ref_done, runs[other][0]):
+            i = _first_divergence(a.tokens, b.tokens)
+            if i is None and (b.finish_reason != "length" or len(b.tokens) == len(a.tokens)):
+                continue
+            if i is None:
+                fail(f"{other} vs {ref}: request {r.rid} ended at {len(b.tokens)} tokens")
+            g = gap(ref_cfg, r, a.tokens[:i])
+            print(f"    {other} vs {ref}: request {r.rid} diverges at token {i}; top-2 logit "
+                  f"gap there {g:.3e} relative (near-tie bound {TOKEN_GAP_REL})")
+            if g > TOKEN_GAP_REL:
+                fail(f"{other} vs {ref}: request {r.rid} diverges at token {i} without a near "
+                     f"tie")
+        print(f"  f32 {other} vs {ref}: {_agreement(ref_done, runs[other][0])}")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
 # --- train phase ------------------------------------------------------------------------
 
 def per_step_launches(cfg) -> dict:
@@ -865,8 +1420,11 @@ def main() -> None:
     device_phase(torch)
     build_phase()
     rows = kernel_phase(torch)
+    rows.update(prefix_kernel_phase(torch))
     rows.update(train_kernel_phase(torch))
     counts = serve_phase(torch)
+    prefix = prefix_serve_phase(torch)
+    token_identity_phase(torch)
     train = train_phase(torch)
     # launches over the main path's runs: the serve run's (the serve-shape
     # rows), then the 4 training steps' (the train-shape rows).  Each row
@@ -874,8 +1432,10 @@ def main() -> None:
     # linear's forward (the "nn" layout), matmul_dgrad / matmul_wgrad are
     # linear's gradient GEMMs; the fused-MLP backward's own dx ("nt") and
     # dWg / dWu ("tn") tile GEMMs ride in its row, as its ms does.
+    # The prefix slice's rows count their runs in the prefix serve phase: the
+    # cold block-table run, the int8 slot and the int8 prefix engine's runs.
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
-                "paged_decode": counts["paged_decode"],
+                "paged_decode": counts["paged_decode"], **prefix,
                 "matmul_train": train["matmul_nn"],
                 "fused_mlp_hidden_train": train["fused_mlp_hidden"],
                 "flash_attention": train["flash_attention"],
@@ -887,7 +1447,8 @@ def main() -> None:
         row["launches"] = launches[name]
         if row["launches"] <= 0:
             fail(f"{name}: no launch on the main path")
-    order = ("matmul", "fused_mlp_hidden", "paged_decode", "matmul_train",
+    order = ("matmul", "fused_mlp_hidden", "paged_decode", "paged_decode_blocktable",
+             "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
              "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad")
     print(json.dumps({"kernels": [rows[n] for n in order]}))

@@ -34,8 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes of csrc/gemm_tile.cuh `DType`
-DT_F32, DT_BF16 = 0, 1
+# dtype codes of csrc/gemm_tile.cuh `DType`, and int8 KV storage
+# (csrc/paged_decode.cu)
+DT_F32, DT_BF16, DT_INT8 = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -128,7 +129,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
-    lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
     lib.repro_paged_decode.restype = i
     lib.repro_paged_decode_smem.argtypes = [i, i, i, i]
     lib.repro_paged_decode_smem.restype = ctypes.c_size_t

@@ -1,25 +1,43 @@
-// paged_decode: one-query GQA decode attention over a KV slot pool.
+// paged_decode: one-query GQA decode attention over a KV pool, addressed by
+// slot or by block table, with float or int8 storage.
 //
 // Replaces: src/repro/kernels/flash_attention/paged.py `paged_decode_pallas`
-// (`_paged_kernel`), float pool: decode attention of every layer under
-// Engine(use_paged_kernel=True).
+// (slot pool) and `paged_decode_blocktable_pallas` (block table), each with
+// its float pool and its int8 pool (f32 scales per (token, kv head)).  The
+// Pallas kernels share one body, `_paged_kernel` (paged.py:47-94), that
+// reasons only in logical kv positions; only their index maps know the
+// physical address.  So does this file: one kernel body, templated on the
+// query type, the storage type (the query's, or int8) and the KV index
+// (slot or table).  It serves decode attention of every layer under
+// Engine(use_paged_kernel=True): the slot pool, the block-table pool of
+// Engine(prefix_cache=True), and either pool with kv_dtype="int8".
 //
 // What bounds it on the H100: bytes.  Per row it reads the live prefix of
-// one pool slot, lengths[b] * nkv * d * 2 elements of K and V, and does 4
+// the row's KV, lengths[b] * nkv * d elements of K and V (2 bytes each in
+// bf16, 1 byte plus a 4-byte scale per (token, head) in int8), and does 4
 // FLOPs per element read (a score and a weighted sum per query head of the
 // group, g = 2 here): ~2 FLOP/byte, far under any compute line.
 //
 // What the design does about it: one block per (row b, kv head h) serves
 // the g query heads that share the kv head (head i -> kv head i // g, as
 // paged.py:121), so each K/V element is read from device memory once for
-// all g heads.  The block loads slot_idx[b] and lengths[b] itself and walks
-// kv tiles only up to lengths[b] (a dead slot reads nothing and writes
-// zeros), staging each tile in shared memory with 16-byte loads and running
-// the online softmax in f32 (paged.py:76-88).  The tail tile is masked, so
-// any pool depth works (no gcd clamp or pad of the pool, ops.py:208-225).
+// all g heads.  The block loads lengths[b] itself and walks kv tiles only up
+// to it (a dead row reads nothing and writes zeros); table entries past a
+// row's live blocks are never read.  At the top of each tile the block
+// resolves every live token's physical index once (slot * s_max + pos, or
+// table[b, pos / bs] * bs + pos % bs: one table load per token, so a tile
+// may span several physical blocks and any block size works), then stages
+// the tile in shared memory with 16-byte loads: 8 bf16 or 16 int8 elements
+// per load, 128 B per (token, head) of an int8 pool at d = 128.  An int8
+// tile is staged as it lies, with its per-token scales beside it, and
+// dequantized in f32 where it is read (one product per element, as
+// paged.py:73-75).  The tail tile is masked, so any depth works.  The
+// online softmax runs in f32 (paged.py:76-88).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -30,8 +48,12 @@ constexpr int MAX_D = 256;     // head dim
 constexpr int DPT = MAX_D / THREADS;  // output columns per thread (<= 2)
 constexpr float NEG_INF = -1e30f;
 
+// dtype codes: those of csrc/gemm_tile.cuh `DType`, and int8 storage
+constexpr int DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2;
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -49,30 +71,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// q (b, a, d); pools (slots, s_max, nkv, d); out (b, a, d).  grid (b, nkv).
-// Dynamic shared memory: K and V tiles (bkv x d of T each), q (g x d f32),
-// scores (g x bkv f32), and the per-head running max / sum / rescale.
-template <typename T>
+// q (b, a, d) TQ; pools (tokens, nkv, d) TKV, where a token's index is
+// slot * depth + pos (slot pool: index = slot_idx (b,), depth = s_max) or
+// table[b, pos / depth] * depth + pos % depth (block table: index = tables
+// (b, max_blocks), depth = block_size); an int8 pool's scales (tokens, nkv)
+// f32.  out (b, a, d) TQ.  grid (b, nkv).  Dynamic shared memory: the
+// tile's token indices (bkv int64), K and V tiles (bkv x d TKV each), q (g x
+// d f32), scores (g x bkv f32), the tile's K and V scales (bkv f32 each) and
+// the per-head running max / sum / rescale.
+template <typename TQ, typename TKV, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ slot_idx,
-                    const int* __restrict__ lengths, T* __restrict__ out, int a, int nkv, int d,
-                    int s_max, int bkv, float scale) {
+paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                    const TKV* __restrict__ v_pool, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const int* __restrict__ index,
+                    const int* __restrict__ lengths, TQ* __restrict__ out, int a, int nkv, int d,
+                    int depth, int max_blocks, int bkv, float scale) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = a / nkv;
   const int row = blockIdx.x, h = blockIdx.y;
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + bkv * d;
+  long long* tok_s = reinterpret_cast<long long*>(smem);
+  TKV* Ks = reinterpret_cast<TKV*>(tok_s + bkv);
+  TKV* Vs = Ks + bkv * d;
   float* qs = reinterpret_cast<float*>(Vs + bkv * d);
   float* ss = qs + g * d;
-  float* m_s = ss + g * bkv;
+  float* ksc = ss + g * bkv;
+  float* vsc = ksc + bkv;
+  float* m_s = vsc + bkv;
   float* l_s = m_s + MAX_G;
   float* alpha_s = l_s + MAX_G;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qrow = q + ((size_t)row * a + (size_t)h * g) * d;
-  T* orow = out + ((size_t)row * a + (size_t)h * g) * d;
-  const int len = min(lengths[row], s_max);
+  const TQ* qrow = q + ((size_t)row * a + (size_t)h * g) * d;
+  TQ* orow = out + ((size_t)row * a + (size_t)h * g) * d;
+  const int capacity = TABLE ? max_blocks * depth : depth;
+  const int len = min(lengths[row], capacity);
 
   float acc[MAX_G][DPT];
 #pragma unroll
@@ -80,29 +113,41 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int c = 0; c < DPT; ++c) acc[gi][c] = 0.0f;
 
-  if (len <= 0) {  // dead slot: zeros (paged.py:92-94)
-    for (int i = tid; i < g * d; i += THREADS) orow[i] = from_f<T>(0.0f);
+  if (len <= 0) {  // dead row: zeros (paged.py:92-94)
+    for (int i = tid; i < g * d; i += THREADS) orow[i] = from_f<TQ>(0.0f);
     return;
   }
-  const int slot = slot_idx[row];
+  const int* table = index + (size_t)row * max_blocks;  // TABLE only
+  const long long slot_base = TABLE ? 0 : (long long)index[row] * depth;
   for (int i = tid; i < g * d; i += THREADS) qs[i] = to_f(qrow[i]);
   if (tid < g) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.0f;
   }
 
-  constexpr int CH = 16 / sizeof(T);
+  constexpr int CH = 16 / sizeof(TKV);
   const int cpr = d / CH;  // 16-byte chunks per token row
   const size_t tok_stride = (size_t)nkv * d;
-  const T* kbase = k_pool + ((size_t)slot * s_max * nkv + h) * d;
-  const T* vbase = v_pool + ((size_t)slot * s_max * nkv + h) * d;
+  const TKV* kbase = k_pool + (size_t)h * d;
+  const TKV* vbase = v_pool + (size_t)h * d;
 
   for (int t0 = 0; t0 < len; t0 += bkv) {
     const int nt = min(bkv, len - t0);
     __syncthreads();  // previous tile fully consumed (and q / m / l staged)
+    for (int j = tid; j < nt; j += THREADS) {
+      const int pos = t0 + j;
+      const long long tok = TABLE ? (long long)table[pos / depth] * depth + pos % depth
+                                  : slot_base + pos;
+      tok_s[j] = tok;
+      if constexpr (QUANT) {
+        ksc[j] = k_scale[tok * nkv + h];
+        vsc[j] = v_scale[tok * nkv + h];
+      }
+    }
+    __syncthreads();
     for (int idx = tid; idx < nt * cpr; idx += THREADS) {
       const int j = idx / cpr, c = (idx % cpr) * CH;
-      const size_t off = (size_t)(t0 + j) * tok_stride + c;
+      const size_t off = (size_t)tok_s[j] * tok_stride + c;
       *reinterpret_cast<uint4*>(Ks + j * d + c) = __ldg(reinterpret_cast<const uint4*>(kbase + off));
       *reinterpret_cast<uint4*>(Vs + j * d + c) = __ldg(reinterpret_cast<const uint4*>(vbase + off));
     }
@@ -114,7 +159,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int gi = 0; gi < MAX_G; ++gi) part[gi] = 0.0f;
       for (int e = lane; e < d; e += 32) {
-        const float kv = to_f(Ks[j * d + e]);
+        float kv = to_f(Ks[j * d + e]);
+        if constexpr (QUANT) kv *= ksc[j];
 #pragma unroll
         for (int gi = 0; gi < MAX_G; ++gi)
           if (gi < g) part[gi] = fmaf(qs[gi * d + e], kv, part[gi]);
@@ -161,7 +207,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int gi = 0; gi < MAX_G; ++gi) pv[gi] = 0.0f;
       for (int j = 0; j < nt; ++j) {
-        const float vv = to_f(Vs[j * d + e]);
+        float vv = to_f(Vs[j * d + e]);
+        if constexpr (QUANT) vv *= vsc[j];
 #pragma unroll
         for (int gi = 0; gi < MAX_G; ++gi)
           if (gi < g) pv[gi] = fmaf(ss[gi * bkv + j], vv, pv[gi]);
@@ -182,50 +229,65 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       if (gi < g) {
         float l = l_s[gi];
         l = l == 0.0f ? 1.0f : l;
-        orow[gi * d + e] = from_f<T>(acc[gi][c] / l);
+        orow[gi * d + e] = from_f<TQ>(acc[gi][c] / l);
       }
     }
   }
 }
 
+size_t kv_bytes(int kv_dtype) { return kv_dtype == DT_F32 ? 4 : kv_dtype == DT_BF16 ? 2 : 1; }
+
+template <typename TQ, typename TKV>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+           const void* v_scale, const void* index, const void* lengths, void* out, int b, int a,
+           int nkv, int d, int depth, int max_blocks, int bkv, float scale, size_t smem,
+           cudaStream_t s) {
+  auto* kern = max_blocks > 0 ? paged_decode_kernel<TQ, TKV, true>
+                              : paged_decode_kernel<TQ, TKV, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<dim3(b, nkv), THREADS, smem, s>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(index),
+      static_cast<const int*>(lengths), static_cast<TQ*>(out), a, nkv, d, depth, max_blocks,
+      bkv, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory for a tile of bkv tokens (the wrapper sizes bkv).
-extern "C" size_t repro_paged_decode_smem(int g, int d, int bkv, int dtype) {
-  const size_t el = dtype == 1 ? 2 : 4;
-  return 2 * (size_t)bkv * d * el + (size_t)g * d * 4 + (size_t)g * bkv * 4 + 3 * MAX_G * 4;
+extern "C" size_t repro_paged_decode_smem(int g, int d, int bkv, int kv_dtype) {
+  return (size_t)bkv * 8 + 2 * (size_t)bkv * d * kv_bytes(kv_dtype) + (size_t)g * d * 4 +
+         (size_t)g * bkv * 4 + 2 * (size_t)bkv * 4 + 3 * MAX_G * 4;
 }
 
-// q (b, a, d); k_pool, v_pool (slots, s_max, nkv, d); slot_idx, lengths (b,)
-// int32; out (b, a, d).  All contiguous.  dtype: 0 = f32, 1 = bf16.
+// q (b, a, d), q_dtype 0 = f32, 1 = bf16; k_pool, v_pool (tokens, nkv, d),
+// kv_dtype q_dtype or 2 = int8 (then k_scale, v_scale (tokens, nkv) f32,
+// else null).  max_blocks == 0: slot pool, index = slot_idx (b,), depth =
+// s_max; max_blocks > 0: block table, index = tables (b, max_blocks), depth
+// = block_size.  lengths (b,) int32; out (b, a, d).  All contiguous.
 extern "C" int repro_paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                                  const void* slot_idx, const void* lengths, void* out, int b,
-                                  int a, int nkv, int d, int s_max, int bkv, float scale,
-                                  int dtype, void* stream) {
+                                  const void* k_scale, const void* v_scale, const void* index,
+                                  const void* lengths, void* out, int b, int a, int nkv, int d,
+                                  int depth, int max_blocks, int bkv, float scale, int q_dtype,
+                                  int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || nkv <= 0 || a % nkv || a / nkv > MAX_G || d > MAX_D || bkv <= 0)
+  if (b <= 0 || nkv <= 0 || a % nkv || a / nkv > MAX_G || d > MAX_D || bkv <= 0 || bkv % 2 ||
+      depth <= 0 || max_blocks < 0 || d % (16 / kv_bytes(kv_dtype)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = repro_paged_decode_smem(a / nkv, d, bkv, dtype);
-  dim3 grid(b, nkv);
-  const int* si = static_cast<const int*>(slot_idx);
-  const int* ln = static_cast<const int*>(lengths);
-  if (dtype == 1) {
-    if (d % 8) return (int)cudaErrorInvalidValue;
-    auto* kern = paged_decode_kernel<__nv_bfloat16>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-        static_cast<const __nv_bfloat16*>(v_pool), si, ln, static_cast<__nv_bfloat16*>(out), a,
-        nkv, d, s_max, bkv, scale);
-  } else if (dtype == 0) {
-    if (d % 4) return (int)cudaErrorInvalidValue;
-    auto* kern = paged_decode_kernel<float>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, THREADS, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(k_pool),
-                                     static_cast<const float*>(v_pool), si, ln,
-                                     static_cast<float*>(out), a, nkv, d, s_max, bkv, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const bool quant = kv_dtype == DT_INT8;
+  if (!quant && kv_dtype != q_dtype) return (int)cudaErrorInvalidValue;
+  if (quant != (k_scale != nullptr && v_scale != nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = repro_paged_decode_smem(a / nkv, d, bkv, kv_dtype);
+#define REPRO_PAGED_LAUNCH(TQ, TKV)                                                           \
+  launch<TQ, TKV>(q, k_pool, v_pool, k_scale, v_scale, index, lengths, out, b, a, nkv, d, \
+                  depth, max_blocks, bkv, scale, smem, s)
+  if (q_dtype == DT_BF16)
+    return quant ? REPRO_PAGED_LAUNCH(__nv_bfloat16, int8_t)
+                 : REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == DT_F32)
+    return quant ? REPRO_PAGED_LAUNCH(float, int8_t) : REPRO_PAGED_LAUNCH(float, float);
+#undef REPRO_PAGED_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 """Public wrappers of the flash-attention kernels (`csrc/flash_attention.cu`)
-and the slot-pool paged decode kernel (`csrc/paged_decode.cu`).
+and the paged decode kernel over a slot pool or a block table, float or
+int8 (`csrc/paged_decode.cu`).
 
 Each dispatches on the device: a CPU tensor runs the plain version
 (`ref.py`), a CUDA tensor launches the kernel — or raises.
@@ -14,16 +15,21 @@ only when a gradient is recorded.  `flash_attention_fwd.launches` and
 `flash_attention_bwd.launches` count wrapper calls that launched their
 kernels (the backward's dq and dk/dv kernels ride together).
 
-Any pool depth works for `paged_decode`: the kernel masks the tail tile, so
-there is no block_kv clamp or pool pad as in the JAX wrapper, and no
-interpret toggle — the tensor's device decides.
+Any pool depth and block size works for `paged_decode` and
+`paged_decode_blocktable`: the kernel masks the tail tile and resolves each
+token's physical block itself, so there is no block_kv clamp or pool pad as
+in the JAX wrapper, no tuning-cache lookup (`tuned=` comes with the tuning
+slice) and no interpret toggle — the tensor's device decides.  Each counts
+its launches on a float pool (`.launches`) and on an int8 pool
+(`.int8_launches`) apart.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import attention_di, flash_attention_bwd_ref, flash_attention_ref, paged_decode_ref
+from .ref import (attention_di, flash_attention_bwd_ref, flash_attention_ref,
+                  paged_decode_blocktable_ref, paged_decode_ref)
 
 MAX_BLOCK_KV = 64          # kv tokens staged per tile
 SMEM_BUDGET = 48 * 1024    # bytes of shared memory a paged-decode tile may take
@@ -140,38 +146,85 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     return dq, dk, dv
 
 
-def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, scale=None):
+def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=None,
+                 scale=None):
     """Slot-gathering decode attention over a fixed KV pool.
 
     q: (b, a, d) — one query token per row; k_pool, v_pool: (slots, s_max,
     nkv, d); slot_idx: (b,) row->slot; lengths: (b,) live kv entries (0 =
-    dead slot -> zero output).  Returns (b, a, d).
+    dead slot -> zero output).  k_scale, v_scale: (slots, s_max, nkv) f32
+    per-(token, kv head) scales of an int8 pool (both or neither), which the
+    kernel dequantizes in f32 per kv tile.  Returns (b, a, d).
     """
     if _build.dispatch_device("paged_decode", q) == "cpu":
-        return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale)
-    return _paged_cuda(q, k_pool, v_pool, slot_idx, lengths, scale)
+        return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
+                                k_scale=k_scale, v_scale=v_scale)
+    return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
+                       slot_idx.to(torch.int32), lengths, 0, scale)
 
 
-paged_decode.launches = 0
+paged_decode.launches = 0        # float pools
+paged_decode.int8_launches = 0   # int8 pools
 
 
-def _paged_cuda(q, k_pool, v_pool, slot_idx, lengths, scale):
-    slot_idx = slot_idx.to(torch.int32)
+def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_scale=None,
+                            v_scale=None, scale=None):
+    """Block-table decode attention over a physical KV block pool.
+
+    q: (b, a, d) — one query token per row; k_blocks, v_blocks: (num_blocks,
+    block_size, nkv, d); block_tables: (b, max_blocks) row -> physical block
+    ids (entries past a row's live blocks are never read); lengths: (b,)
+    live kv entries (0 = dead row -> zero output).  k_scale, v_scale:
+    (num_blocks, block_size, nkv) f32 scales of an int8 block pool.  Any
+    block size works: the kernel resolves each token's block itself, so a kv
+    tile may span blocks.  Returns (b, a, d).
+    """
+    if _build.dispatch_device("paged_decode_blocktable", q) == "cpu":
+        return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
+                                           scale=scale, k_scale=k_scale, v_scale=v_scale)
+    tables = block_tables.to(torch.int32).contiguous()
+    if tables.dim() != 2 or tables.shape[0] != q.shape[0] or tables.shape[1] < 1:
+        raise ValueError(f"paged_decode_blocktable: block_tables {tuple(tables.shape)} for "
+                         f"{q.shape[0]} rows")
+    return _paged_cuda(paged_decode_blocktable, q, k_blocks, v_blocks, k_scale, v_scale,
+                       tables, lengths, tables.shape[1], scale)
+
+
+paged_decode_blocktable.launches = 0        # float pools
+paged_decode_blocktable.int8_launches = 0   # int8 pools
+
+
+def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blocks, scale):
+    """Launch csrc/paged_decode.cu over a slot pool (max_blocks = 0, index =
+    slot_idx) or a block table (index = tables (b, max_blocks)); a launch
+    adds one to the wrapper `fn`'s count for its pool type."""
+    what = fn.__name__
     lengths = lengths.to(torch.int32)
-    _build.cuda_operands("paged_decode", q, k_pool, v_pool, slot_idx, lengths)
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError(f"{what}: pass both k_scale and v_scale, or neither")
+    scales = (k_scale, v_scale) if quant else ()
+    _build.cuda_operands(what, q, k_pool, v_pool, *scales, index, lengths)
     b, a, d = q.shape
-    slots, s_max, nkv, dk = k_pool.shape
-    if (v_pool.shape != k_pool.shape or dk != d or a % nkv
-            or slot_idx.shape != (b,) or lengths.shape != (b,)):
-        raise ValueError(f"paged_decode: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)}, slot_idx {tuple(slot_idx.shape)}, "
-                         f"lengths {tuple(lengths.shape)}")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise TypeError(f"paged_decode: dtypes {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    n, depth, nkv, dk = k_pool.shape
+    if (v_pool.shape != k_pool.shape or dk != d or a % nkv or lengths.shape != (b,)
+            or (max_blocks == 0 and index.shape != (b,))
+            or any(t.shape != (n, depth, nkv) for t in scales)):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)}, index {tuple(index.shape)}, lengths "
+                         f"{tuple(lengths.shape)}, scales {[tuple(t.shape) for t in scales]}")
+    want_kv = torch.int8 if quant else q.dtype
+    if k_pool.dtype != want_kv or v_pool.dtype != want_kv or any(
+            t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"{what}: q {q.dtype}, pools {k_pool.dtype}/{v_pool.dtype}, scales "
+                        f"{[str(t.dtype) for t in scales]} (pools take q's dtype, or int8 "
+                        f"with float32 scales)")
     dt = _build.dtype_code(q.dtype)
+    kv_dt = _build.DT_INT8 if quant else dt
     g = a // nkv
-    if g > 8 or d > 256 or d % (16 // q.element_size()) or not _build.aligned16(q, k_pool, v_pool):
-        raise ValueError(f"paged_decode: the kernel takes <= 8 query heads per kv head and "
+    if (g > 8 or d > 256 or d % (16 // k_pool.element_size())
+            or not _build.aligned16(q, k_pool, v_pool)):
+        raise ValueError(f"{what}: the kernel takes <= 8 query heads per kv head and "
                          f"16-byte aligned rows of <= 256 elements (g={g}, d={d})")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -179,13 +232,16 @@ def _paged_cuda(q, k_pool, v_pool, slot_idx, lengths, scale):
         return out
     lib = _build.build().lib
     bkv = MAX_BLOCK_KV
-    while bkv > 8 and lib.repro_paged_decode_smem(g, d, bkv, dt) > SMEM_BUDGET:
+    while bkv > 8 and lib.repro_paged_decode_smem(g, d, bkv, kv_dt) > SMEM_BUDGET:
         bkv //= 2
     with torch.cuda.device(q.device):
         status = lib.repro_paged_decode(
-            _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(slot_idx),
-            _build.ptr(lengths), _build.ptr(out), b, a, nkv, d, s_max, bkv, float(scale), dt,
-            _build.stream_of(q.device))
-    _build.check(status, "paged_decode")
-    paged_decode.launches += 1
+            _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(k_scale),
+            _build.ptr(v_scale), _build.ptr(index), _build.ptr(lengths), _build.ptr(out), b, a,
+            nkv, d, depth, max_blocks, bkv, float(scale), dt, kv_dt, _build.stream_of(q.device))
+    _build.check(status, what)
+    if quant:
+        fn.int8_launches += 1
+    else:
+        fn.launches += 1
     return out

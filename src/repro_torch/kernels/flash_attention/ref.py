@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the flash-attention and slot-pool paged decode
-kernels (the CPU path, and what the CUDA kernels are held against), and the
-JAX package's attention oracle."""
+"""Plain PyTorch versions of the flash-attention kernels and of the paged
+decode kernel over a slot pool or a block table, float or int8 (the CPU
+path, and what the CUDA kernels are held against), and the JAX package's
+attention oracle."""
 from __future__ import annotations
 
 import torch
@@ -8,25 +9,58 @@ import torch
 NEG_INF = -1e30
 
 
-def paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=None):
+def _pool_f32(pool, scales):
+    """A KV pool (or its gathered rows) in f32; an int8 pool dequantized per
+    (token, kv head) as the kernels do it: widen, then one f32 product."""
+    if scales is None:
+        return pool.float()
+    return pool.float() * scales.float()[..., None]
+
+
+def paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=None, k_scale=None,
+                     v_scale=None):
     """q: (b, a, d); k_pool, v_pool: (slots, s_max, nkv, d); slot_idx: (b,)
     row->slot gather; lengths: (b,) live kv entries per row (0 = dead slot,
-    returns zeros).  GQA via a % nkv == 0.  Returns (b, a, d)."""
+    returns zeros).  GQA via a % nkv == 0.  k_scale, v_scale: (slots, s_max,
+    nkv) f32 for an int8 pool, dequantized in f32.  Returns (b, a, d)."""
     b, a, d = q.shape
     _, s_max, nkv, _ = k_pool.shape
     g = a // nkv
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     slot_idx = slot_idx.long()
-    k = k_pool[slot_idx].transpose(1, 2)  # (b, nkv, s_max, d)
-    v = v_pool[slot_idx].transpose(1, 2)
+    # (b, nkv, s_max, d)
+    k = _pool_f32(k_pool[slot_idx], None if k_scale is None else k_scale[slot_idx]).transpose(1, 2)
+    v = _pool_f32(v_pool[slot_idx], None if v_scale is None else v_scale[slot_idx]).transpose(1, 2)
     qh = q.reshape(b, nkv, g, d)
-    s = torch.einsum("bhgd,bhsd->bhgs", qh.float(), k.float()) * scale
+    s = torch.einsum("bhgd,bhsd->bhgs", qh.float(), k) * scale
     live = torch.arange(s_max, device=q.device)[None, :] < lengths[:, None]
     s = torch.where(live[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bhsd->bhgd", w, v.float())
+    out = torch.einsum("bhgs,bhsd->bhgd", w, v)
     out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
     return out.reshape(b, a, d).to(q.dtype)
+
+
+def gather_block_kv(pool, block_tables):
+    """(num_blocks, bs, ...) pool + (b, max_blocks) tables -> contiguous
+    (b, max_blocks * bs, ...) per-row KV (or scales) in logical order."""
+    g = pool[block_tables.long()]                 # (b, max_nb, bs, ...)
+    b, max_nb, bs = g.shape[:3]
+    return g.reshape(b, max_nb * bs, *g.shape[3:])
+
+
+def paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths, scale=None,
+                                k_scale=None, v_scale=None):
+    """Plain version of the block-table kernel: gather each row's physical
+    blocks (and an int8 pool's (num_blocks, bs, nkv) scales) into the
+    logical layout, then slot-decode with an identity map."""
+    b = q.shape[0]
+    ks = None if k_scale is None else gather_block_kv(k_scale, block_tables)
+    vs = None if v_scale is None else gather_block_kv(v_scale, block_tables)
+    return paged_decode_ref(q, gather_block_kv(k_blocks, block_tables),
+                            gather_block_kv(v_blocks, block_tables),
+                            torch.arange(b, dtype=torch.int32, device=q.device), lengths,
+                            scale=scale, k_scale=ks, v_scale=vs)
 
 
 def attention_ref(q, k, v, causal: bool = True, scale=None):

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention.ref import _scores, attention_di
+from .flash_attention.ref import _pool_f32, _scores, attention_di, gather_block_kv
 from .fused_mlp.ref import ACTS, DACTS, is_gated
 
 U = 2.0 ** -24
@@ -84,31 +84,48 @@ def fused_mlp_hidden_tol(x, w_gate, w_up, mlp_type: str, want: torch.Tensor) -> 
 
 
 def paged_decode_tol(q, k_pool, v_pool, slot_idx, lengths, want: torch.Tensor,
-                     scale=None) -> torch.Tensor:
+                     scale=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Scores: d-term sums, so each may be off by delta = 3 d u sum|q k| *
     scale; that moves every softmax weight by a factor within e^(+-2 delta).
     The softmax, its online rescaling and the weighted sum add at most
     (2 len + 64) u relative on each side.  Both act on the weighted sum of
-    |v|, so E = (2 delta + (4 len + 128) u) * sum_j w_j |v_j|.  A dead row
-    (length 0) must be exactly zero."""
+    |v|, so E = (2 delta + (4 len + 128) u) * sum_j w_j |v_j|.  An int8 pool
+    (k_scale, v_scale) is held to the same bound on its dequantized K/V,
+    plus the dequantizing product's own rounding (u relative per element of
+    K and of V) on each side.  A dead row (length 0) must be exactly zero."""
     b, a, d = q.shape
     _, s_max, nkv, _ = k_pool.shape
     g = a // nkv
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     idx = slot_idx.long()
-    k = k_pool[idx].transpose(1, 2).float()  # (b, nkv, s_max, d)
-    v = v_pool[idx].transpose(1, 2).float()
+    r = 0.0 if k_scale is None else 2.0 * U
+    k = _pool_f32(k_pool[idx], None if k_scale is None else k_scale[idx]).transpose(1, 2)
+    v = _pool_f32(v_pool[idx], None if v_scale is None else v_scale[idx]).transpose(1, 2)
     qh = q.reshape(b, nkv, g, d).float()
     live = torch.arange(s_max, device=q.device)[None, :] < lengths[:, None]   # (b, s_max)
     live4 = live[:, None, None, :]
     s = torch.where(live4, torch.einsum("bhgd,bhsd->bhgs", qh, k) * scale, -1e30)
     s_abs = torch.einsum("bhgd,bhsd->bhgs", qh.abs(), k.abs()) * scale
-    delta = 3.0 * d * U * torch.where(live4, s_abs, 0.0).amax(-1, keepdim=True)
+    delta = (3.0 * d * U + r) * torch.where(live4, s_abs, 0.0).amax(-1, keepdim=True)
     w_abs_v = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(s, dim=-1), v.abs())
     n = lengths.clamp(0, s_max).float()[:, None, None, None]
-    e = (2.0 * delta + (4.0 * n + 128.0) * U) * w_abs_v
+    e = (2.0 * delta + (4.0 * n + 128.0) * U + r) * w_abs_v
     e = torch.where((lengths > 0)[:, None, None, None], e, 0.0)
     return _bound(want, e.reshape(b, a, d))
+
+
+def paged_decode_blocktable_tol(q, k_blocks, v_blocks, block_tables, lengths,
+                                want: torch.Tensor, scale=None, k_scale=None,
+                                v_scale=None) -> torch.Tensor:
+    """The slot pool's bound on each row's blocks gathered into logical
+    order: the kernel reads the same elements through the table."""
+    b = q.shape[0]
+    ks = None if k_scale is None else gather_block_kv(k_scale, block_tables)
+    vs = None if v_scale is None else gather_block_kv(v_scale, block_tables)
+    return paged_decode_tol(q, gather_block_kv(k_blocks, block_tables),
+                            gather_block_kv(v_blocks, block_tables),
+                            torch.arange(b, device=q.device), lengths, want, scale=scale,
+                            k_scale=ks, v_scale=vs)
 
 
 def fused_mlp_bwd_tol(x, w_gate, w_up, dh, mlp_type: str, want):

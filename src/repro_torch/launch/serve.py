@@ -7,10 +7,13 @@ Static batch:
         --smoke --batch 4 --prompt-len 32 --gen 16
 
 Continuous-batching engine (`--paged`: decode attention through the paged
-decode kernel):
+decode kernel; `--prefix-cache`: the block-table KV pool with prefix
+sharing; `--kv-dtype int8`: an int8 KV pool with f32 scales):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --engine --paged --requests 12 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --smoke --engine --prefix-cache --kv-dtype int8 --device cpu
 
 Runs on the CUDA card; `--device cpu` runs the plain PyTorch versions on
 the host instead (there is no silent fallback).  Weights are random, drawn
@@ -97,7 +100,8 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
 
     eng = Engine(params, cfg, max_batch=args.batch,
                  max_prompt=args.prompt_len, max_new=args.gen,
-                 use_paged_kernel=args.paged, device=device)
+                 use_paged_kernel=args.paged, prefix_cache=args.prefix_cache,
+                 kv_dtype=args.kv_dtype, device=device)
     pol = eng.policy
     print(f"bucket policy: {pol.num_slots} slots x {pol.seq_max} kv depth, "
           f"prompt buckets {list(pol.prompt_buckets)} "
@@ -128,7 +132,8 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
           f"p99 {stats.itl_p99_s*1e3:8.1f} ms")
     if stats.num_ok != stats.num_requests:
         parts = "  ".join(f"{k}={v}" for k, v in stats.finish_reasons.items())
-        print(f"outcomes:   {parts}  | goodput {stats.goodput:.3f}")
+        print(f"outcomes:   {parts}  | goodput {stats.goodput:.3f} "
+              f"(preemptions {stats.preemptions}, resumes {stats.resumes})")
     first_ok = next((c for c in done if c.ok), None)
     if first_ok is not None:
         print("sample:", first_ok.tokens[:16])
@@ -154,6 +159,12 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--paged", action="store_true",
                     help="decode attention via the paged decode kernel")
+    ap.add_argument("--kv-dtype", default="auto", choices=["auto", "int8"],
+                    help="KV-cache storage dtype: int8 halves pool bytes "
+                         "(vs bf16) with per-(token, head) f32 scales")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="block-table KV pool with content-addressed prefix "
+                         "sharing")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request completion deadline in seconds; "
                          "expiry returns the partial result as "

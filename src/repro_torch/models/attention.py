@@ -1,6 +1,6 @@
 """GQA attention: the naive score/AOV decomposition, the flash-attention
 kernels (training: cache-free, differentiable) and the paged decode kernel
-over the serving slot pool.
+over the serving slot pool or block-table pool, float or int8.
 
 Caches are updated in place: the JAX package returns new cache arrays
 (`dynamic_update_slice`, a one-hot `where`, donated buffers); the port
@@ -15,7 +15,10 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention.ops import flash_attention, paged_decode
+from ..kernels.flash_attention.ops import (flash_attention, paged_decode,
+                                           paged_decode_blocktable)
+from ..kernels.flash_attention.ref import gather_block_kv
+from ..quant import dequantize_kv, quantize_kv
 from .layers import apply_rotary, dense_init
 from .linear import linear
 
@@ -78,19 +81,37 @@ def _unsupported(what: str, slice_name: str):
     return NotImplementedError(f"{what} is not ported yet: it comes with the {slice_name} slice")
 
 
+def _write_rows(leaf, rows, cols, val):
+    """leaf[rows[i], cols[i]] = val[i], in place (one `index_put_`)."""
+    leaf.index_put_((rows, cols), val.to(leaf.dtype))
+
+
+def _write_slice(leaf, ci: int, val):
+    """leaf[:, ci:ci + s] = val, in place; raises where ci + s passes the
+    cache's depth (the JAX package's `dynamic_update_slice` clamps the start
+    there instead, over live KV:
+    tests/test_torch_prefix.py::test_suffix_prefill_past_the_pool_depth)."""
+    leaf[:, ci:ci + val.shape[1]].copy_(val)
+
+
 def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None,
               block_tables=None):
     """x: (b, s, h).  Returns (out, cache).
 
-    cache: dict(k=(b, s_max, kv, hd), v=...) or None; written in place.
+    cache: dict(k=(b, s_max, kv, hd), v=...) or None; written in place.  An
+    int8 cache (cfg.kv_dtype="int8") also holds k_scale, v_scale (b, s_max,
+    kv) f32: k and v are quantized per (token, kv head) on write and
+    dequantized on read (in the paged kernel, or up front on the plain path).
     cache_index: write offset — an int (prefill: positions ci..ci+s), or a
     (b,) tensor of per-row offsets (engine decode: s == 1, each slot at its
     own depth; `positions` is then the matching (b, 1) tensor).
+    block_tables: (b, max_blocks) int32 — the cache is a physical block pool
+    (k, v: (num_blocks, block_size, kv, hd)) and row b's logical block j is
+    block_tables[b, j].  Single-token decode with a (b,) cache_index: the new
+    token goes to (table[b, ci // bs], ci % bs).  Each live row's tail block
+    is private (the pool's copy-on-write), so rows never collide; dead rows
+    all write the pool's garbage block, which is never read.
     """
-    if block_tables is not None:
-        raise _unsupported("the block-table KV pool", "prefix-cache")
-    if cache is not None and "k_scale" in cache:
-        raise _unsupported("int8 KV caches", "low-precision")
     if cfg.attn_impl not in ("naive", "paged", "flash"):
         raise _unsupported(f"attn_impl={cfg.attn_impl!r}", "tuning")
     b, s, h = x.shape
@@ -109,32 +130,68 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     if cfg.pos_emb == "rotary":
         q = apply_rotary(q, positions, cfg.rope_theta)
         k = apply_rotary(k, positions, cfg.rope_theta)
+    quant = cache is not None and "k_scale" in cache
+    # what a write stores, per cache leaf
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
+    scales = (cache["k_scale"], cache["v_scale"]) if quant else (None, None)
+    paged = cfg.attn_impl == "paged" and cache is not None and s == 1
+
+    if block_tables is not None:
+        if cache is None or s != 1 or not (torch.is_tensor(cache_index)
+                                          and cache_index.dim() == 1):
+            raise ValueError("block_tables requires single-token decode with a (b,) "
+                             "cache_index into a block-pool cache")
+        bs = cache["k"].shape[1]   # physical block size (tokens)
+        rows = torch.arange(b, device=x.device)
+        phys = block_tables[rows, cache_index // bs].long()
+        for name, leaf in cache.items():
+            _write_rows(leaf, phys, cache_index % bs, new[name][:, 0])
+        lengths = (cache_index + 1).to(torch.int32)
+        kc, vc = cache["k"], cache["v"]
+        if paged:
+            out = paged_decode_blocktable(
+                q[:, 0], kc if quant else kc.to(q.dtype), vc if quant else vc.to(q.dtype),
+                block_tables, lengths, k_scale=scales[0], v_scale=scales[1])[:, None]
+        else:
+            kg, vg = gather_block_kv(kc, block_tables), gather_block_kv(vc, block_tables)
+            if quant:
+                kg = dequantize_kv(kg, gather_block_kv(scales[0], block_tables), q.dtype)
+                vg = dequantize_kv(vg, gather_block_kv(scales[1], block_tables), q.dtype)
+            out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=True, q_pos=positions,
+                        kv_len=lengths)
+        return linear(out.reshape(b, s, a * hd), p["wo"], impl=impl), cache
+
     kv_len = None
     if cache is not None:
-        ck, cv = cache["k"], cache["v"]
         if torch.is_tensor(cache_index) and cache_index.dim():
             # per-row write positions (serving-engine slot pool)
             assert s == 1, "vector cache_index requires single-token decode"
             rows = torch.arange(b, device=x.device)
-            ck.index_put_((rows, cache_index), k[:, 0].to(ck.dtype))
-            cv.index_put_((rows, cache_index), v[:, 0].to(cv.dtype))
+            for name, leaf in cache.items():
+                _write_rows(leaf, rows, cache_index, new[name][:, 0])
         else:
-            ci = int(cache_index)
-            ck[:, ci:ci + s].copy_(k)
-            cv[:, ci:ci + s].copy_(v)
-        k, v = ck, cv
+            for name, leaf in cache.items():
+                _write_slice(leaf, int(cache_index), new[name])
+        k, v = cache["k"], cache["v"]
+        if quant and not paged:   # the paged kernel dequantizes per kv tile
+            k = dequantize_kv(k, scales[0], q.dtype)
+            v = dequantize_kv(v, scales[1], q.dtype)
         kv_len = cache_index + s
     if cfg.attn_impl == "flash" and cache is None:
         # the flash kernels with their fused backward: the training path.
         # Cache-backed prefill and decode stay on the paths below, as in JAX
         out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=True)
-    elif cfg.attn_impl == "paged" and cache is not None and s == 1:
+    elif paged:
         # paged decode kernel over the slot pool (identity slot map here;
         # the kernel's gather-by-slot path is exercised by its tests)
         lengths = torch.as_tensor(kv_len, device=x.device).to(torch.int32).expand(b)
-        out = paged_decode(q[:, 0], k.to(q.dtype), v.to(q.dtype),
+        out = paged_decode(q[:, 0], k if quant else k.to(q.dtype), v if quant else v.to(q.dtype),
                            torch.arange(b, dtype=torch.int32, device=x.device),
-                           lengths.contiguous())[:, None]
+                           lengths.contiguous(), k_scale=scales[0], v_scale=scales[1])[:, None]
     else:
         out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=True,
                     q_pos=positions, kv_len=kv_len)

@@ -90,36 +90,44 @@ KV_DTYPES = ("auto", "int8")
 
 
 def kv_cache_dtype(cfg: ModelConfig, dtype):
-    """Storage dtype for k/v cache leaves ("auto" = the compute dtype)."""
+    """Storage dtype for k/v cache leaves: "auto" is the compute dtype,
+    "int8" stores quantized k/v beside f32 scale leaves."""
     if cfg.kv_dtype == "auto":
         return dtype
     if cfg.kv_dtype == "int8":
-        raise NotImplementedError(
-            "kv_dtype='int8' is not ported yet: it comes with the low-precision slice")
+        return torch.int8
     raise ValueError(
         f"unknown kv_dtype {cfg.kv_dtype!r}; valid: {list(KV_DTYPES)}")
 
 
 def init_cache_segment(cfg: ModelConfig, kind: str, n: int, batch: int,
                        s_max: int, dtype=torch.bfloat16, device=None):
-    """Cache of one segment: k, v (n, batch, s_max, kv, hd), zeros."""
+    """Cache of one segment: k, v (n, batch, s_max, kv, hd), zeros; an int8
+    cache adds the f32 absmax scales k_scale, v_scale (n, batch, s_max, kv),
+    one per (token, kv head)."""
     _check_kind(kind)
     if cfg.attn_type != "gqa":
         raise NotImplementedError("only GQA caches are ported")
     store = kv_cache_dtype(cfg, dtype)
     shape = (n, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=store, device=device),
-            "v": torch.zeros(shape, dtype=store, device=device)}
+    leaves = {"k": torch.zeros(shape, dtype=store, device=device),
+              "v": torch.zeros(shape, dtype=store, device=device)}
+    if store == torch.int8:
+        for name in ("k", "v"):
+            leaves[f"{name}_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                                  device=device)
+    return leaves
 
 
 # --- apply ---------------------------------------------------------------------------
 
 def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, block_tables=None):
     """One dense layer.  Returns (x, cache)."""
     attn_out, cache = apply_attention(
         p["attn"], norm_apply(p["norm1"], x, cfg.norm_type), cfg,
-        positions=positions, cache=cache, cache_index=cache_index)
+        positions=positions, cache=cache, cache_index=cache_index,
+        block_tables=block_tables)
     if cfg.parallel_layers:
         # y = x + Attn(N(x)) + MLP(N(x))   (§VI-C1; same first norm)
         mix_in = norm_apply(p["norm1"], x, cfg.norm_type)
@@ -135,10 +143,11 @@ REMATS = ("none", "full", "dots")
 
 
 def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
-                caches=None, cache_index=None, remat: str = "none"):
+                caches=None, cache_index=None, remat: str = "none", block_tables=None):
     """Run all segments layer by layer.  segments_params: list of
     (kind, stacked_params); caches: list aligned with segments (or None),
-    updated in place.  remat: "none" keeps every layer's activations for
+    updated in place; block_tables: (b, max_blocks) when the caches are a
+    physical block pool (attention.apply_gqa).  remat: "none" keeps every layer's activations for
     the backward, "full" recomputes each layer there (blocks.py:282-283 of
     the JAX package).  Returns (x, caches)."""
     if remat not in REMATS:
@@ -159,5 +168,5 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
                 continue
             c_l = None if seg_cache is None else tree_index(seg_cache, layer)
             x, _ = _apply_core(p_l, x, cfg, kind, positions=positions, cache=c_l,
-                               cache_index=cache_index)
+                               cache_index=cache_index, block_tables=block_tables)
     return x, caches

@@ -60,11 +60,14 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, 
 
 
 def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
-             cache_index=None, remat: str = "none"):
+             cache_index=None, remat: str = "none", block_tables=None):
     """tokens: (b, s) integer tensor.  Returns (logits, caches).
 
     cache_index: an int (prefill write offset) or a (b,) tensor of per-row
     offsets (engine decode).  Caches are updated in place and returned.
+    block_tables: (b, max_blocks) int32 -- the caches are a physical KV
+    block pool (leaves (n, num_blocks, block_size, kv, hd)) and row b's
+    logical block j lives at block_tables[b, j]; single-token decode only.
     (The JAX function also returns the MoE aux loss, which a dense decoder
     does not have.)
     """
@@ -86,7 +89,7 @@ def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
 
     segs = [(kind, params[f"seg{i}"]) for i, (kind, n) in enumerate(stack_plan(cfg))]
     x, caches = apply_stack(segs, cfg, x, positions=positions, caches=caches,
-                            cache_index=cache_index, remat=remat)
+                            cache_index=cache_index, remat=remat, block_tables=block_tables)
 
     x = norm_apply(params["final_norm"], x, cfg.norm_type)
     # a tied head is the view embed^T, which the tile GEMM reads in place

@@ -99,6 +99,146 @@ def test_paged_decode(cuda, dtype, s_max, g, d):
     _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
 
 
+def _blocktable_case(rng, bs, g, d, dtype, device, quant):
+    """Five rows over a pool of physical blocks of `bs` tokens: permuted
+    ids, rows 0 and 2 sharing their first blocks, a dead row (3), lengths
+    that cross the 64-token staging width and are not tile multiples, and
+    every table entry past a row's live blocks pointing at a garbage block
+    of huge values (1e4; an int8 pool's scales), so that a read of it would
+    break the bound (the plain version masks it to weight 0)."""
+    nkv = 2
+    lengths = [130, 64, 77, 0, 33]
+    need = [-(-n // bs) for n in lengths]
+    max_blocks = max(need) + 1
+    nb = sum(need) + 1
+    garbage = nb - 1
+    ids = rng.permutation(nb - 1).tolist()
+    tables = np.full((5, max_blocks), garbage, np.int32)
+    for r, n in enumerate(need):
+        for j in range(n):
+            tables[r, j] = ids.pop()
+    shared = min(need[0], need[2], 2)
+    tables[2, :shared] = tables[0, :shared]
+    q = _rand(rng, (5, nkv * g, d), dtype, device)
+    shape = (nb, bs, nkv, d)
+    if quant:
+        from repro_torch.quant import quantize_kv
+        (kp, ks), (vp, vs) = (quantize_kv(_rand(rng, shape, torch.float32, device))
+                              for _ in range(2))
+        ks[garbage], vs[garbage] = 1e4, 1e4
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = _rand(rng, shape, dtype, device), _rand(rng, shape, dtype, device)
+        kp[garbage], vp[garbage] = 1e4, 1e4
+        sc = {}
+    return (q, kp, vp, torch.from_numpy(tables).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device), sc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bs,g,d", [(4, 1, 64), (8, 2, 128), (16, 3, 64), (64, 2, 128),
+                                    (16, 2, 128)])
+def test_paged_decode_blocktable(cuda, dtype, quant, bs, g, d):
+    """The block-table kernel, float and int8 pools, against its plain
+    version: each element within its bound, the dead row exactly zero, and
+    the garbage block never read."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import paged_decode_blocktable_ref
+    q, kp, vp, tables, lengths, sc = _blocktable_case(np.random.default_rng(bs + g + d), bs, g,
+                                                      d, dtype, cuda, quant)
+    counter = "int8_launches" if quant else "launches"
+    before = getattr(paged_decode_blocktable, counter)
+    got = paged_decode_blocktable(q, kp, vp, tables, lengths, **sc)
+    torch.cuda.synchronize()
+    assert getattr(paged_decode_blocktable, counter) == before + 1
+    want = paged_decode_blocktable_ref(q, kp, vp, tables, lengths, **sc)
+    assert torch.isfinite(want).all() and torch.all(got[3] == 0)
+    _close(got, want, tolerance.paged_decode_blocktable_tol(q, kp, vp, tables, lengths, want,
+                                                             **sc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_max,g,d", [(72, 2, 128), (200, 3, 64), (128, 1, 256)])
+def test_paged_decode_int8(cuda, dtype, s_max, g, d):
+    """The slot kernel over an int8 pool (f32 scales per (token, kv head)):
+    permuted slots, dead slots, depths that 64 does not divide."""
+    from repro_torch.quant import quantize_kv
+    rng = np.random.default_rng(3)
+    slots, nkv, b = 9, 2, 6
+    q = _rand(rng, (b, nkv * g, d), dtype, cuda)
+    (kp, ks), (vp, vs) = (quantize_kv(_rand(rng, (slots, s_max, nkv, d), torch.float32, cuda))
+                          for _ in range(2))
+    slot_idx = torch.tensor([4, 0, 8, 2, 7, 1], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([17, 0, s_max, 1, 65, s_max - 3], dtype=torch.int32, device=cuda)
+    before = (paged_decode.launches, paged_decode.int8_launches)
+    got = paged_decode(q, kp, vp, slot_idx, lengths, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (paged_decode.launches, paged_decode.int8_launches) == (before[0], before[1] + 1)
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths, k_scale=ks, v_scale=vs)
+    assert torch.all(got[1] == 0)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want,
+                                                 k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_empty_batch_counts_no_launch(cuda, quant):
+    """A call with no rows launches nothing, so neither wrapper's count moves."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_blocktable
+    from repro_torch.quant import quantize_kv
+    q = torch.zeros((0, 4, 64), dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros((3, 16, 2, 64), device=cuda)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(pool), quantize_kv(pool)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp = vp = pool.to(torch.bfloat16)
+        sc = {}
+    idx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    tables = torch.zeros((0, 1), dtype=torch.int32, device=cuda)
+
+    def counts():
+        return [getattr(f, c) for f in (paged_decode, paged_decode_blocktable)
+                for c in ("launches", "int8_launches")]
+
+    before = counts()
+    assert paged_decode(q, kp, vp, idx, idx, **sc).shape == (0, 4, 64)
+    assert paged_decode_blocktable(q, kp, vp, tables, idx, **sc).shape == (0, 4, 64)
+    assert counts() == before
+
+
+def test_prefix_engine_on_the_card_matches_the_cpu(cuda):
+    """The smoke model in f32 through Engine(prefix_cache=True,
+    kv_dtype="int8") on the card (block-table int8 kernel) and on the host
+    (plain versions): the same greedy tokens, and the kernel launched."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_blocktable
+    from repro_torch.serving.engine import BucketPolicy, Engine, synthetic_requests
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), dtype="float32",
+                              linear_impl="fused")
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    reqs = synthetic_requests(8, pattern="burst", min_prompt=18, max_prompt=30, min_new=3,
+                              max_new=8, vocab=cfg.vocab_size, prefix_share=0.75,
+                              shared_prefix_len=16, seed=29)
+    policy = BucketPolicy(num_slots=4, prompt_buckets=(16, 32), seq_max=64)
+    runs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = Engine(p, cfg, policy=policy, use_paged_kernel=True, prefix_cache=True,
+                     block_size=8, kv_dtype="int8", device=dev)
+        before = paged_decode_blocktable.int8_launches
+        done, stats = eng.run(reqs, check_invariants=True)
+        runs.append(([c.tokens for c in done], paged_decode_blocktable.int8_launches - before,
+                     stats))
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][1] == 0 and runs[1][1] == runs[1][2].decode_steps * cfg.num_layers > 0
+    assert runs[1][2].cache_hit_requests >= 2
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def test_tied_head_through_the_kernels(cuda):
     """A tied output head (embed^T, not contiguous) runs through the tile
     GEMM and agrees with the plain path in f32."""

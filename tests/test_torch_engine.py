@@ -128,13 +128,19 @@ def test_engine_refuses_to_run_without_a_card(smoke, monkeypatch):
 
 
 def test_engine_unported_switches_raise(smoke):
+    """The switches still unported: fault injection, grow_batch (tuning) and
+    int8 weights (the low-precision GEMM slice)."""
     _, _, cfg, params = smoke
-    with pytest.raises(NotImplementedError, match="prefix-cache"):
-        Engine(params, cfg, prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="low-precision"):
-        Engine(params, cfg, kv_dtype="int8", device="cpu")
+    eng = Engine(params, cfg, prefix_cache=True, kv_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="observability-and-faults"):
+        eng.run([], faults=object())
     with pytest.raises(NotImplementedError, match="tuning"):
         Engine(params, cfg, grow_batch=True, device="cpu")
+    quantized = Engine(params, dataclasses.replace(cfg, linear_impl="quantized"), device="cpu")
+    with pytest.raises(NotImplementedError, match="low-precision"):
+        quantized.run([Request(rid=0, tokens=np.arange(4, dtype=np.int32), max_new_tokens=1)])
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        Engine(params, cfg, kv_dtype="fp4", device="cpu")
     with pytest.raises(ValueError, match="params live on"):
         Engine(params, cfg, device="meta")
 
@@ -150,6 +156,8 @@ def test_request_queue_is_the_jax_one():
 
 @pytest.mark.parametrize("argv", [
     ["--engine", "--paged", "--requests", "4", "--gen", "6"],
+    ["--engine", "--paged", "--prefix-cache", "--kv-dtype", "int8", "--requests", "6",
+     "--gen", "6"],
     ["--batch", "2", "--prompt-len", "8", "--gen", "4"]])
 def test_launcher_runs_on_cpu_when_asked(argv, capsys):
     from repro_torch.launch import serve

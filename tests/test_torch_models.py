@@ -133,6 +133,106 @@ def test_apply_gqa_vector_index_decode(smoke, attn_impl):
         np.testing.assert_allclose(cache[k].numpy(), np.asarray(wcache[k]), **TOL)
 
 
+def _int8_cache(rng, shape):
+    """An int8 cache as the JAX package quantizes it, and its numpy copy."""
+    from repro.quant import quantize_kv as jax_quantize_kv
+    out = {}
+    for name in ("k", "v"):
+        q, sc = jax_quantize_kv(jnp.asarray(_np(rng, shape)))
+        out[name], out[f"{name}_scale"] = np.asarray(q), np.asarray(sc)
+    return out
+
+
+def _assert_cache_close(got, want):
+    """int8 leaves may differ by one step where the two divisions round a
+    .5 boundary apart; everything else to TOL."""
+    for name, w in want.items():
+        g, w = got[name].numpy(), np.asarray(w)
+        if g.dtype == np.int8:
+            assert np.abs(g.astype(np.int32) - w.astype(np.int32)).max() <= 1, name
+        else:
+            np.testing.assert_allclose(g, w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("attn_impl", ["naive", "paged"])
+@pytest.mark.parametrize("cache_index", ["prefill", "vector"])
+def test_apply_gqa_int8_cache(smoke, attn_impl, cache_index):
+    """kv_dtype="int8": quantize per (token, kv head) on write, dequantize
+    on read (the paged kernel per kv tile, the plain path up front)."""
+    jcfg, jparams, cfg, params = smoke
+    jp, p = _layer(jparams, params)
+    jcfg = dataclasses.replace(jcfg, attn_impl=attn_impl, kv_dtype="int8")
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl, kv_dtype="int8")
+    rng = np.random.default_rng(7)
+    b, s_max = 3, 20
+    if cache_index == "prefill":
+        s, ci = 7, 4
+        pos = np.arange(ci, ci + s)
+        jci, tci = ci, ci
+    else:
+        s = 1
+        ci = np.asarray([5, 0, 19], np.int32)
+        pos = ci[:, None]
+        jci, tci = jnp.asarray(ci), _t(ci)
+    x = _np(rng, (b, s, cfg.d_model))
+    cache0 = _int8_cache(rng, (b, s_max, cfg.num_kv_heads, cfg.head_dim))
+    want, wcache = jax_apply_gqa(jp, jnp.asarray(x), jcfg, positions=jnp.asarray(pos),
+                                 cache={k: jnp.asarray(v) for k, v in cache0.items()},
+                                 cache_index=jci)
+    cache = {k: _t(v.copy()) for k, v in cache0.items()}
+    got, _ = apply_gqa(p, _t(x), cfg, positions=_t(pos), cache=cache, cache_index=tci)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    _assert_cache_close(cache, wcache)
+
+
+@pytest.mark.parametrize("attn_impl", ["naive", "paged"])
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_apply_gqa_block_table_decode(smoke, attn_impl, kv_dtype):
+    """One decode step over a physical block pool: the new token goes to
+    (table[b, ci // bs], ci % bs); attention reads through the table (the
+    block-table kernel, or a gather and the plain path).  Rows 0 and 2
+    share block 5, row 1 is dead (its table points at garbage block 7)."""
+    jcfg, jparams, cfg, params = smoke
+    jp, p = _layer(jparams, params)
+    jcfg = dataclasses.replace(jcfg, attn_impl=attn_impl, kv_dtype=kv_dtype)
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(8)
+    nb, bs = 8, 4
+    shape = (nb, bs, cfg.num_kv_heads, cfg.head_dim)
+    cache0 = _int8_cache(rng, shape) if kv_dtype == "int8" else \
+        {"k": _np(rng, shape), "v": _np(rng, shape)}
+    tables = np.asarray([[5, 2, 0], [7, 7, 7], [5, 1, 3]], np.int32)
+    ci = np.asarray([6, 0, 9], np.int32)
+    x = _np(rng, (3, 1, cfg.d_model))
+    want, wcache = jax_apply_gqa(jp, jnp.asarray(x), jcfg, positions=jnp.asarray(ci)[:, None],
+                                 cache={k: jnp.asarray(v) for k, v in cache0.items()},
+                                 cache_index=jnp.asarray(ci), block_tables=jnp.asarray(tables))
+    cache = {k: _t(v.copy()) for k, v in cache0.items()}
+    got, _ = apply_gqa(p, _t(x), cfg, positions=_t(ci)[:, None], cache=cache,
+                       cache_index=_t(ci), block_tables=_t(tables))
+    np.testing.assert_allclose(got[[0, 2]].numpy(), np.asarray(want)[[0, 2]],
+                               atol=1e-4, rtol=1e-4)
+    live = [0, 1, 2, 3, 5, 6]   # block 7 is the garbage block; 4 is unused
+    _assert_cache_close({k: v[live] for k, v in cache.items()},
+                        {k: np.asarray(v)[live] for k, v in wcache.items()})
+
+
+def test_greedy_generate_int8_kv_tokens_identical(smoke):
+    """greedy_generate under an int8 config: int8 cache leaves, a prefill
+    at cache_index 0 and scalar-index decode steps."""
+    jcfg, jparams, cfg, params = smoke
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    want = np.asarray(jax_greedy_generate(jparams, dataclasses.replace(jcfg, kv_dtype="int8"),
+                                          jnp.asarray(prompt), 8))
+    got = greedy_generate(params, dataclasses.replace(cfg, linear_impl="fused",
+                                                      kv_dtype="int8"), _t(prompt), 8).numpy()
+    np.testing.assert_array_equal(got, want)
+    caches = init_caches(dataclasses.replace(cfg, kv_dtype="int8"), 2, 19, torch.float32)
+    assert {n: t.dtype for n, t in caches[0].items()} == {
+        "k": torch.int8, "v": torch.int8, "k_scale": torch.float32, "v_scale": torch.float32}
+    assert caches[0]["k_scale"].shape == (cfg.num_layers, 2, 19, cfg.num_kv_heads)
+
+
 @pytest.mark.parametrize("linear_impl", ["jnp", "pallas", "fused"])
 def test_apply_lm_logits(smoke, linear_impl):
     jcfg, jparams, cfg, params = smoke
@@ -275,7 +375,7 @@ def test_unported_paths_raise(smoke):
     p = tree_index(params["seg0"]["attn"], 0)
     with pytest.raises(NotImplementedError, match="tuning"):
         apply_gqa(p, x, dataclasses.replace(cfg, attn_impl="blocked"), positions=torch.arange(2))
-    with pytest.raises(NotImplementedError, match="prefix-cache"):
+    with pytest.raises(ValueError, match="block_tables requires single-token decode"):
         apply_gqa(p, x, cfg, positions=torch.arange(2), block_tables=torch.zeros(1, 1))
     with pytest.raises(NotImplementedError):
         init_lm(None, get_config("deepseek-v3-671b"), device="meta")
