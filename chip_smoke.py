@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pools, tables built by a BlockPool), then the training slice's at its shapes
      (4 x 1024 tokens: flash attention forward and backward, the fused
      SwiGLU forward and backward, every projection's forward, dgrad and
-     wgrad);
+     wgrad), then the int8-weight slice's (the int8 GEMM at every
+     projection's shape at 64 and 4096 rows, bit-identical to its plain
+     version, beside torch._int_mm; the int8 fused SwiGLU hidden);
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -32,10 +34,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bounds must see; a tight pool that must preempt and resume with
      BlockPool.check() after every step; the slot engine, and both engines
      over an int8 pool (the int8 kernels); launch counts per run;
-  6. token identity: at full width, 4 layers, float32, the greedy tokens of
-     the slot and prefix engines (roomy and tight) and of the int8 slot and
-     int8 prefix engines must be identical, but at a near tie;
-  7. train: internlm2-1.8b at full width and depth, float32 masters, bf16
+  6. quantized serve: the same model with every GEMM weight prequantized
+     to int8 (`quantize_linear_params`), bf16 activations, through the int8
+     GEMM and int8 fused-MLP kernels: the serve phase's burst on the slot
+     engine (launch counts: 5L + 1 int8 GEMMs and L int8 fused MLPs per
+     pass, no bf16 GEMM), profiled; prefill logits against the plain path
+     on the same weights and against the bf16 weights, with a planted scale
+     fault the bound must see; the prefix engine over an int8 KV pool;
+  7. token identity: at full width, 4 layers, float32, the greedy tokens of
+     the slot and prefix engines (roomy and tight), of the int8-KV slot and
+     prefix engines, and of the int8-weight slot and prefix engines over
+     float and int8 KV must be identical pairwise, but at a near tie;
+  8. train: internlm2-1.8b at full width and depth, float32 masters, bf16
      compute, linear_impl="fused", attn_impl="flash", AdamW, 4 x 1024
      tokens: the step-0 loss and every gradient leaf (per layer slice) of
      the kernel path against the plain path (jnp, naive) on the same params
@@ -61,8 +71,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores and HBM3
+# NVIDIA H100 SXM data sheet, dense: bf16 and int8 tensor cores, and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_S = 3.35e12
 
 # Whole-model check (prefill logits, kernel path vs plain path, bf16): the
@@ -114,6 +125,13 @@ TIGHT_BLOCKS = 40
 # prefill's: the two paths round every GEMM output to bf16 after summing
 # in another order, as the logits do.
 SUFFIX_KV_REL_BOUND = 0.05
+# int8 weights against bf16 weights (prefill logits at full width and
+# depth, random weights): the relative norm over all logits, and the worst
+# vocabulary column's (one output channel of lm_head) relative norm, which
+# a planted fault — that channel's scale doubled — must break.
+QUANT_LOGITS_REL_BOUND = 0.1
+QUANT_COLUMN_REL_BOUND = 0.5
+FAULT_CHANNEL = 12345
 # f32 token identity at reduced depth: a divergence passes only at a near
 # tie of the reference's top-2 logits (relative gap).
 REDUCED_LAYERS = 4
@@ -186,9 +204,10 @@ def time_ms(torch, calls, iters=ITERS):
     return t0.elapsed_time(t1) / iters, host_us
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(least ms the card could take, what bounds it); `peak` is the rate of
+    the operations' type."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -607,7 +626,9 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    events = [e for e in prof.key_averages()
+    t0 = time.perf_counter()
+    averages = prof.key_averages()   # aggregated once: over ~10^5 events it takes seconds
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     print(f"  profiled rerun: wall {wall:.3f} s, device busy {busy:.3f} s "
@@ -619,11 +640,12 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
     # the host side: operators by their own host time (launch and dispatch
     # cost, inflated by the profiler's per-op overhead)
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
     print(f"  host time by operator (summed self time "
           f"{sum(e.self_cpu_time_total for e in host) / 1e6:.3f} s):")
     for e in host[:8]:
         print(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    print(f"  (the profile's aggregation took {time.perf_counter() - t0:.1f} s)")
 
 
 # --- the prefix-cache slice: kernels ------------------------------------------------------
@@ -805,6 +827,17 @@ def prefix_kernel_phase(torch) -> dict:
 
 # --- the prefix-cache slice: serving ------------------------------------------------------
 
+def _linear_counters():
+    """(label, function, counter attribute) of each GEMM / MLP kernel of the
+    serving path: the bf16 pair and the int8 pair."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
+    return [("matmul", matmul, "launches"), ("fused_mlp_hidden", fused_mlp_hidden, "launches"),
+            ("int8_matmul", int8_matmul, "launches"),
+            ("int8_fused_mlp", int8_fused_mlp_hidden, "launches")]
+
+
 def _decode_counters():
     """(label, function, counter attribute) of each paged decode variant."""
     from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
@@ -816,25 +849,27 @@ def _decode_counters():
 
 def serve_run(torch, eng, reqs, label: str, decode_kernel: str, **kw):
     """One engine run with every kernel's count set to 0 just before it and
-    read just after.  The counts must follow the path: matmul 5L + 1 and the
-    fused MLP L per forward pass (prefills + decode steps), `decode_kernel`
-    L per decode step and no other decode variant.  A roomy run must finish
+    read just after.  The counts must follow the path: per forward pass
+    (prefills + decode steps) 5L + 1 GEMMs and L fused MLPs, on the tile GEMM
+    and the bf16 fused MLP (linear_impl="fused") or the int8 kernels
+    ("quantized") and none on the other pair; `decode_kernel` L per decode
+    step and no other decode variant.  A roomy run must finish
     every request at its length."""
-    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
-    from repro_torch.kernels.matmul.ops import matmul
+    linear = _linear_counters()
     decs = _decode_counters()
-    matmul.launches = fused_mlp_hidden.launches = 0
-    for _, fn, attr in decs:
+    for _, fn, attr in linear + decs:
         setattr(fn, attr, 0)
     torch.cuda.synchronize()
     done, stats = eng.run(reqs, **kw)
     torch.cuda.synchronize()
-    counts = {"matmul": matmul.launches, "fused_mlp_hidden": fused_mlp_hidden.launches}
-    counts.update({n: getattr(fn, attr) for n, fn, attr in decs})
+    counts = {n: getattr(fn, attr) for n, fn, attr in linear + decs}
     L = eng.cfg.num_layers
     passes = stats.prefills + stats.decode_steps
-    want = {n: 0 for n, _, _ in decs}
-    want.update(matmul=passes * (5 * L + 1), fused_mlp_hidden=passes * L)
+    want = {n: 0 for n in counts}
+    if eng.cfg.linear_impl == "quantized":
+        want.update(int8_matmul=passes * (5 * L + 1), int8_fused_mlp=passes * L)
+    else:
+        want.update(matmul=passes * (5 * L + 1), fused_mlp_hidden=passes * L)
     want[decode_kernel] = stats.decode_steps * L
     print(f"  {label}: {stats.num_requests} requests, {stats.total_generated} tokens in "
           f"{stats.wall_s:.3f} s ({stats.prefills} prefills, {stats.decode_steps} decode steps"
@@ -1092,12 +1127,15 @@ def token_identity_phase(torch) -> None:
     """(b) At full width, f32 and REDUCED_LAYERS layers: greedy tokens
     identical between the slot engine and the prefix engine, roomy and
     tight (a partial of the tight run a prefix of the roomy tokens), and
-    between the int8 slot and int8 prefix engines.  A divergence fails the
-    run unless the top-2 logits at that step (the reference engine's
-    config, a plain prefill of the agreed context) lie within TOKEN_GAP_REL
-    relative of each other."""
+    between the int8 slot and int8 prefix engines; with int8 weights
+    (`quantize_linear_params` of the same params), between the slot and
+    prefix engines, and between the slot and prefix engines over int8 KV.
+    A divergence fails the run unless the top-2 logits at that step (the
+    reference engine's config and params, a plain prefill of the agreed
+    context) lie within TOKEN_GAP_REL relative of each other."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_lm
+    from repro_torch.models.linear import quantize_linear_params
     from repro_torch.serving.serve_step import make_prefill_step
 
     import numpy as np
@@ -1105,9 +1143,11 @@ def token_identity_phase(torch) -> None:
     cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=REDUCED_LAYERS,
                               dtype="float32", linear_impl="fused")
     params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    qparams = quantize_linear_params(params)
+    qcfg = dataclasses.replace(cfg, linear_impl="quantized")
     reqs = _prefix_requests(cfg.vocab_size)
     print(f"token identity: {cfg.name} at full width, {REDUCED_LAYERS} layers, float32; "
-          f"the prefix workload through five engines")
+          f"the prefix workload through nine engines (four with int8 weights)")
     runs = {}
     for label, kw, kernel in (
             ("slot", {}, "paged_decode"),
@@ -1116,39 +1156,300 @@ def token_identity_phase(torch) -> None:
              "paged_decode_blocktable"),
             ("int8 slot", dict(kv_dtype="int8"), "paged_decode_int8"),
             ("int8 prefix", dict(prefix_cache=True, kv_dtype="int8"),
+             "paged_decode_blocktable_int8"),
+            ("int8-weight slot", {}, "paged_decode"),
+            ("int8-weight prefix", dict(prefix_cache=True), "paged_decode_blocktable"),
+            ("int8-weight int8 slot", dict(kv_dtype="int8"), "paged_decode_int8"),
+            ("int8-weight int8 prefix", dict(prefix_cache=True, kv_dtype="int8"),
              "paged_decode_blocktable_int8")):
-        eng = _prefix_engine(params, cfg, dev, **kw)
+        p, c = (qparams, qcfg) if label.startswith("int8-weight") else (params, cfg)
+        eng = _prefix_engine(p, c, dev, **kw)
         done, stats, _ = serve_run(torch, eng, reqs, f"f32 {label}", kernel,
                                    check_invariants=eng.prefix_cache)
-        runs[label] = (done, stats, eng.cfg)
+        runs[label] = (done, stats, eng.cfg, p)
         del eng
     preempt_checks(runs["prefix tight"][0], runs["prefix tight"][1], "f32 prefix tight")
 
-    def gap(ref_cfg, r, agreed):
+    def gap(ref_cfg, ref_params, r, agreed):
         ctx = torch.as_tensor(np.concatenate([r.tokens, np.asarray(agreed, np.int32)])[None],
                               device=dev)
         with torch.no_grad():
-            logits, _ = make_prefill_step(ref_cfg, ctx.shape[1])(params, {"tokens": ctx})
+            logits, _ = make_prefill_step(ref_cfg, ctx.shape[1])(ref_params, {"tokens": ctx})
         top = logits[0, :cfg.vocab_size].float().topk(2).values
         return ((top[0] - top[1]) / top[0].abs()).item()
 
-    for ref, other in (("slot", "prefix"), ("slot", "prefix tight"), ("int8 slot", "int8 prefix")):
-        ref_done, _, ref_cfg = runs[ref]
+    for ref, other in (("slot", "prefix"), ("slot", "prefix tight"), ("int8 slot", "int8 prefix"),
+                       ("int8-weight slot", "int8-weight prefix"),
+                       ("int8-weight int8 slot", "int8-weight int8 prefix")):
+        ref_done, _, ref_cfg, ref_params = runs[ref]
         for r, a, b in zip(reqs, ref_done, runs[other][0]):
             i = _first_divergence(a.tokens, b.tokens)
             if i is None and (b.finish_reason != "length" or len(b.tokens) == len(a.tokens)):
                 continue
             if i is None:
                 fail(f"{other} vs {ref}: request {r.rid} ended at {len(b.tokens)} tokens")
-            g = gap(ref_cfg, r, a.tokens[:i])
+            g = gap(ref_cfg, ref_params, r, a.tokens[:i])
             print(f"    {other} vs {ref}: request {r.rid} diverges at token {i}; top-2 logit "
                   f"gap there {g:.3e} relative (near-tie bound {TOKEN_GAP_REL})")
             if g > TOKEN_GAP_REL:
                 fail(f"{other} vs {ref}: request {r.rid} diverges at token {i} without a near "
                      f"tie")
         print(f"  f32 {other} vs {ref}: {_agreement(ref_done, runs[other][0])}")
-    del params, runs
+    print(f"  f32 int8-weight slot vs slot (printed, not bounded): "
+          f"{_agreement(runs['slot'][0], runs['int8-weight slot'][0])}")
+    del params, qparams, runs
     torch.cuda.empty_cache()
+
+
+# --- the int8-weight slice: kernels --------------------------------------------------------
+
+def identical(torch, got, want, what: str) -> None:
+    """The int8 GEMM's bound is zero: every element equal to the plain
+    version's (exact integer sums, the same f32 de-scale)."""
+    torch.cuda.synchronize()
+    differ = int((got != want).sum().item())
+    print(f"  {what}: {differ} of {got.numel()} elements differ from the plain version "
+          f"(bound 0)")
+    if differ or not bool(torch.isfinite(got).all().item()):
+        fail(f"{what}: kernel disagrees with its plain version")
+
+
+def _int_mm_ms(torch, a_q, ws):
+    """torch._int_mm (cuBLASLt) on the same int8 operands: the int32 product
+    alone, without the de-scale, so it covers less work than the kernel.
+    Returns (ms, its int32 sums of ws[0]) — the weight row-major as the port
+    holds it, or column-major where cuBLASLt refuses that."""
+    layout = "row-major"
+    try:
+        torch._int_mm(a_q, ws[0][0])
+    except RuntimeError:
+        layout = "column-major"
+        ws = [(b.T.contiguous().T, s) for b, s in ws]
+    ms, _ = time_ms(torch, [lambda w=w: torch._int_mm(a_q, w[0]) for w in ws])
+    return ms, torch._int_mm(a_q, ws[0][0]), layout
+
+
+def int8_kernel_phase(torch) -> dict:
+    """The int8 GEMM and the int8 fused MLP against their plain versions on
+    the card, at the int8-weight serve path's shapes: int8 operands as the
+    wrappers make them (a bf16 activation per row, weights per output
+    channel), bf16 out.  The GEMM at each projection's shape at 64 rows (the
+    decode step and the 64-token prefill buckets alike) and at 4096 rows,
+    bit-identical; the fused SwiGLU hidden at 64 rows within its bound.
+    Returns their rows of the kernels line (without launch counts)."""
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_q, int8_matmul_q
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
+    from repro_torch.kernels.tolerance import int8_fused_mlp_tol
+    from repro_torch.quant import quantize_int8
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def act(rows, k):
+        return quantize_int8(torch.randn((rows, k), generator=gen, device=dev).to(bf))
+
+    def weight(k, n):
+        return quantize_int8(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5, axis=-2)
+
+    def gemm_bytes(m, k, n):   # int8 operands, f32 scales, bf16 out
+        return m * k + k * n + 4.0 * (m + n) + 2.0 * m * n
+
+    rows = {}
+    print("int8 kernels (int8 operands, bf16 out, CUDA events, weights rotated past L2):")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, ((k, n), per_step) in MATMUL_SHAPES.items():
+        a_q, a_s = act(ROWS, k)
+        ws = copies(torch, lambda: weight(k, n), k * n)
+        got = int8_matmul_q(a_q, a_s, *ws[0], bf)
+        identical(torch, got, int8_matmul_ref(a_q, a_s, *ws[0], bf),
+                  f"int8_matmul {ROWS}x{k}x{n} ({name})")
+        ms, host = time_ms(torch, [lambda w=w: int8_matmul_q(a_q, a_s, *w, bf) for w in ws])
+        plain, _ = time_ms(torch, [lambda w=w: int8_matmul_ref(a_q, a_s, *w, bf) for w in ws])
+        lib, sums, layout = _int_mm_ms(torch, a_q, ws)
+        same = bool(torch.equal((sums.float() * a_s * ws[0][1]).to(bf), got))
+        bnd, by = bound(2.0 * ROWS * k * n, gemm_bytes(ROWS, k, n), PEAK_INT8_OPS)
+        print(f"    {ms:.4f} ms (plain {plain:.4f}, torch._int_mm {lib:.4f} [int32 product only, "
+              f"{layout} weight; its sums de-scaled {'equal' if same else 'DIFFER from'} the "
+              f"kernel's], bound {bnd:.4f} by {by}); {per_step} launches per decode step; host "
+              f"{host:.1f} us per call")
+        if not same:
+            fail(f"int8_matmul ({name}): cuBLASLt's int32 sums differ from the kernel's")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bnd)):
+            tot[key] += val
+        del ws
+    rows["int8_matmul"] = dict(
+        name="int8_matmul", route="cuda", source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/quantized/kernel.py:52", max_abs_err=0.0, ms=tot["ms"],
+        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by="bytes",
+        library_ms=tot["library_ms"])
+    print(f"  int8_matmul, one call at each shape: {tot['ms']:.4f} ms (bound "
+          f"{tot['bound_ms']:.4f}, torch._int_mm {tot['library_ms']:.4f} for less work)")
+
+    # 4096 rows (the prompt of a long prefill): bit-identical, timed once
+    for name, ((k, n), _) in MATMUL_SHAPES.items():
+        a_q, a_s = act(TOKENS, k)
+        b_q, b_s = weight(k, n)
+        got = int8_matmul_q(a_q, a_s, b_q, b_s, bf)
+        identical(torch, got, int8_matmul_ref(a_q, a_s, b_q, b_s, bf),
+                  f"int8_matmul {TOKENS}x{k}x{n} ({name})")
+        del got
+        ms, _ = time_ms(torch, [lambda: int8_matmul_q(a_q, a_s, b_q, b_s, bf)], TRAIN_ITERS)
+        bnd, by = bound(2.0 * TOKENS * k * n, gemm_bytes(TOKENS, k, n), PEAK_INT8_OPS)
+        print(f"    {ms:.4f} ms ({2.0 * TOKENS * k * n / ms / 1e9:.1f} TOP/s; bound {bnd:.4f} "
+              f"by {by})")
+    torch.cuda.empty_cache()
+
+    # int8 fused SwiGLU hidden: x (64, 2048) against the (2048, 8192) pair
+    h, f = 2048, 8192
+    x_q, x_s = act(ROWS, h)
+    ws = copies(torch, lambda: (*weight(h, f), *weight(h, f)), 2 * h * f)
+    want = int8_fused_mlp_ref(x_q, x_s, *ws[0], out_dtype=bf)
+    err = compare(torch, int8_fused_mlp_q(x_q, x_s, *ws[0], out_dtype=bf), want,
+                  int8_fused_mlp_tol(x_q, x_s, *ws[0], "swiglu", want),
+                  f"int8_fused_mlp swiglu {ROWS}x{h}x{f}")
+    ms, host = time_ms(torch, [lambda w=w: int8_fused_mlp_q(x_q, x_s, *w, out_dtype=bf)
+                               for w in ws])
+    plain, _ = time_ms(torch, [lambda w=w: int8_fused_mlp_ref(x_q, x_s, *w, out_dtype=bf)
+                               for w in ws])
+    bnd, by = bound(2.0 * 2 * ROWS * h * f, ROWS * h + 2.0 * h * f + 4.0 * (ROWS + 2 * f)
+                    + 2.0 * ROWS * f, PEAK_INT8_OPS)
+    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}); 24 launches per "
+          f"decode step; host {host:.1f} us per call")
+    rows["int8_fused_mlp"] = dict(
+        name="int8_fused_mlp", route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_fused_mlp.cu",
+        replaces="src/repro/kernels/quantized/kernel.py:121", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+    del ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- the int8-weight slice: serving ---------------------------------------------------------
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _worst_column(got, want) -> float:
+    """The largest relative error of one vocabulary column (one output
+    channel of lm_head) over every row and position."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    return ((g - w).norm(dim=0) / w.norm(dim=0).clamp_min(1e-30)).max().item()
+
+
+def _plain_int8():
+    """Run the int8 kernels' plain versions on CUDA tensors for the duration
+    (the wrappers' kernel entries replaced by the plain functions)."""
+    from repro_torch.kernels.quantized import ops
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
+    stack = contextlib.ExitStack()
+    stack.enter_context(_patched(ops, "_int8_matmul_cuda", lambda real: (
+        lambda *args: int8_matmul_ref(*args))))
+    stack.enter_context(_patched(ops, "_int8_fused_cuda", lambda real: (
+        lambda *args: int8_fused_mlp_ref(*args[:6], mlp_type=args[6], out_dtype=args[7]))))
+    return stack
+
+
+def _param_bytes(tree) -> int:
+    """Bytes of a param tree; a QuantizedTensor counts its payload and scales."""
+    leaves = [x for _, t in _paths(tree)
+              for x in ((t.q, t.scale) if isinstance(t, tuple) else (t,))]
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def quantized_serve_phase(torch) -> dict:
+    """internlm2-1.8b at full width and depth, bf16 activations, every GEMM
+    weight prequantized to int8 (`quantize_linear_params`), through the
+    int8 kernels: the serve phase's 16-request burst on the slot engine
+    (paged decode), launch counts per pass, where the time goes; prefill
+    logits against the plain path on the same int8 weights and against the
+    bf16 weights, with a planted fault; then the prefix engine over an int8
+    KV pool on the prefix workload.  Returns the slot run's launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.models.linear import quantize_linear_params
+    from repro_torch.quant import QuantizedTensor
+    from repro_torch.serving.engine import Engine, synthetic_requests
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), linear_impl="fused")
+    qcfg = dataclasses.replace(cfg, linear_impl="quantized")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    t0 = time.perf_counter()
+    qparams = quantize_linear_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    nbytes = {n: _param_bytes(p) for n, p in (("bf16", params), ("int8", qparams))}
+    print(f"quantized serve: {qcfg.name} L={qcfg.num_layers}, bf16 activations, GEMM weights "
+          f"int8 per output channel ({quant_s:.2f} s to quantize): weights "
+          f"{nbytes['int8'] / 1e9:.3f} GB against {nbytes['bf16'] / 1e9:.3f} GB in bf16 (the bf16 embedding "
+          f"{params['embed'].numel() * 2 / 1e9:.3f} GB stays); card {nvidia_smi()}")
+
+    eng = Engine(qparams, qcfg, max_batch=8, max_prompt=64, max_new=32, use_paged_kernel=True,
+                 hw=H100_SXM, device=dev)
+    step_s = eng.calibrate_step_s()
+    print(f"  calibrated decode step: {step_s * 1e3:.2f} ms; pool {_pool_bytes(eng) / 2**30:.3f} "
+          f"GiB bf16")
+    reqs = synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64, min_new=8,
+                              max_new=32, vocab=cfg.vocab_size, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    _, stats, counts = serve_run(torch, eng, reqs, "int8-weight slot engine", "paged_decode")
+    profile_phase(torch, eng, reqs, stats.wall_s)
+    del eng
+    torch.cuda.empty_cache()
+
+    # prefill logits: the kernel path against the plain path on the same int8
+    # weights, and the int8 weights against the bf16 weights
+    prompts = torch.as_tensor(synthetic_tokens(0, 0, 4, 64, cfg.vocab_size), device=dev).long()
+    V = cfg.vocab_size
+    with torch.no_grad():
+        lk = apply_lm(qparams, prompts, qcfg)[0][..., :V]
+        with _plain_int8():
+            lp = apply_lm(qparams, prompts, qcfg)[0][..., :V]
+        lb = apply_lm(params, prompts, cfg)[0][..., :V]
+        head = qparams["lm_head"]
+        scale = head.scale.clone()
+        scale[..., FAULT_CHANNEL] *= 2.0
+        lf = apply_lm({**qparams, "lm_head": QuantizedTensor(head.q, scale, head.axis)},
+                      prompts, qcfg)[0][..., :V]
+    if not all(bool(torch.isfinite(t).all().item()) for t in (lk, lp, lb, lf)):
+        fail("quantized prefill logits not finite")
+    rel = _rel(lk, lp)
+    print(f"  prefill logits (4 x 64 tokens), int8 kernels vs their plain versions on the same "
+          f"weights: rel err {rel:.3e} (bound {LOGITS_REL_BOUND})")
+    if rel > LOGITS_REL_BOUND:
+        fail(f"quantized prefill logits differ from the plain path by {rel:.3e}")
+    readings = [("sound", lk), (f"fault: lm_head channel {FAULT_CHANNEL}'s scale x2", lf)]
+    print(f"  int8 weights vs bf16 weights (bounds: logits rel {QUANT_LOGITS_REL_BOUND}, worst "
+          f"vocabulary column {QUANT_COLUMN_REL_BOUND}):")
+    for what, got in readings:
+        agree = (got.argmax(-1) == lb.argmax(-1)).float().mean().item()
+        print(f"    {what}: logits rel {_rel(got, lb):.3e}, worst column "
+              f"{_worst_column(got, lb):.3e}, greedy agreement {agree:.3f}")
+    if _rel(lk, lb) > QUANT_LOGITS_REL_BOUND or \
+            _worst_column(lk, lb) > QUANT_COLUMN_REL_BOUND:
+        fail("int8-weight logits too far from the bf16-weight logits")
+    if _worst_column(lf, lb) <= QUANT_COLUMN_REL_BOUND:
+        fail("the int8-vs-bf16 bounds do not see the planted scale fault")
+    del lk, lp, lb, lf, params
+    torch.cuda.empty_cache()
+
+    eng8 = _prefix_engine(qparams, qcfg, dev, prefix_cache=True, kv_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    serve_run(torch, eng8, _prefix_requests(cfg.vocab_size),
+              "int8-weight prefix engine over an int8 KV pool", "paged_decode_blocktable_int8",
+              check_invariants=True)
+    print(f"    pool {_pool_bytes(eng8) / 2**30:.3f} GiB int8")
+    del eng8, qparams
+    torch.cuda.empty_cache()
+    return counts
 
 
 # --- train phase ------------------------------------------------------------------------
@@ -1416,16 +1717,29 @@ def _paths(tree, prefix=""):
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     torch = setup()
     device_phase(torch)
-    build_phase()
-    rows = kernel_phase(torch)
-    rows.update(prefix_kernel_phase(torch))
-    rows.update(train_kernel_phase(torch))
-    counts = serve_phase(torch)
-    prefix = prefix_serve_phase(torch)
-    token_identity_phase(torch)
-    train = train_phase(torch)
+    spent = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        spent[name] = time.perf_counter() - t
+        return out
+
+    phase("build", build_phase)
+    rows = phase("kernels", kernel_phase, torch)
+    rows.update(phase("prefix kernels", prefix_kernel_phase, torch))
+    rows.update(phase("train kernels", train_kernel_phase, torch))
+    rows.update(phase("int8 kernels", int8_kernel_phase, torch))
+    counts = phase("serve", serve_phase, torch)
+    prefix = phase("prefix serve", prefix_serve_phase, torch)
+    quantized = phase("quantized serve", quantized_serve_phase, torch)
+    phase("token identity", token_identity_phase, torch)
+    train = phase("train", train_phase, torch)
+    print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "
+          f"{time.perf_counter() - t0:.1f} s")
     # launches over the main path's runs: the serve run's (the serve-shape
     # rows), then the 4 training steps' (the train-shape rows).  Each row
     # counts the launches of the shapes it checked and timed: matmul_train is
@@ -1434,8 +1748,11 @@ def main() -> None:
     # dWg / dWu ("tn") tile GEMMs ride in its row, as its ms does.
     # The prefix slice's rows count their runs in the prefix serve phase: the
     # cold block-table run, the int8 slot and the int8 prefix engine's runs.
+    # The int8-weight slice's rows count the int8-weight slot engine's run.
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
+                "int8_matmul": quantized["int8_matmul"],
+                "int8_fused_mlp": quantized["int8_fused_mlp"],
                 "matmul_train": train["matmul_nn"],
                 "fused_mlp_hidden_train": train["fused_mlp_hidden"],
                 "flash_attention": train["flash_attention"],
@@ -1450,7 +1767,7 @@ def main() -> None:
     order = ("matmul", "fused_mlp_hidden", "paged_decode", "paged_decode_blocktable",
              "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
-             "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad")
+             "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,12 +36,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_k(m: int, n: int, k: int, num_sms: int) -> int:
-    """k range per grid z-slice (a multiple of BLOCK_K); k itself = no split."""
+def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K) -> int:
+    """k range per grid z-slice (a multiple of the kernel's k step
+    `block_k`); k itself = no split."""
     tiles = _cdiv(m, BLOCK_M) * _cdiv(n, BLOCK_N)
-    max_splits = max(1, k // (MIN_SPLIT_STEPS * BLOCK_K))
+    max_splits = max(1, k // (MIN_SPLIT_STEPS * block_k))
     splits = 1 if tiles >= num_sms else min(max_splits, _cdiv(WAVES * num_sms, tiles))
-    return _cdiv(_cdiv(k, splits), BLOCK_K) * BLOCK_K
+    return _cdiv(_cdiv(k, splits), block_k) * block_k
 
 
 def transposed(what: str, t: torch.Tensor) -> bool:

@@ -29,6 +29,7 @@ import torch
 
 from .flash_attention.ref import _pool_f32, _scores, attention_di, gather_block_kv
 from .fused_mlp.ref import ACTS, DACTS, is_gated
+from .quantized.ref import int8_product
 
 U = 2.0 ** -24
 HALF_ULP = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: U}
@@ -65,22 +66,44 @@ def matmul_tol(a: torch.Tensor, b: torch.Tensor, want: torch.Tensor, a1=None,
                                         + a1.float().abs() @ b1.float().abs()))
 
 
-def fused_mlp_hidden_tol(x, w_gate, w_up, mlp_type: str, want: torch.Tensor) -> torch.Tensor:
-    u = x.float() @ w_up.float()
-    eu = _sum_err(x, w_up)
-    act = ACTS[mlp_type]
+def _mlp_epilogue_bound(mlp_type: str, g, eg, u, eu, want: torch.Tensor) -> torch.Tensor:
+    """The fused MLP's output bound when its pre-activations g (gated only)
+    and u may be off by eg and eu: carried through the activation's slope,
+    plus the epilogue's own f32 roundings (exp or tanh, a divide, products)."""
     if is_gated(mlp_type):
-        g = x.float() @ w_gate.float()
-        eg = _sum_err(x, w_gate)
         # |silu(g')u' - silu(g)u| <= slope*eg*(|u| + eu) + (|silu(g)| + slope*eg)*eu
-        s = MAX_SLOPE[mlp_type]
-        e = s * eg * (u.abs() + 2.0 * eu) + act(g).abs() * eu
+        e = MAX_SLOPE[mlp_type] * eg * (u.abs() + 2.0 * eu) + ACTS[mlp_type](g).abs() * eu
     elif mlp_type == "relu2":
         e = 2.0 * (u.abs() + eu) * eu
     else:
         e = MAX_SLOPE[mlp_type] * eu
-    # the epilogue's own f32 roundings (exp or tanh, a divide, products)
     return _bound(want, e + 16.0 * U * want.float().abs())
+
+
+def fused_mlp_hidden_tol(x, w_gate, w_up, mlp_type: str, want: torch.Tensor) -> torch.Tensor:
+    gated = is_gated(mlp_type)
+    g = x.float() @ w_gate.float() if gated else None
+    eg = _sum_err(x, w_gate) if gated else None
+    return _mlp_epilogue_bound(mlp_type, g, eg, x.float() @ w_up.float(), _sum_err(x, w_up),
+                               want)
+
+
+def int8_matmul_tol(want: torch.Tensor) -> torch.Tensor:
+    """Zero: the kernel's int32 sums are exact, as the plain version's
+    float64 ones; both round the sum to f32 to nearest, take the same two
+    f32 products and round once to the output type."""
+    return torch.zeros_like(want, dtype=torch.float32)
+
+
+def int8_fused_mlp_tol(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type: str,
+                       want: torch.Tensor) -> torch.Tensor:
+    """The epilogue only: gate and up are exact sums, each de-scaled by the
+    same f32 roundings on both sides (held here at 3 u relative, a rounding
+    apiece), carried through the activation; there is no k-term sum error."""
+    up = int8_product(x_q, wu_q) * x_scale * wu_scale
+    gate = int8_product(x_q, wg_q) * x_scale * wg_scale if is_gated(mlp_type) else None
+    return _mlp_epilogue_bound(mlp_type, gate, None if gate is None else 3.0 * U * gate.abs(),
+                               up, 3.0 * U * up.abs(), want)
 
 
 def paged_decode_tol(q, k_pool, v_pool, slot_idx, lengths, want: torch.Tensor,

@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..quant import QuantizedTensor
 from .attention import apply_attention, init_attention
 from .layers import norm_apply, norm_init
 from .mlp import apply_mlp, init_mlp
@@ -67,9 +68,12 @@ def init_segment(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str, n:
 
 
 def tree_index(tree, i: int):
-    """The views t[i] of every leaf of a nested dict."""
+    """The views t[i] of every leaf of a nested dict (a `QuantizedTensor`
+    is one leaf: its payload and scales are indexed together)."""
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(tree.q[i], tree.scale[i], tree.axis)
     return tree[i]
 
 
@@ -81,6 +85,9 @@ def tree_unbind(tree, n: int):
     if isinstance(tree, dict):
         per_key = {k: tree_unbind(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, QuantizedTensor):
+        return [QuantizedTensor(q, s, tree.axis)
+                for q, s in zip(tree.q.unbind(0), tree.scale.unbind(0))]
     return tree.unbind(0)
 
 

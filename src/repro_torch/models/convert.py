@@ -7,6 +7,11 @@ axis), GEMM weights and the embedding cast ONCE to the compute dtype, norm
 gains kept in float32.  The JAX package casts its float32 masters at every
 call; float32 -> bfloat16 round-to-nearest-even gives the same values
 either way, and gigabytes of weights are not recast every step.
+
+A GEMM weight may also arrive quantized, as JAX's `quantize_linear_params`
+leaves it: a `repro.quant.QuantizedTensor` of numpy arrays (q int8, scale
+f32, axis), recognised by its fields.  It becomes the port's
+`QuantizedTensor`, payload and scales unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..quant import QuantizedTensor
+from .linear import QUANT_WEIGHT_KEYS
 from .lm import init_lm
 
 
@@ -26,6 +33,32 @@ def _walk(tree, prefix=""):
             yield from _walk(v, f"{prefix}{k}/")
     else:
         yield prefix[:-1], tree
+
+
+def _tensor(arr) -> torch.Tensor:
+    with warnings.catch_warnings():
+        # JAX hands out read-only buffers; the copies made from them never write them
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(np.asarray(arr))
+
+
+def _is_quantized(leaf) -> bool:
+    return isinstance(leaf, tuple) and all(hasattr(leaf, f) for f in ("q", "scale", "axis"))
+
+
+def _quantized(path: str, leaf, want, device) -> QuantizedTensor:
+    """A JAX QuantizedTensor leaf where the port holds the float weight `want`."""
+    if path.rsplit("/", 1)[-1] not in QUANT_WEIGHT_KEYS:
+        raise ValueError(f"params_from_jax: {path} is quantized but is no GEMM weight")
+    q, scale, axis = _tensor(leaf.q), _tensor(leaf.scale), int(np.asarray(leaf.axis))
+    scale_shape = (*want.shape[:-2], 1, want.shape[-1])
+    if q.dtype != torch.int8 or tuple(q.shape) != tuple(want.shape) or axis != -2 \
+            or tuple(scale.shape) != scale_shape:
+        raise ValueError(f"params_from_jax: {path} is quantized as {q.dtype} {tuple(q.shape)} "
+                         f"with scales {tuple(scale.shape)} over axis {axis}; the port expects "
+                         f"int8 {tuple(want.shape)} with scales {scale_shape} over axis -2")
+    return QuantizedTensor(q.to(device, copy=True),
+                           scale.to(device=device, dtype=torch.float32, copy=True), axis)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device,
@@ -38,18 +71,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device,
     for path, want in _walk(template):
         if path not in leaves:
             raise KeyError(f"params_from_jax: missing leaf {path!r}")
-        arr = np.asarray(leaves.pop(path))
-        if tuple(arr.shape) != tuple(want.shape):
-            raise ValueError(f"params_from_jax: {path} has shape {arr.shape}, "
-                             f"the port expects {tuple(want.shape)}")
-        with warnings.catch_warnings():
-            # JAX hands out read-only buffers; the copy below never writes them
-            warnings.filterwarnings("ignore", message=".*not writable.*")
-            t = torch.from_numpy(arr)
+        leaf = leaves.pop(path)
         node = out
         *parents, name = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
+        if _is_quantized(leaf):
+            node[name] = _quantized(path, leaf, want, device)
+            continue
+        t = _tensor(leaf)
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"params_from_jax: {path} has shape {tuple(t.shape)}, "
+                             f"the port expects {tuple(want.shape)}")
         # always a copy: a float32 leaf on the CPU would otherwise share the
         # JAX buffer, and the optimizer updates params in place
         node[name] = t.to(device=device, dtype=want.dtype, copy=True)

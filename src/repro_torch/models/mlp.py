@@ -7,7 +7,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import activation, dense_init
-from .linear import fused_mlp, linear
+from .linear import fused_mlp, linear, quantized_mlp
 
 
 def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: int | None = None,
@@ -34,6 +34,9 @@ def apply_mlp(p, x, cfg: ModelConfig):
         # gate+up GEMM pair and the silu*mul combine run as ONE kernel
         # (kernels/fused_mlp); the down GEMM runs the tile GEMM
         return fused_mlp(x, p, cfg)
+    if impl == "quantized":
+        # int8-weight fused hidden + quantized down projection
+        return quantized_mlp(x, p, cfg)
     if cfg.mlp_type == "swiglu":
         g = torch.nn.functional.silu(linear(x, p["w_gate"], impl=impl))
         u = linear(x, p["w_up"], impl=impl)

@@ -24,7 +24,11 @@ cache_index = start, into the row's gathered contiguous view, which is then
 scattered back; decode writes each row's token through its table and reads
 K/V through the block-table kernel (`attn_impl="paged"`) or a gather.
 `kv_dtype="int8"` stores either pool as int8 with f32 scales per (token,
-kv head).
+kv head).  `cfg.linear_impl="quantized"` serves int8 weights through the
+int8 GEMM and fused-MLP kernels, from float params (each weight quantized
+per call, as the JAX engine does under jit) or from
+`models.linear.quantize_linear_params` output (quantized once); the
+engine reads only the bf16 embedding's device and casts no param.
 
 Failure semantics follow the JAX engine: `run()` never raises for a
 per-request problem.  Invalid requests become `rejected` completions before

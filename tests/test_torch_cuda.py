@@ -236,7 +236,9 @@ def test_prefix_engine_on_the_card_matches_the_cpu(cuda):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    if isinstance(tree, tuple):   # a QuantizedTensor: payload, scales, axis
+        return type(tree)(*(_to(v, device) if torch.is_tensor(v) else v for v in tree))
+    return tree.detach().to(device)
 
 
 def test_tied_head_through_the_kernels(cuda):
@@ -431,3 +433,133 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     for a, b in zip(gk, gp):
         assert _rel(a, b) <= 1e-4
     np.testing.assert_allclose(tk, tp, rtol=1e-4)
+
+
+# --- the int8-weight slice ------------------------------------------------------------
+
+def _int8_operands(rng, m, k, n, device, gated=False):
+    """Quantized operands as the wrappers make them: rows of x per row,
+    weights per output channel."""
+    from repro_torch.quant import quantize_int8
+    x_q, x_s = quantize_int8(_rand(rng, (m, k), torch.float32, device))
+    ws = [quantize_int8(_rand(rng, (k, n), torch.float32, device, k ** -0.5), axis=-2)
+          for _ in range(2 if gated else 1)]
+    return x_q, x_s, ws
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(64, 2048, 1024), (64, 2048, 2048), (64, 8192, 2048),
+                                   (37, 70, 45), (1, 512, 200), (130, 4096, 96),
+                                   (64, 64, 92544), (4096, 2048, 1024), (3, 100, 17)])
+def test_int8_matmul(cuda, dtype, m, k, n):
+    """Bit-identical to the plain version (exact integer sums, the same f32
+    de-scale) at misaligned shapes, with split-K (int32 partials: the 64-row
+    decode shapes, 130 x 4096 x 96, 1 x 512 x 200) and without, with 16-byte
+    loads and without (k 70, k 100)."""
+    from repro_torch.kernels.quantized.ops import int8_matmul, int8_matmul_q
+    from repro_torch.kernels.quantized.ref import int8_matmul_ref
+    rng = np.random.default_rng(11)
+    a_q, a_s, [(b_q, b_s)] = _int8_operands(rng, m, k, n, cuda)
+    before = int8_matmul.launches
+    got = int8_matmul_q(a_q, a_s, b_q, b_s, dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert torch.equal(got, int8_matmul_ref(a_q, a_s, b_q, b_s, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
+@pytest.mark.parametrize("m,h,f", [(64, 2048, 512), (19, 72, 200), (130, 128, 96)])
+def test_int8_fused_mlp(cuda, dtype, mlp_type, m, h, f):
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_fused_mlp_q
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref
+    rng = np.random.default_rng(12)
+    x_q, x_s, [(g_q, g_s), (u_q, u_s)] = _int8_operands(rng, m, h, f, cuda, gated=True)
+    before = int8_fused_mlp_hidden.launches
+    got = int8_fused_mlp_q(x_q, x_s, g_q, g_s, u_q, u_s, mlp_type=mlp_type, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert int8_fused_mlp_hidden.launches == before + 1
+    want = int8_fused_mlp_ref(x_q, x_s, g_q, g_s, u_q, u_s, mlp_type=mlp_type, out_dtype=dtype)
+    _close(got, want, tolerance.int8_fused_mlp_tol(x_q, x_s, g_q, g_s, u_q, u_s, mlp_type, want))
+
+
+def test_int8_engine_on_the_card_matches_the_cpu(cuda):
+    """The smoke model in f32 with prequantized weights through the slot
+    engine on the card (int8 kernels, paged decode) and on the host (plain
+    versions): the same greedy tokens, and the launch counts of the path:
+    5L + 1 int8 GEMMs and L int8 fused MLPs per pass, no bf16-path GEMM."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden as fused
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
+    from repro_torch.models.linear import quantize_linear_params
+    from repro_torch.serving.engine import BucketPolicy, Engine, synthetic_requests
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), dtype="float32",
+                              linear_impl="quantized")
+    params = quantize_linear_params(init_lm(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    reqs = synthetic_requests(8, pattern="burst", min_prompt=4, max_prompt=30, min_new=3,
+                              max_new=8, vocab=cfg.vocab_size, seed=31)
+    policy = BucketPolicy(num_slots=4, prompt_buckets=(16, 32), seq_max=64)
+    runs = []
+    for dev in ("cpu", cuda):
+        eng = Engine(_to(params, dev), cfg, policy=policy, use_paged_kernel=True, device=dev)
+        counts = (int8_matmul.launches, int8_fused_mlp_hidden.launches, matmul.launches,
+                  fused.launches)
+        done, stats = eng.run(reqs)
+        counts = [now - then for now, then in zip(
+            (int8_matmul.launches, int8_fused_mlp_hidden.launches, matmul.launches,
+             fused.launches), counts)]
+        runs.append(([c.tokens for c in done], counts, stats.prefills + stats.decode_steps))
+    assert runs[0][0] == runs[1][0]
+    L, passes = cfg.num_layers, runs[1][2]
+    assert runs[0][1] == [0, 0, 0, 0]
+    assert runs[1][1] == [passes * (5 * L + 1), passes * L, 0, 0]
+
+
+def test_int8_straight_through_grads_on_the_card_match_the_cpu(cuda):
+    """internlm2-smoke in f32 with linear_impl="quantized" and float weights
+    (quantized per call): the step-0 loss and every gradient on the card
+    (int8 kernels forward, tile GEMMs backward) against the host's plain
+    versions on the same params and batch.  The int8 GEMMs are exact on both
+    sides; the f32 ops around them sum in another order, which can move an
+    activation across an int8 rounding step (1e-3 of a leaf's norm)."""
+    from repro_torch.kernels.quantized.ops import int8_matmul
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), linear_impl="quantized")
+    shape = ShapeConfig("t", 40, 2, "train")
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu", dtype=torch.float32)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        leaves = list(tree_leaves(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, 0, 0).items()}
+        before = int8_matmul.launches
+        loss, _ = lm_loss(p, batch, cfg)
+        runs.append((loss.item(), [g.cpu() for g in torch.autograd.grad(loss, leaves)],
+                     int8_matmul.launches - before))
+    (lc, gc, nc), (lk, gk, nk) = runs
+    assert nc == 0 and nk == 5 * cfg.num_layers + 1
+    assert abs(lk - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(gk, gc):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 1e-3
+
+
+def test_int8_wrappers_raise_on_bad_operands(cuda):
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_q, int8_matmul_q
+    rng = np.random.default_rng(13)
+    a_q, a_s, [(b_q, b_s)] = _int8_operands(rng, 8, 64, 32, cuda)
+    with pytest.raises(TypeError):   # a float payload
+        int8_matmul_q(a_q.float(), a_s, b_q, b_s)
+    with pytest.raises(TypeError):   # bf16 scales
+        int8_matmul_q(a_q, a_s.bfloat16(), b_q, b_s)
+    with pytest.raises(ValueError):  # per-tensor scales where per-channel are due
+        int8_matmul_q(a_q, a_s, b_q, b_s[:, :1])
+    with pytest.raises(ValueError):  # one scale per row of a, not per column
+        int8_matmul_q(a_q, a_s.T.contiguous(), b_q, b_s)
+    with pytest.raises(ValueError):  # a transposed weight view
+        int8_matmul_q(a_q, a_s, b_q.T.contiguous().T, b_s)
+    with pytest.raises(ValueError):  # operands on two devices
+        int8_matmul_q(a_q, a_s, b_q.cpu(), b_s)
+    with pytest.raises(TypeError):   # an output type the kernels do not write
+        int8_matmul_q(a_q, a_s, b_q, b_s, torch.float16)
+    with pytest.raises(ValueError):  # gate and up of different widths
+        int8_fused_mlp_q(a_q, a_s, b_q[:, :16].contiguous(), b_s[:, :16].contiguous(), b_q, b_s)

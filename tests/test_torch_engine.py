@@ -128,8 +128,8 @@ def test_engine_refuses_to_run_without_a_card(smoke, monkeypatch):
 
 
 def test_engine_unported_switches_raise(smoke):
-    """The switches still unported: fault injection, grow_batch (tuning) and
-    int8 weights (the low-precision GEMM slice)."""
+    """The switches still unported: fault injection and grow_batch (tuning).
+    int8 weights (linear_impl="quantized") are ported and serve."""
     _, _, cfg, params = smoke
     eng = Engine(params, cfg, prefix_cache=True, kv_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="observability-and-faults"):
@@ -137,8 +137,9 @@ def test_engine_unported_switches_raise(smoke):
     with pytest.raises(NotImplementedError, match="tuning"):
         Engine(params, cfg, grow_batch=True, device="cpu")
     quantized = Engine(params, dataclasses.replace(cfg, linear_impl="quantized"), device="cpu")
-    with pytest.raises(NotImplementedError, match="low-precision"):
-        quantized.run([Request(rid=0, tokens=np.arange(4, dtype=np.int32), max_new_tokens=1)])
+    done, _ = quantized.run([Request(rid=0, tokens=np.arange(4, dtype=np.int32),
+                                     max_new_tokens=1)])
+    assert done[0].finish_reason == "length" and len(done[0].tokens) == 1
     with pytest.raises(ValueError, match="unknown kv_dtype"):
         Engine(params, cfg, kv_dtype="fp4", device="cpu")
     with pytest.raises(ValueError, match="params live on"):

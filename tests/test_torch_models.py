@@ -368,8 +368,9 @@ def test_init_lm_scales_match_jax(smoke):
 def test_unported_paths_raise(smoke):
     _, _, cfg, params = smoke
     x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="low-precision"):
-        linear(x, torch.zeros(cfg.d_model, 4), impl="quantized")
+    # the int8 path is ported: a zero weight quantizes to zeros (scale EPS / 127)
+    assert torch.equal(linear(x, torch.zeros(cfg.d_model, 4), impl="quantized"),
+                       torch.zeros(1, 2, 4))
     with pytest.raises(ValueError, match="unknown linear_impl"):
         linear(x, torch.zeros(cfg.d_model, 4), impl="xla")
     p = tree_index(params["seg0"]["attn"], 0)
