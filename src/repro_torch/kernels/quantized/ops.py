@@ -15,12 +15,9 @@ Quantization policy, as the JAX package's `kernels/quantized/ops.py`:
 dispatch on the device: a CPU tensor runs the plain version (`ref.py`), a
 CUDA tensor launches the kernel — or raises.  `int8_matmul.launches` and
 `int8_fused_mlp_hidden.launches` count kernel launches (the split-K reduce
-rides with its GEMM).  `tuned=` and `hw_name=` are accepted and ignored
-until the tuning slice: the kernels' tiles are fixed, as the tile GEMM's.
+rides with its GEMM).  The kernels' tiles are fixed, as the tile GEMM's.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -33,11 +30,6 @@ from ..matmul.ops import matmul, split_k
 from .ref import int8_fused_mlp_ref, int8_matmul_ref
 
 BLOCK_K = 64             # csrc/int8_tile.cuh I8_BK: the k step, and the split's unit
-
-
-def int8_fused_mlp_op_name(mlp_type: str) -> str:
-    """Tuning-cache op key of the int8 fused-MLP hidden kernel."""
-    return f"int8_fused_mlp_{mlp_type}"
 
 
 def _as_quantized(w, name: str = "weight") -> QuantizedTensor:
@@ -57,11 +49,9 @@ def _flat(x):
 
 # --- int8 GEMM ----------------------------------------------------------------------
 
-def int8_matmul(a: torch.Tensor, w, *, tuned: bool = False, hw_name: Optional[str] = None,
-                out_dtype=None) -> torch.Tensor:
+def int8_matmul(a: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     """C = dequant(quant(A) @ quant(W)).  A: (..., k) float; W: (k, n) float
     or a `QuantizedTensor`.  Output in `out_dtype` (default A's)."""
-    del tuned, hw_name
     lead = a.shape[:-1]
     wq = _as_quantized(w)
     a_q, a_scale = quantize_int8(_flat(a), axis=-1)
@@ -134,12 +124,10 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype):
 # --- int8 fused MLP hidden ----------------------------------------------------------
 
 def int8_fused_mlp_hidden(x: torch.Tensor, w_gate, w_up, *, mlp_type: str = "swiglu",
-                          tuned: bool = False, hw_name: Optional[str] = None,
                           out_dtype=None) -> torch.Tensor:
     """int8-weight fused-MLP hidden.  x: (..., h) float; w_gate / w_up:
     (h, f) float or `QuantizedTensor` (w_gate ignored for the ungated
     types).  Returns (..., f) in `out_dtype` (default x's)."""
-    del tuned, hw_name
     _check_type(mlp_type)
     lead = x.shape[:-1]
     wu = _as_quantized(w_up, "w_up")
@@ -190,9 +178,8 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
 
 # --- emulated fp8 GEMM --------------------------------------------------------------
 
-def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *, fp8_dtype: str = "float8_e4m3fn",
-               tuned: bool = False, hw_name: Optional[str] = None) -> torch.Tensor:
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *,
+               fp8_dtype: str = "float8_e4m3fn") -> torch.Tensor:
     """Round A (..., k) and B (k, n) through fp8 storage (e4m3 or e5m2) and
     contract on the tile GEMM (f32 accumulation, output in A's dtype)."""
-    del tuned, hw_name
     return matmul(fp8_round_trip(a, fp8_dtype), fp8_round_trip(b, fp8_dtype))

@@ -30,6 +30,8 @@ gradient.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 
 from ..kernels.fused_mlp.ops import fused_mlp_hidden
@@ -139,6 +141,8 @@ def fused_mlp(x, p, cfg):
     return linear(hidden, p["w_down"], impl="tuned")
 
 
+_SEGMENT_KEY = re.compile(r"seg\d+")   # a stacked segment: its leaves lead with the layer axis
+
 # Param-leaf names that are (k, n) GEMM weights consumed through `linear()`
 # (JAX's set, one to one).  Embeddings, conv kernels, norm gains and 3-D
 # expert stacks are not here.
@@ -153,22 +157,26 @@ QUANT_WEIGHT_KEYS = frozenset({
 
 def quantize_linear_params(params):
     """Quantize once at load: every floating leaf named in
-    `QUANT_WEIGHT_KEYS` with >= 2 dims becomes an int8 `QuantizedLinear`,
-    per output channel of each slice (axis -2): a stacked (L, k, n) leaf gets
-    (L, 1, n) scales, so layer l's slice is the container JAX quantizes per
-    call from that layer's weight.  (JAX's own `quantize_linear_params`
-    converts 2-D leaves only, which leaves the stacked layers to per-call
-    quantization: the same numbers, paid every call.)  The weights are
-    quantized as they are held: the compute dtype, for serving params.
-    Other leaves pass through."""
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: (quantize_weight(v)
-                        if k in QUANT_WEIGHT_KEYS and torch.is_tensor(v) and v.dim() >= 2
-                        and v.is_floating_point() else walk(v))
-                    for k, v in tree.items()}
-        return tree
-    return walk(params)
+    `QUANT_WEIGHT_KEYS` that is a 2-D GEMM weight once a stacked segment's
+    layer axis is set aside becomes an int8 `QuantizedLinear`, per output
+    channel of each slice (axis -2).  So a (k, n) leaf, or a (L, k, n) leaf
+    under a `seg{i}` subtree, converts — the stacked one with (L, 1, n)
+    scales, so layer l's slice is the container JAX quantizes per call from
+    that layer's weight — while an expert stack ((E, h, f), or (L, E, h, f)
+    stacked) stays float for its non-GEMM consumers.  (JAX's own
+    `quantize_linear_params` converts 2-D leaves only, which leaves the
+    stacked layers to per-call quantization: the same numbers, paid every
+    call.)  The weights are quantized as they are held: the compute dtype,
+    for serving params.  Other leaves pass through."""
+    def walk(tree, gemm_dims):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: (quantize_weight(v)
+                    if k in QUANT_WEIGHT_KEYS and torch.is_tensor(v) and v.dim() == gemm_dims
+                    and v.is_floating_point()
+                    else walk(v, 3 if _SEGMENT_KEY.fullmatch(k) else gemm_dims))
+                for k, v in tree.items()}
+    return walk(params, 2)
 
 
 class _QuantizedHidden(torch.autograd.Function):

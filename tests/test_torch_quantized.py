@@ -40,8 +40,7 @@ from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.matmul.ops import split_k
 from repro_torch.kernels.quantized.ops import (BLOCK_K, fp8_matmul, int8_fused_mlp_hidden,
-                                               int8_fused_mlp_op_name, int8_fused_mlp_q,
-                                               int8_matmul, int8_matmul_q)
+                                               int8_fused_mlp_q, int8_matmul, int8_matmul_q)
 from repro_torch.kernels.quantized.ref import fp8_matmul_ref, int8_matmul_ref
 from repro_torch.models import apply_lm
 from repro_torch.models.blocks import tree_index, tree_unbind
@@ -189,7 +188,6 @@ def test_int8_fused_mlp_matches_jax_kernel(mlp_type, m, h, f):
     ok, err, ratio = tolerance.check(_t(want), got, tol)
     assert ok, (err, ratio)
     assert torch.equal(int8_fused_mlp_q(x_q, x_s, gq, gs, uq, us, mlp_type=mlp_type), got)
-    assert int8_fused_mlp_op_name(mlp_type) == f"int8_fused_mlp_{mlp_type}"
 
 
 @pytest.mark.parametrize("fp8", FP8_DTYPES)
@@ -340,6 +338,28 @@ def test_quantize_linear_params_per_layer_slice(smoke):
     assert isinstance(qp["lm_head"], QuantizedLinear)
     assert qp["embed"] is params["embed"] and qp["seg0"]["norm1"] is not None
     assert torch.equal(qp["seg0"]["norm1"]["scale"], params["seg0"]["norm1"]["scale"])
+
+
+def test_quantize_linear_params_leaves_expert_stacks_float():
+    """A GEMM key converts only where it is a 2-D weight once a segment's
+    layer axis is set aside: (k, n) anywhere, (L, k, n) under `seg{i}`.
+    Expert stacks — (E, h, f) unstacked, (L, E, h, f) stacked, named as
+    JAX's MoE names them — stay float tensors for their non-GEMM consumers."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)
+    params = {"lm_head": r(8, 16),
+              "seg0": {"mlp": {"w_up": r(2, 8, 16), "w_down": r(2, 16, 8)},
+                       "moe": {"w_gate": r(2, 4, 8, 16), "w_up": r(2, 4, 8, 16),
+                               "w_down": r(2, 4, 16, 8)}},
+              "experts": {"w_up": r(4, 8, 16), "wo": r(8, 8)}}
+    qp = quantize_linear_params(params)
+    for leaf in (qp["lm_head"], qp["seg0"]["mlp"]["w_up"], qp["seg0"]["mlp"]["w_down"],
+                 qp["experts"]["wo"]):
+        assert isinstance(leaf, QuantizedLinear)
+    assert qp["seg0"]["mlp"]["w_up"].scale.shape == (2, 1, 16)
+    for name in ("w_gate", "w_up", "w_down"):
+        assert qp["seg0"]["moe"][name] is params["seg0"]["moe"][name]
+    assert qp["experts"]["w_up"] is params["experts"]["w_up"]
 
 
 def test_convert_takes_jax_quantized_leaves(smoke):
