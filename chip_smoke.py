@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      SwiGLU forward and backward, every projection's forward, dgrad and
      wgrad), then the int8-weight slice's (the int8 GEMM at every
      projection's shape at 64 and 4096 rows, bit-identical to its plain
-     version, beside torch._int_mm; the int8 fused SwiGLU hidden);
+     version, beside torch._int_mm; the int8 fused SwiGLU hidden), then the
+     SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape, a
+     ragged chunk and a misaligned one, bf16 and f32);
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -41,11 +43,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pass, no bf16 GEMM), profiled; prefill logits against the plain path
      on the same weights and against the bf16 weights, with a planted scale
      fault the bound must see; the prefix engine over an int8 KV pool;
-  7. token identity: at full width, 4 layers, float32, the greedy tokens of
+  7. ssm serve: mamba2-780m at full width and depth (48 layers, random
+     weights), bf16, linear_impl="fused", served by serve_step: a prefill
+     of 4 x 1024 tokens and 31 greedy decode steps, the launch counts of
+     each (48 SSD kernels and 289 tile GEMMs per prefill, no SSD kernel
+     and 289 GEMMs per decode step); prefill logits against the plain path
+     over all positions and at the worst position; the worst position at
+     f32, which a planted chunk-state fault must break; one decode step
+     after a prefill of 1000 tokens against a prefill of 1001, which a
+     planted fault (zeroed conv tails) must break;
+  8. hybrid serve: zamba2-2.7b at full width, 2 of its 9 superblocks, the
+     same serve run, launch counts and bf16 logits bounds (its shared
+     attention + GELU MLP block through the tile GEMM and the fused MLP
+     kernel);
+  9. token identity: at full width, 4 layers, float32, the greedy tokens of
      the slot and prefix engines (roomy and tight), of the int8-KV slot and
      prefix engines, and of the int8-weight slot and prefix engines over
-     float and int8 KV must be identical pairwise, but at a near tie;
-  8. train: internlm2-1.8b at full width and depth, float32 masters, bf16
+     float and int8 KV must be identical pairwise, but at a near tie; and
+     mamba2-780m's kernel path and plain path, likewise;
+  10. train: internlm2-1.8b at full width and depth, float32 masters, bf16
      compute, linear_impl="fused", attn_impl="flash", AdamW, 4 x 1024
      tokens: the step-0 loss and every gradient leaf (per layer slice) of
      the kernel path against the plain path (jnp, naive) on the same params
@@ -140,6 +156,33 @@ QUANT_PLAIN_REL_BOUND = 1e-6
 # tie of the reference's top-2 logits (relative gap).
 REDUCED_LAYERS = 4
 TOKEN_GAP_REL = 1e-4
+
+# The SSM slice: mamba2-780m (arXiv:2405.21060) served statically at full
+# width and depth, a prefill of 4 x 1024 tokens and 31 greedy decode steps;
+# zamba2-2.7b (arXiv:2411.15242) at full width, its depth cut to 2 of its 9
+# superblocks.
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 1024, 32
+HYBRID_SUPERBLOCKS = 2
+# Prefill logits, kernel path vs plain path (bf16): both round every GEMM
+# output and the SSM's elementwise steps to bf16 after summing in another
+# order, and the kernel rounds C B^T o L to bf16 where the plain version
+# keeps f32.  Over all positions:
+SSM_LOGITS_REL_BOUND = 0.05
+# ... and at the worst single (row, position), the same bound.
+SSM_POSITION_REL_BOUND = 0.05
+# The worst position again at f32 (full width and depth), where the two
+# paths differ by f32 sums in another order (~1e-6): a planted fault in the
+# kernel's chunk state must break this bound.  At random init dt * A
+# decays the state within a few steps, so a wrong chunk state shows only at
+# the first positions of the next chunk, under the norm over all positions
+# — and at bf16 under the paths' rounding differences too (the card read
+# the fault 2.83e-2 against a sound 1.93e-2 there; PERF.md).
+SSM_F32_POSITION_REL_BOUND = 1e-4
+# The prefill -> decode handoff: one decode step (the recurrent form) after
+# a prefill of SSM_HANDOFF tokens against a prefill of SSM_HANDOFF + 1 (the
+# chunked form), the worst row's last-position logits.
+SSM_HANDOFF = 1000
+SSM_HANDOFF_REL_BOUND = 0.05
 
 
 def fail(msg: str) -> None:
@@ -1464,6 +1507,364 @@ def quantized_serve_phase(torch) -> dict:
     return counts
 
 
+# --- the SSM slice --------------------------------------------------------------------------
+
+def _plain_ssd():
+    """Run the SSD kernel's plain version on CUDA tensors for the duration."""
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    return _patched(ops, "_ssd_chunk_cuda", lambda real: (lambda *args: ssd_chunk_ref(*args)))
+
+
+def _ssd_fault():
+    """The kernel's chunk state S of chunk 1 doubled, in every layer."""
+    from repro_torch.kernels.ssd import ops
+
+    def wrap(real):
+        def doubled(*args):
+            y, s = real(*args)
+            s = s.clone()
+            s[..., 1, :, :] *= 2.0
+            return y, s
+        return doubled
+    return _patched(ops, "_ssd_chunk_cuda", wrap)
+
+
+def ssd_operands(torch, gen, b: int, s: int, nh: int, P: int, N: int, chunk: int, dtype):
+    """x_dt, B, C, seg of one SSM layer's prefill as `apply_ssm` hands them
+    to `ssd_chunk`: leading dims (b, 1 group, nh heads), x_dt a permuted view
+    of (b, s, nh, P), B and C (b, s, N) expanded over the heads, seg the
+    within-chunk cumulative sum of steps in (-1, 0] (as the JAX kernel's
+    tests draw it: slower decay than a trained model's, so more terms
+    count)."""
+    dev = torch.device("cuda")
+    Q = min(chunk, s)
+    nc = s // Q
+    x = (torch.randn((b, nc, Q, 1, nh, P), generator=gen, device=dev) * 0.5).to(dtype)
+    B, C = ((torch.randn((b, nc, Q, 1, 1, N), generator=gen, device=dev) * 0.5).to(dtype)
+            for _ in range(2))
+    seg = -torch.rand((b, nc, Q, 1, nh), generator=gen, device=dev).cumsum(2)
+
+    def heads(t):
+        return t.permute(0, 3, 4, 1, 2, *range(5, t.dim()))
+    return (heads(x), heads(B.expand(b, nc, Q, 1, nh, N)), heads(C.expand(b, nc, Q, 1, nh, N)),
+            heads(seg))
+
+
+def ssd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int):
+    """(operations, bytes) of the SSD chunk function: the causal half of
+    C B^T and of (C B^T o L) X, and S = B^T (decay o X); x_dt read and Y
+    written once, B and C read once per group, seg read and S written."""
+    Q = min(chunk, s)
+    pairs, tri = b * nh * (s // Q), Q * (Q + 1) / 2
+    flops = pairs * (2.0 * N * tri + 2.0 * P * tri + 2.0 * N * P * Q)
+    nbytes = elem * (2 * b * s * nh * P + 2 * b * s * N + pairs * N * P) + 4 * b * s * nh
+    return flops, nbytes
+
+
+def ssd_kernel_phase(torch) -> dict:
+    """The SSD chunk kernel against its plain version at mamba2-780m's
+    prefill shape (4 x 1024 tokens: 48 heads, 4 chunks of 256, P 64, N 128)
+    in bf16 and f32, a ragged chunk (Q = 100) and a small misaligned shape,
+    every element within `ssd_chunk_tol`; then timed at the prefill shape
+    in bf16 beside its bound and the plain version."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    from repro_torch.kernels.tolerance import ssd_chunk_tol
+
+    cfg = get_config("mamba2-780m")
+    nh, P, N, chunk = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"ssd kernels ({cfg.name}: {nh} heads, P {P}, N {N}, chunk {chunk}; B / C expanded "
+          f"over the heads):")
+    err = 0.0
+    for label, (b, s, h, p, n) in (("prefill 4 x 1024", (SSM_BATCH, SSM_PROMPT, nh, P, N)),
+                                   ("ragged chunk Q=100", (SSM_BATCH, 100, nh, P, N)),
+                                   ("misaligned Q=40 P=16 N=16", (2, 40, 3, 16, 16))):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = ssd_operands(torch, gen, b, s, h, p, n, chunk, dtype)
+            want = ssd_chunk_ref(*ops)
+            got = ssd_chunk(*ops)
+            for name, g, w, tol in zip(("Y", "S"), got, want, ssd_chunk_tol(*ops, want)):
+                e = compare(torch, g, w, tol, f"ssd_chunk {label} {str(dtype)[6:]} {name}")
+                if dtype == torch.bfloat16:     # the row's dtype
+                    err = max(err, e)
+            del ops, want, got
+    b, s = SSM_BATCH, SSM_PROMPT
+    flops, nbytes = ssd_work(b, s, nh, P, N, chunk, 2)
+    ops = copies(torch, lambda: ssd_operands(torch, gen, b, s, nh, P, N, chunk, torch.bfloat16),
+                 2 * b * s * (nh * P + 2 * N))
+    ms, host = time_ms(torch, [lambda o=o: ssd_chunk(*o) for o in ops])
+    plain, _ = time_ms(torch, [lambda o=o: ssd_chunk_ref(*o) for o in ops], iters=TRAIN_ITERS)
+    bnd, by = bound(flops, nbytes)
+    print(f"    bf16 prefill shape: {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); {cfg.num_layers} launches per "
+          f"prefill pass; host {host:.1f} us per call; no single PyTorch call computes it")
+    del ops
+    torch.cuda.empty_cache()
+    return {"ssd_chunk": dict(
+        name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:56", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, library_ms=None)}
+
+
+def _ssm_counters():
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+    return {"matmul": matmul, "fused_mlp_hidden": fused_mlp_hidden, "ssd_chunk": ssd_chunk}
+
+
+def _ssm_pass_launches(cfg) -> dict:
+    """Kernel launches of one forward pass (prefill, or a decode step:
+    `ssd_chunk` 0) under linear_impl="fused": six GEMMs per SSM layer, for
+    zamba2 four attention GEMMs, one w_down GEMM and one fused MLP per
+    superblock, and the head."""
+    L = cfg.num_layers
+    sb = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    return {"matmul": 6 * L + 5 * sb + 1, "fused_mlp_hidden": sb, "ssd_chunk": L}
+
+
+def _ssm_timed(torch, what, fn, want):
+    """Run fn() with the counts set to 0 just before and read just after;
+    fail unless they equal `want`.  Returns (fn's result, host s, device ms
+    between CUDA events around it, counts)."""
+    counters = _ssm_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: f.launches for n, f in counters.items()}
+    if counts != want:
+        fail(f"{what}: launches {counts}, the path implies {want}")
+    return out, wall, e0.elapsed_time(e1), counts
+
+
+def _per_position(got, want):
+    """||got - want|| / ||want|| over the vocabulary at each (row, position)."""
+    g, w = got.float(), want.float()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
+def ssm_serve(torch, cfg, label: str) -> dict:
+    """Static serving of `cfg` on the card, random weights from seed 0: a
+    warm prefill of SSM_BATCH x SSM_PROMPT tokens, then a timed one and
+    SSM_GEN - 1 greedy decode steps through serve_step, each run's launch
+    counts against the path's; then the prefill logits at every position,
+    kernel path vs plain path (plain GEMMs and MLP, the SSD kernel's plain
+    version) on the same weights and tokens.  Returns (params, prompts,
+    the plain path's prefill logits, launches over the timed prefill and
+    decode steps)."""
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for _, t in _paths(params))
+    print(f"{label}: {cfg.name} L={cfg.num_layers} d={cfg.d_model} d_inner={cfg.ssm_d_inner} "
+          f"heads={cfg.ssm_nheads} P={cfg.ssm_head_dim} N={cfg.ssm_state} "
+          f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size}; {nparams / 1e9:.3f} B params in "
+          f"{cfg.dtype}, linear_impl={cfg.linear_impl} (init {time.perf_counter() - t0:.1f} s)")
+    prompts = torch.as_tensor(synthetic_tokens(0, 0, SSM_BATCH, SSM_PROMPT, cfg.vocab_size),
+                              device=dev).long()
+    prefill = make_prefill_step(cfg, SSM_PROMPT + SSM_GEN)
+    decode = make_decode_step(cfg)
+    per_pass = _ssm_pass_launches(cfg)
+    per_step = {**per_pass, "ssd_chunk": 0}
+    V = cfg.vocab_size
+    with torch.no_grad():
+        prefill(params, {"tokens": prompts})   # warm
+        (logits, caches), pre_s, pre_ms, counts = _ssm_timed(
+            torch, f"{label} prefill", lambda: prefill(params, {"tokens": prompts}), per_pass)
+        tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+        out, steps = [tok], []
+
+        def run_decode():
+            nonlocal tok
+            for i in range(SSM_GEN - 1):
+                t = time.perf_counter()
+                lg, _ = decode(params, tok, caches, SSM_PROMPT + i)
+                tok = torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32)
+                out.append(tok)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t)
+        _, dec_s, dec_ms, dcounts = _ssm_timed(
+            torch, f"{label} decode", run_decode,
+            {n: (SSM_GEN - 1) * k for n, k in per_step.items()})
+        toks = torch.cat(out, 1)
+        if not bool(torch.isfinite(logits).all().item()) or not bool(
+                ((toks >= 0) & (toks < V)).all().item()):
+            fail(f"{label}: non-finite logits or a token outside the vocabulary")
+        steps.sort()
+        print(f"  prefill {SSM_BATCH} x {SSM_PROMPT}: {pre_s * 1e3:.2f} ms host, {pre_ms:.2f} ms "
+              f"between CUDA events ({SSM_BATCH * SSM_PROMPT / pre_s:.0f} tok/s); "
+              f"{SSM_GEN - 1} decode steps: {dec_s * 1e3:.1f} ms host, {dec_ms:.1f} ms between "
+              f"events, step p50 {steps[len(steps) // 2] * 1e3:.2f} ms, max "
+              f"{steps[-1] * 1e3:.2f} ms ({SSM_BATCH * (SSM_GEN - 1) / dec_s:.1f} tok/s); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"  launches per prefill pass {json.dumps(counts)}, per decode step "
+              f"{json.dumps(per_step)} (as the path implies)")
+        launches = {n: counts[n] + dcounts[n] for n in counts}
+        del logits, caches
+        plain_cfg = dataclasses.replace(cfg, linear_impl="jnp")
+        lk = apply_lm(params, prompts, cfg)[0][..., :V]
+        with _plain_ssd():
+            lp = apply_lm(params, prompts, plain_cfg)[0][..., :V]
+        if not (bool(torch.isfinite(lk).all().item()) and bool(torch.isfinite(lp).all().item())):
+            fail(f"{label}: prefill logits not finite")
+        rel, pos = _rel(lk, lp), _per_position(lk, lp)
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        worst = int(pos.argmax().item())
+        print(f"  prefill logits, kernel path vs plain path: rel err {rel:.3e} (bound "
+              f"{SSM_LOGITS_REL_BOUND}); worst position {pos.max().item():.3e} at row "
+              f"{worst // SSM_PROMPT}, position {worst % SSM_PROMPT} (bound "
+              f"{SSM_POSITION_REL_BOUND}); greedy agreement {agree:.3f}")
+        if rel > SSM_LOGITS_REL_BOUND or pos.max().item() > SSM_POSITION_REL_BOUND:
+            fail(f"{label}: prefill logits differ from the plain path")
+    return params, prompts, lp, launches
+
+
+def ssm_serve_phase(torch) -> dict:
+    """mamba2-780m at full width and depth, bf16, linear_impl="fused": the
+    static serve path (`ssm_serve`); the worst-position logits check at
+    f32, which a planted fault in the kernel's chunk state must break; the
+    prefill -> decode handoff (one decode step after a prefill of
+    SSM_HANDOFF tokens against a prefill of one token more), with a planted
+    fault (zeroed conv tails) that its bound must see.  Returns the
+    launches over the serve run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config("mamba2-780m"), linear_impl="fused")
+    params, prompts, lp, launches = ssm_serve(torch, cfg, "ssm serve")
+    V = cfg.vocab_size
+    with torch.no_grad():
+        with _ssd_fault():
+            lf = apply_lm(params, prompts, cfg)[0][..., :V]
+        pos = _per_position(lf, lp)
+        print(f"  bf16 with a planted fault (the kernel's S of chunk 1 doubled, every layer): "
+              f"rel {_rel(lf, lp):.3e}, worst position {pos.max().item():.3e} at position "
+              f"{int(pos.argmax().item()) % SSM_PROMPT} (printed, not bounded: near the sound "
+              f"reading at bf16; the f32 check below must see it)")
+        del lp, lf
+
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = init_lm(torch.Generator(device="cuda").manual_seed(0), f32, device="cuda")
+        lk = apply_lm(p32, prompts, f32)[0][..., :V]
+        with _plain_ssd():
+            lp = apply_lm(p32, prompts, dataclasses.replace(f32, linear_impl="jnp"))[0][..., :V]
+        with _ssd_fault():
+            lf = apply_lm(p32, prompts, f32)[0][..., :V]
+        readings = {}
+        for what, got in (("sound", lk), ("planted fault", lf)):
+            pos = _per_position(got, lp)
+            readings[what] = pos.max().item()
+            print(f"  f32, {f32.num_layers} layers, kernel path vs plain path, {what}: rel "
+                  f"{_rel(got, lp):.3e}, worst position {readings[what]:.3e} at position "
+                  f"{int(pos.argmax().item()) % SSM_PROMPT} (bound {SSM_F32_POSITION_REL_BOUND})")
+        if readings["sound"] > SSM_F32_POSITION_REL_BOUND:
+            fail("f32 prefill logits differ from the plain path at some position")
+        if readings["planted fault"] <= SSM_F32_POSITION_REL_BOUND:
+            fail("the worst-position bound does not see the planted chunk-state fault")
+        del p32, lk, lp, lf
+
+        s = SSM_HANDOFF
+        ctx = prompts[:, :s + 1]
+        want, _ = make_prefill_step(cfg, s + 1)(params, {"tokens": ctx})
+        readings = {}
+        for what, tails in (("sound", False), ("fault: zeroed conv tails", True)):
+            _, caches = make_prefill_step(cfg, s + 1)(params, {"tokens": ctx[:, :s]})
+            if tails:
+                for seg in caches:
+                    for name in ("conv_x", "conv_B", "conv_C"):
+                        seg[name].zero_()
+            got, _ = make_decode_step(cfg)(params, ctx[:, s:], caches, s)
+            readings[what] = _per_position(got[:, :V], want[:, :V]).max().item()
+        print(f"  handoff: a decode step after a prefill of {s} tokens vs a prefill of {s + 1}, "
+              f"worst row's logits rel err: sound {readings['sound']:.3e}, planted fault "
+              f"{readings['fault: zeroed conv tails']:.3e} (bound {SSM_HANDOFF_REL_BOUND})")
+        if readings["sound"] > SSM_HANDOFF_REL_BOUND:
+            fail("prefill -> decode handoff: the decode step disagrees with a longer prefill")
+        if readings["fault: zeroed conv tails"] <= SSM_HANDOFF_REL_BOUND:
+            fail("the handoff bound does not see the zeroed conv tails")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_serve_phase(torch) -> None:
+    """zamba2-2.7b at full width, HYBRID_SUPERBLOCKS superblocks (6 Mamba2
+    layers and the shared attention + GELU MLP block each), bf16,
+    linear_impl="fused": `ssm_serve` (launch counts per prefill pass and
+    decode step, kernel vs plain logits)."""
+    from repro_torch.configs.registry import get_config
+    full = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(full, linear_impl="fused",
+                              num_layers=HYBRID_SUPERBLOCKS * full.hybrid_attn_every)
+    ssm_serve(torch, cfg, f"hybrid serve ({HYBRID_SUPERBLOCKS} of "
+                          f"{full.num_layers // full.hybrid_attn_every} superblocks)")
+    torch.cuda.empty_cache()
+
+
+def ssm_token_identity_phase(torch) -> None:
+    """mamba2-780m at full width, REDUCED_LAYERS layers, float32: the greedy
+    tokens of the kernel path (tile GEMM, SSD kernel) and of the plain path,
+    SSM_BATCH prompts of 300 tokens (a ragged last chunk) and 16 new tokens,
+    identical but at a near tie of the plain path's top-2 logits."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+    from repro_torch.models import init_lm
+    from repro_torch.serving.serve_step import greedy_generate, make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=REDUCED_LAYERS,
+                              dtype="float32", linear_impl="fused")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    prompts = torch.as_tensor(synthetic_tokens(0, 1, SSM_BATCH, 300, cfg.vocab_size),
+                              device=dev).long()
+    ssd_chunk.launches = 0
+    got = greedy_generate(params, cfg, prompts, 16).cpu().numpy()
+    if ssd_chunk.launches != REDUCED_LAYERS:
+        fail(f"ssm token identity: {ssd_chunk.launches} SSD launches, the path implies "
+             f"{REDUCED_LAYERS}")
+    with _plain_ssd():
+        want = greedy_generate(params, plain_cfg, prompts, 16).cpu().numpy()
+        for r, (a, b) in enumerate(zip(want, got)):
+            i = _first_divergence(list(a), list(b))
+            if i is None:
+                continue
+            ctx = torch.cat([prompts[r:r + 1], torch.as_tensor(a[None, :i], device=dev).long()], 1)
+            with torch.no_grad():
+                lg, _ = make_prefill_step(plain_cfg, ctx.shape[1])(params, {"tokens": ctx})
+            top = lg[0, :cfg.vocab_size].topk(2).values
+            g = ((top[0] - top[1]) / top[0].abs()).item()
+            print(f"    row {r} diverges at token {i}; top-2 gap {g:.3e} (near-tie bound "
+                  f"{TOKEN_GAP_REL})")
+            if g > TOKEN_GAP_REL:
+                fail(f"ssm token identity: row {r} diverges at token {i} without a near tie")
+    same = int(np.sum(np.all(want == got, axis=1)))
+    print(f"ssm token identity: {cfg.name} at full width, {REDUCED_LAYERS} layers, float32: "
+          f"kernel path vs plain path, {same}/{SSM_BATCH} rows identical over 16 tokens")
+    del params
+    torch.cuda.empty_cache()
+
+
 # --- train phase ------------------------------------------------------------------------
 
 def per_step_launches(cfg) -> dict:
@@ -1745,10 +2146,14 @@ def main() -> None:
     rows.update(phase("prefix kernels", prefix_kernel_phase, torch))
     rows.update(phase("train kernels", train_kernel_phase, torch))
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
+    rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
     counts = phase("serve", serve_phase, torch)
     prefix = phase("prefix serve", prefix_serve_phase, torch)
     quantized = phase("quantized serve", quantized_serve_phase, torch)
+    ssm = phase("ssm serve", ssm_serve_phase, torch)
+    phase("hybrid serve", hybrid_serve_phase, torch)
     phase("token identity", token_identity_phase, torch)
+    phase("ssm token identity", ssm_token_identity_phase, torch)
     train = phase("train", train_phase, torch)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1761,6 +2166,8 @@ def main() -> None:
     # The prefix slice's rows count their runs in the prefix serve phase: the
     # cold block-table run, the int8 slot and the int8 prefix engine's runs.
     # The int8-weight slice's rows count the int8-weight slot engine's run.
+    # The SSM slice's row counts the ssm serve run (a prefill and the decode
+    # steps; the decode steps launch none).
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
                 "int8_matmul": quantized["int8_matmul"],
@@ -1771,7 +2178,8 @@ def main() -> None:
                 "flash_attention_bwd": train["flash_attention_bwd"],
                 "fused_mlp_bwd": train["fused_mlp_bwd"],
                 "matmul_dgrad": train["matmul_nt"] - train["fused_mlp_bwd"],
-                "matmul_wgrad": train["matmul_tn"] - 2 * train["fused_mlp_bwd"]}
+                "matmul_wgrad": train["matmul_tn"] - 2 * train["fused_mlp_bwd"],
+                "ssd_chunk": ssm["ssd_chunk"]}
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
@@ -1779,7 +2187,8 @@ def main() -> None:
     order = ("matmul", "fused_mlp_hidden", "paged_decode", "paged_decode_blocktable",
              "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
-             "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp")
+             "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp",
+             "ssd_chunk")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,10 @@ truncating accumulation may double the kernel's share, so a sum costs
 through by its slope.  The 2% covers second-order terms.
 
 Where a kernel rounds an intermediate to the input dtype before a further
-product (flash attention's P and dS, the fused-MLP backward's dg and du:
-bf16 inputs to the tensor cores), the plain version keeps it in f32, and
-the bound adds that rounding, half an ulp relative per element, carried
-through the product.
+product (flash attention's P and dS, the fused-MLP backward's dg and du,
+the SSD kernel's C B^T o L and decay o X: bf16 inputs to the tensor
+cores), the plain version keeps it in f32, and the bound adds that
+rounding, half an ulp relative per element, carried through the product.
 
 Each `*_tol` function takes the kernel's inputs and the plain version's
 output and returns the per-element bound; `check` holds a result to it.
@@ -30,6 +30,7 @@ import torch
 from .flash_attention.ref import _pool_f32, _scores, attention_di, gather_block_kv
 from .fused_mlp.ref import ACTS, DACTS, is_gated
 from .quantized.ref import int8_product
+from .ssd.ref import NEG_INF as SSD_NEG_INF
 
 U = 2.0 ** -24
 HALF_ULP = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: U}
@@ -258,6 +259,31 @@ def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scal
             + 3.0 * g * sq * U * torch.einsum("bkgqs,bqkgd->bskd", p, doa))
     dq, dk, dv = want
     return _bound(dq, e_dq), _bound(dk, e_dk), _bound(dv, e_dv)
+
+
+def ssd_chunk_tol(x_dt, B, C, seg, want):
+    """Bounds on (Y_diag, S) of the SSD chunk kernel; `want` is the plain
+    version's.  CB = C B^T sums N terms (off by e_cb = 3 N u sum|C B|), the
+    decay L = exp(seg_i - seg_j) may be off by 4 u relative on each side
+    (an exp of a few ulps), and CB o L rounds once more on each side; in
+    bf16 the kernel rounds CB o L to bf16 before the product with X (half
+    an ulp relative).  Y sums Q terms of (CB o L) X: E_Y = sum_k (e_cb L +
+    (r + (3 Q + 10) u) |CB| L) |x|.  S sums Q terms of B (decay o X), decay
+    o X rounded to bf16 in bf16: E_S = (r + (3 Q + 10) u) sum_q |B| decay
+    |x|."""
+    y, s = want
+    Q, N = x_dt.shape[-2], B.shape[-1]
+    r = _rounds(x_dt.dtype)
+    xa, Bf, Cf = x_dt.float().abs(), B.float(), C.float()
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=seg.device))
+    L = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :], SSD_NEG_INF))
+    cb = torch.einsum("...qn,...kn->...qk", Cf, Bf).abs()
+    e_cb = 3.0 * N * U * torch.einsum("...qn,...kn->...qk", Cf.abs(), Bf.abs())
+    rel = r + (3.0 * Q + 10.0) * U
+    e_y = torch.einsum("...qk,...kp->...qp", (e_cb + rel * cb) * L, xa)
+    decay = torch.exp(seg[..., -1:] - seg)
+    e_s = rel * torch.einsum("...qn,...qp->...np", Bf.abs(), xa * decay[..., None])
+    return _bound(y, e_y), _bound(s, e_s)
 
 
 def check(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):

@@ -3,8 +3,12 @@
 A model is a list of *segments*; each segment is `n` structurally identical
 layers whose parameters are stacked on a leading axis (the JAX package's
 layout, so params convert one to one).  A Python loop over that axis
-replaces `lax.scan`: layer l reads the views `t[l]`.  This slice ports the
-`dense` kind (attention + MLP); the other kinds raise.
+replaces `lax.scan`: layer l reads the views `t[l]`.  Ported kinds:
+  dense        — attn + MLP                        (internlm2, ...)
+  ssm          — Mamba2 block only                 (mamba2-780m)
+  hybrid_super — `k` Mamba2 layers + one SHARED attention + MLP block
+                 (zamba2: the shared weights live outside the segment)
+`moe` and `pair` raise.
 
 `remat="full"` recomputes each layer in the backward
 (`torch.utils.checkpoint`, non-reentrant: the layer's params reach it by
@@ -22,6 +26,7 @@ from ..quant import QuantizedTensor
 from .attention import apply_attention, init_attention
 from .layers import norm_apply, norm_init
 from .mlp import apply_mlp, init_mlp
+from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache
 
 
 # --- plan ---------------------------------------------------------------------------
@@ -47,24 +52,47 @@ def stack_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return [("dense", L)]
 
 
+KINDS = ("dense", "ssm", "hybrid_super")
+
+
 def _check_kind(kind: str) -> None:
-    if kind != "dense":
+    if kind not in KINDS:
         raise NotImplementedError(
             f"segment kind {kind!r} is not ported yet: it comes with the "
-            f"other-families slice (moe / ssm / hybrid)")
+            f"other-families slice (moe / pair)")
 
 
 # --- init ---------------------------------------------------------------------------
 
 def init_segment(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str, n: int, *,
                  device=None, dtype=torch.float32):
-    """Stacked params of `n` layers (leading axis n on every leaf)."""
+    """Stacked params of `n` layers (leading axis n on every leaf; a
+    hybrid superblock's Mamba2 layers are stacked again, (n, k, ...))."""
     _check_kind(kind)
+    if kind == "hybrid_super":
+        lead = (n, cfg.hybrid_attn_every)
+        return {"layers": {"norm1": norm_init(cfg.d_model, cfg.norm_type, lead=lead, device=device),
+                           "ssm": init_ssm(gen, cfg, lead=lead, device=device, dtype=dtype)}}
     kw = dict(lead=(n,), device=device, dtype=dtype)
-    return {"norm1": norm_init(cfg.d_model, cfg.norm_type, lead=(n,), device=device),
+    norm1 = norm_init(cfg.d_model, cfg.norm_type, lead=(n,), device=device)
+    if kind == "ssm":
+        return {"norm1": norm1, "ssm": init_ssm(gen, cfg, **kw)}
+    return {"norm1": norm1,
             "attn": init_attention(gen, cfg, **kw),
             "norm2": norm_init(cfg.d_model, cfg.norm_type, lead=(n,), device=device),
             "mlp": init_mlp(gen, cfg, **kw)}
+
+
+def init_shared(gen: Optional[torch.Generator], cfg: ModelConfig, *, device=None,
+                dtype=torch.float32):
+    """Zamba2's shared attention + MLP block (weights tied across its
+    applications); None for other families."""
+    if cfg.family != "hybrid":
+        return None
+    return {"norm": norm_init(cfg.d_model, cfg.norm_type, device=device),
+            "attn": init_attention(gen, cfg, device=device, dtype=dtype),
+            "norm2": norm_init(cfg.d_model, cfg.norm_type, device=device),
+            "mlp": init_mlp(gen, cfg, device=device, dtype=dtype)}
 
 
 def tree_index(tree, i: int):
@@ -109,10 +137,22 @@ def kv_cache_dtype(cfg: ModelConfig, dtype):
 
 def init_cache_segment(cfg: ModelConfig, kind: str, n: int, batch: int,
                        s_max: int, dtype=torch.bfloat16, device=None):
-    """Cache of one segment: k, v (n, batch, s_max, kv, hd), zeros; an int8
-    cache adds the f32 absmax scales k_scale, v_scale (n, batch, s_max, kv),
-    one per (token, kv head)."""
+    """Cache of one segment, zeros.  Attention: k, v (n, batch, s_max, kv,
+    hd); an int8 cache adds the f32 absmax scales k_scale, v_scale (n,
+    batch, s_max, kv), one per (token, kv head).  ssm: the state and conv
+    tails of `init_ssm_cache`, (n, ...); hybrid_super: those (n, k, ...)
+    beside the shared block's k, v."""
     _check_kind(kind)
+    if kind == "ssm":
+        return init_ssm_cache(cfg, batch, dtype, device, lead=(n,))
+    if kind == "hybrid_super":
+        return {"ssm": init_ssm_cache(cfg, batch, dtype, device,
+                                      lead=(n, cfg.hybrid_attn_every)),
+                "shared_attn": _kv_cache(cfg, n, batch, s_max, dtype, device)}
+    return _kv_cache(cfg, n, batch, s_max, dtype, device)
+
+
+def _kv_cache(cfg: ModelConfig, n: int, batch: int, s_max: int, dtype, device):
     if cfg.attn_type != "gqa":
         raise NotImplementedError("only GQA caches are ported")
     store = kv_cache_dtype(cfg, dtype)
@@ -128,9 +168,46 @@ def init_cache_segment(cfg: ModelConfig, kind: str, n: int, batch: int,
 
 # --- apply ---------------------------------------------------------------------------
 
+def _ssm_layer(p, x, cfg: ModelConfig, cache, decode: bool):
+    """One Mamba2 layer's residual branch; its cache (state, conv tails) is
+    written in place with the new values, cast to the cache's dtype."""
+    xin = norm_apply(p["norm1"], x, cfg.norm_type)
+    if decode:
+        if cache is None:
+            raise ValueError("an SSM decode step needs the layer's cache")
+        y, new = decode_ssm(p["ssm"], xin, cfg, cache)
+    else:
+        y, (state, tails) = apply_ssm(p["ssm"], xin, cfg,
+                                      state=None if cache is None else cache["state"])
+        new = {"state": state, **tails}
+    if cache is not None:
+        for name, leaf in cache.items():
+            leaf.copy_(new[name])
+    return y
+
+
 def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
-                cache=None, cache_index=None, block_tables=None):
-    """One dense layer.  Returns (x, cache)."""
+                cache=None, cache_index=None, block_tables=None, decode=False,
+                shared=None):
+    """One layer (a dense or Mamba2 layer, or a hybrid superblock).
+    `decode`: single-token steps through the SSM recurrence (attention
+    decodes from its cache either way).  Returns (x, cache)."""
+    if kind == "ssm":
+        return x + _ssm_layer(p, x, cfg, cache, decode), cache
+    if kind == "hybrid_super":
+        if block_tables is not None:
+            raise ValueError("block-table KV paging does not support ssm/hybrid caches")
+        for i in range(cfg.hybrid_attn_every):
+            x = x + _ssm_layer(tree_index(p["layers"], i), x, cfg,
+                               None if cache is None else tree_index(cache["ssm"], i), decode)
+        # the shared attention + MLP block (weights tied across all applications)
+        attn_out, _ = apply_attention(
+            shared["attn"], norm_apply(shared["norm"], x, cfg.norm_type), cfg,
+            positions=positions, cache=None if cache is None else cache["shared_attn"],
+            cache_index=cache_index)
+        x = x + attn_out
+        x = x + apply_mlp(shared["mlp"], norm_apply(shared["norm2"], x, cfg.norm_type), cfg)
+        return x, cache
     attn_out, cache = apply_attention(
         p["attn"], norm_apply(p["norm1"], x, cfg.norm_type), cfg,
         positions=positions, cache=cache, cache_index=cache_index,
@@ -149,11 +226,20 @@ def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
 REMATS = ("none", "full", "dots")
 
 
+def _num_layers(tree) -> int:
+    """The leading (layer) dim of a stacked params tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return (tree.q if isinstance(tree, QuantizedTensor) else tree).shape[0]
+
+
 def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
-                caches=None, cache_index=None, remat: str = "none", block_tables=None):
+                caches=None, cache_index=None, decode=False, shared=None,
+                remat: str = "none", block_tables=None):
     """Run all segments layer by layer.  segments_params: list of
     (kind, stacked_params); caches: list aligned with segments (or None),
-    updated in place; block_tables: (b, max_blocks) when the caches are a
+    updated in place; decode: single-token SSM steps; shared: zamba2's shared
+    block; block_tables: (b, max_blocks) when the caches are a
     physical block pool (attention.apply_gqa).  remat: "none" keeps every layer's activations for
     the backward, "full" recomputes each layer there (blocks.py:282-283 of
     the JAX package).  Returns (x, caches)."""
@@ -166,14 +252,16 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
     for si, (kind, sp) in enumerate(segments_params):
         _check_kind(kind)
         seg_cache = None if caches is None else caches[si]
-        n = sp["norm1"]["scale"].shape[0]
+        n = _num_layers(sp)
         for layer, p_l in enumerate(tree_unbind(sp, n)):
             if remat == "full" and seg_cache is None:
                 def body(h, p_l=p_l, kind=kind):
-                    return _apply_core(p_l, h, cfg, kind, positions=positions)[0]
+                    return _apply_core(p_l, h, cfg, kind, positions=positions,
+                                       shared=shared)[0]
                 x = checkpoint(body, x, use_reentrant=False)
                 continue
             c_l = None if seg_cache is None else tree_index(seg_cache, layer)
             x, _ = _apply_core(p_l, x, cfg, kind, positions=positions, cache=c_l,
-                               cache_index=cache_index, block_tables=block_tables)
+                               cache_index=cache_index, block_tables=block_tables,
+                               decode=decode, shared=shared)
     return x, caches

@@ -4,7 +4,8 @@
 (`jax.tree.map(np.asarray, params)`) and returns the port's params: the
 same keys and shapes (stacked `seg{i}` leaves keep their leading layer
 axis), GEMM weights and the embedding cast ONCE to the compute dtype, norm
-gains kept in float32.  The JAX package casts its float32 masters at every
+gains and the SSM's float32 leaves (conv kernels and biases, A_log, D,
+dt_bias) kept in float32.  The JAX package casts its float32 masters at every
 call; float32 -> bfloat16 round-to-nearest-even gives the same values
 either way, and gigabytes of weights are not recast every step.
 

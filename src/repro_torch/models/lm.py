@@ -3,14 +3,17 @@
 Parameter layout (the JAX package's pytree, key for key):
   embed        (v, h)            token embedding
   seg{i}       stacked params    one entry per stack_plan segment
+  shared       zamba2's shared attention + MLP block (hybrid only)
   final_norm
   lm_head      (h, v)            untied output head
 For serving, GEMM weights and the embedding are held in the compute dtype
 (`convert.params_from_jax`); for training every leaf is a float32 master
 and `linear` casts per call, as JAX does.  Norm gains are float32 either
-way.  The encoder-decoder, VLM and MTP parts (and MTP's and MoE's extra
-losses) come with the other-families slice; sharding constraints have no
-counterpart on one card and are dropped.
+way, as are the SSM's conv kernels and biases, A_log, D and dt_bias (JAX
+keeps them in float32 and casts per use).  The encoder-decoder, VLM and
+MTP parts (and MTP's and MoE's extra losses) come with the other-families
+slice; sharding constraints have no counterpart on one card and are
+dropped.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from .blocks import apply_stack, init_cache_segment, init_segment, stack_plan
+from .blocks import apply_stack, init_cache_segment, init_segment, init_shared, stack_plan
 from .layers import compute_dtype, dense_init, embed_init, norm_apply, norm_init
 from .linear import linear
 
@@ -47,6 +50,9 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig, *, device,
         "embed": embed_init(gen, cfg.padded_vocab_size, cfg.d_model, device=device, dtype=dtype)}
     for i, (kind, n) in enumerate(stack_plan(cfg)):
         params[f"seg{i}"] = init_segment(gen, cfg, kind, n, device=device, dtype=dtype)
+    shared = init_shared(gen, cfg, device=device, dtype=dtype)
+    if shared is not None:
+        params["shared"] = shared
     params["final_norm"] = norm_init(cfg.d_model, cfg.norm_type, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size,
@@ -60,11 +66,14 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, 
 
 
 def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
-             cache_index=None, remat: str = "none", block_tables=None):
+             cache_index=None, decode=False, remat: str = "none", block_tables=None):
     """tokens: (b, s) integer tensor.  Returns (logits, caches).
 
     cache_index: an int (prefill write offset) or a (b,) tensor of per-row
     offsets (engine decode).  Caches are updated in place and returned.
+    decode: `tokens` is one step after the caches' contents — SSM layers
+    take their recurrent step (`decode_ssm`) from the cached state and conv
+    tails, not the chunked form.
     block_tables: (b, max_blocks) int32 -- the caches are a physical KV
     block pool (leaves (n, num_blocks, block_size, kv, hd)) and row b's
     logical block j lives at block_tables[b, j]; single-token decode only.
@@ -89,7 +98,8 @@ def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
 
     segs = [(kind, params[f"seg{i}"]) for i, (kind, n) in enumerate(stack_plan(cfg))]
     x, caches = apply_stack(segs, cfg, x, positions=positions, caches=caches,
-                            cache_index=cache_index, remat=remat, block_tables=block_tables)
+                            cache_index=cache_index, decode=decode, shared=params.get("shared"),
+                            remat=remat, block_tables=block_tables)
 
     x = norm_apply(params["final_norm"], x, cfg.norm_type)
     # a tied head is the view embed^T, which the tile GEMM reads in place

@@ -26,11 +26,14 @@ def make_decode_step(cfg: ModelConfig):
     """decode(params, token, caches, index) -> (logits, caches).
 
     token: (b, 1); index: int — the cache write position (and the rotary
-    position of the new token).  The caches are written in place.
+    position of the new token).  The caches are written in place.  SSM
+    layers take their recurrent step (`decode=True`, as the JAX package's
+    decode step passes).
     """
 
     def decode(params, token, caches, index):
-        logits, caches = apply_lm(params, token, cfg, caches=caches, cache_index=index)
+        logits, caches = apply_lm(params, token, cfg, caches=caches, cache_index=index,
+                                  decode=True)
         return logits[:, -1], caches
 
     return decode

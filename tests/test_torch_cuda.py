@@ -25,6 +25,8 @@ from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
 from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.ssd.ops import ssd_chunk
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 from repro_torch.models import apply_lm, init_lm, lm_loss
 from repro_torch.models.linear import linear
 from repro_torch.optim.adamw import init_opt, tree_leaves
@@ -563,3 +565,84 @@ def test_int8_wrappers_raise_on_bad_operands(cuda):
         int8_matmul_q(a_q, a_s, b_q, b_s, torch.float16)
     with pytest.raises(ValueError):  # gate and up of different widths
         int8_fused_mlp_q(a_q, a_s, b_q[:, :16].contiguous(), b_s[:, :16].contiguous(), b_q, b_s)
+
+
+# --- the SSM slice ------------------------------------------------------------------------
+
+def _ssd_operands(rng, lead, nc, Q, P, N, dtype, device, groups=1):
+    """x_dt, B, C, seg as the model passes them: leading dims (b, groups,
+    heads per group), x a permuted view of (b, nc, Q, heads, P), B and C
+    expanded over the heads of a group; seg decreasing within each chunk."""
+    b, hg = lead[0], lead[-1]
+    x = _rand(rng, (b, nc, Q, groups, hg, P), dtype, device, 0.5)
+    B = _rand(rng, (b, nc, Q, groups, 1, N), dtype, device, 0.5)
+    C = _rand(rng, (b, nc, Q, groups, 1, N), dtype, device, 0.5)
+    seg = torch.from_numpy(-np.cumsum(rng.uniform(size=(b, nc, Q, groups, hg)), axis=2)
+                           .astype(np.float32)).to(device)
+    heads = lambda t: t.permute(0, 3, 4, 1, 2, *range(5, t.dim()))  # noqa: E731
+    expand = lambda t: heads(t.expand(b, nc, Q, groups, hg, N))  # noqa: E731
+    return heads(x), expand(B), expand(C), heads(seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,nc,Q,P,N", [
+    ((2, 1, 3), 2, 40, 16, 16),      # the smoke-sized misaligned chunk
+    ((2, 1, 4), 1, 100, 24, 40),     # a ragged chunk, N and P off the 16 grid
+    ((1, 1, 6), 3, 77, 20, 130),     # unaligned rows (no 16-byte loads), N past 128
+    ((1, 2, 3), 2, 256, 64, 128),    # two groups, mamba2's chunk
+    ((3, 1, 2), 2, 1, 8, 8),         # one-step chunks
+])
+def test_ssd_chunk(cuda, dtype, lead, nc, Q, P, N):
+    x, B, C, seg = _ssd_operands(np.random.default_rng(Q), lead, nc, Q, P, N, dtype, cuda,
+                                 groups=lead[1])
+    before = ssd_chunk.launches
+    got = ssd_chunk(x, B, C, seg)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    want = ssd_chunk_ref(x, B, C, seg)
+    for g, w, tol in zip(got, want, tolerance.ssd_chunk_tol(x, B, C, seg, want)):
+        assert g.shape == w.shape and g.dtype == dtype
+        _close(g, w, tol)
+    # the (bh, nc, Q, .) layout with the repeat materialised: the same numbers
+    flat = [t.reshape(-1, *t.shape[3:]) for t in (x, B, C, seg)]
+    y4, s4 = ssd_chunk(*flat)
+    torch.testing.assert_close(y4.reshape(got[0].shape), got[0], atol=0, rtol=0)
+    torch.testing.assert_close(s4.reshape(got[1].shape), got[1], atol=0, rtol=0)
+
+
+def test_ssd_chunk_raises_under_autograd_and_on_bad_operands(cuda):
+    x, B, C, seg = _ssd_operands(np.random.default_rng(0), (1, 1, 2), 1, 16, 8, 8,
+                                 torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="SSM-training"):
+        ssd_chunk(x.detach().requires_grad_(), B, C, seg)
+    with pytest.raises(TypeError):
+        ssd_chunk(x, B, C, seg.double())
+    with pytest.raises(ValueError, match="N <= 256"):
+        ssd_chunk(x, *(torch.zeros(*B.shape[:-1], 300, device=cuda) for _ in range(2)), seg)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x.transpose(-1, -2).contiguous().transpose(-1, -2), B, C, seg)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model in f32 (fused linear: the tile GEMM, and for zamba2
+    the fused MLP; the SSD kernel per SSM layer per prefill, none per
+    decode step) on the card and its plain versions on the host: prefill
+    logits within 5e-5 (f32 sums in another order, as the CPU parity tests
+    allow) and the same greedy tokens."""
+    from repro_torch.serving.serve_step import greedy_generate, make_prefill_step
+    cfg = dataclasses.replace(get_smoke_config(arch), linear_impl="fused")
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 70))
+                              .astype(np.int32))
+    want, _ = make_prefill_step(cfg, 70)(params, {"tokens": prompt})
+    before = ssd_chunk.launches
+    with torch.no_grad():
+        got, _ = make_prefill_step(cfg, 70)(_to(params, cuda), {"tokens": prompt.to(cuda)})
+    assert ssd_chunk.launches - before == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=5e-5)
+    toks = greedy_generate(params, cfg, prompt, 8)
+    before = ssd_chunk.launches
+    toks_card = greedy_generate(_to(params, cuda), cfg, prompt.to(cuda), 8)
+    assert ssd_chunk.launches - before == cfg.num_layers     # the prefill only
+    assert torch.equal(toks_card.cpu(), toks)

@@ -181,6 +181,8 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert len(names) >= 30, names
+assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops",
+        "repro_torch.kernels.ssd.ref"} <= set(names), names
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
