@@ -20,8 +20,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      wgrad), then the int8-weight slice's (the int8 GEMM at every
      projection's shape at 64 and 4096 rows, bit-identical to its plain
      version, beside torch._int_mm; the int8 fused SwiGLU hidden), then the
-     SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape, a
-     ragged chunk and a misaligned one, bf16 and f32);
+     SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
+     fast and slow decay, a ragged chunk and a misaligned one, bf16 and
+     f32);
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -47,7 +48,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      weights), bf16, linear_impl="fused", served by serve_step: a prefill
      of 4 x 1024 tokens and 31 greedy decode steps, the launch counts of
      each (48 SSD kernels and 289 tile GEMMs per prefill, no SSD kernel
-     and 289 GEMMs per decode step); prefill logits against the plain path
+     and 289 GEMMs per decode step); the device time of one prefill's GEMM
+     and SSD launches between CUDA events; prefill logits against the plain path
      over all positions and at the worst position; the worst position at
      f32, which a planted chunk-state fault must break; one decode step
      after a prefill of 1000 tokens against a prefill of 1001, which a
@@ -168,16 +170,23 @@ HYBRID_SUPERBLOCKS = 2
 # order, and the kernel rounds C B^T o L to bf16 where the plain version
 # keeps f32.  Over all positions:
 SSM_LOGITS_REL_BOUND = 0.05
-# ... and at the worst single (row, position), the same bound.
+# ... and at the worst single (row, position), the same bound.  At bf16 it
+# catches gross errors only: a doubled chunk state read 2.83e-2 against a
+# sound 1.93e-2 on the card (PERF.md), both inside it.
 SSM_POSITION_REL_BOUND = 0.05
 # The worst position again at f32 (full width and depth), where the two
 # paths differ by f32 sums in another order (~1e-6): a planted fault in the
 # kernel's chunk state must break this bound.  At random init dt * A
 # decays the state within a few steps, so a wrong chunk state shows only at
-# the first positions of the next chunk, under the norm over all positions
-# — and at bf16 under the paths' rounding differences too (the card read
-# the fault 2.83e-2 against a sound 1.93e-2 there; PERF.md).
+# the first positions of the next chunk, under the norm over all positions.
 SSM_F32_POSITION_REL_BOUND = 1e-4
+# seg's steps in the SSD kernel checks: [0, 1) as the JAX kernel's tests
+# draw them, under which a key 65 or more steps back weighs at most e^-32
+# (only the diagonal and the adjacent key tile count), and [0, SSD_SLOW_DECAY)
+# as a trained Mamba2's dt in about [1e-3, 1e-1] gives them, under which
+# every key tile and every row of S in a 256-step chunk counts (e^-5 at
+# worst).
+SSD_SLOW_DECAY = 0.02
 # The prefill -> decode handoff: one decode step (the recurrent form) after
 # a prefill of SSM_HANDOFF tokens against a prefill of SSM_HANDOFF + 1 (the
 # chunked form), the worst row's last-position logits.
@@ -1530,20 +1539,22 @@ def _ssd_fault():
     return _patched(ops, "_ssd_chunk_cuda", wrap)
 
 
-def ssd_operands(torch, gen, b: int, s: int, nh: int, P: int, N: int, chunk: int, dtype):
+def ssd_operands(torch, gen, b: int, s: int, nh: int, P: int, N: int, chunk: int, dtype,
+                 step: float = 1.0):
     """x_dt, B, C, seg of one SSM layer's prefill as `apply_ssm` hands them
     to `ssd_chunk`: leading dims (b, 1 group, nh heads), x_dt a permuted view
     of (b, s, nh, P), B and C (b, s, N) expanded over the heads, seg the
-    within-chunk cumulative sum of steps in (-1, 0] (as the JAX kernel's
-    tests draw it: slower decay than a trained model's, so more terms
-    count)."""
+    within-chunk cumulative sum of steps in (-step, 0] (step 1 as the JAX
+    kernel's tests draw it: much faster decay than a trained model's, so
+    only keys near the diagonal count; SSD_SLOW_DECAY for the whole
+    chunk)."""
     dev = torch.device("cuda")
     Q = min(chunk, s)
     nc = s // Q
     x = (torch.randn((b, nc, Q, 1, nh, P), generator=gen, device=dev) * 0.5).to(dtype)
     B, C = ((torch.randn((b, nc, Q, 1, 1, N), generator=gen, device=dev) * 0.5).to(dtype)
             for _ in range(2))
-    seg = -torch.rand((b, nc, Q, 1, nh), generator=gen, device=dev).cumsum(2)
+    seg = -(torch.rand((b, nc, Q, 1, nh), generator=gen, device=dev) * step).cumsum(2)
 
     def heads(t):
         return t.permute(0, 3, 4, 1, 2, *range(5, t.dim()))
@@ -1565,9 +1576,10 @@ def ssd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int):
 def ssd_kernel_phase(torch) -> dict:
     """The SSD chunk kernel against its plain version at mamba2-780m's
     prefill shape (4 x 1024 tokens: 48 heads, 4 chunks of 256, P 64, N 128)
-    in bf16 and f32, a ragged chunk (Q = 100) and a small misaligned shape,
-    every element within `ssd_chunk_tol`; then timed at the prefill shape
-    in bf16 beside its bound and the plain version."""
+    at the JAX tests' decay and at SSD_SLOW_DECAY, a ragged chunk (Q = 100)
+    and a small misaligned shape, each in bf16 and f32, every element
+    within `ssd_chunk_tol`; then timed at the prefill shape in bf16 beside
+    its bound and the plain version."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.ssd.ops import ssd_chunk
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
@@ -1579,11 +1591,13 @@ def ssd_kernel_phase(torch) -> dict:
     print(f"ssd kernels ({cfg.name}: {nh} heads, P {P}, N {N}, chunk {chunk}; B / C expanded "
           f"over the heads):")
     err = 0.0
-    for label, (b, s, h, p, n) in (("prefill 4 x 1024", (SSM_BATCH, SSM_PROMPT, nh, P, N)),
-                                   ("ragged chunk Q=100", (SSM_BATCH, 100, nh, P, N)),
-                                   ("misaligned Q=40 P=16 N=16", (2, 40, 3, 16, 16))):
+    for label, (b, s, h, p, n), step in (
+            ("prefill 4 x 1024", (SSM_BATCH, SSM_PROMPT, nh, P, N), 1.0),
+            ("prefill 4 x 1024, slow decay", (SSM_BATCH, SSM_PROMPT, nh, P, N), SSD_SLOW_DECAY),
+            ("ragged chunk Q=100", (SSM_BATCH, 100, nh, P, N), 1.0),
+            ("misaligned Q=40 P=16 N=16", (2, 40, 3, 16, 16), 1.0)):
         for dtype in (torch.bfloat16, torch.float32):
-            ops = ssd_operands(torch, gen, b, s, h, p, n, chunk, dtype)
+            ops = ssd_operands(torch, gen, b, s, h, p, n, chunk, dtype, step)
             want = ssd_chunk_ref(*ops)
             got = ssd_chunk(*ops)
             for name, g, w, tol in zip(("Y", "S"), got, want, ssd_chunk_tol(*ops, want)):
@@ -1647,21 +1661,56 @@ def _ssm_timed(torch, what, fn, want):
     return out, wall, e0.elapsed_time(e1), counts
 
 
+def _kernel_device_ms(torch, fn):
+    """Run fn() once with a pair of CUDA events around every tile GEMM,
+    fused MLP and SSD launch and one pair around the whole.  Returns (the
+    whole's device ms, {kernel: summed ms of its launches})."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as matmul_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    pairs = {"matmul": [], "fused_mlp_hidden": [], "ssd_chunk": []}
+
+    def timed(name):
+        def wrap(real):
+            def f(*args):
+                e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e[0].record()
+                out = real(*args)
+                e[1].record()
+                pairs[name].append(e)
+                return out
+            return f
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for module, fname, name in ((matmul_ops, "_matmul_cuda", "matmul"),
+                                    (fused_ops, "_fused_cuda", "fused_mlp_hidden"),
+                                    (ssd_ops, "_ssd_chunk_cuda", "ssd_chunk")):
+            stack.enter_context(_patched(module, fname, timed(name)))
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    return e0.elapsed_time(e1), {n: sum(a.elapsed_time(b) for a, b in p)
+                                 for n, p in pairs.items() if p}
+
+
 def _per_position(got, want):
     """||got - want|| / ||want|| over the vocabulary at each (row, position)."""
     g, w = got.float(), want.float()
     return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
 
 
-def ssm_serve(torch, cfg, label: str) -> dict:
+def ssm_serve(torch, cfg, label: str) -> tuple:
     """Static serving of `cfg` on the card, random weights from seed 0: a
     warm prefill of SSM_BATCH x SSM_PROMPT tokens, then a timed one and
     SSM_GEN - 1 greedy decode steps through serve_step, each run's launch
-    counts against the path's; then the prefill logits at every position,
+    counts against the path's; one more prefill with each kernel launch
+    timed (`_kernel_device_ms`); then the prefill logits at every position,
     kernel path vs plain path (plain GEMMs and MLP, the SSD kernel's plain
     version) on the same weights and tokens.  Returns (params, prompts,
-    the plain path's prefill logits, launches over the timed prefill and
-    decode steps)."""
+    launches over the timed prefill and decode steps)."""
     from repro_torch.data.pipeline import synthetic_tokens
     from repro_torch.models import apply_lm, init_lm
     from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
@@ -1716,6 +1765,11 @@ def ssm_serve(torch, cfg, label: str) -> dict:
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"  launches per prefill pass {json.dumps(counts)}, per decode step "
               f"{json.dumps(per_step)} (as the path implies)")
+        whole, kms = _kernel_device_ms(torch, lambda: prefill(params, {"tokens": prompts}))
+        print(f"  one more prefill, CUDA events around each kernel launch: {whole:.2f} ms in "
+              f"all; " + ", ".join(f"{n} {v:.2f} ms ({100 * v / whole:.1f}%)"
+                                   for n, v in kms.items())
+              + f"; the rest (eager PyTorch work and gaps) {whole - sum(kms.values()):.2f} ms")
         launches = {n: counts[n] + dcounts[n] for n in counts}
         del logits, caches
         plain_cfg = dataclasses.replace(cfg, linear_impl="jnp")
@@ -1733,7 +1787,7 @@ def ssm_serve(torch, cfg, label: str) -> dict:
               f"{SSM_POSITION_REL_BOUND}); greedy agreement {agree:.3f}")
         if rel > SSM_LOGITS_REL_BOUND or pos.max().item() > SSM_POSITION_REL_BOUND:
             fail(f"{label}: prefill logits differ from the plain path")
-    return params, prompts, lp, launches
+    return params, prompts, launches
 
 
 def ssm_serve_phase(torch) -> dict:
@@ -1749,18 +1803,9 @@ def ssm_serve_phase(torch) -> dict:
     from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
 
     cfg = dataclasses.replace(get_config("mamba2-780m"), linear_impl="fused")
-    params, prompts, lp, launches = ssm_serve(torch, cfg, "ssm serve")
+    params, prompts, launches = ssm_serve(torch, cfg, "ssm serve")
     V = cfg.vocab_size
     with torch.no_grad():
-        with _ssd_fault():
-            lf = apply_lm(params, prompts, cfg)[0][..., :V]
-        pos = _per_position(lf, lp)
-        print(f"  bf16 with a planted fault (the kernel's S of chunk 1 doubled, every layer): "
-              f"rel {_rel(lf, lp):.3e}, worst position {pos.max().item():.3e} at position "
-              f"{int(pos.argmax().item()) % SSM_PROMPT} (printed, not bounded: near the sound "
-              f"reading at bf16; the f32 check below must see it)")
-        del lp, lf
-
         f32 = dataclasses.replace(cfg, dtype="float32")
         p32 = init_lm(torch.Generator(device="cuda").manual_seed(0), f32, device="cuda")
         lk = apply_lm(p32, prompts, f32)[0][..., :V]

@@ -569,16 +569,23 @@ def test_int8_wrappers_raise_on_bad_operands(cuda):
 
 # --- the SSM slice ------------------------------------------------------------------------
 
-def _ssd_operands(rng, lead, nc, Q, P, N, dtype, device, groups=1):
+# seg's steps: [0, 1) as the JAX kernel's tests draw them (a key 65 steps
+# back weighs at most e^-32), and [0, SLOW_DECAY) as a trained Mamba2's dt
+# gives them (every key tile of a 256-step chunk counts, e^-5 at worst).
+SLOW_DECAY = 0.02
+
+
+def _ssd_operands(rng, lead, nc, Q, P, N, dtype, device, groups=1, step=1.0):
     """x_dt, B, C, seg as the model passes them: leading dims (b, groups,
     heads per group), x a permuted view of (b, nc, Q, heads, P), B and C
-    expanded over the heads of a group; seg decreasing within each chunk."""
+    expanded over the heads of a group; seg decreasing within each chunk
+    by steps in [0, step)."""
     b, hg = lead[0], lead[-1]
     x = _rand(rng, (b, nc, Q, groups, hg, P), dtype, device, 0.5)
     B = _rand(rng, (b, nc, Q, groups, 1, N), dtype, device, 0.5)
     C = _rand(rng, (b, nc, Q, groups, 1, N), dtype, device, 0.5)
-    seg = torch.from_numpy(-np.cumsum(rng.uniform(size=(b, nc, Q, groups, hg)), axis=2)
-                           .astype(np.float32)).to(device)
+    steps = rng.uniform(0.0, step, size=(b, nc, Q, groups, hg))
+    seg = torch.from_numpy(-np.cumsum(steps, axis=2).astype(np.float32)).to(device)
     heads = lambda t: t.permute(0, 3, 4, 1, 2, *range(5, t.dim()))  # noqa: E731
     expand = lambda t: heads(t.expand(b, nc, Q, groups, hg, N))  # noqa: E731
     return heads(x), expand(B), expand(C), heads(seg)
@@ -593,21 +600,22 @@ def _ssd_operands(rng, lead, nc, Q, P, N, dtype, device, groups=1):
     ((3, 1, 2), 2, 1, 8, 8),         # one-step chunks
 ])
 def test_ssd_chunk(cuda, dtype, lead, nc, Q, P, N):
-    x, B, C, seg = _ssd_operands(np.random.default_rng(Q), lead, nc, Q, P, N, dtype, cuda,
-                                 groups=lead[1])
-    before = ssd_chunk.launches
-    got = ssd_chunk(x, B, C, seg)
-    torch.cuda.synchronize()
-    assert ssd_chunk.launches == before + 1
-    want = ssd_chunk_ref(x, B, C, seg)
-    for g, w, tol in zip(got, want, tolerance.ssd_chunk_tol(x, B, C, seg, want)):
-        assert g.shape == w.shape and g.dtype == dtype
-        _close(g, w, tol)
-    # the (bh, nc, Q, .) layout with the repeat materialised: the same numbers
-    flat = [t.reshape(-1, *t.shape[3:]) for t in (x, B, C, seg)]
-    y4, s4 = ssd_chunk(*flat)
-    torch.testing.assert_close(y4.reshape(got[0].shape), got[0], atol=0, rtol=0)
-    torch.testing.assert_close(s4.reshape(got[1].shape), got[1], atol=0, rtol=0)
+    for step in (1.0, SLOW_DECAY):
+        x, B, C, seg = _ssd_operands(np.random.default_rng(Q), lead, nc, Q, P, N, dtype, cuda,
+                                     groups=lead[1], step=step)
+        before = ssd_chunk.launches
+        got = ssd_chunk(x, B, C, seg)
+        torch.cuda.synchronize()
+        assert ssd_chunk.launches == before + 1
+        want = ssd_chunk_ref(x, B, C, seg)
+        for g, w, tol in zip(got, want, tolerance.ssd_chunk_tol(x, B, C, seg, want)):
+            assert g.shape == w.shape and g.dtype == dtype
+            _close(g, w, tol)
+        # the (bh, nc, Q, .) layout with the repeat materialised: the same numbers
+        flat = [t.reshape(-1, *t.shape[3:]) for t in (x, B, C, seg)]
+        y4, s4 = ssd_chunk(*flat)
+        torch.testing.assert_close(y4.reshape(got[0].shape), got[0], atol=0, rtol=0)
+        torch.testing.assert_close(s4.reshape(got[1].shape), got[1], atol=0, rtol=0)
 
 
 def test_ssd_chunk_raises_under_autograd_and_on_bad_operands(cuda):

@@ -87,9 +87,17 @@ def mamba():
 
 # --- the SSD op -------------------------------------------------------------------------
 
-def _ssd_inputs(rng, bh, nc, Q, P, N):
+# Decrements of seg per step: the JAX kernel's tests draw them in [0, 1), a
+# decay of about e^-0.5 per step, under which a key 65 steps back weighs
+# at most e^-32 -- no fault in a key tile below the diagonal's neighbour
+# can show.  A trained Mamba2 has dt in about [1e-3, 1e-1]; SLOW_DECAY
+# draws them in [0, 0.02), so the whole chunk counts (e^-5 over 256 steps).
+SLOW_DECAY = 0.02
+
+
+def _ssd_inputs(rng, bh, nc, Q, P, N, step=1.0):
     x, B, C = (_np(rng, (bh, nc, Q, d), 0.5) for d in (P, N, N))
-    seg = -np.cumsum(rng.uniform(size=(bh, nc, Q)), axis=-1).astype(np.float32)
+    seg = -np.cumsum(rng.uniform(0.0, step, size=(bh, nc, Q)), axis=-1).astype(np.float32)
     return x, B, C, seg
 
 
@@ -99,18 +107,22 @@ def _ssd_inputs(rng, bh, nc, Q, P, N):
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_chunk_matches_jax_kernel(bh, nc, Q, P, N, dtype):
-    x, B, C, seg = _ssd_inputs(np.random.default_rng(Q + P), bh, nc, Q, P, N)
-    jd = jnp.dtype(dtype)
-    want = jax_ssd_chunk(*(jnp.asarray(a, jd) for a in (x, B, C)), jnp.asarray(seg),
-                         interpret=True)
-    td = getattr(torch, dtype)
-    xt, Bt, Ct = (_t(a).to(td) for a in (x, B, C))
-    got = ssd_chunk(xt, Bt, Ct, _t(seg))
-    tols = tolerance.ssd_chunk_tol(xt, Bt, Ct, _t(seg), got)
-    for g, w, tol in zip(got, want, tols):
-        assert g.dtype == td
-        ok, err, ratio = tolerance.check(_t(np.asarray(w.astype(jnp.float32))), g, tol)
-        assert ok, (err, ratio)
+    """At the JAX tests' decay and at SLOW_DECAY, where every key tile of
+    the chunk weighs in Y and every row in S."""
+    rng = np.random.default_rng(Q + P)
+    for step in (1.0, SLOW_DECAY):
+        x, B, C, seg = _ssd_inputs(rng, bh, nc, Q, P, N, step)
+        jd = jnp.dtype(dtype)
+        want = jax_ssd_chunk(*(jnp.asarray(a, jd) for a in (x, B, C)), jnp.asarray(seg),
+                             interpret=True)
+        td = getattr(torch, dtype)
+        xt, Bt, Ct = (_t(a).to(td) for a in (x, B, C))
+        got = ssd_chunk(xt, Bt, Ct, _t(seg))
+        tols = tolerance.ssd_chunk_tol(xt, Bt, Ct, _t(seg), got)
+        for g, w, tol in zip(got, want, tols):
+            assert g.dtype == td
+            ok, err, ratio = tolerance.check(_t(np.asarray(w.astype(jnp.float32))), g, tol)
+            assert ok, (err, ratio, step)
 
 
 def test_ssd_chunk_takes_the_models_strided_views():
@@ -148,8 +160,10 @@ def test_ssd_chunk_grad_on_cpu_raises_on_the_card_path(monkeypatch):
 # --- the tolerance ----------------------------------------------------------------------
 
 def _ssd_faults(x, B, C, seg):
-    """(exact f64 result, and three faulty results: one 64-key tile dropped,
-    one chunk's state dropped, the causal mask shifted by one)."""
+    """(exact f64 result, and the faulty results: one 64-key tile dropped
+    for every query, one chunk's state dropped, the causal mask shifted by
+    one; where Q > 192, key tile [0, 64) dropped for query rows [192, 256)
+    only, and S summed without its first 64 rows)."""
     xd, Bd, Cd, sd = (t.double() for t in (x, B, C, seg))
     Q = x.shape[-2]
     live = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
@@ -160,29 +174,42 @@ def _ssd_faults(x, B, C, seg):
              torch.einsum("...qn,...qp->...np", Bd, xd * decay[..., None]))
     x_drop = x.clone()
     x_drop[:, :, :64] = 0                  # keys [0, 64) of every chunk
-    y_drop = ssd_chunk_ref(x_drop, B, C, seg)[0]
+    y_drop, s_first = ssd_chunk_ref(x_drop, B, C, seg)
     y_ok, s_ok = ssd_chunk_ref(x, B, C, seg)
     s_drop = s_ok.clone()
     s_drop[:, 1] = 0
-    shifted = torch.tril(torch.ones(Q, Q, dtype=torch.bool), diagonal=-1)
-    L = torch.exp(torch.where(shifted, seg[..., :, None] - seg[..., None, :], -1e30))
     cb = torch.einsum("...qn,...kn->...qk", C.float(), B.float())
-    y_shift = torch.einsum("...qk,...kp->...qp", cb * L, x.float()).to(x.dtype)
-    return exact, ((y_drop, s_ok), (y_ok, s_drop), (y_shift, s_ok))
+
+    def y_masked(live):
+        L = torch.exp(torch.where(live, seg[..., :, None] - seg[..., None, :], -1e30))
+        return torch.einsum("...qk,...kp->...qp", cb * L, x.float()).to(x.dtype)
+    faults = {"dropped key tile": (y_drop, s_ok), "dropped chunk state": (y_ok, s_drop),
+              "shifted mask": (y_masked(torch.tril(live, diagonal=-1)), s_ok)}
+    if Q > 192:
+        far = live.clone()
+        far[192:, :64] = False
+        faults["far key tile of rows 192-255"] = (y_masked(far), s_ok)
+        faults["S without its first key tile"] = (y_ok, s_first)
+    return exact, faults
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_tol_admits_the_exact_result_and_catches_faults(dtype):
-    x, B, C, seg = (_t(a) for a in _ssd_inputs(np.random.default_rng(5), 3, 2, 100, 24, 40))
-    x, B, C = (t.to(dtype) for t in (x, B, C))
-    want = ssd_chunk_ref(x, B, C, seg)
-    tols = tolerance.ssd_chunk_tol(x, B, C, seg, want)
-    exact, faults = _ssd_faults(x, B, C, seg)
-    for e, w, tol in zip(exact, want, tols):
-        assert tolerance.check(e.to(dtype), w, tol)[0]
-    for name, fault in zip(("dropped key tile", "dropped chunk state", "shifted mask"), faults):
-        assert not all(tolerance.check(f, w, tol)[0] for f, w, tol in zip(fault, want, tols)), \
-            name
+    """At the JAX tests' fast decay (Q = 100) and at SLOW_DECAY (Q = 256),
+    where a fault in a key tile far below the diagonal, or in S's first
+    rows, must show too."""
+    for rng, shape, step in ((np.random.default_rng(5), (3, 2, 100, 24, 40), 1.0),
+                             (np.random.default_rng(6), (3, 2, 256, 24, 40), SLOW_DECAY)):
+        x, B, C, seg = (_t(a) for a in _ssd_inputs(rng, *shape, step))
+        x, B, C = (t.to(dtype) for t in (x, B, C))
+        want = ssd_chunk_ref(x, B, C, seg)
+        tols = tolerance.ssd_chunk_tol(x, B, C, seg, want)
+        exact, faults = _ssd_faults(x, B, C, seg)
+        for e, w, tol in zip(exact, want, tols):
+            assert tolerance.check(e.to(dtype), w, tol)[0]
+        for name, fault in faults.items():
+            assert not all(tolerance.check(f, w, tol)[0]
+                           for f, w, tol in zip(fault, want, tols)), (name, step)
 
 
 # --- the model ---------------------------------------------------------------------------
