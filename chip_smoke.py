@@ -6,18 +6,23 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
   2. build: one nvcc per source under src/repro_torch/kernels/csrc, all at
-     once, and a link (time and the ptxas register / spill report);
+     once, and a link (time and the ptxas register / spill report); every
+     instantiation of the bf16 flash forward and backward must show
+     warpgroup products (HGMMA) and cp.async copies (LDGSTS) in its SASS;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
      bound and, where one PyTorch call computes the same function, that
      call: the serving slice's kernels at its shapes (internlm2-1.8b, 64-row
-     GEMMs, a 64-slot bf16 pool), the prefix slice's (the block-table
+     GEMMs, a 64-slot bf16 pool; the slot and block-table kernels at
+     g = 12, bf16 and int8 pools), the prefix slice's (the block-table
      kernel over a bf16 pool, the slot and block-table kernels over int8
      pools, tables built by a BlockPool), then the training slice's at its shapes
-     (4 x 1024 tokens: flash attention forward and backward, the fused
-     SwiGLU forward and backward, every projection's forward, dgrad and
-     wgrad), then the int8-weight slice's (the int8 GEMM at every
+     (4 x 1024 tokens: flash attention forward and backward, each beside
+     SDPA, the fused SwiGLU forward and backward, every projection's
+     forward, dgrad and wgrad); flash attention at gpt3-2.7b's head splits
+     C0-C3 (head dims 80, 40, 64, 128 at 4 x 2048 tokens) against SDPA and
+     the bound at the true head dim; then the int8-weight slice's (the int8 GEMM at every
      projection's shape at 64 and 4096 rows, bit-identical to its plain
      version, beside torch._int_mm; the int8 fused SwiGLU hidden), then the
      SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
@@ -51,7 +56,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and 289 GEMMs per decode step); the device time of one prefill's GEMM
      and SSD launches between CUDA events; prefill logits against the plain path
      over all positions and at the worst position; the worst position at
-     f32, which a planted chunk-state fault must break; one decode step
+     f32, at random init and at a trained model's slow decay
+     (softplus(dt_bias) in [1e-3, 1e-1]), which a planted chunk-state
+     fault must break at each; one decode step
      after a prefill of 1000 tokens against a prefill of 1001, which a
      planted fault (zeroed conv tails) must break;
   8. hybrid serve: zamba2-2.7b at full width, 2 of its 9 superblocks, the
@@ -233,6 +240,35 @@ def build_phase() -> None:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    sass_check(Path(_build._nvcc()).parent / "cuobjdump", lib.path)
+
+
+def sass_check(cuobjdump: Path, lib_path: Path) -> None:
+    """The bf16 flash kernels as compiled: each instantiation of the forward
+    and the backward must issue warpgroup products (HGMMA) and stage its
+    tiles with asynchronous copies (LDGSTS, cp.async)."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:200]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        for kernel in ("flash_fwd_sm90", "flash_bwd_sm90"):
+            if fn and kernel in fn:
+                per = counts.setdefault(kernel, {}).setdefault(fn, {"HGMMA": 0, "LDGSTS": 0})
+                for op in per:
+                    per[op] += op in line
+    for kernel in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        fns = counts.get(kernel, {})
+        hg = [c["HGMMA"] for c in fns.values()]
+        ld = [c["LDGSTS"] for c in fns.values()]
+        print(f"  sass: {kernel}: {len(fns)} instantiations, HGMMA {min(hg, default=0)}-"
+              f"{max(hg, default=0)} and LDGSTS {min(ld, default=0)}-{max(ld, default=0)} each")
+        if not fns or min(hg) == 0 or min(ld) == 0:
+            fail(f"{kernel}: an instantiation without wgmma or cp.async in its SASS")
 
 
 # --- timing ---------------------------------------------------------------------------
@@ -387,7 +423,52 @@ def kernel_phase(torch) -> dict:
         replaces="src/repro/kernels/flash_attention/paged.py:97", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
     del pools
+    paged_group_check(torch, randn, gen)
     return rows
+
+
+def paged_group_check(torch, randn, gen) -> None:
+    """The paged kernels at g = 12 (command-r-plus-104b and nemotron-4-340b:
+    96 query heads over 8 kv heads), d 128: the slot and the block-table
+    kernel over a bf16 and an int8 pool against their plain versions, and
+    the slot kernel's time beside g = 2's over the same pool."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import (paged_decode_blocktable_ref,
+                                                         paged_decode_ref)
+    from repro_torch.kernels.tolerance import paged_decode_blocktable_tol, paged_decode_tol
+    from repro_torch.quant import quantize_kv
+
+    dev = torch.device("cuda")
+    b, a, nkv, d, s_max, bs = 16, 96, 8, 128, 256, 16
+    q, q2 = randn(b, a, d), randn(b, 2 * nkv, d)
+    kp, vp = randn(b, s_max, nkv, d), randn(b, s_max, nkv, d)
+    (kq, ksc), (vq, vsc) = quantize_kv(kp.float()), quantize_kv(vp.float())
+    slot_idx = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+    lengths = torch.randint(1, s_max + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[3] = 0
+    per_slot = s_max // bs   # the slot pool seen as blocks of bs tokens, slot-major
+    tables = (slot_idx.long()[:, None] * per_slot
+              + torch.arange(per_slot, device=dev)[None, :]).to(torch.int32)
+
+    def blocks(t):
+        return t.reshape(b * per_slot, bs, *t.shape[2:])
+
+    for label, (K, V), sc in (("bf16", (kp, vp), {}),
+                              ("int8", (kq, vq), dict(k_scale=ksc, v_scale=vsc))):
+        want = paged_decode_ref(q, K, V, slot_idx, lengths, **sc)
+        compare(torch, paged_decode(q, K, V, slot_idx, lengths, **sc), want,
+                paged_decode_tol(q, K, V, slot_idx, lengths, want, **sc),
+                f"paged_decode g=12 {label} b={b} a={a} nkv={nkv} d={d}")
+        bsc = {n: blocks(t) for n, t in sc.items()}
+        want = paged_decode_blocktable_ref(q, blocks(K), blocks(V), tables, lengths, **bsc)
+        compare(torch, paged_decode_blocktable(q, blocks(K), blocks(V), tables, lengths, **bsc),
+                want, paged_decode_blocktable_tol(q, blocks(K), blocks(V), tables, lengths, want,
+                                                  **bsc),
+                f"paged_decode_blocktable g=12 {label} block size {bs}")
+    ms12, _ = time_ms(torch, [lambda: paged_decode(q, kp, vp, slot_idx, lengths)])
+    ms2, _ = time_ms(torch, [lambda: paged_decode(q2, kp, vp, slot_idx, lengths)])
+    print(f"    slot kernel, bf16 pool ({int(lengths.sum().item())} live tokens): g=12 {ms12:.4f} "
+          f"ms, g=2 {ms2:.4f} ms over the same K/V (each K/V tile read once at both)")
 
 
 # --- kernel phase, training shapes -------------------------------------------------------
@@ -518,18 +599,20 @@ def train_kernel_phase(torch) -> dict:
     io = 2.0 * (2 * b * s * a * d + 2 * b * s * nkv * d)      # q, o; k, v
     bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * s)
     bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * s * a * d + 8.0 * b * a * s)
-    print(f"    forward {ms:.4f} ms (plain {plain:.4f}, SDPA {sdpa_f:.4f}, bound {bnd:.4f} by "
-          f"{by}; {4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s); 24 launches per step")
+    print(f"    forward {ms:.4f} ms (plain {plain:.4f}, SDPA {sdpa_f:.4f}: {ms / sdpa_f:.2f}x, "
+          f"bound {bnd:.4f} by {by}; {4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s); 24 launches "
+          f"per step")
     print(f"    backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA forward+backward "
-          f"{sdpa_fb:.4f} less its forward = {sdpa_b:.4f}, bound {bnd_b:.4f} by "
-          f"{by_b}; {10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s); 24 launches per step")
+          f"{sdpa_fb:.4f} less its forward = {sdpa_b:.4f}: {ms_b / sdpa_b:.2f}x, bound "
+          f"{bnd_b:.4f} by {by_b}; {10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s); 24 launches "
+          f"per step")
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:115", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=sdpa_f)
     rows["flash_attention_bwd"] = dict(
         name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention/backward.py:115", max_abs_err=errb, ms=ms_b,
         plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=sdpa_b)
     del qkv, fwd_in, bwd_in, q, k, v, do, o, lse_p, out, lse
@@ -578,6 +661,62 @@ def train_kernel_phase(torch) -> dict:
     _train_gemm_rows(torch, randn, rows)
     torch.cuda.empty_cache()
     return rows
+
+
+# gpt3-2.7b's attention at the paper's four head splits of d_model 2560
+# (Fig. 1's C0-C3: query heads a at head dim d; multi-head, nkv = a).
+GPT3_ATTENTION = {"C0": (32, 80), "C1": (64, 40), "C2": (40, 64), "C3": (20, 128)}
+GPT3_BATCH, GPT3_SEQ = 4, 2048
+
+
+def attention_table_phase(torch) -> None:
+    """The attention half of the paper's Fig. 1 on the card: the flash
+    forward and backward at gpt3-2.7b's C0-C3 (b 4, s 2048, causal, bf16),
+    each checked against its plain version at b 1 (the plain version's f32
+    scores at a = 64 take 1 GiB a tensor) and timed at b 4 beside SDPA and
+    the bound at the true head dim (the kernels pad d in shared memory)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd,
+                                                         flash_attention_fwd, flash_padded_d)
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+    from repro_torch.kernels.tolerance import flash_attention_bwd_tol, flash_attention_tol
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s = GPT3_BATCH, GPT3_SEQ
+    print(f"attention at gpt3-2.7b C0-C3 (d_model 2560, b {b}, s {s}, causal, bf16; CUDA events):")
+    for name, (a, d) in GPT3_ATTENTION.items():
+        q, k, v, do = (torch.randn((b, s, a, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        q1, k1, v1, do1 = q[:1], k[:1], v[:1], do[:1]
+        want = flash_attention_ref(q1, k1, v1)
+        out, lse = flash_attention_fwd(q1, k1, v1)
+        t_out, t_lse = flash_attention_tol(q1, k1, v1, want)
+        compare(torch, out, want[0], t_out, f"{name} flash_attention out b=1 a={a} d={d}")
+        compare(torch, lse, want[1], t_lse, f"{name} flash_attention lse")
+        del t_out, t_lse, out, lse
+        gwant = flash_attention_bwd_ref(q1, k1, v1, *want, do1)
+        got = flash_attention_bwd(q1, k1, v1, *want, do1)
+        tols = flash_attention_bwd_tol(q1, k1, v1, *want, do1, gwant)
+        for n_, g_, w_, t_ in zip(("dq", "dk", "dv"), got, gwant, tols):
+            compare(torch, g_, w_, t_, f"{name} flash_attention_bwd {n_}")
+        del want, gwant, got, tols
+        torch.cuda.empty_cache()
+        o, lse = flash_attention_fwd(q, k, v)
+        ms, _ = time_ms(torch, [lambda: flash_attention_fwd(q, k, v)], TRAIN_ITERS)
+        ms_b, _ = time_ms(torch, [lambda: flash_attention_bwd(q, k, v, o, lse, do)], TRAIN_ITERS)
+        sdpa_f, sdpa_fb = _sdpa_ms(torch, q, k, v, do)
+        pairs = b * a * s * (s + 1) // 2
+        io = 2.0 * 4 * b * s * a * d                 # q, k, v, o
+        bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * s)
+        bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * s * a * d + 8.0 * b * a * s)
+        print(f"  {name} a={a} d={d} (padded {flash_padded_d(d)}): forward {ms:.4f} ms (SDPA "
+              f"{sdpa_f:.4f}: {ms / sdpa_f:.2f}x; bound {bnd:.4f} by {by}; "
+              f"{4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s at the true d); backward {ms_b:.4f} ms "
+              f"(SDPA {sdpa_fb - sdpa_f:.4f}: {ms_b / (sdpa_fb - sdpa_f):.2f}x; bound "
+              f"{bnd_b:.4f} by {by_b}; {10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s)")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
 
 
 # --- serve phase ------------------------------------------------------------------------
@@ -1790,10 +1929,21 @@ def ssm_serve(torch, cfg, label: str) -> tuple:
     return params, prompts, launches
 
 
+def slow_decay_dt_bias(shape, seed: int):
+    """dt_bias (f32 numpy) with softplus(dt_bias) log-uniform in [1e-3, 1e-1],
+    as a trained Mamba2's dt: at random init (dt_bias 0, dt ~ 0.7) the state
+    decays within a few steps, so a chunk's state barely reaches the next."""
+    import numpy as np
+    u = np.exp(np.random.default_rng(seed).uniform(np.log(1e-3), np.log(1e-1), size=shape))
+    return np.log(np.expm1(u)).astype(np.float32)
+
+
 def ssm_serve_phase(torch) -> dict:
     """mamba2-780m at full width and depth, bf16, linear_impl="fused": the
     static serve path (`ssm_serve`); the worst-position logits check at
-    f32, which a planted fault in the kernel's chunk state must break; the
+    f32, at random init and at a trained model's slow decay
+    (`slow_decay_dt_bias`), which a planted fault in the kernel's chunk
+    state must break at each; the
     prefill -> decode handoff (one decode step after a prefill of
     SSM_HANDOFF tokens against a prefill of one token more), with a planted
     fault (zeroed conv tails) that its bound must see.  Returns the
@@ -1808,23 +1958,31 @@ def ssm_serve_phase(torch) -> dict:
     with torch.no_grad():
         f32 = dataclasses.replace(cfg, dtype="float32")
         p32 = init_lm(torch.Generator(device="cuda").manual_seed(0), f32, device="cuda")
-        lk = apply_lm(p32, prompts, f32)[0][..., :V]
-        with _plain_ssd():
-            lp = apply_lm(p32, prompts, dataclasses.replace(f32, linear_impl="jnp"))[0][..., :V]
-        with _ssd_fault():
-            lf = apply_lm(p32, prompts, f32)[0][..., :V]
-        readings = {}
-        for what, got in (("sound", lk), ("planted fault", lf)):
-            pos = _per_position(got, lp)
-            readings[what] = pos.max().item()
-            print(f"  f32, {f32.num_layers} layers, kernel path vs plain path, {what}: rel "
-                  f"{_rel(got, lp):.3e}, worst position {readings[what]:.3e} at position "
-                  f"{int(pos.argmax().item()) % SSM_PROMPT} (bound {SSM_F32_POSITION_REL_BOUND})")
-        if readings["sound"] > SSM_F32_POSITION_REL_BOUND:
-            fail("f32 prefill logits differ from the plain path at some position")
-        if readings["planted fault"] <= SSM_F32_POSITION_REL_BOUND:
-            fail("the worst-position bound does not see the planted chunk-state fault")
-        del p32, lk, lp, lf
+        for decay in ("random init", "slow decay"):
+            if decay == "slow decay":
+                p32["seg0"]["ssm"]["dt_bias"].copy_(torch.from_numpy(
+                    slow_decay_dt_bias(tuple(p32["seg0"]["ssm"]["dt_bias"].shape), seed=0)))
+            lk = apply_lm(p32, prompts, f32)[0][..., :V]
+            with _plain_ssd():
+                lp = apply_lm(p32, prompts,
+                              dataclasses.replace(f32, linear_impl="jnp"))[0][..., :V]
+            with _ssd_fault():
+                lf = apply_lm(p32, prompts, f32)[0][..., :V]
+            readings = {}
+            for what, got in (("sound", lk), ("planted fault", lf)):
+                pos = _per_position(got, lp)
+                readings[what] = pos.max().item()
+                print(f"  f32, {f32.num_layers} layers, {decay}, kernel path vs plain path, "
+                      f"{what}: rel {_rel(got, lp):.3e}, worst position {readings[what]:.3e} at "
+                      f"position {int(pos.argmax().item()) % SSM_PROMPT} (bound "
+                      f"{SSM_F32_POSITION_REL_BOUND})")
+            if readings["sound"] > SSM_F32_POSITION_REL_BOUND:
+                fail(f"f32 prefill logits ({decay}) differ from the plain path at some position")
+            if readings["planted fault"] <= SSM_F32_POSITION_REL_BOUND:
+                fail(f"the worst-position bound does not see the planted chunk-state fault "
+                     f"({decay})")
+            del lk, lp, lf
+        del p32
 
         s = SSM_HANDOFF
         ctx = prompts[:, :s + 1]
@@ -2164,6 +2322,13 @@ def profile_train_step(torch, step_fn, params, opt, batch) -> None:
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:14]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    flash = {name: [e for e in events if name in e.key]
+             for name in ("flash_fwd_sm90", "attention_di", "flash_bwd_sm90", "dq_convert")}
+    ms = {n: sum(e.self_device_time_total for e in es) / 1e3 for n, es in flash.items()}
+    print("  flash attention in the profiled step: " + ", ".join(
+        f"{n} {v:.2f} ms x{sum(e.count for e in flash[n])}" for n, v in ms.items())
+        + f"; {sum(ms.values()):.2f} ms = {100 * sum(ms.values()) / 1e3 / busy:.1f}% of the "
+        f"device-busy time")
 
 
 def _paths(tree, prefix=""):
@@ -2190,6 +2355,7 @@ def main() -> None:
     rows = phase("kernels", kernel_phase, torch)
     rows.update(phase("prefix kernels", prefix_kernel_phase, torch))
     rows.update(phase("train kernels", train_kernel_phase, torch))
+    phase("attention table", attention_table_phase, torch)
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
     counts = phase("serve", serve_phase, torch)

@@ -125,7 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_fused_mlp_bwd.restype = i
     lib.repro_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.repro_flash_fwd.restype = i
-    lib.repro_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.repro_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i,
+                                    p]
     lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i

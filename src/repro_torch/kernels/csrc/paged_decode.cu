@@ -21,7 +21,11 @@
 // What the design does about it: one block per (row b, kv head h) serves
 // the g query heads that share the kv head (head i -> kv head i // g, as
 // paged.py:121), so each K/V element is read from device memory once for
-// all g heads.  The block loads lengths[b] itself and walks kv tiles only up
+// all g heads.  The block's head count is a template width, 8 or 16, that
+// the launch picks (g <= 8, or g <= 16: command-r-plus and nemotron-4 have
+// g = 12); a larger group is split over a third grid dimension in chunks
+// of 16 heads, and each chunk reads the row's K/V once (ceil(g / 16)
+// reads in all).  The block loads lengths[b] itself and walks kv tiles only up
 // to it (a dead row reads nothing and writes zeros); table entries past a
 // row's live blocks are never read.  At the top of each tile the block
 // resolves every live token's physical index once (slot * s_max + pos, or
@@ -43,7 +47,6 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_G = 8;       // query heads per kv head
 constexpr int MAX_D = 256;     // head dim
 constexpr int DPT = MAX_D / THREADS;  // output columns per thread (<= 2)
 constexpr float NEG_INF = -1e30f;
@@ -75,11 +78,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // slot * depth + pos (slot pool: index = slot_idx (b,), depth = s_max) or
 // table[b, pos / depth] * depth + pos % depth (block table: index = tables
 // (b, max_blocks), depth = block_size); an int8 pool's scales (tokens, nkv)
-// f32.  out (b, a, d) TQ.  grid (b, nkv).  Dynamic shared memory: the
-// tile's token indices (bkv int64), K and V tiles (bkv x d TKV each), q (g x
-// d f32), scores (g x bkv f32), the tile's K and V scales (bkv f32 each) and
-// the per-head running max / sum / rescale.
-template <typename TQ, typename TKV, bool TABLE>
+// f32.  out (b, a, d) TQ.  grid (b, nkv, ceil(g / GW)): block (b, h, z)
+// serves query heads h g + z GW .. of kv head h, at most GW of them.
+// Dynamic shared memory: the tile's token indices (bkv int64), K and V
+// tiles (bkv x d TKV each), q (gs x d f32), scores (gs x bkv f32), the
+// tile's K and V scales (bkv f32 each) and the per-head running max / sum /
+// rescale (GW each), where gs = min(g, GW).
+template <typename TQ, typename TKV, bool TABLE, int GW>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                     const TKV* __restrict__ v_pool, const float* __restrict__ k_scale,
@@ -88,28 +93,30 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                     int depth, int max_blocks, int bkv, float scale) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int g = a / nkv;
+  const int z0 = blockIdx.z * GW;
+  const int g = min(GW, a / nkv - z0);  // query heads of this block
+  const int gs = min(GW, a / nkv);      // ... of the widest block (shared-memory layout)
   const int row = blockIdx.x, h = blockIdx.y;
   long long* tok_s = reinterpret_cast<long long*>(smem);
   TKV* Ks = reinterpret_cast<TKV*>(tok_s + bkv);
   TKV* Vs = Ks + bkv * d;
   float* qs = reinterpret_cast<float*>(Vs + bkv * d);
-  float* ss = qs + g * d;
-  float* ksc = ss + g * bkv;
+  float* ss = qs + gs * d;
+  float* ksc = ss + gs * bkv;
   float* vsc = ksc + bkv;
   float* m_s = vsc + bkv;
-  float* l_s = m_s + MAX_G;
-  float* alpha_s = l_s + MAX_G;
+  float* l_s = m_s + GW;
+  float* alpha_s = l_s + GW;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const TQ* qrow = q + ((size_t)row * a + (size_t)h * g) * d;
-  TQ* orow = out + ((size_t)row * a + (size_t)h * g) * d;
+  const TQ* qrow = q + ((size_t)row * a + (size_t)h * (a / nkv) + z0) * d;
+  TQ* orow = out + ((size_t)row * a + (size_t)h * (a / nkv) + z0) * d;
   const int capacity = TABLE ? max_blocks * depth : depth;
   const int len = min(lengths[row], capacity);
 
-  float acc[MAX_G][DPT];
+  float acc[GW][DPT];
 #pragma unroll
-  for (int gi = 0; gi < MAX_G; ++gi)
+  for (int gi = 0; gi < GW; ++gi)
 #pragma unroll
     for (int c = 0; c < DPT; ++c) acc[gi][c] = 0.0f;
 
@@ -155,18 +162,18 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 
     // scores: warp w takes tokens w, w + WARPS, ...; lanes split the dot
     for (int j = warp; j < nt; j += WARPS) {
-      float part[MAX_G];
+      float part[GW];
 #pragma unroll
-      for (int gi = 0; gi < MAX_G; ++gi) part[gi] = 0.0f;
+      for (int gi = 0; gi < GW; ++gi) part[gi] = 0.0f;
       for (int e = lane; e < d; e += 32) {
         float kv = to_f(Ks[j * d + e]);
         if constexpr (QUANT) kv *= ksc[j];
 #pragma unroll
-        for (int gi = 0; gi < MAX_G; ++gi)
+        for (int gi = 0; gi < GW; ++gi)
           if (gi < g) part[gi] = fmaf(qs[gi * d + e], kv, part[gi]);
       }
 #pragma unroll
-      for (int gi = 0; gi < MAX_G; ++gi) {
+      for (int gi = 0; gi < GW; ++gi) {
         if (gi < g) {
           const float s = warp_sum(part[gi]);
           if (lane == 0) ss[gi * bkv + j] = s * scale;
@@ -203,18 +210,18 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
     for (int c = 0; c < DPT; ++c) {
       const int e = tid + c * THREADS;
       if (e >= d) break;
-      float pv[MAX_G];
+      float pv[GW];
 #pragma unroll
-      for (int gi = 0; gi < MAX_G; ++gi) pv[gi] = 0.0f;
+      for (int gi = 0; gi < GW; ++gi) pv[gi] = 0.0f;
       for (int j = 0; j < nt; ++j) {
         float vv = to_f(Vs[j * d + e]);
         if constexpr (QUANT) vv *= vsc[j];
 #pragma unroll
-        for (int gi = 0; gi < MAX_G; ++gi)
+        for (int gi = 0; gi < GW; ++gi)
           if (gi < g) pv[gi] = fmaf(ss[gi * bkv + j], vv, pv[gi]);
       }
 #pragma unroll
-      for (int gi = 0; gi < MAX_G; ++gi)
+      for (int gi = 0; gi < GW; ++gi)
         if (gi < g) acc[gi][c] = acc[gi][c] * alpha_s[gi] + pv[gi];
     }
   }
@@ -225,7 +232,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
     const int e = tid + c * THREADS;
     if (e >= d) break;
 #pragma unroll
-    for (int gi = 0; gi < MAX_G; ++gi) {
+    for (int gi = 0; gi < GW; ++gi) {
       if (gi < g) {
         float l = l_s[gi];
         l = l == 0.0f ? 1.0f : l;
@@ -237,15 +244,18 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 
 size_t kv_bytes(int kv_dtype) { return kv_dtype == DT_F32 ? 4 : kv_dtype == DT_BF16 ? 2 : 1; }
 
-template <typename TQ, typename TKV>
+// The block's head-count width for a group of g query heads.
+int group_width(int g) { return g <= 8 ? 8 : 16; }
+
+template <typename TQ, typename TKV, int GW>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const void* index, const void* lengths, void* out, int b, int a,
            int nkv, int d, int depth, int max_blocks, int bkv, float scale, size_t smem,
            cudaStream_t s) {
-  auto* kern = max_blocks > 0 ? paged_decode_kernel<TQ, TKV, true>
-                              : paged_decode_kernel<TQ, TKV, false>;
+  auto* kern = max_blocks > 0 ? paged_decode_kernel<TQ, TKV, true, GW>
+                              : paged_decode_kernel<TQ, TKV, false, GW>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kern<<<dim3(b, nkv), THREADS, smem, s>>>(
+  kern<<<dim3(b, nkv, (a / nkv + GW - 1) / GW), THREADS, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
       static_cast<const TKV*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(index),
@@ -254,12 +264,26 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_
   return (int)cudaGetLastError();
 }
 
+template <typename TQ, typename TKV>
+int launch_g(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+             const void* v_scale, const void* index, const void* lengths, void* out, int b, int a,
+             int nkv, int d, int depth, int max_blocks, int bkv, float scale, size_t smem,
+             cudaStream_t s) {
+  if (group_width(a / nkv) == 8)
+    return launch<TQ, TKV, 8>(q, k_pool, v_pool, k_scale, v_scale, index, lengths, out, b, a,
+                              nkv, d, depth, max_blocks, bkv, scale, smem, s);
+  return launch<TQ, TKV, 16>(q, k_pool, v_pool, k_scale, v_scale, index, lengths, out, b, a,
+                             nkv, d, depth, max_blocks, bkv, scale, smem, s);
+}
+
 }  // namespace
 
-// Shared memory for a tile of bkv tokens (the wrapper sizes bkv).
+// Shared memory for a tile of bkv tokens (the wrapper sizes bkv); g query
+// heads per kv head.
 extern "C" size_t repro_paged_decode_smem(int g, int d, int bkv, int kv_dtype) {
-  return (size_t)bkv * 8 + 2 * (size_t)bkv * d * kv_bytes(kv_dtype) + (size_t)g * d * 4 +
-         (size_t)g * bkv * 4 + 2 * (size_t)bkv * 4 + 3 * MAX_G * 4;
+  const int gw = group_width(g), gs = g < gw ? g : gw;
+  return (size_t)bkv * 8 + 2 * (size_t)bkv * d * kv_bytes(kv_dtype) + (size_t)gs * d * 4 +
+         (size_t)gs * bkv * 4 + 2 * (size_t)bkv * 4 + 3 * (size_t)gw * 4;
 }
 
 // q (b, a, d), q_dtype 0 = f32, 1 = bf16; k_pool, v_pool (tokens, nkv, d),
@@ -273,7 +297,7 @@ extern "C" int repro_paged_decode(const void* q, const void* k_pool, const void*
                                   int depth, int max_blocks, int bkv, float scale, int q_dtype,
                                   int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || nkv <= 0 || a % nkv || a / nkv > MAX_G || d > MAX_D || bkv <= 0 || bkv % 2 ||
+  if (b <= 0 || nkv <= 0 || a % nkv || d > MAX_D || bkv <= 0 || bkv % 2 ||
       depth <= 0 || max_blocks < 0 || d % (16 / kv_bytes(kv_dtype)))
     return (int)cudaErrorInvalidValue;
   const bool quant = kv_dtype == DT_INT8;
@@ -281,8 +305,8 @@ extern "C" int repro_paged_decode(const void* q, const void* k_pool, const void*
   if (quant != (k_scale != nullptr && v_scale != nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = repro_paged_decode_smem(a / nkv, d, bkv, kv_dtype);
 #define REPRO_PAGED_LAUNCH(TQ, TKV)                                                           \
-  launch<TQ, TKV>(q, k_pool, v_pool, k_scale, v_scale, index, lengths, out, b, a, nkv, d, \
-                  depth, max_blocks, bkv, scale, smem, s)
+  launch_g<TQ, TKV>(q, k_pool, v_pool, k_scale, v_scale, index, lengths, out, b, a, nkv, d, \
+                    depth, max_blocks, bkv, scale, smem, s)
   if (q_dtype == DT_BF16)
     return quant ? REPRO_PAGED_LAUNCH(__nv_bfloat16, int8_t)
                  : REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);

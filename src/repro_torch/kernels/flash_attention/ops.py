@@ -8,14 +8,17 @@ Each dispatches on the device: a CPU tensor runs the plain version
 `flash_attention` takes the JAX public layout, q (b, sq, a, d) and k, v (b,
 skv, nkv, d), and the kernels read it in place through strides: no
 fold/unfold copies and no padding to the block grid (the kernels mask the
-ragged edges).  It is differentiable, as JAX's `_flash_core` custom VJP:
-the forward saves its inputs, the output and the per-row logsumexp, and the
-backward launches the dq and dk/dv kernels.  The autograd.Function is taken
-only when a gradient is recorded.  `flash_attention_fwd.launches` and
-`flash_attention_bwd.launches` count wrapper calls that launched their
-kernels (the backward's dq and dk/dv kernels ride together).
+ragged edges).  Any head dim from 1 to 256 and any group size a / nkv
+works: the kernels pad d to their instantiated width in shared memory only.
+It is differentiable, as JAX's `_flash_core` custom VJP: the forward saves
+its inputs, the output and the per-row logsumexp, and the backward launches
+the one-pass backward kernel (bf16: dq through an f32 scratch buffer that
+the wrapper allocates; f32: the dq and dk/dv kernels).  The
+autograd.Function is taken only when a gradient is recorded.
+`flash_attention_fwd.launches` and `flash_attention_bwd.launches` count
+wrapper calls that launched their kernels.
 
-Any pool depth and block size works for `paged_decode` and
+Any pool depth, block size and group size works for `paged_decode` and
 `paged_decode_blocktable`: the kernel masks the tail tile and resolves each
 token's physical block itself, so there is no block_kv clamp or pool pad as
 in the JAX wrapper, no tuning-cache lookup (`tuned=` comes with the tuning
@@ -28,12 +31,32 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import (attention_di, flash_attention_bwd_ref, flash_attention_ref,
-                  paged_decode_blocktable_ref, paged_decode_ref)
+from .ref import (flash_attention_bwd_ref, flash_attention_ref, paged_decode_blocktable_ref,
+                  paged_decode_ref)
 
 MAX_BLOCK_KV = 64          # kv tokens staged per tile
 SMEM_BUDGET = 48 * 1024    # bytes of shared memory a paged-decode tile may take
-FLASH_HEAD_DIMS = (16, 32, 64, 128)  # head dims csrc/flash_attention.cu instantiates
+MAX_HEAD_DIM = 256         # the largest head dim the flash and paged-decode kernels take
+
+
+def flash_shape_ok(d: int, a: int, nkv: int) -> bool:
+    """Whether the flash kernels take head dim d with a query heads over nkv
+    kv heads: any d from 1 to 256, any group size.  Shapes only, no launch."""
+    return 1 <= d <= MAX_HEAD_DIM and nkv > 0 and a % nkv == 0
+
+
+def flash_padded_d(d: int) -> int:
+    """The head dim csrc/flash_attention.cuh `padded_d` runs d at: a multiple
+    of 16 up to 128, of 32 above (zeros past d, in shared memory only)."""
+    return -(-d // 16) * 16 if d <= 128 else -(-d // 32) * 32
+
+
+def paged_shape_ok(d: int, a: int, nkv: int, kv_itemsize: int) -> bool:
+    """Whether the paged-decode kernels take head dim d with a query heads
+    over nkv kv heads, a pool of kv_itemsize-byte elements: any group size,
+    d up to 256 in whole 16-byte loads per row.  Shapes only, no launch."""
+    return (1 <= d <= MAX_HEAD_DIM and nkv > 0 and a % nkv == 0
+            and d % (16 // kv_itemsize) == 0)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
@@ -94,8 +117,8 @@ def _flash_shapes(what, q, k, v, *like_q):
                          f"{''.join(f', {tuple(t.shape)}' for t in like_q)}")
     if any(t.dtype != q.dtype for t in (k, v, *like_q)):
         raise TypeError(f"{what}: dtypes {[str(t.dtype) for t in (q, k, v, *like_q)]}")
-    if d not in FLASH_HEAD_DIMS or not _build.aligned16(q, k, v, *like_q):
-        raise ValueError(f"{what}: the kernels take head dims {FLASH_HEAD_DIMS} and 16-byte "
+    if not flash_shape_ok(d, a, nkv) or not _build.aligned16(q, k, v, *like_q):
+        raise ValueError(f"{what}: the kernels take head dims 1..{MAX_HEAD_DIM} and 16-byte "
                          f"aligned tensors (d = {d})")
     return b, sq, skv, a, nkv, d
 
@@ -121,11 +144,9 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
-    # o enters only through di = rowsum(do * o), taken here: any strides
-    b, sq, skv, a, nkv, d = _flash_shapes("flash_attention_bwd", q, k, v, do)
-    if o.shape != q.shape or o.device != q.device:
-        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} on {o.device} for q "
-                         f"{tuple(q.shape)} on {q.device}")
+    # o enters only through di = rowsum(do * o), the kernels' pre-pass: any strides
+    o = o.contiguous()
+    b, sq, skv, a, nkv, d = _flash_shapes("flash_attention_bwd", q, k, v, do, o)
     if lse.shape != (b, a, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype}, "
                          f"want ({b}, {a}, {sq}) float32, contiguous")
@@ -134,13 +155,17 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or sq == 0 or skv == 0 or a == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    di = attention_di(o, do)
+    di = torch.empty((b, a, sq), dtype=torch.float32, device=q.device)   # the pre-pass's
+    # bf16: the kernel adds dq into f32 scratch with atomics, then rounds it
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 else None)
     lib = _build.build().lib
     with torch.cuda.device(q.device):
-        status = lib.repro_flash_bwd(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-                                     _build.ptr(lse), _build.ptr(di), _build.ptr(dq),
-                                     _build.ptr(dk), _build.ptr(dv), b, sq, skv, a, nkv, d,
-                                     int(causal), float(scale), dt, _build.stream_of(q.device))
+        status = lib.repro_flash_bwd(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                                     _build.ptr(do), _build.ptr(lse), _build.ptr(di),
+                                     _build.ptr(dq), _build.ptr(dq_acc), _build.ptr(dk),
+                                     _build.ptr(dv), b, sq, skv, a, nkv, d, int(causal),
+                                     float(scale), dt, _build.stream_of(q.device))
     _build.check(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -222,10 +247,10 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
     dt = _build.dtype_code(q.dtype)
     kv_dt = _build.DT_INT8 if quant else dt
     g = a // nkv
-    if (g > 8 or d > 256 or d % (16 // k_pool.element_size())
+    if (not paged_shape_ok(d, a, nkv, k_pool.element_size())
             or not _build.aligned16(q, k_pool, v_pool)):
-        raise ValueError(f"{what}: the kernel takes <= 8 query heads per kv head and "
-                         f"16-byte aligned rows of <= 256 elements (g={g}, d={d})")
+        raise ValueError(f"{what}: the kernel takes 16-byte aligned rows of <= "
+                         f"{MAX_HEAD_DIM} elements (g={g}, d={d})")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     if b == 0:

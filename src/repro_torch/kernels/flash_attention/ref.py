@@ -121,7 +121,8 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
 
 def attention_di(o, do):
     """rowsum(do * o) in f32, (b, a, sq): the softmax-Jacobian diagonal term
-    (backward.py:137-138), computed outside the kernels."""
+    (backward.py:137-138) of the plain version (the CUDA backward takes it
+    in a pre-pass kernel)."""
     return (do.to(_acc(o)) * o.to(_acc(o))).sum(-1).transpose(1, 2).contiguous()
 
 

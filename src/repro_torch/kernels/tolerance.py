@@ -211,10 +211,17 @@ def flash_attention_tol(q, k, v, want, causal: bool = True, scale=None):
     a factor within e^(+-2 delta); the softmax and its online rescaling add
     (4 n + 128) u relative; the kernel rounds P to the input dtype before
     P.V.  All act on sum_j w_j |v_j|.  lse = m + log(l) is off by delta and
-    (2 n + 64) u relative."""
+    (2 n + 64) u relative.  The bf16 kernel takes each weight as 2^(s scale
+    log2(e) - m) by exp2f (2 ulp): the prescale's and the FFMA's roundings
+    move a weight by at most 2 u |s scale|_max relative each and exp2f by
+    4 u, charged to delta as (2 |s scale|_max + 4) u (the f32 kernel takes
+    expf)."""
     out, lse = want
     b, sq, a, d = q.shape
     s, mask, delta, n, _ = _flash_parts(q, k, causal, scale)
+    if q.dtype != torch.float32:
+        live = s if mask is None else torch.where(mask, s, 0.0)
+        delta = delta + (2.0 * live.abs().amax(-1, keepdim=True) + 4.0) * U
     w = torch.softmax(s, dim=-1)
     if mask is not None:
         w = torch.where(mask, w, 0.0)
@@ -231,7 +238,9 @@ def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scal
     version's.  p = exp(s scale - lse) is off by a factor within
     e^(+-2 delta); dP = do.v^T by 3 d u sum|do v|; dS = p (dP - di) scale
     carries both, and the kernel rounds P (for dv) and dS (for dq, dk) to
-    the input dtype.  The final products sum skv (dq) or g sq (dk, dv)
+    the input dtype.  di = rowsum(do o) sums d terms in the kernels'
+    pre-pass, in another order than the plain version's: 3 d u sum|do o|
+    more on dP - di.  The final products sum skv (dq) or g sq (dk, dv)
     terms."""
     b, sq, a, d = q.shape
     skv, nkv = k.shape[1], k.shape[2]
@@ -245,8 +254,9 @@ def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scal
     dp = torch.einsum("bqkgd,bskd->bkgqs", doh, v.float())
     e_dp = 3.0 * d * U * torch.einsum("bqkgd,bskd->bkgqs", doh.abs(), v.float().abs())
     di = attention_di(o, do).reshape(b, nkv, g, sq)[..., None]
+    e_di = 3.0 * d * U * attention_di(o.abs(), do.abs()).reshape(b, nkv, g, sq)[..., None]
     ds = (p * (dp - di) * scale).abs()
-    e_ds = p * (2.2 * delta * (dp - di).abs() + e_dp) * scale + (r + 8.0 * U) * ds
+    e_ds = p * (2.2 * delta * (dp - di).abs() + e_dp + e_di) * scale + (r + 8.0 * U) * ds
     e_p = p * (2.2 * delta + r + 8.0 * U)
     qa = q.float().abs().reshape(b, sq, nkv, g, d)
     ka = k.float().abs()

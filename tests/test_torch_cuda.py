@@ -85,7 +85,8 @@ def test_fused_mlp(cuda, dtype, mlp_type, m, h, f):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_max,g,d", [(72, 2, 128), (200, 3, 64), (128, 1, 256)])
+@pytest.mark.parametrize("s_max,g,d", [(72, 2, 128), (200, 3, 64), (128, 1, 256), (90, 12, 128),
+                                       (130, 16, 64)])
 def test_paged_decode(cuda, dtype, s_max, g, d):
     rng = np.random.default_rng(2)
     slots, nkv, b = 9, 2, 6
@@ -140,7 +141,7 @@ def _blocktable_case(rng, bs, g, d, dtype, device, quant):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("bs,g,d", [(4, 1, 64), (8, 2, 128), (16, 3, 64), (64, 2, 128),
-                                    (16, 2, 128)])
+                                    (16, 2, 128), (16, 12, 128), (8, 16, 64)])
 def test_paged_decode_blocktable(cuda, dtype, quant, bs, g, d):
     """The block-table kernel, float and int8 pools, against its plain
     version: each element within its bound, the dead row exactly zero, and
@@ -161,7 +162,8 @@ def test_paged_decode_blocktable(cuda, dtype, quant, bs, g, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_max,g,d", [(72, 2, 128), (200, 3, 64), (128, 1, 256)])
+@pytest.mark.parametrize("s_max,g,d", [(72, 2, 128), (200, 3, 64), (128, 1, 256), (90, 12, 128),
+                                       (130, 16, 64)])
 def test_paged_decode_int8(cuda, dtype, s_max, g, d):
     """The slot kernel over an int8 pool (f32 scales per (token, kv head)):
     permuted slots, dead slots, depths that 64 does not divide."""
@@ -268,8 +270,8 @@ def test_wrappers_raise_on_bad_operands(cuda):
         matmul(torch.zeros((8, 16), device=cuda), torch.zeros((16, 16), device=cuda)[:, ::2].T)
     with pytest.raises(ValueError):  # operands on two devices
         matmul(torch.zeros((8, 16), device=cuda), torch.zeros((16, 8)))
-    with pytest.raises(ValueError):  # a head dim the flash kernels do not instantiate
-        q = torch.zeros((1, 4, 2, 24), device=cuda)
+    with pytest.raises(ValueError):  # past the flash kernels' largest head dim, 256
+        q = torch.zeros((1, 4, 2, 272), device=cuda)
         flash_attention(q, q, q)
 
 
@@ -319,11 +321,18 @@ def test_fused_mlp_bwd(cuda, dtype, mlp_type, m, h, f):
             _close(g, w, t)
 
 
-# (b, sq, skv, a, nkv, d, causal): causal with sq == skv, non-causal with
-# sq != skv, g in {1, 2, 4}, lengths off the 64-row tiles
+# (b, sq, skv, a, nkv, d, causal): causal with sq == skv and, top-left,
+# with sq != skv; non-causal with sq != skv; g in {1, 2, 4}, lengths off the
+# 64-row tiles; head dims padded in shared memory (20, 40, 80, 192: the
+# paper's misaligned ones; 33, 100, 250: rows of 2-, 8- and 4-byte multiples)
 FLASH_CASES = [(2, 72, 72, 4, 4, 64, True), (1, 200, 200, 4, 2, 128, True),
                (2, 40, 90, 8, 2, 16, False), (1, 130, 61, 4, 1, 32, False),
-               (1, 256, 256, 16, 8, 128, True)]
+               (1, 256, 256, 16, 8, 128, True), (2, 100, 100, 4, 1, 20, True),
+               (1, 70, 131, 8, 2, 40, False), (1, 150, 150, 8, 2, 80, True),
+               (1, 65, 65, 2, 2, 80, False), (1, 90, 90, 4, 1, 192, True),
+               (1, 77, 140, 6, 3, 192, False), (1, 50, 50, 2, 1, 33, True),
+               (1, 70, 70, 4, 2, 100, True), (1, 64, 96, 2, 2, 250, False),
+               (1, 70, 130, 4, 2, 64, True), (1, 130, 70, 4, 2, 80, True)]
 
 
 def _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d):

@@ -130,9 +130,13 @@ def test_paged_decode_vs_jax(s_max, g):
 
 # flash attention: (b, sq, skv, a, nkv, d, causal).  Causal cases keep
 # sq == skv (training); non-causal ones cover sq != skv.  Lengths are not
-# multiples of 128 (the JAX kernels pad to it; the port masks).
+# multiples of 128 (the JAX kernels pad to it; the port masks).  Head dims
+# 20, 40, 80 and 192 are the misaligned ones of gpt3-2.7b's C0-C1, zamba2
+# and nemotron-4 (the CUDA kernels pad them in shared memory).
 FLASH_CASES = [(2, 72, 72, 4, 4, 32, True), (1, 200, 200, 4, 2, 16, True),
-               (2, 40, 90, 8, 2, 32, False), (1, 130, 61, 4, 1, 16, False)]
+               (2, 40, 90, 8, 2, 32, False), (1, 130, 61, 4, 1, 16, False),
+               (1, 70, 70, 4, 1, 20, True), (1, 50, 90, 4, 2, 40, False),
+               (1, 65, 65, 8, 2, 80, True), (1, 40, 40, 2, 1, 192, False)]
 
 
 def _flash_inputs(rng, b, sq, skv, a, nkv, d):
@@ -393,3 +397,33 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert len(_build._digest()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
+
+
+def _gqa_archs():
+    from repro_torch.configs.registry import get_config, list_archs
+    return [n for n in list_archs() if get_config(n).attn_type == "gqa"]
+
+
+@pytest.mark.parametrize("arch", _gqa_archs())
+def test_registered_gqa_model_passes_the_kernels_shape_checks(arch):
+    """Every registered GQA model's head dim and group size (80 for gpt3-2.7b
+    and zamba2, 192 and g = 12 for nemotron-4, g = 12 for command-r-plus) are
+    taken by the flash and paged-decode wrappers, over f32, bf16 and int8
+    pools: the wrappers' own shape predicates, no launch.  MLA is not ported."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_shape_ok, paged_shape_ok
+    cfg = get_config(arch)
+    d, a, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    assert flash_shape_ok(d, a, nkv)
+    for itemsize in (4, 2, 1):
+        assert paged_shape_ok(d, a, nkv, itemsize), itemsize
+
+
+def test_kernel_shape_predicates_refuse_what_the_kernels_do_not_take():
+    from repro_torch.kernels.flash_attention.ops import flash_shape_ok, paged_shape_ok
+    assert all(flash_shape_ok(d, 8, 2) for d in range(1, 257))
+    assert not flash_shape_ok(272, 8, 2) and not flash_shape_ok(0, 8, 2)
+    assert not flash_shape_ok(64, 6, 4)        # a % nkv != 0
+    assert paged_shape_ok(128, 96, 8, 1) and paged_shape_ok(256, 64, 2, 2)
+    assert not paged_shape_ok(272, 8, 2, 2)    # d > 256
+    assert not paged_shape_ok(40, 8, 2, 1)     # an int8 row of 40 bytes: not whole 16-byte loads

@@ -219,12 +219,24 @@ def _layer(jparams, params, layer=0):
             tree_index(params["seg0"]["ssm"], layer))
 
 
+def slow_decay_dt_bias(shape, seed):
+    """dt_bias with softplus(dt_bias) log-uniform in [1e-3, 1e-1], as a
+    trained Mamba2's dt (at random init dt_bias = 0 gives dt ~ 0.7, which
+    decays the state within a few steps and hides the chunk handoff)."""
+    u = np.exp(np.random.default_rng(seed).uniform(np.log(1e-3), np.log(1e-1), size=shape))
+    return np.log(np.expm1(u)).astype(np.float32)
+
+
+@pytest.mark.parametrize("decay", ["random_init", "slow"])
 @pytest.mark.parametrize("s", [20, 32, 70])         # shorter than, equal to, past a chunk
 @pytest.mark.parametrize("linear_impl", ["jnp", "fused"])
-def test_apply_ssm_matches_jax(mamba, s, linear_impl):
+def test_apply_ssm_matches_jax(mamba, s, linear_impl, decay):
     jcfg, jparams, cfg, params = mamba
     cfg = dataclasses.replace(cfg, linear_impl=linear_impl)
     jp, p = _layer(jparams, params)
+    if decay == "slow":   # both packages' layer, one numpy draw
+        bias = slow_decay_dt_bias(tuple(p["dt_bias"].shape), seed=s)
+        jp, p = {**jp, "dt_bias": jnp.asarray(bias)}, {**p, "dt_bias": _t(bias)}
     rng = np.random.default_rng(s)
     x = _np(rng, (2, s, cfg.d_model))
     state = _np(rng, (2, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_head_dim), 0.1)
