@@ -7,8 +7,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
   2. build: one nvcc per source under src/repro_torch/kernels/csrc, all at
      once, and a link (time and the ptxas register / spill report); every
-     instantiation of the bf16 flash forward and backward must show
-     warpgroup products (HGMMA) and cp.async copies (LDGSTS) in its SASS;
+     instantiation of the bf16 flash forward and backward and of the GEMM
+     mainloop (csrc/gemm_sm90.cuh: the matmul, fused-MLP and fused-MLP
+     backward kernels) must show warpgroup products (HGMMA) and cp.async
+     copies (LDGSTS) in its SASS, no GEMM instantiation may spill, and no
+     bf16 instantiation of the f32 FMA tile kernels may exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -240,35 +243,107 @@ def build_phase() -> None:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
-    sass_check(Path(_build._nvcc()).parent / "cuobjdump", lib.path)
+    sass_check(Path(_build._nvcc()).parent / "cuobjdump", lib.path, lib.log)
 
 
-def sass_check(cuobjdump: Path, lib_path: Path) -> None:
-    """The bf16 flash kernels as compiled: each instantiation of the forward
-    and the backward must issue warpgroup products (HGMMA) and stage its
-    tiles with asynchronous copies (LDGSTS, cp.async)."""
+# gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD> (csrc/gemm_sm90.cuh)
+GEMM_SM90 = "gemm_sm90_kernel"
+# bf16 instantiations of the f32-only FMA kernels (csrc/gemm_tile.cuh,
+# csrc/fused_mlp_bwd.cu), which must not exist: bf16 runs on gemm_sm90
+OLD_BF16 = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16")
+
+
+def gemm_instance(fn: str) -> str:
+    """A readable name of a gemm_sm90_kernel instantiation from its mangled
+    template arguments: the kernel it serves, the tile and the layout."""
+    import re
+    tm, tn, ta, tb, pairs, act, bwd = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:7])
+    acts = {1: "swiglu", 2: "gelu", 3: "relu2"}
+    if bwd:
+        kind = f"fused_mlp_bwd {acts[act]}"
+    elif act:
+        kind = f"fused_mlp {acts[act]}"
+    else:
+        kind = "matmul " + ("t" if ta else "n") + ("t" if tb else "n") + (" pair" if pairs == 2 else "")
+    return f"{kind} {tm}x{tn}"
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled name: {"registers": n, "spill": bytes stored + loaded,
+    "serialized": whether ptxas serializes its wgmma (C7515: a non-wgmma
+    instruction writes accumulators while products are in flight)}} from
+    ptxas -v."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"C7515\).*function '(\w+)'", line)
+        if m:
+            out.setdefault(m.group(1), {"registers": None, "spill": 0})["serialized"] = True
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": None, "spill": 0, "serialized": False})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
+    """The bf16 kernels as compiled: each instantiation of the flash forward
+    and backward, and of the GEMM mainloop behind the matmul, fused-MLP and
+    fused-MLP-backward kernels, must issue warpgroup products (HGMMA) and
+    stage its tiles with asynchronous copies (LDGSTS, cp.async; or
+    UTMALDG, TMA); ptxas must report no spill and no serialized products
+    for any GEMM instantiation; and no bf16 instantiation of the f32 FMA
+    kernels may exist."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                          text=True)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:200]}")
-    counts, fn = {}, None
+    kernels = ("flash_fwd_sm90", "flash_bwd_sm90", GEMM_SM90)
+    ops = ("HGMMA", "LDGSTS", "UTMALDG")
+    counts, fn, names = {}, None, set()
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
+            names.add(fn)
             continue
-        for kernel in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        for kernel in kernels:
             if fn and kernel in fn:
-                per = counts.setdefault(kernel, {}).setdefault(fn, {"HGMMA": 0, "LDGSTS": 0})
-                for op in per:
+                per = counts.setdefault(kernel, {}).setdefault(fn, dict.fromkeys(ops, 0))
+                for op in ops:
                     per[op] += op in line
-    for kernel in ("flash_fwd_sm90", "flash_bwd_sm90"):
+    for kernel in kernels:
         fns = counts.get(kernel, {})
         hg = [c["HGMMA"] for c in fns.values()]
-        ld = [c["LDGSTS"] for c in fns.values()]
+        ld = [c["LDGSTS"] + c["UTMALDG"] for c in fns.values()]
         print(f"  sass: {kernel}: {len(fns)} instantiations, HGMMA {min(hg, default=0)}-"
-              f"{max(hg, default=0)} and LDGSTS {min(ld, default=0)}-{max(ld, default=0)} each")
+              f"{max(hg, default=0)} and LDGSTS/UTMALDG {min(ld, default=0)}-"
+              f"{max(ld, default=0)} each")
         if not fns or min(hg) == 0 or min(ld) == 0:
-            fail(f"{kernel}: an instantiation without wgmma or cp.async in its SASS")
+            fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
+    ptx = ptxas_report(log)
+    for fn, c in sorted(counts[GEMM_SM90].items(), key=lambda kv: gemm_instance(kv[0])):
+        rep = ptx.get(fn)
+        if rep is None:
+            fail(f"{gemm_instance(fn)}: no ptxas report for {fn}")
+        print(f"    {gemm_instance(fn)}: HGMMA {c['HGMMA']}, LDGSTS {c['LDGSTS']}, UTMALDG "
+              f"{c['UTMALDG']}; {rep['registers']} registers, {rep['spill']} bytes spilled"
+              f"{', products SERIALIZED (C7515)' if rep['serialized'] else ''}")
+        if rep["spill"] or rep["serialized"]:
+            fail(f"{gemm_instance(fn)}: ptxas spills {rep['spill']} bytes or serializes its "
+                 f"wgmma (C7515)")
+    old = sorted(n for n in names if any(o in n for o in OLD_BF16))
+    if old:
+        fail(f"bf16 instantiations of the f32 FMA kernels remain: {old}")
 
 
 # --- timing ---------------------------------------------------------------------------
@@ -347,7 +422,8 @@ def kernel_phase(torch) -> dict:
     print("kernels (bf16, CUDA events, weights rotated past L2):")
 
     # matmul: one call at each of the path's projection shapes
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "flops": 0.0}
     for name, ((k, n), per_step) in MATMUL_SHAPES.items():
         a = randn(ROWS, k)
         bs = copies(torch, lambda: randn(k, n, scale=k ** -0.5), k * n * 2)
@@ -365,6 +441,7 @@ def kernel_phase(torch) -> dict:
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["bound_ms"] += bnd
+        tot["flops"] += 2.0 * ROWS * k * n
         tot["err"] = max(tot["err"], err)
         del bs
     rows["matmul"] = dict(
@@ -373,7 +450,8 @@ def kernel_phase(torch) -> dict:
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by="bytes",
         library_ms=tot["library_ms"])
     print(f"  matmul, one call at each shape: {tot['ms']:.4f} ms "
-          f"(bound {tot['bound_ms']:.4f}, torch.matmul {tot['library_ms']:.4f})")
+          f"(bound {tot['bound_ms']:.4f}, torch.matmul {tot['library_ms']:.4f}; "
+          f"{gemm_rates(tot)})")
 
     # fused SwiGLU hidden: x (64, 2048) against the (2048, 8192) gate/up pair
     h, f = 2048, 8192
@@ -427,6 +505,47 @@ def kernel_phase(torch) -> dict:
     return rows
 
 
+def f32_kernel_phase(torch) -> None:
+    """The f32 branches of the tile GEMM and the fused MLP (csrc/gemm_tile.cuh's
+    FMA path, the dtype of the token-identity checks) at the serve shapes,
+    against their plain versions, timed: they stay as they were while the
+    bf16 branches run on csrc/gemm_sm90.cuh."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.tolerance import fused_mlp_hidden_tol, matmul_tol
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    print("kernels in f32 (the FMA path; CUDA events, weights rotated past L2):")
+    total = 0.0
+    for name, ((k, n), _) in MATMUL_SHAPES.items():
+        a = randn(ROWS, k)
+        bs = copies(torch, lambda: randn(k, n, scale=k ** -0.5), k * n * 4)
+        want = matmul_ref(a, bs[0])
+        compare(torch, matmul(a, bs[0]), want, matmul_tol(a, bs[0], want),
+                f"matmul f32 {ROWS}x{k}x{n} ({name})")
+        ms, _ = time_ms(torch, [lambda b=b: matmul(a, b) for b in bs])
+        total += ms
+        print(f"    {ms:.4f} ms")
+        del bs
+    h, f = 2048, 8192
+    x = randn(ROWS, h)
+    ws = copies(torch, lambda: (randn(h, f, scale=h ** -0.5), randn(h, f, scale=h ** -0.5)),
+                2 * h * f * 4)
+    want = fused_mlp_hidden_ref(x, *ws[0])
+    compare(torch, fused_mlp_hidden(x, *ws[0]), want,
+            fused_mlp_hidden_tol(x, *ws[0], "swiglu", want), f"fused_mlp_hidden f32 {ROWS}x{h}x{f}")
+    ms_f, _ = time_ms(torch, [lambda w=w: fused_mlp_hidden(x, *w) for w in ws])
+    print(f"    {ms_f:.4f} ms")
+    print(f"  f32: matmul, one call at each shape {total:.4f} ms; fused_mlp_hidden {ms_f:.4f} ms")
+
+
 def paged_group_check(torch, randn, gen) -> None:
     """The paged kernels at g = 12 (command-r-plus-104b and nemotron-4-340b:
     96 query heads over 8 kv heads), d 128: the slot and the block-table
@@ -476,14 +595,16 @@ def paged_group_check(torch, randn, gen) -> None:
 def _train_gemm_rows(torch, randn, rows) -> None:
     """The forward x @ w, dgrad g @ w^T and wgrad x^T @ g of every
     projection of `linear` at 4096 token rows (the gradients on transposed
-    views), against matmul_ref and torch.matmul on the same operands."""
-    from repro_torch.kernels.matmul.ops import matmul
+    views), against matmul_ref and torch.matmul on the same operands; and
+    each shape at every bf16 tile, beside the one `pick_tile` chose."""
+    from repro_torch.kernels._build import num_sms
+    from repro_torch.kernels.matmul.ops import TILES, matmul, pick_tile
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.tolerance import matmul_tol
 
     for grad in ("forward", "dgrad", "wgrad"):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-               "step_ms": 0.0}
+               "step_ms": 0.0, "flops": 0.0}
         for name, ((k, n), per_step) in TRAIN_GEMMS.items():
             if grad == "forward":   # (4096, k) x (k, n)
                 x = randn(TOKENS, k)
@@ -509,8 +630,12 @@ def _train_gemm_rows(torch, randn, rows) -> None:
             print(f"    {ms:.4f} ms (plain {plain:.4f}, torch.matmul {lib:.4f}, bound {bnd:.4f} "
                   f"by {by}; {2.0 * TOKENS * k * n / ms / 1e9:.1f} TFLOP/s); "
                   f"{per_step} launches per step")
+            (pm, pk), pn = a.shape, b.shape[1]
+            print(tile_sweep_line(forced_tile_ms(torch, ops, TILES),
+                                  pick_tile(pm, pn, num_sms(a.device)), 2.0 * TOKENS * k * n, pk))
             for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                             ("bound_ms", bnd), ("step_ms", ms * per_step)):
+                             ("bound_ms", bnd), ("step_ms", ms * per_step),
+                             ("flops", 2.0 * TOKENS * k * n)):
                 tot[key] += val
             tot["err"] = max(tot["err"], err)
             del ops
@@ -521,8 +646,52 @@ def _train_gemm_rows(torch, randn, rows) -> None:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="operations", library_ms=tot["library_ms"])
         print(f"  matmul {grad}, one call at each shape: {tot['ms']:.4f} ms (bound "
-              f"{tot['bound_ms']:.4f}, torch.matmul {tot['library_ms']:.4f}); "
-              f"{tot['step_ms']:.2f} ms per step of linear's {grad} GEMMs")
+              f"{tot['bound_ms']:.4f}, torch.matmul {tot['library_ms']:.4f}; "
+              f"{gemm_rates(tot)}); {tot['step_ms']:.2f} ms per step of linear's {grad} GEMMs")
+
+
+def forced_tile_ms(torch, ops, tiles) -> dict:
+    """{tile: ms} of the bf16 tile GEMM on the operand pairs `ops` (one
+    call each in turn, as time_ms cycles them) with each output tile forced
+    through the C entry, no split of k (these launches count nowhere)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul.ops import transposed
+    a, b = ops[0]
+    (m, k), n = a.shape, b.shape[1]
+    ta, tb = int(transposed("a", a)), int(transposed("b", b))
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    lib = _build.build().lib
+    stream = _build.stream_of(a.device)
+
+    def call(pair, tm, tn):
+        x, w = pair
+        _build.check(lib.repro_matmul(_build.ptr(x), _build.ptr(w), None, None, _build.ptr(out),
+                                      None, m, n, k, k, _build.DT_BF16, ta, tb, 1, tm, tn,
+                                      stream), "matmul (forced tile)")
+
+    return {(tm, tn): time_ms(torch, [functools.partial(call, o, tm, tn) for o in ops],
+                              TRAIN_ITERS)[0] for tm, tn in tiles}
+
+
+def tile_sweep_line(times: dict, picked, flops: float, k: int) -> str:
+    """One shape's forced-tile times, rates and the bytes each tile's blocks
+    stage into shared memory per second (its A rows and B columns over all
+    of k, most from L2), and the tile the picker chose."""
+    parts = []
+    for (tm, tn), ms in times.items():
+        staged = 2.0 * (flops / (2.0 * k * tm * tn)) * (tm + tn) * k
+        parts.append(f"{tm}x{tn} {ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s, "
+                     f"{staged / ms / 1e9:.2f} TB/s staged)")
+    best = min(times, key=times.get)
+    return (f"      tiles: {'; '.join(parts)}; picked {picked[0]}x{picked[1]}"
+            f"{'' if tuple(picked) == best else f', fastest {best[0]}x{best[1]}'}")
+
+
+def gemm_rates(tot: dict) -> str:
+    """A sum of GEMM calls as a rate, a share of its bound and a multiple of
+    torch.matmul's time on the same operands."""
+    return (f"{tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s, {tot['bound_ms'] / tot['ms']:.3f} "
+            f"of the bound, {tot['ms'] / tot['library_ms']:.2f}x torch.matmul")
 
 
 def _sdpa_ms(torch, q, k, v, do):
@@ -804,6 +973,18 @@ def serve_phase(torch) -> dict:
     return counts
 
 
+def gemm_share(events, busy: float, what: str) -> None:
+    """The bf16 GEMM mainloop's kernels (csrc/gemm_sm90.cuh: the tile GEMM,
+    the fused MLP forward and the backward's recompute) and the split-k
+    reduce, summed over a profile's device-side events, and their share of
+    the device-busy time (s)."""
+    for name in ("gemm_sm90_kernel", "splitk_reduce_kernel"):
+        es = [e for e in events if name in e.key]
+        ms = sum(e.self_device_time_total for e in es) / 1e3
+        print(f"  {name} in the {what}: {ms:.2f} ms x{sum(e.count for e in es)} = "
+              f"{100 * ms / 1e3 / busy:.1f}% of the device-busy time")
+
+
 def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
     """Where a serve run's time goes: the same requests again under
     torch.profiler.  Device-busy time is the summed device time of the
@@ -833,6 +1014,7 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
     shown = events[:10] + [e for e in events[10:] if "splitk_reduce" in e.key]
     for e in shown:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    gemm_share(events, busy, "profiled rerun")
     # the host side: operators by their own host time (launch and dispatch
     # cost, inflated by the profiler's per-op overhead)
     host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
@@ -2329,6 +2511,7 @@ def profile_train_step(torch, step_fn, params, opt, batch) -> None:
         f"{n} {v:.2f} ms x{sum(e.count for e in flash[n])}" for n, v in ms.items())
         + f"; {sum(ms.values()):.2f} ms = {100 * sum(ms.values()) / 1e3 / busy:.1f}% of the "
         f"device-busy time")
+    gemm_share(events, busy, "profiled step")
 
 
 def _paths(tree, prefix=""):
@@ -2353,6 +2536,7 @@ def main() -> None:
 
     phase("build", build_phase)
     rows = phase("kernels", kernel_phase, torch)
+    phase("f32 kernels", f32_kernel_phase, torch)
     rows.update(phase("prefix kernels", prefix_kernel_phase, torch))
     rows.update(phase("train kernels", train_kernel_phase, torch))
     phase("attention table", attention_table_phase, torch)

@@ -45,7 +45,7 @@ class Library:
     lib: ctypes.CDLL
     path: Path
     build_s: float        # 0.0 when an existing build was loaded
-    log: str              # nvcc's output (ptxas register/spill report)
+    log: str              # nvcc's output (ptxas register/spill report), kept beside the library
 
 
 _LIBRARY: Optional[Library] = None
@@ -79,12 +79,14 @@ def build() -> Library:
         return _LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"libreprokernels-{_digest()}.so"
-    build_s, log = 0.0, ""
+    log_path = target.with_suffix(".log")
+    build_s = 0.0
     if not target.exists():
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-            log = _compile(Path(work), target)
+            _compile(Path(work), target)
         build_s = time.perf_counter() - t0
+    log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(target))
     _declare(lib)
     _LIBRARY = Library(lib=lib, path=target, build_s=build_s, log=log)
@@ -105,7 +107,7 @@ def _run(cmds):
 
 def _compile(work: Path, target: Path) -> str:
     """One `nvcc -c` per source, all at once, then one link; the library is
-    moved into place only when whole."""
+    moved into place only when whole, its nvcc output written beside it."""
     nvcc = _nvcc()
     cu = sorted(CSRC.glob("*.cu"))
     objs = [work / f"{src.stem}.o" for src in cu]
@@ -113,22 +115,24 @@ def _compile(work: Path, target: Path) -> str:
     tmp = work / "lib.so"
     logs += _run([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
                    *map(str, objs)]])
+    log = "".join(logs)
+    target.with_suffix(".log").write_text(log)   # before the library, which marks a build done
     os.replace(tmp, target)
-    return "".join(logs)
+    return log
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.repro_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.repro_matmul.restype = i
-    lib.repro_fused_mlp_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_fused_mlp_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp_bwd.restype = i
     lib.repro_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.repro_flash_fwd.restype = i
     lib.repro_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i,
                                     p]
     lib.repro_flash_bwd.restype = i
-    lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
     lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
     lib.repro_paged_decode.restype = i

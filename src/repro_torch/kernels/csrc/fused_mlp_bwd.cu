@@ -11,24 +11,29 @@
 // linear_impl = "fused".
 //
 // What bounds it on the H100: operations.  At the training slice's shape
-// (m = 4096 tokens, h = 2048, f = 8192) the backward is 5 GEMMs of 2*m*h*f
-// FLOPs (g and u recomputed, dx over both pairs, dWg, dWu): 687 GFLOP over
-// ~0.3 GB of operands, ~2,000 FLOP/byte.
+// (m = 4096 tokens, h = 2048, f = 8192) the backward is six products of
+// 2*m*h*f FLOPs (g and u recomputed, dx over both pairs, dWg, dWu): 824.6
+// GFLOP over ~0.3 GB of operands, ~2,700 FLOP/byte.
 //
 // What the design does about it: the TPU kernel keeps a (block_m, h) f32
 // dx accumulator in VMEM across the f grid (backward.py:139); at h = 2048
 // that is 512 KB per 64 rows, and a block has 227 KB of shared memory.  So
 // the work is cut where it fits an SM: this kernel recomputes g and u per
-// 64x64 (m, f) tile with the forward's two-accumulator core (NB = 2, x
-// staged once for both), and its epilogue reads the dh tile and writes dg
-// and du in the compute dtype (2 x 64 MB in bf16 at the slice's shape,
-// freed within the backward).  The forward still saves only its inputs, as
-// in JAX; dg and du round to the compute dtype before the dx / dW GEMMs,
-// which kernels/tolerance.py charges.  Simple first: no TMA, no wgmma.
-#include "gemm_tile.cuh"
+// 128 x 128 (m, f) tile (64 x 64 at most 64 rows) on gemm_sm90.cuh's
+// mainloop with two accumulator sets (x staged once for both, `wgmma` fed
+// by a cp.async ring), and its epilogue reads dh at each accumulator's
+// (row, column) and writes dg and du in the compute dtype (2 x 64 MB in
+// bf16 at the slice's shape, freed within the backward), straight from the
+// registers.  The three GEMMs that follow run on the same mainloop (the nt
+// pair and two tn products, operands read in place).  The forward still
+// saves only its inputs, as in JAX; dg and du round to the compute dtype
+// before the dx / dW GEMMs, which kernels/tolerance.py charges.  f32 (a
+// check dtype) stays on gemm_tile.cuh's FMA path.
+#include "gemm_sm90.cuh"
 
 using namespace repro;
 
+// f32: gemm_tile.cuh's FMA mainloop, the epilogue through shared memory.
 template <typename T, int ACT>
 __global__ void __launch_bounds__(NTHREADS)
 fused_mlp_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Wg, const T* __restrict__ Wu,
@@ -72,46 +77,53 @@ fused_mlp_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Wg, const T*
   }
 }
 
-template <typename T>
-static cudaError_t launch_bwd(const void* x, const void* wg, const void* wu, const void* dh,
-                              void* dg, void* du, int m, int f, int h, int act, int vec,
+template <int ACT>
+static cudaError_t launch_f32(const float* x, const float* wg, const float* wu, const float* dh,
+                              float* dg, float* du, int m, int f, int h, int vec,
                               cudaStream_t stream) {
   dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, 1);
-  const T* xp = static_cast<const T*>(x);
-  const T* gp = static_cast<const T*>(wg);
-  const T* up = static_cast<const T*>(wu);
-  const T* dhp = static_cast<const T*>(dh);
-  T* dgp = static_cast<T*>(dg);
-  T* dup = static_cast<T*>(du);
-  switch (act) {
-    case ACT_SWIGLU:
-      fused_mlp_bwd_kernel<T, ACT_SWIGLU>
-          <<<grid, NTHREADS, 0, stream>>>(xp, gp, up, dhp, dgp, dup, m, f, h, vec);
-      break;
-    case ACT_GELU:
-      fused_mlp_bwd_kernel<T, ACT_GELU>
-          <<<grid, NTHREADS, 0, stream>>>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec);
-      break;
-    case ACT_RELU2:
-      fused_mlp_bwd_kernel<T, ACT_RELU2>
-          <<<grid, NTHREADS, 0, stream>>>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  fused_mlp_bwd_kernel<float, ACT><<<grid, NTHREADS, 0, stream>>>(x, wg, wu, dh, dg, du, m, f, h,
+                                                                  vec);
   return cudaGetLastError();
 }
 
+template <int ACT>
+static cudaError_t launch_bf16(const GemmArgs& g, int tm, int tn, cudaStream_t stream) {
+  if (tm == 64 && tn == 64) return gemm_sm90_launch<64, 64, false, false, 1, ACT, true>(g, 1, stream);
+  if (tm == 128 && tn == 128)
+    return gemm_sm90_launch<128, 128, false, false, 1, ACT, true>(g, 1, stream);
+  return cudaErrorInvalidValue;
+}
+
 // x (m, h); wg (swiglu only), wu (h, f); dh, dg (swiglu only), du (m, f);
-// all row-major, contiguous.
+// all row-major, contiguous.  (tm, tn): the tile, as repro_fused_mlp's.
 extern "C" int repro_fused_mlp_bwd(const void* x, const void* wg, const void* wu, const void* dh,
                                    void* dg, void* du, int m, int f, int h, int act, int dtype,
-                                   int vec, void* stream) {
+                                   int vec, int tm, int tn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || f <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  if (act != ACT_SWIGLU && act != ACT_GELU && act != ACT_RELU2) return (int)cudaErrorInvalidValue;
   if (act == ACT_SWIGLU && (wg == nullptr || dg == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16)
-    return (int)launch_bwd<__nv_bfloat16>(x, wg, wu, dh, dg, du, m, f, h, act, vec, s);
-  if (dtype == DT_F32) return (int)launch_bwd<float>(x, wg, wu, dh, dg, du, m, f, h, act, vec, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == DT_BF16) {
+    using bf = __nv_bfloat16;
+    // the gated path reads the gate as B0 and up as B1; the others up as B0
+    const GemmArgs g{static_cast<const bf*>(x), nullptr,
+                     static_cast<const bf*>(act == ACT_SWIGLU ? wg : wu),
+                     static_cast<const bf*>(act == ACT_SWIGLU ? wu : nullptr), nullptr, nullptr,
+                     static_cast<const bf*>(dh), static_cast<bf*>(dg), static_cast<bf*>(du), m, f,
+                     h, h, vec};
+    if (act == ACT_SWIGLU) return (int)launch_bf16<ACT_SWIGLU>(g, tm, tn, s);
+    if (act == ACT_GELU) return (int)launch_bf16<ACT_GELU>(g, tm, tn, s);
+    return (int)launch_bf16<ACT_RELU2>(g, tm, tn, s);
+  }
+  if (dtype != DT_F32 || tm != BM || tn != BN) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* gp = static_cast<const float*>(wg);
+  const float* up = static_cast<const float*>(wu);
+  const float* dhp = static_cast<const float*>(dh);
+  float* dgp = static_cast<float*>(dg);
+  float* dup = static_cast<float*>(du);
+  if (act == ACT_SWIGLU) return (int)launch_f32<ACT_SWIGLU>(xp, gp, up, dhp, dgp, dup, m, f, h, vec, s);
+  if (act == ACT_GELU) return (int)launch_f32<ACT_GELU>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
+  return (int)launch_f32<ACT_RELU2>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
 }

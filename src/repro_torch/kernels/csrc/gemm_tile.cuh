@@ -1,24 +1,26 @@
-// Shared tiled-GEMM core of the matmul and fused-MLP kernels (sm_90a).
+// Shared helpers of the port's tiled kernels, and the f32 tiled-GEMM core
+// of the matmul and fused-MLP kernels (sm_90a).  Their bf16 branches run on
+// gemm_sm90.cuh; the int8 kernels (int8_tile.cuh) and the SSD kernel use the
+// 64x64 tile constants, Pad, to_f / from_f, the activations, Act and DType
+// from here, and their WMMA fragments through <mma.h>.
 //
-// One thread block of 128 threads (4 warps) owns a 64x64 output tile and
-// walks the k range in steps of 32: each step stages an A tile (64x32) and
-// NB B tiles (32x64) in shared memory, masked and zero-filled at the ragged
-// edge (no padded operand copies), and accumulates in f32 registers:
-//   * bf16: WMMA 16x16x16 tensor-core products (mma.sync), one 16-row
-//     stripe of the tile per warp, 4 accumulator fragments per B operand;
-//   * f32:  plain FMA, 8x4 outputs per thread per B operand (full f32, no
-//     TF32 rounding — the same numbers as an f32 CPU product up to order).
-// The epilogue parks the accumulators in shared memory (reusing the operand
-// buffers) and writes the tile out with coalesced, masked stores, applying
-// the activation (fused MLP) or writing an f32 split-K partial (matmul).
+// f32 (a check dtype): one thread block of 128 threads (4 warps) owns a
+// 64x64 output tile and walks the k range in steps of 32: each step stages
+// an A tile (64x32) and NB B tiles (32x64) in shared memory, masked and
+// zero-filled at the ragged edge (no padded operand copies), and
+// accumulates with plain FMA, 8x4 outputs per thread per B operand (full
+// f32, no TF32 rounding — the same numbers as an f32 CPU product up to
+// order).  The epilogue parks the accumulators in shared memory (reusing
+// the operand buffers) and writes the tile out with coalesced, masked
+// stores, applying the activation (fused MLP) or writing an f32 split-K
+// partial (matmul).
 //
 // Operand layouts (the gradient GEMMs): TA = A arrives as its transpose At
 // (k x m, row-major), TB = B as Bt (n x k, row-major) — `w.T` and `x.T`
-// views, read in place.  A transposed tile is staged as it lies in memory
-// (BK x BM, or BN x BK) and read with `wmma::col_major` fragments, so no
-// operand is copied; TA = TB = false is the row-major code path unchanged.
-// PAIRS = 2 sums two products A0.B0 + A1.B1 into one accumulator (the
-// fused-MLP backward's dx = dg.Wg^T + du.Wu^T).
+// views, read in place: a transposed tile is staged as it lies in memory
+// (BK x BM, or BN x BK), so no operand is copied.  PAIRS = 2 sums two
+// products A0.B0 + A1.B1 into one accumulator (the fused-MLP backward's
+// dx = dg.Wg^T + du.Wu^T).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -114,54 +116,8 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* __restrict__
   }
 }
 
-// Tensor-core accumulation (bf16 operands, f32 accumulators).
+// Accumulation of one k step (f32 below; bf16 runs on gemm_sm90.cuh).
 template <typename T, int NB, bool TA = false, bool TB = false> struct TileMma;
-
-template <int NB, bool TA, bool TB> struct TileMma<__nv_bfloat16, NB, TA, TB> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[NB][BN / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[nb][j], 0.0f);
-  }
-
-  // As: the A tile (BM x BK row-major, or BK x BM when TA); Bs[nb]: B tiles
-  // (BK x BN row-major, or BN x BK when TB).
-  __device__ __forceinline__ void step(const __nv_bfloat16* As, int lda,
-                                       const __nv_bfloat16* const* Bs, int ldb) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::load_matrix_sync(a, TA ? As + kk * lda + warp * 16 : As + warp * 16 * lda + kk, lda);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-          wmma::load_matrix_sync(b, TB ? Bs[nb] + j * 16 * ldb + kk : Bs[nb] + kk * ldb + j * 16,
-                                 ldb);
-          wmma::mma_sync(acc[nb][j], a, b, acc[nb][j]);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* const* Cs, int ldc) {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j)
-        nvcuda::wmma::store_matrix_sync(Cs[nb] + warp * 16 * ldc + j * 16, acc[nb][j], ldc,
-                                        nvcuda::wmma::mem_row_major);
-  }
-};
 
 // FMA accumulation (f32 operands): thread t owns rows (t/16)*8 + i and
 // columns t%16 + 16*j of the tile.

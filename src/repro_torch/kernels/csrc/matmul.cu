@@ -16,59 +16,97 @@
 // width, wgrad over the 4096 tokens) every GEMM is bound by operations:
 // ~1,000-1,400 FLOP/byte.
 //
-// What the design does about it: each weight element is read from device
-// memory once (one 64-row tile covers all m = 64 rows), in 16-byte loads.
-// A 64x64 output tile gives only n/64 blocks for a 64-row problem (16-32 for
-// the attention projections, far under the 132 SMs), so the wrapper splits
-// k across gridDim.z until the grid holds a few blocks per SM; the f32
-// partials (a few MB, resident in the 50 MB L2) are summed by a second,
-// small kernel.  The ragged edge is masked in the kernel instead of padding
-// operands with copies (the Pallas wrapper pads, ops.py:44-48).  The
-// gradient GEMMs read `w.T` and `x.T` in place (gemm_tile.cuh TA / TB): a
-// transposed tile is staged as it lies and read with column-major WMMA
-// fragments, so no weight is copied to transpose it.  Simple first: no TMA,
-// no wgmma, no multi-stage pipeline — later PRs.
-#include "gemm_tile.cuh"
+// What the design does about it (bf16, gemm_sm90.cuh): the products are
+// `wgmma` from swizzled shared-memory tiles, fed by a four-slot cp.async
+// ring that keeps two k steps of 64 in flight while a third is multiplied,
+// and the epilogue stores from the accumulator registers.  For the
+// operation-bound rows (m > 64) a block of two warpgroups owns a 128 x 256
+// tile (128 x 128 where that fills the card's waves better), so each byte
+// staged in shared memory feeds 128 or 256 products.  For the byte-bound
+// rows (m <= 64) one warpgroup owns a 64 x 128 tile covering every row, so
+// each weight element is read from device memory once; two such blocks fit
+// an SM, and where n / 128 tiles leave SMs idle the wrapper splits k across
+// gridDim.z (f32 partials, a few MB resident in the 50 MB L2, summed by a
+// second small kernel) so the rings of every SM keep ~64 KB of weight in
+// flight.  The gradient GEMMs read `w.T` and `x.T` in place: the
+// descriptors take a K-major or an MN-major tile of either operand, so no
+// operand is copied to transpose it.  The ragged edge is zero-filled by
+// the copies instead of padding operands (the Pallas wrapper pads,
+// ops.py:44-48).  f32 (a check dtype) stays on gemm_tile.cuh's FMA path,
+// full f32 with no TF32.
+#include "gemm_sm90.cuh"
 
 using namespace repro;
 
-template <typename T, bool TA, bool TB, int PAIRS>
-static void launch_tile(dim3 grid, const T* a, const T* a1, const T* b, const T* b1, T* c,
-                        float* work, int m, int n, int k, int k_split, int vec,
-                        cudaStream_t stream) {
-  gemm_tile_kernel<T, ACT_NONE, TA, TB, PAIRS>
+template <bool TA, bool TB, int PAIRS>
+static cudaError_t launch_f32(const float* a, const float* a1, const float* b, const float* b1,
+                              float* c, float* work, int m, int n, int k, int k_split,
+                              int splits, int vec, cudaStream_t stream) {
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  gemm_tile_kernel<float, ACT_NONE, TA, TB, PAIRS>
       <<<grid, NTHREADS, 0, stream>>>(a, a1, b, b1, c, work, m, n, k, k_split, vec);
+  return cudaGetLastError();
 }
 
-template <typename T>
+// The bf16 tiles (rows x columns) kernels/matmul/ops.py `pick_tile` chooses.
+template <bool TA, bool TB, int PAIRS>
+static cudaError_t launch_bf16(const GemmArgs& g, int splits, int tm, int tn,
+                               cudaStream_t stream) {
+  if (tm == 64 && tn == 128)
+    return gemm_sm90_launch<64, 128, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
+  if (tm == 128 && tn == 128)
+    return gemm_sm90_launch<128, 128, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
+  if (tm == 128 && tn == 256)
+    return gemm_sm90_launch<128, 256, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
+  return cudaErrorInvalidValue;
+}
+
 static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, const void* b1,
-                                 void* c, void* work, int m, int n, int k, int k_split, int ta,
-                                 int tb, int vec, cudaStream_t stream) {
+                                 void* c, void* work, int m, int n, int k, int k_split, int dtype,
+                                 int ta, int tb, int vec, int tm, int tn, cudaStream_t stream) {
   const int splits = (k + k_split - 1) / k_split;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
-  const T* ap = static_cast<const T*>(a);
-  const T* bp = static_cast<const T*>(b);
-  const T* a1p = static_cast<const T*>(a1);
-  const T* b1p = static_cast<const T*>(b1);
-  T* cp = static_cast<T*>(c);
-  float* wp = static_cast<float*>(work);
   const bool pair = a1 != nullptr;
-  if (!ta && !tb && !pair)
-    launch_tile<T, false, false, 1>(grid, ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, vec, stream);
-  else if (!ta && tb && !pair)
-    launch_tile<T, false, true, 1>(grid, ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, vec, stream);
-  else if (!ta && tb && pair)
-    launch_tile<T, false, true, 2>(grid, ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, vec, stream);
-  else if (ta && !tb && !pair)
-    launch_tile<T, true, false, 1>(grid, ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, vec, stream);
-  else
-    return cudaErrorInvalidValue;  // layouts no caller uses are not instantiated
+  // layouts no caller uses are not instantiated: nn, nt, the nt pair, tn
+  const int layout = !ta && !tb && !pair ? 0 : !ta && tb && !pair ? 1 : !ta && tb ? 2
+                     : ta && !tb && !pair ? 3 : -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == DT_BF16) {
+    using bf = __nv_bfloat16;
+    const GemmArgs g{static_cast<const bf*>(a), static_cast<const bf*>(a1),
+                     static_cast<const bf*>(b), static_cast<const bf*>(b1), static_cast<bf*>(c),
+                     static_cast<float*>(work), nullptr, nullptr, nullptr, m, n, k, k_split, vec};
+    if (layout == 0) err = launch_bf16<false, false, 1>(g, splits, tm, tn, stream);
+    if (layout == 1) err = launch_bf16<false, true, 1>(g, splits, tm, tn, stream);
+    if (layout == 2) err = launch_bf16<false, true, 2>(g, splits, tm, tn, stream);
+    if (layout == 3) err = launch_bf16<true, false, 1>(g, splits, tm, tn, stream);
+  } else {
+    if (tm != BM || tn != BN) return cudaErrorInvalidValue;
+    const float* ap = static_cast<const float*>(a);
+    const float* bp = static_cast<const float*>(b);
+    const float* a1p = static_cast<const float*>(a1);
+    const float* b1p = static_cast<const float*>(b1);
+    float* cp = static_cast<float*>(c);
+    float* wp = static_cast<float*>(work);
+    if (layout == 0)
+      err = launch_f32<false, false, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+    if (layout == 1)
+      err = launch_f32<false, true, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+    if (layout == 2)
+      err = launch_f32<false, true, 2>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+    if (layout == 3)
+      err = launch_f32<true, false, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+  }
+  if (err != cudaSuccess) return err;
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
     int blocks = (int)((mn + 255) / 256);
     if (blocks > 4 * 132) blocks = 4 * 132;
-    splitk_reduce_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(work), cp, mn,
-                                                        splits);
+    const float* wp = static_cast<const float*>(work);
+    if (dtype == DT_BF16)
+      splitk_reduce_kernel<__nv_bfloat16>
+          <<<blocks, 256, 0, stream>>>(wp, static_cast<__nv_bfloat16*>(c), mn, splits);
+    else
+      splitk_reduce_kernel<float><<<blocks, 256, 0, stream>>>(wp, static_cast<float*>(c), mn, splits);
   }
   return cudaGetLastError();
 }
@@ -76,16 +114,17 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
 // a (m, k) row-major, or (ta) its transpose stored (k, m) row-major; b (k, n)
 // row-major, or (tb) stored (n, k).  a1, b1: an optional second pair with
 // the same shapes and layouts (null: none).  c (m, n) row-major; work holds
-// ceil(k / k_split) * m * n floats when k_split < k (else unused).
+// ceil(k / k_split) * m * n floats when k_split < k (else unused).  (tm, tn):
+// the output tile, one of bf16's instantiated tiles, or 64 x 64 for f32;
+// k_split a multiple of the tile's k step (64 bf16, 32 f32).
 extern "C" int repro_matmul(const void* a, const void* b, const void* a1, const void* b1, void* c,
                             void* work, int m, int n, int k, int k_split, int dtype, int ta,
-                            int tb, int vec, void* stream) {
+                            int tb, int vec, int tm, int tn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || k <= 0 || k_split <= 0 || k_split % BK) return (int)cudaErrorInvalidValue;
+  if (dtype != DT_BF16 && dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  const int step = dtype == DT_BF16 ? GEMM_BK : BK;
+  if (m <= 0 || n <= 0 || k <= 0 || k_split <= 0 || k_split % step) return (int)cudaErrorInvalidValue;
   if ((a1 == nullptr) != (b1 == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16)
-    return (int)launch_matmul<__nv_bfloat16>(a, b, a1, b1, c, work, m, n, k, k_split, ta, tb, vec, s);
-  if (dtype == DT_F32)
-    return (int)launch_matmul<float>(a, b, a1, b1, c, work, m, n, k, k_split, ta, tb, vec, s);
-  return (int)cudaErrorInvalidValue;
+  if (k_split < k && work == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_matmul(a, b, a1, b1, c, work, m, n, k, k_split, dtype, ta, tb, vec, tm, tn, s);
 }

@@ -26,6 +26,17 @@ from .ref import MLP_TYPES, fused_mlp_hidden_ref, is_gated
 
 # csrc/gemm_tile.cuh `Act`
 ACT_CODES = {"swiglu": 1, "gelu": 2, "relu2": 3}
+# Output tiles (rows, columns) of the forward and the recompute kernel in
+# bf16 (csrc/gemm_sm90.cuh, two accumulator sets): 64 x 64 for at most 64
+# rows, so f / 64 blocks fill the card with no split of k; 128 x 128
+# above.  f32 runs on csrc/gemm_tile.cuh's 64 x 64 FMA tiles.
+DECODE_TILE, TRAIN_TILE, F32_TILE = (64, 64), (128, 128), (64, 64)
+
+
+def pick_tile(m: int, dtype) -> tuple[int, int]:
+    if dtype == torch.float32:
+        return F32_TILE
+    return DECODE_TILE if m <= DECODE_TILE[0] else TRAIN_TILE
 
 
 def _check_type(mlp_type: str) -> None:
@@ -101,7 +112,7 @@ def _fused_cuda(x, w_gate, w_up, mlp_type: str):
     with torch.cuda.device(x.device):
         status = lib.repro_fused_mlp(_build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up),
                                      _build.ptr(out), m, f, k, ACT_CODES[mlp_type], dt, vec,
-                                     _build.stream_of(x.device))
+                                     *pick_tile(m, x.dtype), _build.stream_of(x.device))
     _build.check(status, "fused_mlp_hidden")
     fused_mlp_hidden.launches += 1
     return out
@@ -143,7 +154,7 @@ def _bwd_cuda(x, w_gate, w_up, dh, mlp_type: str):
             status = lib.repro_fused_mlp_bwd(
                 _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
                 _build.ptr(dg), _build.ptr(du), m, f, h, ACT_CODES[mlp_type], dt, vec,
-                _build.stream_of(x.device))
+                *pick_tile(m, x.dtype), _build.stream_of(x.device))
         _build.check(status, "fused_mlp_bwd")
         fused_mlp_bwd.launches += 1
     if w_gate is None:

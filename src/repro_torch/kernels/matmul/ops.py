@@ -11,9 +11,14 @@ Each 2-D operand may be row-major or the transpose of a row-major tensor
 second pair (`a1`, `b1`) is summed into the same f32 accumulator:
 C = A @ B + A1 @ B1 in one launch.
 
-`split_k` is the host-side launch shape: it splits the k range across the
-grid when the output alone has too few 64x64 tiles to fill the card; the
-f32 partials are then summed by a second, small kernel.  `matmul.launches`
+`pick_tile` and `split_k` are the host-side launch shape.  bf16 runs on
+`csrc/gemm_sm90.cuh`: a 64 x 128 tile of one warpgroup for at most 64 rows
+(decode and prefill: every weight element read once), else a 128 x 256
+or 128 x 128 tile of two warpgroups, whichever fills the card's waves
+better; f32 on `csrc/gemm_tile.cuh`'s 64 x 64 FMA tiles.  `split_k`
+splits the k range across the grid when the output alone has too few
+tiles to fill the card; the f32 partials are then summed by a second,
+small kernel.  `matmul.launches`
 counts calls that launched the GEMM kernel, the reduce riding with them;
 `matmul.by_layout` splits that count by operand layout: "nn" (forward),
 "nt" (B transposed: dgrad) and "tn" (A transposed: wgrad).
@@ -25,10 +30,15 @@ import torch
 from .. import _build
 from .ref import matmul_ref
 
-BLOCK_M = BLOCK_N = 64   # csrc/gemm_tile.cuh BM, BN
-BLOCK_K = 32             # csrc/gemm_tile.cuh BK
+BLOCK_K = 64             # csrc/gemm_sm90.cuh GEMM_BK: the bf16 k step, one 128-byte swizzle atom
+DECODE_TILE = (64, 128)  # (rows, columns) at most 64 rows: one warpgroup, 2 blocks an SM
+TRAIN_TILES = ((128, 256), (128, 128))  # more rows: two warpgroups, 1 block an SM
+TILES = (DECODE_TILE, *TRAIN_TILES)     # the bf16 tiles csrc/matmul.cu instantiates
+F32_TILE = (64, 64)      # csrc/gemm_tile.cuh BM, BN (the f32 FMA path)
+F32_BLOCK_K = 32         # csrc/gemm_tile.cuh BK
 MIN_SPLIT_STEPS = 4      # k steps per split, at least
-WAVES = 2                # blocks per SM the split aims for
+WAVES = 2                # blocks per SM a 64-row tile's split aims for
+MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (column tiles) and gridDim.z (splits)
 LAYOUTS = ("nn", "nt", "tn")  # the (A, B) layouts csrc/matmul.cu instantiates
 
 
@@ -36,13 +46,49 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K) -> int:
+def pick_tile(m: int, n: int, num_sms: int) -> tuple[int, int]:
+    """The bf16 output tile (rows, columns) for an (m, n) product: 64 x 128
+    for at most 64 rows; else 128 rows by 256 columns, or by 128 where
+    that takes fewer waves of tile-columns (a 256-wide tile costs two
+    128-wide ones; ties go to 256, which stages fewer bytes per product)."""
+    if m <= DECODE_TILE[0]:
+        return DECODE_TILE
+
+    def cost(tile):
+        bm, bn = tile
+        return _cdiv(_cdiv(m, bm) * _cdiv(n, bn), num_sms) * bn
+
+    return min(TRAIN_TILES, key=cost)
+
+
+def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K,
+            tile: tuple[int, int] | None = None) -> int:
     """k range per grid z-slice (a multiple of the kernel's k step
-    `block_k`); k itself = no split."""
-    tiles = _cdiv(m, BLOCK_M) * _cdiv(n, BLOCK_N)
-    max_splits = max(1, k // (MIN_SPLIT_STEPS * block_k))
-    splits = 1 if tiles >= num_sms else min(max_splits, _cdiv(WAVES * num_sms, tiles))
+    `block_k`) for output tiles `tile` (default: `pick_tile`'s); k itself =
+    no split.  A grid of at least one tile per SM is not split.  Below
+    that, 64-row tiles (two blocks an SM) split until the grid holds WAVES
+    blocks per SM; 128-row tiles (one block an SM) into as many whole
+    copies of the grid as one wave holds, so a grid that nearly fills the
+    card is not split into a second, partial wave."""
+    bm, bn = tile if tile is not None else pick_tile(m, n, num_sms)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    max_splits = max(1, min(k // (MIN_SPLIT_STEPS * block_k), MAX_GRID_YZ))
+    if tiles >= num_sms:
+        splits = 1
+    elif bm <= 64:
+        splits = min(max_splits, _cdiv(WAVES * num_sms, tiles))
+    else:
+        splits = min(max_splits, max(1, num_sms // tiles))
     return _cdiv(_cdiv(k, splits), block_k) * block_k
+
+
+def launch_shape(m: int, n: int, k: int, dtype, num_sms: int) -> tuple[int, int, int]:
+    """(tile rows, tile columns, k per split) of one launch of csrc/matmul.cu."""
+    if dtype == torch.float32:
+        tile, block_k = F32_TILE, F32_BLOCK_K
+    else:
+        tile, block_k = pick_tile(m, n, num_sms), BLOCK_K
+    return (*tile, split_k(m, n, k, num_sms, block_k, tile))
 
 
 def transposed(what: str, t: torch.Tensor) -> bool:
@@ -107,7 +153,7 @@ def _matmul_cuda(a, b, a1, b1) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    ks = split_k(m, n, k, _build.num_sms(dev))
+    tm, tn, ks = launch_shape(m, n, k, a.dtype, _build.num_sms(dev))
     splits = _cdiv(k, ks)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -119,7 +165,7 @@ def _matmul_cuda(a, b, a1, b1) -> torch.Tensor:
     with torch.cuda.device(dev):
         status = lib.repro_matmul(_build.ptr(a), _build.ptr(b), _build.ptr(a1), _build.ptr(b1),
                                   _build.ptr(out), _build.ptr(work), m, n, k, ks, dt, int(ta),
-                                  int(tb), vec, _build.stream_of(dev))
+                                  int(tb), vec, tm, tn, _build.stream_of(dev))
     _build.check(status, "matmul")
     matmul.launches += 1
     matmul.by_layout[layout] += 1

@@ -30,6 +30,7 @@ from ..matmul.ops import matmul, split_k
 from .ref import int8_fused_mlp_ref, int8_matmul_ref
 
 BLOCK_K = 64             # csrc/int8_tile.cuh I8_BK: the k step, and the split's unit
+TILE = (64, 64)          # csrc/int8_tile.cuh's output tile (gemm_tile.cuh BM, BN)
 
 
 def _as_quantized(w, name: str = "weight") -> QuantizedTensor:
@@ -107,7 +108,7 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype):
         return out
     if k == 0:
         return out.zero_()
-    ks = split_k(m, n, k, _build.num_sms(dev), BLOCK_K)
+    ks = split_k(m, n, k, _build.num_sms(dev), BLOCK_K, TILE)
     splits = ceil_div(k, ks)
     work = torch.empty((splits, m, n), dtype=torch.int32, device=dev) if splits > 1 else None
     lib = _build.build().lib

@@ -72,7 +72,7 @@ def test_matmul(cuda, dtype, m, k, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
-@pytest.mark.parametrize("m,h,f", [(64, 256, 512), (19, 72, 200)])
+@pytest.mark.parametrize("m,h,f", [(64, 256, 512), (19, 72, 200), (130, 128, 96)])
 def test_fused_mlp(cuda, dtype, mlp_type, m, h, f):
     rng = np.random.default_rng(1)
     x = _rand(rng, (m, h), dtype, cuda)
@@ -297,6 +297,73 @@ def test_matmul_transposed(cuda, dtype, layout, m, k, n):
     assert matmul.launches == before + 1
     want = matmul_ref(a, b, a1=pair[0], b1=pair[1])
     _close(got, want, tolerance.matmul_tol(a, b, want, *pair))
+
+
+# The bf16 tiles' edges (csrc/gemm_sm90.cuh): rows on either side of the
+# 64-row (one warpgroup) and 128-row (two) tiles; k off the 64-column step
+# (70: two steps, the second ragged, no split; 4100: split, the last split
+# ragged); n off the 128- and 256-column tiles, odd n included; and the
+# training rows.  (m, k, n, whether k is split.)
+EDGE_CASES = [(m, k, n, k == 4100) for m in (1, 63, 64, 65, 127, 128, 129)
+              for k, n in ((70, 200), (4100, 45))]
+EDGE_CASES += [(4096, 70, 200, False), (4096, 4100, 45, True), (64, 2048, 92544, False),
+               (129, 256, 92544, False), (4096, 1024, 4100, False)]
+
+
+def _layout_operands(rng, dtype, cuda, layout, m, k, n):
+    """(a, b, a1, b1) for `layout`: nn, nt (b a transposed view), tn (a a
+    transposed view), or the nt pair."""
+    if layout == "tn":
+        a, b = _rand(rng, (k, m), dtype, cuda).T, _rand(rng, (k, n), dtype, cuda, k ** -0.5)
+    elif layout == "nn":
+        a, b = _rand(rng, (m, k), dtype, cuda), _rand(rng, (k, n), dtype, cuda, k ** -0.5)
+    else:
+        a, b = _rand(rng, (m, k), dtype, cuda), _rand(rng, (n, k), dtype, cuda, k ** -0.5).T
+    if layout != "nt pair":
+        return a, b, None, None
+    return a, b, _rand(rng, (m, k), dtype, cuda), _rand(rng, (n, k), dtype, cuda, k ** -0.5).T
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "nt pair"])
+@pytest.mark.parametrize("m,k,n,split", EDGE_CASES)
+def test_matmul_tile_edges(cuda, dtype, layout, m, k, n, split):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul.ops import launch_shape
+    _, _, ks = launch_shape(m, n, k, dtype, _build.num_sms(cuda))
+    assert (ks < k) == split
+    rng = np.random.default_rng(m + k + n)
+    a, b, a1, b1 = _layout_operands(rng, dtype, cuda, layout, m, k, n)
+    before = matmul.launches
+    got = matmul(a, b, a1, b1)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, a1=a1, b1=b1)
+    _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
+def test_fused_mlp_at_the_training_shape(cuda, mlp_type):
+    """The forward and the backward (recompute kernel + 3 tile GEMMs) at
+    4096 x 2048 x 8192 in bf16: 128 x 128 tiles, 32 k steps."""
+    rng = np.random.default_rng(6)
+    m, h, f = 4096, 2048, 8192
+    x = _rand(rng, (m, h), torch.bfloat16, cuda)
+    wg = _rand(rng, (h, f), torch.bfloat16, cuda, h ** -0.5)
+    wu = _rand(rng, (h, f), torch.bfloat16, cuda, h ** -0.5)
+    dh = _rand(rng, (m, f), torch.bfloat16, cuda)
+    got = fused_mlp_hidden(x, wg, wu, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    want = fused_mlp_hidden_ref(x, wg, wu, mlp_type)
+    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, mlp_type, want))
+    del got, want
+    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+    for g, w, t in zip(got, want, tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _close(g, w, t)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

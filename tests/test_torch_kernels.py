@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref, flash_attent
 from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_ref
 from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
 from repro_torch.kernels.fused_mlp.ref import ACTS, DACTS, fused_mlp_hidden_ref
-from repro_torch.kernels.matmul.ops import BLOCK_K, matmul, split_k, transposed
+from repro_torch.kernels.matmul.ops import (BLOCK_K, TILES, launch_shape, matmul, pick_tile,
+                                           split_k, transposed)
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 TOL = dict(atol=3e-5, rtol=3e-5)
@@ -87,15 +88,25 @@ def test_operand_layouts():
 
 
 @pytest.mark.parametrize("m,n,k", [(64, 2048, 2048), (64, 1024, 2048), (64, 2048, 8192),
-                                   (64, 92544, 2048), (3, 5, 7), (64, 64, 100)])
+                                   (64, 92544, 2048), (3, 5, 7), (64, 64, 100),
+                                   (4096, 2048, 2048), (4096, 1024, 2048), (2048, 1024, 4096),
+                                   (8192, 2048, 4096), (4096, 92544, 2048), (130, 96, 4096),
+                                   (65, 45, 4100), (129, 200, 70)])
 def test_split_k_covers_k(m, n, k):
+    """The split of k for the tile the wrapper picks: 64 x 128 at most 64
+    rows, 128 rows above."""
+    bm, bn = pick_tile(m, n, num_sms=132)
+    assert (bm, bn) in TILES and (bm == 64) == (m <= 64)
     ks = split_k(m, n, k, num_sms=132)
+    assert ks == split_k(m, n, k, num_sms=132, tile=(bm, bn))
     splits = -(-k // ks)
     assert ks % BLOCK_K == 0 and ks > 0
     assert (splits - 1) * ks < k <= splits * ks       # every split non-empty
-    tiles = -(-m // 64) * -(-n // 64)
+    tiles = -(-m // bm) * -(-n // bn)
     if tiles >= 132:
         assert splits == 1                            # the output alone fills the card
+    if bm == 128:
+        assert tiles * splits <= max(tiles, 132)      # no second, partial wave from splitting
 
 
 @pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
@@ -393,7 +404,7 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert _build._LIBRARY is None or _build._LIBRARY.path.exists()
     names = {p.name for p in _build._sources()}
     assert {"matmul.cu", "fused_mlp.cu", "fused_mlp_bwd.cu", "flash_attention.cu",
-            "paged_decode.cu", "gemm_tile.cuh"} <= names
+            "paged_decode.cu", "gemm_tile.cuh", "gemm_sm90.cuh", "sm90.cuh"} <= names
     assert len(_build._digest()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -417,6 +428,58 @@ def test_registered_gqa_model_passes_the_kernels_shape_checks(arch):
     assert flash_shape_ok(d, a, nkv)
     for itemsize in (4, 2, 1):
         assert paged_shape_ok(d, a, nkv, itemsize), itemsize
+
+
+def _dense_archs():
+    from repro_torch.configs.registry import get_config, list_archs
+    return [n for n in list_archs() if get_config(n).family == "dense"]
+
+
+SMEM_BYTES = 232448      # dynamic shared memory a block may use on the H100
+GRID_YZ = 65535          # CUDA's limit on gridDim.y and gridDim.z
+
+
+def _gemm_smem(tile, nb=1):
+    """csrc/gemm_sm90.cuh GemmSmem: four ring slots of a (rows x 64) A tile
+    and nb (64 x columns) B tiles in bf16, and 1024 bytes of alignment."""
+    bm, bn = tile
+    return 4 * (bm + nb * bn) * 64 * 2 + 1024
+
+
+@pytest.mark.parametrize("arch", _dense_archs())
+def test_registered_dense_model_gets_a_valid_gemm_launch(arch):
+    """Every projection of every registered dense model, at 64 and 4096
+    token rows, in each layout it runs (forward, dgrad, wgrad, the fused
+    MLP backward's dx pair): the tile picker returns an instantiated tile,
+    the split covers k in whole k steps, the grid fits CUDA's limits and
+    the ring fits shared memory; the fused MLP kernels' tiles likewise.
+    The wrappers' own launch arithmetic, no launch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.fused_mlp.ops import pick_tile as fused_tile
+    cfg = get_config(arch)
+    d, hd = cfg.d_model, cfg.head_dim
+    projections = {"q": (d, cfg.num_heads * hd), "kv": (d, cfg.num_kv_heads * hd),
+                   "o": (cfg.num_heads * hd, d), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d),
+                   "lm_head": (d, cfg.padded_vocab_size)}
+    for rows in (64, 4096):
+        for name, (k_in, n_out) in projections.items():
+            shapes = {"forward": (rows, k_in, n_out), "dgrad": (rows, n_out, k_in),
+                      "wgrad": (k_in, rows, n_out)}
+            if name == "up":
+                shapes["dx pair"] = (rows, 2 * n_out, k_in)   # two pairs of k = d_ff
+            for layout, (m, k, n) in shapes.items():
+                bm, bn, ks = launch_shape(m, n, k, torch.bfloat16, 132)
+                what = (arch, rows, name, layout, (m, k, n), (bm, bn, ks))
+                assert (bm, bn) in TILES and (bm == 64) == (m <= 64), what
+                splits = -(-k // ks)
+                assert ks % BLOCK_K == 0 and (splits - 1) * ks < k, what
+                assert splits <= GRID_YZ and -(-n // bn) <= GRID_YZ, what
+                assert _gemm_smem((bm, bn)) <= SMEM_BYTES, what
+        for mlp_type in ("swiglu", "gelu", "relu2"):
+            tile = fused_tile(rows, torch.bfloat16)
+            assert tile == ((64, 64) if rows <= 64 else (128, 128))
+            assert -(-cfg.d_ff // tile[1]) <= GRID_YZ
+            assert _gemm_smem(tile, nb=2 if mlp_type == "swiglu" else 1) <= SMEM_BYTES
 
 
 def test_kernel_shape_predicates_refuse_what_the_kernels_do_not_take():
