@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      instantiation of the bf16 flash forward and backward and of the GEMM
      mainloop (csrc/gemm_sm90.cuh: the matmul, fused-MLP and fused-MLP
      backward kernels) must show warpgroup products (HGMMA) and cp.async
-     copies (LDGSTS) in its SASS, no GEMM instantiation may spill, and no
-     bf16 instantiation of the f32 FMA tile kernels may exist;
+     copies (LDGSTS) in its SASS, no GEMM instantiation may spill or have
+     its products serialized by ptxas (C7515), and no bf16 instantiation of
+     the f32 FMA tile kernels may exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -23,8 +24,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      pools, tables built by a BlockPool), then the training slice's at its shapes
      (4 x 1024 tokens: flash attention forward and backward, each beside
      SDPA, the fused SwiGLU forward and backward, every projection's
-     forward, dgrad and wgrad); flash attention at gpt3-2.7b's head splits
-     C0-C3 (head dims 80, 40, 64, 128 at 4 x 2048 tokens) against SDPA and
+     forward, dgrad and wgrad, each also at every bf16 tile beside the
+     one the wrapper picks); the f32 branches of the tile GEMM and the
+     fused MLP at the serve shapes, timed; flash attention at gpt3-2.7b's
+     head splits C0-C3 (head dims 80, 40, 64, 128 at 4 x 2048 tokens) against SDPA and
      the bound at the true head dim; then the int8-weight slice's (the int8 GEMM at every
      projection's shape at 64 and 4096 rows, bit-identical to its plain
      version, beside torch._int_mm; the int8 fused SwiGLU hidden), then the
@@ -92,6 +95,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -256,7 +260,6 @@ OLD_BF16 = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfl
 def gemm_instance(fn: str) -> str:
     """A readable name of a gemm_sm90_kernel instantiation from its mangled
     template arguments: the kernel it serves, the tile and the layout."""
-    import re
     tm, tn, ta, tb, pairs, act, bwd = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:7])
     acts = {1: "swiglu", 2: "gelu", 3: "relu2"}
     if bwd:
@@ -264,7 +267,7 @@ def gemm_instance(fn: str) -> str:
     elif act:
         kind = f"fused_mlp {acts[act]}"
     else:
-        kind = "matmul " + ("t" if ta else "n") + ("t" if tb else "n") + (" pair" if pairs == 2 else "")
+        kind = f"matmul {'t' if ta else 'n'}{'t' if tb else 'n'}{' pair' if pairs == 2 else ''}"
     return f"{kind} {tm}x{tn}"
 
 
@@ -273,7 +276,6 @@ def ptxas_report(log: str) -> dict:
     "serialized": whether ptxas serializes its wgmma (C7515: a non-wgmma
     instruction writes accumulators while products are in flight)}} from
     ptxas -v."""
-    import re
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"C7515\).*function '(\w+)'", line)
@@ -597,7 +599,6 @@ def _train_gemm_rows(torch, randn, rows) -> None:
     projection of `linear` at 4096 token rows (the gradients on transposed
     views), against matmul_ref and torch.matmul on the same operands; and
     each shape at every bf16 tile, beside the one `pick_tile` chose."""
-    from repro_torch.kernels._build import num_sms
     from repro_torch.kernels.matmul.ops import TILES, matmul, pick_tile
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.tolerance import matmul_tol
@@ -630,9 +631,9 @@ def _train_gemm_rows(torch, randn, rows) -> None:
             print(f"    {ms:.4f} ms (plain {plain:.4f}, torch.matmul {lib:.4f}, bound {bnd:.4f} "
                   f"by {by}; {2.0 * TOKENS * k * n / ms / 1e9:.1f} TFLOP/s); "
                   f"{per_step} launches per step")
-            (pm, pk), pn = a.shape, b.shape[1]
-            print(tile_sweep_line(forced_tile_ms(torch, ops, TILES),
-                                  pick_tile(pm, pn, num_sms(a.device)), 2.0 * TOKENS * k * n, pk))
+            pm, pk = a.shape
+            print(tile_sweep_line(forced_tile_ms(torch, ops, TILES), pick_tile(pm),
+                                  2.0 * TOKENS * k * n, pk))
             for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                              ("bound_ms", bnd), ("step_ms", ms * per_step),
                              ("flops", 2.0 * TOKENS * k * n)):
@@ -2536,9 +2537,9 @@ def main() -> None:
 
     phase("build", build_phase)
     rows = phase("kernels", kernel_phase, torch)
-    phase("f32 kernels", f32_kernel_phase, torch)
     rows.update(phase("prefix kernels", prefix_kernel_phase, torch))
     rows.update(phase("train kernels", train_kernel_phase, torch))
+    phase("f32 kernels", f32_kernel_phase, torch)
     phase("attention table", attention_table_phase, torch)
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))

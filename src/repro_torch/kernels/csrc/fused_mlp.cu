@@ -28,7 +28,8 @@ using namespace repro;
 
 template <int ACT>
 static cudaError_t launch_bf16(const GemmArgs& g, int tm, int tn, cudaStream_t stream) {
-  if (tm == 64 && tn == 64) return gemm_sm90_launch<64, 64, false, false, 1, ACT, false>(g, 1, stream);
+  if (tm == 64 && tn == 64)
+    return gemm_sm90_launch<64, 64, false, false, 1, ACT, false>(g, 1, stream);
   if (tm == 128 && tn == 128)
     return gemm_sm90_launch<128, 128, false, false, 1, ACT, false>(g, 1, stream);
   return cudaErrorInvalidValue;

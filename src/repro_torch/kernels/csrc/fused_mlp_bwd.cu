@@ -89,7 +89,8 @@ static cudaError_t launch_f32(const float* x, const float* wg, const float* wu, 
 
 template <int ACT>
 static cudaError_t launch_bf16(const GemmArgs& g, int tm, int tn, cudaStream_t stream) {
-  if (tm == 64 && tn == 64) return gemm_sm90_launch<64, 64, false, false, 1, ACT, true>(g, 1, stream);
+  if (tm == 64 && tn == 64)
+    return gemm_sm90_launch<64, 64, false, false, 1, ACT, true>(g, 1, stream);
   if (tm == 128 && tn == 128)
     return gemm_sm90_launch<128, 128, false, false, 1, ACT, true>(g, 1, stream);
   return cudaErrorInvalidValue;
@@ -123,7 +124,9 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* wg, const void* wu
   const float* dhp = static_cast<const float*>(dh);
   float* dgp = static_cast<float*>(dg);
   float* dup = static_cast<float*>(du);
-  if (act == ACT_SWIGLU) return (int)launch_f32<ACT_SWIGLU>(xp, gp, up, dhp, dgp, dup, m, f, h, vec, s);
-  if (act == ACT_GELU) return (int)launch_f32<ACT_GELU>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
+  if (act == ACT_SWIGLU)
+    return (int)launch_f32<ACT_SWIGLU>(xp, gp, up, dhp, dgp, dup, m, f, h, vec, s);
+  if (act == ACT_GELU)
+    return (int)launch_f32<ACT_GELU>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
   return (int)launch_f32<ACT_RELU2>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
 }

@@ -10,21 +10,23 @@
 // swizzle atom (sm90.cuh).  Each step's A tile and B tile(s) are copied
 // with cp.async (16-byte chunks, zero fill past the ragged edge; plain
 // element copies where a row is not whole 16-byte chunks) into a ring of
-// GEMM_STAGES slots in dynamic shared memory, GEMM_AHEAD = 2 steps ahead
-// of the step being multiplied.  Each warpgroup multiplies with
+// GEMM_STAGES = 4 slots in dynamic shared memory, GEMM_AHEAD = 2 steps
+// ahead of the step being multiplied.  Each warpgroup multiplies with
 // `wgmma.mma_async`, both operands in shared memory, one m64nTNk16
 // instruction per B operand and k16 step, and keeps one group in flight
 // (wgmma_wait<1>) while the next steps land.  All threads copy and
 // multiply; there is no producer warp.
 //
-// Ring: step t lives in slot t % GEMM_STAGES.  At step t every thread
-// waits for its own copies of step t, fences them into the async proxy and
-// meets the others at one barrier; then it issues the copies of step t + 2
-// into slot (t + 2) % 4, which step t - 2 used last: every thread passed
+// Ring: step t lives in slot t % 4.  At step t every thread waits for its
+// own copies of step t, fences them into the async proxy and meets the
+// others at one barrier; then it issues the copies of step t + 2 into slot
+// (t + 2) % 4, which step t - 2 used last: every thread passed
 // wgmma_wait<1> at step t - 1 (so its warpgroup finished step t - 2) before
-// that barrier.  Then it issues step t's products.  (Refilling step t - 1's
-// slot instead, three steps ahead behind a second barrier, made ptxas
-// serialize the products, C7515, and ran 4-14% slower on the card.)
+// that barrier.  Then it issues step t's products.  Deeper rings bought
+// nothing on the card: six slots (four steps ahead) ran the dgrad within
+// 2% and made ptxas serialize the products of every instantiation with an
+// MN-major B (C7515); refilling step t - 1's slot three steps ahead, behind
+// a second barrier, serialized most of them and ran 4-14% slower.
 //
 // Layouts, carried by the descriptors so that no operand is copied to
 // transpose it: A (m, k) row-major is a K-major tile (TM rows x 64), its
@@ -170,19 +172,16 @@ template <int TM, int TN, int NB, bool TA, bool TB, int PAIRS> struct GemmMainlo
 };
 
 // Two adjacent bf16 outputs at p[o], p[o + 1] (the second only if `two`):
-// one 4-byte store where the pair is aligned.
+// one 4-byte store where the pair is aligned (an even row length; the
+// outputs are fresh allocations).
 __device__ __forceinline__ void gemm_put2(__nv_bfloat16* p, size_t o, float v0, float v1,
-                                          bool two, bool pairs) {
-  if (two && pairs) {
+                                          bool two, bool even) {
+  if (two && even) {
     *reinterpret_cast<uint32_t*>(p + o) = sm90::pack_bf16(v0, v1);
   } else {
     p[o] = __float2bfloat16_rn(v0);
     if (two) p[o + 1] = __float2bfloat16_rn(v1);
   }
-}
-
-__device__ __forceinline__ bool aligned4(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
 }
 
 // C = epilogue(A . B0 [, A . B1]), or C = A . B0 + A1 . B1 (PAIRS = 2).
@@ -212,8 +211,6 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
   const int cb = col0 + 2 * (t % 4);
   const bool even = (g.n & 1) == 0;
   const bool split = !BWD && ACT == ACT_NONE && gridDim.z > 1;
-  const bool pairs =
-      even && (BWD ? aligned4(g.du) && (NB == 1 || aligned4(g.dg)) : aligned4(g.c));
 #pragma unroll
   for (int j = 0; j < TN / 8; ++j) {
     const int gc = cb + 8 * j;
@@ -250,8 +247,8 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
             du[e] = dh[e] * drelu2(u);
           }
         }
-        if (ACT == ACT_SWIGLU) gemm_put2(g.dg, o, dg[0], dg[1], two, pairs);
-        gemm_put2(g.du, o, du[0], du[1], two, pairs);
+        if (ACT == ACT_SWIGLU) gemm_put2(g.dg, o, dg[0], dg[1], two, even);
+        gemm_put2(g.du, o, du[0], du[1], two, even);
       } else {
         float v[2];
 #pragma unroll
@@ -261,7 +258,7 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
           if (ACT == ACT_GELU) v[e] = gelu_tanh(v[e]);
           if (ACT == ACT_RELU2) v[e] = relu2(v[e]);
         }
-        gemm_put2(g.c, o, v[0], v[1], two, pairs);
+        gemm_put2(g.c, o, v[0], v[1], two, even);
       }
     }
   }

@@ -20,9 +20,9 @@
 // `wgmma` from swizzled shared-memory tiles, fed by a four-slot cp.async
 // ring that keeps two k steps of 64 in flight while a third is multiplied,
 // and the epilogue stores from the accumulator registers.  For the
-// operation-bound rows (m > 64) a block of two warpgroups owns a 128 x 256
-// tile (128 x 128 where that fills the card's waves better), so each byte
-// staged in shared memory feeds 128 or 256 products.  For the byte-bound
+// operation-bound rows (m > 64) a block of two warpgroups owns a 128 x 128
+// tile, so each byte staged in shared memory feeds 64 products (a 128 x
+// 256 tile, 85, ran slower on the card).  For the byte-bound
 // rows (m <= 64) one warpgroup owns a 64 x 128 tile covering every row, so
 // each weight element is read from device memory once; two such blocks fit
 // an SM, and where n / 128 tiles leave SMs idle the wrapper splits k across
@@ -56,8 +56,6 @@ static cudaError_t launch_bf16(const GemmArgs& g, int splits, int tm, int tn,
     return gemm_sm90_launch<64, 128, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
   if (tm == 128 && tn == 128)
     return gemm_sm90_launch<128, 128, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
-  if (tm == 128 && tn == 256)
-    return gemm_sm90_launch<128, 256, TA, TB, PAIRS, ACT_NONE, false>(g, splits, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -87,14 +85,14 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
     const float* b1p = static_cast<const float*>(b1);
     float* cp = static_cast<float*>(c);
     float* wp = static_cast<float*>(work);
-    if (layout == 0)
-      err = launch_f32<false, false, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
-    if (layout == 1)
-      err = launch_f32<false, true, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
-    if (layout == 2)
-      err = launch_f32<false, true, 2>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
-    if (layout == 3)
-      err = launch_f32<true, false, 1>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+#define F32_CASE(L, TA, TB, P) \
+  if (layout == L)             \
+    err = launch_f32<TA, TB, P>(ap, a1p, bp, b1p, cp, wp, m, n, k, k_split, splits, vec, stream);
+    F32_CASE(0, false, false, 1)
+    F32_CASE(1, false, true, 1)
+    F32_CASE(2, false, true, 2)
+    F32_CASE(3, true, false, 1)
+#undef F32_CASE
   }
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -106,7 +104,8 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
       splitk_reduce_kernel<__nv_bfloat16>
           <<<blocks, 256, 0, stream>>>(wp, static_cast<__nv_bfloat16*>(c), mn, splits);
     else
-      splitk_reduce_kernel<float><<<blocks, 256, 0, stream>>>(wp, static_cast<float*>(c), mn, splits);
+      splitk_reduce_kernel<float>
+          <<<blocks, 256, 0, stream>>>(wp, static_cast<float*>(c), mn, splits);
   }
   return cudaGetLastError();
 }
@@ -123,8 +122,10 @@ extern "C" int repro_matmul(const void* a, const void* b, const void* a1, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != DT_BF16 && dtype != DT_F32) return (int)cudaErrorInvalidValue;
   const int step = dtype == DT_BF16 ? GEMM_BK : BK;
-  if (m <= 0 || n <= 0 || k <= 0 || k_split <= 0 || k_split % step) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || n <= 0 || k <= 0 || k_split <= 0 || k_split % step)
+    return (int)cudaErrorInvalidValue;
   if ((a1 == nullptr) != (b1 == nullptr)) return (int)cudaErrorInvalidValue;
   if (k_split < k && work == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_matmul(a, b, a1, b1, c, work, m, n, k, k_split, dtype, ta, tb, vec, tm, tn, s);
+  return (int)launch_matmul(a, b, a1, b1, c, work, m, n, k, k_split, dtype, ta, tb, vec, tm, tn,
+                            s);
 }

@@ -13,15 +13,14 @@ C = A @ B + A1 @ B1 in one launch.
 
 `pick_tile` and `split_k` are the host-side launch shape.  bf16 runs on
 `csrc/gemm_sm90.cuh`: a 64 x 128 tile of one warpgroup for at most 64 rows
-(decode and prefill: every weight element read once), else a 128 x 256
-or 128 x 128 tile of two warpgroups, whichever fills the card's waves
-better; f32 on `csrc/gemm_tile.cuh`'s 64 x 64 FMA tiles.  `split_k`
-splits the k range across the grid when the output alone has too few
-tiles to fill the card; the f32 partials are then summed by a second,
-small kernel.  `matmul.launches`
-counts calls that launched the GEMM kernel, the reduce riding with them;
-`matmul.by_layout` splits that count by operand layout: "nn" (forward),
-"nt" (B transposed: dgrad) and "tn" (A transposed: wgrad).
+(decode and prefill: every weight element read once), else a 128 x 128
+tile of two warpgroups; f32 on `csrc/gemm_tile.cuh`'s 64 x 64 FMA tiles.
+`split_k` splits the k range across the grid when the output alone has too
+few tiles to fill the card; the f32 partials are then summed by a second,
+small kernel.  `matmul.launches` counts calls that launched the GEMM
+kernel, the reduce riding with them; `matmul.by_layout` splits that count
+by operand layout: "nn" (forward), "nt" (B transposed: dgrad) and "tn" (A
+transposed: wgrad).
 """
 from __future__ import annotations
 
@@ -32,13 +31,12 @@ from .ref import matmul_ref
 
 BLOCK_K = 64             # csrc/gemm_sm90.cuh GEMM_BK: the bf16 k step, one 128-byte swizzle atom
 DECODE_TILE = (64, 128)  # (rows, columns) at most 64 rows: one warpgroup, 2 blocks an SM
-TRAIN_TILES = ((128, 256), (128, 128))  # more rows: two warpgroups, 1 block an SM
-TILES = (DECODE_TILE, *TRAIN_TILES)     # the bf16 tiles csrc/matmul.cu instantiates
+TRAIN_TILE = (128, 128)  # more rows: two warpgroups, 1 block an SM
+TILES = (DECODE_TILE, TRAIN_TILE)  # the bf16 tiles csrc/matmul.cu instantiates
 F32_TILE = (64, 64)      # csrc/gemm_tile.cuh BM, BN (the f32 FMA path)
 F32_BLOCK_K = 32         # csrc/gemm_tile.cuh BK
 MIN_SPLIT_STEPS = 4      # k steps per split, at least
 WAVES = 2                # blocks per SM a 64-row tile's split aims for
-MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (column tiles) and gridDim.z (splits)
 LAYOUTS = ("nn", "nt", "tn")  # the (A, B) layouts csrc/matmul.cu instantiates
 
 
@@ -46,19 +44,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pick_tile(m: int, n: int, num_sms: int) -> tuple[int, int]:
+def pick_tile(m: int) -> tuple[int, int]:
     """The bf16 output tile (rows, columns) for an (m, n) product: 64 x 128
-    for at most 64 rows; else 128 rows by 256 columns, or by 128 where
-    that takes fewer waves of tile-columns (a 256-wide tile costs two
-    128-wide ones; ties go to 256, which stages fewer bytes per product)."""
-    if m <= DECODE_TILE[0]:
-        return DECODE_TILE
-
-    def cost(tile):
-        bm, bn = tile
-        return _cdiv(_cdiv(m, bm) * _cdiv(n, bn), num_sms) * bn
-
-    return min(TRAIN_TILES, key=cost)
+    for at most 64 rows, else 128 x 128.  (A 128 x 256 tile ran 2-48%
+    slower than 128 x 128 at 10 of the 12 training GEMMs, and at most 2.4%
+    faster at the other two, on the H100: PERF.md.)"""
+    return DECODE_TILE if m <= DECODE_TILE[0] else TRAIN_TILE
 
 
 def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K,
@@ -70,9 +61,9 @@ def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K,
     blocks per SM; 128-row tiles (one block an SM) into as many whole
     copies of the grid as one wave holds, so a grid that nearly fills the
     card is not split into a second, partial wave."""
-    bm, bn = tile if tile is not None else pick_tile(m, n, num_sms)
+    bm, bn = tile if tile is not None else pick_tile(m)
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    max_splits = max(1, min(k // (MIN_SPLIT_STEPS * block_k), MAX_GRID_YZ))
+    max_splits = max(1, k // (MIN_SPLIT_STEPS * block_k))
     if tiles >= num_sms:
         splits = 1
     elif bm <= 64:
@@ -87,7 +78,7 @@ def launch_shape(m: int, n: int, k: int, dtype, num_sms: int) -> tuple[int, int,
     if dtype == torch.float32:
         tile, block_k = F32_TILE, F32_BLOCK_K
     else:
-        tile, block_k = pick_tile(m, n, num_sms), BLOCK_K
+        tile, block_k = pick_tile(m), BLOCK_K
     return (*tile, split_k(m, n, k, num_sms, block_k, tile))
 
 

@@ -302,7 +302,7 @@ def test_matmul_transposed(cuda, dtype, layout, m, k, n):
 # The bf16 tiles' edges (csrc/gemm_sm90.cuh): rows on either side of the
 # 64-row (one warpgroup) and 128-row (two) tiles; k off the 64-column step
 # (70: two steps, the second ragged, no split; 4100: split, the last split
-# ragged); n off the 128- and 256-column tiles, odd n included; and the
+# ragged); n off the 64- and 128-column tiles, odd n included; and the
 # training rows.  (m, k, n, whether k is split.)
 EDGE_CASES = [(m, k, n, k == 4100) for m in (1, 63, 64, 65, 127, 128, 129)
               for k, n in ((70, 200), (4100, 45))]

@@ -95,7 +95,7 @@ def test_operand_layouts():
 def test_split_k_covers_k(m, n, k):
     """The split of k for the tile the wrapper picks: 64 x 128 at most 64
     rows, 128 rows above."""
-    bm, bn = pick_tile(m, n, num_sms=132)
+    bm, bn = pick_tile(m)
     assert (bm, bn) in TILES and (bm == 64) == (m <= 64)
     ks = split_k(m, n, k, num_sms=132)
     assert ks == split_k(m, n, k, num_sms=132, tile=(bm, bn))
