@@ -10,9 +10,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      instantiation of the bf16 flash forward and backward and of the GEMM
      mainloop (csrc/gemm_sm90.cuh: the matmul, fused-MLP and fused-MLP
      backward kernels) must show warpgroup products (HGMMA) and cp.async
-     copies (LDGSTS) in its SASS, no GEMM instantiation may spill or have
-     its products serialized by ptxas (C7515), and no bf16 instantiation of
-     the f32 FMA tile kernels may exist;
+     copies (LDGSTS) in its SASS, and every instantiation of the int8
+     mainloop (csrc/gemm_sm90_s8.cuh: the int8 GEMM and fused MLP) integer
+     warpgroup products (IGMMA) and LDGSTS; no GEMM instantiation may spill
+     or have its products serialized by ptxas (C7515), and no bf16
+     instantiation of the f32 FMA tile kernels, nor the old int8 WMMA
+     kernel, may exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -30,7 +33,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      head splits C0-C3 (head dims 80, 40, 64, 128 at 4 x 2048 tokens) against SDPA and
      the bound at the true head dim; then the int8-weight slice's (the int8 GEMM at every
      projection's shape at 64 and 4096 rows, bit-identical to its plain
-     version, beside torch._int_mm; the int8 fused SwiGLU hidden), then the
+     version, beside torch._int_mm, at 64 rows also at other splits of k;
+     a row-major weight relaid and counted; the int8 fused SwiGLU hidden), then the
      SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
      fast and slow decay, a ragged chunk and a misaligned one, bf16 and
      f32);
@@ -39,7 +43,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      linear_impl="fused" and the paged decode kernel; every kernel's launch
      count over that run must be > 0 and match the path's shape, and one
      prefill through the plain path on the same weights bounds the logits'
-     relative error;
+     relative error; every engine run of this and the next phases must
+     relay out no int8 weight (the wrappers' relayout counters stay 0);
   5. prefix serve: the same model served from the block-table KV pool
      (Engine(prefix_cache=True), 64-token blocks): a cold and a warm run of
      32 burst requests (75% share a 64-token system prefix) through the
@@ -252,20 +257,33 @@ def build_phase() -> None:
 
 # gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD> (csrc/gemm_sm90.cuh)
 GEMM_SM90 = "gemm_sm90_kernel"
-# bf16 instantiations of the f32-only FMA kernels (csrc/gemm_tile.cuh,
-# csrc/fused_mlp_bwd.cu), which must not exist: bf16 runs on gemm_sm90
-OLD_BF16 = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16")
+# int8_sm90_kernel<TM, TN, ACT, T> (csrc/gemm_sm90_s8.cuh)
+INT8_SM90 = "int8_sm90_kernel"
+# the warpgroup product each mainloop's SASS must issue: bf16 HGMMA, s8 IGMMA
+PRODUCTS = {"flash_fwd_sm90": "HGMMA", "flash_bwd_sm90": "HGMMA", GEMM_SM90: "HGMMA",
+            INT8_SM90: "IGMMA"}
+# kernels that must not exist: bf16 instantiations of the f32-only FMA
+# kernels (csrc/gemm_tile.cuh, csrc/fused_mlp_bwd.cu; bf16 runs on
+# gemm_sm90), and the int8 WMMA tile kernel that gemm_sm90_s8 replaced
+OLD_KERNELS = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16",
+               "int8_tile_kernel")
+ACTS = {1: "swiglu", 2: "gelu", 3: "relu2"}
 
 
 def gemm_instance(fn: str) -> str:
-    """A readable name of a gemm_sm90_kernel instantiation from its mangled
-    template arguments: the kernel it serves, the tile and the layout."""
+    """A readable name of a gemm_sm90_kernel or int8_sm90_kernel
+    instantiation from its mangled template arguments: the kernel it
+    serves, the tile and the layout (bf16) or output type (int8)."""
+    if INT8_SM90 in fn:
+        tm, tn, act = (int(v) for v in re.findall(r"Li(\d+)E", fn)[:3])
+        out = "bf16" if "__nv_bfloat16" in fn else "f32"
+        kind = f"int8_fused_mlp {ACTS[act]}" if act else "int8_matmul"
+        return f"{kind} {tm}x{tn} {out} out"
     tm, tn, ta, tb, pairs, act, bwd = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:7])
-    acts = {1: "swiglu", 2: "gelu", 3: "relu2"}
     if bwd:
-        kind = f"fused_mlp_bwd {acts[act]}"
+        kind = f"fused_mlp_bwd {ACTS[act]}"
     elif act:
-        kind = f"fused_mlp {acts[act]}"
+        kind = f"fused_mlp {ACTS[act]}"
     else:
         kind = f"matmul {'t' if ta else 'n'}{'t' if tb else 'n'}{' pair' if pairs == 2 else ''}"
     return f"{kind} {tm}x{tn}"
@@ -299,53 +317,55 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
-    """The bf16 kernels as compiled: each instantiation of the flash forward
-    and backward, and of the GEMM mainloop behind the matmul, fused-MLP and
-    fused-MLP-backward kernels, must issue warpgroup products (HGMMA) and
-    stage its tiles with asynchronous copies (LDGSTS, cp.async; or
-    UTMALDG, TMA); ptxas must report no spill and no serialized products
-    for any GEMM instantiation; and no bf16 instantiation of the f32 FMA
-    kernels may exist."""
+    """The tensor-core kernels as compiled: each instantiation of the bf16
+    flash forward and backward, of the bf16 GEMM mainloop behind the matmul,
+    fused-MLP and fused-MLP-backward kernels, and of the int8 mainloop
+    behind the int8 GEMM and fused MLP, must issue warpgroup products
+    (HGMMA; IGMMA for int8) and stage its tiles with asynchronous copies
+    (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must report no spill and no
+    serialized products for any GEMM instantiation; and none of
+    OLD_KERNELS may exist."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                          text=True)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:200]}")
-    kernels = ("flash_fwd_sm90", "flash_bwd_sm90", GEMM_SM90)
-    ops = ("HGMMA", "LDGSTS", "UTMALDG")
+    ops = ("HGMMA", "IGMMA", "LDGSTS", "UTMALDG")
     counts, fn, names = {}, None, set()
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             names.add(fn)
             continue
-        for kernel in kernels:
+        for kernel in PRODUCTS:
             if fn and kernel in fn:
                 per = counts.setdefault(kernel, {}).setdefault(fn, dict.fromkeys(ops, 0))
                 for op in ops:
                     per[op] += op in line
-    for kernel in kernels:
+    for kernel, product in PRODUCTS.items():
         fns = counts.get(kernel, {})
-        hg = [c["HGMMA"] for c in fns.values()]
+        mm = [c[product] for c in fns.values()]
         ld = [c["LDGSTS"] + c["UTMALDG"] for c in fns.values()]
-        print(f"  sass: {kernel}: {len(fns)} instantiations, HGMMA {min(hg, default=0)}-"
-              f"{max(hg, default=0)} and LDGSTS/UTMALDG {min(ld, default=0)}-"
+        print(f"  sass: {kernel}: {len(fns)} instantiations, {product} {min(mm, default=0)}-"
+              f"{max(mm, default=0)} and LDGSTS/UTMALDG {min(ld, default=0)}-"
               f"{max(ld, default=0)} each")
-        if not fns or min(hg) == 0 or min(ld) == 0:
+        if not fns or min(mm) == 0 or min(ld) == 0:
             fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
     ptx = ptxas_report(log)
-    for fn, c in sorted(counts[GEMM_SM90].items(), key=lambda kv: gemm_instance(kv[0])):
+    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90]}
+    for fn, c in sorted(gemms.items(), key=lambda kv: gemm_instance(kv[0])):
         rep = ptx.get(fn)
         if rep is None:
             fail(f"{gemm_instance(fn)}: no ptxas report for {fn}")
-        print(f"    {gemm_instance(fn)}: HGMMA {c['HGMMA']}, LDGSTS {c['LDGSTS']}, UTMALDG "
+        product = PRODUCTS[INT8_SM90 if INT8_SM90 in fn else GEMM_SM90]
+        print(f"    {gemm_instance(fn)}: {product} {c[product]}, LDGSTS {c['LDGSTS']}, UTMALDG "
               f"{c['UTMALDG']}; {rep['registers']} registers, {rep['spill']} bytes spilled"
               f"{', products SERIALIZED (C7515)' if rep['serialized'] else ''}")
         if rep["spill"] or rep["serialized"]:
             fail(f"{gemm_instance(fn)}: ptxas spills {rep['spill']} bytes or serializes its "
                  f"wgmma (C7515)")
-    old = sorted(n for n in names if any(o in n for o in OLD_BF16))
+    old = sorted(n for n in names if any(o in n for o in OLD_KERNELS))
     if old:
-        fail(f"bf16 instantiations of the f32 FMA kernels remain: {old}")
+        fail(f"kernels that must not exist remain: {old}")
 
 
 # --- timing ---------------------------------------------------------------------------
@@ -1216,6 +1236,14 @@ def _linear_counters():
             ("int8_fused_mlp", int8_fused_mlp_hidden, "launches")]
 
 
+def _relayout_counters():
+    """(label, function, counter attribute) of the int8 wrappers' weight
+    relayouts (a row-major weight copied K-major on the call)."""
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
+    return [("int8_matmul", int8_matmul, "relayouts"),
+            ("int8_fused_mlp", int8_fused_mlp_hidden, "relayouts")]
+
+
 def _decode_counters():
     """(label, function, counter attribute) of each paged decode variant."""
     from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
@@ -1232,15 +1260,19 @@ def serve_run(torch, eng, reqs, label: str, decode_kernel: str, **kw):
     and the bf16 fused MLP (linear_impl="fused") or the int8 kernels
     ("quantized") and none on the other pair; `decode_kernel` L per decode
     step and no other decode variant.  A roomy run must finish
-    every request at its length."""
+    every request at its length.  No int8 weight may be relaid: the int8
+    wrappers' relayout counters, set to 0 with the launch counts, must read
+    0 after the run."""
     linear = _linear_counters()
     decs = _decode_counters()
-    for _, fn, attr in linear + decs:
+    relays = _relayout_counters()
+    for _, fn, attr in linear + decs + relays:
         setattr(fn, attr, 0)
     torch.cuda.synchronize()
     done, stats = eng.run(reqs, **kw)
     torch.cuda.synchronize()
     counts = {n: getattr(fn, attr) for n, fn, attr in linear + decs}
+    relaid = {n: getattr(fn, attr) for n, fn, attr in relays}
     L = eng.cfg.num_layers
     passes = stats.prefills + stats.decode_steps
     want = {n: 0 for n in counts}
@@ -1259,7 +1291,10 @@ def serve_run(torch, eng, reqs, label: str, decode_kernel: str, **kw):
           f"{stats.cached_tokens} cached of {stats.prompt_tokens} prompt tokens "
           f"({stats.cache_hit_requests} hit requests) | peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print(f"    launches: {json.dumps({k: v for k, v in counts.items() if v or want[k]})}")
+    print(f"    launches: {json.dumps({k: v for k, v in counts.items() if v or want[k]})}; "
+          f"int8 weight relayouts: {json.dumps(relaid)}")
+    if any(relaid.values()):
+        fail(f"{label}: int8 weights relaid on the serve path: {relaid}")
     for name, n in counts.items():
         if n != want[name]:
             fail(f"{label}: {name}: {n} launches, the path implies {want[name]}")
@@ -1595,50 +1630,66 @@ def identical(torch, got, want, what: str) -> float:
     return err
 
 
-def _int_mm_ms(torch, a_q, ws):
+def _int_mm_ms(torch, a_q, ws, iters=ITERS):
     """torch._int_mm (cuBLASLt) on the same int8 operands: the int32 product
     alone, without the de-scale, so it covers less work than the kernel.
-    Returns (ms, its int32 sums of ws[0]) — the weight row-major as the port
-    holds it, or column-major where cuBLASLt refuses that."""
-    layout = "row-major"
-    try:
-        torch._int_mm(a_q, ws[0][0])
-    except RuntimeError:
-        layout = "column-major"
-        ws = [(b.T.contiguous().T, s) for b, s in ws]
-    ms, _ = time_ms(torch, [lambda w=w: torch._int_mm(a_q, w[0]) for w in ws])
-    return ms, torch._int_mm(a_q, ws[0][0]), layout
+    The port's weight is column-major ((k, n) K-major, the `.mT` view of a
+    contiguous (n, k) tensor), which cuBLASLt takes as it is.  Returns (ms,
+    its int32 sums of ws[0])."""
+    ms, _ = time_ms(torch, [lambda w=w: torch._int_mm(a_q, w[0]) for w in ws], iters)
+    return ms, torch._int_mm(a_q, ws[0][0])
+
+
+# other splits of k timed beside the picked one at 64 rows: k columns per
+# split (at most MAX_SPLITS splits, one cluster)
+INT8_SPLIT_SWEEP = (256, 512, 1024, 2048)
+
+
+def _forced_split(ks: int):
+    """The int8 GEMM wrapper with its k split forced to `ks` (its tile kept)."""
+    from repro_torch.kernels.quantized import ops
+    return _patched(ops, "launch_shape", lambda real: (
+        lambda m, n, k, sms: (*real(m, n, k, sms)[:2], min(ks, -(-k // 128) * 128))))
 
 
 def int8_kernel_phase(torch) -> dict:
     """The int8 GEMM and the int8 fused MLP against their plain versions on
     the card, at the int8-weight serve path's shapes: int8 operands as the
     wrappers make them (a bf16 activation per row, weights per output
-    channel), bf16 out.  The GEMM at each projection's shape at 64 rows (the
-    decode step and the 64-token prefill buckets alike), at 16 and 32 rows
-    (the smaller buckets) and at 4096 rows, bit-identical; the fused SwiGLU hidden at 64 rows within its bound.
-    Returns their rows of the kernels line (without launch counts)."""
-    from repro_torch.kernels.quantized.ops import int8_fused_mlp_q, int8_matmul_q
+    channel, held K-major as `quantize_weight` holds them), bf16 out.  The
+    GEMM at each projection's shape at 64 rows (the decode step and the
+    64-token prefill buckets alike), each beside its bound and the decode
+    step's sum, and at other splits of k; at 16 and 32 rows (the smaller
+    buckets) and at 4096 rows beside torch._int_mm, bit-identical; a
+    row-major weight, relaid by the wrapper, counted and still exact; the
+    fused SwiGLU hidden at 64 rows within its bound.  Returns their rows of
+    the kernels line (without launch counts)."""
+    from repro_torch.kernels.quantized.ops import (MAX_SPLITS, int8_fused_mlp_q, int8_matmul,
+                                                   int8_matmul_q, launch_shape)
     from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
     from repro_torch.kernels.tolerance import int8_fused_mlp_tol
-    from repro_torch.quant import quantize_int8
+    from repro_torch.quant import quantize_int8, quantize_weight
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def act(rows, k):
         return quantize_int8(torch.randn((rows, k), generator=gen, device=dev).to(bf))
 
     def weight(k, n):
-        return quantize_int8(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5, axis=-2)
+        w = quantize_weight(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+        return w.q, w.scale
 
     def gemm_bytes(m, k, n):   # int8 operands, f32 scales, bf16 out
         return m * k + k * n + 4.0 * (m + n) + 2.0 * m * n
 
     rows = {}
-    print("int8 kernels (int8 operands, bf16 out, CUDA events, weights rotated past L2):")
+    print(f"int8 kernels (int8 operands, weights K-major, bf16 out, CUDA events, weights rotated "
+          f"past L2); card {nvidia_smi()}:")
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    step_ms = step_bound = 0.0
     err = 0.0
     for name, ((k, n), per_step) in MATMUL_SHAPES.items():
         a_q, a_s = act(ROWS, k)
@@ -1648,25 +1699,41 @@ def int8_kernel_phase(torch) -> dict:
                                  f"int8_matmul {ROWS}x{k}x{n} ({name})"))
         ms, host = time_ms(torch, [lambda w=w: int8_matmul_q(a_q, a_s, *w, bf) for w in ws])
         plain, _ = time_ms(torch, [lambda w=w: int8_matmul_ref(a_q, a_s, *w, bf) for w in ws])
-        lib, sums, layout = _int_mm_ms(torch, a_q, ws)
+        lib, sums = _int_mm_ms(torch, a_q, ws)
         same = bool(torch.equal((sums.float() * a_s * ws[0][1]).to(bf), got))
         bnd, by = bound(2.0 * ROWS * k * n, gemm_bytes(ROWS, k, n), PEAK_INT8_OPS)
-        print(f"    {ms:.4f} ms (plain {plain:.4f}, torch._int_mm {lib:.4f} [int32 product only, "
-              f"{layout} weight; its sums de-scaled {'equal' if same else 'DIFFER from'} the "
-              f"kernel's], bound {bnd:.4f} by {by}); {per_step} launches per decode step; host "
-              f"{host:.1f} us per call")
+        tm, tn, ks = launch_shape(ROWS, n, k, sms)
+        sweep = []
+        for forced in INT8_SPLIT_SWEEP:
+            if forced >= k or forced == ks or ks == k or -(-k // forced) > MAX_SPLITS:
+                continue
+            with _forced_split(forced):
+                fms, _ = time_ms(torch, [lambda w=w: int8_matmul_q(a_q, a_s, *w, bf)
+                                         for w in ws])
+            sweep.append(f"{-(-k // forced)} splits {fms:.4f}")
+        print(f"    {ms:.4f} ms = {ms / bnd:.2f}x its bound {bnd:.4f} (by {by}; tile {tm}x{tn}, "
+              f"{-(-k // ks)} splits of {ks}{'; forced: ' + ', '.join(sweep) if sweep else ''}); "
+              f"plain {plain:.4f}, torch._int_mm {lib:.4f} [int32 product only; its sums "
+              f"de-scaled {'equal' if same else 'DIFFER from'} the kernel's]; {per_step} "
+              f"launches per decode step; host {host:.1f} us per call")
         if not same:
             fail(f"int8_matmul ({name}): cuBLASLt's int32 sums differ from the kernel's")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bnd)):
             tot[key] += val
+        step_ms += per_step * ms
+        step_bound += per_step * bnd
         del ws
-    print(f"  int8_matmul, one call at each shape: {tot['ms']:.4f} ms (bound "
-          f"{tot['bound_ms']:.4f}, torch._int_mm {tot['library_ms']:.4f} for less work)")
+    print(f"  int8_matmul, one call at each shape: {tot['ms']:.4f} ms = "
+          f"{tot['ms'] / tot['bound_ms']:.2f}x the bound {tot['bound_ms']:.4f} (torch._int_mm "
+          f"{tot['library_ms']:.4f} for less work); one decode step's 121 launches "
+          f"{step_ms:.4f} ms against {step_bound:.4f}")
 
     # the 16- and 32-token prefill buckets (other split-K counts), bit-identical;
-    # 4096 rows (the prompt of a long prefill), bit-identical and timed once
+    # 4096 rows (the prompt of a long prefill), bit-identical and timed beside
+    # torch._int_mm
     for m in (16, 32, TOKENS):
+        long = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         for name, ((k, n), _) in MATMUL_SHAPES.items():
             a_q, a_s = act(m, k)
             b_q, b_s = weight(k, n)
@@ -1677,10 +1744,32 @@ def int8_kernel_phase(torch) -> dict:
             if m != TOKENS:
                 continue
             ms, _ = time_ms(torch, [lambda: int8_matmul_q(a_q, a_s, b_q, b_s, bf)], TRAIN_ITERS)
+            lib, _ = _int_mm_ms(torch, a_q, [(b_q, b_s)], TRAIN_ITERS)
             bnd, by = bound(2.0 * m * k * n, gemm_bytes(m, k, n), PEAK_INT8_OPS)
+            for key, val in (("ms", ms), ("library_ms", lib), ("bound_ms", bnd)):
+                long[key] += val
+            tm, tn, ks = launch_shape(m, n, k, sms)
             print(f"    {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} TOP/s; bound {bnd:.4f} "
-                  f"by {by})")
+                  f"by {by}; tile {tm}x{tn}, {-(-k // ks)} splits); torch._int_mm {lib:.4f} "
+                  f"({2.0 * m * k * n / lib / 1e9:.1f} TOP/s, int32 product only): "
+                  f"{ms / lib:.2f}x")
+        if m == TOKENS:
+            print(f"  int8_matmul at {m} rows, one call at each shape: {long['ms']:.4f} ms "
+                  f"(bound {long['bound_ms']:.4f}), torch._int_mm {long['library_ms']:.4f}")
     torch.cuda.empty_cache()
+
+    # a row-major (k, n) payload, as JAX holds it: relaid by the wrapper on
+    # the call, counted, and still exact
+    k, n = MATMUL_SHAPES["k/v"][0]
+    a_q, a_s = act(ROWS, k)
+    b_q, b_s = weight(k, n)
+    before = int8_matmul.relayouts
+    got = int8_matmul_q(a_q, a_s, b_q.contiguous(), b_s, bf)
+    relaid = int8_matmul.relayouts - before
+    err = max(err, identical(torch, got, int8_matmul_ref(a_q, a_s, b_q, b_s, bf),
+                             f"int8_matmul {ROWS}x{k}x{n} (row-major weight, {relaid} relayout)"))
+    if relaid != 1:
+        fail(f"int8_matmul: a row-major weight counted {relaid} relayouts, not 1")
     rows["int8_matmul"] = dict(
         name="int8_matmul", route="cuda", source="src/repro_torch/kernels/csrc/int8_matmul.cu",
         replaces="src/repro/kernels/quantized/kernel.py:52", max_abs_err=err, ms=tot["ms"],
@@ -1701,8 +1790,8 @@ def int8_kernel_phase(torch) -> dict:
                                for w in ws])
     bnd, by = bound(2.0 * 2 * ROWS * h * f, ROWS * h + 2.0 * h * f + 4.0 * (ROWS + 2 * f)
                     + 2.0 * ROWS * f, PEAK_INT8_OPS)
-    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}); 24 launches per "
-          f"decode step; host {host:.1f} us per call")
+    print(f"    {ms:.4f} ms = {ms / bnd:.2f}x its bound {bnd:.4f} (by {by}); plain {plain:.4f}; "
+          f"24 launches per decode step ({24 * ms:.4f} ms); host {host:.1f} us per call")
     rows["int8_fused_mlp"] = dict(
         name="int8_fused_mlp", route="cuda",
         source="src/repro_torch/kernels/csrc/int8_fused_mlp.cu",

@@ -1,8 +1,8 @@
 // Shared helpers of the port's tiled kernels, and the f32 tiled-GEMM core
 // of the matmul and fused-MLP kernels (sm_90a).  Their bf16 branches run on
-// gemm_sm90.cuh; the int8 kernels (int8_tile.cuh) and the SSD kernel use the
-// 64x64 tile constants, Pad, to_f / from_f, the activations, Act and DType
-// from here, and their WMMA fragments through <mma.h>.
+// gemm_sm90.cuh; the int8 kernels (gemm_sm90_s8.cuh) use from_f, the
+// activations, Act and DType from here, and the SSD kernel NTHREADS, Pad,
+// to_f / from_f, DType and its WMMA fragments through <mma.h>.
 //
 // f32 (a check dtype): one thread block of 128 threads (4 warps) owns a
 // 64x64 output tile and walks the k range in steps of 32: each step stages

@@ -12,62 +12,48 @@
 // 4.3 G operations is ~128 ops a byte, under the ~590 at which the int8
 // tensor cores become the limit.
 //
-// What the design does about it: one block owns the gate and up 64x64
-// tiles of the same output region in two int32 accumulator sets, so x is
-// staged once for both products, each weight byte is read once, and the
-// (m, f) gate / up values never reach device memory: the de-scale and the
-// activation run at the last k step on the accumulators (the activations
-// of gemm_tile.cuh).  No split of k: a split would have to write the
-// pre-activation partials out.  At f = 8192 the grid holds 128 blocks, one
-// per SM.  Simple first: no cp.async/TMA pipeline, no wgmma — later PRs.
-#include "int8_tile.cuh"
+// What the design does about it (gemm_sm90_s8.cuh's mainloop: s8 `wgmma`
+// from a four-slot swizzled cp.async ring, the weights K-major): one
+// warpgroup owns the gate and up 64 x 32 tiles of the same output region
+// in two int32 accumulator sets, so x is staged once for both products,
+// each weight byte is read once at up to 64 rows, and the (m, f) gate / up
+// values never reach device memory: the de-scale and the activation run on
+// the accumulator registers.  No split of k: a split would have to write
+// the pre-activation partials out.  At f = 8192 the grid holds 256 blocks
+// a 64-row tile, two per SM, so one block's barrier wait overlaps the
+// other's copies (64 x 64 tiles, 128 blocks, ran slower on the card).
+#include "gemm_sm90_s8.cuh"
 
 using namespace repro;
 
 template <typename T>
-static cudaError_t launch_int8_fused(const void* x, const void* wg, const void* wu,
-                                     const void* xs, const void* gs, const void* us, void* h,
-                                     int m, int f, int k, int act, int vec,
-                                     cudaStream_t stream) {
-  dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, 1);
-  const signed char* xp = static_cast<const signed char*>(x);
-  const signed char* gp = static_cast<const signed char*>(wg);
-  const signed char* up = static_cast<const signed char*>(wu);
-  const float* xsp = static_cast<const float*>(xs);
-  const float* gsp = static_cast<const float*>(gs);
-  const float* usp = static_cast<const float*>(us);
-  T* hp = static_cast<T*>(h);
+static cudaError_t launch_int8_fused(const I8Args& g, int act, cudaStream_t s) {
   switch (act) {
-    case ACT_SWIGLU:
-      if (wg == nullptr || gs == nullptr) return cudaErrorInvalidValue;
-      int8_tile_kernel<T, ACT_SWIGLU><<<grid, NTHREADS, 0, stream>>>(
-          xp, gp, up, xsp, gsp, usp, hp, nullptr, m, f, k, k, vec);
-      break;
-    case ACT_GELU:
-      int8_tile_kernel<T, ACT_GELU><<<grid, NTHREADS, 0, stream>>>(
-          xp, up, nullptr, xsp, usp, nullptr, hp, nullptr, m, f, k, k, vec);
-      break;
-    case ACT_RELU2:
-      int8_tile_kernel<T, ACT_RELU2><<<grid, NTHREADS, 0, stream>>>(
-          xp, up, nullptr, xsp, usp, nullptr, hp, nullptr, m, f, k, k, vec);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+    case ACT_SWIGLU: return int8_sm90_launch<64, 32, ACT_SWIGLU, T>(g, 1, s);
+    case ACT_GELU: return int8_sm90_launch<64, 32, ACT_GELU, T>(g, 1, s);
+    case ACT_RELU2: return int8_sm90_launch<64, 32, ACT_RELU2, T>(g, 1, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
-// x (m, k) int8; wg (swiglu only), wu (k, f) int8; xs (m), gs (swiglu
-// only), us (f) f32; h (m, f) in `dtype`; all row-major, contiguous.
-extern "C" int repro_int8_fused_mlp(const void* x, const void* wg, const void* wu,
+// x (m, k) int8 row-major; wgt (swiglu only), wut (f, k) int8 row-major (the
+// weights (k, f) K-major); xs (m), gs (swiglu only), us (f) f32; h (m, f)
+// in `dtype`.
+extern "C" int repro_int8_fused_mlp(const void* x, const void* wgt, const void* wut,
                                     const void* xs, const void* gs, const void* us, void* h,
                                     int m, int f, int k, int act, int dtype, int vec,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || f <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16)
-    return (int)launch_int8_fused<__nv_bfloat16>(x, wg, wu, xs, gs, us, h, m, f, k, act, vec, s);
-  if (dtype == DT_F32)
-    return (int)launch_int8_fused<float>(x, wg, wu, xs, gs, us, h, m, f, k, act, vec, s);
+  if (act == ACT_SWIGLU && (wgt == nullptr || gs == nullptr)) return (int)cudaErrorInvalidValue;
+  // the gated path reads the gate as B0 and up as B1; the others up as B0
+  const bool gated = act == ACT_SWIGLU;
+  const I8Args g{static_cast<const signed char*>(x),
+                 static_cast<const signed char*>(gated ? wgt : wut),
+                 static_cast<const signed char*>(gated ? wut : nullptr),
+                 static_cast<const float*>(xs), static_cast<const float*>(gated ? gs : us),
+                 static_cast<const float*>(gated ? us : nullptr), h, m, f, k, k, vec};
+  if (dtype == DT_BF16) return (int)launch_int8_fused<__nv_bfloat16>(g, act, s);
+  if (dtype == DT_F32) return (int)launch_int8_fused<float>(g, act, s);
   return (int)cudaErrorInvalidValue;
 }

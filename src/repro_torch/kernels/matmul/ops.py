@@ -53,21 +53,23 @@ def pick_tile(m: int) -> tuple[int, int]:
 
 
 def split_k(m: int, n: int, k: int, num_sms: int, block_k: int = BLOCK_K,
-            tile: tuple[int, int] | None = None) -> int:
+            tile: tuple[int, int] | None = None, *, waves: int = WAVES,
+            min_steps: int = MIN_SPLIT_STEPS, most: int | None = None) -> int:
     """k range per grid z-slice (a multiple of the kernel's k step
     `block_k`) for output tiles `tile` (default: `pick_tile`'s); k itself =
     no split.  A grid of at least one tile per SM is not split.  Below
-    that, 64-row tiles (two blocks an SM) split until the grid holds WAVES
-    blocks per SM; 128-row tiles (one block an SM) into as many whole
-    copies of the grid as one wave holds, so a grid that nearly fills the
-    card is not split into a second, partial wave."""
+    that, 64-row tiles (two blocks an SM) split until the grid holds
+    `waves` blocks per SM; 128-row tiles (one block an SM) into as many
+    whole copies of the grid as one wave holds, so a grid that nearly fills
+    the card is not split into a second, partial wave.  Each split is at
+    least `min_steps` k steps deep, and there are at most `most` splits."""
     bm, bn = tile if tile is not None else pick_tile(m)
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    max_splits = max(1, k // (MIN_SPLIT_STEPS * block_k))
+    max_splits = max(1, min(k // (min_steps * block_k), most or k))
     if tiles >= num_sms:
         splits = 1
     elif bm <= 64:
-        splits = min(max_splits, _cdiv(WAVES * num_sms, tiles))
+        splits = min(max_splits, _cdiv(waves * num_sms, tiles))
     else:
         splits = min(max_splits, max(1, num_sms // tiles))
     return _cdiv(_cdiv(k, splits), block_k) * block_k

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..quant import QuantizedTensor
+from ..quant import QuantizedTensor, k_major
 from .linear import QUANT_WEIGHT_KEYS
 from .lm import init_lm
 
@@ -48,7 +48,9 @@ def _is_quantized(leaf) -> bool:
 
 
 def _quantized(path: str, leaf, want, device) -> QuantizedTensor:
-    """A JAX QuantizedTensor leaf where the port holds the float weight `want`."""
+    """A JAX QuantizedTensor leaf where the port holds the float weight `want`;
+    the payload is stored K-major (`quant.k_major`), as `quantize_weight`
+    stores it."""
     if path.rsplit("/", 1)[-1] not in QUANT_WEIGHT_KEYS:
         raise ValueError(f"params_from_jax: {path} is quantized but is no GEMM weight")
     q, scale, axis = _tensor(leaf.q), _tensor(leaf.scale), int(np.asarray(leaf.axis))
@@ -58,7 +60,7 @@ def _quantized(path: str, leaf, want, device) -> QuantizedTensor:
         raise ValueError(f"params_from_jax: {path} is quantized as {q.dtype} {tuple(q.shape)} "
                          f"with scales {tuple(scale.shape)} over axis {axis}; the port expects "
                          f"int8 {tuple(want.shape)} with scales {scale_shape} over axis -2")
-    return QuantizedTensor(q.to(device, copy=True),
+    return QuantizedTensor(k_major(q.to(device, copy=True)),
                            scale.to(device=device, dtype=torch.float32, copy=True), axis)
 
 

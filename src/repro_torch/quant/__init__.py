@@ -72,13 +72,22 @@ def _to_fp8(x: torch.Tensor, name: str) -> torch.Tensor:
     return out
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """A (..., k, n) payload held K-major: the `.mT` view of a contiguous
+    (..., n, k) tensor, as the int8 GEMM kernels read their weights (s8
+    `wgmma` takes K-major operands only).  The same shape and values; a
+    tensor already so held is not copied."""
+    return q.mT.contiguous().mT
+
+
 def quantize_weight(w: torch.Tensor, dtype: str = "int8") -> QuantizedTensor:
     """Quantize a (..., k, n) weight per output channel (reduce over k): an
-    int8 payload with (..., 1, n) scales, or an fp8 payload with an all-ones
-    scale (the rounding itself is the compression)."""
+    int8 payload held K-major (`k_major`) with (..., 1, n) scales, or an fp8
+    payload with an all-ones scale (the rounding itself is the
+    compression)."""
     if dtype == "int8":
         q, scale = quantize_int8(w, axis=-2)
-        return QuantizedTensor(q=q, scale=scale, axis=-2)
+        return QuantizedTensor(q=k_major(q), scale=scale, axis=-2)
     if dtype in FP8_DTYPES:
         return QuantizedTensor(q=_to_fp8(w, dtype),
                                scale=torch.ones((1,) * w.dim(), dtype=torch.float32,

@@ -517,37 +517,78 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
 
 def _int8_operands(rng, m, k, n, device, gated=False):
     """Quantized operands as the wrappers make them: rows of x per row,
-    weights per output channel."""
-    from repro_torch.quant import quantize_int8
+    weights per output channel, held K-major (`quantize_weight`)."""
+    from repro_torch.quant import quantize_int8, quantize_weight
     x_q, x_s = quantize_int8(_rand(rng, (m, k), torch.float32, device))
-    ws = [quantize_int8(_rand(rng, (k, n), torch.float32, device, k ** -0.5), axis=-2)
+    ws = [tuple(quantize_weight(_rand(rng, (k, n), torch.float32, device, k ** -0.5)))[:2]
           for _ in range(2 if gated else 1)]
     return x_q, x_s, ws
 
 
+# The int8 tiles' edges (csrc/gemm_sm90_s8.cuh): rows on either side of the
+# 64-row (one warpgroup, 64 x 128) and 128-row (two, 128 x 256) tiles and
+# 4096; k off the 128-column step (70: one ragged step of rows that are not
+# whole 16-byte chunks; 4100: split, the last split ragged), at one step
+# (128) and deep (8192); n off the 32-, 128- and 256-column tiles up to the
+# vocabulary.  (m, k, n, whether k is split.)
+INT8_EDGE_CASES = [(m, k, n, k == 4100) for m in (1, 63, 64, 65, 127, 128, 129)
+                   for k, n in ((70, 200), (4100, 45))]
+INT8_EDGE_CASES += [(64, 2048, 1024, True), (64, 2048, 2048, True), (64, 8192, 2048, True),
+                    (64, 2048, 92544, False), (129, 8192, 2048, True), (3, 100, 17, False),
+                    (4096, 128, 200, False), (4096, 4100, 45, True),
+                    (4096, 2048, 1024, False), (4096, 2048, 2048, False),
+                    (130, 4100, 33000, False), (37, 128, 92544, False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(64, 2048, 1024), (64, 2048, 2048), (64, 8192, 2048),
-                                   (37, 70, 45), (1, 512, 200), (130, 4096, 96),
-                                   (64, 64, 92544), (4096, 2048, 1024), (3, 100, 17)])
-def test_int8_matmul(cuda, dtype, m, k, n):
+@pytest.mark.parametrize("m,k,n,split", INT8_EDGE_CASES)
+def test_int8_matmul(cuda, dtype, m, k, n, split):
     """Bit-identical to the plain version (exact integer sums, the same f32
-    de-scale) at misaligned shapes, with split-K (int32 partials: the 64-row
-    decode shapes, 130 x 4096 x 96, 1 x 512 x 200) and without, with 16-byte
-    loads and without (k 70, k 100)."""
-    from repro_torch.kernels.quantized.ops import int8_matmul, int8_matmul_q
+    de-scale) at misaligned shapes, with split-K (int32 partials) and
+    without, with 16-byte copies and without (k 70, k 100), no relayout of
+    the K-major weight."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantized.ops import int8_matmul, int8_matmul_q, launch_shape
     from repro_torch.kernels.quantized.ref import int8_matmul_ref
-    rng = np.random.default_rng(11)
+    _, _, ks = launch_shape(m, n, k, _build.num_sms(cuda))
+    assert (ks < k) == split
+    rng = np.random.default_rng(m + k + n)
     a_q, a_s, [(b_q, b_s)] = _int8_operands(rng, m, k, n, cuda)
-    before = int8_matmul.launches
+    before = (int8_matmul.launches, int8_matmul.relayouts)
     got = int8_matmul_q(a_q, a_s, b_q, b_s, dtype)
     torch.cuda.synchronize()
-    assert int8_matmul.launches == before + 1
+    assert (int8_matmul.launches, int8_matmul.relayouts) == (before[0] + 1, before[1])
     assert torch.equal(got, int8_matmul_ref(a_q, a_s, b_q, b_s, dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 2048, 1024), (130, 70, 45)])
+def test_int8_matmul_relays_a_row_major_weight(cuda, m, k, n):
+    """A (k, n) row-major payload (JAX's layout) is relaid K-major by the
+    wrapper on the call, counted once, and the result is still exact; the
+    fused MLP likewise, once per weight."""
+    from repro_torch.kernels.quantized.ops import (int8_fused_mlp_hidden, int8_fused_mlp_q,
+                                                   int8_matmul, int8_matmul_q)
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
+    rng = np.random.default_rng(14)
+    a_q, a_s, [(g_q, g_s), (u_q, u_s)] = _int8_operands(rng, m, k, n, cuda, gated=True)
+    row_major = u_q.contiguous()
+    assert not row_major.mT.is_contiguous() and torch.equal(row_major, u_q)
+    before = (int8_matmul.launches, int8_matmul.relayouts)
+    got = int8_matmul_q(a_q, a_s, row_major, u_s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.relayouts) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, int8_matmul_ref(a_q, a_s, u_q, u_s, torch.bfloat16))
+    before = int8_fused_mlp_hidden.relayouts
+    got = int8_fused_mlp_q(a_q, a_s, g_q.contiguous(), g_s, row_major, u_s)
+    assert int8_fused_mlp_hidden.relayouts == before + 2
+    want = int8_fused_mlp_ref(a_q, a_s, g_q, g_s, u_q, u_s)
+    _close(got, want, tolerance.int8_fused_mlp_tol(a_q, a_s, g_q, g_s, u_q, u_s, "swiglu", want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mlp_type", ["swiglu", "gelu", "relu2"])
-@pytest.mark.parametrize("m,h,f", [(64, 2048, 512), (19, 72, 200), (130, 128, 96)])
+@pytest.mark.parametrize("m,h,f", [(64, 2048, 512), (19, 72, 200), (130, 128, 96),
+                                   (1, 70, 45), (65, 4100, 130), (129, 8192, 64)])
 def test_int8_fused_mlp(cuda, dtype, mlp_type, m, h, f):
     from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_fused_mlp_q
     from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref
@@ -633,8 +674,8 @@ def test_int8_wrappers_raise_on_bad_operands(cuda):
         int8_matmul_q(a_q, a_s, b_q, b_s[:, :1])
     with pytest.raises(ValueError):  # one scale per row of a, not per column
         int8_matmul_q(a_q, a_s.T.contiguous(), b_q, b_s)
-    with pytest.raises(ValueError):  # a transposed weight view
-        int8_matmul_q(a_q, a_s, b_q.T.contiguous().T, b_s)
+    with pytest.raises(ValueError):  # a weight view neither K-major nor row-major
+        int8_matmul_q(a_q, a_s, torch.cat([b_q, b_q], 1)[:, ::2], b_s)
     with pytest.raises(ValueError):  # operands on two devices
         int8_matmul_q(a_q, a_s, b_q.cpu(), b_s)
     with pytest.raises(TypeError):   # an output type the kernels do not write

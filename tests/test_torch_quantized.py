@@ -39,16 +39,18 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.matmul.ops import split_k
-from repro_torch.kernels.quantized.ops import (BLOCK_K, fp8_matmul, int8_fused_mlp_hidden,
-                                               int8_fused_mlp_q, int8_matmul, int8_matmul_q)
+from repro_torch.kernels.quantized.ops import (BLOCK_K, FUSED_TILE, MAX_SPLITS, SPLIT_MIN_STEPS,
+                                               SPLIT_WAVES, WIDE_TILE, fp8_matmul,
+                                               int8_fused_mlp_hidden, int8_fused_mlp_q,
+                                               int8_matmul, int8_matmul_q, launch_shape)
 from repro_torch.kernels.quantized.ref import fp8_matmul_ref, int8_matmul_ref
 from repro_torch.models import apply_lm
 from repro_torch.models.blocks import tree_index, tree_unbind
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.linear import (QUANT_WEIGHT_KEYS, QuantizedLinear, linear,
                                        quantize_linear_params, quantized_mlp)
-from repro_torch.quant import (FP8_DTYPES, QuantizedTensor, fp8_round_trip, quantize_int8,
-                               quantize_kv, quantize_weight)
+from repro_torch.quant import (FP8_DTYPES, QuantizedTensor, fp8_round_trip, k_major,
+                               quantize_int8, quantize_kv, quantize_weight)
 from repro_torch.serving.engine import BucketPolicy, Engine, synthetic_requests
 
 ARCH = "internlm2-1.8b"
@@ -238,13 +240,111 @@ def test_int8_tolerances_admit_exact_and_reject_faults():
 
 
 def test_split_k_and_raw_int8_weights():
-    """Decode GEMMs (64 rows) split k to fill the card; large grids do not;
-    a raw int8 weight is refused as ambiguous, as in the JAX package."""
-    assert split_k(64, 2048, 2048, 132, BLOCK_K) == 256  # 32 tiles -> 8 splits
-    assert split_k(64, 92544, 2048, 132, BLOCK_K) == 2048  # 1446 tiles: none
-    assert split_k(64, 200, 100, 132, BLOCK_K) % BLOCK_K == 0
+    """Decode GEMMs (64 rows) split k to fill the card, in steps of the int8
+    kernel's 128 columns; large grids do not; a raw int8 weight is refused
+    as ambiguous, as in the JAX package."""
+    policy = dict(waves=SPLIT_WAVES, min_steps=SPLIT_MIN_STEPS, most=MAX_SPLITS)
+    assert split_k(64, 2048, 2048, 132, BLOCK_K, **policy) == 256  # 16 tiles -> 8 splits
+    assert split_k(64, 92544, 2048, 132, BLOCK_K, **policy) == 2048  # 723 tiles: none
+    assert split_k(64, 200, 100, 132, BLOCK_K, **policy) % BLOCK_K == 0
     with pytest.raises(ValueError, match="ambiguous"):
         int8_matmul(torch.zeros(2, 8), torch.zeros(8, 4, dtype=torch.int8))
+
+
+# internlm2-1.8b's projections (k, n) at the int8 serve path
+PROJECTIONS = [(2048, 2048), (2048, 1024), (8192, 2048), (2048, 92544)]
+
+
+# the int8 GEMM's splits of k at 64 rows on 132 SMs: q/o, k/v and w_down 8
+# (the most one cluster holds), the lm_head (723 column tiles) none
+DECODE_SPLITS = {(2048, 2048): 8, (2048, 1024): 8, (8192, 2048): 8, (2048, 92544): 1}
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 65, 128, 4096])
+@pytest.mark.parametrize("k,n", list(DECODE_SPLITS) + [(70, 45), (4100, 45)])
+def test_int8_launch_shape(m, k, n):
+    """The int8 GEMM's tile by row count: one 64-row warpgroup tile (64 x
+    128) up to 64 rows, 128 x 256 of two above.  k split in multiples of
+    128, each split at least SPLIT_MIN_STEPS
+    steps deep and at most MAX_SPLITS of them (one cluster), wherever the
+    grid leaves SMs idle and k has room for two splits (128-row tiles: in
+    whole copies of the grid that one wave holds); a grid that fills the
+    card alone is not split."""
+    sms = 132
+    tm, tn, ks = launch_shape(m, n, k, sms)
+    assert (tm, tn) == ((64, 128) if m <= 64 else WIDE_TILE) and WIDE_TILE == (128, 256)
+    assert ks % BLOCK_K == 0 and ks > 0
+    tiles, splits = -(-m // tm) * -(-n // tn), -(-k // ks)
+    assert splits <= MAX_SPLITS
+    if tiles >= sms:
+        assert splits == 1
+    else:
+        assert splits == 1 or ks >= SPLIT_MIN_STEPS * BLOCK_K
+        room = k >= 2 * SPLIT_MIN_STEPS * BLOCK_K
+        if tm == 64:
+            assert (splits > 1) == room
+        else:                                    # whole copies of the grid, in one wave
+            assert tiles * splits <= sms and (splits > 1) == (room and 2 * tiles <= sms)
+    if m == 64 and (k, n) in DECODE_SPLITS:
+        assert splits == DECODE_SPLITS[k, n]
+    assert FUSED_TILE == (64, 32)
+
+
+def _k_major_ok(q):
+    return q.dtype == torch.int8 and q.mT.is_contiguous() and (
+        q.shape[-1] == 1 or q.shape[-2] == 1 or not q.is_contiguous())
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (70, 45), (3, 64, 32)])
+def test_quantize_weight_holds_payloads_k_major(shape):
+    """quantize_weight's int8 payload is the .mT view of a contiguous
+    (..., n, k) tensor, its values and scales bit-identical to jax.jit of
+    JAX's quantizer (which holds (k, n) row-major); each layer's slice and
+    unbind of a stacked payload stay K-major; the plain GEMM of the K-major
+    payload is bit-identical to the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(15)
+    w = _np(rng, shape, 0.3)
+    got = quantize_weight(_t(w))
+    jw = jax.jit(jax_quantize_weight)(jnp.asarray(w))
+    assert _k_major_ok(got.q) and got.q.shape == shape and got.scale.is_contiguous()
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(jw.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(jw.scale))
+    assert k_major(got.q).data_ptr() == got.q.data_ptr()          # no second copy
+    if len(shape) == 3:
+        for i, (a, b) in enumerate(zip(tree_unbind({"w": got}, shape[0]),
+                                       (tree_index({"w": got}, i) for i in range(shape[0])))):
+            for leaf in (a["w"], b["w"]):
+                assert _k_major_ok(leaf.q) and leaf.scale.is_contiguous()
+                np.testing.assert_array_equal(leaf.q.numpy(), np.asarray(jw.q[i]))
+        return
+    x = _np(rng, (5, shape[0]))
+    want = np.asarray(jax.jit(lambda a, w: jax_int8_matmul(a, w, interpret=True))(
+        jnp.asarray(x), jw))
+    np.testing.assert_array_equal(int8_matmul(_t(x), got).numpy(), want)
+
+
+def test_quantized_params_are_k_major(smoke):
+    """Every int8 payload of quantize_linear_params (stacked and 2-D) and of
+    params_from_jax (JAX's quantized lm_head) is held K-major, and so is
+    each layer's slice and unbind, with values bit-identical to JAX's."""
+    jcfg, jparams, cfg, params = smoke
+    qp = quantize_linear_params(params)
+    L = cfg.num_layers
+    leaves = [qp["lm_head"]] + [leaf for block in ("attn", "mlp")
+                                for leaf in qp["seg0"][block].values()
+                                if isinstance(leaf, QuantizedLinear)]
+    assert len(leaves) == 8
+    for leaf in leaves:
+        assert _k_major_ok(leaf.q)
+        if leaf.q.dim() == 3:
+            for per in (tree_unbind({"w": leaf}, L), [tree_index({"w": leaf}, i)
+                                                      for i in range(L)]):
+                assert all(_k_major_ok(p["w"].q) for p in per)
+    jq = jax_quantize_linear_params(jparams)
+    head = params_from_jax(jax.tree.map(np.asarray, jq), cfg, "cpu")["lm_head"]
+    assert _k_major_ok(head.q)
+    np.testing.assert_array_equal(head.q.numpy(), np.asarray(jq["lm_head"].q))
+    np.testing.assert_array_equal(head.q.numpy(), qp["lm_head"].q.numpy())
 
 
 # --- model ------------------------------------------------------------------------------
