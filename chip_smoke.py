@@ -1640,18 +1640,6 @@ def _int_mm_ms(torch, a_q, ws, iters=ITERS):
     return ms, torch._int_mm(a_q, ws[0][0])
 
 
-# other splits of k timed beside the picked one at 64 rows: k columns per
-# split (at most MAX_SPLITS splits, one cluster)
-INT8_SPLIT_SWEEP = (256, 512, 1024, 2048)
-
-
-def _forced_split(ks: int):
-    """The int8 GEMM wrapper with its k split forced to `ks` (its tile kept)."""
-    from repro_torch.kernels.quantized import ops
-    return _patched(ops, "launch_shape", lambda real: (
-        lambda m, n, k, sms: (*real(m, n, k, sms)[:2], min(ks, -(-k // 128) * 128))))
-
-
 def int8_kernel_phase(torch) -> dict:
     """The int8 GEMM and the int8 fused MLP against their plain versions on
     the card, at the int8-weight serve path's shapes: int8 operands as the
@@ -1659,13 +1647,13 @@ def int8_kernel_phase(torch) -> dict:
     channel, held K-major as `quantize_weight` holds them), bf16 out.  The
     GEMM at each projection's shape at 64 rows (the decode step and the
     64-token prefill buckets alike), each beside its bound and the decode
-    step's sum, and at other splits of k; at 16 and 32 rows (the smaller
+    step's sum; at 16 and 32 rows (the smaller
     buckets) and at 4096 rows beside torch._int_mm, bit-identical; a
     row-major weight, relaid by the wrapper, counted and still exact; the
     fused SwiGLU hidden at 64 rows within its bound.  Returns their rows of
     the kernels line (without launch counts)."""
-    from repro_torch.kernels.quantized.ops import (MAX_SPLITS, int8_fused_mlp_q, int8_matmul,
-                                                   int8_matmul_q, launch_shape)
+    from repro_torch.kernels.quantized.ops import (int8_fused_mlp_q, int8_matmul, int8_matmul_q,
+                                                   launch_shape)
     from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
     from repro_torch.kernels.tolerance import int8_fused_mlp_tol
     from repro_torch.quant import quantize_int8, quantize_weight
@@ -1703,16 +1691,8 @@ def int8_kernel_phase(torch) -> dict:
         same = bool(torch.equal((sums.float() * a_s * ws[0][1]).to(bf), got))
         bnd, by = bound(2.0 * ROWS * k * n, gemm_bytes(ROWS, k, n), PEAK_INT8_OPS)
         tm, tn, ks = launch_shape(ROWS, n, k, sms)
-        sweep = []
-        for forced in INT8_SPLIT_SWEEP:
-            if forced >= k or forced == ks or ks == k or -(-k // forced) > MAX_SPLITS:
-                continue
-            with _forced_split(forced):
-                fms, _ = time_ms(torch, [lambda w=w: int8_matmul_q(a_q, a_s, *w, bf)
-                                         for w in ws])
-            sweep.append(f"{-(-k // forced)} splits {fms:.4f}")
         print(f"    {ms:.4f} ms = {ms / bnd:.2f}x its bound {bnd:.4f} (by {by}; tile {tm}x{tn}, "
-              f"{-(-k // ks)} splits of {ks}{'; forced: ' + ', '.join(sweep) if sweep else ''}); "
+              f"{-(-k // ks)} splits of {ks}); "
               f"plain {plain:.4f}, torch._int_mm {lib:.4f} [int32 product only; its sums "
               f"de-scaled {'equal' if same else 'DIFFER from'} the kernel's]; {per_step} "
               f"launches per decode step; host {host:.1f} us per call")

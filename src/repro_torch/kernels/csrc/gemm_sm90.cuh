@@ -98,6 +98,33 @@ __device__ __forceinline__ void gemm_stage(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
+// The ring over nk steps (its argument at the head of this file), shared
+// by the bf16 and the int8 mainloops (gemm_sm90_s8.cuh): load(slot, t)
+// issues step t's copies into ring slot `slot`, mma(slot) the products of
+// the step held there.  Returns with every copy and product complete.
+template <typename Load, typename Mma>
+__device__ __forceinline__ void ring_mainloop(int nk, Load&& load, Mma&& mma) {
+#pragma unroll
+  for (int s = 0; s < GEMM_AHEAD; ++s) {
+    if (s < nk) load(s, s);
+    sm90::cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    sm90::cp_async_wait<GEMM_AHEAD - 1>();  // this thread's copies of step t landed
+    sm90::fence_async_smem();
+    __syncthreads();
+    const int next = t + GEMM_AHEAD;
+    if (next < nk) load(next % GEMM_STAGES, next);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    mma(t % GEMM_STAGES);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::cp_async_wait<0>();
+}
+
 template <int TM, int TN, int NB, bool TA, bool TB, int PAIRS> struct GemmMainloop {
   static constexpr int NT = TM / 64 * 128;
   using S = GemmSmem<TM, TN, NB>;
@@ -144,28 +171,13 @@ template <int TM, int TN, int NB, bool TA, bool TB, int PAIRS> struct GemmMainlo
                                              const GemmArgs& g, int k0, int k1, int row0,
                                              int col0) {
     const int nkp = (k1 - k0 + GEMM_BK - 1) / GEMM_BK;
-    const int nk = PAIRS * nkp;
     const int wg = threadIdx.x / 128;
-#pragma unroll
-    for (int s = 0; s < GEMM_AHEAD; ++s) {
-      if (s < nk) load(ring + s * S::STAGE_ELEMS, g, s, nkp, k0, k1, row0, col0);
-      sm90::cp_async_commit();
-    }
-    for (int t = 0; t < nk; ++t) {
-      sm90::cp_async_wait<GEMM_AHEAD - 1>();  // this thread's copies of step t landed
-      sm90::fence_async_smem();
-      __syncthreads();
-      const int next = t + GEMM_AHEAD;
-      if (next < nk)
-        load(ring + (next % GEMM_STAGES) * S::STAGE_ELEMS, g, next, nkp, k0, k1, row0, col0);
-      sm90::cp_async_commit();
-      sm90::wgmma_fence();
-      mma(acc, ring + (t % GEMM_STAGES) * S::STAGE_ELEMS, wg);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();
-    }
-    sm90::wgmma_wait<0>();
-    sm90::cp_async_wait<0>();
+    ring_mainloop(
+        PAIRS * nkp,
+        [&](int slot, int t) {
+          load(ring + slot * S::STAGE_ELEMS, g, t, nkp, k0, k1, row0, col0);
+        },
+        [&](int slot) { mma(acc, ring + slot * S::STAGE_ELEMS, wg); });
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) sm90::fence_regs<TN / 2>(acc[nb]);
   }

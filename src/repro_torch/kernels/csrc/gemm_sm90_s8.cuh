@@ -8,11 +8,11 @@
 // four products of 32 bytes (desc_k's 32-byte advance inside the atom, as
 // one k16 bf16 product).  Each step's A tile and B tile(s) are copied with
 // cp.async (16-byte chunks, zero fill past the ragged edge; plain byte
-// stores where a row is not whole 16-byte chunks) into a ring of
-// I8_STAGES = 4 slots, I8_AHEAD = 2 steps ahead of the step being
-// multiplied, with one barrier per step (the ring's argument is
-// gemm_sm90.cuh's).  Deeper rings (six or eight slots, or four steps ahead
-// at two blocks an SM) and 256-column steps ran no faster on the card.
+// stores where a row is not whole 16-byte chunks) into gemm_sm90.cuh's
+// ring (ring_mainloop: four slots, two steps ahead of the step being
+// multiplied, one barrier per step).  Deeper rings (six or eight slots, or
+// four steps ahead at two blocks an SM) and 256-column steps ran no faster
+// on the card.
 //
 // Layout: PTX allows an MN-major (transposed) `wgmma` operand only for
 // f16 / bf16, so for s8 both operands are K-major.  A (m, k) row-major is;
@@ -127,9 +127,7 @@ template <> struct WgmmaS8<256> {
 
 namespace repro {
 
-constexpr int I8_BK = 128;                // k per step: one 128-byte swizzle atom
-constexpr int I8_STAGES = 4;              // ring slots
-constexpr int I8_AHEAD = I8_STAGES - 2;   // steps copied ahead of the one multiplied
+constexpr int I8_BK = 128;  // k per step: one 128-byte swizzle atom
 
 // One launch's operands.  Every matrix is row-major with its row length as
 // its leading dimension.
@@ -150,7 +148,7 @@ template <int TM, int TN, int NB> struct I8Smem {
   static constexpr int B_BYTES = TN * I8_BK;
   static constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
   // the ring, and room to align it to 1024 bytes (the swizzle's period)
-  static constexpr int BYTES = I8_STAGES * STAGE_BYTES + 1024;
+  static constexpr int BYTES = GEMM_STAGES * STAGE_BYTES + 1024;
 };
 
 // Stage rows [r0, r0 + R) x columns [c0, c0 + 128) of an int8 row-major
@@ -215,27 +213,11 @@ template <int TM, int TN, int NB> struct I8Mainloop {
   static __device__ __forceinline__ void run(int (&acc)[NB][TN / 2], signed char* ring,
                                              const I8Args& g, int k0, int k1, int row0,
                                              int col0) {
-    const int nk = (k1 - k0 + I8_BK - 1) / I8_BK;
     const int wg = threadIdx.x / 128;
-#pragma unroll
-    for (int s = 0; s < I8_AHEAD; ++s) {
-      if (s < nk) load(ring + s * S::STAGE_BYTES, g, s, k0, k1, row0, col0);
-      sm90::cp_async_commit();
-    }
-    for (int t = 0; t < nk; ++t) {
-      sm90::cp_async_wait<I8_AHEAD - 1>();  // this thread's copies of step t landed
-      sm90::fence_async_smem();
-      __syncthreads();
-      const int next = t + I8_AHEAD;
-      if (next < nk) load(ring + (next % I8_STAGES) * S::STAGE_BYTES, g, next, k0, k1, row0, col0);
-      sm90::cp_async_commit();
-      sm90::wgmma_fence();
-      mma(acc, ring + (t % I8_STAGES) * S::STAGE_BYTES, wg);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();
-    }
-    sm90::wgmma_wait<0>();
-    sm90::cp_async_wait<0>();
+    ring_mainloop(
+        (k1 - k0 + I8_BK - 1) / I8_BK,
+        [&](int slot, int t) { load(ring + slot * S::STAGE_BYTES, g, t, k0, k1, row0, col0); },
+        [&](int slot) { mma(acc, ring + slot * S::STAGE_BYTES, wg); });
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) sm90::fence_regs<TN / 2>(acc[nb]);
   }

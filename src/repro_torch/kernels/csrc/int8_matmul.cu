@@ -24,9 +24,9 @@
 // exact integer sum (f32 partials of de-scaled values would round per
 // split), with no partials in device memory and no second kernel.  More
 // rows take 128 x 256 tiles of two warpgroups (each staged byte feeds 85
-// products; the bf16 path's 128 x 128, 64, ran slower on the card at most
-// shapes).  The ragged edge is zero-filled by the copies (the
-// Pallas wrapper pads).
+// products; the fastest tile at 4096 rows on the card, the bf16 path's
+// 128 x 128 9-25% slower there: tuning/int8_tiles.py).  The ragged edge
+// is zero-filled by the copies (the Pallas wrapper pads).
 #include "gemm_sm90_s8.cuh"
 
 using namespace repro;

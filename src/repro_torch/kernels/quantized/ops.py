@@ -22,7 +22,8 @@ a (k, n) payload that is the `.mT` view of a contiguous (n, k) tensor, as
 payload is relaid on the call that gets it (a copy of the weight), and
 counted in `int8_matmul.relayouts` / `int8_fused_mlp_hidden.relayouts`; a
 serving path holds its weights K-major and shows none.  `launch_shape`
-picks the GEMM's tile and split on the host.
+picks the GEMM's tile and split on the host, `fused_tile` the fused MLP's
+tile.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from .ref import int8_fused_mlp_ref, int8_matmul_ref
 BLOCK_K = 128            # csrc/gemm_sm90_s8.cuh I8_BK: the k step (one 128-byte atom), the split's unit
 DECODE_TILE = (64, 128)  # (rows, columns) at most 64 rows: one warpgroup, every weight byte read once
 WIDE_TILE = (128, 256)   # more rows: two warpgroups
-FUSED_TILE = (64, 32)    # the fused MLP's output tile at every row count (two accumulator sets)
+FUSED_TILE = (64, 32)    # the fused MLP's output tile at most 64 rows (two accumulator sets)
+FUSED_WIDE_TILE = (128, 32)  # ... more rows: two warpgroups
 # A split of k: its blocks form one thread-block cluster (at most 8, the
 # portable size) that sums the int32 partials in distributed shared memory;
 # one wave of blocks (one per SM), each split at least two steps deep.
@@ -47,13 +49,22 @@ MAX_SPLITS, SPLIT_WAVES, SPLIT_MIN_STEPS = 8, 1, 2
 
 def launch_shape(m: int, n: int, k: int, num_sms: int) -> tuple[int, int, int]:
     """(tile rows, tile columns, k per split) of one launch of
-    csrc/int8_matmul.cu: 64 x 128 at most 64 rows, else 128 x 256 (which
-    ran faster on the H100 than the bf16 path's 128 x 128 at most of the
-    projections' shapes from 128 to 4096 rows); k split in steps of BLOCK_K
-    until one wave fills the card (`split_k`)."""
+    csrc/int8_matmul.cu: 64 x 128 at most 64 rows, else 128 x 256 (on the
+    H100 the fastest tile at 4096 rows and for the lm_head at 128 and 256
+    rows; at 128-256 rows other projections ran up to 1.47x faster on
+    64 x 128 tiles: PERF.md, from `tuning/int8_tiles.py`); k split in
+    steps of BLOCK_K until one wave fills the card (`split_k`)."""
     tile = DECODE_TILE if m <= DECODE_TILE[0] else WIDE_TILE
     return (*tile, split_k(m, n, k, num_sms, BLOCK_K, tile, waves=SPLIT_WAVES,
                            min_steps=SPLIT_MIN_STEPS, most=MAX_SPLITS))
+
+
+def fused_tile(m: int) -> tuple[int, int]:
+    """The int8 fused MLP's output tile (rows, columns) for m rows: 64 x 32
+    of one warpgroup at most 64 rows, else 128 x 32 of two (the fastest of
+    64 / 128 x 32 / 64 at 16-4096 rows of the SwiGLU at 2048 x 8192 on the
+    H100; `tuning/int8_tiles.py`)."""
+    return FUSED_TILE if m <= FUSED_TILE[0] else FUSED_WIDE_TILE
 
 
 def _as_quantized(w, name: str = "weight") -> QuantizedTensor:
@@ -213,7 +224,8 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
         status = lib.repro_int8_fused_mlp(
             _build.ptr(x_q), _build.ptr(wgt), _build.ptr(wut), _build.ptr(x_scale),
             _build.ptr(wg_scale), _build.ptr(wu_scale), _build.ptr(out), m, f, k,
-            ACT_CODES[mlp_type], dt, _vec(k, x_q, *wts), _build.stream_of(x_q.device))
+            ACT_CODES[mlp_type], dt, _vec(k, x_q, *wts), fused_tile(m)[0],
+            _build.stream_of(x_q.device))
     _build.check(status, "int8_fused_mlp_hidden")
     int8_fused_mlp_hidden.launches += 1
     return out

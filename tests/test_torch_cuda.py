@@ -537,7 +537,12 @@ INT8_EDGE_CASES += [(64, 2048, 1024, True), (64, 2048, 2048, True), (64, 8192, 2
                     (64, 2048, 92544, False), (129, 8192, 2048, True), (3, 100, 17, False),
                     (4096, 128, 200, False), (4096, 4100, 45, True),
                     (4096, 2048, 1024, False), (4096, 2048, 2048, False),
-                    (130, 4100, 33000, False), (37, 128, 92544, False)]
+                    (130, 4100, 33000, False), (37, 128, 92544, False),
+                    (37, 70, 45, False), (1, 512, 200, True), (130, 4096, 96, True),
+                    (64, 64, 92544, False)]
+# 16-byte copies with a ragged last k step (k % 16 == 0, k % 128 != 0: the
+# chunks past k zero-filled), whole and split
+INT8_EDGE_CASES += [(64, 1040, 200, True), (130, 1040, 96, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -545,8 +550,9 @@ INT8_EDGE_CASES += [(64, 2048, 1024, True), (64, 2048, 2048, True), (64, 8192, 2
 def test_int8_matmul(cuda, dtype, m, k, n, split):
     """Bit-identical to the plain version (exact integer sums, the same f32
     de-scale) at misaligned shapes, with split-K (int32 partials) and
-    without, with 16-byte copies and without (k 70, k 100), no relayout of
-    the K-major weight."""
+    without, with 16-byte copies and without (k 70, k 100), with 16-byte
+    copies over a ragged k edge (k 64, 1040), no relayout of the K-major
+    weight."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.quantized.ops import int8_matmul, int8_matmul_q, launch_shape
     from repro_torch.kernels.quantized.ref import int8_matmul_ref

@@ -39,10 +39,11 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.matmul.ops import split_k
-from repro_torch.kernels.quantized.ops import (BLOCK_K, FUSED_TILE, MAX_SPLITS, SPLIT_MIN_STEPS,
-                                               SPLIT_WAVES, WIDE_TILE, fp8_matmul,
-                                               int8_fused_mlp_hidden, int8_fused_mlp_q,
-                                               int8_matmul, int8_matmul_q, launch_shape)
+from repro_torch.kernels.quantized.ops import (BLOCK_K, FUSED_TILE, FUSED_WIDE_TILE, MAX_SPLITS,
+                                               SPLIT_MIN_STEPS, SPLIT_WAVES, WIDE_TILE,
+                                               fp8_matmul, fused_tile, int8_fused_mlp_hidden,
+                                               int8_fused_mlp_q, int8_matmul, int8_matmul_q,
+                                               launch_shape)
 from repro_torch.kernels.quantized.ref import fp8_matmul_ref, int8_matmul_ref
 from repro_torch.models import apply_lm
 from repro_torch.models.blocks import tree_index, tree_unbind
@@ -269,7 +270,8 @@ def test_int8_launch_shape(m, k, n):
     steps deep and at most MAX_SPLITS of them (one cluster), wherever the
     grid leaves SMs idle and k has room for two splits (128-row tiles: in
     whole copies of the grid that one wave holds); a grid that fills the
-    card alone is not split."""
+    card alone is not split.  The fused MLP's tile: 64 x 32 up to 64 rows,
+    128 x 32 above."""
     sms = 132
     tm, tn, ks = launch_shape(m, n, k, sms)
     assert (tm, tn) == ((64, 128) if m <= 64 else WIDE_TILE) and WIDE_TILE == (128, 256)
@@ -287,7 +289,8 @@ def test_int8_launch_shape(m, k, n):
             assert tiles * splits <= sms and (splits > 1) == (room and 2 * tiles <= sms)
     if m == 64 and (k, n) in DECODE_SPLITS:
         assert splits == DECODE_SPLITS[k, n]
-    assert FUSED_TILE == (64, 32)
+    assert fused_tile(m) == (FUSED_TILE if m <= 64 else FUSED_WIDE_TILE)
+    assert (FUSED_TILE, FUSED_WIDE_TILE) == ((64, 32), (128, 32))
 
 
 def _k_major_ok(q):
