@@ -12,10 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      backward kernels) must show warpgroup products (HGMMA) and cp.async
      copies (LDGSTS) in its SASS, and every instantiation of the int8
      mainloop (csrc/gemm_sm90_s8.cuh: the int8 GEMM and fused MLP) integer
-     warpgroup products (IGMMA) and LDGSTS; no GEMM instantiation may spill
-     or have its products serialized by ptxas (C7515), and no bf16
-     instantiation of the f32 FMA tile kernels, nor the old int8 WMMA
-     kernel, may exist;
+     warpgroup products (IGMMA) and LDGSTS, and every instantiation of the
+     bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90) HGMMA and
+     LDGSTS; no GEMM or SSD instantiation may spill or have its products
+     serialized by ptxas (C7515); no kernel may issue warp-level tensor
+     products (HMMA: WMMA, mma.sync), and no bf16 instantiation of the f32
+     FMA tile kernels, nor the old int8 and SSD WMMA kernels, may exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -36,8 +38,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      version, beside torch._int_mm, at 64 rows also at other splits of k;
      a row-major weight relaid and counted; the int8 fused SwiGLU hidden), then the
      SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
-     fast and slow decay, a ragged chunk and a misaligned one, bf16 and
-     f32);
+     fast and slow decay, at zamba2-2.7b's at slow decay, a ragged chunk and
+     a misaligned one, bf16 and f32; timed at both prefill shapes);
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -250,7 +252,9 @@ def build_phase() -> None:
     lib = _build.build()
     print(f"build: {lib.path.name} in {lib.build_s:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        # (C7519 notes, the fences ptxas adds around register operands, left out)
+        if ("registers" in line or "spill" in line or "Compiling entry" in line) and \
+                "C7519" not in line:
             print(f"  ptxas: {line.strip()}")
     sass_check(Path(_build._nvcc()).parent / "cuobjdump", lib.path, lib.log)
 
@@ -259,21 +263,28 @@ def build_phase() -> None:
 GEMM_SM90 = "gemm_sm90_kernel"
 # int8_sm90_kernel<TM, TN, ACT, T> (csrc/gemm_sm90_s8.cuh)
 INT8_SM90 = "int8_sm90_kernel"
+# ssd_chunk_sm90<PP> (csrc/ssd_chunk.cu, bf16)
+SSD_SM90 = "ssd_chunk_sm90"
 # the warpgroup product each mainloop's SASS must issue: bf16 HGMMA, s8 IGMMA
 PRODUCTS = {"flash_fwd_sm90": "HGMMA", "flash_bwd_sm90": "HGMMA", GEMM_SM90: "HGMMA",
-            INT8_SM90: "IGMMA"}
+            INT8_SM90: "IGMMA", SSD_SM90: "HGMMA"}
 # kernels that must not exist: bf16 instantiations of the f32-only FMA
 # kernels (csrc/gemm_tile.cuh, csrc/fused_mlp_bwd.cu; bf16 runs on
-# gemm_sm90), and the int8 WMMA tile kernel that gemm_sm90_s8 replaced
+# gemm_sm90), the int8 WMMA tile kernel that gemm_sm90_s8 replaced, and the
+# bf16 WMMA SSD kernel that ssd_chunk_sm90 replaced
 OLD_KERNELS = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16",
-               "int8_tile_kernel")
+               "int8_tile_kernel", "ssd_chunk_kernelI13__nv_bfloat16")
 ACTS = {1: "swiglu", 2: "gelu", 3: "relu2"}
 
 
 def gemm_instance(fn: str) -> str:
-    """A readable name of a gemm_sm90_kernel or int8_sm90_kernel
-    instantiation from its mangled template arguments: the kernel it
-    serves, the tile and the layout (bf16) or output type (int8)."""
+    """A readable name of a gemm_sm90_kernel, int8_sm90_kernel or
+    ssd_chunk_sm90 instantiation from its mangled template arguments: the
+    kernel it serves, the tile and the layout (bf16) or output type (int8),
+    or the padded head dim (SSD)."""
+    if SSD_SM90 in fn:
+        pp, shared = re.findall(r"L[ib](\d+)E", fn)[:2]
+        return f"ssd_chunk P<={pp} {'shared C B^T' if shared == '1' else 'per head'}"
     if INT8_SM90 in fn:
         tm, tn, act = (int(v) for v in re.findall(r"Li(\d+)E", fn)[:3])
         out = "bf16" if "__nv_bfloat16" in fn else "f32"
@@ -319,23 +330,26 @@ def ptxas_report(log: str) -> dict:
 def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     """The tensor-core kernels as compiled: each instantiation of the bf16
     flash forward and backward, of the bf16 GEMM mainloop behind the matmul,
-    fused-MLP and fused-MLP-backward kernels, and of the int8 mainloop
-    behind the int8 GEMM and fused MLP, must issue warpgroup products
-    (HGMMA; IGMMA for int8) and stage its tiles with asynchronous copies
-    (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must report no spill and no
-    serialized products for any GEMM instantiation; and none of
-    OLD_KERNELS may exist."""
+    fused-MLP and fused-MLP-backward kernels, of the int8 mainloop behind
+    the int8 GEMM and fused MLP, and of the bf16 SSD chunk kernel must issue
+    warpgroup products (HGMMA; IGMMA for int8) and stage its tiles with
+    asynchronous copies (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must
+    report no spill and no serialized products for any GEMM or SSD
+    instantiation; no kernel of the library may issue warp-level tensor
+    products (HMMA: WMMA or mma.sync); and none of OLD_KERNELS may exist."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                          text=True)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:200]}")
     ops = ("HGMMA", "IGMMA", "LDGSTS", "UTMALDG")
-    counts, fn, names = {}, None, set()
+    counts, fn, names, hmma = {}, None, set(), set()
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             names.add(fn)
             continue
+        if fn and re.search(r"\bHMMA\b", line):
+            hmma.add(fn)
         for kernel in PRODUCTS:
             if fn and kernel in fn:
                 per = counts.setdefault(kernel, {}).setdefault(fn, dict.fromkeys(ops, 0))
@@ -351,7 +365,7 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
         if not fns or min(mm) == 0 or min(ld) == 0:
             fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
     ptx = ptxas_report(log)
-    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90]}
+    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90]}
     for fn, c in sorted(gemms.items(), key=lambda kv: gemm_instance(kv[0])):
         rep = ptx.get(fn)
         if rep is None:
@@ -366,6 +380,9 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     old = sorted(n for n in names if any(o in n for o in OLD_KERNELS))
     if old:
         fail(f"kernels that must not exist remain: {old}")
+    print(f"  sass: {len(hmma)} kernels issue HMMA (WMMA / mma.sync)")
+    if hmma:
+        fail(f"kernels that still run warp-level tensor products: {sorted(hmma)}")
 
 
 # --- timing ---------------------------------------------------------------------------
@@ -1964,27 +1981,44 @@ def ssd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int):
     return flops, nbytes
 
 
+def _ssd_launch(ops):
+    """The bf16 launch `ssd_chunk` makes for these operands (leading dims
+    (b, 1 group, heads))."""
+    from repro_torch.kernels.ssd.ops import launch_shape
+    x, B, C, _ = ops
+    nc, Q, P = x.shape[-3:]
+    return launch_shape(tuple(x.shape[:3]), nc, B.stride()[:5], C.stride()[:5], Q, B.shape[-1], P)
+
+
 def ssd_kernel_phase(torch) -> dict:
     """The SSD chunk kernel against its plain version at mamba2-780m's
     prefill shape (4 x 1024 tokens: 48 heads, 4 chunks of 256, P 64, N 128)
-    at the JAX tests' decay and at SSD_SLOW_DECAY, a ragged chunk (Q = 100)
-    and a small misaligned shape, each in bf16 and f32, every element
-    within `ssd_chunk_tol`; then timed at the prefill shape in bf16 beside
-    its bound and the plain version."""
+    at the JAX tests' decay and at SSD_SLOW_DECAY, at zamba2-2.7b's (80
+    heads, N 64) at the slow decay, a ragged chunk (Q = 100) and a small
+    misaligned shape, each in bf16 and f32, every element within
+    `ssd_chunk_tol`; then timed at both prefill shapes in bf16 beside the
+    bound and the plain version, with the launch `launch_shape` picked, and
+    at mamba2-780m's in f32."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.ssd.ops import ssd_chunk
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
     from repro_torch.kernels.tolerance import ssd_chunk_tol
 
-    cfg = get_config("mamba2-780m")
-    nh, P, N, chunk = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    shapes = {}
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        c = get_config(arch)
+        shapes[arch] = (c.ssm_nheads, c.ssm_head_dim, c.ssm_state, c.ssm_chunk, c.num_layers)
+    nh, P, N, chunk, layers = shapes["mamba2-780m"]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    print(f"ssd kernels ({cfg.name}: {nh} heads, P {P}, N {N}, chunk {chunk}; B / C expanded "
+    print(f"ssd kernels (mamba2-780m: {nh} heads, P {P}, N {N}, chunk {chunk}; B / C expanded "
           f"over the heads):")
+    zh, zp, zn = shapes["zamba2-2.7b"][:3]
     err = 0.0
     for label, (b, s, h, p, n), step in (
             ("prefill 4 x 1024", (SSM_BATCH, SSM_PROMPT, nh, P, N), 1.0),
             ("prefill 4 x 1024, slow decay", (SSM_BATCH, SSM_PROMPT, nh, P, N), SSD_SLOW_DECAY),
+            ("zamba2-2.7b prefill, slow decay", (SSM_BATCH, SSM_PROMPT, zh, zp, zn),
+             SSD_SLOW_DECAY),
             ("ragged chunk Q=100", (SSM_BATCH, 100, nh, P, N), 1.0),
             ("misaligned Q=40 P=16 N=16", (2, 40, 3, 16, 16), 1.0)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1997,17 +2031,31 @@ def ssd_kernel_phase(torch) -> dict:
                     err = max(err, e)
             del ops, want, got
     b, s = SSM_BATCH, SSM_PROMPT
-    flops, nbytes = ssd_work(b, s, nh, P, N, chunk, 2)
-    ops = copies(torch, lambda: ssd_operands(torch, gen, b, s, nh, P, N, chunk, torch.bfloat16),
-                 2 * b * s * (nh * P + 2 * N))
-    ms, host = time_ms(torch, [lambda o=o: ssd_chunk(*o) for o in ops])
-    plain, _ = time_ms(torch, [lambda o=o: ssd_chunk_ref(*o) for o in ops], iters=TRAIN_ITERS)
-    bnd, by = bound(flops, nbytes)
-    print(f"    bf16 prefill shape: {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}: "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); {cfg.num_layers} launches per "
-          f"prefill pass; host {host:.1f} us per call; no single PyTorch call computes it")
+    rows = {}
+    for arch, (h, p, n, q, nl) in shapes.items():
+        flops, nbytes = ssd_work(b, s, h, p, n, q, 2)
+        ops = copies(torch, lambda: ssd_operands(torch, gen, b, s, h, p, n, q, torch.bfloat16),
+                     2 * b * s * (h * p + 2 * n))
+        ms, host = time_ms(torch, [lambda o=o: ssd_chunk(*o) for o in ops])
+        plain, _ = time_ms(torch, [lambda o=o: ssd_chunk_ref(*o) for o in ops], iters=TRAIN_ITERS)
+        bnd, by = bound(flops, nbytes)
+        ls = _ssd_launch(ops[0])
+        print(f"    bf16 {arch} prefill shape ({h} heads, P {p}, N {n}): {ms:.4f} ms (plain "
+              f"{plain:.4f}, bound {bnd:.4f} by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB; {bnd / ms:.1%} of the bound's speed); launch {ls.heads} heads a block, C B^T "
+              f"{'shared' if ls.shared else 'per head'}, {ls.grid} blocks of {ls.smem} B; "
+              f"{nl} launches per prefill pass of the full model; host {host:.1f} us per call; "
+              f"no single PyTorch call computes it")
+        rows[arch] = (ms, plain, bnd, by)
+        del ops
+        torch.cuda.empty_cache()
+    ops = copies(torch, lambda: ssd_operands(torch, gen, b, s, nh, P, N, chunk, torch.float32),
+                 4 * b * s * (nh * P + 2 * N))
+    ms32, _ = time_ms(torch, [lambda o=o: ssd_chunk(*o) for o in ops])
+    print(f"    f32 mamba2-780m prefill shape (the FMA kernel, a check dtype): {ms32:.4f} ms")
     del ops
     torch.cuda.empty_cache()
+    ms, plain, bnd, by = rows["mamba2-780m"]
     return {"ssd_chunk": dict(
         name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd/kernel.py:56", max_abs_err=err, ms=ms, plain_ms=plain,

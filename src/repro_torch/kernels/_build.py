@@ -143,7 +143,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_int8_fused_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.repro_int8_fused_mlp.restype = i
     lib.repro_ssd_chunk.argtypes = [p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-                                    i, i, i, i, i, i, i, i, i, p]
+                                    i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
     lib.repro_ssd_chunk.restype = i
 
 

@@ -1,8 +1,8 @@
 // Shared helpers of the port's tiled kernels, and the f32 tiled-GEMM core
 // of the matmul and fused-MLP kernels (sm_90a).  Their bf16 branches run on
 // gemm_sm90.cuh; the int8 kernels (gemm_sm90_s8.cuh) use from_f, the
-// activations, Act and DType from here, and the SSD kernel NTHREADS, Pad,
-// to_f / from_f, DType and its WMMA fragments through <mma.h>.
+// activations, Act and DType from here, and the SSD kernel's f32 branch
+// NTHREADS, Pad and DType.
 //
 // f32 (a check dtype): one thread block of 128 threads (4 warps) owns a
 // 64x64 output tile and walks the k range in steps of 32: each step stages
@@ -25,7 +25,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -40,7 +39,7 @@ constexpr int NTHREADS = 128;
 enum Act { ACT_NONE = 0, ACT_SWIGLU = 1, ACT_GELU = 2, ACT_RELU2 = 3 };
 
 // Shared-memory row padding (elements): keeps every row 16-byte aligned for
-// vector stores, WMMA leading dimensions legal, and spreads banks.
+// vector stores, and spreads banks.
 template <typename T> struct Pad;
 template <> struct Pad<__nv_bfloat16> { static constexpr int v = 8; };
 template <> struct Pad<float> { static constexpr int v = 4; };

@@ -14,6 +14,11 @@ materialises that repeat), x_dt a permuted view of its (b, s, heads, P)
 layout.  Y comes back in x_dt's stride order (a permuted view of the same
 layout, which the model folds back without a copy), S contiguous.
 
+The bf16 launch (`launch_shape`, a pure function of the shapes and B's and
+C's strides) shares one C B^T among a slab of HEADS heads where B and C
+have stride 0 over the heads, and computes it per head otherwise; both
+give the same bits.  f32 (a check dtype) runs the FMA kernel.
+
 The JAX kernel has no backward, and neither does this one: on a CUDA
 tensor that records a gradient `ssd_chunk` raises (SSM training is a later
 slice); on the CPU the plain version differentiates as any PyTorch code.
@@ -21,6 +26,8 @@ slice); on the CPU the plain version differentiates as any PyTorch code.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -28,6 +35,80 @@ from .. import _build
 from .ref import ssd_chunk_ref
 
 MAX_N, MAX_P = 256, 128  # the largest state and head dims csrc/ssd_chunk.cu's shared memory holds
+ROWS = 64                # query rows, key rows per step, state rows: one warpgroup's
+WARPGROUPS = 2           # a block: two warpgroups
+S_ROWS = ROWS * WARPGROUPS  # state rows of an S block
+SHARED_TILES = 4         # score tiles a block keeps in shared memory: C B^T shared for Q <= 256
+HEADS = 12               # heads per block (a slab) where C B^T is shared (tuning/ssd_tiles.py)
+STAGES = 2               # ring slots of a warpgroup's copies: the next step's in flight
+SCORE_BYTES = ROWS * ROWS * 4
+SEG_BYTES = ROWS * 4
+MAX_SMEM = 232448        # dynamic shared memory a block may take on the H100 (227 KB)
+MAX_BLOCKS = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdLaunch:
+    """One bf16 launch of csrc/ssd_chunk.cu: `heads` heads a block, C B^T
+    computed once per block and `shared` by its heads (else each of the
+    block's warpgroups takes one head and its own scores), `grid` blocks,
+    `smem` bytes of dynamic shared memory and P padded to `width` (the
+    instantiation)."""
+    heads: int
+    shared: bool
+    grid: int
+    smem: int
+    width: int
+
+
+def _tile_bytes(cols: int) -> int:
+    """A 64-row bf16 tile of `cols` columns in whole 64-column atoms."""
+    return ROWS * 2 * (-(-cols // 64) * 64)
+
+
+def _smem(N: int, width: int, nqt: int, shared: bool, heads: int) -> int:
+    """csrc/ssd_chunk.cu `ssd_smem`: the larger role and 1024 bytes of slack."""
+    tc, tx, tb = _tile_bytes(-(-N // 16) * 16), _tile_bytes(width), _tile_bytes(S_ROWS)
+    if shared:
+        xs = STAGES * WARPGROUPS * (tx + SEG_BYTES)
+        y, s = nqt * SCORE_BYTES + max(3 * tc, xs), nqt * tb + xs
+    else:
+        y = heads * (tc + STAGES * (tc + tx + SEG_BYTES))
+        s = STAGES * WARPGROUPS * (tb + tx + SEG_BYTES)
+    return max(y, s) + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(lead, nc: int, b_strides, c_strides, Q: int, N: int, P: int,
+                 heads: int | None = None) -> SsdLaunch:
+    """The bf16 kernel's launch for leading dims `lead` (three: (l0, l1,
+    l2), heads last), nc chunks and B's and C's element strides (three
+    leading dims, the chunk, the row).  Where B and C have stride 0 over the
+    heads (the model's expanded views) and a chunk has at most SHARED_TILES
+    query tiles, a block computes C B^T once and its two warpgroups walk
+    `heads` heads (HEADS by default, fewer in the last slab); otherwise each
+    warpgroup takes one head (two a block, one where two do not fit in
+    shared memory).  The grid is (S units of S_ROWS state rows + ceil(Q /
+    64) query tiles) x nc x l0 l1 x slabs."""
+    l0, l1, l2 = lead
+    width = next(w for w in (16, 32, 64, 128) if P <= w)
+    nqt, nnt = -(-Q // ROWS), -(-N // S_ROWS)
+    shared = l2 > 1 and b_strides[2] == 0 and c_strides[2] == 0 and nqt <= SHARED_TILES
+    if shared:
+        h = min(l2, heads or HEADS)
+    else:
+        h = min(l2, WARPGROUPS if _smem(N, width, nqt, False, WARPGROUPS) <= MAX_SMEM else 1)
+    return SsdLaunch(heads=h, shared=shared, grid=(nnt + nqt) * nc * l0 * l1 * -(-l2 // h),
+                     smem=_smem(N, width, nqt, shared, h), width=width)
+
+
+def copy_width(t: torch.Tensor, strides, d: int) -> int:
+    """16 where every row of `t` lies in whole 16-byte copies (its base, its
+    element strides and its row of d elements), else 2: the kernel then
+    loads the operand element by element."""
+    e = 16 // t.element_size()
+    whole = t.data_ptr() % 16 == 0 and d % e == 0 and all(v % e == 0 for v in strides)
+    return 16 if whole else 2
 
 
 def ssd_chunk(x_dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor, seg: torch.Tensor):
@@ -46,7 +127,8 @@ def ssd_chunk(x_dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor, seg: torch.T
 ssd_chunk.launches = 0
 
 
-def _ssd_chunk_cuda(x, B, C, seg):
+def _ssd_chunk_cuda(x, B, C, seg, heads=None):
+    """The kernel's launch; `heads` forces the slab size (tuning/ssd_tiles.py)."""
     dev = x.device
     for t in (B, C, seg):
         if t.device != dev:
@@ -72,24 +154,31 @@ def _ssd_chunk_cuda(x, B, C, seg):
     if min(*lead, nc, Q, P, N) == 0:
         return y.zero_(), s.zero_()      # empty sums
     lead3 = (1,) * (3 - len(lead)) + lead
-    if lead3[0] * lead3[1] * lead3[2] > 65535 or nc > 65535:
-        raise ValueError(f"ssd_chunk: {lead} sequence-heads and {nc} chunks exceed the grid")
 
     def strides(t):
         # three leading dims (size-1 ones in front), the chunk, the row
         k = len(lead)
         return (0,) * (3 - k) + tuple(t.stride()[:k + 2])
 
-    loads = strides(x) + strides(B) + strides(C)
-    vals = loads + strides(seg) + strides(y) + strides(s)
-    chunk = 16 // x.element_size()
-    vec = int(_build.aligned16(x, B, C) and all(v % chunk == 0 for v in loads))
+    sx, sb, sc = strides(x), strides(B), strides(C)
+    vals = sx + sb + sc + strides(seg) + strides(y) + strides(s)
+    vec = slab = shared = widths = smem = 0
+    if x.dtype == torch.float32:
+        if lead3[0] * lead3[1] * lead3[2] > 65535 or nc > 65535:
+            raise ValueError(f"ssd_chunk: {lead} sequence-heads and {nc} chunks exceed the grid")
+        vec = int(_build.aligned16(x, B, C) and all(v % 4 == 0 for v in sx + sb + sc))
+    else:
+        shape = launch_shape(lead3, nc, sb, sc, Q, N, P, heads)
+        if shape.grid > MAX_BLOCKS:
+            raise ValueError(f"ssd_chunk: {lead} sequence-heads and {nc} chunks exceed the grid")
+        slab, shared, smem = shape.heads, int(shape.shared), shape.smem
+        widths = copy_width(x, sx, P) | copy_width(B, sb, N) << 8 | copy_width(C, sc, N) << 16
     arr = (ctypes.c_longlong * len(vals))(*vals)
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_ssd_chunk(_build.ptr(x), _build.ptr(B), _build.ptr(C), _build.ptr(seg),
                                      _build.ptr(y), _build.ptr(s), arr, *lead3, nc, Q, P, N, dt,
-                                     vec, _build.stream_of(dev))
+                                     vec, slab, shared, widths, smem, _build.stream_of(dev))
     _build.check(status, "ssd_chunk")
     ssd_chunk.launches += 1
     return y, s

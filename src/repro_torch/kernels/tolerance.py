@@ -274,25 +274,32 @@ def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scal
 def ssd_chunk_tol(x_dt, B, C, seg, want):
     """Bounds on (Y_diag, S) of the SSD chunk kernel; `want` is the plain
     version's.  CB = C B^T sums N terms (off by e_cb = 3 N u sum|C B|), the
-    decay L = exp(seg_i - seg_j) may be off by 4 u relative on each side
+    plain version's decay L = exp(seg_i - seg_j) may be off by 4 u relative
     (an exp of a few ulps), and CB o L rounds once more on each side; in
     bf16 the kernel rounds CB o L to bf16 before the product with X (half
-    an ulp relative).  Y sums Q terms of (CB o L) X: E_Y = sum_k (e_cb L +
-    (r + (3 Q + 10) u) |CB| L) |x|.  S sums Q terms of B (decay o X), decay
-    o X rounded to bf16 in bf16: E_S = (r + (3 Q + 10) u) sum_q |B| decay
-    |x|."""
+    an ulp relative) and takes L as 2^(seg_i log2(e) - seg_j log2(e)): the
+    prescale and the FFMA put (|seg_i| + 2 |seg_i - seg_j|) u log2(e) on the
+    exponent, so (|seg_i| + 2 |seg_i - seg_j| + 4) u relative on L with
+    exp2's 2 ulps (f32 keeps expf: 4 u).  Y sums Q terms of (CB o L) X:
+    E_Y = sum_k (e_cb L + (r + (3 Q + 10) u + e_L) |CB| L) |x|.  S sums Q
+    terms of B (decay o X), decay o X rounded to bf16 in bf16: E_S = (r + (3
+    Q + 10) u) sum_q |B| decay |x|."""
     y, s = want
     Q, N = x_dt.shape[-2], B.shape[-1]
     r = _rounds(x_dt.dtype)
     xa, Bf, Cf = x_dt.float().abs(), B.float(), C.float()
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=seg.device))
-    L = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :], SSD_NEG_INF))
+    diff = seg[..., :, None] - seg[..., None, :]
+    L = torch.exp(torch.where(mask, diff, SSD_NEG_INF))
     cb = torch.einsum("...qn,...kn->...qk", Cf, Bf).abs()
     e_cb = 3.0 * N * U * torch.einsum("...qn,...kn->...qk", Cf.abs(), Bf.abs())
     rel = r + (3.0 * Q + 10.0) * U
+    if x_dt.dtype == torch.bfloat16:   # the kernel's exp2 with a log2(e) prescale
+        rel = rel + (seg.abs()[..., :, None] + 2.0 * diff.abs()) * U
     e_y = torch.einsum("...qk,...kp->...qp", (e_cb + rel * cb) * L, xa)
     decay = torch.exp(seg[..., -1:] - seg)
-    e_s = rel * torch.einsum("...qn,...qp->...np", Bf.abs(), xa * decay[..., None])
+    e_s = (r + (3.0 * Q + 10.0) * U) * torch.einsum("...qn,...qp->...np", Bf.abs(),
+                                                      xa * decay[..., None])
     return _bound(y, e_y), _bound(s, e_s)
 
 

@@ -721,6 +721,9 @@ def _ssd_operands(rng, lead, nc, Q, P, N, dtype, device, groups=1, step=1.0):
     ((1, 1, 6), 3, 77, 20, 130),     # unaligned rows (no 16-byte loads), N past 128
     ((1, 2, 3), 2, 256, 64, 128),    # two groups, mamba2's chunk
     ((3, 1, 2), 2, 1, 8, 8),         # one-step chunks
+    ((1, 1, 48), 2, 256, 64, 128),   # mamba2-780m: one group of 48 heads
+    ((1, 1, 80), 1, 256, 64, 64),    # zamba2-2.7b: 80 heads, N 64
+    ((2, 1, 13), 1, 256, 64, 128),   # 13 heads: no slab size divides them
 ])
 def test_ssd_chunk(cuda, dtype, lead, nc, Q, P, N):
     for step in (1.0, SLOW_DECAY):

@@ -37,6 +37,7 @@ from repro.models.ssm import decode_ssm as jax_decode_ssm
 from repro.serving.serve_step import greedy_generate as jax_greedy_generate
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.kernels import _build, tolerance
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ops import ssd_chunk
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 from repro_torch.launch import serve as serve_cli
@@ -155,6 +156,75 @@ def test_ssd_chunk_grad_on_cpu_raises_on_the_card_path(monkeypatch):
     monkeypatch.setattr(_build, "dispatch_device", lambda what, t: "cuda")
     with pytest.raises(NotImplementedError, match="SSM-training"):
         ssd_chunk(x, B, C, seg)
+
+
+# --- the kernel's launch -----------------------------------------------------------------
+
+def _strides(lead, nc, Q, d, expanded):
+    """Element strides (three leading dims, the chunk, the row) of a
+    contiguous (*lead, nc, Q, d) tensor, or of one expanded over the heads
+    (l2) from (l0, l1, 1, nc, Q, d)."""
+    l0, l1, l2 = lead
+    if expanded:
+        return (l1 * nc * Q * d, nc * Q * d, 0, Q * d, d)
+    return (l1 * l2 * nc * Q * d, l2 * nc * Q * d, nc * Q * d, Q * d, d)
+
+
+@pytest.mark.parametrize("lead,nc,Q,N,P,expanded", [
+    ((4, 1, 48), 4, 256, 128, 64, True),     # mamba2-780m's prefill
+    ((4, 1, 80), 4, 256, 64, 64, True),      # zamba2-2.7b's
+    ((2, 1, 13), 1, 256, 128, 64, True),     # a head count no slab size divides
+    ((1, 2, 3), 2, 256, 128, 64, True),      # two groups
+    ((2, 1, 3), 2, 40, 16, 16, True),        # the smoke shape
+    ((1, 1, 6), 3, 77, 130, 20, True),       # N past 128, P off the grid
+    ((1, 1, 4), 2, 300, 256, 128, True),     # Q > 256: more score tiles than a block keeps
+    ((1, 1, 192), 4, 256, 128, 64, False),   # the flat (bh, ...) layout
+    ((4, 1, 1), 4, 256, 128, 64, True),      # one head a group
+])
+def test_ssd_launch_shape(lead, nc, Q, N, P, expanded):
+    """The bf16 kernel's launch (`launch_shape`): C B^T shared by a slab of
+    min(heads, HEADS) heads wherever B and C have stride 0 over the heads
+    and Q <= 256, else one head a warpgroup, two a block where they fit (the
+    per-head route); the grid of S units (128 state rows) and query tiles x
+    chunks x l0 l1 x slabs; shared memory within the card's 227 KB a block,
+    and two blocks an SM at the two models' prefill shapes."""
+    l0, l1, l2 = lead
+    st = _strides(lead, nc, Q, N, expanded)
+    shape = ssd_ops.launch_shape(lead, nc, st, st, Q, N, P)
+    shared = expanded and l2 > 1 and Q <= 256
+    assert shape.shared == shared
+    two = ssd_ops._smem(N, shape.width, -(-Q // 64), False, 2) <= ssd_ops.MAX_SMEM
+    assert shape.heads == (min(l2, ssd_ops.HEADS) if shared else min(l2, 2 if two else 1))
+    assert shape.width == next(w for w in (16, 32, 64, 128) if P <= w)
+    slabs = -(-l2 // shape.heads)
+    assert shape.grid == (-(-N // 128) + -(-Q // 64)) * nc * l0 * l1 * slabs
+    assert shape.smem <= 232448
+    if shared and (N, P, Q) in ((128, 64, 256), (64, 64, 256)):
+        assert 2 * (shape.smem + 1024) <= 228 * 1024
+    # B shared but not C (or the reverse): the scores differ by head
+    if shared:
+        own = _strides(lead, nc, Q, N, False)
+        for b_st, c_st in ((st, own), (own, st)):
+            per_head = ssd_ops.launch_shape(lead, nc, b_st, c_st, Q, N, P)
+            assert not per_head.shared and per_head.heads == min(l2, 2 if two else 1)
+    # a forced slab, as tuning/ssd_tiles.py sweeps it
+    assert ssd_ops.launch_shape(lead, nc, st, st, Q, N, P, heads=3).heads == (
+        min(l2, 3) if shared else shape.heads)
+
+
+@pytest.mark.parametrize("shape,index,d,want", [
+    ((4, 64), (slice(None), slice(None)), 64, 16),          # whole 16-byte rows
+    ((4, 68), (slice(None), slice(0, 64)), 64, 2),          # 136-byte row stride
+    ((4, 72), (slice(None), slice(0, 20)), 20, 2),          # 40-byte rows
+    ((4, 65), (slice(None), slice(0, 64)), 64, 2),          # odd row stride
+    ((4, 72), (slice(None), slice(1, 65)), 64, 2),          # base one element in
+])
+def test_ssd_copy_width(shape, index, d, want):
+    """The kernel's copies for a bf16 operand: 16 bytes where every row's
+    start (base and row stride) and its d elements lie in whole 16-byte
+    copies, else element by element."""
+    t = torch.zeros(shape, dtype=torch.bfloat16)[index]
+    assert ssd_ops.copy_width(t, t.stride()[:-1], d) == want
 
 
 # --- the tolerance ----------------------------------------------------------------------
