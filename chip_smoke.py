@@ -13,11 +13,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      copies (LDGSTS) in its SASS, and every instantiation of the int8
      mainloop (csrc/gemm_sm90_s8.cuh: the int8 GEMM and fused MLP) integer
      warpgroup products (IGMMA) and LDGSTS, and every instantiation of the
-     bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90) HGMMA and
-     LDGSTS; no GEMM or SSD instantiation may spill or have its products
-     serialized by ptxas (C7515); no kernel may issue warp-level tensor
-     products (HMMA: WMMA, mma.sync), and no bf16 instantiation of the f32
-     FMA tile kernels, nor the old int8 and SSD WMMA kernels, may exist;
+     bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90) and of the
+     bf16 paged-decode kernel (csrc/paged_decode.cu paged_decode_sm90)
+     HGMMA and LDGSTS; no GEMM, SSD or paged-decode instantiation may spill
+     or have its products serialized by ptxas (C7515); no kernel may issue
+     warp-level tensor products (HMMA: WMMA, mma.sync), and no bf16
+     instantiation of the f32 FMA tile kernels or of the f32 paged-decode
+     body, nor the old int8 and SSD WMMA kernels, may exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -265,23 +267,30 @@ GEMM_SM90 = "gemm_sm90_kernel"
 INT8_SM90 = "int8_sm90_kernel"
 # ssd_chunk_sm90<PP> (csrc/ssd_chunk.cu, bf16)
 SSD_SM90 = "ssd_chunk_sm90"
+# paged_decode_sm90<DP, BKV, QUANT> (csrc/paged_decode.cu, bf16 q)
+PAGED_SM90 = "paged_decode_sm90"
 # the warpgroup product each mainloop's SASS must issue: bf16 HGMMA, s8 IGMMA
 PRODUCTS = {"flash_fwd_sm90": "HGMMA", "flash_bwd_sm90": "HGMMA", GEMM_SM90: "HGMMA",
-            INT8_SM90: "IGMMA", SSD_SM90: "HGMMA"}
+            INT8_SM90: "IGMMA", SSD_SM90: "HGMMA", PAGED_SM90: "HGMMA"}
 # kernels that must not exist: bf16 instantiations of the f32-only FMA
 # kernels (csrc/gemm_tile.cuh, csrc/fused_mlp_bwd.cu; bf16 runs on
-# gemm_sm90), the int8 WMMA tile kernel that gemm_sm90_s8 replaced, and the
-# bf16 WMMA SSD kernel that ssd_chunk_sm90 replaced
+# gemm_sm90), the int8 WMMA tile kernel that gemm_sm90_s8 replaced, the
+# bf16 WMMA SSD kernel that ssd_chunk_sm90 replaced, and the bf16 CUDA-core
+# paged-decode body that paged_decode_sm90 replaced (its f32 one stays)
 OLD_KERNELS = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16",
-               "int8_tile_kernel", "ssd_chunk_kernelI13__nv_bfloat16")
+               "int8_tile_kernel", "ssd_chunk_kernelI13__nv_bfloat16",
+               "paged_decode_kernelI13__nv_bfloat16")
 ACTS = {1: "swiglu", 2: "gelu", 3: "relu2"}
 
 
 def gemm_instance(fn: str) -> str:
-    """A readable name of a gemm_sm90_kernel, int8_sm90_kernel or
-    ssd_chunk_sm90 instantiation from its mangled template arguments: the
-    kernel it serves, the tile and the layout (bf16) or output type (int8),
-    or the padded head dim (SSD)."""
+    """A readable name of a gemm_sm90_kernel, int8_sm90_kernel,
+    ssd_chunk_sm90 or paged_decode_sm90 instantiation from its mangled
+    template arguments: the kernel it serves, the tile and the layout (bf16)
+    or output type (int8), or the padded head dim (SSD, paged decode)."""
+    if PAGED_SM90 in fn:
+        dp, bkv, quant = re.findall(r"L[ib](\d+)E", fn)[:3]
+        return f"paged_decode d<={dp} tile {bkv} {'int8' if quant == '1' else 'bf16'} pool"
     if SSD_SM90 in fn:
         pp, shared = re.findall(r"L[ib](\d+)E", fn)[:2]
         return f"ssd_chunk P<={pp} {'shared C B^T' if shared == '1' else 'per head'}"
@@ -331,12 +340,13 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     """The tensor-core kernels as compiled: each instantiation of the bf16
     flash forward and backward, of the bf16 GEMM mainloop behind the matmul,
     fused-MLP and fused-MLP-backward kernels, of the int8 mainloop behind
-    the int8 GEMM and fused MLP, and of the bf16 SSD chunk kernel must issue
-    warpgroup products (HGMMA; IGMMA for int8) and stage its tiles with
-    asynchronous copies (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must
-    report no spill and no serialized products for any GEMM or SSD
-    instantiation; no kernel of the library may issue warp-level tensor
-    products (HMMA: WMMA or mma.sync); and none of OLD_KERNELS may exist."""
+    the int8 GEMM and fused MLP, of the bf16 SSD chunk kernel and of the
+    bf16 paged-decode kernel must issue warpgroup products (HGMMA; IGMMA for
+    int8) and stage its tiles with asynchronous copies (LDGSTS, cp.async;
+    or UTMALDG, TMA); ptxas must report no spill and no serialized products
+    for any GEMM, SSD or paged-decode instantiation; no kernel of the
+    library may issue warp-level tensor products (HMMA: WMMA or mma.sync);
+    and none of OLD_KERNELS may exist."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                          text=True)
     if out.returncode != 0:
@@ -365,7 +375,7 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
         if not fns or min(mm) == 0 or min(ld) == 0:
             fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
     ptx = ptxas_report(log)
-    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90]}
+    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90], **counts[PAGED_SM90]}
     for fn, c in sorted(gemms.items(), key=lambda kv: gemm_instance(kv[0])):
         rep = ptx.get(fn)
         if rep is None:
@@ -533,14 +543,16 @@ def kernel_phase(torch) -> dict:
     live = int(lengths.sum().item())
     bnd, by = bound(4.0 * a * d * live,
                     2.0 * (2 * b * a * d + 2 * live * nkv * d) + 8.0 * b)
-    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; {live} live tokens); "
-          f"24 launches per decode step; host {host:.1f} us per call")
+    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; {live} live tokens; "
+          f"{paged_pick(b, nkv, a // nkv, d, s_max, 2)}); 24 launches per decode step; host "
+          f"{host:.1f} us per call")
     rows["paged_decode"] = dict(
         name="paged_decode", route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/flash_attention/paged.py:97", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
     del pools
     paged_group_check(torch, randn, gen)
+    paged_long_context(torch, randn, gen)
     return rows
 
 
@@ -625,8 +637,55 @@ def paged_group_check(torch, randn, gen) -> None:
                 f"paged_decode_blocktable g=12 {label} block size {bs}")
     ms12, _ = time_ms(torch, [lambda: paged_decode(q, kp, vp, slot_idx, lengths)])
     ms2, _ = time_ms(torch, [lambda: paged_decode(q2, kp, vp, slot_idx, lengths)])
+    plain12, _ = time_ms(torch, [lambda: paged_decode_ref(q, kp, vp, slot_idx, lengths)])
+    plain2, _ = time_ms(torch, [lambda: paged_decode_ref(q2, kp, vp, slot_idx, lengths)])
+    live = int(lengths.sum().item())
+    bnd12 = bound(4.0 * a * d * live, 2.0 * (2 * b * a * d + 2 * live * nkv * d) + 8.0 * b)[0]
+    bnd2 = bound(4.0 * 2 * nkv * d * live,
+                 2.0 * (2 * b * 2 * nkv * d + 2 * live * nkv * d) + 8.0 * b)[0]
+    print(f"    plain g=12 {plain12:.4f} ms, g=2 {plain2:.4f} ms; bound g=12 {bnd12:.4f} ms, "
+          f"g=2 {bnd2:.4f} ms (bytes)")
     print(f"    slot kernel, bf16 pool ({int(lengths.sum().item())} live tokens): g=12 {ms12:.4f} "
-          f"ms, g=2 {ms2:.4f} ms over the same K/V (each K/V tile read once at both)")
+          f"ms ({paged_pick(b, nkv, a // nkv, d, s_max, 2)}), g=2 {ms2:.4f} ms "
+          f"({paged_pick(b, nkv, 2, d, s_max, 2)}) over the same K/V (each K/V tile read once "
+          f"at both): {ms12 / ms2:.2f}x")
+
+
+def paged_pick(b: int, nkv: int, g: int, d: int, capacity: int, itemsize: int) -> str:
+    """The bf16 paged-decode kernel's launch at a shape, as the wrapper picks it."""
+    from repro_torch.kernels.flash_attention.ops import paged_launch
+    geo = paged_launch(b, nkv, g, d, capacity, itemsize)
+    return f"tile {geo.tile} x {geo.splits} splits of {geo.split} tokens"
+
+
+def paged_long_context(torch, randn, gen) -> None:
+    """The slot kernel over a long context at internlm2-1.8b's heads: 16
+    rows x 4096 live tokens of a bf16 pool (268 MB of K/V), against its
+    plain version, timed beside its bytes bound and the rate it reads at."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode
+    from repro_torch.kernels.flash_attention.ref import paged_decode_ref
+    from repro_torch.kernels.tolerance import paged_decode_tol
+
+    dev = torch.device("cuda")
+    b, a, nkv, d, s_max = 16, 16, 8, 128, 4096
+    q = randn(b, a, d)
+    kp, vp = randn(b, s_max, nkv, d), randn(b, s_max, nkv, d)
+    slot_idx = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+    lengths = torch.full((b,), s_max, dtype=torch.int32, device=dev)
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths)
+    compare(torch, paged_decode(q, kp, vp, slot_idx, lengths), want,
+            paged_decode_tol(q, kp, vp, slot_idx, lengths, want),
+            f"paged_decode long context b={b} a={a} nkv={nkv} d={d} {s_max} live tokens a row")
+    ms, host = time_ms(torch, [lambda: paged_decode(q, kp, vp, slot_idx, lengths)])
+    plain, _ = time_ms(torch, [lambda: paged_decode_ref(q, kp, vp, slot_idx, lengths)], iters=5)
+    nbytes = 2.0 * b * s_max * nkv * d * 2 + 2.0 * 2 * b * a * d + 8.0 * b
+    bnd, by = bound(4.0 * a * d * b * s_max, nbytes)
+    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
+          f"{nbytes / ms / 1e6:.0f} GB/s, "
+          f"{bnd / ms:.2f} of the bound's speed; {paged_pick(b, nkv, a // nkv, d, s_max, 2)}); "
+          f"host {host:.1f} us per call")
+    del kp, vp
+    torch.cuda.empty_cache()
 
 
 # --- kernel phase, training shapes -------------------------------------------------------
@@ -1200,8 +1259,9 @@ def prefix_kernel_phase(torch) -> dict:
         entries = used if index is tables else b
         bnd, by = bound(4.0 * a * d * live, 2.0 * 2 * b * a * d + 2.0 * toks * nkv * d * el
                         + scales + 4.0 * b + 4.0 * entries)
-        print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}); 24 launches per "
-              f"decode step; host {host:.1f} us per call")
+        print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
+              f"{paged_pick(b, nkv, a // nkv, d, s_max, el)}); 24 launches per decode step; "
+              f"host {host:.1f} us per call")
         rows[name] = dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
             replaces=("src/repro/kernels/flash_attention/paged.py:160" if index is tables

@@ -134,10 +134,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
-    lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
+    lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
+                                       i, i, p]
     lib.repro_paged_decode.restype = i
-    lib.repro_paged_decode_smem.argtypes = [i, i, i, i]
-    lib.repro_paged_decode_smem.restype = ctypes.c_size_t
     lib.repro_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_int8_matmul.restype = i
     lib.repro_int8_fused_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]

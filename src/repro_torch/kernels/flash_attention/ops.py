@@ -22,11 +22,16 @@ Any pool depth, block size and group size works for `paged_decode` and
 `paged_decode_blocktable`: the kernel masks the tail tile and resolves each
 token's physical block itself, so there is no block_kv clamp or pool pad as
 in the JAX wrapper, no tuning-cache lookup (`tuned=` comes with the tuning
-slice) and no interpret toggle — the tensor's device decides.  Each counts
-its launches on a float pool (`.launches`) and on an int8 pool
-(`.int8_launches`) apart.
+slice) and no interpret toggle — the tensor's device decides.  The launch
+geometry (`paged_launch`: the bf16 kernel's tile, split and cluster size,
+the f32 body's tile, and the shared memory of either) is a pure function of
+the shapes, cached per shape.  Each counts its launches on a float pool
+(`.launches`) and on an int8 pool (`.int8_launches`) apart.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +39,15 @@ from .. import _build
 from .ref import (flash_attention_bwd_ref, flash_attention_ref, paged_decode_blocktable_ref,
                   paged_decode_ref)
 
-MAX_BLOCK_KV = 64          # kv tokens staged per tile
-SMEM_BUDGET = 48 * 1024    # bytes of shared memory a paged-decode tile may take
+MAX_BLOCK_KV = 64          # kv tokens staged per tile of the f32 paged-decode body
+SMEM_BUDGET = 48 * 1024    # bytes of shared memory an f32 paged-decode tile may take
 MAX_HEAD_DIM = 256         # the largest head dim the flash and paged-decode kernels take
+PAGED_TILES = (32, 64)     # kv tokens a tile of the bf16 paged-decode kernel
+PAGED_STAGES = 3           # ring slots of the bf16 paged-decode kernel (csrc STAGES)
+TARGET_BLOCKS = 264        # bf16 paged-decode blocks the H100 wants: two an SM of 132
+MAX_SPLITS = 8             # blocks of one cluster (the portable cluster size)
+GROUP_ROWS = 64            # query heads one bf16 block serves (the wgmma tile's rows)
+SMEM_LIMIT = 232_448       # bytes of dynamic shared memory a block can take on the H100
 
 
 def flash_shape_ok(d: int, a: int, nkv: int) -> bool:
@@ -57,6 +68,77 @@ def paged_shape_ok(d: int, a: int, nkv: int, kv_itemsize: int) -> bool:
     d up to 256 in whole 16-byte loads per row.  Shapes only, no launch."""
     return (1 <= d <= MAX_HEAD_DIM and nkv > 0 and a % nkv == 0
             and d % (16 // kv_itemsize) == 0)
+
+
+class PagedLaunch(NamedTuple):
+    """A paged-decode launch: tokens a tile, tokens a block (split), blocks
+    a (row, kv head) walk (one cluster) and dynamic shared memory bytes."""
+    tile: int
+    split: int
+    splits: int
+    smem: int
+
+
+def _f32_smem(g: int, d: int, bkv: int, kv_itemsize: int) -> int:
+    """Shared memory of csrc/paged_decode.cu's f32 body (`f32_smem`)."""
+    gw = 8 if g <= 8 else 16
+    gs = min(g, gw)
+    return (bkv * 8 + 2 * bkv * d * kv_itemsize + gs * d * 4 + gs * bkv * 4 + 2 * bkv * 4
+            + 3 * gw * 4)
+
+
+def _sm90_smem(g: int, d: int, tile: int, kv_itemsize: int) -> int:
+    """Shared memory of csrc/paged_decode.cu's bf16 kernel (`Layout::bytes`):
+    the Q tile and the ring (int8: the widened tiles and the raw slots with
+    their scales), or the parked partial where it is larger, and m, l."""
+    dp = -(-d // 64) * 64
+    rows = -(-min(g, GROUP_ROWS) // 8) * 8
+    tile_b = tile * dp * 2
+    ring = (2 * tile_b + PAGED_STAGES * (2 * tile * dp + 8 * tile) if kv_itemsize == 1
+            else PAGED_STAGES * 2 * tile_b)
+    return 1024 + max(rows * dp * 2 + ring, rows * (dp + 8) * 4) + 2 * GROUP_ROWS * 4
+
+
+@functools.lru_cache(maxsize=None)
+def paged_launch(b: int, nkv: int, g: int, d: int, capacity: int, kv_itemsize: int,
+                 q_itemsize: int = 2, tile: int | None = None,
+                 splits: int | None = None) -> PagedLaunch:
+    """The paged-decode launch for b rows of nkv kv heads, g query heads
+    each, head dim d, over a pool of `capacity` tokens a row (s_max, or
+    max_blocks x block_size) of kv_itemsize-byte elements.  Shapes only: it
+    reads no tensor, so the host never waits on the device for it.
+
+    bf16 q (q_itemsize 2): each of the b x nkv x ceil(g / 64) walks is cut
+    into the largest power of two of blocks, at most 8 (one cluster), that
+    keeps walks x splits within TARGET_BLOCKS: few walks still put two
+    blocks on each SM, and many walks take one block each, since a split
+    costs its cluster's barriers and combine.  On the card one split was
+    fastest at 512 walks, two at 128, and a cluster of 3 ran 1.34x slower
+    than 2 at a long context (tuning/paged_tiles.py).  A block takes
+    ceil(capacity / splits) tokens in whole tiles: 64-token tiles where the
+    walks are few (each block walks longer), 32 where they are many (fewer
+    registers, so more blocks an SM).  `tile` and `splits` override the
+    pick (the sweep).  f32 q: one block walks the row, in tiles of the
+    largest bkv of 64, 32, 16, 8 whose shared memory fits 48 KB (split =
+    capacity)."""
+    if q_itemsize == 4:
+        bkv = MAX_BLOCK_KV
+        while bkv > 8 and _f32_smem(g, d, bkv, kv_itemsize) > SMEM_BUDGET:
+            bkv //= 2
+        return PagedLaunch(bkv, capacity, 1, _f32_smem(g, d, bkv, kv_itemsize))
+    walks = b * nkv * -(-g // GROUP_ROWS)
+    if splits is None:
+        splits = min(MAX_SPLITS, 1 << (max(1, TARGET_BLOCKS // walks).bit_length() - 1))
+    if tile is None:
+        tile = PAGED_TILES[1] if walks < TARGET_BLOCKS else PAGED_TILES[0]
+    if tile not in PAGED_TILES or not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"paged_launch: tile {tile} (one of {PAGED_TILES}), splits {splits} "
+                         f"(1..{MAX_SPLITS})")
+    split = -(-capacity // (splits * tile)) * tile
+    smem = _sm90_smem(g, d, tile, kv_itemsize)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_launch: {smem} bytes of shared memory (g={g}, d={d})")
+    return PagedLaunch(tile, split, -(-capacity // split), smem)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
@@ -179,7 +261,8 @@ def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=
     nkv, d); slot_idx: (b,) row->slot; lengths: (b,) live kv entries (0 =
     dead slot -> zero output).  k_scale, v_scale: (slots, s_max, nkv) f32
     per-(token, kv head) scales of an int8 pool (both or neither), which the
-    kernel dequantizes in f32 per kv tile.  Returns (b, a, d).
+    kernel applies in f32 (bf16 q: to the scores and to P; f32 q: to each
+    element it reads).  Returns (b, a, d).
     """
     if _build.dispatch_device("paged_decode", q) == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
@@ -219,10 +302,13 @@ paged_decode_blocktable.launches = 0        # float pools
 paged_decode_blocktable.int8_launches = 0   # int8 pools
 
 
-def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blocks, scale):
+def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blocks, scale,
+                geometry=None):
     """Launch csrc/paged_decode.cu over a slot pool (max_blocks = 0, index =
     slot_idx) or a block table (index = tables (b, max_blocks)); a launch
-    adds one to the wrapper `fn`'s count for its pool type."""
+    adds one to the wrapper `fn`'s count for its pool type.  `geometry`
+    (tile, splits) overrides `paged_launch`'s pick for the bf16 kernel (the
+    sweep in tuning/paged_tiles.py)."""
     what = fn.__name__
     lengths = lengths.to(torch.int32)
     quant = k_scale is not None
@@ -256,14 +342,14 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
     if b == 0:
         return out
     lib = _build.build().lib
-    bkv = MAX_BLOCK_KV
-    while bkv > 8 and lib.repro_paged_decode_smem(g, d, bkv, kv_dt) > SMEM_BUDGET:
-        bkv //= 2
+    geo = paged_launch(b, nkv, g, d, max_blocks * depth if max_blocks else depth,
+                       k_pool.element_size(), q.element_size(), *(geometry or ()))
     with torch.cuda.device(q.device):
         status = lib.repro_paged_decode(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(index), _build.ptr(lengths), _build.ptr(out), b, a,
-            nkv, d, depth, max_blocks, bkv, float(scale), dt, kv_dt, _build.stream_of(q.device))
+            nkv, d, depth, max_blocks, geo.tile, geo.split, geo.splits, geo.smem, float(scale),
+            dt, kv_dt, _build.stream_of(q.device))
     _build.check(status, what)
     if quant:
         fn.int8_launches += 1

@@ -116,7 +116,15 @@ def paged_decode_tol(q, k_pool, v_pool, slot_idx, lengths, want: torch.Tensor,
     |v|, so E = (2 delta + (4 len + 128) u) * sum_j w_j |v_j|.  An int8 pool
     (k_scale, v_scale) is held to the same bound on its dequantized K/V,
     plus the dequantizing product's own rounding (u relative per element of
-    K and of V) on each side.  A dead row (length 0) must be exactly zero."""
+    K and of V) on each side.  The bf16 kernel (csrc/paged_decode.cu
+    `paged_decode_sm90`) also takes each weight as 2^(s scale log2(e) - m)
+    by exp2f, charged to delta as the flash forward's (2 |s scale|_max + 4)
+    u; rounds P (an int8 pool: P times the V scale) to bf16 before P.V,
+    half an ulp relative on the weighted sum; and combines the partials of
+    its splits, each rescaled once by exp2f(m_z - M) (the difference's
+    rounding, |s scale|_max u, and exp2f's, products and a sum of at most 8
+    terms, 32 u), relative on the weighted sum too.  A dead row (length 0)
+    must be exactly zero."""
     b, a, d = q.shape
     _, s_max, nkv, _ = k_pool.shape
     g = a // nkv
@@ -133,7 +141,12 @@ def paged_decode_tol(q, k_pool, v_pool, slot_idx, lengths, want: torch.Tensor,
     delta = (3.0 * d * U + r) * torch.where(live4, s_abs, 0.0).amax(-1, keepdim=True)
     w_abs_v = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(s, dim=-1), v.abs())
     n = lengths.clamp(0, s_max).float()[:, None, None, None]
-    e = (2.0 * delta + (4.0 * n + 128.0) * U + r) * w_abs_v
+    rel = (4.0 * n + 128.0) * U + r
+    if q.dtype != torch.float32:
+        s_max_abs = torch.where(live4, s.abs(), 0.0).amax(-1, keepdim=True)
+        delta = delta + (2.0 * s_max_abs + 4.0) * U
+        rel = rel + _rounds(q.dtype) + (s_max_abs + 32.0) * U
+    e = (2.0 * delta + rel) * w_abs_v
     e = torch.where((lengths > 0)[:, None, None, None], e, 0.0)
     return _bound(want, e.reshape(b, a, d))
 

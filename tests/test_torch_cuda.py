@@ -102,7 +102,7 @@ def test_paged_decode(cuda, dtype, s_max, g, d):
     _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
 
 
-def _blocktable_case(rng, bs, g, d, dtype, device, quant):
+def _blocktable_case(rng, bs, g, d, dtype, device, quant, lengths=(130, 64, 77, 0, 33)):
     """Five rows over a pool of physical blocks of `bs` tokens: permuted
     ids, rows 0 and 2 sharing their first blocks, a dead row (3), lengths
     that cross the 64-token staging width and are not tile multiples, and
@@ -110,7 +110,7 @@ def _blocktable_case(rng, bs, g, d, dtype, device, quant):
     of huge values (1e4; an int8 pool's scales), so that a read of it would
     break the bound (the plain version masks it to weight 0)."""
     nkv = 2
-    lengths = [130, 64, 77, 0, 33]
+    lengths = list(lengths)
     need = [-(-n // bs) for n in lengths]
     max_blocks = max(need) + 1
     nb = sum(need) + 1
@@ -141,7 +141,7 @@ def _blocktable_case(rng, bs, g, d, dtype, device, quant):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("bs,g,d", [(4, 1, 64), (8, 2, 128), (16, 3, 64), (64, 2, 128),
-                                    (16, 2, 128), (16, 12, 128), (8, 16, 64)])
+                                    (16, 2, 128), (16, 12, 128), (8, 16, 64), (64, 12, 128)])
 def test_paged_decode_blocktable(cuda, dtype, quant, bs, g, d):
     """The block-table kernel, float and int8 pools, against its plain
     version: each element within its bound, the dead row exactly zero, and
@@ -183,6 +183,125 @@ def test_paged_decode_int8(cuda, dtype, s_max, g, d):
     assert torch.all(got[1] == 0)
     _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want,
                                                  k_scale=ks, v_scale=vs))
+
+
+def _split(b, nkv, g, d, capacity, quant):
+    """Tokens a block of the bf16 kernel takes at this shape."""
+    from repro_torch.kernels.flash_attention.ops import paged_launch
+    return paged_launch(b, nkv, g, d, capacity, 1 if quant else 2).split
+
+
+def _slot_case(rng, s_max, g, d, dtype, device, quant, lengths):
+    """Rows over a slot pool (permuted slots, nkv 2) whose positions past
+    each row's length hold huge values (1e4; an int8 pool's scales), so that
+    a read of one breaks the bound (the plain version masks it)."""
+    nkv, b = 2, len(lengths)
+    slots = b + 2
+    q = _rand(rng, (b, nkv * g, d), dtype, device)
+    slot_idx = torch.from_numpy(rng.permutation(slots)[:b].astype(np.int32)).to(device)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    dead = (torch.arange(s_max, device=device)[None, :] >= lengths[:, None])   # (b, s_max)
+    shape = (slots, s_max, nkv, d)
+    if quant:
+        from repro_torch.quant import quantize_kv
+        (kp, ks), (vp, vs) = (quantize_kv(_rand(rng, shape, torch.float32, device))
+                              for _ in range(2))
+        for t in (ks, vs):
+            t[slot_idx.long()] = torch.where(dead[..., None], 1e4, t[slot_idx.long()])
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = _rand(rng, shape, dtype, device), _rand(rng, shape, dtype, device)
+        for t in (kp, vp):
+            t[slot_idx.long()] = torch.where(dead[..., None, None], 1e4, t[slot_idx.long()])
+        sc = {}
+    return q, kp, vp, slot_idx, lengths, sc
+
+
+def _check_slot(q, kp, vp, slot_idx, lengths, sc):
+    before = paged_decode.int8_launches if sc else paged_decode.launches
+    got = paged_decode(q, kp, vp, slot_idx, lengths, **sc)
+    torch.cuda.synchronize()
+    assert (paged_decode.int8_launches if sc else paged_decode.launches) == before + 1
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths, **sc)
+    assert torch.isfinite(want).all()
+    assert torch.all(got[lengths == 0] == 0)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want, **sc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("g", [2, 12])
+def test_paged_decode_split_boundaries(cuda, dtype, quant, g):
+    """Lengths on a split boundary of the bf16 kernel, one token past it and
+    one short of it (at the first and the last boundary), a live length of
+    1 and a dead row; every position past a length holds garbage."""
+    s_max, d = 200, 128
+    sp = _split(8, 2, g, d, s_max, quant)
+    last = (s_max - 1) // sp * sp
+    lengths = [sp, sp + 1, sp - 1, 1, 0, last, last + 1, s_max]
+    _check_slot(*_slot_case(np.random.default_rng(g), s_max, g, d, dtype, cuda, quant, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_deep_pool(cuda, dtype, quant):
+    """A 2048-deep pool: 8 splits, each walking several tiles through the
+    ring; full, near-full, split-boundary, short and dead rows."""
+    s_max, g, d = 2048, 2, 128
+    sp = _split(6, 2, g, d, s_max, quant)
+    assert sp * 8 >= s_max and sp > 64   # the cluster limit stretched the split
+    lengths = [s_max, s_max - 1, 3 * sp, 3 * sp + 1, 1, 0]
+    _check_slot(*_slot_case(np.random.default_rng(5), s_max, g, d, dtype, cuda, quant, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("g,d", [(24, 128), (48, 64), (72, 128)])
+def test_paged_decode_wide_group(cuda, dtype, quant, g, d):
+    """More query heads than the old 16-wide block: 24 and 48 in one block
+    of the bf16 kernel, 72 in two."""
+    lengths = [130, 64, 0, 1, 33]
+    _check_slot(*_slot_case(np.random.default_rng(g), 130, g, d, dtype, cuda, quant, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bs,g", [(16, 2), (64, 12)])
+def test_paged_decode_blocktable_split_boundaries(cuda, dtype, quant, bs, g):
+    """The block-table kernel at lengths on, past and short of a split
+    boundary, a live length of 1 and a dead row; the garbage block stays
+    unread."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import paged_decode_blocktable_ref
+    sp = _split(5, 2, g, 128, 256, quant)
+    q, kp, vp, tables, lengths, sc = _blocktable_case(
+        np.random.default_rng(bs + g), bs, g, 128, dtype, cuda, quant,
+        lengths=(sp + 1, sp, sp - 1, 0, 1))
+    got = paged_decode_blocktable(q, kp, vp, tables, lengths, **sc)
+    torch.cuda.synchronize()
+    want = paged_decode_blocktable_ref(q, kp, vp, tables, lengths, **sc)
+    assert torch.isfinite(want).all() and torch.all(got[3] == 0)
+    _close(got, want, tolerance.paged_decode_blocktable_tol(q, kp, vp, tables, lengths, want,
+                                                             **sc))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_paged_decode_forced_geometry(cuda, quant, tile, splits):
+    """The bf16 kernel at each tile and number of splits, whatever
+    `paged_launch` would pick here: one split (the output straight from the
+    registers, a dead row's zeros) and clusters of 2, 3 and 8."""
+    from repro_torch.kernels.flash_attention.ops import _paged_cuda
+    q, kp, vp, slot_idx, lengths, sc = _slot_case(
+        np.random.default_rng(tile + splits), 200, 12, 128, torch.bfloat16, cuda, quant,
+        [200, 64, 65, 0, 1, 127])
+    got = _paged_cuda(paged_decode, q, kp, vp, sc.get("k_scale"), sc.get("v_scale"), slot_idx,
+                      lengths, 0, None, geometry=(tile, splits))
+    torch.cuda.synchronize()
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths, **sc)
+    assert torch.all(got[3] == 0)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want, **sc))
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -482,6 +482,41 @@ def test_registered_dense_model_gets_a_valid_gemm_launch(arch):
             assert _gemm_smem(tile, nb=2 if mlp_type == "swiglu" else 1) <= SMEM_BYTES
 
 
+@pytest.mark.parametrize("b,nkv,g,d,capacity,itemsize", [
+    (64, 8, 2, 128, 128, 2), (64, 8, 2, 128, 192, 1), (16, 8, 12, 128, 256, 2),
+    (16, 8, 2, 128, 4096, 2), (6, 2, 2, 128, 2048, 2), (5, 2, 12, 128, 80, 1),
+    (1, 1, 2, 64, 16, 2), (4, 8, 96, 128, 8192, 2), (2, 1, 64, 256, 100_000, 1),
+    (3, 2, 48, 256, 300, 2), (40, 8, 16, 80, 512, 2)])
+def test_paged_launch_geometry(b, nkv, g, d, capacity, itemsize):
+    """The bf16 paged-decode launch from shapes alone: a power-of-two number
+    of splits, at most 8 (one cluster), that keeps the grid within two
+    blocks an SM unless one split already exceeds it; whole tiles that
+    cover the pool's capacity, so rounding may leave fewer splits, never
+    more; a deep pool stretches the split; shared memory under the card's
+    limit.  The f32 body keeps the parent's tile: the largest of 64 .. 8
+    whose shared memory fits 48 KB, one block walking the whole row."""
+    from repro_torch.kernels.flash_attention.ops import (MAX_SPLITS, PAGED_TILES, SMEM_BUDGET,
+                                                         SMEM_LIMIT, TARGET_BLOCKS, _f32_smem,
+                                                         paged_launch)
+    geo = paged_launch(b, nkv, g, d, capacity, itemsize)
+    walks = b * nkv * -(-g // 64)
+    asked = min(MAX_SPLITS, 1 << (max(1, TARGET_BLOCKS // walks).bit_length() - 1))
+    assert asked & (asked - 1) == 0 and (walks * asked <= TARGET_BLOCKS or asked == 1)
+    assert asked * 2 > MAX_SPLITS or walks * asked * 2 > TARGET_BLOCKS   # the largest such
+    assert geo.tile == (64 if walks < TARGET_BLOCKS else 32) and geo.tile in PAGED_TILES
+    assert geo.split % geo.tile == 0 and 1 <= geo.splits <= asked
+    assert geo.splits * geo.split >= capacity > (geo.splits - 1) * geo.split
+    assert geo.split == -(-capacity // (asked * geo.tile)) * geo.tile
+    assert geo.smem <= SMEM_LIMIT
+    assert paged_launch(b, nkv, g, d, capacity, itemsize) is geo   # cached per shape
+    kv = 4 if itemsize == 2 else 1                                  # an f32 pool, or int8
+    f32 = paged_launch(b, nkv, g, d, capacity, kv, 4)
+    assert (f32.splits, f32.split) == (1, capacity) and f32.tile in (64, 32, 16, 8)
+    assert f32.smem == _f32_smem(g, d, f32.tile, kv)
+    assert f32.tile == 8 or f32.smem <= SMEM_BUDGET
+    assert f32.tile == 64 or _f32_smem(g, d, 2 * f32.tile, kv) > SMEM_BUDGET
+
+
 def test_kernel_shape_predicates_refuse_what_the_kernels_do_not_take():
     from repro_torch.kernels.flash_attention.ops import flash_shape_ok, paged_shape_ok
     assert all(flash_shape_ok(d, 8, 2) for d in range(1, 257))
