@@ -41,7 +41,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a row-major weight relaid and counted; the int8 fused SwiGLU hidden), then the
      SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
      fast and slow decay, at zamba2-2.7b's at slow decay, a ragged chunk and
-     a misaligned one, bf16 and f32; timed at both prefill shapes);
+     a misaligned one, bf16 and f32; timed at both prefill shapes), and the
+     SSD backward kernel (csrc/ssd_chunk_bwd.cu) at the same shapes (the
+     training shapes: 4 x 1024 tokens), bf16 and f32, timed at both training
+     shapes beside the forward kernel on the same operands;
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -92,7 +95,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and batch, with three planted kernel faults that must break the
      gradient bound; then 4 steps of make_train_step (loss, step time,
      tokens/s, share of the card's bf16 peak, peak memory), each kernel's
-     launch count against the path's formula, and one profiled step.
+     launch count against the path's formula, and one profiled step;
+  11. ssm train: mamba2-780m at full width and depth (48 layers), float32
+     masters, bf16 compute, linear_impl="fused", AdamW, 4 x 1024 tokens:
+     the step-0 loss and gradients of the kernel path (the SSD kernel and
+     its backward kernel under autograd) against the plain path (jnp, the
+     SSD kernels' plain versions, remat "full"), held at bf16 to
+     SSM_BF16_GRAD_REL_BOUND, which two of three planted faults in the SSD
+     backward must break (the third hides in bf16 rounding and is printed),
+     then to the train phase's bounds at f32 and a trained model's slow
+     decay, which all three must break; 4 steps of make_train_step (loss, step time, tokens/s, share of
+     the bf16 peak, peak memory), launch counts against the path's formula
+     (48 SSD forwards and backwards and 867 tile GEMMs a step), one
+     profiled step;
+  12. hybrid train: zamba2-2.7b at full width, 2 of its 9 superblocks,
+     attn_impl="flash" (head dim 80): the same step-0 checks with one
+     planted fault held each (bf16: the last layer's dseg, the other two
+     printed; f32: dB without its dS term), 2 steps, launch counts (SSD forward and
+     backward, flash forward and backward, fused MLP forward and backward,
+     tile GEMMs), one profiled step.
 The last line of standard output is the result object; the kernels object
 and the card's name and power limit as nvidia-smi prints them come just
 before it.
@@ -215,6 +236,28 @@ SSD_SLOW_DECAY = 0.02
 # chunked form), the worst row's last-position logits.
 SSM_HANDOFF = 1000
 SSM_HANDOFF_REL_BOUND = 0.05
+
+# The SSM training slice: mamba2-780m trained at full width and depth on
+# TRAIN_BATCH x TRAIN_SEQ tokens for TRAIN_STEPS steps, zamba2-2.7b at full
+# width and HYBRID_SUPERBLOCKS superblocks for HYBRID_TRAIN_STEPS steps;
+# their step-0 checks hold the kernel path to TRAIN_LOSS_REL_BOUND and
+# TRAIN_GRAD_REL_BOUND at f32 and a trained model's slow decay, as the dense
+# train phase's.
+HYBRID_TRAIN_STEPS = 2
+# ... and at bf16, the path as it trains, to this gradient bound (the loss
+# bound is TRAIN_LOSS_REL_BOUND).  The roundings of the two paths (the
+# forward kernel's bf16 C B^T o L, GEMM outputs summed in another order),
+# carried through 48 layers, reach 5.49e-2 on mamba2-780m's sound
+# gradients (A_log's layer slices, where the per-position terms cancel),
+# above TRAIN_GRAD_REL_BOUND; zamba2-2.7b's 2 superblocks 2.24e-2.  Planted
+# faults at bf16 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the last layer's
+# dseg zeroed 1.03 (mamba2-780m) and 0.360 (zamba2-2.7b, whose layer slice
+# is a superblock's 6 layers), one chunk's dX dropped 0.227 and 8.65e-2 (80
+# heads), dB without its dS term 5.89e-2 and 3.00e-2.  The
+# bound sits between the sound worst and the faults it must see (dseg, and
+# dX on mamba2-780m); the other two hide in bf16 rounding and are held at
+# f32 only.
+SSM_BF16_GRAD_REL_BOUND = 0.1
 
 
 def fail(msg: str) -> None:
@@ -1986,11 +2029,16 @@ def quantized_serve_phase(torch) -> dict:
 
 # --- the SSM slice --------------------------------------------------------------------------
 
+@contextlib.contextmanager
 def _plain_ssd():
-    """Run the SSD kernel's plain version on CUDA tensors for the duration."""
+    """Run the SSD kernel's and its backward kernel's plain versions on CUDA
+    tensors for the duration."""
     from repro_torch.kernels.ssd import ops
-    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
-    return _patched(ops, "_ssd_chunk_cuda", lambda real: (lambda *args: ssd_chunk_ref(*args)))
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+    with _patched(ops, "_ssd_chunk_cuda", lambda real: (lambda *args: ssd_chunk_ref(*args))), \
+            _patched(ops, "_ssd_chunk_bwd_cuda",
+                     lambda real: (lambda *args: ssd_chunk_bwd_ref(*args))):
+        yield
 
 
 def _ssd_fault():
@@ -2120,6 +2168,113 @@ def ssd_kernel_phase(torch) -> dict:
         name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd/kernel.py:56", max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, library_ms=None)}
+
+
+def ssd_bwd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int):
+    """(operations, bytes) of the SSD chunk gradient: the causal half of
+    C B^T (once per group, one group) and, per head, of dY X^T, dC, dB and
+    dX, and the chunk-state products B dS and X dS^T; x_dt, dY and dX once,
+    B and C read and dB and dC written once per group (the function's
+    gradient is per group: the kernel's per-head dB and dC, which autograd
+    sums over the heads, are its design's own cost, `ssd_bwd_head_bytes`),
+    dS read, seg and dseg."""
+    Q = min(chunk, s)
+    nc = s // Q
+    pairs, tri = b * nh * nc, Q * (Q + 1) / 2
+    flops = b * nc * 2.0 * N * tri + pairs * (2.0 * tri * (2 * P + 2 * N) + 4.0 * Q * N * P)
+    nbytes = elem * (3 * b * s * nh * P + 4 * b * s * N + pairs * N * P) + 8 * b * s * nh
+    return flops, nbytes
+
+
+def ssd_bwd_head_bytes(b: int, s: int, nh: int, N: int, elem: int) -> int:
+    """Bytes the backward kernel writes beyond `ssd_bwd_work`'s: dB and dC
+    per head rather than per group (one group)."""
+    return elem * 2 * b * s * (nh - 1) * N
+
+
+def ssd_bwd_operands(torch, gen, *args):
+    """`ssd_operands(torch, gen, *args)` and the cotangents dY (like x_dt)
+    and dS (lead, nc, N, P): the backward's six operands."""
+    x, B, C, seg = ssd_operands(torch, gen, *args)
+    dY = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    dS = torch.randn((*x.shape[:-2], B.shape[-1], x.shape[-1]), generator=gen,
+                     device=x.device).to(x.dtype)
+    return x, B, C, seg, dY, dS
+
+
+def ssd_bwd_kernel_phase(torch) -> dict:
+    """The SSD backward kernel (csrc/ssd_chunk_bwd.cu) against its plain
+    version at mamba2-780m's training shape (4 x 1024 tokens: 48 heads, 4
+    chunks of 256, P 64, N 128, B / C expanded over one group) at the JAX
+    tests' decay and at SSD_SLOW_DECAY, at zamba2-2.7b's (80 heads, N 64) at
+    the slow decay, the forward phase's ragged chunk (Q = 100) and
+    misaligned shape (Q 40, P 16, N 16), each in bf16 and f32, every element
+    within `ssd_chunk_bwd_tol`; then timed at both training shapes in bf16
+    beside the forward kernel at the same operands, the bound and the plain
+    version."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd.ops import ssd_chunk, ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    from repro_torch.kernels.tolerance import ssd_chunk_bwd_tol
+
+    shapes = {}
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        c = get_config(arch)
+        shapes[arch] = (c.ssm_nheads, c.ssm_head_dim, c.ssm_state, c.ssm_chunk, c.num_layers)
+    nh, P, N, chunk, layers = shapes["mamba2-780m"]
+    zh, zp, zn = shapes["zamba2-2.7b"][:3]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    print(f"ssd backward (mamba2-780m: {nh} heads, P {P}, N {N}, chunk {chunk}; B / C expanded "
+          f"over the heads; dB and dC per head):")
+    err = 0.0
+    for label, (b, s, h, p, n), step in (
+            ("train 4 x 1024", (TRAIN_BATCH, TRAIN_SEQ, nh, P, N), 1.0),
+            ("train 4 x 1024, slow decay", (TRAIN_BATCH, TRAIN_SEQ, nh, P, N), SSD_SLOW_DECAY),
+            ("zamba2-2.7b train, slow decay", (TRAIN_BATCH, TRAIN_SEQ, zh, zp, zn),
+             SSD_SLOW_DECAY),
+            ("ragged chunk Q=100", (SSM_BATCH, 100, nh, P, N), 1.0),
+            ("misaligned Q=40 P=16 N=16", (2, 40, 3, 16, 16), 1.0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = ssd_bwd_operands(torch, gen, b, s, h, p, n, chunk, dtype, step)
+            want = ssd_chunk_bwd_ref(*ops)
+            got = ssd_chunk_bwd(*ops)
+            for name, g, w, tol in zip(("dX", "dB", "dC", "dseg"), got, want,
+                                       ssd_chunk_bwd_tol(*ops, want)):
+                e = compare(torch, g, w, tol, f"ssd_chunk_bwd {label} {str(dtype)[6:]} {name}")
+                if dtype == torch.bfloat16:     # the row's dtype
+                    err = max(err, e)
+            del ops, want, got
+            torch.cuda.empty_cache()
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rows = {}
+    for arch, (h, p, n, q, nl) in shapes.items():
+        flops, nbytes = ssd_bwd_work(b, s, h, p, n, q, 2)
+        ops = copies(torch, lambda: ssd_bwd_operands(torch, gen, b, s, h, p, n, q, torch.bfloat16),
+                     2 * b * s * (2 * h * p + 2 * n) + 2 * b * s * h * n * p // min(q, s))
+        ms, host = time_ms(torch, [lambda o=o: ssd_chunk_bwd(*o) for o in ops], iters=TRAIN_ITERS)
+        fwd, _ = time_ms(torch, [lambda o=o: ssd_chunk(*o[:4]) for o in ops])
+        plain, _ = time_ms(torch, [lambda o=o: ssd_chunk_bwd_ref(*o) for o in ops[:1]],
+                           iters=TRAIN_ITERS // 4)
+        bnd, by = bound(flops, nbytes)
+        extra = ssd_bwd_head_bytes(b, s, h, n, 2)
+        smem = _build.build().lib.repro_ssd_chunk_bwd_smem(n, p, _build.DT_BF16)
+        print(f"    bf16 {arch} training shape ({h} heads, P {p}, N {n}): backward {ms:.4f} ms "
+              f"(forward {fwd:.4f} ms at the same operands; plain {plain:.4f}; bound {bnd:.4f} by "
+              f"{by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {bnd / ms:.1%} of the "
+              f"bound's speed, {ms / bnd:.1f}x the bound); the design's per-head dB and dC write "
+              f"{extra / 1e6:.1f} MB more ({extra / HBM_BYTES_S * 1e3:.4f} ms at the memory "
+              f"rate); one block per (sequence-head, chunk), {b * h * (s // q)} blocks "
+              f"of {smem} B; {nl} launches per training step of the full model; "
+              f"host {host:.1f} us per call; no single PyTorch call computes it")
+        rows[arch] = (ms, plain, bnd, by)
+        del ops
+        torch.cuda.empty_cache()
+    ms, plain, bnd, by = rows["mamba2-780m"]
+    return {"ssd_chunk_bwd": dict(
+        name="ssd_chunk_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        replaces="none: XLA autodiff of repro/models/ssm.py:136-145", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)}
 
 
 def _ssm_counters():
@@ -2432,17 +2587,35 @@ def ssm_token_identity_phase(torch) -> None:
 
 def per_step_launches(cfg) -> dict:
     """Kernel launches one training step implies (one microbatch, remat
-    "none"), for L layers:
+    "none"), for L layers.  The dense decoder:
       linear runs 5 projections per layer (wq, wk, wv, wo, w_down) and
       lm_head: 5L + 1 forward GEMMs ("nn"), as many dgrad ("nt") and wgrad
       ("tn") GEMMs; the fused-MLP backward adds one dgrad launch over both
       pairs (dx) and two wgrad launches (dWg, dWu) per layer:
         matmul nn = 5L + 1, nt = 6L + 1, tn = 7L + 1   (435 at L = 24)
-      fused_mlp_hidden = fused_mlp_bwd = flash_attention = flash_attention_bwd = L."""
+      fused_mlp_hidden = fused_mlp_bwd = flash_attention = flash_attention_bwd = L.
+    mamba2 (L Mamba2 layers) and zamba2 (L Mamba2 layers and sb = L / k
+    applications of the shared attention + GELU MLP block):
+      n = 6L + 5 sb + 1 projections (in_z, in_x, in_B, in_C, in_dt, out_proj
+      a Mamba2 layer; wq, wk, wv, wo and w_down an application; the head),
+      each one forward, one dgrad and one wgrad GEMM (a tied head's forward
+      is "nt" and its dgrad "nn": the same totals per layout); the un-gated
+      fused-MLP backward adds one dgrad (dx) and one wgrad (dWu) a block:
+        matmul nn = n, nt = tn = n + sb   (867 a step for mamba2-780m)
+      ssd_chunk = ssd_chunk_bwd = L; fused_mlp_hidden = fused_mlp_bwd =
+      flash_attention = flash_attention_bwd = sb."""
     L = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        sb = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        n = 6 * L + 5 * sb + 1
+        return {"matmul": 3 * n + 2 * sb, "matmul_nn": n, "matmul_nt": n + sb,
+                "matmul_tn": n + sb, "fused_mlp_hidden": sb, "fused_mlp_bwd": sb,
+                "flash_attention": sb, "flash_attention_bwd": sb, "paged_decode": 0,
+                "ssd_chunk": L, "ssd_chunk_bwd": L}
     return {"matmul": 18 * L + 3, "matmul_nn": 5 * L + 1, "matmul_nt": 6 * L + 1,
             "matmul_tn": 7 * L + 1, "fused_mlp_hidden": L, "fused_mlp_bwd": L,
-            "flash_attention": L, "flash_attention_bwd": L, "paged_decode": 0}
+            "flash_attention": L, "flash_attention_bwd": L, "paged_decode": 0,
+            "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 def _train_counters():
@@ -2450,9 +2623,11 @@ def _train_counters():
                                                          paged_decode)
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
     from repro_torch.kernels.matmul import ops as matmul_ops
+    from repro_torch.kernels.ssd.ops import ssd_chunk, ssd_chunk_bwd
     return matmul_ops, {"fused_mlp_hidden": fused_mlp_hidden, "fused_mlp_bwd": fused_mlp_bwd,
                         "flash_attention": flash_attention_fwd,
-                        "flash_attention_bwd": flash_attention_bwd, "paged_decode": paged_decode}
+                        "flash_attention_bwd": flash_attention_bwd, "paged_decode": paged_decode,
+                        "ssd_chunk": ssd_chunk, "ssd_chunk_bwd": ssd_chunk_bwd}
 
 
 def _read_counts(matmul_ops, fns) -> dict:
@@ -2468,13 +2643,13 @@ def _reset_counts(matmul_ops, fns) -> None:
         fn.launches = 0
 
 
-def _grads(torch, params, batch, cfg):
+def _grads(torch, params, batch, cfg, remat="none"):
     from repro_torch.models import lm_loss
     from repro_torch.optim.adamw import tree_leaves
     leaves = list(tree_leaves(params))
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = lm_loss(params, batch, cfg)
+    loss, _ = lm_loss(params, batch, cfg, remat=remat)
     grads = torch.autograd.grad(loss, leaves)
     return loss.item(), grads
 
@@ -2544,41 +2719,59 @@ def planted_faults(torch):
              "fused_mlp_bwd", dh_truncated)]
 
 
-def step0_check(torch, params, batch, cfg, plain_cfg) -> None:
-    """Step-0 loss and gradients, kernel path vs plain path on the same
-    params and batch, within TRAIN_LOSS_REL_BOUND / TRAIN_GRAD_REL_BOUND;
-    then each planted fault must break the gradient bound."""
+def _path_rels(torch, params, batch, cfg, plain_cfg, plain, plain_remat, what, grad_bound):
+    """Step-0 loss and gradients of the kernel path and of the plain path
+    (`plain_cfg` inside `plain()`, with `plain_remat`) on the same params
+    and batch, printed beside `grad_bound`.  Returns (loss rel err,
+    [(grad rel err, leaf)], all finite, the plain path's gradients, the
+    leaves' names)."""
     lk, gk = _grads(torch, params, batch, cfg)
-    lp, gp = _grads(torch, params, batch, plain_cfg)
+    with plain():
+        lp, gp = _grads(torch, params, batch, plain_cfg, remat=plain_remat)
     rel_loss = abs(lk - lp) / abs(lp)
     names = [path for path, _ in _paths(params)]
     finite = all(bool(torch.isfinite(g).all()) for g in gk)
     rels = _grad_rels(gk, gp, names)
     del gk
-    print(f"  step-0 check, kernel path vs plain path: loss {lk:.6f} vs {lp:.6f} (rel "
+    print(f"  {what}, kernel path vs plain path: loss {lk:.6f} vs {lp:.6f} (rel "
           f"{rel_loss:.3e}, bound {TRAIN_LOSS_REL_BOUND}); ||g_k - g_p|| / ||g_p|| over "
           f"{len(rels)} leaves and layer slices: worst {rels[0][0]:.3e} ({rels[0][1]}), "
-          f"median {rels[len(rels) // 2][0]:.3e} (bound {TRAIN_GRAD_REL_BOUND}); "
+          f"median {rels[len(rels) // 2][0]:.3e} (bound {grad_bound}); "
           f"all finite: {finite}")
     for r, n in rels[:5]:
         print(f"    {r:.3e}  {n}")
+    return rel_loss, rels, finite, gp, names
+
+
+def step0_check(torch, params, batch, cfg, plain_cfg, faults=None,
+                plain=contextlib.nullcontext, plain_remat="none",
+                grad_bound=TRAIN_GRAD_REL_BOUND, check="step-0 check", held=None) -> None:
+    """Step-0 loss and gradients, kernel path vs plain path on the same
+    params and batch, within TRAIN_LOSS_REL_BOUND / `grad_bound`; then each
+    planted fault (`planted_faults` by default) must break the gradient
+    bound, or only those named in `held` (the others are printed).  The
+    plain path runs `plain_cfg` inside `plain()` (the SSD
+    kernels' plain versions for the SSM models), with `plain_remat`."""
+    rel_loss, rels, finite, gp, names = _path_rels(torch, params, batch, cfg, plain_cfg, plain,
+                                                   plain_remat, check, grad_bound)
     unseen = []
-    for what, module, name, wrap in planted_faults(torch):
+    for what, module, name, wrap in planted_faults(torch) if faults is None else faults:
         with _patched(module, name, wrap):
             _, gf = _grads(torch, params, batch, cfg)
         frels = _grad_rels(gf, gp, names)
         del gf
-        print(f"  planted fault, {what}: worst {frels[0][0]:.3e} ({frels[0][1]}), "
-              f"median {frels[len(frels) // 2][0]:.3e}; next "
+        shown = held is not None and what not in held
+        print(f"  planted fault{' (printed, not held)' if shown else ''}, {what}: worst "
+              f"{frels[0][0]:.3e} ({frels[0][1]}), median {frels[len(frels) // 2][0]:.3e}; next "
               + ", ".join(f"{r:.3e} ({n})" for r, n in frels[1:4]))
-        if frels[0][0] <= TRAIN_GRAD_REL_BOUND:
+        if frels[0][0] <= grad_bound and not shown:
             unseen.append(what)
     del gp
     torch.cuda.empty_cache()
-    if not (finite and rel_loss <= TRAIN_LOSS_REL_BOUND and rels[0][0] <= TRAIN_GRAD_REL_BOUND):
-        fail("train step 0: the kernel path's loss or gradients break their bounds")
+    if not (finite and rel_loss <= TRAIN_LOSS_REL_BOUND and rels[0][0] <= grad_bound):
+        fail(f"train {check}: the kernel path's loss or gradients break their bounds")
     if unseen:
-        fail(f"train step 0: the gradient bound does not see the planted faults {unseen}")
+        fail(f"train {check}: the gradient bound does not see the planted faults {unseen}")
 
 
 def train_phase(torch) -> dict:
@@ -2663,10 +2856,15 @@ def train_phase(torch) -> dict:
     return counts
 
 
-def profile_train_step(torch, step_fn, params, opt, batch) -> None:
+FLASH_KERNELS = ("flash_fwd_sm90", "attention_di", "flash_bwd_sm90", "dq_convert")
+
+
+def profile_train_step(torch, step_fn, params, opt, batch, kernels=FLASH_KERNELS,
+                       what="flash attention") -> None:
     """Where one training step's time goes: one more step under
     torch.profiler (device-side events only), the top kernels and the
-    device-busy share of the profiled step's wall."""
+    device-busy share of the profiled step's wall, the `kernels` (`what`)
+    and the GEMM mainloop's share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2682,14 +2880,203 @@ def profile_train_step(torch, step_fn, params, opt, batch) -> None:
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:14]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
-    flash = {name: [e for e in events if name in e.key]
-             for name in ("flash_fwd_sm90", "attention_di", "flash_bwd_sm90", "dq_convert")}
+    flash = {name: [e for e in events if name in e.key] for name in kernels}
     ms = {n: sum(e.self_device_time_total for e in es) / 1e3 for n, es in flash.items()}
-    print("  flash attention in the profiled step: " + ", ".join(
+    print(f"  {what} in the profiled step: " + ", ".join(
         f"{n} {v:.2f} ms x{sum(e.count for e in flash[n])}" for n, v in ms.items())
         + f"; {sum(ms.values()):.2f} ms = {100 * sum(ms.values()) / 1e3 / busy:.1f}% of the "
         f"device-busy time")
     gemm_share(events, busy, "profiled step")
+
+
+# --- the SSM training slice ------------------------------------------------------------
+
+def ssd_planted_faults(torch):
+    """Faults in the SSD backward the step-0 check must see, each planted
+    alone by wrapping `ssd_chunk_bwd` (what `_SSDChunk.backward` calls):
+    (what, module, global name, wrapper of the real function)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    def db_without_ds(real):
+        def f(x, B, C, seg, dY, dS):
+            dx, _, dc, dseg = real(x, B, C, seg, dY, dS)
+            return dx, real(x, B, C, seg, dY, torch.zeros_like(dS))[1], dc, dseg
+        return f
+
+    def last_dseg_zeroed(real):
+        calls = []
+
+        def f(*args):
+            dx, db, dc, dseg = real(*args)
+            calls.append(1)
+            if len(calls) == 1:      # the backward's first layer: the last one
+                dseg = torch.zeros_like(dseg)
+            return dx, db, dc, dseg
+        return f
+
+    def dx_chunk_dropped(real):
+        def f(*args):
+            dx, db, dc, dseg = real(*args)
+            dx[:, :, 0, 1] = 0       # the first head of each group, chunk 1, every layer
+            return dx, db, dc, dseg
+        return f
+
+    return [("dB without its dS term (the chunk-state path)", ssd_ops, "ssd_chunk_bwd",
+             db_without_ds),
+            ("the last layer's dseg zeroed", ssd_ops, "ssd_chunk_bwd", last_dseg_zeroed),
+            ("dX of chunk 1 of one head dropped", ssd_ops, "ssd_chunk_bwd", dx_chunk_dropped)]
+
+
+def ssm_leaf(params, name: str):
+    """The stacked leaf `name` of the Mamba2 layers (mamba2's seg0/ssm,
+    zamba2's seg0/layers/ssm)."""
+    seg = params["seg0"]
+    return (seg["ssm"] if "ssm" in seg else seg["layers"]["ssm"])[name]
+
+
+def ssm_train(torch, cfg, label: str, steps: int, faults, bf16_held) -> dict:
+    """Train `cfg` on the card from float32 masters (seed 0), bf16 compute,
+    AdamW, TRAIN_BATCH x TRAIN_SEQ tokens: the step-0 gradients against the
+    plain path (linear_impl "jnp", naive attention, the SSD kernels' plain
+    versions, remat "full" to hold its memory down), held at bf16 to
+    SSM_BF16_GRAD_REL_BOUND with every `ssd_planted_faults` fault planted
+    (those named in `bf16_held` must break it), and at f32 and slow decay
+    to the train phase's bounds with `faults` planted; then
+    `steps` steps of make_train_step (loss, step time, tokens/s, FLOPs
+    share, peak memory), each kernel's launches against
+    `per_step_launches`, and one profiled step.  Returns the launches over
+    the timed steps."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+    tc = TrainConfig(total_steps=steps, warmup_steps=steps, learning_rate=3e-4, remat="none")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    n_all = sum(t.numel() for _, t in _paths(params))
+    print(f"{label}: {cfg.name} L={cfg.num_layers} d={cfg.d_model} d_inner={cfg.ssm_d_inner} "
+          f"heads={cfg.ssm_nheads} P={cfg.ssm_head_dim} N={cfg.ssm_state} chunk={cfg.ssm_chunk} "
+          f"vocab={cfg.vocab_size}; {n_all / 1e9:.3f} B float32 master params; compute "
+          f"{cfg.dtype}, linear_impl={cfg.linear_impl}, attn_impl={cfg.attn_impl}, AdamW, "
+          f"remat={tc.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ} (init "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in make_batch(cfg, shape, step, tc.seed).items()}
+
+    # At bf16 (the path as it trains) the step-0 check is held to
+    # SSM_BF16_GRAD_REL_BOUND, with the same faults; then at f32 and a
+    # trained model's slow decay to TRAIN_GRAD_REL_BOUND, as the ssm serve
+    # phase's worst-position check, where the paths differ by f32 sums only.
+    t0 = time.perf_counter()
+    step0_check(torch, params, batch_at(0), cfg, plain_cfg, faults=ssd_planted_faults(torch),
+                plain=_plain_ssd, plain_remat="full", grad_bound=SSM_BF16_GRAD_REL_BOUND,
+                check=f"step-0 check at {cfg.dtype}", held=bf16_held)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    dt_bias = ssm_leaf(params, "dt_bias")
+    init_dt = dt_bias.detach().clone()
+    with torch.no_grad():
+        dt_bias.copy_(torch.from_numpy(slow_decay_dt_bias(tuple(dt_bias.shape), seed=0)))
+    print(f"  at f32 and slow decay (softplus(dt_bias) in [1e-3, 1e-1]):")
+    step0_check(torch, params, batch_at(0), f32,
+                dataclasses.replace(f32, linear_impl="jnp", attn_impl="naive"), faults=faults,
+                plain=_plain_ssd, plain_remat="full", check="step-0 check at float32")
+    with torch.no_grad():
+        dt_bias.copy_(init_dt)
+    print(f"  step-0 checks and their planted faults: {time.perf_counter() - t0:.1f} s")
+
+    opt = init_opt(params, tc)
+    step_fn = make_train_step(cfg, tc)
+    watch = [*(ssm_leaf(params, n) for n in ("in_x", "in_B", "A_log", "dt_bias")),
+             params["embed"], params["final_norm"]["scale"]]
+    before = [w.detach()[..., :64].clone() for w in watch]
+    matmul_ops, fns = _train_counters()
+    batches = [batch_at(i) for i in range(steps)]
+    torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        print(f"  step {i}: loss {losses[-1]:.4f}  grad_norm {m['grad_norm'].item():.4f}  "
+              f"lr {m['lr'].item():.3e}  {times[-1] * 1e3:.1f} ms")
+    counts = _read_counts(matmul_ops, fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    moved = [bool((w.detach()[..., :64] != b).any()) for w, b in zip(watch, before)]
+    if not all(moved):
+        fail(f"{label}: parameters did not move ({moved})")
+    want = {k: v * steps for k, v in per_step_launches(cfg).items()}
+    print(f"  kernel launches over {steps} steps: {json.dumps(counts)} (as the path implies)")
+    for name, n in counts.items():
+        if n != want[name]:
+            fail(f"{label}: {name}: {n} launches, the path implies {want[name]} "
+                 f"({steps} steps x {want[name] // steps})")
+
+    warm = sorted(times[1:])
+    step_s = warm[len(warm) // 2]       # median of the warm steps
+    sb = cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    shared = sum(t.numel() for _, t in _paths(params.get("shared", {})))
+    n_embed = 0 if cfg.tie_embeddings else params["embed"].numel()
+    # 6 per parameter and token (a tied head's GEMM is the embedding's, the
+    # shared block's weights count once per application), the SSD kernels'
+    # own products and the shared attention's causal half
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    ssd = sum(w(b, s, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, 2)[0]
+              for w in (ssd_work, ssd_bwd_work))
+    attn = 14.0 * sb * b * cfg.num_heads * cfg.head_dim * s * (s + 1) / 2 if sb else 0.0
+    flops = 6.0 * (n_all - n_embed + max(sb - 1, 0) * shared) * TOKENS + cfg.num_layers * ssd \
+        + attn
+    print(f"  step time {step_s * 1e3:.1f} ms (median of steps 1-{steps - 1}), "
+          f"{TOKENS / step_s:,.0f} tokens/s, {flops / 1e12:.2f} TFLOP per step = "
+          f"{100 * flops / step_s / PEAK_BF16_FLOPS:.1f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"peak device memory {peak:.2f} GiB; card {nvidia_smi()}")
+    profile_train_step(torch, step_fn, params, opt, batches[0],
+                       kernels=("ssd_chunk_sm90", "ssd_chunk_bwd_kernel", *FLASH_KERNELS),
+                       what="the SSD kernels and flash")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ssm_train_phase(torch) -> dict:
+    """mamba2-780m trained at full width and depth (48 layers, d 1536),
+    linear_impl="fused", TRAIN_STEPS steps, with the SSD backward's three
+    planted faults (at bf16 the two that bf16 rounding does not hide are
+    held); returns the launches over the timed steps."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("mamba2-780m"), linear_impl="fused")
+    faults = ssd_planted_faults(torch)
+    return ssm_train(torch, cfg, "ssm train", TRAIN_STEPS, faults, [f[0] for f in faults[1:]])
+
+
+def hybrid_train_phase(torch) -> dict:
+    """zamba2-2.7b at full width, HYBRID_SUPERBLOCKS of its superblocks (as
+    the hybrid serve phase), linear_impl="fused", attn_impl="flash" (head
+    dim 80), HYBRID_TRAIN_STEPS steps, with one planted fault held at each
+    precision: the chunk-state term of dB at f32, the last layer's dseg at
+    bf16."""
+    from repro_torch.configs.registry import get_config
+    full = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(full, linear_impl="fused", attn_impl="flash",
+                              num_layers=HYBRID_SUPERBLOCKS * full.hybrid_attn_every)
+    faults = ssd_planted_faults(torch)
+    return ssm_train(torch, cfg, f"hybrid train ({HYBRID_SUPERBLOCKS} of "
+                                 f"{full.num_layers // full.hybrid_attn_every} superblocks)",
+                     HYBRID_TRAIN_STEPS, faults[:1], [faults[1][0]])
 
 
 def _paths(tree, prefix=""):
@@ -2720,6 +3107,7 @@ def main() -> None:
     phase("attention table", attention_table_phase, torch)
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
+    rows.update(phase("ssd backward", ssd_bwd_kernel_phase, torch))
     counts = phase("serve", serve_phase, torch)
     prefix = phase("prefix serve", prefix_serve_phase, torch)
     quantized = phase("quantized serve", quantized_serve_phase, torch)
@@ -2728,6 +3116,8 @@ def main() -> None:
     phase("token identity", token_identity_phase, torch)
     phase("ssm token identity", ssm_token_identity_phase, torch)
     train = phase("train", train_phase, torch)
+    ssm_train_counts = phase("ssm train", ssm_train_phase, torch)
+    phase("hybrid train", hybrid_train_phase, torch)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "
           f"{time.perf_counter() - t0:.1f} s")
     # launches over the main path's runs: the serve run's (the serve-shape
@@ -2740,7 +3130,8 @@ def main() -> None:
     # cold block-table run, the int8 slot and the int8 prefix engine's runs.
     # The int8-weight slice's rows count the int8-weight slot engine's run.
     # The SSM slice's row counts the ssm serve run (a prefill and the decode
-    # steps; the decode steps launch none).
+    # steps; the decode steps launch none).  The SSD backward's row counts the
+    # ssm train phase's timed steps (mamba2-780m, one a layer a step).
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
                 "int8_matmul": quantized["int8_matmul"],
@@ -2752,7 +3143,8 @@ def main() -> None:
                 "fused_mlp_bwd": train["fused_mlp_bwd"],
                 "matmul_dgrad": train["matmul_nt"] - train["fused_mlp_bwd"],
                 "matmul_wgrad": train["matmul_tn"] - 2 * train["fused_mlp_bwd"],
-                "ssd_chunk": ssm["ssd_chunk"]}
+                "ssd_chunk": ssm["ssd_chunk"],
+                "ssd_chunk_bwd": ssm_train_counts["ssd_chunk_bwd"]}
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
@@ -2761,7 +3153,7 @@ def main() -> None:
              "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
              "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp",
-             "ssd_chunk")
+             "ssd_chunk", "ssd_chunk_bwd")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

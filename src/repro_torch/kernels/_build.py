@@ -144,6 +144,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_ssd_chunk.argtypes = [p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
                                     i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
     lib.repro_ssd_chunk.restype = i
+    lib.repro_ssd_chunk_bwd.argtypes = [p] * 10 + [ctypes.POINTER(ctypes.c_longlong),
+                                                   i, i, i, i, i, i, i, i, p]
+    lib.repro_ssd_chunk_bwd.restype = i
+    lib.repro_ssd_chunk_bwd_smem.argtypes = [i, i, i]
+    lib.repro_ssd_chunk_bwd_smem.restype = ctypes.c_longlong
 
 
 def check(status: int, what: str) -> None:

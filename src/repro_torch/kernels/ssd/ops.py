@@ -19,9 +19,14 @@ C's strides) shares one C B^T among a slab of HEADS heads where B and C
 have stride 0 over the heads, and computes it per head otherwise; both
 give the same bits.  f32 (a check dtype) runs the FMA kernel.
 
-The JAX kernel has no backward, and neither does this one: on a CUDA
-tensor that records a gradient `ssd_chunk` raises (SSM training is a later
-slice); on the CPU the plain version differentiates as any PyTorch code.
+Under autograd (a gradient recorded and an operand that requires it)
+`ssd_chunk` runs `_SSDChunk`: its forward is the same kernel (or, on the
+CPU, the plain version) and saves only the four operands; its backward is
+`ssd_chunk_bwd`, which launches `csrc/ssd_chunk_bwd.cu` on a CUDA tensor
+and runs `ref.ssd_chunk_bwd_ref` on a CPU tensor.  The JAX kernel has no
+backward (JAX trains the model's einsums), so that kernel has no Pallas
+counterpart.  A build or launch failure raises: nothing falls back to the
+plain version on the card.  `ssd_chunk_bwd.launches` counts its launches.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import functools
 import torch
 
 from .. import _build
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 MAX_N, MAX_P = 256, 128  # the largest state and head dims csrc/ssd_chunk.cu's shared memory holds
 ROWS = 64                # query rows, key rows per step, state rows: one warpgroup's
@@ -115,16 +120,50 @@ def ssd_chunk(x_dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor, seg: torch.T
     """x_dt: (..., nc, Q, P); B, C: (..., nc, Q, N) in x_dt's dtype; seg:
     (..., nc, Q) f32, the within-chunk cumulative sum of dt * A.  Returns
     (Y_diag (..., nc, Q, P), S (..., nc, N, P)) in x_dt's dtype."""
-    if _build.dispatch_device("ssd_chunk", x_dt) == "cpu":
-        return ssd_chunk_ref(x_dt, B, C, seg)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_dt, B, C, seg)):
-        raise NotImplementedError(
-            "ssd_chunk: the CUDA kernel has no backward (nor has the JAX kernel): "
-            "gradients through it come with the SSM-training slice")
-    return _ssd_chunk_cuda(x_dt, B, C, seg)
+        return _SSDChunk.apply(x_dt, B, C, seg)
+    return _ssd_chunk_fwd(x_dt, B, C, seg)
 
 
 ssd_chunk.launches = 0
+
+
+def _ssd_chunk_fwd(x_dt, B, C, seg):
+    """The forward's dispatch: the plain version on a CPU tensor, the
+    kernel on a CUDA tensor."""
+    if _build.dispatch_device("ssd_chunk", x_dt) == "cpu":
+        return ssd_chunk_ref(x_dt, B, C, seg)
+    return _ssd_chunk_cuda(x_dt, B, C, seg)
+
+
+class _SSDChunk(torch.autograd.Function):
+    """`ssd_chunk` with its gradient: the forward kernel (the plain version
+    on the CPU), then `ssd_chunk_bwd` from the saved operands.  What JAX
+    takes by autodiff of `repro/models/ssm.py:136-145`."""
+
+    @staticmethod
+    def forward(ctx, x_dt, B, C, seg):
+        ctx.save_for_backward(x_dt, B, C, seg)
+        return _ssd_chunk_fwd(x_dt, B, C, seg)
+
+    @staticmethod
+    def backward(ctx, dY, dS):
+        # an output the loss does not reach arrives as zeros (autograd
+        # materializes the cotangents of a Function's outputs)
+        return ssd_chunk_bwd(*ctx.saved_tensors, dY, dS)
+
+
+def ssd_chunk_bwd(x_dt, B, C, seg, dY, dS):
+    """The gradient of `ssd_chunk` from its operands and the cotangents dY
+    (..., nc, Q, P) of Y_diag and dS (..., nc, N, P) of S.  Returns (dX, dB,
+    dC, dseg): dX, dB, dC in the operands' dtype and shapes (dB, dC per head
+    where B and C are expanded over the heads), dseg f32."""
+    if _build.dispatch_device("ssd_chunk_bwd", x_dt) == "cpu":
+        return ssd_chunk_bwd_ref(x_dt, B, C, seg, dY, dS)
+    return _ssd_chunk_bwd_cuda(x_dt, B, C, seg, dY, dS)
+
+
+ssd_chunk_bwd.launches = 0
 
 
 def _ssd_chunk_cuda(x, B, C, seg, heads=None):
@@ -182,3 +221,57 @@ def _ssd_chunk_cuda(x, B, C, seg, heads=None):
     _build.check(status, "ssd_chunk")
     ssd_chunk.launches += 1
     return y, s
+
+
+
+def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS):
+    """The backward kernel's launch: one block per (sequence-head, chunk)."""
+    dev = x.device
+    for t in (B, C, seg, dY, dS):
+        if t.device != dev:
+            raise ValueError(f"ssd_chunk_bwd: operands on {dev} and {t.device}")
+    if any(t.dtype != x.dtype for t in (B, C, dY, dS)) or seg.dtype != torch.float32:
+        raise TypeError(f"ssd_chunk_bwd: x_dt, B, C, dY, dS in one dtype and seg float32 (got "
+                        f"{[str(t.dtype) for t in (x, B, C, dY, dS, seg)]})")
+    lead = tuple(x.shape[:-3])
+    nc, Q, P = x.shape[-3:]
+    N = B.shape[-1]
+    if (not 1 <= len(lead) <= 3 or tuple(B.shape) != (*lead, nc, Q, N)
+            or C.shape != B.shape or tuple(seg.shape) != (*lead, nc, Q)
+            or dY.shape != x.shape or tuple(dS.shape) != (*lead, nc, N, P)):
+        raise ValueError(f"ssd_chunk_bwd: shapes x_dt {tuple(x.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}, seg {tuple(seg.shape)}, dY {tuple(dY.shape)}, "
+                         f"dS {tuple(dS.shape)}")
+    # a cotangent may arrive expanded (the gradient of a sum: stride 0 in
+    # every dim); the kernel reads rows whose last dim is contiguous
+    dY, dS = (t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous() for t in (dY, dS))
+    if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
+        raise ValueError("ssd_chunk_bwd: the last dim of x_dt, B and C must be contiguous")
+    dt = _build.dtype_code(x.dtype)
+    lib = _build.build().lib
+    smem = lib.repro_ssd_chunk_bwd_smem(N, P, dt)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd_chunk_bwd: N {N} and P {P} take {smem} bytes of shared memory "
+                         f"a block in {x.dtype}, more than the card's {MAX_SMEM}")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    db = torch.empty(B.shape, dtype=x.dtype, device=dev)
+    dc = torch.empty(C.shape, dtype=x.dtype, device=dev)
+    dseg = torch.empty(seg.shape, dtype=torch.float32, device=dev)
+    if min(*lead, nc, Q, P, N) == 0:
+        return dx.zero_(), db.zero_(), dc.zero_(), dseg.zero_()   # empty sums
+    lead3 = (1,) * (3 - len(lead)) + lead
+    if lead3[0] * lead3[1] * lead3[2] * nc > MAX_BLOCKS:
+        raise ValueError(f"ssd_chunk_bwd: {lead} sequence-heads and {nc} chunks exceed the grid")
+
+    def strides(t):
+        k = len(lead)
+        return (0,) * (3 - k) + tuple(t.stride()[:k + 2])
+
+    vals = sum((strides(t) for t in (x, B, C, seg, dY, dS, dx, db, dc, dseg)), ())
+    arr = (ctypes.c_longlong * len(vals))(*vals)
+    with torch.cuda.device(dev):
+        status = lib.repro_ssd_chunk_bwd(*map(_build.ptr, (x, B, C, seg, dY, dS, dx, db, dc, dseg)),
+                                         arr, *lead3, nc, Q, P, N, dt, _build.stream_of(dev))
+    _build.check(status, "ssd_chunk_bwd")
+    ssd_chunk_bwd.launches += 1
+    return dx, db, dc, dseg

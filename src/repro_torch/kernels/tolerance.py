@@ -316,6 +316,55 @@ def ssd_chunk_tol(x_dt, B, C, seg, want):
     return _bound(y, e_y), _bound(s, e_s)
 
 
+def ssd_chunk_bwd_tol(x_dt, B, C, seg, dY, dS, want):
+    """Bounds on (dX, dB, dC, dseg) of the SSD backward kernel
+    (csrc/ssd_chunk_bwd.cu); `want` is the plain version's
+    (`ssd_chunk_bwd_ref`).  Both compute in f32 from the same operands and
+    round only the outputs; the kernel keeps every intermediate in f32 (no
+    bf16 rounding to charge), sums in another order and takes expf.  Per
+    (head, chunk), with A = CB o L, dAL = mask o (dY X^T) o L:
+      CB = C B^T sums N terms: e_cb = 3 N u |C||B|^T; dY X^T sums P terms:
+      e_da = 3 P u |dY||X|^T; B dS sums N terms: e_bds = 3 N u |B||dS|;
+      L and the decay d are exps, 4 u on either side, and each product
+      rounds once more on either side: 10 u relative on A, dAL and d o .;
+      dX sums Q query terms and the state term (n = Q + 1), dC Q key terms,
+      dB Q query terms and P state terms (n = Q + P), each 3 n u over the
+      sum of |terms| on top of the terms' own errors;
+      dseg: G = dAL o CB carries e_dal |CB| + |dAL| e_cb + u |G|; its row
+      and column sums (Q terms each) and e_k = d_k sum_p X (B dS) (P terms)
+      are charged over the sums of |G| and |e| (not |dseg|, which cancels),
+      and the last row over every row's e."""
+    dX, dB, dC, dseg = want
+    Q, N, P = x_dt.shape[-2], B.shape[-1], x_dt.shape[-1]
+    xa, Ba, Ca, dya, dsa = (t.float().abs() for t in (x_dt, B, C, dY, dS))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=seg.device))
+    L = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :], SSD_NEG_INF))
+    cb = torch.einsum("...qn,...kn->...qk", C.float(), B.float()).abs()
+    e_cb = 3.0 * N * U * torch.einsum("...qn,...kn->...qk", Ca, Ba)
+    da = torch.where(mask, torch.einsum("...qp,...kp->...qk", dY.float(), x_dt.float()), 0.0).abs()
+    e_da = 3.0 * P * U * torch.einsum("...qp,...kp->...qk", dya, xa)
+    a, dal = cb * L, da * L
+    e_a, e_dal = (e_cb + 10.0 * U * cb) * L, (e_da + 10.0 * U * da) * L
+    decay = torch.exp(seg[..., -1:] - seg)
+    bds = torch.einsum("...kn,...np->...kp", Ba, dsa)
+    e_bds = 3.0 * N * U * bds
+    n_x, n_b = Q + 1, Q + P
+    e_dx = torch.einsum("...qk,...qp->...kp", e_a + 3.0 * n_x * U * a, dya) \
+        + decay[..., None] * (e_bds + (3.0 * n_x + 10.0) * U * bds)
+    e_dc = torch.einsum("...qk,...kn->...qn", e_dal + 3.0 * Q * U * dal, Ba)
+    e_db = torch.einsum("...qk,...qn->...kn", e_dal + 3.0 * n_b * U * dal, Ca) \
+        + (3.0 * n_b + 10.0) * U * torch.einsum("...kp,...np->...kn", xa * decay[..., None], dsa)
+    g = dal * cb
+    e_g = e_dal * cb + dal * e_cb + (1.0 + 3.0 * Q) * U * g
+    e_abs = decay * (xa * bds).sum(-1)
+    e_e = decay * (xa * (e_bds + (3.0 * P + 10.0) * U * bds)).sum(-1)
+    e_seg = e_g.sum(-1) + e_g.sum(-2) + e_e + 6.0 * U * (g.sum(-1) + g.sum(-2) + e_abs)
+    last = torch.zeros_like(e_seg)
+    last[..., -1] = (e_e + 3.0 * (Q + 1) * U * e_abs).sum(-1)
+    return (_bound(dX, e_dx), _bound(dB, e_db), _bound(dC, e_dc),
+            _bound(dseg, e_seg + last))
+
+
 def check(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):
     """(ok, max |got - want|, max |got - want| / tol).  ok: every element
     finite and within its bound."""

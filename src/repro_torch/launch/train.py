@@ -4,10 +4,16 @@
         --steps 4 --global-batch 4 --seq-len 1024 --attn-impl flash \
         --linear-impl fused --remat none
 
-Runs on the CUDA card; `--device cpu` runs the plain PyTorch versions on
-the host instead (there is no silent fallback).  Params are float32 masters
-drawn from `--seed` on the device; the batches are the deterministic
-synthetic stream of `data/pipeline.py`.  Checkpointing (`--checkpoint-every`,
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+        --steps 4 --global-batch 4 --seq-len 1024 --linear-impl fused
+
+Trains the dense decoder (internlm2, ...), mamba2 and zamba2 (the SSD
+chunk kernel forward and its backward kernel; zamba2's shared attention
+through flash with `--attn-impl flash`).  Runs on the CUDA card; `--device
+cpu` runs the plain PyTorch versions on the host instead (there is no
+silent fallback).  Params are float32 masters drawn from `--seed` on the
+device; the batches are the deterministic synthetic stream of
+`data/pipeline.py`.  Checkpointing (`--checkpoint-every`,
 `--resume`), data/model parallelism (`--data`, `--model` > 1) and the
 advisor's launch report come with later slices: passing those flags raises.
 """

@@ -12,7 +12,11 @@ replaces `lax.scan`: layer l reads the views `t[l]`.  Ported kinds:
 
 `remat="full"` recomputes each layer in the backward
 (`torch.utils.checkpoint`, non-reentrant: the layer's params reach it by
-closure, as `jax.checkpoint` captures them); `"dots"` raises.
+closure, as `jax.checkpoint` captures them), for every ported kind: a
+dense layer, a Mamba2 layer, a hybrid superblock with zamba2's shared
+block captured the same way.  Every kernel on those paths is
+deterministic, so the recomputed layer gives the same bits and the loss
+and gradients equal remat="none"'s.  `"dots"` raises.
 """
 from __future__ import annotations
 

@@ -129,8 +129,10 @@ def softmax_xent(logits, labels, mask=None):
 
 def lm_loss(params, batch, cfg: ModelConfig, remat: str = "none"):
     """batch: dict(tokens, labels[, loss_mask]).  Returns (loss, metrics)
-    for the dense decoder (lm.py:197-221 of the JAX package; its MTP and
-    MoE aux-loss terms raise with the other-families slice)."""
+    for the dense decoder, mamba2 (`ssm` segments) and zamba2
+    (`hybrid_super` segments with the shared attention + MLP block)
+    (lm.py:197-221 of the JAX package); MoE (its aux loss), MTP and VLM /
+    encoder inputs raise with the other-families slice."""
     if cfg.num_experts or batch.get("patch_embeds") is not None \
             or batch.get("encoder_frames") is not None:
         raise NotImplementedError(

@@ -6,9 +6,12 @@ Per chunk of length Q the dual form computes
   chunk states: S_c    = B^T (decay o (x dt))     -- the same call
   inter-chunk:  a recurrence over the chunk states (a loop over chunks)
   state read:   Y_off  = C S_prev decay
-The JAX model computes the first two with `einsum`; here they are one call
-to `ssd_chunk`, which launches the hand-written kernel on a CUDA tensor
-and runs its plain version (the JAX kernel's oracle) on the CPU.  Both
+The JAX model computes the first two with `einsum` and trains through
+them by autodiff; here they are one call to `ssd_chunk`, which launches the
+hand-written kernel on a CUDA tensor and runs its plain version (the JAX
+kernel's oracle) on the CPU, and whose gradient (under autograd) is the
+hand-written backward kernel `csrc/ssd_chunk_bwd.cu` (its plain version on
+the CPU).  So `lm_loss` trains mamba2 and zamba2 on the card.  Both
 keep f32 inside and round only Y_diag and S, where the JAX model rounds
 C B^T, C B^T o L and the decay to the compute dtype before its products:
 the same function, identical at f32, a few bf16 roundings apart at bf16
@@ -21,7 +24,9 @@ kernel `linear_impl`), the depthwise causal conv (JAX's shifted sum, not
 `F.conv1d`, which cuDNN runs in TF32 for f32), the exact softplus
 (`logaddexp(x, 0)`, as `jax.nn.softplus`), the inter-chunk recurrence (a
 sequential loop where JAX runs an associative scan: the same recurrence,
-summed in another order), Y_off, the gated norm and the decode step.
+summed in another order, over a list of the per-chunk states stacked once,
+so autograd sees no in-place write), Y_off, the gated norm and the decode
+step.
 """
 from __future__ import annotations
 
@@ -158,10 +163,11 @@ def apply_ssm(p, x, cfg: ModelConfig, *, state=None):
     chunk_decay = torch.exp(dA.sum(dim=2)).to(dtype)   # (b, nc, nh)
     run = torch.zeros((b, nh, N, P), dtype=dtype, device=x.device) if state is None \
         else state.to(dtype)
-    S_prev = torch.empty((b, nc, nh, N, P), dtype=dtype, device=x.device)
+    prev = []
     for c in range(nc):
-        S_prev[:, c] = run
+        prev.append(run)
         run = S[:, :, c] + chunk_decay[:, c, :, None, None] * run
+    S_prev = torch.stack(prev, 1)                      # (b, nc, nh, N, P)
 
     y_off = torch.einsum("bcqgn,bcghnp->bcqghp", Cv.reshape(b, nc, Q, g, N),
                          S_prev.reshape(b, nc, g, hg, N, P))

@@ -5,7 +5,9 @@ Params are float32 masters (nested dicts of leaves); the step marks them as
 requiring grad, takes the gradient of `lm_loss` with `torch.autograd.grad`,
 and updates params and optimizer state in place (`optim.adamw`).  A Python
 loop over microbatches takes the place of `lax.scan`; remat is applied
-inside the layer loop (`models/blocks.py`).
+inside the layer loop (`models/blocks.py`).  It trains every family
+`lm_loss` takes: the dense decoder, mamba2 and zamba2 (the SSD kernel and
+its backward kernel under `kernels/ssd/ops.py` `_SSDChunk`).
 """
 from __future__ import annotations
 

@@ -863,17 +863,140 @@ def test_ssd_chunk(cuda, dtype, lead, nc, Q, P, N):
         torch.testing.assert_close(s4.reshape(got[1].shape), got[1], atol=0, rtol=0)
 
 
-def test_ssd_chunk_raises_under_autograd_and_on_bad_operands(cuda):
+def test_ssd_chunk_under_autograd_and_on_bad_operands(cuda):
+    """Under autograd `ssd_chunk` takes `_SSDChunk`: one forward and one
+    backward launch; bad operands raise."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
     x, B, C, seg = _ssd_operands(np.random.default_rng(0), (1, 1, 2), 1, 16, 8, 8,
                                  torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="SSM-training"):
-        ssd_chunk(x.detach().requires_grad_(), B, C, seg)
+    f0, b0 = ssd_chunk.launches, ssd_chunk_bwd.launches
+    xg = x.detach().requires_grad_()
+    y, s = ssd_chunk(xg, B, C, seg)
+    (y.sum() + s.sum()).backward()
+    torch.cuda.synchronize()
+    assert (ssd_chunk.launches - f0, ssd_chunk_bwd.launches - b0) == (1, 1)
+    assert xg.grad.shape == x.shape and torch.isfinite(xg.grad).all()
     with pytest.raises(TypeError):
         ssd_chunk(x, B, C, seg.double())
     with pytest.raises(ValueError, match="N <= 256"):
         ssd_chunk(x, *(torch.zeros(*B.shape[:-1], 300, device=cuda) for _ in range(2)), seg)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunk(x.transpose(-1, -2).contiguous().transpose(-1, -2), B, C, seg)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk_bwd(*(torch.zeros(1, 1, 64, 128, device=cuda) for _ in range(3)),
+                      torch.zeros(1, 1, 64, device=cuda), torch.zeros(1, 1, 64, 128, device=cuda),
+                      torch.zeros(1, 1, 128, 128, device=cuda))
+
+
+# positions past a row's range (rows past Q, columns past N and P, in the
+# padding of every operand) hold POISON: a read past the mask shows
+POISON = 1e4
+
+
+def _poisoned(t, dims=2, pad=8):
+    """A view of t's values inside a larger buffer, its last `dims` dims
+    (rows and columns of a matrix, the steps of seg) padded by `pad`, whose
+    other elements hold POISON."""
+    k = t.dim() - dims
+    buf = torch.full((*t.shape[:k], *(n + pad for n in t.shape[k:])), POISON, dtype=t.dtype,
+                     device=t.device)
+    view = buf[(...,) + tuple(slice(0, n) for n in t.shape[k:])]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,nc,Q,P,N", [
+    ((2, 1, 3), 2, 40, 16, 16),      # the misaligned chunk
+    ((2, 1, 4), 1, 100, 64, 128),    # a ragged chunk at mamba2's widths
+    ((1, 2, 3), 2, 256, 64, 128),    # two groups, mamba2's chunk
+    ((2, 1, 48), 2, 256, 64, 128),   # mamba2-780m: one group of 48 heads
+    ((1, 1, 80), 2, 256, 64, 64),    # zamba2-2.7b: 80 heads, N 64
+    ((1, 1, 6), 3, 77, 20, 40),      # Q, P and N off every grid
+])
+def test_ssd_chunk_bwd(cuda, dtype, lead, nc, Q, P, N):
+    """The backward kernel against its plain version on the same operands,
+    every element within `ssd_chunk_bwd_tol`, at the JAX tests' decay and a
+    trained model's; every operand a strided view whose padding holds
+    POISON."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    for step in (1.0, SLOW_DECAY):
+        rng = np.random.default_rng(Q + P)
+        x, B, C, seg = _ssd_operands(rng, lead, nc, Q, P, N, dtype, cuda, groups=lead[1],
+                                     step=step)
+        dY = _rand(rng, x.shape, dtype, cuda)
+        dS = _rand(rng, (*x.shape[:-2], N, P), dtype, cuda)
+        ops = [_poisoned(t.contiguous()) for t in (x, dY, dS)]
+        B, C = (_poisoned(t[:, :, :1].contiguous()).expand(t.shape) for t in (B, C))
+        ops = [ops[0], B, C, _poisoned(seg.contiguous(), dims=1), ops[1], ops[2]]
+        before = ssd_chunk_bwd.launches
+        got = ssd_chunk_bwd(*ops)
+        torch.cuda.synchronize()
+        assert ssd_chunk_bwd.launches == before + 1
+        want = ssd_chunk_bwd_ref(*ops)
+        for g, w, tol in zip(got, want, tolerance.ssd_chunk_bwd_tol(*ops, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            _close(g, w, tol)
+        # the (bh, nc, Q, .) layout with the repeat materialised: the same numbers
+        flat = [t.reshape(-1, *t.shape[3:]) for t in ops]
+        for g, f in zip(got, ssd_chunk_bwd(*flat)):
+            torch.testing.assert_close(f.reshape(g.shape), g, atol=0, rtol=0)
+
+
+def _ssm_grads(params, batch, cfg, remat="none"):
+    leaves = list(tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = lm_loss(params, batch, cfg, remat=remat)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_lm_loss_grads_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke model in f32 at a sequence that pads its last chunk: loss
+    and every gradient leaf with `_SSDChunk` (the SSD kernel and its
+    backward kernel), the tile GEMM, the fused MLP and flash on the card,
+    against the plain path (jnp, naive, autograd through the SSD oracle) on
+    the host: f32 sums in another order (~1e-6 relative per sum), carried
+    through a few layers."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
+    from repro_torch.models import ssm as ssm_mod
+    base = get_smoke_config(arch)
+    kern = dataclasses.replace(base, linear_impl="fused", attn_impl="flash")
+    params = init_lm(torch.Generator().manual_seed(0), base, device="cpu", dtype=torch.float32)
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_batch(base, ShapeConfig("t", 40, 2, "train"), 0, 0).items()}
+    f0, b0 = ssd_chunk.launches, ssd_chunk_bwd.launches
+    lk, gk = _ssm_grads(_to(params, cuda), _to(batch, cuda), kern)
+    torch.cuda.synchronize()
+    assert (ssd_chunk.launches - f0, ssd_chunk_bwd.launches - b0) == (base.num_layers,) * 2
+    real = ssm_mod.ssd_chunk
+    ssm_mod.ssd_chunk = ssd_chunk_ref
+    try:
+        lp, gp = _ssm_grads(params, batch, base)
+    finally:
+        ssm_mod.ssd_chunk = real
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all() and _rel(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_remat_full_equals_none_on_the_card(cuda, arch):
+    """remat="full" over `ssm` and `hybrid_super` segments on the card: the
+    recomputed layers launch the same deterministic kernels, so the loss
+    and every gradient are bit-identical to remat="none"."""
+    cfg = dataclasses.replace(get_smoke_config(arch), linear_impl="fused", attn_impl="flash")
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda,
+                     dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             make_batch(cfg, ShapeConfig("t", 72, 2, "train"), 0, 0).items()}
+    l0, g0 = _ssm_grads(params, batch, cfg)
+    l1, g1 = _ssm_grads(params, batch, cfg, remat="full")
+    assert l0 == l1
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])

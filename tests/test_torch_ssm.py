@@ -145,17 +145,37 @@ def test_ssd_chunk_takes_the_models_strided_views():
     torch.testing.assert_close(flat(s), s1, atol=1e-6, rtol=1e-6)
 
 
-def test_ssd_chunk_grad_on_cpu_raises_on_the_card_path(monkeypatch):
-    """On the CPU the plain version differentiates; a tensor bound for the
-    kernel that records a gradient raises (the kernel has no backward)."""
-    x, B, C, seg = (_t(a).requires_grad_(a.dtype == np.float32 and a.ndim == 4)
-                    for a in _ssd_inputs(np.random.default_rng(4), 2, 2, 16, 8, 8))
-    y, s = ssd_chunk(x, B, C, seg)
-    (y.sum() + s.sum()).backward()
-    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, B, C))
+def test_ssd_chunk_grad_on_the_card_path_takes_the_function(monkeypatch):
+    """Under autograd a tensor bound for the kernel goes through `_SSDChunk`:
+    its forward launches the SSD kernel and its backward the backward kernel
+    (both stubbed here by their plain versions, counted), with the same
+    gradients as the CPU's path through the same Function."""
+    ins = [_t(a) for a in _ssd_inputs(np.random.default_rng(4), 2, 2, 16, 8, 8)]
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, s = ssd_chunk(*leaves)
+        (y.sum() + 2.0 * s.sum()).backward()
+        return [t.grad for t in leaves]
+    want = grads()
+    assert all(g is not None and torch.isfinite(g).all() for g in want)
+    calls = []
+
+    def stub(name, fn):
+        def f(*args):
+            calls.append(name)
+            return fn(*args)
+        monkeypatch.setattr(ssd_ops, name, f)
+    stub("_ssd_chunk_cuda", ssd_chunk_ref)
+    stub("_ssd_chunk_bwd_cuda", ssd_ops.ssd_chunk_bwd_ref)
     monkeypatch.setattr(_build, "dispatch_device", lambda what, t: "cuda")
-    with pytest.raises(NotImplementedError, match="SSM-training"):
-        ssd_chunk(x, B, C, seg)
+    got = grads()
+    assert calls == ["_ssd_chunk_cuda", "_ssd_chunk_bwd_cuda"]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    with torch.no_grad():                         # no gradient recorded: the kernel alone
+        ssd_chunk(*(t.clone().requires_grad_(True) for t in ins))
+    assert calls[2:] == ["_ssd_chunk_cuda"]
 
 
 # --- the kernel's launch -----------------------------------------------------------------
