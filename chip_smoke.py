@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: the card's name and count, and nvidia-smi's name/power limit;
@@ -13,13 +13,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      copies (LDGSTS) in its SASS, and every instantiation of the int8
      mainloop (csrc/gemm_sm90_s8.cuh: the int8 GEMM and fused MLP) integer
      warpgroup products (IGMMA) and LDGSTS, and every instantiation of the
-     bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90) and of the
-     bf16 paged-decode kernel (csrc/paged_decode.cu paged_decode_sm90)
-     HGMMA and LDGSTS; no GEMM, SSD or paged-decode instantiation may spill
-     or have its products serialized by ptxas (C7515); no kernel may issue
+     bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90), of the
+     bf16 paged-decode kernel (csrc/paged_decode.cu paged_decode_sm90) and
+     of the bf16 SSD backward's key and query walks (csrc/ssd_chunk_bwd.cu
+     ssd_bwd_keys, ssd_bwd_queries) HGMMA and LDGSTS; no GEMM, SSD, SSD
+     backward or paged-decode instantiation may spill or have its products
+     serialized by ptxas (C7511, C7515, C7520); no kernel may issue
      warp-level tensor products (HMMA: WMMA, mma.sync), and no bf16
-     instantiation of the f32 FMA tile kernels or of the f32 paged-decode
-     body, nor the old int8 and SSD WMMA kernels, may exist;
+     instantiation of the f32 FMA tile kernels, of the f32 paged-decode body
+     or of the f32 SSD backward, nor the old int8 and SSD WMMA kernels, may
+     exist;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the same inputs, every element within its own bound
      (src/repro_torch/kernels/tolerance.py), timed by CUDA events beside its
@@ -42,9 +45,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      SSM slice's (the SSD chunk kernel at mamba2-780m's prefill shape at
      fast and slow decay, at zamba2-2.7b's at slow decay, a ragged chunk and
      a misaligned one, bf16 and f32; timed at both prefill shapes), and the
-     SSD backward kernel (csrc/ssd_chunk_bwd.cu) at the same shapes (the
+     SSD backward kernels (csrc/ssd_chunk_bwd.cu) at the same shapes (the
      training shapes: 4 x 1024 tokens), bf16 and f32, timed at both training
-     shapes beside the forward kernel on the same operands;
+     shapes beside the forward kernel on the same operands; with `--parent
+     DIR` (a checkout of the parent commit) also the parent's SSD backward
+     and this one's in turns;
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -125,6 +130,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -132,6 +138,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# `--parent DIR`: a checkout of the parent commit, for the SSD backward's
+# A/B in turns (`ssd_bwd_ab_phase`); not given, the phase does not run
+PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv[1:] else None
 
 # NVIDIA H100 SXM data sheet, dense: bf16 and int8 tensor cores, and HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -312,25 +321,37 @@ INT8_SM90 = "int8_sm90_kernel"
 SSD_SM90 = "ssd_chunk_sm90"
 # paged_decode_sm90<DP, BKV, QUANT> (csrc/paged_decode.cu, bf16 q)
 PAGED_SM90 = "paged_decode_sm90"
+# ssd_bwd_keys / ssd_bwd_queries<DNW, SHARED> (csrc/ssd_chunk_bwd.cu, bf16)
+SSD_BWD_KEYS, SSD_BWD_QUERIES = "ssd_bwd_keys", "ssd_bwd_queries"
 # the warpgroup product each mainloop's SASS must issue: bf16 HGMMA, s8 IGMMA
 PRODUCTS = {"flash_fwd_sm90": "HGMMA", "flash_bwd_sm90": "HGMMA", GEMM_SM90: "HGMMA",
-            INT8_SM90: "IGMMA", SSD_SM90: "HGMMA", PAGED_SM90: "HGMMA"}
+            INT8_SM90: "IGMMA", SSD_SM90: "HGMMA", PAGED_SM90: "HGMMA", SSD_BWD_KEYS: "HGMMA",
+            SSD_BWD_QUERIES: "HGMMA"}
 # kernels that must not exist: bf16 instantiations of the f32-only FMA
 # kernels (csrc/gemm_tile.cuh, csrc/fused_mlp_bwd.cu; bf16 runs on
 # gemm_sm90), the int8 WMMA tile kernel that gemm_sm90_s8 replaced, the
-# bf16 WMMA SSD kernel that ssd_chunk_sm90 replaced, and the bf16 CUDA-core
-# paged-decode body that paged_decode_sm90 replaced (its f32 one stays)
+# bf16 WMMA SSD kernel that ssd_chunk_sm90 replaced, the bf16 CUDA-core
+# paged-decode body that paged_decode_sm90 replaced (its f32 one stays), and
+# the bf16 CUDA-core SSD backward that ssd_bwd_keys / ssd_bwd_queries
+# replaced (its f32 one stays)
 OLD_KERNELS = ("gemm_tile_kernelI13__nv_bfloat16", "fused_mlp_bwd_kernelI13__nv_bfloat16",
                "int8_tile_kernel", "ssd_chunk_kernelI13__nv_bfloat16",
-               "paged_decode_kernelI13__nv_bfloat16")
+               "paged_decode_kernelI13__nv_bfloat16", "ssd_chunk_bwd_kernelI13__nv_bfloat16")
 ACTS = {1: "swiglu", 2: "gelu", 3: "relu2"}
 
 
 def gemm_instance(fn: str) -> str:
     """A readable name of a gemm_sm90_kernel, int8_sm90_kernel,
-    ssd_chunk_sm90 or paged_decode_sm90 instantiation from its mangled
-    template arguments: the kernel it serves, the tile and the layout (bf16)
-    or output type (int8), or the padded head dim (SSD, paged decode)."""
+    ssd_chunk_sm90, paged_decode_sm90, ssd_bwd_keys or ssd_bwd_queries
+    instantiation from its mangled template arguments: the kernel it serves,
+    the tile and the layout (bf16) or output type (int8), the padded head
+    dim (SSD, paged decode), or the dB / dC column slice and the scores'
+    route (SSD backward)."""
+    for walk in (SSD_BWD_KEYS, SSD_BWD_QUERIES):
+        if walk in fn:
+            dnw, shared = re.findall(r"L[ib](\d+)E", fn)[:2]
+            return (f"ssd_chunk_bwd {walk[8:]} walk, {dnw}-column slices, "
+                    f"{'shared C B^T' if shared == '1' else 'per head'}")
     if PAGED_SM90 in fn:
         dp, bkv, quant = re.findall(r"L[ib](\d+)E", fn)[:3]
         return f"paged_decode d<={dp} tile {bkv} {'int8' if quant == '1' else 'bf16'} pool"
@@ -355,11 +376,12 @@ def gemm_instance(fn: str) -> str:
 def ptxas_report(log: str) -> dict:
     """{mangled name: {"registers": n, "spill": bytes stored + loaded,
     "serialized": whether ptxas serializes its wgmma (C7515: a non-wgmma
-    instruction writes accumulators while products are in flight)}} from
-    ptxas -v."""
+    instruction writes accumulators while products are in flight; C7511:
+    too few registers for the products in flight; C7520: a product on a
+    path that depends on the thread)}} from ptxas -v."""
     out, fn = {}, None
     for line in log.splitlines():
-        m = re.search(r"C7515\).*function '(\w+)'", line)
+        m = re.search(r"C75(?:11|15|20)\).*function '(\w+)'", line)
         if m:
             out.setdefault(m.group(1), {"registers": None, "spill": 0})["serialized"] = True
             continue
@@ -383,11 +405,12 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     """The tensor-core kernels as compiled: each instantiation of the bf16
     flash forward and backward, of the bf16 GEMM mainloop behind the matmul,
     fused-MLP and fused-MLP-backward kernels, of the int8 mainloop behind
-    the int8 GEMM and fused MLP, of the bf16 SSD chunk kernel and of the
-    bf16 paged-decode kernel must issue warpgroup products (HGMMA; IGMMA for
-    int8) and stage its tiles with asynchronous copies (LDGSTS, cp.async;
-    or UTMALDG, TMA); ptxas must report no spill and no serialized products
-    for any GEMM, SSD or paged-decode instantiation; no kernel of the
+    the int8 GEMM and fused MLP, of the bf16 SSD chunk kernel, of the bf16
+    paged-decode kernel and of the bf16 SSD backward's two walks must issue
+    warpgroup products (HGMMA; IGMMA for int8) and stage its tiles with
+    asynchronous copies (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must
+    report no spill and no serialized products for any GEMM, SSD, SSD
+    backward or paged-decode instantiation; no kernel of the
     library may issue warp-level tensor products (HMMA: WMMA or mma.sync);
     and none of OLD_KERNELS may exist."""
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
@@ -418,7 +441,8 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
         if not fns or min(mm) == 0 or min(ld) == 0:
             fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
     ptx = ptxas_report(log)
-    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90], **counts[PAGED_SM90]}
+    gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90], **counts[PAGED_SM90],
+             **counts[SSD_BWD_KEYS], **counts[SSD_BWD_QUERIES]}
     for fn, c in sorted(gemms.items(), key=lambda kv: gemm_instance(kv[0])):
         rep = ptx.get(fn)
         if rep is None:
@@ -426,10 +450,10 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
         product = PRODUCTS[INT8_SM90 if INT8_SM90 in fn else GEMM_SM90]
         print(f"    {gemm_instance(fn)}: {product} {c[product]}, LDGSTS {c['LDGSTS']}, UTMALDG "
               f"{c['UTMALDG']}; {rep['registers']} registers, {rep['spill']} bytes spilled"
-              f"{', products SERIALIZED (C7515)' if rep['serialized'] else ''}")
+              f"{', products SERIALIZED (C7511/C7515/C7520)' if rep['serialized'] else ''}")
         if rep["spill"] or rep["serialized"]:
             fail(f"{gemm_instance(fn)}: ptxas spills {rep['spill']} bytes or serializes its "
-                 f"wgmma (C7515)")
+                 f"wgmma (C7511/C7515/C7520)")
     old = sorted(n for n in names if any(o in n for o in OLD_KERNELS))
     if old:
         fail(f"kernels that must not exist remain: {old}")
@@ -2213,8 +2237,7 @@ def ssd_bwd_kernel_phase(torch) -> dict:
     beside the forward kernel at the same operands, the bound and the plain
     version."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd.ops import ssd_chunk, ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ops import bwd_launch_shape, ssd_chunk, ssd_chunk_bwd
     from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
     from repro_torch.kernels.tolerance import ssd_chunk_bwd_tol
 
@@ -2258,14 +2281,17 @@ def ssd_bwd_kernel_phase(torch) -> dict:
                            iters=TRAIN_ITERS // 4)
         bnd, by = bound(flops, nbytes)
         extra = ssd_bwd_head_bytes(b, s, h, n, 2)
-        smem = _build.build().lib.repro_ssd_chunk_bwd_smem(n, p, _build.DT_BF16)
+        x, B, C = ops[0][:3]
+        ls = bwd_launch_shape(tuple(x.shape[:3]), x.shape[3], B.stride()[:5], C.stride()[:5],
+                              x.shape[4], n, p)
         print(f"    bf16 {arch} training shape ({h} heads, P {p}, N {n}): backward {ms:.4f} ms "
               f"(forward {fwd:.4f} ms at the same operands; plain {plain:.4f}; bound {bnd:.4f} by "
               f"{by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {bnd / ms:.1%} of the "
               f"bound's speed, {ms / bnd:.1f}x the bound); the design's per-head dB and dC write "
               f"{extra / 1e6:.1f} MB more ({extra / HBM_BYTES_S * 1e3:.4f} ms at the memory "
-              f"rate); one block per (sequence-head, chunk), {b * h * (s // q)} blocks "
-              f"of {smem} B; {nl} launches per training step of the full model; "
+              f"rate); two kernels (key walk, then query walk) of {ls.grid} blocks each, "
+              f"{ls.heads} heads a block, C B^T {'shared' if ls.shared else 'per head'}, "
+              f"at most {ls.smem} B; {nl} wrapper calls per training step of the full model; "
               f"host {host:.1f} us per call; no single PyTorch call computes it")
         rows[arch] = (ms, plain, bnd, by)
         del ops
@@ -2275,6 +2301,25 @@ def ssd_bwd_kernel_phase(torch) -> dict:
         name="ssd_chunk_bwd", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         replaces="none: XLA autodiff of repro/models/ssm.py:136-145", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)}
+
+
+def ssd_bwd_ab_phase() -> None:
+    """With `--parent DIR` (a checkout of the parent commit): the SSD
+    backward of the parent's tree and of this one in turns (parent, change,
+    change, parent), each `tuning/ssd_bwd_tiles.py --times` in its own
+    process against that tree's package (the bf16 backward at both training
+    shapes, the f32 backward and the forward)."""
+    script = str(ROOT / "src" / "repro_torch" / "tuning" / "ssd_bwd_tiles.py")
+    trees = {"parent": Path(PARENT).resolve(), "change": ROOT}
+    print(f"ssd backward a/b in turns (parent {trees['parent']}):")
+    for name in ("parent", "change", "change", "parent"):
+        env = {**os.environ, "PYTHONPATH": str(trees[name] / "src")}
+        out = subprocess.run([sys.executable, script, "--times"], capture_output=True, text=True,
+                             env=env, cwd=trees[name])
+        if out.returncode:
+            fail(f"ssd backward a/b: the {name} tree's times failed: {out.stderr[-2000:]}")
+        for line in out.stdout.splitlines()[1:]:
+            print(f"  {name}: {line.strip()}")
 
 
 def _ssm_counters():
@@ -3045,7 +3090,7 @@ def ssm_train(torch, cfg, label: str, steps: int, faults, bf16_held) -> dict:
           f"{100 * flops / step_s / PEAK_BF16_FLOPS:.1f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; "
           f"peak device memory {peak:.2f} GiB; card {nvidia_smi()}")
     profile_train_step(torch, step_fn, params, opt, batches[0],
-                       kernels=("ssd_chunk_sm90", "ssd_chunk_bwd_kernel", *FLASH_KERNELS),
+                       kernels=("ssd_chunk_sm90", SSD_BWD_KEYS, SSD_BWD_QUERIES, *FLASH_KERNELS),
                        what="the SSD kernels and flash")
     del params, opt, batches
     torch.cuda.empty_cache()
@@ -3108,6 +3153,8 @@ def main() -> None:
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
     rows.update(phase("ssd backward", ssd_bwd_kernel_phase, torch))
+    if PARENT:
+        phase("ssd backward a/b", ssd_bwd_ab_phase)
     counts = phase("serve", serve_phase, torch)
     prefix = phase("prefix serve", prefix_serve_phase, torch)
     quantized = phase("quantized serve", quantized_serve_phase, torch)

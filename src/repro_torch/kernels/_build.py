@@ -145,10 +145,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                     i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
     lib.repro_ssd_chunk.restype = i
     lib.repro_ssd_chunk_bwd.argtypes = [p] * 10 + [ctypes.POINTER(ctypes.c_longlong),
-                                                   i, i, i, i, i, i, i, i, p]
+                                                   i, i, i, i, i, i, i, i, i, i, i,
+                                                   ctypes.c_longlong, p, p]
     lib.repro_ssd_chunk_bwd.restype = i
-    lib.repro_ssd_chunk_bwd_smem.argtypes = [i, i, i]
-    lib.repro_ssd_chunk_bwd_smem.restype = ctypes.c_longlong
 
 
 def check(status: int, what: str) -> None:

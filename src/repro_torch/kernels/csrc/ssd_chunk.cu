@@ -75,15 +75,13 @@
 #include <cstring>
 
 #include "gemm_tile.cuh"
-#include "sm90.cuh"
+#include "ssd_sm90.cuh"
 
 using namespace repro;
+using namespace ssd;
 
 namespace {
 
-constexpr int T64 = 64;  // query rows per Y block, key rows per step, state rows per S block
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_N = 256, MAX_P = 128;
 
 // Element strides of each operand: three leading dims, the chunk, the row
@@ -107,9 +105,6 @@ constexpr int SEG_BYTES = T64 * 4;       // one stage of 64 seg values
 constexpr int S_ROWS = T64 * WG;         // state rows of an S block, 64 a warpgroup
 constexpr int STAGES = 2;                // ring slots: the next step's copies in flight
 
-// Bytes of a 64-row bf16 tile of `cols` columns (whole 64-column atoms).
-__host__ __device__ constexpr int tile_bytes(int cols) { return T64 * 2 * ((cols + 63) / 64 * 64); }
-
 // Dynamic shared memory of a launch (kernels/ssd/ops.py `launch_shape`
 // computes the same), the larger of its two roles and slack to align the
 // tiles to 1024 bytes.  Shared C B^T: the Y role keeps nqt score tiles,
@@ -130,11 +125,6 @@ __host__ __device__ inline size_t ssd_smem(int N, int PP, int nqt, bool shared, 
     s = STAGES * WG * (tb + tx + SEG_BYTES);
   }
   return (y > s ? y : s) + 1024;
-}
-
-// The barrier of this thread's warpgroup alone (named barrier 1 + its index).
-__device__ __forceinline__ void wg_sync() {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");
 }
 
 // A ring of STAGES slots over `steps` steps: fill(i, slot) issues step i's
@@ -199,27 +189,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long rs, 
   else
     stage_w<2>(dst, src, rs, r0, nrows, d, cols, t, nt);
 }
-// seg[k0 .. k0 + 64) (stride ss), zeros past Q, by threads [first, first + 64)
-__device__ __forceinline__ void stage_seg(float* dst, const float* sg, long long ss, int k0, int Q,
-                                          int first) {
-  const int i = threadIdx.x - first;
-  if (i >= 0 && i < T64) {
-    const bool ok = k0 + i < Q;
-    sm90::cp_async<4>(dst + i, ok ? sg + (k0 + i) * ss : sg, ok);
-  }
-}
-
-// s (64 x 64 f32, the accumulator layout) = C_q B_k^T over np state columns
-// (the first product overwrites s).
-__device__ __forceinline__ void score(float* s, const bf16* Cs, const bf16* Bs, int np) {
-  sm90::wgmma_fence();
-  for (int kk = 0; kk < np / 16; ++kk)
-    sm90::Wgmma<T64, 0, 0>::ss(s, sm90::desc_k<T64>(Cs, kk), sm90::desc_k<T64>(Bs, kk), kk);
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs<T64 / 2>(s);
-}
-
 // The weighted scores as the A operand of the Y product: register j is
 // query row q0 + row + 8 ((j / 2) % 2), key k0 + 8 (j / 4) + col + j % 2;
 // rq the two rows' seg times log2(e), sk the key tile's seg.  L = 2^(rq -
@@ -258,33 +227,6 @@ template <int PP> struct WgmmaSS {
     if constexpr (PP > W) WgmmaSS<PP - W>::ss(d + W / 2, da, db + (T64 * 128 >> 4), acc);
   }
 };
-
-// A 64 x PP f32 accumulator (rows r0 + row, + 8) to rows [r0, nrows) x
-// columns [0, ncols) of a bf16 matrix (row stride rs): bf16 pairs where
-// alignment allows.
-template <int PP>
-__device__ __forceinline__ void store_tile(bf16* out, long long rs, const float* acc, int r0,
-                                           int nrows, int ncols, int row, int col) {
-  const bool pair =
-      (ncols & 1) == 0 && (rs & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + row + 8 * hh;
-    if (r >= nrows) continue;
-    bf16* o = out + r * rs;
-#pragma unroll
-    for (int J = 0; J < PP / 8; ++J) {
-      const int c = 8 * J + col;
-      const float v0 = acc[4 * J + 2 * hh], v1 = acc[4 * J + 2 * hh + 1];
-      if (pair) {
-        if (c < ncols) *reinterpret_cast<uint32_t*>(o + c) = sm90::pack_bf16(v0, v1);
-      } else {
-        if (c < ncols) o[c] = __float2bfloat16_rn(v0);
-        if (c + 1 < ncols) o[c + 1] = __float2bfloat16_rn(v1);
-      }
-    }
-  }
-}
 
 // 1-D grid of (nnt + nqt) x nc x l0 l1 x nslab blocks of two warpgroups.
 // Unit u < nnt: S rows [S_ROWS u, S_ROWS (u + 1)) of a slab of heads (64 a

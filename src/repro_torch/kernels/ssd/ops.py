@@ -25,14 +25,19 @@ CPU, the plain version) and saves only the four operands; its backward is
 `ssd_chunk_bwd`, which launches `csrc/ssd_chunk_bwd.cu` on a CUDA tensor
 and runs `ref.ssd_chunk_bwd_ref` on a CPU tensor.  The JAX kernel has no
 backward (JAX trains the model's einsums), so that kernel has no Pallas
-counterpart.  A build or launch failure raises: nothing falls back to the
-plain version on the card.  `ssd_chunk_bwd.launches` counts its launches.
+counterpart.  In bf16 one call runs two kernels in stream order (the key
+walk, then the query walk; `bwd_launch_shape` picks their slab, grid and
+shared memory as `launch_shape` does the forward's, and both layouts give
+the same bits); f32 runs the FMA kernel.  A build or launch failure
+raises: nothing falls back to the plain version on the card.
+`ssd_chunk_bwd.launches` counts its calls that launched.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -45,20 +50,24 @@ WARPGROUPS = 2           # a block: two warpgroups
 S_ROWS = ROWS * WARPGROUPS  # state rows of an S block
 SHARED_TILES = 4         # score tiles a block keeps in shared memory: C B^T shared for Q <= 256
 HEADS = 12               # heads per block (a slab) where C B^T is shared (tuning/ssd_tiles.py)
+BWD_HEADS = 12           # ... of the backward kernels (tuning/ssd_bwd_tiles.py)
 STAGES = 2               # ring slots of a warpgroup's copies: the next step's in flight
 SCORE_BYTES = ROWS * ROWS * 4
 SEG_BYTES = ROWS * 4
+SEG_AREA = 2048          # a backward region's seg vectors and sums
 MAX_SMEM = 232448        # dynamic shared memory a block may take on the H100 (227 KB)
 MAX_BLOCKS = 2 ** 31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class SsdLaunch:
-    """One bf16 launch of csrc/ssd_chunk.cu: `heads` heads a block, C B^T
-    computed once per block and `shared` by its heads (else each of the
-    block's warpgroups takes one head and its own scores), `grid` blocks,
-    `smem` bytes of dynamic shared memory and P padded to `width` (the
-    instantiation)."""
+    """One bf16 launch of csrc/ssd_chunk.cu (or of each of the two kernels
+    of csrc/ssd_chunk_bwd.cu): `heads` heads a block, C B^T computed once
+    per block and `shared` by its heads (else each of the block's
+    warpgroups takes its own heads and scores), `grid` blocks, `smem` bytes
+    of dynamic shared memory (the backward: the larger kernel's) and P
+    padded to `width` (the forward's instantiation, the backward's staged
+    columns)."""
     heads: int
     shared: bool
     grid: int
@@ -105,6 +114,78 @@ def launch_shape(lead, nc: int, b_strides, c_strides, Q: int, N: int, P: int,
         h = min(l2, WARPGROUPS if _smem(N, width, nqt, False, WARPGROUPS) <= MAX_SMEM else 1)
     return SsdLaunch(heads=h, shared=shared, grid=(nnt + nqt) * nc * l0 * l1 * -(-l2 // h),
                      smem=_smem(N, width, nqt, shared, h), width=width)
+
+
+def _bwd_widths(P: int, N: int):
+    """The backward's staged widths (csrc/ssd_chunk_bwd.cu `BwdGeom`): x and
+    dY in px columns (dX in 64-column slices), B and C in nb columns and dS
+    in nb rows (dB and dC in dnw-column slices), and the slices a tile
+    takes."""
+    px = -(-P // 64) * 64
+    dnw = 64 if N <= 64 else 128
+    nb = -(-N // dnw) * dnw
+    return px, nb, max(px // 64, nb // dnw)
+
+
+def bwd_smem(Q: int, P: int, N: int, shared: bool, nwg: int):
+    """Dynamic shared memory of the backward's key walk and query walk
+    (csrc/ssd_chunk_bwd.cu `BwdGeom`) with `nwg` warpgroups walking heads:
+    a region a warpgroup (two head buffers, two ring slots, SEG_AREA); with
+    shared scores the chunk's score tiles before them (and the key walk's
+    B_k); 1024 bytes of slack."""
+    px, nb, _ = _bwd_widths(P, N)
+    nqt = -(-Q // ROWS)
+    tx, tb, ds = _tile_bytes(px), _tile_bytes(nb), nb * px * 2
+    head = tx + (0 if shared else tb)
+    keys = nwg * (2 * head + STAGES * max(tb + tx, ds) + SEG_AREA)
+    queries = nwg * (2 * head + STAGES * (tb + tx) + SEG_AREA)
+    if shared:
+        keys += nqt * SCORE_BYTES + tb
+        queries = nqt * SCORE_BYTES + max(3 * tb, queries)
+    return keys + 1024, queries + 1024
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_smem_f32(N: int, P: int) -> int:
+    """Dynamic shared memory of the f32 backward (csrc/ssd_chunk_bwd.cu
+    `BwdLayout` at 4-byte operands, which the entry re-checks): the C, B, X
+    and dY tiles (rows of an odd number of words), the two 64 x 65 f32
+    score tiles (or dS and B dS), the f32 accumulators and the vectors,
+    each rounded up to 128 bytes."""
+    def al(n):
+        return -(-n // 128) * 128
+    np_, pp = -(-N // 16) * 16, -(-P // 16) * 16
+    tn, tp = al(ROWS * (np_ + 1) * 4), al(ROWS * (pp + 1) * 4)
+    tile, an, ap = al(ROWS * (ROWS + 1) * 4), al(ROWS * (np_ + 1) * 4), al(ROWS * (pp + 1) * 4)
+    return 2 * (tn + tp) + max(2 * tile, tp + ap) + max(an, ap + an) + al(ROWS * 10 * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_shape(lead, nc: int, b_strides, c_strides, Q: int, N: int, P: int,
+                     heads: int | None = None) -> SsdLaunch:
+    """The bf16 backward's launch (both kernels) for leading dims `lead`
+    (three, heads last), nc chunks and B's and C's element strides.  Where
+    B and C have stride 0 over the heads, a chunk has at most SHARED_TILES
+    tiles and the shared scores fit, a block forms its tile's scores once
+    and its two warpgroups walk `heads` heads (BWD_HEADS by default, fewer
+    in the last slab); otherwise each warpgroup takes one head (two a
+    block, one where two do not fit).  The grid, per kernel: ceil(Q / 64)
+    tiles x slices x nc x l0 l1 x slabs."""
+    l0, l1, l2 = lead
+    px, _, nslice = _bwd_widths(P, N)
+    nqt = -(-Q // ROWS)
+
+    def fits(shared, nwg):
+        return max(bwd_smem(Q, P, N, shared, nwg)) <= MAX_SMEM
+
+    shared = (l2 > 1 and b_strides[2] == 0 and c_strides[2] == 0 and nqt <= SHARED_TILES
+              and fits(True, WARPGROUPS))
+    if shared:
+        h = min(l2, heads or BWD_HEADS)
+    else:
+        h = min(l2, WARPGROUPS if fits(False, WARPGROUPS) else 1)
+    return SsdLaunch(heads=h, shared=shared, grid=nqt * nslice * nc * l0 * l1 * -(-l2 // h),
+                     smem=max(bwd_smem(Q, P, N, shared, min(h, WARPGROUPS))), width=px)
 
 
 def copy_width(t: torch.Tensor, strides, d: int) -> int:
@@ -223,9 +304,9 @@ def _ssd_chunk_cuda(x, B, C, seg, heads=None):
     return y, s
 
 
-
-def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS):
-    """The backward kernel's launch: one block per (sequence-head, chunk)."""
+def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS, heads=None):
+    """The backward kernels' launch; `heads` forces the bf16 slab size
+    (tuning/ssd_bwd_tiles.py)."""
     dev = x.device
     for t in (B, C, seg, dY, dS):
         if t.device != dev:
@@ -242,36 +323,54 @@ def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS):
         raise ValueError(f"ssd_chunk_bwd: shapes x_dt {tuple(x.shape)}, B {tuple(B.shape)}, "
                          f"C {tuple(C.shape)}, seg {tuple(seg.shape)}, dY {tuple(dY.shape)}, "
                          f"dS {tuple(dS.shape)}")
+    if N > MAX_N or P > MAX_P:
+        raise ValueError(f"ssd_chunk_bwd: the kernel takes N <= {MAX_N} and P <= {MAX_P} "
+                         f"(got N {N}, P {P})")
     # a cotangent may arrive expanded (the gradient of a sum: stride 0 in
     # every dim); the kernel reads rows whose last dim is contiguous
     dY, dS = (t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous() for t in (dY, dS))
     if any(t.shape[-1] > 1 and t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError("ssd_chunk_bwd: the last dim of x_dt, B and C must be contiguous")
     dt = _build.dtype_code(x.dtype)
-    lib = _build.build().lib
-    smem = lib.repro_ssd_chunk_bwd_smem(N, P, dt)
+    lead3 = (1,) * (3 - len(lead)) + lead
+
+    def strides(t):
+        k = len(lead)
+        return (0,) * (3 - k) + tuple(t.stride()[:k + 2])
+
+    slab = shared = widths = 0
+    esum = None
+    if x.dtype == torch.float32:
+        smem = bwd_smem_f32(N, P)
+        blocks = lead3[0] * lead3[1] * lead3[2] * nc
+    else:
+        shape = bwd_launch_shape(lead3, nc, strides(B), strides(C), Q, N, P, heads)
+        smem, blocks = shape.smem, shape.grid
+        slab, shared = shape.heads, int(shape.shared)
+        widths = sum(bit for bit, (t, d) in zip((1, 2, 4, 8, 16),
+                                               ((x, P), (B, N), (C, N), (dY, P), (dS, P)))
+                     if copy_width(t, strides(t), d) == 16)
     if smem > MAX_SMEM:
         raise ValueError(f"ssd_chunk_bwd: N {N} and P {P} take {smem} bytes of shared memory "
                          f"a block in {x.dtype}, more than the card's {MAX_SMEM}")
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"ssd_chunk_bwd: {lead} sequence-heads and {nc} chunks exceed the grid")
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     db = torch.empty(B.shape, dtype=x.dtype, device=dev)
     dc = torch.empty(C.shape, dtype=x.dtype, device=dev)
     dseg = torch.empty(seg.shape, dtype=torch.float32, device=dev)
     if min(*lead, nc, Q, P, N) == 0:
         return dx.zero_(), db.zero_(), dc.zero_(), dseg.zero_()   # empty sums
-    lead3 = (1,) * (3 - len(lead)) + lead
-    if lead3[0] * lead3[1] * lead3[2] * nc > MAX_BLOCKS:
-        raise ValueError(f"ssd_chunk_bwd: {lead} sequence-heads and {nc} chunks exceed the grid")
-
-    def strides(t):
-        k = len(lead)
-        return (0,) * (3 - k) + tuple(t.stride()[:k + 2])
-
+    if x.dtype != torch.float32:   # each key tile's sum of e (csrc/ssd_chunk_bwd.cu)
+        esum = torch.empty(math.prod(lead3) * nc * -(-Q // ROWS), dtype=torch.float32, device=dev)
     vals = sum((strides(t) for t in (x, B, C, seg, dY, dS, dx, db, dc, dseg)), ())
     arr = (ctypes.c_longlong * len(vals))(*vals)
+    lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_ssd_chunk_bwd(*map(_build.ptr, (x, B, C, seg, dY, dS, dx, db, dc, dseg)),
-                                         arr, *lead3, nc, Q, P, N, dt, _build.stream_of(dev))
+                                         arr, *lead3, nc, Q, P, N, dt, slab, shared, widths, smem,
+                                         None if esum is None else _build.ptr(esum),
+                                         _build.stream_of(dev))
     _build.check(status, "ssd_chunk_bwd")
     ssd_chunk_bwd.launches += 1
     return dx, db, dc, dseg

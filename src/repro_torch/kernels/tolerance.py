@@ -16,8 +16,8 @@ through by its slope.  The 2% covers second-order terms.
 
 Where a kernel rounds an intermediate to the input dtype before a further
 product (flash attention's P and dS, the fused-MLP backward's dg and du,
-the SSD kernel's C B^T o L and decay o X: bf16 inputs to the tensor
-cores), the plain version keeps it in f32, and the bound adds that
+the SSD kernel's C B^T o L and decay o X, the SSD backward's A and dA o
+L: bf16 inputs to the tensor cores), the plain version keeps it in f32, and the bound adds that
 rounding, half an ulp relative per element, carried through the product.
 
 Each `*_tol` function takes the kernel's inputs and the plain version's
@@ -317,42 +317,51 @@ def ssd_chunk_tol(x_dt, B, C, seg, want):
 
 
 def ssd_chunk_bwd_tol(x_dt, B, C, seg, dY, dS, want):
-    """Bounds on (dX, dB, dC, dseg) of the SSD backward kernel
+    """Bounds on (dX, dB, dC, dseg) of the SSD backward kernels
     (csrc/ssd_chunk_bwd.cu); `want` is the plain version's
-    (`ssd_chunk_bwd_ref`).  Both compute in f32 from the same operands and
-    round only the outputs; the kernel keeps every intermediate in f32 (no
-    bf16 rounding to charge), sums in another order and takes expf.  Per
-    (head, chunk), with A = CB o L, dAL = mask o (dY X^T) o L:
+    (`ssd_chunk_bwd_ref`).  Both compute in f32 from the same operands, sum
+    in another order and round the outputs.  Per (head, chunk), with A = CB
+    o L, dAL = mask o (dY X^T) o L:
       CB = C B^T sums N terms: e_cb = 3 N u |C||B|^T; dY X^T sums P terms:
       e_da = 3 P u |dY||X|^T; B dS sums N terms: e_bds = 3 N u |B||dS|;
       L and the decay d are exps, 4 u on either side, and each product
       rounds once more on either side: 10 u relative on A, dAL and d o .;
+      in bf16 the kernel takes L as 2^(seg_i log2(e) - seg_j log2(e)), whose
+      prescale and FFMA put (|seg_i| + 2 |seg_i - seg_j|) u more on L (as
+      `ssd_chunk_tol`), and rounds A (for dX) and dAL (for dC and dB) to
+      bf16 before the tensor cores (half an ulp relative, r); d o (X dS^T)
+      and d o (B dS) stay f32;
       dX sums Q query terms and the state term (n = Q + 1), dC Q key terms,
       dB Q query terms and P state terms (n = Q + P), each 3 n u over the
       sum of |terms| on top of the terms' own errors;
-      dseg: G = dAL o CB carries e_dal |CB| + |dAL| e_cb + u |G|; its row
-      and column sums (Q terms each) and e_k = d_k sum_p X (B dS) (P terms)
-      are charged over the sums of |G| and |e| (not |dseg|, which cancels),
-      and the last row over every row's e."""
+      dseg: G = dAL o CB, formed from the f32 tiles, carries e_dal |CB| +
+      |dAL| e_cb + u |G|; its row and column sums (Q terms each) and e_k =
+      d_k sum_p X (B dS) (P terms) are charged over the sums of |G| and |e|
+      (not |dseg|, which cancels), and the last row over every row's e."""
     dX, dB, dC, dseg = want
     Q, N, P = x_dt.shape[-2], B.shape[-1], x_dt.shape[-1]
+    r = _rounds(x_dt.dtype)
     xa, Ba, Ca, dya, dsa = (t.float().abs() for t in (x_dt, B, C, dY, dS))
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=seg.device))
-    L = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :], SSD_NEG_INF))
+    diff = seg[..., :, None] - seg[..., None, :]
+    L = torch.exp(torch.where(mask, diff, SSD_NEG_INF))
     cb = torch.einsum("...qn,...kn->...qk", C.float(), B.float()).abs()
     e_cb = 3.0 * N * U * torch.einsum("...qn,...kn->...qk", Ca, Ba)
     da = torch.where(mask, torch.einsum("...qp,...kp->...qk", dY.float(), x_dt.float()), 0.0).abs()
     e_da = 3.0 * P * U * torch.einsum("...qp,...kp->...qk", dya, xa)
+    rel_l = 10.0 * U
+    if x_dt.dtype == torch.bfloat16:   # the kernels' exp2 with a log2(e) prescale
+        rel_l = rel_l + (seg.abs()[..., :, None] + 2.0 * diff.abs()) * U
     a, dal = cb * L, da * L
-    e_a, e_dal = (e_cb + 10.0 * U * cb) * L, (e_da + 10.0 * U * da) * L
+    e_a, e_dal = (e_cb + rel_l * cb) * L, (e_da + rel_l * da) * L
     decay = torch.exp(seg[..., -1:] - seg)
     bds = torch.einsum("...kn,...np->...kp", Ba, dsa)
     e_bds = 3.0 * N * U * bds
     n_x, n_b = Q + 1, Q + P
-    e_dx = torch.einsum("...qk,...qp->...kp", e_a + 3.0 * n_x * U * a, dya) \
+    e_dx = torch.einsum("...qk,...qp->...kp", e_a + (3.0 * n_x * U + r) * a, dya) \
         + decay[..., None] * (e_bds + (3.0 * n_x + 10.0) * U * bds)
-    e_dc = torch.einsum("...qk,...kn->...qn", e_dal + 3.0 * Q * U * dal, Ba)
-    e_db = torch.einsum("...qk,...qn->...kn", e_dal + 3.0 * n_b * U * dal, Ca) \
+    e_dc = torch.einsum("...qk,...kn->...qn", e_dal + (3.0 * Q * U + r) * dal, Ba)
+    e_db = torch.einsum("...qk,...qn->...kn", e_dal + (3.0 * n_b * U + r) * dal, Ca) \
         + (3.0 * n_b + 10.0) * U * torch.einsum("...kp,...np->...kn", xa * decay[..., None], dsa)
     g = dal * cb
     e_g = e_dal * cb + dal * e_cb + (1.0 + 3.0 * Q) * U * g

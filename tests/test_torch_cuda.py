@@ -913,12 +913,18 @@ def _poisoned(t, dims=2, pad=8):
     ((2, 1, 48), 2, 256, 64, 128),   # mamba2-780m: one group of 48 heads
     ((1, 1, 80), 2, 256, 64, 64),    # zamba2-2.7b: 80 heads, N 64
     ((1, 1, 6), 3, 77, 20, 40),      # Q, P and N off every grid
+    ((1, 1, 13), 1, 256, 64, 128),   # 13 heads: the slab does not divide them
+    ((1, 1, 50), 1, 256, 64, 128),   # 50 heads: four slabs, the last of two
+    ((1, 2, 13), 1, 256, 64, 128),   # two groups, slabs that share no scores
+    ((1, 1, 5), 2, 192, 64, 128),    # three tiles a chunk
+    ((2, 1, 3), 1, 65, 64, 64),      # one row past a tile
 ])
 def test_ssd_chunk_bwd(cuda, dtype, lead, nc, Q, P, N):
     """The backward kernel against its plain version on the same operands,
     every element within `ssd_chunk_bwd_tol`, at the JAX tests' decay and a
     trained model's; every operand a strided view whose padding holds
-    POISON."""
+    POISON; a second call on the same operands gives the same bits, and so
+    does the flat layout."""
     from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
     from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
     for step in (1.0, SLOW_DECAY):
@@ -938,10 +944,58 @@ def test_ssd_chunk_bwd(cuda, dtype, lead, nc, Q, P, N):
         for g, w, tol in zip(got, want, tolerance.ssd_chunk_bwd_tol(*ops, want)):
             assert g.shape == w.shape and g.dtype == w.dtype
             _close(g, w, tol)
+        # no sum crosses blocks in an unfixed order: the same bits again
+        for g, again in zip(got, ssd_chunk_bwd(*ops)):
+            torch.testing.assert_close(again, g, atol=0, rtol=0)
         # the (bh, nc, Q, .) layout with the repeat materialised: the same numbers
         flat = [t.reshape(-1, *t.shape[3:]) for t in ops]
         for g, f in zip(got, ssd_chunk_bwd(*flat)):
             torch.testing.assert_close(f.reshape(g.shape), g, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("lead,nc,Q,P,N", [
+    ((1, 1, 3), 1, 256, 128, 256),   # the widest shape: dX and dB / dC in two slices each
+    ((1, 1, 4), 2, 130, 96, 160),    # P and N past one slice, off the grid
+    ((2, 1, 2), 1, 100, 80, 64),     # two dX slices, one dB / dC slice
+])
+def test_ssd_chunk_bwd_wide(cuda, lead, nc, Q, P, N):
+    """bf16 shapes past one column slice (P > 64, N > 128): more blocks,
+    each forming the scores and dP over all of N and P; the plain version's
+    bound, and the flat layout's bits."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    rng = np.random.default_rng(Q + N)
+    x, B, C, seg = _ssd_operands(rng, lead, nc, Q, P, N, torch.bfloat16, cuda, step=0.05)
+    dY = _rand(rng, x.shape, torch.bfloat16, cuda)
+    dS = _rand(rng, (*x.shape[:-2], N, P), torch.bfloat16, cuda)
+    ops = (x, B, C, seg, dY, dS)
+    got = ssd_chunk_bwd(*ops)
+    want = ssd_chunk_bwd_ref(*ops)
+    for g, w, tol in zip(got, want, tolerance.ssd_chunk_bwd_tol(*ops, want)):
+        _close(g, w, tol)
+    flat = [t.reshape(-1, *t.shape[3:]) for t in ops]
+    for g, f in zip(got, ssd_chunk_bwd(*flat)):
+        torch.testing.assert_close(f.reshape(g.shape), g, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_takes_expanded_cotangents(cuda, dtype):
+    """The gradient of y.sum() + s.sum() arrives as cotangents expanded
+    with stride 0 in every dim: the same result as their contiguous copies,
+    within the plain version's bound."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    x, B, C, seg = _ssd_operands(np.random.default_rng(5), (2, 1, 4), 2, 100, 64, 128, dtype,
+                                 cuda)
+    one = torch.ones((), dtype=dtype, device=cuda)
+    dY, dS = one.expand(x.shape), one.expand((*x.shape[:-2], 128, 64))
+    got = ssd_chunk_bwd(x, B, C, seg, dY, dS)
+    dense = ssd_chunk_bwd(x, B, C, seg, dY.contiguous(), dS.contiguous())
+    want = ssd_chunk_bwd_ref(x, B, C, seg, dY, dS)
+    for g, d, w, tol in zip(got, dense, want,
+                            tolerance.ssd_chunk_bwd_tol(x, B, C, seg, dY, dS, want)):
+        torch.testing.assert_close(g, d, atol=0, rtol=0)
+        _close(g, w, tol)
 
 
 def _ssm_grads(params, batch, cfg, remat="none"):

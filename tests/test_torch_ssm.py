@@ -232,6 +232,66 @@ def test_ssd_launch_shape(lead, nc, Q, N, P, expanded):
         min(l2, 3) if shared else shape.heads)
 
 
+@pytest.mark.parametrize("lead,nc,Q,N,P,expanded", [
+    ((4, 1, 48), 4, 256, 128, 64, True),     # mamba2-780m's training shape
+    ((4, 1, 80), 4, 256, 64, 64, True),      # zamba2-2.7b's
+    ((1, 1, 13), 1, 256, 128, 64, True),     # a head count the slab does not divide
+    ((1, 2, 3), 2, 256, 128, 64, True),      # two groups
+    ((2, 1, 3), 2, 40, 16, 16, True),        # the smoke shape
+    ((1, 1, 4), 2, 300, 128, 64, True),      # Q > 256: more score tiles than a block keeps
+    ((1, 1, 192), 4, 256, 128, 64, False),   # the flat (bh, ...) layout
+    ((1, 1, 3), 1, 256, 256, 128, True),     # the widest: shared scores do not fit
+    ((1, 1, 4), 2, 130, 160, 96, True),      # two column slices of each output
+])
+def test_ssd_bwd_launch_shape(lead, nc, Q, N, P, expanded):
+    """The bf16 backward's launch (`bwd_launch_shape`): scores shared by a
+    slab of min(heads, BWD_HEADS) heads wherever B and C have stride 0 over
+    the heads, Q <= 256 and the shared tiles fit; else one head a
+    warpgroup, two a block where they fit; the grid of tiles x column slices
+    x chunks x l0 l1 x slabs (per kernel); the larger kernel's shared
+    memory, within the card's 227 KB; the flat layout of the same shape
+    takes the per-head route."""
+    l0, l1, l2 = lead
+    st = _strides(lead, nc, Q, N, expanded)
+    shape = ssd_ops.bwd_launch_shape(lead, nc, st, st, Q, N, P)
+    nqt = -(-Q // 64)
+    fits = max(ssd_ops.bwd_smem(Q, P, N, True, 2)) <= ssd_ops.MAX_SMEM
+    shared = expanded and l2 > 1 and nqt <= 4 and fits
+    assert shape.shared == shared
+    two = max(ssd_ops.bwd_smem(Q, P, N, False, 2)) <= ssd_ops.MAX_SMEM
+    assert shape.heads == (min(l2, ssd_ops.BWD_HEADS) if shared else min(l2, 2 if two else 1))
+    px, nb = -(-P // 64) * 64, -(-N // (64 if N <= 64 else 128)) * (64 if N <= 64 else 128)
+    slices = max(px // 64, nb // (64 if N <= 64 else 128))
+    assert shape.width == px
+    assert shape.grid == nqt * slices * nc * l0 * l1 * -(-l2 // shape.heads)
+    assert shape.smem == max(ssd_ops.bwd_smem(Q, P, N, shared, min(shape.heads, 2)))
+    assert shape.smem <= 232448
+    flat = ssd_ops.bwd_launch_shape((1, 1, l0 * l1 * l2), nc, _strides((1, 1, l0 * l1 * l2), nc, Q,
+                                    N, False), _strides((1, 1, l0 * l1 * l2), nc, Q, N, False),
+                                    Q, N, P)
+    assert not flat.shared and flat.heads == min(l0 * l1 * l2, 2 if two else 1)
+    # a forced slab, as tuning/ssd_bwd_tiles.py sweeps it
+    assert ssd_ops.bwd_launch_shape(lead, nc, st, st, Q, N, P, heads=3).heads == (
+        min(l2, 3) if shared else shape.heads)
+
+
+def test_ssd_bwd_launch_fits_every_ssm_config():
+    """Every registered SSM or hybrid config's backward shape (its chunk,
+    head dim and state) launches within the card's shared memory, with the
+    scores shared at the model's expanded B and C, in bf16 and in f32."""
+    from repro_torch.configs.registry import get_config, list_archs
+    cfgs = [get_config(a) for a in list_archs()]
+    cfgs = [c for c in cfgs if c.family in ("ssm", "hybrid")]
+    assert {c.name for c in cfgs} >= {"mamba2-780m", "zamba2-2.7b"}
+    for c in cfgs:
+        Q, P, N, nh = c.ssm_chunk, c.ssm_head_dim, c.ssm_state, c.ssm_nheads
+        st = _strides((4, 1, nh), 1, Q, N, True)
+        shape = ssd_ops.bwd_launch_shape((4, 1, nh), 1, st, st, Q, N, P)
+        assert shape.smem <= 232448, (c.name, shape)
+        assert shape.shared == (nh > 1 and Q <= 256), (c.name, shape)
+        assert ssd_ops.bwd_smem_f32(N, P) <= 232448, c.name
+
+
 @pytest.mark.parametrize("shape,index,d,want", [
     ((4, 64), (slice(None), slice(None)), 64, 16),          # whole 16-byte rows
     ((4, 68), (slice(None), slice(0, 64)), 64, 2),          # 136-byte row stride

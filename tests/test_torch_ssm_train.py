@@ -296,12 +296,44 @@ FAULTS = ("a dropped dS term", "a dropped key tile", "a dseg sign flip",
           "the decay from the wrong position")
 
 
+def _kernel_numerics_bwd(x, B, C, seg, dY, dS):
+    """ssd_chunk_bwd_ref's formulas with the bf16 kernels' own roundings
+    (csrc/ssd_chunk_bwd.cu): L = 2^(seg_i log2(e) rounded - seg_j log2(e)),
+    A and dA o L rounded to bf16 before the dX, dC and dB products, G and
+    the chunk-state terms in f32."""
+    Q = x.shape[-2]
+    xf, Bf, Cf, dy, ds = (t.float() for t in (x, B, C, dY, dS))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    log2e = 1.4426950408889634
+    rq = (seg * log2e).float().double()
+    ex = (rq[..., :, None] - seg.double()[..., None, :] * log2e).float()   # one FFMA's rounding
+    L = torch.exp2(torch.where(mask, ex, -1e30))
+    CB = torch.einsum("...qn,...kn->...qk", Cf, Bf)
+    dAL = torch.where(mask, torch.einsum("...qp,...kp->...qk", dy, xf), 0.0) * L
+    r16 = lambda t: t.bfloat16().float()  # noqa: E731
+    decay = torch.exp(seg[..., -1:] - seg)
+    BdS = torch.einsum("...kn,...np->...kp", Bf, ds)
+    dX = torch.einsum("...qk,...qp->...kp", r16(CB * L), dy) + decay[..., None] * BdS
+    dC = torch.einsum("...qk,...kn->...qn", r16(dAL), Bf)
+    dB = torch.einsum("...qk,...qn->...kn", r16(dAL), Cf) \
+        + decay[..., None] * torch.einsum("...kp,...np->...kn", xf, ds)
+    G = dAL * CB
+    e = decay * (xf * BdS).sum(-1)
+    last = torch.zeros_like(e)
+    last[..., -1] = e.sum(-1)
+    dseg = G.sum(-1) - G.sum(-2) - e + last
+    return dX.to(x.dtype), dB.to(x.dtype), dC.to(x.dtype), dseg
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_chunk_bwd_tol_admits_exact_and_rejects_faults(dtype):
+def test_ssd_chunk_bwd_tol_admits_exact_and_rejects_faults(dtype, monkeypatch):
     """The exact result (f64, rounded to the operands' dtype) lies within
-    `ssd_chunk_bwd_tol` of the plain version's; each planted fault breaks
-    it (at the JAX tests' decay and at the slow decay, Q = 100: two key
-    tiles)."""
+    `ssd_chunk_bwd_tol` of the plain version's, and in bf16 so does a
+    result with the kernels' own roundings (A and dA o L in bf16, L by a
+    prescaled exp2), which the bound charges and which breaks the bound
+    without the charge for A's and dA o L's rounding; each planted fault
+    breaks it (at the JAX tests' decay and at the slow decay, Q = 100: two
+    key tiles)."""
     for step in (1.0, 0.02):
         ops = _ssd_case(np.random.default_rng(9), (2, 3), 2, 100, 16, 24, step, expanded=True,
                         dtype=dtype)
@@ -311,6 +343,16 @@ def test_ssd_chunk_bwd_tol_admits_exact_and_rejects_faults(dtype):
         for e, w, tol in zip(exact, want, tols):
             ok, err, ratio = tolerance.check(e.to(w.dtype), w, tol)
             assert ok, (step, err, ratio)
+        if dtype == torch.bfloat16:
+            kernel_like = _kernel_numerics_bwd(*ops)
+            for g, w, tol in zip(kernel_like, want, tols):
+                ok, err, ratio = tolerance.check(g, w, tol)
+                assert ok, ("the kernels' roundings", step, err, ratio)
+            with monkeypatch.context() as m:   # the bound less the rounding charge
+                m.setattr(tolerance, "_rounds", lambda dt: 0.0)
+                bare = tolerance.ssd_chunk_bwd_tol(*ops, want)
+            assert not all(tolerance.check(g, w, tol)[0]
+                           for g, w, tol in zip(kernel_like[:3], want, bare)), step
         for fault in FAULTS:
             got = _faulty_bwd(*ops, fault)
             assert not all(tolerance.check(g, w, tol)[0] for g, w, tol in zip(got, want, tols)), \
