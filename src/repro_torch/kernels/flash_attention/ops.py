@@ -21,12 +21,19 @@ wrapper calls that launched their kernels.
 Any pool depth, block size and group size works for `paged_decode` and
 `paged_decode_blocktable`: the kernel masks the tail tile and resolves each
 token's physical block itself, so there is no block_kv clamp or pool pad as
-in the JAX wrapper, no tuning-cache lookup (`tuned=` comes with the tuning
-slice) and no interpret toggle — the tensor's device decides.  The launch
-geometry (`paged_launch`: the bf16 kernel's tile, split and cluster size,
-the f32 body's tile, and the shared memory of either) is a pure function of
-the shapes, cached per shape.  Each counts its launches on a float pool
-(`.launches`) and on an int8 pool (`.int8_launches`) apart.
+in the JAX wrapper and no interpret toggle — the tensor's device decides.
+The launch geometry (`paged_launch`: the bf16 kernel's tile, split and
+cluster size, the f32 body's tile, and the shared memory of either) is a
+pure function of the shapes, cached per shape.  With `tuned=True` (the
+model's decode attention passes it, as JAX's does) the bf16 kernel's tile
+and splits come from the tuning cache's "paged_decode" /
+"paged_decode_blocktable" entry for the pool shape when there is one
+(`paged_geometry`; a miss keeps the rule; int8 pools key the mixed dtype,
+e.g. "bfloat16xint8"); the f32 body has no knob and looks nothing up.
+Each counts its launches on a float pool (`.launches`) and on an int8 pool
+(`.int8_launches`) apart, and its lookups in `.tuned_hits` /
+`.tuned_misses`.  Flash attention takes no `tuned=`: its kernels compile
+one geometry per head-dim width, so there is nothing to choose yet.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...core.hardware import get_hardware
+from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
 from .. import _build
 from .ref import (flash_attention_bwd_ref, flash_attention_ref, paged_decode_blocktable_ref,
                   paged_decode_ref)
@@ -139,6 +148,27 @@ def paged_launch(b: int, nkv: int, g: int, d: int, capacity: int, kv_itemsize: i
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged_launch: {smem} bytes of shared memory (g={g}, d={d})")
     return PagedLaunch(tile, split, -(-capacity // split), smem)
+
+
+def paged_geometry(op: str, key_shape: tuple, q_dtype, kv_dtype, b: int, nkv: int, g: int,
+                   d: int, capacity: int, *, tuned: bool = False, hw_name: str | None = None
+                   ) -> tuple[PagedLaunch, TunedConfig | None]:
+    """(the launch, the cache entry used or None) of a paged-decode call:
+    op "paged_decode" (key_shape (b, slots, s_max, nkv, a, d)) or
+    "paged_decode_blocktable" ((b, num_blocks, block_size, nkv, a, d)).
+    With `tuned` and bf16 queries, the entry's blocks (tile, splits) when
+    there is one, else `paged_launch`'s rule.  The cache's dtype key is the
+    query's dtype name, mixed with "int8" over an int8 pool."""
+    kv_itemsize, q_itemsize = kv_dtype.itemsize, q_dtype.itemsize
+    if tuned and q_itemsize == 2:
+        key_dtype = dtype_name(q_dtype)
+        if kv_dtype == torch.int8:
+            key_dtype = mixed_dtype(key_dtype, "int8")
+        cfg = lookup(op, key_shape, key_dtype, hw_name or get_hardware().name)
+        if cfg is not None:
+            return paged_launch(b, nkv, g, d, capacity, kv_itemsize, q_itemsize,
+                                cfg.blocks["tile"], cfg.blocks["splits"]), cfg
+    return paged_launch(b, nkv, g, d, capacity, kv_itemsize, q_itemsize), None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
@@ -254,7 +284,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
 
 
 def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=None,
-                 scale=None):
+                 scale=None, tuned: bool = False, hw_name: str | None = None):
     """Slot-gathering decode attention over a fixed KV pool.
 
     q: (b, a, d) — one query token per row; k_pool, v_pool: (slots, s_max,
@@ -262,21 +292,25 @@ def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=
     dead slot -> zero output).  k_scale, v_scale: (slots, s_max, nkv) f32
     per-(token, kv head) scales of an int8 pool (both or neither), which the
     kernel applies in f32 (bf16 q: to the scores and to P; f32 q: to each
-    element it reads).  Returns (b, a, d).
+    element it reads).  Returns (b, a, d).  A tuned lookup keys the pool
+    shape (b, slots, s_max, nkv, a, d).
     """
     if _build.dispatch_device("paged_decode", q) == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale)
     return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
-                       slot_idx.to(torch.int32), lengths, 0, scale)
+                       slot_idx.to(torch.int32), lengths, 0, scale, None, tuned, hw_name)
 
 
 paged_decode.launches = 0        # float pools
 paged_decode.int8_launches = 0   # int8 pools
+paged_decode.tuned_hits = 0
+paged_decode.tuned_misses = 0
 
 
 def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_scale=None,
-                            v_scale=None, scale=None):
+                            v_scale=None, scale=None, tuned: bool = False,
+                            hw_name: str | None = None):
     """Block-table decode attention over a physical KV block pool.
 
     q: (b, a, d) — one query token per row; k_blocks, v_blocks: (num_blocks,
@@ -285,7 +319,8 @@ def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_s
     live kv entries (0 = dead row -> zero output).  k_scale, v_scale:
     (num_blocks, block_size, nkv) f32 scales of an int8 block pool.  Any
     block size works: the kernel resolves each token's block itself, so a kv
-    tile may span blocks.  Returns (b, a, d).
+    tile may span blocks.  Returns (b, a, d).  A tuned lookup keys the
+    block-pool shape (b, num_blocks, block_size, nkv, a, d).
     """
     if _build.dispatch_device("paged_decode_blocktable", q) == "cpu":
         return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
@@ -295,20 +330,22 @@ def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_s
         raise ValueError(f"paged_decode_blocktable: block_tables {tuple(tables.shape)} for "
                          f"{q.shape[0]} rows")
     return _paged_cuda(paged_decode_blocktable, q, k_blocks, v_blocks, k_scale, v_scale,
-                       tables, lengths, tables.shape[1], scale)
+                       tables, lengths, tables.shape[1], scale, None, tuned, hw_name)
 
 
 paged_decode_blocktable.launches = 0        # float pools
 paged_decode_blocktable.int8_launches = 0   # int8 pools
+paged_decode_blocktable.tuned_hits = 0
+paged_decode_blocktable.tuned_misses = 0
 
 
 def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blocks, scale,
-                geometry=None):
+                geometry=None, tuned=False, hw_name=None):
     """Launch csrc/paged_decode.cu over a slot pool (max_blocks = 0, index =
     slot_idx) or a block table (index = tables (b, max_blocks)); a launch
     adds one to the wrapper `fn`'s count for its pool type.  `geometry`
-    (tile, splits) overrides `paged_launch`'s pick for the bf16 kernel (the
-    sweep in tuning/paged_tiles.py)."""
+    (tile, splits) overrides rule and cache for the bf16 kernel (the sweeps
+    and the checks of a tuned entry against its own geometry)."""
     what = fn.__name__
     lengths = lengths.to(torch.int32)
     quant = k_scale is not None
@@ -342,8 +379,18 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
     if b == 0:
         return out
     lib = _build.build().lib
-    geo = paged_launch(b, nkv, g, d, max_blocks * depth if max_blocks else depth,
-                       k_pool.element_size(), q.element_size(), *(geometry or ()))
+    capacity = max_blocks * depth if max_blocks else depth
+    if geometry is not None:
+        geo = paged_launch(b, nkv, g, d, capacity, k_pool.element_size(), q.element_size(),
+                           *geometry)
+    else:
+        geo, cfg = paged_geometry(what, (b, n, depth, nkv, a, d), q.dtype, k_pool.dtype, b, nkv,
+                                  g, d, capacity, tuned=tuned, hw_name=hw_name)
+        if tuned and q.element_size() == 2:
+            if cfg is None:
+                fn.tuned_misses += 1
+            else:
+                fn.tuned_hits += 1
     with torch.cuda.device(q.device):
         status = lib.repro_paged_decode(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(k_scale),

@@ -11,13 +11,18 @@ Each 2-D operand may be row-major or the transpose of a row-major tensor
 second pair (`a1`, `b1`) is summed into the same f32 accumulator:
 C = A @ B + A1 @ B1 in one launch.
 
-`pick_tile` and `split_k` are the host-side launch shape.  bf16 runs on
+`pick_tile` and `split_k` are the host-side launch shape: the rule.  bf16 runs on
 `csrc/gemm_sm90.cuh`: a 64 x 128 tile of one warpgroup for at most 64 rows
 (decode and prefill: every weight element read once), else a 128 x 128
 tile of two warpgroups; f32 on `csrc/gemm_tile.cuh`'s 64 x 64 FMA tiles.
 `split_k` splits the k range across the grid when the output alone has too
 few tiles to fill the card; the f32 partials are then summed by a second,
-small kernel.  `matmul.launches` counts calls that launched the GEMM
+small kernel.  With `tuned=True` (as `linear_impl` "tuned" and "fused"
+pass it) a tuning-cache entry for (m, k, n, dtype, hardware) replaces the
+rule's tile and split (`geometry`, a pure function of those; a miss keeps
+the rule); an entry whose tile the library does not instantiate raises at
+the launch.  `matmul.tuned_hits` / `tuned_misses` count the tuned lookups
+of launches.  `matmul.launches` counts calls that launched the GEMM
 kernel, the reduce riding with them; `matmul.by_layout` splits that count
 by operand layout: "nn" (forward), "nt" (B transposed: dgrad) and "tn" (A
 transposed: wgrad).
@@ -26,6 +31,9 @@ from __future__ import annotations
 
 import torch
 
+from ...core.hardware import get_hardware
+from ...tuning.cache import TunedConfig, dtype_name, lookup
+from ...tuning.candidates import split_depth
 from .. import _build
 from .ref import matmul_ref
 
@@ -84,6 +92,25 @@ def launch_shape(m: int, n: int, k: int, dtype, num_sms: int) -> tuple[int, int,
     return (*tile, split_k(m, n, k, num_sms, block_k, tile))
 
 
+def geometry(m: int, k: int, n: int, dtype, *, tuned: bool = False,
+             hw_name: str | None = None, num_sms: int = 132, op: str = "matmul",
+             key_dtype: str | None = None) -> tuple[tuple[int, int, int], TunedConfig | None]:
+    """((tile rows, tile columns, k per split), the cache entry used or
+    None) of one launch of csrc/matmul.cu for an (m, k, n) product in
+    `dtype`: with `tuned`, the default tuning cache's entry for
+    (op, (m, k, n), key_dtype or dtype's name, hw_name or the H100) when
+    there is one (blocks block_m, block_n, split_k: the number of splits),
+    else `launch_shape`'s rule on `num_sms` SMs."""
+    if tuned:
+        cfg = lookup(op, (m, k, n), key_dtype or dtype_name(dtype),
+                     hw_name or get_hardware().name)
+        if cfg is not None:
+            bk = F32_BLOCK_K if dtype == torch.float32 else BLOCK_K
+            b = cfg.blocks
+            return (b["block_m"], b["block_n"], split_depth(k, b["split_k"], bk)), cfg
+    return launch_shape(m, n, k, dtype, num_sms), None
+
+
 def transposed(what: str, t: torch.Tensor) -> bool:
     """False for a row-major (contiguous) 2-D operand, True for the
     transpose of one; raise for any other strides."""
@@ -96,29 +123,46 @@ def transposed(what: str, t: torch.Tensor) -> bool:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, a1: torch.Tensor | None = None,
-           b1: torch.Tensor | None = None) -> torch.Tensor:
+           b1: torch.Tensor | None = None, *, tuned: bool = False,
+           hw_name: str | None = None) -> torch.Tensor:
     """C = A @ B (+ A1 @ B1), f32 accumulation, output in A's dtype.
-    A: (..., k); B: (k, n); A1, B1 (optional): the shapes of A and B."""
+    A: (..., k); B: (k, n); A1, B1 (optional): the shapes of A and B.
+    Leading dims of A flatten to one m axis, which keys the tuning cache as
+    (m, k, n), the shape `autotune_matmul` writes."""
+    return keyed_matmul(a, b, a1, b1, tuned=tuned, hw_name=hw_name)
+
+
+def keyed_matmul(a, b, a1=None, b1=None, *, tuned: bool = False, hw_name: str | None = None,
+                 op: str = "matmul", key_dtype: str | None = None) -> torch.Tensor:
+    """`matmul` under another tuning-cache op and dtype key (the emulated
+    fp8 GEMM's "fp8_matmul" entries)."""
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k)
     a12 = None if a1 is None else a1.reshape(-1, k)
     if _build.dispatch_device("matmul", a2) == "cpu":
         out = matmul_ref(a2, b, a1=a12, b1=b1)
     else:
-        out = _matmul_cuda(a2, b, a12, b1)
+        out = _matmul_cuda(a2, b, a12, b1, tuned, hw_name, op, key_dtype)
     return out.reshape(*lead, b.shape[-1])
 
 
 matmul.launches = 0
 matmul.by_layout = dict.fromkeys(LAYOUTS, 0)
+matmul.tuned_hits = 0
+matmul.tuned_misses = 0
 
 
 def reset_launches() -> None:
     matmul.launches = 0
     matmul.by_layout = dict.fromkeys(LAYOUTS, 0)
+    matmul.tuned_hits = matmul.tuned_misses = 0
 
 
-def _matmul_cuda(a, b, a1, b1) -> torch.Tensor:
+def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype=None,
+                 forced=None) -> torch.Tensor:
+    """Launch csrc/matmul.cu; `forced` (tile rows, tile columns, k per
+    split) launches that geometry, bypassing rule and cache (the checks of
+    a tuned entry against its own geometry)."""
     pair = (a, b) if a1 is None else (a, b, a1, b1)
     dev = a.device
     for t in pair:
@@ -146,7 +190,16 @@ def _matmul_cuda(a, b, a1, b1) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    tm, tn, ks = launch_shape(m, n, k, a.dtype, _build.num_sms(dev))
+    if forced is not None:
+        (tm, tn, ks), cfg = forced, None
+    else:
+        (tm, tn, ks), cfg = geometry(m, k, n, a.dtype, tuned=tuned, hw_name=hw_name,
+                                     num_sms=_build.num_sms(dev), op=op, key_dtype=key_dtype)
+        if tuned:
+            if cfg is None:
+                matmul.tuned_misses += 1
+            else:
+                matmul.tuned_hits += 1
     splits = _cdiv(k, ks)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -163,3 +216,32 @@ def _matmul_cuda(a, b, a1, b1) -> torch.Tensor:
     matmul.launches += 1
     matmul.by_layout[layout] += 1
     return out
+
+
+def alignment_report(m: int, k: int, n: int, dtype=torch.bfloat16,
+                     hw_name: str | None = None) -> dict:
+    """Tile-alignment report for an (m, k, n) GEMM (the JAX wrapper's, with
+    `dtype` a torch dtype); `hw_name` defaults to `get_hardware()`'s chip,
+    the H100.  Its padded shape and per-tile bytes are the JAX kernel's
+    128-element blocks, kept for parity; the utilizations come from the
+    hardware's own tiles (`core.quantization.tile_utilization`)."""
+    from ...core.gemm_model import GEMM, recommend_precision
+    from ...core.quantization import round_up, tile_utilization
+    hw = get_hardware(hw_name) if hw_name else get_hardware()
+    dtype_bytes = dtype.itemsize
+    util = tile_utilization(m, n, k, hw, dtype_bytes)
+    gemm = GEMM("alignment_report", m, k, n, dtype_bytes=dtype_bytes)
+    rec_dtype, rec_speedup = recommend_precision(gemm, hw, dtypes=(dtype_name(dtype), "int8"))
+    return {
+        "hw_name": hw.name,
+        "dtype": dtype_name(dtype),
+        "mxu_utilization": util,
+        "padded_shape": (round_up(m, 128), round_up(k, 128), round_up(n, 128)),
+        "aligned": util > 0.999,
+        "vmem_per_tile_bytes": (128 * 128 * dtype_bytes * 2 + 128 * 128 * 4),
+        # dtype-aware pricing: int8 weights win exactly where the GEMM is
+        # bandwidth-bound (see core.gemm_model.recommend_precision)
+        "int8_utilization": tile_utilization(m, n, k, hw, 1),
+        "recommended_dtype": rec_dtype,
+        "recommended_speedup": rec_speedup,
+    }

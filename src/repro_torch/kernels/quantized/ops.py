@@ -23,17 +23,26 @@ payload is relaid on the call that gets it (a copy of the weight), and
 counted in `int8_matmul.relayouts` / `int8_fused_mlp_hidden.relayouts`; a
 serving path holds its weights K-major and shows none.  `launch_shape`
 picks the GEMM's tile and split on the host, `fused_tile` the fused MLP's
-tile.
+tile: the rules.  With `tuned=True` (linear_impl "quantized" passes it) a
+tuning-cache entry replaces the rule's pick: "int8_matmul" (block_m,
+block_n, split_k) and "int8_fused_mlp_<mlp_type>" (block_m, block_f) under
+the mixed dtype key (activation x weight, e.g. "bfloat16xint8"), and the
+emulated fp8 GEMM's "fp8_matmul" entries (the tile GEMM's knobs) under
+e.g. "bfloat16xfloat8_e4m3fn" (`int8_geometry`, `int8_fused_geometry`; a
+miss keeps the rule).  `.tuned_hits` / `.tuned_misses` count the lookups.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core.hardware import get_hardware
 from ...quant import QuantizedTensor, fp8_round_trip, k_major, quantize_int8, quantize_weight
+from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
+from ...tuning.candidates import split_depth
 from .. import _build
 from ..fused_mlp.ops import ACT_CODES, _check_type
 from ..fused_mlp.ref import is_gated
-from ..matmul.ops import matmul, split_k
+from ..matmul.ops import keyed_matmul, split_k
 from .ref import int8_fused_mlp_ref, int8_matmul_ref
 
 BLOCK_K = 128            # csrc/gemm_sm90_s8.cuh I8_BK: the k step (one 128-byte atom), the split's unit
@@ -67,6 +76,55 @@ def fused_tile(m: int) -> tuple[int, int]:
     return FUSED_TILE if m <= FUSED_TILE[0] else FUSED_WIDE_TILE
 
 
+def int8_fused_mlp_op_name(mlp_type: str) -> str:
+    """Tuning-cache op key for the int8 fused-MLP hidden kernel."""
+    return f"int8_fused_mlp_{mlp_type}"
+
+
+def _key_dtype(act_dtype) -> str:
+    return mixed_dtype(dtype_name(act_dtype), "int8")
+
+
+def int8_geometry(m: int, k: int, n: int, act_dtype, *, tuned: bool = False,
+                  hw_name: str | None = None, num_sms: int = 132
+                  ) -> tuple[tuple[int, int, int], TunedConfig | None]:
+    """((tile rows, tile columns, k per split), the cache entry used or
+    None) of one int8 GEMM launch for an (m, k, n) product whose activation
+    is `act_dtype`: with `tuned`, the "int8_matmul" entry (blocks block_m,
+    block_n, split_k) when there is one, else `launch_shape`."""
+    if tuned:
+        cfg = lookup("int8_matmul", (m, k, n), _key_dtype(act_dtype),
+                     hw_name or get_hardware().name)
+        if cfg is not None:
+            b = cfg.blocks
+            return (b["block_m"], b["block_n"], split_depth(k, b["split_k"], BLOCK_K)), cfg
+    return launch_shape(m, n, k, num_sms), None
+
+
+def int8_fused_geometry(m: int, h: int, f: int, act_dtype, mlp_type: str, *,
+                        tuned: bool = False, hw_name: str | None = None
+                        ) -> tuple[tuple[int, int], TunedConfig | None]:
+    """((tile rows, tile columns), the cache entry used or None) of the
+    int8 fused MLP for x (m, h) against (h, f) weights: with `tuned`, the
+    "int8_fused_mlp_<mlp_type>" entry (blocks block_m, block_f) when there
+    is one, else `fused_tile`.  The kernel takes the tile's rows; its
+    columns are 32 in every instantiation."""
+    if tuned:
+        cfg = lookup(int8_fused_mlp_op_name(mlp_type), (m, h, f), _key_dtype(act_dtype),
+                     hw_name or get_hardware().name)
+        if cfg is not None:
+            return (cfg.blocks["block_m"], cfg.blocks["block_f"]), cfg
+    return fused_tile(m), None
+
+
+def _count(fn, tuned: bool, cfg) -> None:
+    if tuned:
+        if cfg is None:
+            fn.tuned_misses += 1
+        else:
+            fn.tuned_hits += 1
+
+
 def _as_quantized(w, name: str = "weight") -> QuantizedTensor:
     """A prequantized container passes through; a float matrix quantizes
     per output channel."""
@@ -84,27 +142,35 @@ def _flat(x):
 
 # --- int8 GEMM ----------------------------------------------------------------------
 
-def int8_matmul(a: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
+def int8_matmul(a: torch.Tensor, w, *, out_dtype=None, tuned: bool = False,
+                hw_name: str | None = None) -> torch.Tensor:
     """C = dequant(quant(A) @ quant(W)).  A: (..., k) float; W: (k, n) float
-    or a `QuantizedTensor`.  Output in `out_dtype` (default A's)."""
+    or a `QuantizedTensor`.  Output in `out_dtype` (default A's).  The
+    tuning cache keys the flattened (m, k, n) and A's dtype with int8."""
     lead = a.shape[:-1]
     wq = _as_quantized(w)
     a_q, a_scale = quantize_int8(_flat(a), axis=-1)
-    out = int8_matmul_q(a_q, a_scale, wq.q, wq.scale.reshape(1, -1), out_dtype or a.dtype)
+    out = int8_matmul_q(a_q, a_scale, wq.q, wq.scale.reshape(1, -1), out_dtype or a.dtype,
+                        tuned=tuned, hw_name=hw_name, act_dtype=a.dtype)
     return out.reshape(*lead, wq.q.shape[-1])
 
 
 int8_matmul.launches = 0
 int8_matmul.relayouts = 0
+int8_matmul.tuned_hits = 0
+int8_matmul.tuned_misses = 0
 
 
-def int8_matmul_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32) -> torch.Tensor:
+def int8_matmul_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *, tuned: bool = False,
+                  hw_name: str | None = None, act_dtype=None) -> torch.Tensor:
     """The kernel's function on quantized operands: a_q (m, k) int8, a_scale
     (m, 1) f32; b_q (k, n) int8 (K-major, or row-major and relaid), b_scale
-    (1, n) f32 -> (m, n) `out_dtype`."""
+    (1, n) f32 -> (m, n) `out_dtype`.  A tuned lookup keys the activation's
+    dtype, `act_dtype` (default `out_dtype`)."""
     if _build.dispatch_device("int8_matmul", a_q) == "cpu":
         return int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype)
-    return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype)
+    return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
+                             act_dtype or out_dtype)
 
 
 def _check_int8(what: str, x_q, x_scale, ws) -> None:
@@ -150,7 +216,10 @@ def _vec(k: int, *tensors) -> int:
     return int(k % 16 == 0 and _build.aligned16(*tensors))
 
 
-def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype):
+def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_name=None,
+                      act_dtype=None, forced=None):
+    """Launch csrc/int8_matmul.cu; `forced` (tile rows, tile columns, k per
+    split) launches that geometry, bypassing rule and cache."""
     _check_int8("int8_matmul", a_q, a_scale, [(b_q, b_scale)])
     dt = _build.dtype_code(out_dtype)
     m, k = a_q.shape
@@ -162,7 +231,12 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype):
     if k == 0:
         return out.zero_()
     bt = _k_major("int8_matmul", int8_matmul, b_q)
-    tm, tn, ks = launch_shape(m, n, k, _build.num_sms(dev))
+    if forced is not None:
+        tm, tn, ks = forced
+    else:
+        (tm, tn, ks), cfg = int8_geometry(m, k, n, act_dtype or out_dtype, tuned=tuned,
+                                          hw_name=hw_name, num_sms=_build.num_sms(dev))
+        _count(int8_matmul, tuned, cfg)
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_int8_matmul(
@@ -176,7 +250,8 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype):
 # --- int8 fused MLP hidden ----------------------------------------------------------
 
 def int8_fused_mlp_hidden(x: torch.Tensor, w_gate, w_up, *, mlp_type: str = "swiglu",
-                          out_dtype=None) -> torch.Tensor:
+                          out_dtype=None, tuned: bool = False,
+                          hw_name: str | None = None) -> torch.Tensor:
     """int8-weight fused-MLP hidden.  x: (..., h) float; w_gate / w_up:
     (h, f) float or `QuantizedTensor` (w_gate ignored for the ungated
     types).  Returns (..., f) in `out_dtype` (default x's)."""
@@ -188,27 +263,36 @@ def int8_fused_mlp_hidden(x: torch.Tensor, w_gate, w_up, *, mlp_type: str = "swi
     out = int8_fused_mlp_q(
         x_q, x_scale, None if wg is None else wg.q,
         None if wg is None else wg.scale.reshape(1, -1), wu.q,
-        wu.scale.reshape(1, -1), mlp_type=mlp_type, out_dtype=out_dtype or x.dtype)
+        wu.scale.reshape(1, -1), mlp_type=mlp_type, out_dtype=out_dtype or x.dtype,
+        tuned=tuned, hw_name=hw_name, act_dtype=x.dtype)
     return out.reshape(*lead, wu.q.shape[-1])
 
 
 int8_fused_mlp_hidden.launches = 0
 int8_fused_mlp_hidden.relayouts = 0
+int8_fused_mlp_hidden.tuned_hits = 0
+int8_fused_mlp_hidden.tuned_misses = 0
 
 
 def int8_fused_mlp_q(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, *,
-                     mlp_type: str = "swiglu", out_dtype=torch.float32) -> torch.Tensor:
-    """The kernel's function on quantized operands (see `int8_fused_mlp_ref`)."""
+                     mlp_type: str = "swiglu", out_dtype=torch.float32, tuned: bool = False,
+                     hw_name: str | None = None, act_dtype=None) -> torch.Tensor:
+    """The kernel's function on quantized operands (see `int8_fused_mlp_ref`);
+    a tuned lookup keys `act_dtype` (default `out_dtype`)."""
     _check_type(mlp_type)
     if not is_gated(mlp_type):
         wg_q = wg_scale = None
     if _build.dispatch_device("int8_fused_mlp_hidden", x_q) == "cpu":
         return int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale,
                                   mlp_type=mlp_type, out_dtype=out_dtype)
-    return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype)
+    return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype,
+                            tuned, hw_name, act_dtype or out_dtype)
 
 
-def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype):
+def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype,
+                     tuned=False, hw_name=None, act_dtype=None, forced=None):
+    """Launch csrc/int8_fused_mlp.cu; `forced` (tile rows, tile columns)
+    launches that tile, bypassing rule and cache."""
     ws = [(wu_q, wu_scale)] if wg_q is None else [(wg_q, wg_scale), (wu_q, wu_scale)]
     _check_int8("int8_fused_mlp_hidden", x_q, x_scale, ws)
     dt = _build.dtype_code(out_dtype)
@@ -219,12 +303,21 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
         return out
     wts = [_k_major("int8_fused_mlp_hidden", int8_fused_mlp_hidden, q) for q, _ in ws]
     wgt, wut = (None, *wts) if wg_q is None else wts
+    if forced is not None:
+        tile = forced
+    else:
+        tile, cfg = int8_fused_geometry(m, k, f, act_dtype or out_dtype, mlp_type, tuned=tuned,
+                                        hw_name=hw_name)
+        _count(int8_fused_mlp_hidden, tuned, cfg)
+    if tile[1] != FUSED_TILE[1]:
+        raise ValueError(f"int8_fused_mlp_hidden: tile {tile[0]} x {tile[1]}: the library "
+                         f"instantiates {FUSED_TILE[1]} columns only (csrc/int8_fused_mlp.cu)")
     lib = _build.build().lib
     with torch.cuda.device(x_q.device):
         status = lib.repro_int8_fused_mlp(
             _build.ptr(x_q), _build.ptr(wgt), _build.ptr(wut), _build.ptr(x_scale),
             _build.ptr(wg_scale), _build.ptr(wu_scale), _build.ptr(out), m, f, k,
-            ACT_CODES[mlp_type], dt, _vec(k, x_q, *wts), fused_tile(m)[0],
+            ACT_CODES[mlp_type], dt, _vec(k, x_q, *wts), tile[0],
             _build.stream_of(x_q.device))
     _build.check(status, "int8_fused_mlp_hidden")
     int8_fused_mlp_hidden.launches += 1
@@ -233,8 +326,12 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
 
 # --- emulated fp8 GEMM --------------------------------------------------------------
 
-def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *,
-               fp8_dtype: str = "float8_e4m3fn") -> torch.Tensor:
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *, fp8_dtype: str = "float8_e4m3fn",
+               tuned: bool = False, hw_name: str | None = None) -> torch.Tensor:
     """Round A (..., k) and B (k, n) through fp8 storage (e4m3 or e5m2) and
-    contract on the tile GEMM (f32 accumulation, output in A's dtype)."""
-    return matmul(fp8_round_trip(a, fp8_dtype), fp8_round_trip(b, fp8_dtype))
+    contract on the tile GEMM (f32 accumulation, output in A's dtype).  A
+    tuned lookup takes op "fp8_matmul" under the mixed dtype key, e.g.
+    "bfloat16xfloat8_e4m3fn"; launches and lookups count on `matmul`."""
+    return keyed_matmul(fp8_round_trip(a, fp8_dtype), fp8_round_trip(b, fp8_dtype),
+                        tuned=tuned, hw_name=hw_name, op="fp8_matmul",
+                        key_dtype=mixed_dtype(dtype_name(a.dtype), fp8_dtype))

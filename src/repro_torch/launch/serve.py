@@ -8,7 +8,8 @@ Static batch:
 
 Continuous-batching engine (`--paged`: decode attention through the paged
 decode kernel; `--prefix-cache`: the block-table KV pool with prefix
-sharing; `--kv-dtype int8`: an int8 KV pool with f32 scales):
+sharing; `--kv-dtype int8`: an int8 KV pool with f32 scales;
+`--grow-batch`: the advisor may double the slot bucket):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --engine --paged --requests 12 --gen 16
@@ -100,7 +101,8 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
 
     eng = Engine(params, cfg, max_batch=args.batch,
                  max_prompt=args.prompt_len, max_new=args.gen,
-                 use_paged_kernel=args.paged, prefix_cache=args.prefix_cache,
+                 use_paged_kernel=args.paged, grow_batch=args.grow_batch,
+                 prefix_cache=args.prefix_cache,
                  kv_dtype=args.kv_dtype, device=device)
     pol = eng.policy
     print(f"bucket policy: {pol.num_slots} slots x {pol.seq_max} kv depth, "
@@ -162,6 +164,9 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default="auto", choices=["auto", "int8"],
                     help="KV-cache storage dtype: int8 halves pool bytes "
                          "(vs bf16) with per-(token, head) f32 scales")
+    ap.add_argument("--grow-batch", action="store_true",
+                    help="let the advisor grow the slot bucket when the "
+                         "calibrated model predicts enough amortization")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="block-table KV pool with content-addressed prefix "
                          "sharing")

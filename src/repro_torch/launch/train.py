@@ -13,9 +13,11 @@ through flash with `--attn-impl flash`).  Runs on the CUDA card; `--device
 cpu` runs the plain PyTorch versions on the host instead (there is no
 silent fallback).  Params are float32 masters drawn from `--seed` on the
 device; the batches are the deterministic synthetic stream of
-`data/pipeline.py`.  Checkpointing (`--checkpoint-every`,
-`--resume`), data/model parallelism (`--data`, `--model` > 1) and the
-advisor's launch report come with later slices: passing those flags raises.
+`data/pipeline.py`.  At launch it prints the advisor's shape-rule findings
+for the config on the H100 (`core/advisor.check_alignment`), as JAX's
+launcher does for its chip.  Checkpointing (`--checkpoint-every`,
+`--resume`) and data/model parallelism (`--data`, `--model` > 1) come with
+later slices: passing those flags raises.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from ..configs.base import MeshConfig, ShapeConfig, TrainConfig
 from ..configs.registry import get_config, get_smoke_config
+from ..core import advisor
 from ..data.pipeline import make_batch
 from ..models import init_lm
 from ..optim.adamw import init_opt
@@ -88,6 +91,14 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg, mesh_cfg, shape, tc = build(args)
+
+    # shape-rule report (the paper's contribution, surfaced at launch)
+    findings = advisor.check_alignment(cfg, tp=mesh_cfg.model,
+                                       global_batch=shape.global_batch)
+    for f in findings:
+        if f.severity != "ok":
+            print(f"[advisor:{f.severity}] {f.rule}: {f.message}")
+
     n_micro = 1
     if args.microbatch:
         tc = dataclasses.replace(tc, microbatch_per_device=args.microbatch)

@@ -155,7 +155,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         if paged:
             out = paged_decode_blocktable(
                 q[:, 0], kc if quant else kc.to(q.dtype), vc if quant else vc.to(q.dtype),
-                block_tables, lengths, k_scale=scales[0], v_scale=scales[1])[:, None]
+                block_tables, lengths, k_scale=scales[0], v_scale=scales[1], tuned=True)[:, None]
         else:
             kg, vg = gather_block_kv(kc, block_tables), gather_block_kv(vc, block_tables)
             if quant:
@@ -191,7 +191,8 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         lengths = torch.as_tensor(kv_len, device=x.device).to(torch.int32).expand(b)
         out = paged_decode(q[:, 0], k if quant else k.to(q.dtype), v if quant else v.to(q.dtype),
                            torch.arange(b, dtype=torch.int32, device=x.device),
-                           lengths.contiguous(), k_scale=scales[0], v_scale=scales[1])[:, None]
+                           lengths.contiguous(), k_scale=scales[0], v_scale=scales[1],
+                           tuned=True)[:, None]
     else:
         out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=True,
                     q_pos=positions, kv_len=kv_len)

@@ -4,15 +4,22 @@
 path from `ModelConfig.linear_impl`:
 
   "jnp"    — `torch.matmul` (the JAX package leaves this GEMM to XLA)
-  "pallas" — the hand-written CUDA tile GEMM (kernels/matmul)
-  "tuned"  — the same kernel: block shapes are fixed until the tuning slice
-  "fused"  — the tile GEMM everywhere, plus the fused SwiGLU/MLP kernel
-             (kernels/fused_mlp) for the MLP gate/up pair
-  "quantized" — the int8 weight path (kernels/quantized): per-channel
+  "pallas" — the hand-written CUDA tile GEMM (kernels/matmul), at the
+             wrapper's rule geometry (`tuned=False`)
+  "tuned"  — the same kernel at the tuning cache's measured-best tile and
+             split for each (m, k, n) where the cache has one (`tuned=True`;
+             a miss keeps the rule)
+  "fused"  — the tuned tile GEMM everywhere, plus the fused SwiGLU/MLP
+             kernel (kernels/fused_mlp, tuned) for the MLP gate/up pair
+  "quantized" — the int8 weight path (kernels/quantized, tuned): per-channel
              weight scales, dynamic per-row activation quantization, i32
              accumulate, f32 de-scale.  Weights may be float leaves
              (quantized per call, as JAX does) or `QuantizedLinear`
              containers from `quantize_linear_params` (quantized once)
+
+As in JAX's `_LinearConfig`, "tuned", "fused" and "quantized" look the
+tuning cache up and "pallas" does not; the gradient GEMMs of a tuned
+forward look up their own (m, k, n) keys.
 
 The kernel paths are differentiable: `_Linear` mirrors JAX's
 `_pallas_linear` custom VJP, its dgrad (g @ w^T) and wgrad (x^T @ g) both
@@ -57,17 +64,18 @@ class _Linear(torch.autograd.Function):
     """JAX's `_pallas_linear` (models/linear.py:75-97): x2 (m, k) @ w (k, n)."""
 
     @staticmethod
-    def forward(ctx, x2, w):
+    def forward(ctx, x2, w, tuned):
+        ctx.tuned = tuned
         ctx.save_for_backward(x2, w)
-        return matmul(x2, w)
+        return matmul(x2, w, tuned=tuned)
 
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
         g = g.contiguous()
-        dx = matmul(g, w.T) if ctx.needs_input_grad[0] else None
-        dw = matmul(x2.T, g) if ctx.needs_input_grad[1] else None
-        return dx, dw
+        dx = matmul(g, w.T, tuned=ctx.tuned) if ctx.needs_input_grad[0] else None
+        dw = matmul(x2.T, g, tuned=ctx.tuned) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
 
 
 class _QuantizedLinear(_Linear):
@@ -76,9 +84,10 @@ class _QuantizedLinear(_Linear):
     (straight-through)."""
 
     @staticmethod
-    def forward(ctx, x2, w):
+    def forward(ctx, x2, w, tuned):
+        ctx.tuned = tuned
         ctx.save_for_backward(x2, w)
-        return int8_matmul(x2, w)
+        return int8_matmul(x2, w, tuned=tuned)
 
 
 class _QuantizedLinearFrozen(torch.autograd.Function):
@@ -90,13 +99,13 @@ class _QuantizedLinearFrozen(torch.autograd.Function):
     def forward(ctx, x2, wq, wscale):
         ctx.dtype = x2.dtype
         ctx.save_for_backward(wq, wscale)
-        return int8_matmul(x2, QuantizedTensor(wq, wscale, -2))
+        return int8_matmul(x2, QuantizedTensor(wq, wscale, -2), tuned=True)
 
     @staticmethod
     def backward(ctx, g):
         wq, wscale = ctx.saved_tensors
         w = (wq.float() * wscale).to(ctx.dtype)
-        return matmul(g.contiguous(), w.T), None, None
+        return matmul(g.contiguous(), w.T, tuned=True), None, None
 
 
 def _grad_recorded(*tensors) -> bool:
@@ -110,10 +119,11 @@ def _quantized_linear(x, w):
         if _grad_recorded(x):
             out = _QuantizedLinearFrozen.apply(x2, w.q, w.scale.reshape(1, -1))
         else:
-            out = int8_matmul(x2, w)
+            out = int8_matmul(x2, w, tuned=True)
         return out.reshape(*lead, w.q.shape[-1])
     w = w.to(x.dtype)
-    out = _QuantizedLinear.apply(x2, w) if _grad_recorded(x, w) else int8_matmul(x2, w)
+    out = (_QuantizedLinear.apply(x2, w, True) if _grad_recorded(x, w)
+           else int8_matmul(x2, w, tuned=True))
     return out.reshape(*lead, w.shape[-1])
 
 
@@ -126,10 +136,11 @@ def linear(x, w, *, impl: str = "jnp"):
     w = w.to(x.dtype)
     if impl == "jnp":
         return x @ w
+    tuned = impl != "pallas"
     if _grad_recorded(x, w):
         lead, k = x.shape[:-1], x.shape[-1]
-        return _Linear.apply(x.reshape(-1, k), w).reshape(*lead, w.shape[-1])
-    return matmul(x, w)
+        return _Linear.apply(x.reshape(-1, k), w, tuned).reshape(*lead, w.shape[-1])
+    return matmul(x, w, tuned=tuned)
 
 
 def fused_mlp(x, p, cfg):
@@ -137,7 +148,7 @@ def fused_mlp(x, p, cfg):
     projection.  p: {w_gate (swiglu), w_up, w_down}; x: (..., h)."""
     dt = x.dtype
     w_gate = p["w_gate"].to(dt) if cfg.mlp_type == "swiglu" else None
-    hidden = fused_mlp_hidden(x, w_gate, p["w_up"].to(dt), mlp_type=cfg.mlp_type)
+    hidden = fused_mlp_hidden(x, w_gate, p["w_up"].to(dt), mlp_type=cfg.mlp_type, tuned=True)
     return linear(hidden, p["w_down"], impl="tuned")
 
 
@@ -188,7 +199,7 @@ class _QuantizedHidden(torch.autograd.Function):
     def forward(ctx, x2, w_gate, w_up, mlp_type):
         ctx.mlp_type = mlp_type
         ctx.save_for_backward(x2, w_gate, w_up)
-        return int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=mlp_type)
+        return int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=mlp_type, tuned=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -211,12 +222,12 @@ def quantized_mlp(x, p, cfg):
     w_gate = p.get("w_gate") if cfg.mlp_type == "swiglu" else None
     w_up = p["w_up"]
     if isinstance(w_up, QuantizedTensor):
-        hidden = int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=cfg.mlp_type)
+        hidden = int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=cfg.mlp_type, tuned=True)
     else:
         w_gate = None if w_gate is None else w_gate.to(x.dtype)
         w_up = w_up.to(x.dtype)
         if _grad_recorded(x2, w_gate, w_up):
             hidden = _QuantizedHidden.apply(x2, w_gate, w_up, cfg.mlp_type)
         else:
-            hidden = int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=cfg.mlp_type)
+            hidden = int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=cfg.mlp_type, tuned=True)
     return linear(hidden.reshape(*lead, hidden.shape[-1]), p["w_down"], impl="quantized")

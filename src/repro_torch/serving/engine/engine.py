@@ -39,9 +39,11 @@ appendable) preempts the youngest sequence with exact rollback: its full
 KV blocks are committed to the prefix cache, the request re-queues, and on
 re-admission only the uncached tail is re-prefilled, so outputs stay
 token-identical.  Retries are bounded; a request that exhausts them
-completes as `preempted-retry-exhausted` with the tokens it has.  Fault
-injection, observability and the tuning-cache lookups come with later
-slices; their switches raise here.
+completes as `preempted-retry-exhausted` with the tokens it has.  The
+slot bucket may grow by the advisor's cost model (`grow_batch=True`), and
+the block-table pool's block size comes from the tuning cache where it has
+an entry.  Fault injection and observability come with later slices; their
+switches raise here.
 
 Device: the engine runs where its params live — CUDA by default (it raises
 when there is no card), or the CPU when the caller passes device="cpu",
@@ -61,7 +63,8 @@ from ...core.hardware import Hardware, get_hardware
 from ...models import apply_lm, init_caches
 from ...models.blocks import KV_DTYPES
 from ...models.layers import compute_dtype
-from ...tuning.candidates import bucket_steps, sublane_granule
+from ...tuning.cache import dtype_name, lookup
+from ...tuning.candidates import fallback_block_size, sublane_granule
 from .buckets import BucketPolicy, make_policy
 from .kv_pool import PagedPool, PoolExhausted, SlotPool
 from .request import Completion, EngineStats, Request
@@ -284,19 +287,23 @@ class Engine:
         self._queue: Optional[RequestQueue] = None
 
     def _pick_block_size(self, hw: Hardware) -> int:
-        """Physical KV block size: the smallest divisor of seq_max on the
-        bucket lattice that is >= 16 — fine-grained enough to share
-        prefixes, still a whole number of register tiles.  The JAX engine
-        first asks its tuning cache (`paged_decode_blocktable_pool`); the
-        port has none yet (it comes with the tuning slice), so it takes this
-        fallback, which is 64 on the H100 (sublane granule 64)."""
-        s_max = self.policy.seq_max
-        sub = sublane_granule(hw, torch.finfo(compute_dtype(self.cfg.dtype)).bits // 8)
-        divisors = [b for b in bucket_steps(s_max, sub) if s_max % b == 0]
-        for b in divisors:
-            if b >= 16:
-                return b
-        return divisors[-1] if divisors else s_max
+        """Physical KV block size: a tile-lattice choice, taken from the
+        `paged_decode_blocktable_pool` tuning-cache entry for this pool
+        geometry when one exists (see
+        `tuning.search.autotune_paged_decode_blocktable`), else the smallest
+        lattice divisor of seq_max >= 16 — fine-grained enough to share
+        prefixes, still a whole number of register tiles (64 on the H100,
+        whose sublane granule is 64)."""
+        cfg = self.cfg
+        n, s_max = self.policy.num_slots, self.policy.seq_max
+        dt = compute_dtype(cfg.dtype)
+        entry = lookup(
+            "paged_decode_blocktable_pool",
+            (n, n, s_max, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim),
+            dtype_name(dt), hw.name)
+        if entry is not None and s_max % entry.blocks["block_size"] == 0:
+            return int(entry.blocks["block_size"])
+        return fallback_block_size(s_max, sublane_granule(hw, dt.itemsize))
 
     def reset_stats(self) -> None:
         """Zero the step counters (run() does this itself on entry)."""

@@ -22,6 +22,7 @@ import torch
 from ..kernels import _build
 from ..kernels.quantized.ops import fused_tile, int8_fused_mlp_q, int8_matmul_q, launch_shape
 from ..quant import quantize_int8, quantize_weight
+from .measure import time_ms
 
 SOURCE = Path(__file__).resolve().with_name("int8_tiles.cu")
 # (k, n) of internlm2-1.8b's int8 projections, as chip_smoke times them
@@ -35,7 +36,6 @@ FUSED_TILES = ((64, 32), (64, 64), (128, 32), (128, 64))
 SPLITS = (1, 2, 4, 8)               # at most 8: one cluster
 ACT_NONE, ACT_SWIGLU = 0, 1
 L2_BYTES = 50 * 2 ** 20
-SLEEP_CYCLES = 50_000_000
 
 
 def _library() -> ctypes.CDLL:
@@ -53,22 +53,6 @@ def _library() -> ctypes.CDLL:
     lib.repro_int8_tile.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_int8_tile.restype = i
     return lib
-
-
-def _time_ms(calls, iters: int) -> float:
-    """Mean device ms of one call, warm, cycling through `calls`; the card
-    sleeps while the host queues them."""
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    t0.record()
-    for i in range(iters):
-        calls[i % len(calls)]()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -124,7 +108,7 @@ def sweep(lib, what: str, m: int, k: int, n: int, gated: bool, picked) -> str:
         if not torch.equal(out, want):
             raise SystemExit(f"{what} {m}x{k}x{n}: tile {tm}x{tn}, {_cdiv(k, ks)} splits "
                              f"differs from the library's launch")
-        times[(tm, tn, _cdiv(k, ks))] = _time_ms([lambda w=w: call(w) for w in ws],
+        times[(tm, tn, _cdiv(k, ks))] = time_ms([lambda w=w: call(w) for w in ws],
                                                 20 if m * k * n > 2 ** 34 else 50)
     best = min(times, key=times.get)
     name = "{}x{}/{}".format

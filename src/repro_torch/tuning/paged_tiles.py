@@ -28,9 +28,9 @@ compared in turns on one card (parent, change, change, parent).
 """
 from __future__ import annotations
 
+import functools
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -38,32 +38,16 @@ from repro_torch.kernels import tolerance
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (paged_decode_blocktable_ref,
                                                      paged_decode_ref)
+from repro_torch.tuning.measure import time_ms
 
 SPLITS = (1, 2, 3, 4, 8)
 L2_BYTES = 50 * 2 ** 20
-SLEEP_CYCLES = 50_000_000
 ITERS = 50
 # internlm2-1.8b's attention (16 query / 8 kv heads of 128), and command-r-plus-104b's
 # group (96 / 8)
 NKV, D = 8, 128
-
-
-def _time_ms(calls, iters: int = ITERS):
-    """(mean device ms, mean host us) of one call, warm, cycling through
-    `calls`; the card sleeps while the host queues them."""
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    t0.record()
-    h0 = time.perf_counter()
-    for i in range(iters):
-        calls[i % len(calls)]()
-    host = (time.perf_counter() - h0) / iters * 1e6
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters, host
+# (mean device ms, mean host us) of one call, cycling through the calls given
+_time_ms = functools.partial(time_ms, iters=ITERS, host=True)
 
 
 def _lengths(gen, b: int, lo: int, hi: int, dead_every: int):

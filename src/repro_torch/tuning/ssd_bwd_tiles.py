@@ -35,29 +35,13 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.ssd import ops
+from repro_torch.tuning.measure import time_ms
 
 ARCHS = ("mamba2-780m", "zamba2-2.7b")
 BATCH, SEQ = 4, 1024
 SLABS = (1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 48)
 L2_BYTES = 128 * 2 ** 20
-SLEEP_CYCLES = 50_000_000
 ITERS = 20
-
-
-def _time_ms(calls, iters: int = ITERS) -> float:
-    """Mean device ms of one call, warm, cycling through `calls`; the card
-    sleeps while the host queues them."""
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    t0.record()
-    for i in range(iters):
-        calls[i % len(calls)]()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 def operands(gen, nh: int, P: int, N: int, Q: int, dtype=torch.bfloat16):
@@ -108,12 +92,13 @@ def sweep(arch: str) -> str:
         got = ops._ssd_chunk_bwd_cuda(*sets[0], heads=h)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise SystemExit(f"{arch}: a slab of {h} heads differs from the library's launch")
-        times[h] = _time_ms([lambda o=o, h=h: ops._ssd_chunk_bwd_cuda(*o, heads=h) for o in sets])
+        times[h] = time_ms([lambda o=o, h=h: ops._ssd_chunk_bwd_cuda(*o, heads=h) for o in sets],
+                           ITERS)
     flat = [[t.reshape(-1, *t.shape[3:]) for t in o] for o in sets[:2]]
     got = ops._ssd_chunk_bwd_cuda(*flat[0])
     if not all(torch.equal(g.reshape(w.shape), w) for g, w in zip(got, want)):
         raise SystemExit(f"{arch}: the flat layout's per-head scores differ from the shared ones")
-    flat_ms = _time_ms([lambda o=o: ops._ssd_chunk_bwd_cuda(*o) for o in flat])
+    flat_ms = time_ms([lambda o=o: ops._ssd_chunk_bwd_cuda(*o) for o in flat], ITERS)
     best = min(times, key=times.get)
     cells = ", ".join(f"{h} {t:.4f}" for h, t in times.items())
     return (f"  {arch} ({nh} heads, P {P}, N {N}, Q {Q}), heads a block: {cells}; picked "
@@ -128,13 +113,13 @@ def library_times() -> None:
     for arch in ARCHS:
         nh, P, N, Q = _shape(arch)
         sets = _sets(gen, nh, P, N, Q)
-        bwd = _time_ms([lambda o=o: ssd_chunk_bwd(*o) for o in sets])
-        fwd = _time_ms([lambda o=o: ssd_chunk(*o[:4]) for o in sets])
+        bwd = time_ms([lambda o=o: ssd_chunk_bwd(*o) for o in sets], ITERS)
+        fwd = time_ms([lambda o=o: ssd_chunk(*o[:4]) for o in sets], ITERS)
         line = f"  {arch}: bf16 backward {bwd:.4f} ms, forward {fwd:.4f} ms"
         del sets
         if arch == ARCHS[0]:
             sets = _sets(gen, nh, P, N, Q, torch.float32)
-            f32 = _time_ms([lambda o=o: ssd_chunk_bwd(*o) for o in sets], ITERS // 2)
+            f32 = time_ms([lambda o=o: ssd_chunk_bwd(*o) for o in sets], ITERS // 2)
             line += f", f32 backward {f32:.4f} ms"
             del sets
         print(line, flush=True)

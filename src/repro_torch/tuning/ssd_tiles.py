@@ -22,7 +22,7 @@ import torch
 
 from ..configs.registry import get_config
 from ..kernels.ssd import ops
-from .int8_tiles import _time_ms
+from .measure import time_ms
 
 ARCHS = ("mamba2-780m", "zamba2-2.7b")
 BATCH, SEQ = 4, 1024
@@ -66,12 +66,12 @@ def sweep(arch: str) -> str:
         got = ops._ssd_chunk_cuda(*sets[0], heads=h)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise SystemExit(f"{arch}: a slab of {h} heads differs from the library's launch")
-        times[h] = _time_ms([lambda o=o, h=h: ops._ssd_chunk_cuda(*o, heads=h) for o in sets], 50)
+        times[h] = time_ms([lambda o=o, h=h: ops._ssd_chunk_cuda(*o, heads=h) for o in sets], 50)
     flat = [[t.reshape(-1, *t.shape[3:]) for t in o] for o in sets[:2]]
     got = ops._ssd_chunk_cuda(*flat[0])
     if not all(torch.equal(g.reshape(w.shape), w) for g, w in zip(got, want)):
         raise SystemExit(f"{arch}: the flat layout's per-head scores differ from the shared ones")
-    flat_ms = _time_ms([lambda o=o: ops._ssd_chunk_cuda(*o) for o in flat], 50)
+    flat_ms = time_ms([lambda o=o: ops._ssd_chunk_cuda(*o) for o in flat], 50)
     best = min(times, key=times.get)
     cells = ", ".join(f"{h} {t:.4f}" for h, t in times.items())
     return (f"  {arch} ({nh} heads, P {P}, N {N}, Q {Q}), heads a block: {cells}; picked "

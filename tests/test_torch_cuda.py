@@ -1076,3 +1076,252 @@ def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
     toks_card = greedy_generate(_to(params, cuda), cfg, prompt.to(cuda), 8)
     assert ssd_chunk.launches - before == cfg.num_layers     # the prefill only
     assert torch.equal(toks_card.cpu(), toks)
+
+
+# --- the tuning cache on the card -----------------------------------------------------
+
+@pytest.fixture
+def tuned_cache(cuda):
+    """An empty default tuning cache for the test; none installed after."""
+    from repro_torch.tuning.cache import TuningCache, set_default_cache
+    cache = TuningCache()
+    set_default_cache(cache)
+    yield cache
+    set_default_cache(None)
+
+
+def _install(cache, op, shape, dtype, blocks):
+    from repro_torch.tuning.cache import TunedConfig
+    cache.entries.clear()
+    cache.put(TunedConfig(op=op, shape=tuple(shape), dtype=dtype, hw_name="h100",
+                          blocks=dict(blocks), time_us=1.0))
+
+
+def _hit(fn, call):
+    """call(), asserting it made exactly one tuned lookup, a hit."""
+    before = (fn.tuned_hits, fn.tuned_misses)
+    out = call()
+    torch.cuda.synchronize()
+    assert (fn.tuned_hits, fn.tuned_misses) == (before[0] + 1, before[1])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(37, 1040, 200), (64, 2048, 2048)])
+def test_tuned_matmul_at_every_lattice_geometry(tuned_cache, dtype, m, k, n):
+    """An entry for each geometry the lattice offers: the tuned call is
+    bit-identical to a forced launch of that geometry and within the bound
+    of the plain version; a miss launches the rule's geometry."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.tuning.cache import dtype_name
+    from repro_torch.tuning.candidates import matmul_candidates, split_depth
+    rng = np.random.default_rng(m + k)
+    a, b = _rand(rng, (m, k), dtype, "cuda"), _rand(rng, (k, n), dtype, "cuda", k ** -0.5)
+    want = matmul_ref(a, b)
+    sms = _build.num_sms(a.device)
+    bk = ops.F32_BLOCK_K if dtype == torch.float32 else ops.BLOCK_K
+    before = matmul.tuned_misses
+    assert torch.equal(matmul(a, b, tuned=True),
+                       ops._matmul_cuda(a, b, None, None, forced=ops.launch_shape(m, n, k, dtype,
+                                                                                  sms)))
+    assert matmul.tuned_misses == before + 1
+    lattice = matmul_candidates(m, k, n, a.element_size(), sms)
+    assert len(lattice) >= 2
+    for bm, bn, s in lattice:
+        _install(tuned_cache, "matmul", (m, k, n), dtype_name(dtype),
+                 dict(block_m=bm, block_n=bn, split_k=s))
+        got = _hit(matmul, lambda: matmul(a, b, tuned=True))
+        forced = ops._matmul_cuda(a, b, None, None, forced=(bm, bn, split_depth(k, s, bk)))
+        assert torch.equal(got, forced), (bm, bn, s)
+        _close(got, want, tolerance.matmul_tol(a, b, want))
+
+
+@pytest.mark.parametrize("fp8_dtype", ["float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("m,k,n", [(37, 1040, 200), (64, 2048, 2048)])
+def test_tuned_fp8_matmul_at_every_lattice_geometry(tuned_cache, fp8_dtype, m, k, n):
+    """The emulated fp8 GEMM's own entries (op "fp8_matmul", the mixed dtype
+    key): each lattice geometry bit-identical to a forced launch on the
+    rounded operands and within the bound of the plain version; the tile
+    GEMM's counters count the lookups."""
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.kernels.quantized.ops import fp8_matmul
+    from repro_torch.quant import fp8_round_trip
+    from repro_torch.tuning.candidates import fp8_matmul_candidates, split_depth
+    rng = np.random.default_rng(m + n)
+    a, b = _rand(rng, (m, k), torch.bfloat16, "cuda"), _rand(rng, (k, n), torch.bfloat16, "cuda",
+                                                            k ** -0.5)
+    a8, b8 = fp8_round_trip(a, fp8_dtype), fp8_round_trip(b, fp8_dtype)
+    want = matmul_ref(a8, b8)
+    for bm, bn, s in fp8_matmul_candidates(m, k, n):
+        _install(tuned_cache, "fp8_matmul", (m, k, n), f"bfloat16x{fp8_dtype}",
+                 dict(block_m=bm, block_n=bn, split_k=s))
+        got = _hit(matmul, lambda: fp8_matmul(a, b, fp8_dtype=fp8_dtype, tuned=True))
+        forced = ops._matmul_cuda(a8, b8, None, None, forced=(bm, bn, split_depth(k, s, 64)))
+        assert torch.equal(got, forced), (bm, bn, s)
+        _close(got, want, tolerance.matmul_tol(a8, b8, want))
+    _install(tuned_cache, "fp8_matmul", (m, k, n), f"bfloat16x{fp8_dtype}",
+             dict(block_m=256, block_n=128, split_k=1))
+    with pytest.raises(RuntimeError):
+        fp8_matmul(a, b, fp8_dtype=fp8_dtype, tuned=True)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,h,f", [(19, 72, 200), (64, 2048, 8192)])
+def test_tuned_fused_mlp_at_every_lattice_geometry(tuned_cache, dtype, m, h, f):
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.tuning.cache import dtype_name
+    from repro_torch.tuning.candidates import fused_mlp_candidates
+    rng = np.random.default_rng(m + h)
+    x = _rand(rng, (m, h), dtype, "cuda")
+    wg, wu = (_rand(rng, (h, f), dtype, "cuda", h ** -0.5) for _ in range(2))
+    want = fused_mlp_hidden_ref(x, wg, wu, "swiglu")
+    for bm, bf in fused_mlp_candidates(m, h, f, x.element_size()):
+        _install(tuned_cache, "fused_mlp_swiglu", (m, h, f), dtype_name(dtype),
+                 dict(block_m=bm, block_f=bf))
+        got = _hit(fused_mlp_hidden, lambda: fused_mlp_hidden(x, wg, wu, tuned=True))
+        assert torch.equal(got, ops._fused_cuda(x, wg, wu, "swiglu", forced=(bm, bf)))
+        _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, "swiglu", want))
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 1040, 200), (128, 2048, 2048), (256, 8192, 2048)])
+def test_tuned_int8_matmul_at_every_lattice_geometry(tuned_cache, m, k, n):
+    """Every geometry bit-identical to the forced launch and to the plain
+    version (exact integer sums), bf16 activations' key."""
+    from repro_torch.kernels.quantized import ops
+    from repro_torch.kernels.quantized.ref import int8_matmul_ref
+    from repro_torch.tuning.candidates import int8_matmul_candidates, split_depth
+    rng = np.random.default_rng(m + n)
+    a_q, a_s, [(b_q, b_s)] = _int8_operands(rng, m, k, n, "cuda")
+    want = int8_matmul_ref(a_q, a_s, b_q, b_s, torch.bfloat16)
+    for bm, bn, s in int8_matmul_candidates(m, k, n):
+        _install(tuned_cache, "int8_matmul", (m, k, n), "bfloat16xint8",
+                 dict(block_m=bm, block_n=bn, split_k=s))
+        got = _hit(ops.int8_matmul, lambda: ops.int8_matmul_q(
+            a_q, a_s, b_q, b_s, torch.bfloat16, tuned=True, act_dtype=torch.bfloat16))
+        forced = ops._int8_matmul_cuda(a_q, a_s, b_q, b_s, torch.bfloat16,
+                                       forced=(bm, bn, split_depth(k, s, ops.BLOCK_K)))
+        assert torch.equal(got, forced) and torch.equal(got, want), (bm, bn, s)
+
+
+@pytest.mark.parametrize("m,h,f", [(19, 72, 200), (64, 2048, 8192), (256, 2048, 8192)])
+def test_tuned_int8_fused_mlp_at_every_lattice_geometry(tuned_cache, m, h, f):
+    from repro_torch.kernels.quantized import ops
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref
+    from repro_torch.tuning.candidates import int8_fused_mlp_candidates
+    rng = np.random.default_rng(m + f)
+    x_q, x_s, [(g_q, g_s), (u_q, u_s)] = _int8_operands(rng, m, h, f, "cuda", gated=True)
+    want = int8_fused_mlp_ref(x_q, x_s, g_q, g_s, u_q, u_s, out_dtype=torch.bfloat16)
+    for bm, bf in int8_fused_mlp_candidates(m, h, f):
+        _install(tuned_cache, "int8_fused_mlp_swiglu", (m, h, f), "bfloat16xint8",
+                 dict(block_m=bm, block_f=bf))
+        got = _hit(ops.int8_fused_mlp_hidden, lambda: ops.int8_fused_mlp_q(
+            x_q, x_s, g_q, g_s, u_q, u_s, out_dtype=torch.bfloat16, tuned=True,
+            act_dtype=torch.bfloat16))
+        forced = ops._int8_fused_cuda(x_q, x_s, g_q, g_s, u_q, u_s, "swiglu", torch.bfloat16,
+                                      forced=(bm, bf))
+        assert torch.equal(got, forced)
+        _close(got, want, tolerance.int8_fused_mlp_tol(x_q, x_s, g_q, g_s, u_q, u_s, "swiglu",
+                                                       want))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("s_max,g,lengths", [(200, 12, [200, 64, 65, 0, 1, 127]),
+                                             (128, 2, [128, 100, 7, 0, 64, 33, 90, 1])])
+def test_tuned_paged_decode_at_every_lattice_geometry(tuned_cache, quant, s_max, g, lengths):
+    from repro_torch.kernels.flash_attention.ops import _paged_cuda
+    from repro_torch.tuning.candidates import paged_decode_candidates
+    q, kp, vp, slot_idx, lengths, sc = _slot_case(
+        np.random.default_rng(s_max + g), s_max, g, 128, torch.bfloat16, "cuda", quant, lengths)
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths, **sc)
+    key = (q.shape[0], kp.shape[0], s_max, 2, q.shape[1], 128)
+    for tile, s in paged_decode_candidates(q.shape[0], 2, g, 128, s_max, kp.element_size()):
+        _install(tuned_cache, "paged_decode", key, "bfloat16xint8" if quant else "bfloat16",
+                 dict(tile=tile, splits=s))
+        got = _hit(paged_decode, lambda: paged_decode(q, kp, vp, slot_idx, lengths, tuned=True,
+                                                      **sc))
+        forced = _paged_cuda(paged_decode, q, kp, vp, sc.get("k_scale"), sc.get("v_scale"),
+                             slot_idx, lengths, 0, None, (tile, s))
+        assert torch.equal(got, forced), (tile, s)
+        assert torch.all(got[lengths == 0] == 0)
+        _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want, **sc))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bs,g", [(16, 2), (64, 12)])
+def test_tuned_paged_decode_blocktable_at_every_lattice_geometry(tuned_cache, quant, bs, g):
+    from repro_torch.kernels.flash_attention.ops import _paged_cuda, paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import paged_decode_blocktable_ref
+    from repro_torch.tuning.candidates import paged_decode_candidates
+    q, kb, vb, tables, lengths, sc = _blocktable_case(np.random.default_rng(bs + g), bs, g, 128,
+                                                      torch.bfloat16, "cuda", quant)
+    want = paged_decode_blocktable_ref(q, kb, vb, tables, lengths, **sc)
+    key = (q.shape[0], kb.shape[0], bs, 2, q.shape[1], 128)
+    capacity = tables.shape[1] * bs
+    for tile, s in paged_decode_candidates(q.shape[0], 2, g, 128, capacity, kb.element_size()):
+        _install(tuned_cache, "paged_decode_blocktable", key,
+                 "bfloat16xint8" if quant else "bfloat16", dict(tile=tile, splits=s))
+        got = _hit(paged_decode_blocktable, lambda: paged_decode_blocktable(
+            q, kb, vb, tables, lengths, tuned=True, **sc))
+        forced = _paged_cuda(paged_decode_blocktable, q, kb, vb, sc.get("k_scale"),
+                             sc.get("v_scale"), tables, lengths, tables.shape[1], None, (tile, s))
+        assert torch.equal(got, forced), (tile, s)
+        _close(got, want, tolerance.paged_decode_blocktable_tol(q, kb, vb, tables, lengths,
+                                                                want, **sc))
+
+
+def test_tuned_entries_the_library_refuses_raise(tuned_cache):
+    """A cache entry whose geometry no kernel instantiates raises at the
+    launch; it never falls back to the rule."""
+    from repro_torch.kernels.quantized import ops as qops
+    rng = np.random.default_rng(3)
+    a, b = (_rand(rng, s, torch.bfloat16, "cuda") for s in ((64, 256), (256, 128)))
+    cases = [("matmul", (64, 256, 128), "bfloat16", dict(block_m=96, block_n=128, split_k=1),
+              lambda: matmul(a, b, tuned=True)),
+             ("matmul", (64, 256, 128), "bfloat16", dict(block_m=128, block_n=256, split_k=1),
+              lambda: matmul(a, b, tuned=True)),
+             ("fused_mlp_swiglu", (64, 256, 128), "bfloat16", dict(block_m=64, block_f=128),
+              lambda: fused_mlp_hidden(a, b, b, tuned=True))]
+    a_q, a_s, [(b_q, b_s), (u_q, u_s)] = _int8_operands(rng, 64, 256, 128, "cuda", gated=True)
+    cases += [("int8_matmul", (64, 256, 128), "bfloat16xint8",
+               dict(block_m=128, block_n=128, split_k=1),
+               lambda: qops.int8_matmul_q(a_q, a_s, b_q, b_s, torch.bfloat16, tuned=True)),
+              ("int8_fused_mlp_swiglu", (64, 256, 128), "bfloat16xint8",
+               dict(block_m=64, block_f=64),
+               lambda: qops.int8_fused_mlp_q(a_q, a_s, b_q, b_s, u_q, u_s,
+                                             out_dtype=torch.bfloat16, tuned=True))]
+    q, kp, vp, slot_idx, lengths, _ = _slot_case(rng, 64, 2, 128, torch.bfloat16, "cuda", False,
+                                                 [64, 3])
+    cases += [("paged_decode", (2, 4, 64, 2, 4, 128), "bfloat16", dict(tile=48, splits=1),
+               lambda: paged_decode(q, kp, vp, slot_idx, lengths, tuned=True))]
+    for op, shape, dtype, blocks, call in cases:
+        _install(tuned_cache, op, shape, dtype, blocks)
+        with pytest.raises((RuntimeError, ValueError)):
+            call()
+            torch.cuda.synchronize()
+
+
+def test_a_tiny_autotune_writes_an_entry_the_next_call_hits(tuned_cache):
+    """autotune_matmul and autotune_paged_decode into the default cache: the
+    next tuned call hits the entry and launches its geometry."""
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.tuning.candidates import split_depth
+    from repro_torch.tuning.search import autotune_matmul, autotune_paged_decode
+    cfg = autotune_matmul(64, 1024, 512, iters=3, warmup=1)
+    assert cfg.candidates_tried >= 2 and cfg.time_us > 0 and cfg.baseline_us > 0
+    rng = np.random.default_rng(5)
+    a, b = (_rand(rng, s, torch.bfloat16, "cuda") for s in ((64, 1024), (1024, 512)))
+    got = _hit(matmul, lambda: matmul(a, b, tuned=True))
+    bl = cfg.blocks
+    assert torch.equal(got, ops._matmul_cuda(a, b, None, None, forced=(
+        bl["block_m"], bl["block_n"], split_depth(1024, bl["split_k"], ops.BLOCK_K))))
+    cfg = autotune_paged_decode(8, 8, 128, 2, 8, 128, iters=3, warmup=1)
+    assert cfg.op == "paged_decode" and set(cfg.blocks) == {"tile", "splits"}
+    q = _rand(rng, (8, 8, 128), torch.bfloat16, "cuda")
+    kp, vp = (_rand(rng, (8, 128, 2, 128), torch.bfloat16, "cuda") for _ in range(2))
+    idx = torch.arange(8, dtype=torch.int32, device="cuda")
+    lengths = torch.full((8,), 100, dtype=torch.int32, device="cuda")
+    got = _hit(paged_decode, lambda: paged_decode(q, kp, vp, idx, lengths, tuned=True))
+    want = paged_decode_ref(q, kp, vp, idx, lengths)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, idx, lengths, want))

@@ -107,13 +107,14 @@ def test_bad_requests_are_rejected_not_raised(smoke):
 def test_make_policy_matches_jax(max_batch, max_prompt, max_seq, dtype):
     jcfg = dataclasses.replace(jax_get_smoke_config(ARCH), dtype=dtype)
     cfg = dataclasses.replace(get_smoke_config(ARCH), dtype=dtype)
-    want = jax_make_policy(jcfg, JAX_H100, max_batch=max_batch, max_prompt=max_prompt,
-                           max_seq=max_seq, grow_batch=False)
-    got = make_policy(cfg, H100_SXM, max_batch=max_batch, max_prompt=max_prompt,
-                      max_seq=max_seq)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert make_policy(cfg, max_batch=max_batch, max_prompt=max_prompt,
-                       max_seq=max_seq) == got   # the port's default chip is the H100
+    for grow in (False, True):      # the advisor's bucket growth, and without it
+        want = jax_make_policy(jcfg, JAX_H100, max_batch=max_batch, max_prompt=max_prompt,
+                               max_seq=max_seq, grow_batch=grow)
+        got = make_policy(cfg, H100_SXM, max_batch=max_batch, max_prompt=max_prompt,
+                          max_seq=max_seq, grow_batch=grow)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert make_policy(cfg, max_batch=max_batch, max_prompt=max_prompt, max_seq=max_seq,
+                           grow_batch=grow) == got   # the port's default chip is the H100
     assert get_hardware().name == "h100"
 
 
@@ -128,14 +129,16 @@ def test_engine_refuses_to_run_without_a_card(smoke, monkeypatch):
 
 
 def test_engine_unported_switches_raise(smoke):
-    """The switches still unported: fault injection and grow_batch (tuning).
+    """The switch still unported: fault injection.  grow_batch (the
+    advisor's bucket growth) is ported and picks JAX's policy at the H100;
     int8 weights (linear_impl="quantized") are ported and serve."""
-    _, _, cfg, params = smoke
+    jcfg, jparams, cfg, params = smoke
     eng = Engine(params, cfg, prefix_cache=True, kv_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="observability-and-faults"):
         eng.run([], faults=object())
-    with pytest.raises(NotImplementedError, match="tuning"):
-        Engine(params, cfg, grow_batch=True, device="cpu")
+    want = JaxEngine(jparams, jcfg, grow_batch=True, hw=JAX_H100).policy
+    got = Engine(params, cfg, grow_batch=True, device="cpu").policy
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     quantized = Engine(params, dataclasses.replace(cfg, linear_impl="quantized"), device="cpu")
     done, _ = quantized.run([Request(rid=0, tokens=np.arange(4, dtype=np.int32),
                                      max_new_tokens=1)])
