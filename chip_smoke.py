@@ -49,7 +49,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      training shapes: 4 x 1024 tokens), bf16 and f32, timed at both training
      shapes beside the forward kernel on the same operands; with `--parent
      DIR` (a checkout of the parent commit) also the parent's SSD backward
-     and this one's in turns;
+     and this one's in turns; then the MoE slice's expert-batched launches
+     (csrc/matmul.cu and csrc/fused_mlp.cu, one launch for every expert of a
+     stack) at deepseek-v3's decode and prefill capacities and
+     llama4-maverick's, expert by expert against their plain versions,
+     timed beside their bound, torch.bmm and the 2-D kernel launched once
+     per expert;
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -88,12 +93,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      same serve run, launch counts and bf16 logits bounds (its shared
      attention + GELU MLP block through the tile GEMM and the fused MLP
      kernel);
-  9. token identity: at full width, 4 layers, float32, the greedy tokens of
+  9. moe serve: deepseek-v3-671b at full width (MLA, 256 experts top-8, a
+     shared expert, MTP), 4 of its 61 layers (3 dense, 1 MoE), bf16,
+     linear_impl="fused", served by serve_step: a prefill of 4 x 1024 tokens
+     and 31 greedy decode steps, the launch counts of each (6 tile GEMMs per
+     MLA layer, the router GEMM, one batched fused hidden and one batched
+     w_down GEMM per MoE layer, the shared expert's fused MLP and w_down, a
+     dense layer's fused MLP and w_down, the head), the device time of one
+     decode step and one prefill by kernel; prefill logits against the
+     plain path over all positions and at the worst position whose routing
+     agrees, each layer's count of tokens routed differently and of dropped
+     entries, and two planted faults (one expert's w_down doubled, the
+     gates unrenormalised) the bounds must see; the MLA handoff (a decode
+     step after a prefill of 1000 tokens against a prefill of 1001) with a
+     planted fault (the cached k_rope unrotated); lm_loss's forward
+     (lm_loss, aux_loss, mtp_loss) against the plain path, and under the
+     gates fault and one expert's router logit doubled, which it must see;
+     f32 token identity of the kernel and plain paths at 2 layers, but at a
+     near tie of the top-2 logits or of a router's k-th / (k+1)-th
+     probability at a token of the diverging row that routes differently;
+  10. moe engine: llama4-maverick-400b-a17b at full width (128 experts top-1,
+     a shared expert, MoE every 2nd layer), 1 [moe, dense] pair, bf16,
+     linear_impl="fused": the slot engine (paged decode) on the serve burst
+     and the prefix engine (block-table pool) on the prefix workload, launch
+     counts per run; the same logits check and planted faults; f32 token
+     identity of each engine's kernel and plain paths;
+  11. token identity: at full width, 4 layers, float32, the greedy tokens of
      the slot and prefix engines (roomy and tight), of the int8-KV slot and
      prefix engines, and of the int8-weight slot and prefix engines over
      float and int8 KV must be identical pairwise, but at a near tie; and
      mamba2-780m's kernel path and plain path, likewise;
-  10. train: internlm2-1.8b at full width and depth, float32 masters, bf16
+  12. train: internlm2-1.8b at full width and depth, float32 masters, bf16
      compute, linear_impl="fused", attn_impl="flash", AdamW, 4 x 1024
      tokens: the step-0 loss and every gradient leaf (per layer slice) of
      the kernel path against the plain path (jnp, naive) on the same params
@@ -101,7 +131,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gradient bound; then 4 steps of make_train_step (loss, step time,
      tokens/s, share of the card's bf16 peak, peak memory), each kernel's
      launch count against the path's formula, and one profiled step;
-  11. ssm train: mamba2-780m at full width and depth (48 layers), float32
+  13. ssm train: mamba2-780m at full width and depth (48 layers), float32
      masters, bf16 compute, linear_impl="fused", AdamW, 4 x 1024 tokens:
      the step-0 loss and gradients of the kernel path (the SSD kernel and
      its backward kernel under autograd) against the plain path (jnp, the
@@ -113,13 +143,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the bf16 peak, peak memory), launch counts against the path's formula
      (48 SSD forwards and backwards and 867 tile GEMMs a step), one
      profiled step;
-  12. hybrid train: zamba2-2.7b at full width, 2 of its 9 superblocks,
+  14. hybrid train: zamba2-2.7b at full width, 2 of its 9 superblocks,
      attn_impl="flash" (head dim 80): the same step-0 checks with one
      planted fault held each (bf16: the last layer's dseg, the other two
      printed; f32: dB without its dS term), 2 steps, launch counts (SSD forward and
      backward, flash forward and backward, fused MLP forward and backward,
      tile GEMMs), one profiled step;
-  13. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
+  15. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
      serve shapes (the bf16 projections and lm_head at 16 and 64 rows, the
      fused SwiGLU), its int8-serve shapes (the int8 GEMM at 64, 128 and 256
      rows, the int8 fused MLP) and its paged pools (the serve pool, the
@@ -132,13 +162,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      path), the prefix engine at 4 layers (its block size from the pool
      entry, BlockPool.check() after every step) and the host's us per
      wrapper call with and without the lookup;
-  14. codesign: the paper's Fig. 1 through the port: one gpt3-2.7b block at
+  16. codesign: the paper's Fig. 1 through the port: one gpt3-2.7b block at
      each head split C0-C3 (b 4, s 2048, bf16, fused linear, flash),
      forward and backward, after autotuning its GEMM keys, beside the
      advisor's analytic and measurement-calibrated predictions and the
      orders of all three (printed, not checked).
 Before the first phase the run installs an empty default tuning cache, so
-phases 2-12 launch the wrappers' rules whatever tuning_cache.json the
+phases 2-14 launch the wrappers' rules whatever tuning_cache.json the
 checkout holds.  The last line of standard output is the result object; the
 kernels object and the card's name and power limit as nvidia-smi prints
 them come just before it.
@@ -333,7 +363,7 @@ def build_phase() -> None:
     sass_check(Path(_build._nvcc()).parent / "cuobjdump", lib.path, lib.log)
 
 
-# gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD> (csrc/gemm_sm90.cuh)
+# gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD, BATCH> (csrc/gemm_sm90.cuh)
 GEMM_SM90 = "gemm_sm90_kernel"
 # int8_sm90_kernel<TM, TN, ACT, T> (csrc/gemm_sm90_s8.cuh)
 INT8_SM90 = "int8_sm90_kernel"
@@ -383,14 +413,14 @@ def gemm_instance(fn: str) -> str:
         out = "bf16" if "__nv_bfloat16" in fn else "f32"
         kind = f"int8_fused_mlp {ACTS[act]}" if act else "int8_matmul"
         return f"{kind} {tm}x{tn} {out} out"
-    tm, tn, ta, tb, pairs, act, bwd = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:7])
+    tm, tn, ta, tb, pairs, act, bwd, batch = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:8])
     if bwd:
         kind = f"fused_mlp_bwd {ACTS[act]}"
     elif act:
         kind = f"fused_mlp {ACTS[act]}"
     else:
         kind = f"matmul {'t' if ta else 'n'}{'t' if tb else 'n'}{' pair' if pairs == 2 else ''}"
-    return f"{kind} {tm}x{tn}"
+    return f"{kind}{' expert-batched' if batch else ''} {tm}x{tn}"
 
 
 def ptxas_report(log: str) -> dict:
@@ -1502,7 +1532,8 @@ def _ms(s) -> str:
 
 
 def _pool_bytes(eng) -> int:
-    return sum(t.numel() * t.element_size() for seg in eng.pool.caches for t in seg.values())
+    from repro_torch.serving.engine.kv_pool import seg_leaves
+    return sum(t.numel() * t.element_size() for seg in eng.pool.caches for t in seg_leaves(seg))
 
 
 def _prefix_requests(vocab: int):
@@ -2359,11 +2390,12 @@ def _ssm_pass_launches(cfg) -> dict:
     return {"matmul": 6 * L + 5 * sb + 1, "fused_mlp_hidden": sb, "ssd_chunk": L}
 
 
-def _ssm_timed(torch, what, fn, want):
-    """Run fn() with the counts set to 0 just before and read just after;
-    fail unless they equal `want`.  Returns (fn's result, host s, device ms
-    between CUDA events around it, counts)."""
-    counters = _ssm_counters()
+def _ssm_timed(torch, what, fn, want, counters=None):
+    """Run fn() with the counts (`counters`, default the SSM path's) set to
+    0 just before and read just after; fail unless they equal `want`.
+    Returns (fn's result, host s, device ms between CUDA events around it,
+    counts)."""
+    counters = counters or _ssm_counters()
     for f in counters.values():
         f.launches = 0
     torch.cuda.synchronize()
@@ -2646,6 +2678,790 @@ def ssm_token_identity_phase(torch) -> None:
           f"kernel path vs plain path, {same}/{SSM_BATCH} rows identical over 16 tokens")
     del params
     torch.cuda.empty_cache()
+
+
+# --- the MoE slice ------------------------------------------------------------------------
+
+# deepseek-v3-671b (arXiv:2412.19437) at full width (d 7168; MLA, 128 heads,
+# q_lora 1536, kv_lora 512, nope 128, rope 64, v 128; dense d_ff 18432; 256
+# experts of 2048, top-8, 1 shared; vocab 129280), its 61 layers cut to
+# MOE_DEEPSEEK_LAYERS (the 3 leading dense layers and 1 MoE layer, ~15.8 B
+# parameters with the MTP head) for one card, served by serve_step (the
+# engines refuse MLA, as JAX's do): a prefill of MOE_BATCH x MOE_PROMPT
+# tokens and MOE_GEN - 1 greedy decode steps.  llama4-maverick-400b-a17b
+# (hf:meta-llama/Llama-4-Maverick-17B-128E) at full width (d 5120, 40 / 8
+# heads of 128, dense d_ff 16384, 128 experts of 8192, top-1, 1 shared,
+# vocab 202048), its 48 layers cut to MOE_LLAMA4_PAIRS [moe, dense] pair
+# (~18.7 B parameters), served by the slot engine on the serve cell's burst
+# and by the prefix engine on the prefix cell's workload.
+MOE_DEEPSEEK_LAYERS = 4
+MOE_LLAMA4_PAIRS = 1
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 1024, 32
+# f32 token identity: deepseek-v3 cut further, to 2 layers (1 dense, 1 MoE),
+# so the f32 weights (~51 GB) and a 4 x 1024-token prefill fit the card
+MOE_F32_DEEPSEEK_LAYERS = 2
+# The batched expert launches at the path's shapes: (experts, capacity rows,
+# h, f) of each MoE cell's expert stacks (capacity: repro's `_capacity` of
+# the tokens of one pass: deepseek-v3's decode step of 4 rows and prefill
+# of 4 x 1024 tokens, llama4-maverick's 64-slot decode step and 64-token
+# prefill bucket).
+MOE_EXPERT_SHAPES = {"deepseek-v3 decode": (256, 8, 7168, 2048),
+                     "deepseek-v3 prefill": (256, 160, 7168, 2048),
+                     "llama4-maverick": (128, 8, 5120, 8192)}
+EXPERT_CHUNK = 16          # experts per slice of a plain-version check (bounds its memory)
+EXPERT_ITERS = 10          # timed calls of a batched launch (1-10 ms each)
+# Prefill logits, kernel path vs plain path (bf16), over all positions, and
+# at the worst (row, position) whose routing agrees between the two paths
+# up to it: both paths round every GEMM output to bf16 after summing in
+# another order, and a token whose top-k set (or kept entries) differs
+# between the two, at a near tie of its router probabilities, takes other
+# experts, which attention carries to the row's later positions (so those
+# positions are left out of the second bound, and counted).  Bounds set
+# from the card's readings (PERF.md).
+MOE_LOGITS_REL_BOUND = 0.05
+MOE_POSITION_REL_BOUND = 1.5e-2
+# lm_loss, aux_loss and mtp_loss (deepseek-v3, 4 x 1024 tokens), kernel path
+# vs plain path, each relative: sound readings 5.1e-6 to 9.3e-6 (PERF.md).
+# The planted faults MOE_LOSS_FAULTS must each move one of them past it
+# (the gates reach every token's MoE output, the router every aux term);
+# one expert's w_down doubled is printed, not held: it moves ~160 of 32,768
+# entries, and a mean over 4,096 tokens' losses hides that in rounding (the
+# logits check holds that fault).
+MOE_LOSS_REL_BOUND = 3e-5
+MOE_LOSS_FAULTS = ("gates", "router")
+# The MLA handoff: a decode step after a prefill of MLA_HANDOFF tokens
+# against a prefill of MLA_HANDOFF + 1, the worst row's last-position
+# logits (rows whose last token had an expert entry dropped in the longer
+# prefill left out: its capacity depends on the whole batch).
+MLA_HANDOFF = 1000
+MLA_HANDOFF_REL_BOUND = 0.01
+# f32 token identity, kernel path vs plain path: a divergence passes only at
+# a near tie of the top-2 logits (TOKEN_GAP_REL) or of a router's k-th and
+# (k+1)-th probabilities (relative gap).
+ROUTER_GAP_REL = 1e-4
+
+
+def _moe_counters():
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden, fused_mlp_hidden_expert
+    from repro_torch.kernels.matmul.ops import matmul, matmul_expert
+    return {"matmul": matmul, "fused_mlp_hidden": fused_mlp_hidden,
+            "matmul_expert": matmul_expert, "fused_mlp_hidden_expert": fused_mlp_hidden_expert}
+
+
+def moe_pass_launches(cfg) -> dict:
+    """Kernel launches of one forward pass (a prefill, or a decode step)
+    under linear_impl="fused": per attention layer 6 tile GEMMs (MLA:
+    wq_down, wq_up, wkv_down, wk_up, wv_up, wo) or 4 (GQA); per dense layer
+    the fused MLP and its w_down GEMM; per MoE layer the router GEMM, one
+    batched fused hidden and one batched w_down GEMM, and the shared
+    expert's fused MLP and w_down GEMM; the head."""
+    L = cfg.num_layers
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    attn = 6 if cfg.attn_type == "mla" else 4
+    shared = 1 if cfg.num_shared_experts else 0
+    return {"matmul": attn * L + (L - n_moe) + n_moe * (1 + shared) + 1,
+            "fused_mlp_hidden": (L - n_moe) + n_moe * shared,
+            "matmul_expert": n_moe, "fused_mlp_hidden_expert": n_moe}
+
+
+def _moe_device_ms(torch, fn):
+    """fn() once with a pair of CUDA events around every tile GEMM, fused
+    MLP and batched expert launch, and one pair around the whole.  Returns
+    (the whole's device ms, {what: summed ms}); a tile GEMM of more than 64
+    rows in a decode step is MLA's decompression (k_nope and v from the
+    whole cached latent)."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as matmul_ops
+    pairs = {}
+
+    def timed(name, rows=None):
+        def wrap(real):
+            def f(*args, **kw):
+                e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e[0].record()
+                out = real(*args, **kw)
+                e[1].record()
+                key = name if rows is None else rows(args)
+                pairs.setdefault(key, []).append(e)
+                return out
+            return f
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for module, fname, name, rows in (
+                (matmul_ops, "_matmul_cuda", None, lambda a: (
+                    "tile GEMM > 64 rows" if a[0].shape[0] > 64 else "tile GEMM")),
+                (fused_ops, "_fused_cuda", "fused_mlp_hidden", None),
+                (matmul_ops, "_matmul_expert_cuda", "matmul_expert", None),
+                (fused_ops, "_fused_expert_cuda", "fused_mlp_hidden_expert", None)):
+            stack.enter_context(_patched(module, fname, timed(name, rows)))
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    return e0.elapsed_time(e1), {f"{n} x{len(p)}": sum(a.elapsed_time(b) for a, b in p)
+                                 for n, p in pairs.items()}
+
+
+def _check_chunks(torch, got, plain, tol_fn, what: str) -> float:
+    """The batched kernel's output against its plain version, EXPERT_CHUNK
+    experts at a time (the plain version and the bound in f32 of a whole
+    expert stack would take 15-43 GB): every element within its bound."""
+    from repro_torch.kernels.tolerance import check
+    torch.cuda.synchronize()
+    worst, err, ref = 0.0, 0.0, 0.0
+    for z in range(0, got.shape[0], EXPERT_CHUNK):
+        sl = slice(z, z + EXPERT_CHUNK)
+        want = plain(sl)
+        ok, e, ratio = check(got[sl], want, tol_fn(sl, want))
+        worst, err = max(worst, ratio), max(err, e)
+        ref = max(ref, want.float().abs().max().item())
+        if not ok:
+            fail(f"{what}: experts {z}-{z + EXPERT_CHUNK - 1} disagree with the plain version "
+                 f"(worst err / bound {ratio:.3f})")
+    print(f"  {what}: max abs err {err:.3e} (max |plain| {ref:.3e}), worst err / bound "
+          f"{worst:.3f} ok")
+    return err
+
+
+def moe_kernel_phase(torch) -> dict:
+    """The expert-batched launches (csrc/matmul.cu `repro_matmul_expert`,
+    csrc/fused_mlp.cu `repro_fused_mlp_expert`) at MOE_EXPERT_SHAPES, bf16,
+    each against its plain version expert by expert, timed (one launch for
+    all experts) beside its bound, the plain version, torch.bmm (the matmul)
+    and the 2-D kernel launched once per expert at the same tile (a
+    measurement only).  Returns the rows of the kernels line."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    from repro_torch.kernels.tolerance import fused_mlp_hidden_tol, matmul_tol
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(bf)
+
+    tot = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0)
+           for n in ("matmul_expert", "fused_mlp_hidden_expert")}
+    print("moe kernels (bf16, CUDA events; every expert stack larger than L2, one copy):")
+    for label, (e, cap, h, f) in MOE_EXPERT_SHAPES.items():
+        torch.cuda.empty_cache()
+        x = randn(e, cap, h)
+        wg, wu = randn(e, h, f, scale=h ** -0.5), randn(e, h, f, scale=h ** -0.5)
+        got = fused_ops.fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu")
+        err = _check_chunks(
+            torch, got, lambda s: fused_mlp_hidden_ref(x[s], wg[s], wu[s], "swiglu"),
+            lambda s, want: fused_mlp_hidden_tol(x[s], wg[s], wu[s], "swiglu", want),
+            f"fused_mlp_hidden_expert swiglu {e} x ({cap}x{h}x{f}) ({label})")
+        ms, host = time_ms(torch, [lambda: fused_ops.fused_mlp_hidden_expert(
+            x, wg, wu, mlp_type="swiglu")], EXPERT_ITERS)
+        plain, _ = time_ms(torch, [lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu")], 2)
+        tile, _ = fused_ops.geometry(cap, h, f, bf, "swiglu")
+        loop, loop_host = time_ms(torch, [lambda: [fused_ops._fused_cuda(
+            x[z], wg[z], wu[z], "swiglu", forced=tile) for z in range(e)]], 2)
+        bnd, by = bound(2.0 * 2 * e * cap * h * f, 2.0 * (e * cap * h + 2 * e * h * f + e * cap * f))
+        print(f"    {ms:.4f} ms ({2 * 2 * e * h * f / ms / 1e6:.0f} GB/s of weights; plain "
+              f"{plain:.4f}, bound {bnd:.4f} by {by}, the 2-D kernel once per expert at tile "
+              f"{tile[0]}x{tile[1]} {loop:.4f} ms with {loop_host / 1e3:.2f} ms of host); "
+              f"1 launch per MoE layer a pass; host {host:.1f} us per call")
+        t = tot["fused_mlp_hidden_expert"]
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += bnd
+        t["err"] = max(t["err"], err)
+        del got, wg, wu
+        xd = randn(e, cap, f)
+        wd = randn(e, f, h, scale=f ** -0.5)
+        got = mm_ops.matmul_expert(xd, wd)
+        err = _check_chunks(torch, got, lambda s: matmul_expert_ref(xd[s], wd[s]),
+                            lambda s, want: matmul_tol(xd[s], wd[s], want),
+                            f"matmul_expert {e} x ({cap}x{f}x{h}) w_down ({label})")
+        ms, host = time_ms(torch, [lambda: mm_ops.matmul_expert(xd, wd)], EXPERT_ITERS)
+        plain, _ = time_ms(torch, [lambda: matmul_expert_ref(xd, wd)], 2)
+        lib, lib_host = time_ms(torch, [lambda: torch.bmm(xd, wd)], EXPERT_ITERS)
+        (tm, tn, _), _ = mm_ops.geometry(cap, f, h, bf)
+        depth = -(-f // mm_ops.BLOCK_K) * mm_ops.BLOCK_K
+        loop, loop_host = time_ms(torch, [lambda: [mm_ops._matmul_cuda(
+            xd[z], wd[z], None, None, forced=(tm, tn, depth)) for z in range(e)]], 2)
+        bnd, by = bound(2.0 * e * cap * f * h, 2.0 * (e * cap * f + e * f * h + e * cap * h))
+        print(f"    {ms:.4f} ms ({2 * e * f * h / ms / 1e6:.0f} GB/s of weights; plain "
+              f"{plain:.4f}, torch.bmm {lib:.4f}, bound {bnd:.4f} by {by}, the 2-D kernel once "
+              f"per expert at tile {tm}x{tn} {loop:.4f} ms with {loop_host / 1e3:.2f} ms of "
+              f"host); 1 launch per MoE layer a pass; host {host:.1f} us per call (torch.bmm "
+              f"{lib_host:.1f})")
+        t = tot["matmul_expert"]
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += bnd
+        t["library_ms"] += lib
+        t["err"] = max(t["err"], err)
+        del got, xd, wd, x
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, src, rep in (
+            ("matmul_expert", "src/repro_torch/kernels/csrc/matmul.cu",
+             "src/repro/kernels/matmul/kernel.py:35"),
+            ("fused_mlp_hidden_expert", "src/repro_torch/kernels/csrc/fused_mlp.cu",
+             "src/repro/kernels/fused_mlp/kernel.py:64")):
+        t = tot[name]
+        rows[name] = dict(name=name, route="cuda", source=src, replaces=rep,
+                          max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                          bound_ms=t["bound_ms"], bound_by="bytes",
+                          library_ms=t["library_ms"] if name == "matmul_expert" else None)
+        print(f"  {name}, one call at each shape: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
+              + (f", torch.bmm {t['library_ms']:.4f}" if name == "matmul_expert" else "") + ")")
+    return rows
+
+
+@contextlib.contextmanager
+def _moe_fault(torch, kind: str, expert: int = 0):
+    """A fault planted on the kernel path only (linear_impl "fused"):
+    "w_down": one expert's w_down doubled (its slice of the batched w_down
+    GEMM's output); "router": one expert's router logit doubled (its column
+    of the router GEMM's output); "gates": the top-k gates left
+    unrenormalised."""
+    from repro_torch.models import linear as linear_mod
+    from repro_torch.models import moe as moe_mod
+    if kind == "w_down":
+        def wrap(real):
+            def f(x, w, **kw):      # under "fused" only w_down runs this GEMM
+                out = real(x, w, **kw)
+                out[expert] *= 2
+                return out
+            return f
+        with _patched(linear_mod, "matmul_expert", wrap):
+            yield
+    elif kind == "router":
+        def wrap(real):
+            def f(x, w, *, impl="jnp"):     # in moe.py only the router calls linear
+                out = real(x, w, impl=impl)
+                if impl == "fused":
+                    out[..., expert] *= 2
+                return out
+            return f
+        with _patched(moe_mod, "linear", wrap):
+            yield
+    else:
+        def wrap(real):
+            def f(p, xt, cfg):
+                probs, gate, idx = real(p, xt, cfg)
+                if cfg.linear_impl == "fused":
+                    gate = torch.gather(probs, -1, idx)
+                return probs, gate, idx
+            return f
+        with _patched(moe_mod, "route", wrap):
+            yield
+
+
+@contextlib.contextmanager
+def _routing_log(torch):
+    """Yields a list to which every `moe.route` call in the block appends
+    its router probabilities (t, E), top-k experts (t, k), which of those
+    entries apply_moe keeps under its capacity (t, k; recomputed here by
+    the same stable sort by expert) and the count of dropped entries, as
+    device tensors."""
+    from repro_torch.models import moe as moe_mod
+    log = []
+
+    def wrap(real):
+        def f(p, xt, cfg):
+            probs, gate, idx = real(p, xt, cfg)
+            t, k = idx.shape
+            flat = idx.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            se = flat[order]
+            start = torch.searchsorted(se, torch.arange(probs.shape[1], device=idx.device))
+            keep = torch.arange(t * k, device=idx.device) - start[se] < moe_mod._capacity(t, cfg)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            log.append({"probs": probs.detach(), "idx": idx.detach(), "kept": kept.view(t, k),
+                        "dropped": (~keep).sum()})
+            return probs, gate, idx
+        return f
+    with _patched(moe_mod, "route", wrap):
+        yield log
+
+
+def _hot_expert(torch, rec) -> tuple[int, int]:
+    """(the expert with the most kept entries in a routing record, its count)."""
+    load = torch.zeros(rec["probs"].shape[1], device=rec["idx"].device).scatter_add_(
+        0, rec["idx"].reshape(-1), rec["kept"].reshape(-1).float())
+    hot = int(load.argmax().item())
+    return hot, int(load[hot].item())
+
+
+def _router_gaps(rec):
+    """Relative gap of every token's k-th over its (k+1)-th router probability."""
+    k = rec["idx"].shape[1]
+    v = rec["probs"].topk(k + 1, dim=-1).values
+    return (v[:, k - 1] - v[:, k]) / v[:, k - 1]
+
+
+def _row_router_gap(klog, plog, r: int, rows: int) -> tuple[float, int]:
+    """(the smallest router gap (`_router_gaps`, from the plain run) over
+    row r's tokens whose top-k set differs between the records of a kernel
+    run and a plain run of `rows` rows, inf if none does; their count)."""
+    gap, differ = math.inf, 0
+    for a, b in zip(klog, plog):
+        k = a["idx"].shape[1]
+        ia, ib = (rec["idx"].view(rows, -1, k)[r].sort(-1).values for rec in (a, b))
+        d = (ia != ib).any(-1)
+        differ += int(d.sum().item())
+        if bool(d.any().item()):
+            gap = min(gap, _router_gaps(b).view(rows, -1)[r][d].min().item())
+    return gap, differ
+
+
+def _routing_report(torch, klog, plog, what: str) -> None:
+    """Per MoE layer: tokens whose top-k set differs between the kernel and
+    the plain path, and each path's dropped entries."""
+    for i, (a, b) in enumerate(zip(klog, plog)):
+        differ = int((a["idx"].sort(-1).values != b["idx"].sort(-1).values).any(-1).sum().item())
+        print(f"    {what}, MoE layer {i}: {differ} of {a['idx'].shape[0]} tokens route to "
+              f"another top-{a['idx'].shape[1]} set; dropped entries kernel "
+              f"{int(a['dropped'].item())}, plain {int(b['dropped'].item())}")
+
+
+def _agreed_positions(torch, cfg, klog, plog, shape):
+    """(b, s) mask of the positions whose routing (top-k set and kept
+    entries) agrees between two runs in every MoE layer: at the position
+    itself, and at every earlier position of the row where an attention
+    layer follows the MoE layer (it carries a token's other experts to the
+    row's later positions)."""
+    mask = torch.ones(shape, dtype=torch.bool, device=klog[0]["idx"].device)
+    layers = [i for i in range(cfg.num_layers) if cfg.is_moe_layer(i)]
+    for layer, a, b in zip(layers, klog, plog):
+        same = ((a["idx"].sort(-1).values == b["idx"].sort(-1).values).all(-1) & (
+            torch.where(a["kept"], a["idx"], -1).sort(-1).values
+            == torch.where(b["kept"], b["idx"], -1).sort(-1).values).all(-1)).view(shape)
+        mask &= same.int().cumprod(-1).bool() if layer < cfg.num_layers - 1 else same
+    return mask
+
+
+def _logit_check(torch, params, prompts, cfg, label: str, problems: list) -> None:
+    """Prefill logits of the kernel path against the plain path (jnp, naive)
+    over all positions and at the worst position whose routing agrees
+    (`_agreed_positions`), with the routing of each; then the two planted
+    faults (one expert's w_down doubled, the gates unrenormalised), each of
+    which must break a bound."""
+    from repro_torch.models import apply_lm
+    V = cfg.vocab_size
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+
+    def run(c):
+        with _routing_log(torch) as log:
+            return apply_lm(params, prompts, c)[0][..., :V], log
+    with torch.no_grad():
+        lk, klog = run(cfg)
+        lp, plog = run(plain_cfg)
+        if not (bool(torch.isfinite(lk).all().item()) and bool(torch.isfinite(lp).all().item())):
+            fail(f"{label}: prefill logits not finite")
+        _routing_report(torch, klog, plog, label)
+        hot, entries = _hot_expert(torch, klog[-1])
+        readings = {}
+        for what, fault in (("sound", None), ("fault: one expert's w_down doubled", "w_down"),
+                            ("fault: gates unrenormalised", "gates")):
+            if fault is None:
+                got, glog = lk, klog
+            else:
+                with _moe_fault(torch, fault, hot):
+                    got, glog = run(cfg)
+            pos = _per_position(got, lp)
+            agreed = _agreed_positions(torch, cfg, glog, plog, pos.shape)
+            worst = (pos * agreed).max().item()
+            readings[what] = (_rel(got, lp), worst)
+            print(f"  {label}, prefill logits kernel vs plain path, {what}: rel err "
+                  f"{readings[what][0]:.3e} (bound {MOE_LOGITS_REL_BOUND}); worst position "
+                  f"{worst:.3e} over the {int(agreed.sum().item())} of {agreed.numel()} whose "
+                  f"routing agrees up to them (bound {MOE_POSITION_REL_BOUND}), "
+                  f"{pos.max().item():.3e} over all; greedy agreement "
+                  f"{(got.argmax(-1) == lp.argmax(-1)).float().mean().item():.3f}"
+                  + (f" (expert {hot}, {entries} entries)" if fault == "w_down" else ""))
+            del got, pos
+        rel, worst = readings["sound"]
+        if rel > MOE_LOGITS_REL_BOUND or worst > MOE_POSITION_REL_BOUND:
+            problems.append(f"{label}: prefill logits differ from the plain path "
+                            f"({rel:.3e}, worst agreed position {worst:.3e})")
+        for what in list(readings)[1:]:
+            rel, worst = readings[what]
+            if rel <= MOE_LOGITS_REL_BOUND and worst <= MOE_POSITION_REL_BOUND:
+                problems.append(f"{label}: the logits bounds do not see the {what}")
+        del lk, lp
+
+
+def _near_ties(torch, params, plain_cfg, ctx):
+    """(top-2 logit gap at the last position, the smallest router gap
+    between the k-th and (k+1)-th probability over every token and MoE
+    layer), relative, from a plain prefill of `ctx` (1, s)."""
+    from repro_torch.serving.serve_step import make_prefill_step
+    with _routing_log(torch) as log, torch.no_grad():
+        lg, _ = make_prefill_step(plain_cfg, ctx.shape[1])(params, {"tokens": ctx})
+    top = lg[0, :plain_cfg.vocab_size].float().topk(2).values
+    rg = min(_router_gaps(r).min().item() for r in log)
+    return ((top[0] - top[1]) / top[0].abs()).item(), rg
+
+
+def _tie_or_fail(g_logit: float, g_router: float, what: str) -> None:
+    tie = ("logits" if g_logit <= TOKEN_GAP_REL else
+           "router" if g_router <= ROUTER_GAP_REL else None)
+    print(f"    {what}: top-2 logit gap {g_logit:.3e} (near-tie bound {TOKEN_GAP_REL}), "
+          f"smallest router k / k+1 gap {g_router:.3e} ({ROUTER_GAP_REL}; inf: none to take): "
+          f"{'a near tie of the ' + tie if tie else 'NO near tie'}")
+    if tie is None:
+        fail(f"{what} without a near tie")
+
+
+def moe_serve_phase(torch) -> dict:
+    """deepseek-v3-671b at full width, MOE_DEEPSEEK_LAYERS layers, bf16,
+    linear_impl="fused", served by serve_step: a prefill of MOE_BATCH x
+    MOE_PROMPT tokens and MOE_GEN - 1 greedy decode steps with the launch
+    counts of each; prefill logits against the plain path with the routing
+    and two planted faults; the MLA handoff with its planted fault;
+    lm_loss's forward (lm_loss, aux_loss, mtp_loss) against the plain path;
+    then f32 token identity of the kernel and plain paths.  Returns the
+    launches over the serve run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch, synthetic_tokens
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=MOE_DEEPSEEK_LAYERS, linear_impl="fused")
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for _, t in _paths(params))
+    print(f"moe serve: {cfg.name} at full width, {cfg.num_layers} of {full.num_layers} layers "
+          f"({cfg.first_dense_layers} dense, {cfg.num_moe_layers} MoE), d={cfg.d_model}, MLA "
+          f"{cfg.num_heads} heads (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
+          f"{cfg.qk_rope_dim}), {cfg.num_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k} + "
+          f"{cfg.num_shared_experts} shared, MTP {cfg.mtp_depth}; {nparams / 1e9:.3f} B params in "
+          f"{cfg.dtype} ({_param_bytes(params) / 1e9:.2f} GB; init "
+          f"{time.perf_counter() - t0:.1f} s)")
+    prompts = torch.as_tensor(synthetic_tokens(0, 0, MOE_BATCH, MOE_PROMPT, cfg.vocab_size),
+                              device=dev).long()
+    prefill = make_prefill_step(cfg, MOE_PROMPT + MOE_GEN)
+    decode = make_decode_step(cfg)
+    per_pass = moe_pass_launches(cfg)
+    V = cfg.vocab_size
+    with torch.no_grad():
+        prefill(params, {"tokens": prompts})   # warm
+        (logits, caches), pre_s, pre_ms, counts = _ssm_timed(
+            torch, "moe serve prefill", lambda: prefill(params, {"tokens": prompts}), per_pass,
+            _moe_counters())
+        tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+        out, steps = [tok], []
+
+        def run_decode():
+            nonlocal tok
+            for i in range(MOE_GEN - 1):
+                t = time.perf_counter()
+                lg, _ = decode(params, tok, caches, MOE_PROMPT + i)
+                tok = torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32)
+                out.append(tok)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t)
+        _, dec_s, dec_ms, dcounts = _ssm_timed(
+            torch, "moe serve decode", run_decode,
+            {n: (MOE_GEN - 1) * k for n, k in per_pass.items()}, _moe_counters())
+        toks = torch.cat(out, 1)
+        if not bool(torch.isfinite(logits).all().item()) or not bool(
+                ((toks >= 0) & (toks < V)).all().item()):
+            fail("moe serve: non-finite logits or a token outside the vocabulary")
+        steps.sort()
+        print(f"  prefill {MOE_BATCH} x {MOE_PROMPT}: {pre_s * 1e3:.2f} ms host, {pre_ms:.2f} ms "
+              f"between CUDA events ({MOE_BATCH * MOE_PROMPT / pre_s:.0f} tok/s); "
+              f"{MOE_GEN - 1} decode steps: {dec_s * 1e3:.1f} ms host, {dec_ms:.1f} ms between "
+              f"events, step p50 {steps[len(steps) // 2] * 1e3:.2f} ms, max "
+              f"{steps[-1] * 1e3:.2f} ms ({MOE_BATCH * (MOE_GEN - 1) / dec_s:.1f} tok/s); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"  launches per prefill pass and per decode step {json.dumps(per_pass)} (as the "
+              f"path implies)")
+        launches = {n: counts[n] + dcounts[n] for n in counts}
+        for what, fn in (("one more decode step", lambda: decode(
+                params, tok, caches, MOE_PROMPT + MOE_GEN - 1)),
+                ("one more prefill", lambda: prefill(params, {"tokens": prompts}))):
+            t = time.perf_counter()
+            whole, kms = _moe_device_ms(torch, fn)
+            host = time.perf_counter() - t
+            print(f"  {what}, CUDA events around each GEMM / MLP launch: {whole:.2f} ms in all "
+                  f"({host * 1e3:.2f} ms host); " + ", ".join(
+                      f"{n} {v:.2f} ms ({100 * v / whole:.1f}%)" for n, v in kms.items())
+                  + f"; the rest (eager work, MLA scores, gaps) {whole - sum(kms.values()):.2f} ms")
+        del logits, caches
+
+        _logit_check(torch, params, prompts, cfg, "moe serve", problems)
+
+        # the MLA handoff
+        s = MLA_HANDOFF
+        ctx = prompts[:, :s + 1]
+        with _routing_log(torch) as log:
+            want, _ = make_prefill_step(cfg, s + 1)(params, {"tokens": ctx})
+        rows = log[-1]["kept"].view(MOE_BATCH, s + 1, cfg.top_k)[:, -1].all(-1)
+        readings = {}
+
+        def unrotated_k_rope(real):
+            def f(x, positions, theta=10000.0):
+                return x if x.shape[-2] == 1 else real(x, positions, theta)
+            return f
+        for what, fault in (("sound", False), ("fault: cached k_rope unrotated", True)):
+            with (_patched(attn_mod, "apply_rotary", unrotated_k_rope) if fault
+                  else contextlib.nullcontext()):
+                _, caches = make_prefill_step(cfg, s + 1)(params, {"tokens": ctx[:, :s]})
+            got, _ = make_decode_step(cfg)(params, ctx[:, s:], caches, s)
+            readings[what] = _per_position(got[:, :V], want[:, :V])[rows].max().item()
+            del caches
+        print(f"  MLA handoff: a decode step after a prefill of {s} tokens vs a prefill of "
+              f"{s + 1}, worst row's logits rel err over {int(rows.sum().item())} of {MOE_BATCH} "
+              f"rows (the others' last token lost an expert entry to capacity): sound "
+              f"{readings['sound']:.3e}, planted fault "
+              f"{readings['fault: cached k_rope unrotated']:.3e} (bound {MLA_HANDOFF_REL_BOUND})")
+        if not bool(rows.any().item()):
+            problems.append("MLA handoff: every row's last token lost an expert entry")
+        if readings["sound"] > MLA_HANDOFF_REL_BOUND:
+            problems.append("MLA handoff: the decode step disagrees with a longer prefill")
+        if readings["fault: cached k_rope unrotated"] <= MLA_HANDOFF_REL_BOUND:
+            problems.append("MLA handoff: the bound does not see the unrotated cached k_rope")
+        del want, got
+
+        # lm_loss's forward, kernel path vs plain path, sound and under the
+        # planted faults (the w_down fault on the batch's busiest expert)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+            cfg, ShapeConfig("moe", MOE_PROMPT, MOE_BATCH, "train"), 0, 0).items()}
+        plain_cfg = dataclasses.replace(cfg, linear_impl="jnp")
+        mp = lm_loss(params, batch, plain_cfg)[1]
+        with _routing_log(torch) as log:
+            mk = lm_loss(params, batch, cfg)[1]
+        hot, _ = _hot_expert(torch, log[0])
+        names = ("loss", "lm_loss", "aux_loss", "mtp_loss")
+        for name in names:
+            a, b = mk[name].item(), mp[name].item()
+            rel = abs(a - b) / abs(b)
+            print(f"  lm_loss forward, {MOE_BATCH} x {MOE_PROMPT} tokens, {name}: kernel path "
+                  f"{a:.6f}, plain path {b:.6f}, rel {rel:.3e} (bound {MOE_LOSS_REL_BOUND})")
+            if not math.isfinite(a) or rel > MOE_LOSS_REL_BOUND:
+                problems.append(f"lm_loss {name}: {a} against the plain path's {b}")
+        for fault, what in (("w_down", f"expert {hot}'s w_down doubled"),
+                            ("gates", "gates unrenormalised"),
+                            ("router", f"expert {hot}'s router logit doubled")):
+            with _moe_fault(torch, fault, hot):
+                mf = lm_loss(params, batch, cfg)[1]
+            rels = {n: abs(mf[n].item() - mp[n].item()) / abs(mp[n].item()) for n in names}
+            held = fault in MOE_LOSS_FAULTS
+            print(f"  lm_loss forward, fault: {what}: rel " + ", ".join(
+                f"{n} {v:.3e}" for n, v in rels.items())
+                + ("" if held else " (printed, not held)"))
+            if held and max(rels.values()) <= MOE_LOSS_REL_BOUND:
+                problems.append(f"lm_loss: the bound does not see the fault: {what}")
+    del params
+    torch.cuda.empty_cache()
+    moe_serve_identity(torch)
+    if problems:
+        fail("moe serve: " + "; ".join(problems))
+    return launches
+
+
+def moe_serve_identity(torch) -> None:
+    """f32 token identity on deepseek-v3 at full width, cut further to
+    MOE_F32_DEEPSEEK_LAYERS layers (1 dense, 1 MoE) so f32 fits: the greedy
+    tokens of the kernel path and the plain path through serve_step on the
+    serve run's workload, identical but at a near tie of the plain path's
+    top-2 logits at that step, or of a router's k-th / (k+1)-th probability
+    at a token of that row, up to that step, whose top-k set differs
+    between the two runs (the gaps read from the plain run itself)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.models import init_lm
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=MOE_F32_DEEPSEEK_LAYERS,
+                              first_dense_layers=MOE_F32_DEEPSEEK_LAYERS - 1, dtype="float32",
+                              linear_impl="fused")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    prompts = torch.as_tensor(synthetic_tokens(0, 1, MOE_BATCH, MOE_PROMPT, cfg.vocab_size),
+                              device=dev).long()
+    V, k = cfg.vocab_size, cfg.top_k
+    runs = {}
+    for label, c in (("kernel", cfg), ("plain", dataclasses.replace(cfg, linear_impl="jnp"))):
+        prefill, decode = make_prefill_step(c, MOE_PROMPT + MOE_GEN), make_decode_step(c)
+        gaps = []
+        with _routing_log(torch) as log, torch.no_grad():
+            lg, caches = prefill(params, {"tokens": prompts})
+            out = []
+            for i in range(MOE_GEN):
+                top = lg[:, :V].topk(2, dim=-1).values
+                gaps.append(((top[:, 0] - top[:, 1]) / top[:, 0].abs()).cpu())
+                tok = torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32)
+                out.append(tok)
+                if i < MOE_GEN - 1:
+                    lg, _ = decode(params, tok, caches, MOE_PROMPT + i)
+        runs[label] = (torch.cat(out, 1).cpu(), gaps, log)
+        del caches, lg
+    got, want = runs["kernel"][0], runs["plain"][0]
+    _, gaps, plog = runs["plain"]
+    klog = runs["kernel"][2]
+    n_moe = cfg.num_moe_layers
+    for r in range(MOE_BATCH):
+        i = _first_divergence(want[r].tolist(), got[r].tolist())
+        if i is None:
+            continue
+        # token i comes from call i (the prefill, then decode step i - 1)
+        rg, differ = _row_router_gap(klog[:(i + 1) * n_moe], plog[:(i + 1) * n_moe], r,
+                                     MOE_BATCH)
+        _tie_or_fail(gaps[i][r].item(), rg, f"moe f32 identity: row {r} diverges at token {i} "
+                                            f"({differ} of its tokens route to another top-{k} "
+                                            f"set up to there)")
+    same = int((want == got).all(1).sum().item())
+    print(f"moe token identity: {cfg.name} at full width, {cfg.num_layers} layers "
+          f"({cfg.first_dense_layers} dense, {n_moe} MoE), float32, serve_step on "
+          f"{MOE_BATCH} x {MOE_PROMPT} + {MOE_GEN} tokens: kernel path vs plain path, "
+          f"{same}/{MOE_BATCH} rows identical; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_serve_run(torch, eng, reqs, label: str, decode_kernel, **kw):
+    """One engine run of an MoE model with every count set to 0 just
+    before and read just after, held to the path's formula: per pass
+    (prefills + decode steps) `moe_pass_launches`, and `decode_kernel`
+    (None on the plain path) once per attention layer a decode step."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
+    counters = {**_moe_counters(), "paged_decode": paged_decode,
+                "paged_decode_blocktable": paged_decode_blocktable}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    done, stats = eng.run(reqs, **kw)
+    torch.cuda.synchronize()
+    counts = {n: f.launches for n, f in counters.items()}
+    passes = stats.prefills + stats.decode_steps
+    want = dict.fromkeys(counts, 0)
+    if eng.cfg.linear_impl == "fused":
+        want.update({n: passes * v for n, v in moe_pass_launches(eng.cfg).items()})
+    if decode_kernel:
+        want[decode_kernel] = stats.decode_steps * eng.cfg.num_layers
+    print(f"  {label}: {stats.num_requests} requests, {stats.total_generated} tokens in "
+          f"{stats.wall_s:.3f} s ({stats.prefills} prefills, {stats.decode_steps} decode steps"
+          f", {stats.preemptions} preemptions) | tok/s {stats.tok_s:.1f} | TTFT p50 "
+          f"{stats.ttft_p50_s * 1e3:.2f} ms | ITL p50 {stats.itl_p50_s * 1e3:.2f} ms p99 "
+          f"{stats.itl_p99_s * 1e3:.2f} ms | cache_hit_rate {stats.cache_hit_rate:.3f} | peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"    launches: {json.dumps({n: v for n, v in counts.items() if v or want[n]})}")
+    if counts != want:
+        fail(f"{label}: launches {counts}, the path implies {want}")
+    for r, c in zip(reqs, done):
+        if c.rid != r.rid or c.finish_reason != "length" or len(c.tokens) != r.max_new_tokens:
+            fail(f"{label}: request {r.rid}: {c.finish_reason} with {len(c.tokens)} of "
+                 f"{r.max_new_tokens} tokens ({c.detail})")
+        if not all(0 <= t < eng.cfg.vocab_size for t in c.tokens):
+            fail(f"{label}: request {c.rid}: token outside the vocabulary")
+    return done, stats, counts
+
+
+def _llama4_engine(params, cfg, dev, prefix: bool, plain: bool = False):
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.serving.engine import Engine
+    c = dataclasses.replace(cfg, linear_impl="jnp") if plain else cfg
+    kw = dict(max_prompt=128, prefix_cache=True) if prefix else dict(max_prompt=64)
+    return Engine(params, c, max_batch=8, max_new=32, use_paged_kernel=not plain, hw=H100_SXM,
+                  device=dev, **kw)
+
+
+def moe_engine_phase(torch) -> dict:
+    """llama4-maverick-400b-a17b at full width, MOE_LLAMA4_PAIRS [moe, dense]
+    pair, bf16, linear_impl="fused": the slot engine (paged decode) on the
+    serve cell's burst and the prefix engine (block-table pool) on the
+    prefix cell's workload, launch counts against the path's; prefill
+    logits against the plain path with the routing and two planted faults;
+    then f32 token identity of each engine's kernel and plain paths.
+    Returns the launches over the two runs."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.models import init_lm
+    from repro_torch.serving.engine import synthetic_requests
+
+    dev = torch.device("cuda")
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = dataclasses.replace(full, num_layers=2 * MOE_LLAMA4_PAIRS, linear_impl="fused")
+    problems = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for _, t in _paths(params))
+    print(f"moe engine: {cfg.name} at full width, {MOE_LLAMA4_PAIRS} of "
+          f"{full.num_layers // 2} [moe, dense] pairs, d={cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, {cfg.num_experts} experts of "
+          f"{cfg.moe_d_ff} top-{cfg.top_k} + {cfg.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}; {nparams / 1e9:.3f} B params in {cfg.dtype} "
+          f"({_param_bytes(params) / 1e9:.2f} GB; init {time.perf_counter() - t0:.1f} s)")
+    serve_reqs = synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64,
+                                    min_new=8, max_new=32, vocab=cfg.vocab_size, seed=0)
+    prefix_reqs = _prefix_requests(cfg.vocab_size)
+    launches = {}
+    for prefix, reqs, kernel in ((False, serve_reqs, "paged_decode"),
+                                 (True, prefix_reqs, "paged_decode_blocktable")):
+        eng = _llama4_engine(params, cfg, dev, prefix)
+        pol = eng.policy
+        label = f"{'prefix' if prefix else 'slot'} engine ({pol.num_slots} x {pol.seq_max}" + (
+            f", {eng.pool.block_size}-token blocks)" if prefix else ")")
+        _, _, counts = moe_serve_run(torch, eng, reqs, label, kernel,
+                                     **({"check_invariants": True} if prefix else {}))
+        for n, v in counts.items():
+            launches[n] = launches.get(n, 0) + v
+        del eng
+    prompts = torch.as_tensor(synthetic_tokens(0, 0, 4, 64, cfg.vocab_size), device=dev).long()
+    _logit_check(torch, params, prompts, cfg, "moe engine", problems)
+    del params
+    torch.cuda.empty_cache()
+
+    # f32 token identity on the same engines and workloads
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    p32 = init_lm(torch.Generator(device=dev).manual_seed(1), f32, device=dev)
+    plain32 = dataclasses.replace(f32, linear_impl="jnp")
+    for prefix, reqs in ((False, serve_reqs), (True, prefix_reqs)):
+        name = "prefix" if prefix else "slot"
+        runs = {}
+        for plain in (False, True):
+            eng = _llama4_engine(p32, f32, dev, prefix, plain=plain)
+            runs[plain], _, _ = moe_serve_run(
+                torch, eng, reqs, f"f32 {name} engine, {'plain' if plain else 'kernel'} path",
+                None if plain else ("paged_decode_blocktable" if prefix else "paged_decode"),
+                **({"check_invariants": True} if prefix else {}))
+            del eng
+        for r, a, b in zip(reqs, runs[True], runs[False]):
+            i = _first_divergence(a.tokens, b.tokens)
+            if i is None:
+                continue
+            ctx = torch.as_tensor(np.concatenate([r.tokens, np.asarray(a.tokens[:i], np.int32)])[
+                None], device=dev).long()
+            g, rg = _near_ties(torch, p32, plain32, ctx)
+            _tie_or_fail(g, rg, f"moe f32 {name} engine: request {r.rid} diverges at token {i} "
+                                f"(gaps from a one-row plain prefill of the agreed context)")
+        print(f"  f32 {name} engine, kernel path vs plain path ({f32.num_layers} layers, full "
+              f"width): {_agreement(runs[True], runs[False])}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del p32
+    torch.cuda.empty_cache()
+    if problems:
+        fail("moe engine: " + "; ".join(problems))
+    return launches
 
 
 # --- train phase ------------------------------------------------------------------------
@@ -3581,7 +4397,7 @@ def codesign_phase(torch, cache) -> None:
         pos = torch.arange(s, device=dev)
 
         def step():
-            y, _ = apply_stack([("dense", seg)], cfg, x, positions=pos)
+            y, _, _ = apply_stack([("dense", seg)], cfg, x, positions=pos)
             y.backward(dy)
         step()
         step()
@@ -3642,6 +4458,7 @@ def main() -> None:
     rows.update(phase("int8 kernels", int8_kernel_phase, torch))
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
     rows.update(phase("ssd backward", ssd_bwd_kernel_phase, torch))
+    rows.update(phase("moe kernels", moe_kernel_phase, torch))
     if PARENT:
         phase("ssd backward a/b", ssd_bwd_ab_phase)
     counts = phase("serve", serve_phase, torch)
@@ -3649,6 +4466,8 @@ def main() -> None:
     quantized = phase("quantized serve", quantized_serve_phase, torch)
     ssm = phase("ssm serve", ssm_serve_phase, torch)
     phase("hybrid serve", hybrid_serve_phase, torch)
+    moe = phase("moe serve", moe_serve_phase, torch)
+    moe_engine = phase("moe engine", moe_engine_phase, torch)
     phase("token identity", token_identity_phase, torch)
     phase("ssm token identity", ssm_token_identity_phase, torch)
     train = phase("train", train_phase, torch)
@@ -3669,7 +4488,10 @@ def main() -> None:
     # The int8-weight slice's rows count the int8-weight slot engine's run.
     # The SSM slice's row counts the ssm serve run (a prefill and the decode
     # steps; the decode steps launch none).  The SSD backward's row counts the
-    # ssm train phase's timed steps (mamba2-780m, one a layer a step).
+    # ssm train phase's timed steps (mamba2-780m, one a layer a step).  The
+    # MoE slice's rows count the moe serve phase's prefill and decode steps
+    # (deepseek-v3) and the moe engine phase's slot and prefix runs
+    # (llama4-maverick), one launch per MoE layer a pass.
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
                 "int8_matmul": quantized["int8_matmul"],
@@ -3682,7 +4504,10 @@ def main() -> None:
                 "matmul_dgrad": train["matmul_nt"] - train["fused_mlp_bwd"],
                 "matmul_wgrad": train["matmul_tn"] - 2 * train["fused_mlp_bwd"],
                 "ssd_chunk": ssm["ssd_chunk"],
-                "ssd_chunk_bwd": ssm_train_counts["ssd_chunk_bwd"]}
+                "ssd_chunk_bwd": ssm_train_counts["ssd_chunk_bwd"],
+                "matmul_expert": moe["matmul_expert"] + moe_engine["matmul_expert"],
+                "fused_mlp_hidden_expert": moe["fused_mlp_hidden_expert"]
+                + moe_engine["fused_mlp_hidden_expert"]}
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
@@ -3691,7 +4516,7 @@ def main() -> None:
              "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
              "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp",
-             "ssd_chunk", "ssd_chunk_bwd")
+             "ssd_chunk", "ssd_chunk_bwd", "matmul_expert", "fused_mlp_hidden_expert")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

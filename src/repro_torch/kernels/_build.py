@@ -134,6 +134,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
+    lib.repro_matmul_expert.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.repro_matmul_expert.restype = i
+    lib.repro_fused_mlp_expert.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.repro_fused_mlp_expert.restype = i
     lib.repro_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f,
                                        i, i, p]
     lib.repro_paged_decode.restype = i

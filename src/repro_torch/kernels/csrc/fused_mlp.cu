@@ -40,7 +40,7 @@ static cudaError_t launch_f32(const float* x, const float* b0, const float* b1, 
                               int f, int k, int vec, cudaStream_t stream) {
   dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, 1);
   gemm_tile_kernel<float, ACT><<<grid, NTHREADS, 0, stream>>>(x, nullptr, b0, b1, h, nullptr, m,
-                                                              f, k, k, vec);
+                                                              f, k, k, vec, TileBatch{});
   return cudaGetLastError();
 }
 
@@ -72,4 +72,66 @@ extern "C" int repro_fused_mlp(const void* x, const void* wg, const void* wu, vo
   if (act == ACT_SWIGLU) return (int)launch_f32<ACT_SWIGLU>(xp, b0p, b1p, hp, m, f, k, vec, s);
   if (act == ACT_GELU) return (int)launch_f32<ACT_GELU>(xp, b0p, b1p, hp, m, f, k, vec, s);
   return (int)launch_f32<ACT_RELU2>(xp, b0p, b1p, hp, m, f, k, vec, s);
+}
+
+// The expert-batched hidden behind the MoE layer under linear_impl =
+// "fused": h[z] = silu(x[z] . Wg[z]) * (x[z] . Wu[z]), or gelu(x[z] .
+// Wu[z]), for every expert z in one launch (the grid's z axis), each at the
+// 2-D kernel's tile.
+//
+// Replaces: src/repro/models/linear.py `expert_fused_hidden` (:323-341),
+// one `fused_mlp_pallas` per expert under `jax.lax.map`.  Bound by bytes,
+// as the batched matmul (matmul.cu `repro_matmul_expert`): every expert's
+// gate and up weights are read, 256 x 2 x 29 MB for deepseek-v3 and 128 x 2
+// x 84 MB for llama4-maverick, whatever the rows.  The MoE layer maps every
+// un-gated MLP to gelu (repro/models/moe.py:87-90), so relu2 has no
+// batched instantiation.
+template <int ACT>
+static cudaError_t launch_expert_bf16(const GemmArgs& g, int experts, int tm, int tn,
+                                      cudaStream_t stream) {
+  if (tm == 64 && tn == 64)
+    return gemm_sm90_launch<64, 64, false, false, 1, ACT, false, true>(g, experts, stream);
+  if (tm == 128 && tn == 128)
+    return gemm_sm90_launch<128, 128, false, false, 1, ACT, false, true>(g, experts, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int ACT>
+static cudaError_t launch_expert_f32(const float* x, const float* b0, const float* b1, float* h,
+                                     int e, int m, int f, int k, int vec, TileBatch bt,
+                                     cudaStream_t stream) {
+  dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, e);
+  gemm_tile_kernel<float, ACT, false, false, 1, true>
+      <<<grid, NTHREADS, 0, stream>>>(x, nullptr, b0, b1, h, nullptr, m, f, k, k, vec, bt);
+  return cudaGetLastError();
+}
+
+// x (e, m, k); wg (swiglu only), wu (e, k, f); h (e, m, f); all row-major,
+// contiguous.  act: swiglu or gelu.  (tm, tn) as repro_fused_mlp's.
+extern "C" int repro_fused_mlp_expert(const void* x, const void* wg, const void* wu, void* h,
+                                      int e, int m, int f, int k, int act, int dtype, int vec,
+                                      int tm, int tn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e <= 0 || e > 65535 || m <= 0 || f <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  if (act != ACT_SWIGLU && act != ACT_GELU) return (int)cudaErrorInvalidValue;
+  const void* b0 = act == ACT_SWIGLU ? wg : wu;
+  const void* b1 = act == ACT_SWIGLU ? wu : nullptr;
+  const long long sa = (long long)m * k, sb = (long long)k * f, sc = (long long)m * f;
+  if (dtype == DT_BF16) {
+    using bf = __nv_bfloat16;
+    const GemmArgs g{static_cast<const bf*>(x), nullptr, static_cast<const bf*>(b0),
+                     static_cast<const bf*>(b1), static_cast<bf*>(h), nullptr, nullptr, nullptr,
+                     nullptr, m, f, k, k, vec, sa, sb, sc};
+    if (act == ACT_SWIGLU) return (int)launch_expert_bf16<ACT_SWIGLU>(g, e, tm, tn, s);
+    return (int)launch_expert_bf16<ACT_GELU>(g, e, tm, tn, s);
+  }
+  if (dtype != DT_F32 || tm != BM || tn != BN) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* b0p = static_cast<const float*>(b0);
+  const float* b1p = static_cast<const float*>(b1);
+  float* hp = static_cast<float*>(h);
+  const TileBatch bt{sa, sb, sc};
+  if (act == ACT_SWIGLU)
+    return (int)launch_expert_f32<ACT_SWIGLU>(xp, b0p, b1p, hp, e, m, f, k, vec, bt, s);
+  return (int)launch_expert_f32<ACT_GELU>(xp, b0p, b1p, hp, e, m, f, k, vec, bt, s);
 }

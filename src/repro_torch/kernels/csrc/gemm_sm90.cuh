@@ -69,7 +69,19 @@ struct GemmArgs {
   __nv_bfloat16* du;        // backward: du (m, n)
   int m, n, k, k_split;
   int vec;  // every base 16-byte aligned, every row length a multiple of 8
+  // an expert-batched launch (BATCH): expert z's A, B0 and B1, and C, start
+  // z * sa, z * sb and z * sc elements after the bases
+  long long sa, sb, sc;
 };
+
+// The operands of expert z of a batched launch (every B at the same stride).
+__device__ __forceinline__ GemmArgs gemm_expert(GemmArgs g, int z) {
+  g.a += z * g.sa;
+  g.b0 += z * g.sb;
+  if (g.b1) g.b1 += z * g.sb;
+  g.c += z * g.sc;
+  return g;
+}
 
 template <int TM, int TN, int NB> struct GemmSmem {
   static constexpr int A_ELEMS = TM * GEMM_BK;
@@ -202,14 +214,18 @@ __device__ __forceinline__ void gemm_put2(__nv_bfloat16* p, size_t o, float v0, 
 // splits > 1 (ACT_NONE) block z covers k in [z k_split, min(k, (z + 1)
 // k_split)) and writes its f32 partial to work[z].  BWD: the fused MLP's
 // backward epilogue (dh in, dg and du out) on the pre-activations.
-template <int TM, int TN, bool TA, bool TB, int PAIRS, int ACT, bool BWD>
-__global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmArgs g) {
+// BATCH: grid (ceil(m / TM), ceil(n / TN), experts), unsplit; block z runs
+// expert z's product (`gemm_expert`), the whole k range.
+template <int TM, int TN, bool TA, bool TB, int PAIRS, int ACT, bool BWD, bool BATCH = false>
+__global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmArgs ga) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(sm90::align1024(smem));
 
+  const GemmArgs g = BATCH ? gemm_expert(ga, blockIdx.z) : ga;
   const int row0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
-  const int k0 = blockIdx.z * g.k_split, k1 = min(g.k, k0 + g.k_split);
+  const int k0 = BATCH ? 0 : blockIdx.z * g.k_split;
+  const int k1 = BATCH ? g.k : min(g.k, k0 + g.k_split);
 
   float acc[NB][TN / 2];
 #pragma unroll
@@ -222,7 +238,7 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
   const int rb = row0 + 64 * wg + 16 * (t / 32) + (t % 32) / 4;
   const int cb = col0 + 2 * (t % 4);
   const bool even = (g.n & 1) == 0;
-  const bool split = !BWD && ACT == ACT_NONE && gridDim.z > 1;
+  const bool split = !BATCH && !BWD && ACT == ACT_NONE && gridDim.z > 1;
 #pragma unroll
   for (int j = 0; j < TN / 8; ++j) {
     const int gc = cb + 8 * j;
@@ -276,14 +292,15 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
   }
 }
 
-// Launch one instantiation: its dynamic shared memory, then the grid.
-template <int TM, int TN, bool TA, bool TB, int PAIRS, int ACT, bool BWD>
+// Launch one instantiation: its dynamic shared memory, then the grid
+// (`splits` deep in z: the k splits, or the experts of a BATCH launch).
+template <int TM, int TN, bool TA, bool TB, int PAIRS, int ACT, bool BWD, bool BATCH = false>
 cudaError_t gemm_sm90_launch(const GemmArgs& g, int splits, cudaStream_t s) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
   constexpr int SMEM = GemmSmem<TM, TN, NB>::BYTES;
   const long long ny = (g.n + TN - 1) / TN;
   if (ny > 65535 || splits > 65535) return cudaErrorInvalidValue;
-  auto* kern = gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD>;
+  auto* kern = gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD, BATCH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.m + TM - 1) / TM, (unsigned)ny, splits);

@@ -193,23 +193,39 @@ __device__ __forceinline__ void gemm_mainloop(TileMma<T, NB, TA, TB>& mma, unsig
   }
 }
 
+// Per-expert strides (elements) of an expert-batched launch: expert z's A,
+// B0 and B1, and C start z * a, z * b and z * c elements after the bases.
+struct TileBatch {
+  long long a, b, c;
+};
+
 // C (m x n) = epilogue(A (m x k) . B0 (k x n) [, A . B1]), or with PAIRS = 2
 // C = A . B0 + A1 . B1 (both pairs m x k by k x n, one accumulator).
 // grid = (ceil(n/BN), ceil(m/BM), splits).  With splits > 1 (ACT_NONE only)
 // block z covers k in [z*k_split, min(k, (z+1)*k_split)) and writes its f32
-// partial to work[z] (m x n); splitk_reduce then sums the partials.
-template <typename T, int ACT, bool TA = false, bool TB = false, int PAIRS = 1>
+// partial to work[z] (m x n); splitk_reduce then sums the partials.  BATCH:
+// grid = (ceil(n/BN), ceil(m/BM), experts), unsplit; block z runs expert
+// z's product at the strides `bt`, the whole k range.
+template <typename T, int ACT, bool TA = false, bool TB = false, int PAIRS = 1,
+          bool BATCH = false>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ A1, const T* __restrict__ B0,
                  const T* __restrict__ B1, T* __restrict__ C, float* __restrict__ work, int m,
-                 int n, int k, int k_split, int vec) {
+                 int n, int k, int k_split, int vec, TileBatch bt) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
   using G = TileGeom<T, NB, TA, TB>;
   __shared__ __align__(128) unsigned char smem[G::BYTES];
 
+  if (BATCH) {
+    const long long z = blockIdx.z;
+    A += z * bt.a;
+    B0 += z * bt.b;
+    if (B1) B1 += z * bt.b;
+    C += z * bt.c;
+  }
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int k0 = blockIdx.z * k_split;
-  const int k1 = min(k, k0 + k_split);
+  const int k0 = BATCH ? 0 : blockIdx.z * k_split;
+  const int k1 = BATCH ? k : min(k, k0 + k_split);
 
   TileMma<T, NB, TA, TB> mma;
   mma.zero();
@@ -236,7 +252,7 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ A1, const T* __r
     const int gr = row0 + r, gc = col0 + c;
     if (gr >= m || gc >= n) continue;
     float v = Cs[0][r * G::LDC + c];
-    if (ACT == ACT_NONE && gridDim.z > 1) {
+    if (!BATCH && ACT == ACT_NONE && gridDim.z > 1) {
       work[((size_t)blockIdx.z * m + gr) * n + gc] = v;
       continue;
     }

@@ -44,7 +44,7 @@ static cudaError_t launch_f32(const float* a, const float* a1, const float* b, c
                               int splits, int vec, cudaStream_t stream) {
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
   gemm_tile_kernel<float, ACT_NONE, TA, TB, PAIRS>
-      <<<grid, NTHREADS, 0, stream>>>(a, a1, b, b1, c, work, m, n, k, k_split, vec);
+      <<<grid, NTHREADS, 0, stream>>>(a, a1, b, b1, c, work, m, n, k, k_split, vec, TileBatch{});
   return cudaGetLastError();
 }
 
@@ -108,6 +108,51 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
           <<<blocks, 256, 0, stream>>>(wp, static_cast<float*>(c), mn, splits);
   }
   return cudaGetLastError();
+}
+
+// The expert-batched product behind the MoE layer's expert GEMMs:
+// c[z] = a[z] . b[z] for every expert z in one launch (the grid's z axis),
+// each expert at the 2-D forward's tile and unsplit.
+//
+// Replaces: src/repro/models/linear.py `expert_linear` (:212-235), which
+// runs one `matmul_pallas` per expert under `jax.lax.map`: a sequential
+// grid inside one TPU program.  Eager, that would be one wrapper call per
+// expert (256 for deepseek-v3, 128 for llama4-maverick), each paying the
+// host's 24-77 us; here the experts are blocks of one launch.
+//
+// What bounds it on the H100: bytes.  The capacity buffer holds every
+// expert, so every expert's weights are read: at decode (8-row capacity)
+// ~2 FLOP per weight byte, at a 4 x 1024-token prefill (160 rows) ~160,
+// both under the ~295 at which the tensor cores become the limit.  The
+// experts times the column tiles give thousands of blocks (256 x 56 for
+// deepseek-v3's w_down), so no split of k is needed to fill the card.
+template <int TM, int TN>
+static cudaError_t launch_expert_bf16(const GemmArgs& g, int experts, cudaStream_t stream) {
+  return gemm_sm90_launch<TM, TN, false, false, 1, ACT_NONE, false, true>(g, experts, stream);
+}
+
+// a (e, m, k), b (e, k, n), c (e, m, n), each row-major and contiguous;
+// (tm, tn) one of bf16's instantiated tiles, or 64 x 64 for f32.
+extern "C" int repro_matmul_expert(const void* a, const void* b, void* c, int e, int m, int n,
+                                   int k, int dtype, int vec, int tm, int tn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e <= 0 || e > 65535 || m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  const long long sa = (long long)m * k, sb = (long long)k * n, sc = (long long)m * n;
+  if (dtype == DT_BF16) {
+    using bf = __nv_bfloat16;
+    const GemmArgs g{static_cast<const bf*>(a), nullptr, static_cast<const bf*>(b), nullptr,
+                     static_cast<bf*>(c), nullptr, nullptr, nullptr, nullptr, m, n, k, k, vec,
+                     sa, sb, sc};
+    if (tm == 64 && tn == 128) return (int)launch_expert_bf16<64, 128>(g, e, s);
+    if (tm == 128 && tn == 128) return (int)launch_expert_bf16<128, 128>(g, e, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != DT_F32 || tm != BM || tn != BN) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, e);
+  gemm_tile_kernel<float, ACT_NONE, false, false, 1, true><<<grid, NTHREADS, 0, s>>>(
+      static_cast<const float*>(a), nullptr, static_cast<const float*>(b), nullptr,
+      static_cast<float*>(c), nullptr, m, n, k, k, vec, TileBatch{sa, sb, sc});
+  return (int)cudaGetLastError();
 }
 
 // a (m, k) row-major, or (ta) its transpose stored (k, m) row-major; b (k, n)

@@ -21,6 +21,10 @@ hardware) when there is one (`geometry`; a miss keeps `pick_tile`), and
 the backward's three GEMMs look up their own (m, k, n) keys; the recompute
 kernel keeps `pick_tile`.  `fused_mlp_hidden.tuned_hits` / `tuned_misses`
 count the forward's lookups.
+
+`fused_mlp_hidden_expert` is the MoE layer's batched hidden: every expert
+of a stack in ONE launch of the forward kernel (the grid's z axis is the
+expert), swiglu or gelu, forward only; it counts its own launches.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from .. import _build
-from ..matmul.ops import matmul
+from ..matmul.ops import MOE_TRAINING, matmul
 from .backward import fused_mlp_bwd_ref
 from .ref import MLP_TYPES, fused_mlp_hidden_ref, is_gated
 
@@ -160,6 +164,66 @@ def _fused_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=Non
                                      *tile, _build.stream_of(x.device))
     _build.check(status, "fused_mlp_hidden")
     fused_mlp_hidden.launches += 1
+    return out
+
+
+# --- the expert-batched launch (the MoE layer's hidden under linear_impl="fused") -------
+
+EXPERT_MLP_TYPES = ("swiglu", "gelu")   # the MoE layer maps every un-gated MLP to gelu
+
+
+def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned: bool = False,
+                            hw_name: str | None = None):
+    """Per-expert hidden[e] = act-combine(x[e] @ w_gate[e], x[e] @ w_up[e]).
+    x: (E, m, h); w_gate (swiglu only), w_up: (E, h, f) -> (E, m, f).  A
+    CUDA tensor launches csrc/fused_mlp.cu `repro_fused_mlp_expert` once for
+    all E experts, each at `geometry(m, h, f)`'s tile (the per-expert
+    tuning key); forward only (raises under autograd).  A CPU tensor runs
+    the plain version (`fused_mlp_hidden_ref`, whose products batch over
+    the expert axis).  `fused_mlp_hidden_expert.launches` counts launches."""
+    if mlp_type not in EXPERT_MLP_TYPES:
+        raise ValueError(f"fused_mlp_hidden_expert: mlp_type {mlp_type!r}; valid: "
+                         f"{list(EXPERT_MLP_TYPES)}")
+    if not is_gated(mlp_type):
+        w_gate = None
+    if _build.dispatch_device("fused_mlp_hidden_expert", x) == "cpu":
+        return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
+    ins = (x, w_up) if w_gate is None else (x, w_gate, w_up)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        raise NotImplementedError(f"fused_mlp_hidden_expert: {MOE_TRAINING}")
+    return _fused_expert_cuda(x, w_gate, w_up, mlp_type, tuned, hw_name)
+
+
+fused_mlp_hidden_expert.launches = 0
+
+
+def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=None):
+    """Launch csrc/fused_mlp.cu `repro_fused_mlp_expert`."""
+    ws = (w_up,) if w_gate is None else (w_gate, w_up)
+    _build.cuda_operands("fused_mlp_hidden_expert", x, *ws)
+    for w in ws:
+        if w.dtype != x.dtype:
+            raise TypeError(f"fused_mlp_hidden_expert: dtypes {x.dtype} and {w.dtype}")
+        if x.dim() != 3 or w.shape != w_up.shape or w.dim() != 3 \
+                or w.shape[:2] != (x.shape[0], x.shape[2]):
+            raise ValueError(f"fused_mlp_hidden_expert: x {tuple(x.shape)} against "
+                             f"weights {[tuple(t.shape) for t in ws]}")
+    e, m, k = x.shape
+    f = w_up.shape[2]
+    out = torch.empty((e, m, f), dtype=x.dtype, device=x.device)
+    if e == 0 or m == 0 or f == 0:
+        return out
+    tile, _ = geometry(m, k, f, x.dtype, mlp_type, tuned=tuned, hw_name=hw_name)
+    chunk = 16 // x.element_size()
+    vec = int(k % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
+    lib = _build.build().lib
+    with torch.cuda.device(x.device):
+        status = lib.repro_fused_mlp_expert(
+            _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(out), e, m, f, k,
+            ACT_CODES[mlp_type], _build.dtype_code(x.dtype), vec, *tile,
+            _build.stream_of(x.device))
+    _build.check(status, "fused_mlp_hidden_expert")
+    fused_mlp_hidden_expert.launches += 1
     return out
 
 

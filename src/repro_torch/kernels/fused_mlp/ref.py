@@ -56,7 +56,9 @@ DACTS = {"swiglu": _dsilu, "gelu": _dgelu, "relu2": _drelu2}
 
 
 def fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type: str = "swiglu"):
-    """x: (m, h); w_gate (gated only), w_up: (h, f).  Returns (m, f)."""
+    """x: (m, h); w_gate (gated only), w_up: (h, f).  Returns (m, f).  With
+    a leading expert axis on all three, (E, m, h) against (E, h, f), the
+    products batch per expert: the plain version of the batched launch."""
     act = ACTS[mlp_type]
     u = x.float() @ w_up.float()
     if is_gated(mlp_type):

@@ -26,6 +26,11 @@ of launches.  `matmul.launches` counts calls that launched the GEMM
 kernel, the reduce riding with them; `matmul.by_layout` splits that count
 by operand layout: "nn" (forward), "nt" (B transposed: dgrad) and "tn" (A
 transposed: wgrad).
+
+`matmul_expert` is the MoE layer's batched product, X[e] @ W[e] for every
+expert e of a stack in ONE launch of the same mainloop (the grid's z axis
+is the expert; no split of k), forward only; `matmul_expert.launches`
+counts it apart from `matmul.launches`.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from ...tuning.candidates import split_depth
 from .. import _build
-from .ref import matmul_ref
+from .ref import matmul_expert_ref, matmul_ref
 
 BLOCK_K = 64             # csrc/gemm_sm90.cuh GEMM_BK: the bf16 k step, one 128-byte swizzle atom
 DECODE_TILE = (64, 128)  # (rows, columns) at most 64 rows: one warpgroup, 2 blocks an SM
@@ -215,6 +220,60 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
     _build.check(status, "matmul")
     matmul.launches += 1
     matmul.by_layout[layout] += 1
+    return out
+
+
+# --- the expert-batched launch (the MoE layer's expert GEMMs) -----------------------
+
+MOE_TRAINING = ("the batched expert launch is forward-only on the card: its dgrad and wgrad "
+                "come with the MoE-training slice")
+
+
+def matmul_expert(x: torch.Tensor, w: torch.Tensor, *, tuned: bool = False,
+                  hw_name: str | None = None) -> torch.Tensor:
+    """Per-expert C[e] = X[e] @ W[e], f32 accumulation, output in X's dtype.
+    x: (E, m, k); w: (E, k, n) -> (E, m, n).  A CUDA tensor launches
+    csrc/matmul.cu `repro_matmul_expert` once for all E experts (the grid's
+    z axis is the expert), each at `geometry(m, k, n)`'s tile and unsplit,
+    so a tuning-cache entry for the per-expert (m, k, n) applies, as JAX's
+    per-expert `tuned=True` key does; forward only (raises under autograd).
+    A CPU tensor runs the plain version, a per-expert einsum, differentiable
+    as any torch op.  `matmul_expert.launches` counts launches."""
+    if _build.dispatch_device("matmul_expert", x) == "cpu":
+        return matmul_expert_ref(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(f"matmul_expert: {MOE_TRAINING}")
+    return _matmul_expert_cuda(x, w, tuned, hw_name)
+
+
+matmul_expert.launches = 0
+
+
+def _matmul_expert_cuda(x, w, tuned=False, hw_name=None) -> torch.Tensor:
+    """Launch csrc/matmul.cu `repro_matmul_expert`."""
+    _build.cuda_operands("matmul_expert", x, w)
+    if w.dtype != x.dtype:
+        raise TypeError(f"matmul_expert: dtypes {x.dtype} and {w.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"matmul_expert: x {tuple(x.shape)} against w {tuple(w.shape)}")
+    e, m, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if e == 0 or m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    (tm, tn, _), _ = geometry(m, k, n, x.dtype, tuned=tuned, hw_name=hw_name,
+                              num_sms=_build.num_sms(x.device))
+    chunk = 16 // x.element_size()
+    vec = int(k % chunk == 0 and n % chunk == 0 and _build.aligned16(x, w))
+    lib = _build.build().lib
+    with torch.cuda.device(x.device):
+        status = lib.repro_matmul_expert(_build.ptr(x), _build.ptr(w), _build.ptr(out), e, m, n,
+                                         k, _build.dtype_code(x.dtype), vec, tm, tn,
+                                         _build.stream_of(x.device))
+    _build.check(status, "matmul_expert")
+    matmul_expert.launches += 1
     return out
 
 

@@ -11,3 +11,9 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *, a1=None,
     if a1 is not None:
         acc = acc + a1.float() @ b1.float()
     return acc.to(out_dtype)
+
+
+def matmul_expert_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert X[e] @ W[e] in f32, rounded once to X's dtype.
+    x: (E, m, k); w: (E, k, n) -> (E, m, n)."""
+    return torch.einsum("emk,ekn->emn", x.float(), w.float()).to(x.dtype)

@@ -16,6 +16,18 @@ sharing; `--kv-dtype int8`: an int8 KV pool with f32 scales;
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --smoke --engine --prefix-cache --kv-dtype int8 --device cpu
 
+The MoE family: deepseek-v3 (MLA, 256 experts top-8, MTP) through the
+static loop (the engines refuse MLA, as JAX's do), llama4-maverick (GQA,
+128 experts top-1, MoE every 2nd layer) through either:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-maverick-400b-a17b --smoke --engine --paged --device cpu
+
+On the card each runs at the depth its config gives (the full configs
+hold 61 and 48 layers, beyond one card).
+
 Runs on the CUDA card; `--device cpu` runs the plain PyTorch versions on
 the host instead (there is no silent fallback).  Weights are random, drawn
 from `--seed` on the device.

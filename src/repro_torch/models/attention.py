@@ -1,6 +1,7 @@
 """GQA attention: the naive score/AOV decomposition, the flash-attention
 kernels (training: cache-free, differentiable) and the paged decode kernel
-over the serving slot pool or block-table pool, float or int8.
+over the serving slot pool or block-table pool, float or int8; and
+DeepSeek-V3's multi-head latent attention (MLA) with its latent cache.
 
 Caches are updated in place: the JAX package returns new cache arrays
 (`dynamic_update_slice`, a one-hot `where`, donated buffers); the port
@@ -200,13 +201,82 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     return out, cache
 
 
+# --- DeepSeek-V3 Multi-head Latent Attention ------------------------------------------
+
+def init_mla(gen: Optional[torch.Generator], cfg: ModelConfig, *, lead=(), device=None,
+             dtype=torch.float32):
+    h, a = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    return {
+        "wq_down": dense_init(gen, h, qr, **kw),
+        "wq_up": dense_init(gen, qr, a * (nope + rope), **kw),
+        "wkv_down": dense_init(gen, h, kvr + rope, **kw),
+        "wk_up": dense_init(gen, kvr, a * nope, **kw),
+        "wv_up": dense_init(gen, kvr, a * vd, **kw),
+        "wo": dense_init(gen, a * vd, h, scale=1.0 / (2 * cfg.num_layers) ** 0.5, **kw),
+    }
+
+
+def apply_mla(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None):
+    """MLA with a latent-KV cache (attention.py:273-317 of the JAX package).
+    x: (b, s, h).  Returns (out, cache).
+
+    cache: dict(latent=(b, s_max, kv_lora_rank + qk_rope_dim)) or None,
+    written in place at the int `cache_index` (positions ci..ci+s) with the
+    post-rotary latent (c_kv ++ k_rope); k_nope and v are then recomputed
+    from the whole cached latent, through `linear`, each call.  Prefill and
+    training run the same decompressed (naive) path; the weight-absorbed
+    schedule is what `core/` models.  The scores are the plain `_sdpa`
+    product, which JAX also computes outside any Pallas kernel.  A per-row
+    (tensor) cache_index raises, as JAX's `dynamic_update_slice` does.
+    """
+    b, s, _ = x.shape
+    a = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    impl = cfg.linear_impl
+    q = linear(linear(x, p["wq_down"], impl=impl), p["wq_up"], impl=impl)
+    q = q.reshape(b, s, a, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rotary(q_rope, positions, cfg.rope_theta)
+
+    latent = linear(x, p["wkv_down"], impl=impl)  # (b, s, kvr + rope)
+    c_kv, k_rope_flat = latent[..., :kvr], latent[..., kvr:]
+    k_rope = apply_rotary(k_rope_flat[..., None, :], positions, cfg.rope_theta)
+
+    kv_len = None
+    if cache is not None:
+        if torch.is_tensor(cache_index) and cache_index.dim():
+            raise ValueError("MLA's latent cache takes an int cache_index "
+                             "(one write offset for every row)")
+        ci = int(cache_index)
+        stored = cache["latent"]
+        _write_slice(stored, ci, torch.cat([c_kv, k_rope[..., 0, :]], dim=-1))
+        c_kv = stored[..., :kvr].to(x.dtype)
+        k_rope = stored[..., None, kvr:].to(x.dtype)
+        kv_len = ci + s
+
+    skv = c_kv.shape[1]
+    c_kv = c_kv.contiguous()   # a slice of the latent: the tile GEMM takes whole rows
+    k_nope = linear(c_kv, p["wk_up"], impl=impl).reshape(b, skv, a, nope)
+    v = linear(c_kv, p["wv_up"], impl=impl).reshape(b, skv, a, vd)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, skv, a, rope)], dim=-1)
+    out = _sdpa(q_full, k_full, v, causal=True,
+                q_pos=positions[0] if positions.dim() > 1 else positions, kv_len=kv_len)
+    out = linear(out.reshape(b, s, a * vd), p["wo"], impl=impl)
+    return out, cache
+
+
 def init_attention(gen, cfg: ModelConfig, **kw):
-    if cfg.attn_type == "mla":
-        raise _unsupported("MLA attention", "other-families")
-    return init_gqa(gen, cfg, **kw)
+    return init_mla(gen, cfg, **kw) if cfg.attn_type == "mla" else init_gqa(gen, cfg, **kw)
 
 
 def apply_attention(p, x, cfg: ModelConfig, **kw):
     if cfg.attn_type == "mla":
-        raise _unsupported("MLA attention", "other-families")
+        if kw.pop("block_tables", None) is not None:
+            raise ValueError("block-table KV paging is not supported for MLA")
+        return apply_mla(p, x, cfg, **kw)
     return apply_gqa(p, x, cfg, **kw)

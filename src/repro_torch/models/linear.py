@@ -30,6 +30,11 @@ They are taken only when a gradient is recorded: serving (under
 `no_grad`) calls the kernel wrappers directly and pays no
 `autograd.Function` on its ~170 calls per decode step.
 
+The MoE layer's expert stacks go through `expert_linear` and
+`expert_fused_hidden`: one batched launch per expert stack on the card,
+forward only (the launch raises under autograd: MoE training comes with
+its own slice); on the CPU the plain versions, differentiable.
+
 Weights are cast to the activation dtype per call, as JAX does: a no-op on
 the serving path (params arrive in the compute dtype), and on the training
 path (float32 masters) the cast's own backward returns the float32
@@ -41,9 +46,9 @@ import re
 
 import torch
 
-from ..kernels.fused_mlp.ops import fused_mlp_hidden
+from ..kernels.fused_mlp.ops import fused_mlp_hidden, fused_mlp_hidden_expert
 from ..kernels.fused_mlp.ref import fused_mlp_hidden_ref
-from ..kernels.matmul.ops import matmul
+from ..kernels.matmul.ops import matmul, matmul_expert
 from ..kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
 from ..quant import QuantizedTensor, quantize_weight
 
@@ -141,6 +146,35 @@ def linear(x, w, *, impl: str = "jnp"):
         lead, k = x.shape[:-1], x.shape[-1]
         return _Linear.apply(x.reshape(-1, k), w, tuned).reshape(*lead, w.shape[-1])
     return matmul(x, w, tuned=tuned)
+
+
+def expert_linear(x, w, *, impl: str = "jnp"):
+    """Batched per-expert GEMM: x (e, m, k) @ w (e, k, n) -> (e, m, n).
+
+    "jnp" keeps the einsum; "pallas", "tuned" and "fused" run ONE launch of
+    the tile GEMM for all experts (`matmul_expert`, the expert on the grid's
+    z axis) where JAX maps one Pallas kernel per expert (`lax.map`); "tuned"
+    and "fused" look up the per-expert (m, k, n) key, as JAX's do.  The
+    batched launch is forward-only on the card."""
+    _check_impl(impl)
+    if impl == "quantized":
+        raise NotImplementedError(
+            "expert_linear(impl='quantized') (per-expert int8 quantization) is not ported yet: "
+            "it comes with the int8-expert slice")
+    w = w.to(x.dtype)
+    if impl == "jnp":
+        return torch.einsum("emk,ekn->emn", x, w)
+    return matmul_expert(x, w, tuned=impl != "pallas")
+
+
+def expert_fused_hidden(x, w_gate, w_up, *, mlp_type: str):
+    """Per-expert fused hidden: x (e, m, h) with (e, h, f) expert weights ->
+    (e, m, f), one launch of the fused MLP kernel for all experts
+    (`fused_mlp_hidden_expert`, tuned), the MoE counterpart of `fused_mlp`'s
+    hidden half."""
+    dt = x.dtype
+    w_gate = None if mlp_type != "swiglu" else w_gate.to(dt)
+    return fused_mlp_hidden_expert(x, w_gate, w_up.to(dt), mlp_type=mlp_type, tuned=True)
 
 
 def fused_mlp(x, p, cfg):

@@ -111,7 +111,7 @@ def _make_prefill(cfg: ModelConfig, s_max: int):
 
     def prefill(params, tokens, true_len: int):
         caches = init_caches(cfg, 1, s_max, compute_dtype(cfg.dtype), tokens.device)
-        logits, caches = apply_lm(params, tokens, cfg, caches=caches, cache_index=0)
+        logits, caches, _ = apply_lm(params, tokens, cfg, caches=caches, cache_index=0)
         return logits[:, true_len - 1], caches
 
     return prefill
@@ -125,7 +125,7 @@ def _make_decode(cfg: ModelConfig):
     """
 
     def decode(params, tok, caches, pos):
-        logits, caches = apply_lm(params, tok, cfg, caches=caches, cache_index=pos)
+        logits, caches, _ = apply_lm(params, tok, cfg, caches=caches, cache_index=pos)
         return logits[:, -1], caches
 
     return decode
@@ -144,7 +144,7 @@ def _make_prefix_prefill(cfg: ModelConfig):
     """
 
     def prefill(params, tokens, true_len: int, start: int, caches):
-        logits, caches = apply_lm(params, tokens, cfg, caches=caches, cache_index=start)
+        logits, caches, _ = apply_lm(params, tokens, cfg, caches=caches, cache_index=start)
         return logits[:, true_len - 1], caches
 
     return prefill
@@ -155,7 +155,7 @@ def _make_decode_bt(cfg: ModelConfig):
     block pool and each row's KV is addressed through (tables, pos)."""
 
     def decode(params, tok, caches, pos, tables):
-        logits, caches = apply_lm(params, tok, cfg, caches=caches, cache_index=pos,
+        logits, caches, _ = apply_lm(params, tok, cfg, caches=caches, cache_index=pos,
                                   block_tables=tables)
         return logits[:, -1], caches
 

@@ -70,8 +70,8 @@ class SlotPool:
         """Install a prefilled batch-1 cache into `slot` (batch is axis 1:
         the layer axis leads)."""
         for pool_seg, new_seg in zip(self.caches, new_caches):
-            for name, leaf in pool_seg.items():
-                leaf[:, slot].copy_(new_seg[name][:, 0])
+            for leaf, new in zip(seg_leaves(pool_seg), seg_leaves(new_seg)):
+                leaf[:, slot].copy_(new[:, 0])
         self.lengths[slot] = length
 
     def advance(self, slot: int) -> None:
@@ -378,12 +378,28 @@ class BlockPool:
 # --- device wrapper -------------------------------------------------------------------
 
 
+def seg_leaves(seg) -> List[torch.Tensor]:
+    """One segment's cache leaves in a fixed order, nested dicts walked: a
+    `pair` segment's cache is {moe_blk: {k, v}, dense_blk: {k, v}} (JAX's
+    `_seg_map` tree-maps the same leaves, kv_pool.py:436-442)."""
+    if isinstance(seg, dict):
+        return [leaf for v in seg.values() for leaf in seg_leaves(v)]
+    return [seg]
+
+
+def _seg_map(fn, seg):
+    """`fn` over one segment's cache leaves, keeping its nesting."""
+    if isinstance(seg, dict):
+        return {k: _seg_map(fn, v) for k, v in seg.items()}
+    return fn(seg)
+
+
 def gather_blocks(caches, table: torch.Tensor, max_blocks: int, block_size: int):
     """Contiguous (1, max_blocks * bs) cache view of one row: its table's
     blocks, in logical order (a copy, `index_select`)."""
-    return [{name: leaf.index_select(1, table).reshape(
-                 leaf.shape[0], 1, max_blocks * block_size, *leaf.shape[3:])
-             for name, leaf in seg.items()} for seg in caches]
+    return [_seg_map(lambda leaf: leaf.index_select(1, table).reshape(
+                leaf.shape[0], 1, max_blocks * block_size, *leaf.shape[3:]), seg)
+            for seg in caches]
 
 
 def scatter_blocks(caches, contig, wtable: torch.Tensor, max_blocks: int,
@@ -393,16 +409,15 @@ def scatter_blocks(caches, contig, wtable: torch.Tensor, max_blocks: int,
     garbage block, which several may share: what lands there is never
     read."""
     for pool_seg, contig_seg in zip(caches, contig):
-        for name, leaf in pool_seg.items():
-            blocks = contig_seg[name].reshape(leaf.shape[0], max_blocks, block_size,
-                                              *leaf.shape[3:])
+        for leaf, view in zip(seg_leaves(pool_seg), seg_leaves(contig_seg)):
+            blocks = view.reshape(leaf.shape[0], max_blocks, block_size, *leaf.shape[3:])
             leaf.index_copy_(1, wtable, blocks.to(leaf.dtype))
 
 
 def copy_block(caches, src: int, dst: int) -> None:
     """Block dst := block src in every leaf (a copy-on-write fork), in place."""
     for seg in caches:
-        for leaf in seg.values():
+        for leaf in seg_leaves(seg):
             leaf[:, dst].copy_(leaf[:, src])
 
 

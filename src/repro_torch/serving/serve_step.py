@@ -16,7 +16,7 @@ def make_prefill_step(cfg: ModelConfig, s_max: int):
         tokens = batch["tokens"]
         b = tokens.shape[0]
         caches = init_caches(cfg, b, s_max, compute_dtype(cfg.dtype), tokens.device)
-        logits, caches = apply_lm(params, tokens, cfg, caches=caches, cache_index=0)
+        logits, caches, _ = apply_lm(params, tokens, cfg, caches=caches, cache_index=0)
         return logits[:, -1], caches
 
     return prefill
@@ -32,7 +32,7 @@ def make_decode_step(cfg: ModelConfig):
     """
 
     def decode(params, token, caches, index):
-        logits, caches = apply_lm(params, token, cfg, caches=caches, cache_index=index,
+        logits, caches, _ = apply_lm(params, token, cfg, caches=caches, cache_index=index,
                                   decode=True)
         return logits[:, -1], caches
 

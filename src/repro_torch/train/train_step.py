@@ -7,7 +7,9 @@ and updates params and optimizer state in place (`optim.adamw`).  A Python
 loop over microbatches takes the place of `lax.scan`; remat is applied
 inside the layer loop (`models/blocks.py`).  It trains every family
 `lm_loss` takes: the dense decoder, mamba2 and zamba2 (the SSD kernel and
-its backward kernel under `kernels/ssd/ops.py` `_SSDChunk`).
+its backward kernel under `kernels/ssd/ops.py` `_SSDChunk`); the MoE and
+MLA families on the host (their metrics, aux_loss and mtp_loss, pass
+through), since the card's batched expert launch is forward-only.
 """
 from __future__ import annotations
 

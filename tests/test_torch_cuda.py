@@ -29,7 +29,7 @@ from repro_torch.kernels.ssd.ops import ssd_chunk
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 from repro_torch.models import apply_lm, init_lm, lm_loss
 from repro_torch.models.linear import linear
-from repro_torch.optim.adamw import init_opt, tree_leaves
+from repro_torch.optim.adamw import init_opt, tree_leaves, tree_map
 from repro_torch.train.train_step import make_train_step
 
 pytestmark = pytest.mark.gpu
@@ -373,9 +373,9 @@ def test_tied_head_through_the_kernels(cuda):
     assert "lm_head" not in params
     toks = torch.randint(0, cfg.vocab_size, (2, 13), device=cuda)
     before = matmul.launches
-    got, _ = apply_lm(params, toks, cfg)
+    got, _, _ = apply_lm(params, toks, cfg)
     assert matmul.launches > before
-    want, _ = apply_lm(params, toks, dataclasses.replace(cfg, linear_impl="jnp"))
+    want, _, _ = apply_lm(params, toks, dataclasses.replace(cfg, linear_impl="jnp"))
     # f32 sums in another order through the smoke model's layers (~1e-6
     # relative per GEMM), as the CPU parity tests allow 5e-5
     torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
@@ -1325,3 +1325,103 @@ def test_a_tiny_autotune_writes_an_entry_the_next_call_hits(tuned_cache):
     got = _hit(paged_decode, lambda: paged_decode(q, kp, vp, idx, lengths, tuned=True))
     want = paged_decode_ref(q, kp, vp, idx, lengths)
     _close(got, want, tolerance.paged_decode_tol(q, kp, vp, idx, lengths, want))
+
+
+# --- the MoE slice: the expert-batched launches -----------------------------------------
+
+# (experts, capacity rows, k, n): deepseek-v3's gate/up and w_down at its
+# decode (8 rows) and prefill (160 rows) capacities, llama4-maverick's at 8
+# rows (its experts cut to 3 for time: the per-expert shape is the path's),
+# and ragged ones (rows and widths off the tiles, one expert)
+EXPERT_CASES = [(3, 8, 7168, 2048), (3, 8, 2048, 7168), (2, 160, 7168, 2048),
+                (2, 160, 2048, 7168), (3, 8, 5120, 8192), (3, 8, 8192, 5120),
+                (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45)]
+
+
+def _expert_operands(cuda, dtype, e, m, k, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((e, m, k), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((e, k, n), generator=gen, device=cuda) * k ** -0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n", EXPERT_CASES)
+def test_matmul_expert(cuda, dtype, e, m, k, n):
+    """One launch for all experts, each expert within its bound of the plain
+    version, and bit-identical to the 2-D kernel launched per expert at the
+    same tile, unsplit (the batched launch is that kernel per expert)."""
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    x, w = _expert_operands(cuda, dtype, e, m, k, n, 0)
+    before = ops.matmul_expert.launches
+    got = ops.matmul_expert(x, w)
+    torch.cuda.synchronize()
+    assert ops.matmul_expert.launches == before + 1
+    want = matmul_expert_ref(x, w)
+    _close(got, want, tolerance.matmul_tol(x, w, want))
+    (tm, tn, _), _ = ops.geometry(m, k, n, dtype)
+    step = ops.F32_BLOCK_K if dtype == torch.float32 else ops.BLOCK_K
+    unsplit = -(-k // step) * step
+    for z in range(e):
+        one = ops._matmul_cuda(x[z], w[z], None, None, forced=(tm, tn, unsplit))
+        assert torch.equal(got[z], one), z
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
+@pytest.mark.parametrize("e,m,h,f", [(3, 8, 7168, 2048), (2, 160, 7168, 2048),
+                                     (3, 8, 5120, 8192), (5, 13, 72, 200), (1, 130, 96, 40)])
+def test_fused_mlp_hidden_expert(cuda, dtype, mlp_type, e, m, h, f):
+    from repro_torch.kernels.fused_mlp import ops
+    x, wg = _expert_operands(cuda, dtype, e, m, h, f, 1)
+    _, wu = _expert_operands(cuda, dtype, e, m, h, f, 2)
+    before = ops.fused_mlp_hidden_expert.launches
+    got = ops.fused_mlp_hidden_expert(x, wg, wu, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    assert ops.fused_mlp_hidden_expert.launches == before + 1
+    want = fused_mlp_hidden_ref(x, wg if mlp_type == "swiglu" else None, wu, mlp_type)
+    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, mlp_type, want))
+    tile, _ = ops.geometry(m, h, f, dtype, mlp_type)
+    for z in range(e):
+        one = ops._fused_cuda(x[z], wg[z] if mlp_type == "swiglu" else None, wu[z], mlp_type,
+                              forced=tile)
+        assert torch.equal(got[z], one), z
+
+
+def test_expert_launch_is_forward_only_on_the_card(cuda):
+    """Under autograd the batched launches raise, naming the MoE-training
+    slice; the 2-D launches are unchanged (their own tests above)."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
+    from repro_torch.kernels.matmul.ops import matmul_expert
+    from repro_torch.models.linear import expert_fused_hidden, expert_linear
+    x, w = _expert_operands(cuda, torch.bfloat16, 2, 8, 64, 32, 3)
+    w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="MoE-training slice"):
+        matmul_expert(x, w)
+    with pytest.raises(NotImplementedError, match="MoE-training slice"):
+        expert_linear(x, w, impl="fused")
+    with pytest.raises(NotImplementedError, match="MoE-training slice"):
+        fused_mlp_hidden_expert(x, w, w, mlp_type="swiglu")
+    with pytest.raises(NotImplementedError, match="MoE-training slice"):
+        expert_fused_hidden(x, w, w, mlp_type="swiglu")
+    with torch.no_grad():
+        assert matmul_expert(x, w).shape == (2, 8, 32)
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "deepseek-v3-671b"])
+def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The whole MoE smoke model (f32) on the card through the batched
+    launches against the same params on the host (the plain versions):
+    prefill logits and greedy tokens."""
+    from repro_torch.serving.serve_step import greedy_generate
+    cfg = dataclasses.replace(get_smoke_config(arch), linear_impl="fused")
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad():
+        want = apply_lm(params, toks, cfg)[0]
+        got = apply_lm(on_card, toks.to(cuda), cfg)[0].cpu()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        assert torch.equal(greedy_generate(on_card, cfg, toks.to(cuda), 5).cpu(),
+                           greedy_generate(params, cfg, toks, 5))

@@ -480,7 +480,7 @@ def test_convert_takes_jax_quantized_leaves(smoke):
     np.testing.assert_array_equal(head.scale.numpy(), np.asarray(jq["lm_head"].scale))
     toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
     want = np.asarray(jax.jit(lambda p, t: jax_apply_lm(p, t, jcfg)[0])(jq, jnp.asarray(toks)))
-    got, _ = apply_lm(params, _t(toks).long(), cfg)
+    got, _, _ = apply_lm(params, _t(toks).long(), cfg)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
     bad = jax.tree.map(np.asarray, jq)
     bad["final_norm"]["scale"] = JaxQuantizedTensor(bad["lm_head"].q, bad["lm_head"].scale, -2)
@@ -510,7 +510,7 @@ def test_apply_lm_forward_and_grads_match_jax(arch):
             else:
                 leaves[prefix + k] = v.requires_grad_()
     walk(params)
-    got, _ = apply_lm(params, _t(toks).long(), cfg)
+    got, _, _ = apply_lm(params, _t(toks).long(), cfg)
     assert got.shape == (1, 8, cfg.padded_vocab_size)
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4, rtol=1e-4)
     jgrads = jax.jit(jax.grad(lambda p: jnp.mean(

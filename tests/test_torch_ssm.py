@@ -448,7 +448,7 @@ def test_lm_logits_prefill_then_decode_match_jax(smoke):
                                caches=jax_init_caches(jcfg, b, s_max, jnp.float32),
                                cache_index=0)
     caches = init_caches(cfg, b, s_max, torch.float32)
-    got, caches = apply_lm(params, _t(toks), cfg, caches=caches, cache_index=0)
+    got, caches, _ = apply_lm(params, _t(toks), cfg, caches=caches, cache_index=0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
     want, jc, _ = jax_apply_lm(jparams, jnp.asarray(nxt), jcfg, caches=jc, cache_index=s,
                                decode=True)
