@@ -149,7 +149,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      printed; f32: dB without its dS term), 2 steps, launch counts (SSD forward and
      backward, flash forward and backward, fused MLP forward and backward,
      tile GEMMs), one profiled step;
-  15. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
+  15. obs serve: the serve phase's model and burst with observability
+     (src/repro_torch/obs) off / on / on / off in turns (tok/s and ITL
+     printed, not bounded); with obs on the engine's counters must equal
+     its EngineStats, each decode step leave one decode_step span, the
+     tile GEMM, the fused MLP and paged decode leave dispatch rows, and
+     `python -m repro_torch.obs.view` render the dump; the build watch,
+     armed after the warm-up, must record no build and must fire once the
+     library's per-process cache is dropped; a torch.profiler
+     capture of a short run must put kernels under the decode_step range
+     (the share printed); the drift table printed; one call of every
+     kernel wrapper with obs on must leave a dispatch row each;
+  16. chaos: chaos_soak (serving/engine/faults.py) on the prefix engine at
+     full width, 4 layers, float32: a seeded plan with every fault kind,
+     BlockPool.check() after every step, every violation failing the run
+     but a token divergence at a near tie of the fault-free run's top-2
+     logits; the plan's steals must force preemptions;
+  17. checkpoint: internlm2-1.8b at full width, 4 layers, float32 masters,
+     4 x 1024 tokens, AdamW (flash) then adamw8bit (naive attention): 4
+     steps with an async save after 2, restored into params of another
+     seed bit-identical leaf by leaf, the first resumed step's loss equal
+     to the uninterrupted run's and the next within the train check's
+     loss bound; bytes, save and restore seconds, free disk printed;
+  18. remat: the train phase's model, step 0 at remat none, dots and full,
+     twice: loss and gradients within the train check's bounds of none's,
+     peak memory ordered full < dots < none; one profiled pass each;
+  19. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
      serve shapes (the bf16 projections and lm_head at 16 and 64 rows, the
      fused SwiGLU), its int8-serve shapes (the int8 GEMM at 64, 128 and 256
      rows, the int8 fused MLP) and its paged pools (the serve pool, the
@@ -162,19 +187,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      path), the prefix engine at 4 layers (its block size from the pool
      entry, BlockPool.check() after every step) and the host's us per
      wrapper call with and without the lookup;
-  16. codesign: the paper's Fig. 1 through the port: one gpt3-2.7b block at
+  20. codesign: the paper's Fig. 1 through the port: one gpt3-2.7b block at
      each head split C0-C3 (b 4, s 2048, bf16, fused linear, flash),
      forward and backward, after autotuning its GEMM keys, beside the
      advisor's analytic and measurement-calibrated predictions and the
      orders of all three (printed, not checked).
 Before the first phase the run installs an empty default tuning cache, so
-phases 2-14 launch the wrappers' rules whatever tuning_cache.json the
+phases 2-18 launch the wrappers' rules whatever tuning_cache.json the
 checkout holds.  The last line of standard output is the result object; the
 kernels object and the card's name and power limit as nvidia-smi prints
 them come just before it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -184,6 +210,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1113,7 +1140,7 @@ def serve_phase(torch) -> dict:
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
     from repro_torch.kernels.matmul.ops import matmul
     from repro_torch.models import init_lm
-    from repro_torch.serving.engine import Engine, synthetic_requests
+    from repro_torch.serving.engine import Engine
     from repro_torch.serving.serve_step import make_prefill_step
 
     dev = torch.device("cuda")
@@ -1134,8 +1161,7 @@ def serve_phase(torch) -> dict:
           f"{list(pol.prompt_buckets)}")
     step_s = eng.calibrate_step_s()
     print(f"  calibrated decode step: {step_s * 1e3:.2f} ms")
-    reqs = synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64, min_new=8,
-                              max_new=32, vocab=cfg.vocab_size, seed=0)
+    reqs = _serve_requests(cfg.vocab_size)
 
     for fn in (matmul, fused_mlp_hidden, paged_decode):
         fn.launches = 0
@@ -1199,16 +1225,67 @@ def gemm_share(events, busy: float, what: str) -> None:
               f"{100 * ms / 1e3 / busy:.1f}% of the device-busy time")
 
 
+ProfileRow = collections.namedtuple(
+    "ProfileRow", "key count self_device_time_total self_cpu_time_total")
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+
+
+def profile_rows(prof) -> tuple:
+    """A torch.profiler capture read from its Chrome trace (written by the
+    profiler's own C++ exporter; `key_averages()`'s Python parse of ~10^5
+    events took 46-80 s a serve run): (device rows, host rows), each a
+    `ProfileRow` per name.  Device rows sum the kernels' and copies'
+    durations (us); host rows the operators' and runtime calls' self time
+    (us; a call's time less that of the calls nested in it on its thread)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    device = collections.defaultdict(lambda: [0, 0.0])
+    threads = collections.defaultdict(list)
+    for e in events:
+        if "dur" not in e:
+            continue
+        if e.get("cat") in DEVICE_CATS:
+            row = device[e["name"]]
+            row[0] += 1
+            row[1] += e["dur"]
+        elif e.get("cat") in HOST_CATS:
+            threads[(e.get("pid"), e.get("tid"))].append(e)
+    host = collections.defaultdict(lambda: [0, 0.0])
+
+    def close(item):
+        row = host[item[2]]
+        row[0] += 1
+        row[1] += item[1]
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []   # [end, self time so far, name]
+        for e in evs:
+            while stack and stack[-1][0] <= e["ts"]:
+                close(stack.pop())
+            if stack:
+                stack[-1][1] -= e["dur"]
+            stack.append([e["ts"] + e["dur"], e["dur"], e["name"]])
+        while stack:
+            close(stack.pop())
+    return ([ProfileRow(k, n, t, 0.0) for k, (n, t) in device.items() if t > 0],
+            [ProfileRow(k, n, 0.0, t) for k, (n, t) in host.items()])
+
+
 def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
     """Where a serve run's time goes: the same requests again under
     torch.profiler.  Device-busy time is the summed device time of the
-    kernels and copies (the device-side events only: a CPU operator's
-    device time is that of the kernels it launched, which are listed
-    too); its share is given against the profiled wall (which the
-    profiler's own host cost lengthens) and the unprofiled run's wall.
-    Then the top kernels, the split-K reduce of the matmul among them,
-    and the host's operators."""
-    from torch.autograd import DeviceType
+    kernels and copies; its share is given against the profiled wall
+    (which the profiler's own host cost lengthens) and the unprofiled run's
+    wall.  Then the top kernels, the split-K reduce of the matmul among
+    them, and the host's operators."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1217,9 +1294,7 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
         wall = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    averages = prof.key_averages()   # aggregated once: over ~10^5 events it takes seconds
-    events = [e for e in averages
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events, host = profile_rows(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
     print(f"  profiled rerun: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}% of it; {100 * busy / unprofiled_wall:.1f}% of the "
@@ -1231,12 +1306,12 @@ def profile_phase(torch, eng, reqs, unprofiled_wall: float) -> None:
     gemm_share(events, busy, "profiled rerun")
     # the host side: operators by their own host time (launch and dispatch
     # cost, inflated by the profiler's per-op overhead)
-    host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     print(f"  host time by operator (summed self time "
           f"{sum(e.self_cpu_time_total for e in host) / 1e6:.3f} s):")
     for e in host[:8]:
         print(f"    {e.self_cpu_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
-    print(f"  (the profile's aggregation took {time.perf_counter() - t0:.1f} s)")
+    print(f"  (the profile's readout took {time.perf_counter() - t0:.1f} s)")
 
 
 # --- the prefix-cache slice: kernels ------------------------------------------------------
@@ -1536,6 +1611,13 @@ def _pool_bytes(eng) -> int:
     return sum(t.numel() * t.element_size() for seg in eng.pool.caches for t in seg_leaves(seg))
 
 
+def _serve_requests(vocab: int):
+    """The serve phase's burst: 16 requests, prompts 16-64, 8-32 new tokens."""
+    from repro_torch.serving.engine import synthetic_requests
+    return synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64, min_new=8,
+                              max_new=32, vocab=vocab, seed=0)
+
+
 def _prefix_requests(vocab: int):
     from repro_torch.serving.engine import synthetic_requests
     return synthetic_requests(32, pattern="burst", min_prompt=72, max_prompt=128, min_new=8,
@@ -1744,7 +1826,6 @@ def token_identity_phase(torch) -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_lm
     from repro_torch.models.linear import quantize_linear_params
-    from repro_torch.serving.serve_step import make_prefill_step
 
     import numpy as np
     dev = torch.device("cuda")
@@ -1778,14 +1859,6 @@ def token_identity_phase(torch) -> None:
         del eng
     preempt_checks(runs["prefix tight"][0], runs["prefix tight"][1], "f32 prefix tight")
 
-    def gap(ref_cfg, ref_params, r, agreed):
-        ctx = torch.as_tensor(np.concatenate([r.tokens, np.asarray(agreed, np.int32)])[None],
-                              device=dev)
-        with torch.no_grad():
-            logits, _ = make_prefill_step(ref_cfg, ctx.shape[1])(ref_params, {"tokens": ctx})
-        top = logits[0, :cfg.vocab_size].float().topk(2).values
-        return ((top[0] - top[1]) / top[0].abs()).item()
-
     for ref, other in (("slot", "prefix"), ("slot", "prefix tight"), ("int8 slot", "int8 prefix"),
                        ("int8-weight slot", "int8-weight prefix"),
                        ("int8-weight int8 slot", "int8-weight int8 prefix")):
@@ -1796,7 +1869,8 @@ def token_identity_phase(torch) -> None:
                 continue
             if i is None:
                 fail(f"{other} vs {ref}: request {r.rid} ended at {len(b.tokens)} tokens")
-            g = gap(ref_cfg, ref_params, r, a.tokens[:i])
+            g = _top2_gap(torch, ref_cfg, ref_params, np.asarray(r.tokens, np.int32),
+                          a.tokens[:i])
             print(f"    {other} vs {ref}: request {r.rid} diverges at token {i}; top-2 logit "
                   f"gap there {g:.3e} relative (near-tie bound {TOKEN_GAP_REL})")
             if g > TOKEN_GAP_REL:
@@ -2025,7 +2099,7 @@ def quantized_serve_phase(torch) -> dict:
     from repro_torch.models import apply_lm, init_lm
     from repro_torch.models.linear import quantize_linear_params
     from repro_torch.quant import QuantizedTensor
-    from repro_torch.serving.engine import Engine, synthetic_requests
+    from repro_torch.serving.engine import Engine
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
@@ -2047,8 +2121,7 @@ def quantized_serve_phase(torch) -> dict:
     step_s = eng.calibrate_step_s()
     print(f"  calibrated decode step: {step_s * 1e3:.2f} ms; pool {_pool_bytes(eng) / 2**30:.3f} "
           f"GiB bf16")
-    reqs = synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64, min_new=8,
-                              max_new=32, vocab=cfg.vocab_size, seed=0)
+    reqs = _serve_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     _, stats, counts = serve_run(torch, eng, reqs, "int8-weight slot engine", "paged_decode")
     profile_phase(torch, eng, reqs, stats.wall_s)
@@ -3392,7 +3465,6 @@ def moe_engine_phase(torch) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import synthetic_tokens
     from repro_torch.models import init_lm
-    from repro_torch.serving.engine import synthetic_requests
 
     dev = torch.device("cuda")
     full = get_config("llama4-maverick-400b-a17b")
@@ -3410,8 +3482,7 @@ def moe_engine_phase(torch) -> dict:
           f"{cfg.moe_d_ff} top-{cfg.top_k} + {cfg.num_shared_experts} shared, vocab "
           f"{cfg.vocab_size}; {nparams / 1e9:.3f} B params in {cfg.dtype} "
           f"({_param_bytes(params) / 1e9:.2f} GB; init {time.perf_counter() - t0:.1f} s)")
-    serve_reqs = synthetic_requests(16, pattern="burst", min_prompt=16, max_prompt=64,
-                                    min_new=8, max_new=32, vocab=cfg.vocab_size, seed=0)
+    serve_reqs = _serve_requests(cfg.vocab_size)
     prefix_reqs = _prefix_requests(cfg.vocab_size)
     launches = {}
     for prefix, reqs, kernel in ((False, serve_reqs, "paged_decode"),
@@ -3746,15 +3817,13 @@ def profile_train_step(torch, step_fn, params, opt, batch, kernels=FLASH_KERNELS
     torch.profiler (device-side events only), the top kernels and the
     device-busy share of the profiled step's wall, the `kernels` (`what`)
     and the GEMM mainloop's share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events, _ = profile_rows(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
     print(f"  profiled step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
           f"({100 * busy / wall:.1f}%)")
@@ -3966,6 +4035,532 @@ def _paths(tree, prefix=""):
             yield from _paths(v, f"{prefix}{k}/")
     else:
         yield prefix[:-1], tree
+
+
+# --- observability, faults, checkpointing, remat ----------------------------------------------
+
+# obs serve: the serve phase's burst on the slot engine, obs off / on / on /
+# off in turns (tok/s and ITL printed, not bounded: ITL moves up to 2x
+# between machines); a short profiled run of OBS_PROFILE_REQUESTS requests
+OBS_RUNS = ("off", "on", "on", "off")
+OBS_PROFILE_REQUESTS = 4
+# chaos: the prefix workload at REDUCED_LAYERS, f32, on a block pool of
+# CHAOS_BLOCKS 64-token blocks (half the roomy pool's 192: the plan's two
+# steals of CHAOS_STEAL blocks then starve tail growth and force
+# preemptions), a FaultPlan from CHAOS_SEED with every fault kind
+CHAOS_BLOCKS = 96
+CHAOS_STEAL = 64
+CHAOS_SEED = 7
+# checkpoint: TRAIN_STEPS steps, an async save after CKPT_AT updates
+CKPT_AT = 2
+
+
+def _device_share_under(trace_path: str, names) -> tuple:
+    """From a torch.profiler Chrome trace: the device time (ms) of the CUDA
+    kernels whose launch (the runtime or driver call with the kernel's
+    correlation id) lies inside a host range of each name in `names` (the
+    obs spans' `record_function` ranges), and of all kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {n: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == n] for n in names}
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total = sum(k["dur"] for k in kernels) / 1e3
+    under = {}
+    for n, rs in ranges.items():
+        ts = [launch_ts.get(k.get("args", {}).get("correlation")) for k in kernels]
+        under[n] = sum(k["dur"] for k, t in zip(kernels, ts)
+                       if t is not None and any(a <= t <= b for a, b in rs)) / 1e3
+    return under, total
+
+
+def obs_serve_phase(torch) -> None:
+    """The serve cell (internlm2-1.8b, 24 layers, bf16, fused linear, paged
+    decode, 16 burst requests on the slot engine) with observability off /
+    on / on / off in turns.  With obs on: the engine's counters equal its
+    EngineStats, one decode_step span per decode step, dispatch rows for
+    the tile GEMM, the fused MLP and paged decode, a dump that `python -m
+    repro_torch.obs.view` renders; the build watch, armed after the
+    warm-up, records no build, and fires once the library's per-process
+    cache is dropped; a torch.profiler capture puts the decode
+    steps' kernels under the decode_step range.  The drift table (the
+    advisor's H100 prediction against the measured p50) is printed."""
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.models import init_lm
+    from repro_torch.serving.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), linear_impl="fused")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    eng = Engine(params, cfg, max_batch=8, max_prompt=64, max_new=32, use_paged_kernel=True,
+                 hw=H100_SXM, device=dev)
+    reqs = _serve_requests(cfg.vocab_size)
+    print(f"obs serve: {cfg.name} L={cfg.num_layers}, {cfg.dtype}, linear_impl="
+          f"{cfg.linear_impl}, paged decode, {len(reqs)} burst requests; obs "
+          f"{' / '.join(OBS_RUNS)}")
+    watch = obs.CompileWatch().install()
+    dump = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        eng.calibrate_step_s()
+        print(f"  build watch: {len(watch.records)} builds during the warm-up (the library was "
+              f"built and loaded by an earlier phase); armed")
+        watch.arm()
+        for i, mode in enumerate(OBS_RUNS):
+            obs.disable()
+            obs.reset()
+            if mode == "on":
+                obs.enable()
+            torch.cuda.synchronize()
+            done, stats = eng.run(reqs)
+            torch.cuda.synchronize()
+            print(f"  run {i + 1}, obs {mode}: {stats.total_generated} tokens in "
+                  f"{stats.wall_s:.3f} s, tok/s {stats.tok_s:.1f} | ITL p50 "
+                  f"{stats.itl_p50_s * 1e3:.2f} ms p99 {stats.itl_p99_s * 1e3:.2f} ms | "
+                  f"TTFT p50 {stats.ttft_p50_s * 1e3:.2f} ms")
+            if any(c.finish_reason != "length" for c in done):
+                fail(f"obs serve run {i + 1}: a request did not finish at its length")
+            if mode == "on":
+                _obs_checks(torch, obs, eng, stats, dump, first=i == 1)
+        watch.check()
+        if watch.records:
+            fail(f"obs serve: the build watch recorded {len(watch.records)} builds")
+        print("  build watch: no build after the warm-up")
+        _watch_fires(torch, obs, watch)
+
+        # a profiled run: the decode steps' kernels under the decode_step range
+        obs.disable()
+        obs.reset()
+        obs.enable(annotate_device=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, pstats = eng.run(reqs[:OBS_PROFILE_REQUESTS])
+            torch.cuda.synchronize()
+        trace = os.path.join(dump, "profile.json")
+        prof.export_chrome_trace(trace)
+        under, total = _device_share_under(trace, ("decode_step", "prefill"))
+        print(f"  profiled run ({OBS_PROFILE_REQUESTS} requests, {pstats.decode_steps} decode "
+              f"steps, {pstats.prefills} prefills): kernels {total:.2f} ms of device time; "
+              f"launched under decode_step {under['decode_step']:.2f} ms "
+              f"({100 * under['decode_step'] / max(total, 1e-9):.1f}%), under prefill "
+              f"{under['prefill']:.2f} ms ({100 * under['prefill'] / max(total, 1e-9):.1f}%)")
+        if under["decode_step"] <= 0:
+            fail("obs serve: no CUDA kernel under a decode_step range in the profiled run")
+        print("  drift (the advisor's H100 prediction against the measured p50, both on runs):")
+        for r in eng.drift.report():
+            ratio = f"{r['ratio']:.2f}x" if r["ratio"] else "n/a"
+            rel = f"{r['rel_drift']:.2f}" if r["rel_drift"] else "n/a"
+            print(f"    {r['site']:<12} n={r['count']:<4d} predicted {r['predicted_ms']:.3f} ms, "
+                  f"measured p50 {r['measured_p50_ms']:.3f} ms, ratio {ratio}, rel drift {rel}")
+        _dispatch_sweep(torch, obs)
+    finally:
+        watch.uninstall()
+        obs.disable()
+        obs.reset()
+        import shutil
+        shutil.rmtree(dump, ignore_errors=True)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def _watch_fires(torch, obs, watch) -> None:
+    """The armed build watch can fire: with the per-process library cache
+    dropped, the next kernel call resolves the library again and must raise
+    UnexpectedCompile from inside `_build.build()`, before it launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul.ops import matmul
+    dev = torch.device("cuda")
+    x = torch.zeros((64, 256), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((256, 128), dtype=torch.bfloat16, device=dev)
+    saved, _build._LIBRARY = _build._LIBRARY, None
+    raised = None
+    try:
+        with torch.no_grad():
+            matmul(x, w)
+    except obs.UnexpectedCompile as e:
+        raised = e
+    finally:
+        _build._LIBRARY = saved
+    if raised is None or len(watch.violations) != 1:
+        fail(f"obs serve: with the library cache dropped, the armed build watch did not fire "
+             f"({len(watch.violations)} violations)")
+    print(f"  build watch, the library cache dropped under it: the next matmul raised "
+          f"UnexpectedCompile ({raised})")
+
+
+def _obs_checks(torch, obs, eng, stats, dump: str, first: bool) -> None:
+    """One obs-on serve run: counters against EngineStats, a decode_step
+    span per step, the dispatch rows, the dump and (first run) its view."""
+    counters = obs.get_metrics().snapshot()["counters"]
+    want = {"engine.tokens_generated": stats.total_generated,
+            "engine.decode_steps": stats.decode_steps, "engine.prefills": stats.prefills}
+    got = {k: counters.get(k, 0) for k in want}
+    events = obs.get_tracer().events()
+    steps = sum(e["ph"] == "X" and e["name"] == "decode_step" for e in events)
+    ops = {e["name"] for e in events if e.get("cat") == "dispatch"
+           and e["args"].get("impl") == "cuda"}
+    print(f"    counters {json.dumps(got)}; EngineStats {json.dumps(want)}; decode_step spans "
+          f"{steps}; dispatch rows {sum(e.get('cat') == 'dispatch' for e in events)} over ops "
+          f"{sorted(ops)}; trace {len(events)} events ({obs.get_tracer().dropped} dropped)")
+    if got != want:
+        fail(f"obs serve: counters {got} against the run's stats {want}")
+    if steps != stats.decode_steps:
+        fail(f"obs serve: {steps} decode_step spans for {stats.decode_steps} decode steps")
+    missing = {"matmul", "fused_mlp_swiglu", "paged_decode"} - ops
+    if missing:
+        fail(f"obs serve: no dispatch row for {sorted(missing)}")
+    paths = obs.export_all(dump, drift=eng.drift)
+    if first:
+        out = subprocess.run([sys.executable, "-m", "repro_torch.obs.view", dump],
+                             capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if out.returncode != 0 or "decode_step" not in out.stdout:
+            fail(f"obs serve: `python -m repro_torch.obs.view` exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        lines = out.stdout.splitlines()
+        print(f"    dump {sorted(os.path.basename(p) for p in paths.values())}; "
+              f"`python -m repro_torch.obs.view` exit 0, {len(lines)} lines; its step line: "
+              + next((ln for ln in lines if ln.startswith("decode_step:")), "?"))
+
+
+def _dispatch_sweep(torch, obs) -> None:
+    """With obs on, one call of every kernel wrapper on card tensors at
+    small shapes: each must leave a "cuda" dispatch row, under JAX's op
+    name or, for the port's own launches, its own."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_fwd, paged_decode,
+                                                         paged_decode_blocktable)
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden, fused_mlp_hidden_expert
+    from repro_torch.kernels.matmul.ops import matmul, matmul_expert
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.full((4,), 100, dtype=torch.int32, device=dev)
+    tables = torch.arange(8, dtype=torch.int32, device=dev).reshape(4, 2)
+    obs.disable()
+    obs.reset()
+    obs.enable(annotate_device=False)
+    with torch.no_grad():
+        matmul(r(64, 256), r(256, 128))
+        matmul_expert(r(4, 8, 256), r(4, 256, 128))
+        fused_mlp_hidden(r(64, 256), r(256, 512), r(256, 512))
+        fused_mlp_hidden_expert(r(4, 8, 256), r(4, 256, 512), r(4, 256, 512))
+        flash_attention_fwd(r(1, 128, 4, 64), r(1, 128, 2, 64), r(1, 128, 2, 64))
+        paged_decode(r(4, 4, 64), r(4, 128, 2, 64), r(4, 128, 2, 64),
+                     torch.arange(4, device=dev), lengths)
+        paged_decode_blocktable(r(4, 4, 64), r(9, 64, 2, 64), r(9, 64, 2, 64), tables, lengths)
+        int8_matmul(r(64, 256), r(256, 128))
+        int8_fused_mlp_hidden(r(64, 256), r(256, 512), r(256, 512))
+        ssd_chunk(*ssd_operands(torch, gen, 1, 256, 4, 64, 128, 256, torch.bfloat16))
+    torch.cuda.synchronize()
+    got = {e["name"] for e in obs.get_tracer().events()
+           if e.get("cat") == "dispatch" and e["args"]["impl"] == "cuda"}
+    want = {"matmul", "matmul_expert", "fused_mlp_swiglu", "fused_mlp_hidden_expert",
+            "flash_attention_causal", "paged_decode", "paged_decode_blocktable", "int8_matmul",
+            "int8_fused_mlp_swiglu", "ssd_chunk"}
+    print(f"  dispatch rows, one call of each wrapper on the card: {sorted(got)}")
+    if want - got:
+        fail(f"obs serve: no cuda dispatch row for {sorted(want - got)}")
+    obs.disable()
+    obs.reset()
+
+
+def _top2_gap(torch, cfg, params, prompt, agreed) -> float:
+    """The relative gap of the top-2 logits after `prompt` + `agreed`
+    tokens (a plain prefill of that context on `cfg`'s path)."""
+    import numpy as np
+
+    from repro_torch.serving.serve_step import make_prefill_step
+    ctx = torch.as_tensor(np.concatenate([prompt, np.asarray(agreed, np.int32)])[None],
+                          device=params["embed"].device)
+    with torch.no_grad():
+        logits, _ = make_prefill_step(cfg, ctx.shape[1])(params, {"tokens": ctx})
+    top = logits[0, :cfg.vocab_size].float().topk(2).values
+    return ((top[0] - top[1]) / top[0].abs()).item()
+
+
+def chaos_phase(torch) -> None:
+    """chaos_soak on the prefix engine: internlm2-1.8b at full width,
+    REDUCED_LAYERS layers, f32, the prefix workload (32 burst requests),
+    a seeded FaultPlan with every fault kind, BlockPool.check() after every
+    step.  Every violation fails the run, but a token divergence where the
+    fault-free run's top-2 logits lie within TOKEN_GAP_REL (relative) of
+    each other."""
+    import re as _re
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serving.engine import FAULT_KINDS, FaultPlan, chaos_soak
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=REDUCED_LAYERS,
+                              dtype="float32", linear_impl="fused")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    reqs = _prefix_requests(cfg.vocab_size)
+    eng = _prefix_engine(params, cfg, dev, prefix_cache=True, num_blocks=CHAOS_BLOCKS)
+    plan = FaultPlan.generate(CHAOS_SEED, [r.rid for r in reqs], num_steps=24, oversized=2,
+                              garbage=2, deadline=2, steals=2, storms=2,
+                              steal_blocks=CHAOS_STEAL, hold_steps=8)
+    print(f"chaos: {cfg.name} at full width, {REDUCED_LAYERS} layers, float32, prefix engine "
+          f"({eng.policy.num_slots} rows, {CHAOS_BLOCKS} blocks of {eng.pool.block_size}); "
+          f"{len(reqs)} burst requests; plan seed {CHAOS_SEED}: kinds "
+          f"{sorted(plan.kinds_used)}, request faults {dict(sorted(plan.request_faults.items()))}"
+          f", events {[(e.step, e.kind, e.blocks) for e in plan.events]}")
+    if plan.kinds_used != set(FAULT_KINDS):
+        fail(f"chaos: the plan uses {sorted(plan.kinds_used)}, not every kind")
+    base, base_stats = eng.run(reqs)
+    t0 = time.perf_counter()
+    result = chaos_soak(eng, reqs, plan)
+    torch.cuda.synchronize()
+    st = result.chaos_stats
+    print(f"  soak {time.perf_counter() - t0:.1f} s (a fault-free run, then the faulted run "
+          f"with BlockPool.check() after every step): affected rids "
+          f"{sorted(result.affected_rids)}; {st.preemptions} preemptions, {st.resumes} resumes; "
+          f"finish reasons {dict(sorted(st.finish_reasons.items()))} (fault-free "
+          f"{dict(sorted(result.baseline_stats.finish_reasons.items()))})")
+    if result.baseline_stats.total_generated != base_stats.total_generated:
+        fail("chaos: two fault-free runs generated different token counts")
+    if st.preemptions <= 0:
+        fail("chaos: the plan's steals forced no preemption")
+    by_rid = {c.rid: c for c in result.chaos_completions}
+    base_by_rid = {c.rid: c for c in base}
+    prompts = {r.rid: np.asarray(r.tokens, np.int32) for r in reqs}
+    for v in result.violations:
+        m = _re.match(r"rid (\d+): (tokens diverged|partial tokens)", v)
+        if m is None:
+            fail(f"chaos: {v}")
+        rid = int(m.group(1))
+        a, b = base_by_rid[rid].tokens, by_rid[rid].tokens
+        i = _first_divergence(a, b)
+        if i is None:
+            fail(f"chaos: {v} (no divergence from this run's fault-free tokens)")
+        g = _top2_gap(torch, cfg, params, prompts[rid], a[:i])
+        print(f"    rid {rid} diverges at token {i}; top-2 logit gap there {g:.3e} relative "
+              f"(near-tie bound {TOKEN_GAP_REL})")
+        if g > TOKEN_GAP_REL:
+            fail(f"chaos: rid {rid} diverges at token {i} without a near tie")
+    print(f"  chaos soak: {len(result.violations)} violations (each a near tie), "
+          f"{sum(c.ok for c in result.chaos_completions)} requests ok")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def _state_leaves(params, opt) -> list:
+    """Every tensor of params and optimizer state, in one order."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    def flat(tree):
+        out = []
+        for leaf in tree_leaves(tree, lambda d: "codes" in d):
+            out += [leaf["codes"], leaf["scale"]] if isinstance(leaf, dict) else [leaf]
+        return out
+    return list(tree_leaves(params)) + [opt.step] + flat(opt.m) + flat(opt.v)
+
+
+def _checkpoint_round_trip(torch, cfg, optimizer: str, batches) -> None:
+    """One round trip (see `checkpoint_phase`).  The first resumed step runs
+    on the restored state alone, so its loss must equal the uninterrupted
+    run's exactly; later steps carry whatever rounding differs between two
+    runs of the step (flash's dq atomics), held to TRAIN_LOSS_REL_BOUND."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_STEPS, learning_rate=3e-4,
+                     optimizer=optimizer)
+    step_fn = make_train_step(cfg, tc)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    opt = init_opt(params, tc)
+    nbytes = sum(t.numel() * t.element_size() for t in _state_leaves(params, opt))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    print(f"  {optimizer}, attn_impl={cfg.attn_impl}: params and state {nbytes / 2**30:.3f} "
+          f"GiB; {free / 2**30:.1f} GiB free where it is written")
+    if free < 2 * nbytes:
+        fail(f"checkpoint: {free / 2**30:.1f} GiB free, the checkpoint needs "
+             f"{nbytes / 2**30:.3f}")
+    try:
+        ck = Checkpointer(tmp, keep=1)
+        losses, saved = [], None
+        for s in range(TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, batches[s])
+            losses.append(m["loss"].item())
+            if s + 1 == CKPT_AT:
+                saved = [t.detach().clone() for t in _state_leaves(params, opt)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ck.save(CKPT_AT, params, opt, meta={"arch": cfg.name}, blocking=False)
+                snap_s = time.perf_counter() - t0
+        ck.wait()
+        write_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(tmp, f"step_{CKPT_AT}").iterdir())
+        del params, opt
+        params = init_lm(torch.Generator(device=dev).manual_seed(1), cfg, device=dev,
+                         dtype=torch.float32)
+        opt = init_opt(params, tc)
+        t0 = time.perf_counter()
+        params, opt, step = ck.restore(params, opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = _state_leaves(params, opt)
+        same = sum(bool(torch.equal(a, b)) for a, b in zip(saved, got))
+        print(f"    async save after update {CKPT_AT}: snapshot {snap_s:.2f} s, on disk after "
+              f"{write_s:.2f} s (steps {CKPT_AT + 1}-{TRAIN_STEPS} ran meanwhile), "
+              f"{on_disk / 2**30:.3f} GiB; restore into params of another seed {restore_s:.2f} "
+              f"s; {same} of {len(saved)} leaves bit-identical; step {int(opt.step)}")
+        if step != CKPT_AT or len(got) != len(saved) or same != len(saved) \
+                or int(opt.step) != CKPT_AT:
+            fail(f"checkpoint ({optimizer}): the restored state differs from the saved one")
+        del saved, got
+        resumed = []
+        for s in range(CKPT_AT, TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, batches[s])
+            resumed.append(m["loss"].item())
+        rels = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[CKPT_AT:])]
+        print(f"    losses {', '.join(f'{x:.6f}' for x in losses)}; resumed steps "
+              f"{CKPT_AT}-{TRAIN_STEPS - 1}: {', '.join(f'{x:.6f}' for x in resumed)} (rel "
+              f"{', '.join(f'{x:.3e}' for x in rels)}; the first must be 0, the rest within "
+              f"{TRAIN_LOSS_REL_BOUND})")
+        if rels[0] != 0.0:
+            fail(f"checkpoint ({optimizer}): the restored state's first step differs from the "
+                 f"uninterrupted run's")
+        if max(rels) > TRAIN_LOSS_REL_BOUND:
+            fail(f"checkpoint ({optimizer}): the resumed losses leave the uninterrupted run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def checkpoint_phase(torch) -> None:
+    """internlm2-1.8b at full width, REDUCED_LAYERS layers, f32 masters,
+    fused linear, 4 x 1024 tokens: TRAIN_STEPS steps with an async save
+    after CKPT_AT updates; that checkpoint restored into params of another
+    seed, every leaf (params, m, v, step) bit-identical to the saved one,
+    and the resumed steps' losses within TRAIN_LOSS_REL_BOUND of the
+    uninterrupted run's; for AdamW on flash, then adamw8bit on naive
+    attention.  adamw8bit's int8 moments round small entries of v to 0 and
+    the updates there blow up (the loss leaves 11.9 for ~200 by step 3 at
+    this learning rate), which magnifies flash's dq atomics (4.8e-5 to
+    5.5e-4 between two runs of the same steps); naive attention has no
+    atomics, so its resumed losses are held like AdamW's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=REDUCED_LAYERS,
+                              linear_impl="fused", attn_impl="flash")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, s, 0).items()}
+               for s in range(TRAIN_STEPS)]
+    print(f"checkpoint: {cfg.name} at full width, {REDUCED_LAYERS} layers, float32 masters, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps")
+    _checkpoint_round_trip(torch, cfg, "adamw", batches)
+    _checkpoint_round_trip(torch, dataclasses.replace(cfg, attn_impl="naive"), "adamw8bit",
+                           batches)
+
+
+def remat_phase(torch) -> None:
+    """The train cell's step 0 (internlm2-1.8b, 24 layers, f32 masters,
+    fused linear, flash, 4 x 1024 tokens) at remat none, dots and full, in
+    two rounds: loss and every gradient leaf and layer slice of each pass
+    within the train check's bounds of the first none pass's (the second
+    none pass shows the spread of flash's dq atomics alone), and the peak
+    device memory above what each pass starts from ordered full < dots <
+    none in both rounds; step times from the second round; then one
+    profiled pass at each policy."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), linear_impl="fused",
+                              attn_impl="flash")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, 0, 0).items()}
+    names = [path for path, _ in _paths(params)]
+    print(f"remat: {cfg.name} L={cfg.num_layers}, float32 masters, {cfg.dtype} compute, "
+          f"linear_impl={cfg.linear_impl}, attn_impl={cfg.attn_impl}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: step 0's loss and gradients at remat none, dots, full, twice")
+    base = None
+    for rnd in (1, 2):
+        peaks = {}
+        for remat in ("none", "dots", "full"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss, grads = _grads(torch, params, batch, cfg, remat=remat)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peaks[remat] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+            line = (f"  round {rnd}, remat {remat}: loss {loss:.6f}, forward + backward "
+                    f"{dt * 1e3:.1f} ms, peak {peaks[remat]:.3f} GiB above the "
+                    f"{before / 2**30:.3f} GiB held before")
+            if base is None:
+                base = (loss, grads)
+                print(line)
+                continue
+            rel_loss = abs(loss - base[0]) / abs(base[0])
+            rels = _grad_rels(grads, base[1], names)
+            del grads
+            print(f"{line}; vs round 1's none: loss rel {rel_loss:.3e} (bound "
+                  f"{TRAIN_LOSS_REL_BOUND}), worst leaf / layer slice {rels[0][0]:.3e} "
+                  f"({rels[0][1]}), median {rels[len(rels) // 2][0]:.3e} (bound "
+                  f"{TRAIN_GRAD_REL_BOUND})")
+            if rel_loss > TRAIN_LOSS_REL_BOUND or rels[0][0] > TRAIN_GRAD_REL_BOUND:
+                fail(f"remat {remat}: loss or gradients leave remat none's")
+        if not peaks["full"] < peaks["dots"] < peaks["none"]:
+            fail(f"remat: peak memory {peaks} does not order full < dots < none")
+    del base
+    remat_profiles(torch, params, batch, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+
+def remat_profiles(torch, params, batch, cfg) -> None:
+    """One more forward + backward at each remat policy under
+    torch.profiler: its wall, the device-busy time and the host's summed
+    self time (operators and runtime calls), and the host's top operators:
+    where dots' extra time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    for remat in ("none", "dots", "full"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _grads(torch, params, batch, cfg, remat=remat)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device, host = profile_rows(prof)
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+        host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+        print(f"  profiled pass, remat {remat}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.1f}%), host self time {host_ms:.1f} ms over "
+              f"{sum(e.count for e in host)} host events; top: " + ", ".join(
+                  f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+                  for e in host[:4]))
 
 
 # --- tuning phase -----------------------------------------------------------------------
@@ -4300,7 +4895,6 @@ def tuning_phase(torch):
     it, and run the serve workload (tuned and fused), the prefix engine at
     4 layers and the host's cost of a lookup against it.  Returns the
     installed cache."""
-    import tempfile
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_lm
     from repro_torch.tuning import search
@@ -4473,6 +5067,10 @@ def main() -> None:
     train = phase("train", train_phase, torch)
     ssm_train_counts = phase("ssm train", ssm_train_phase, torch)
     phase("hybrid train", hybrid_train_phase, torch)
+    phase("obs serve", obs_serve_phase, torch)
+    phase("chaos", chaos_phase, torch)
+    phase("checkpoint", checkpoint_phase, torch)
+    phase("remat", remat_phase, torch)
     cache = phase("tuning", tuning_phase, torch)
     phase("codesign", codesign_phase, torch, cache)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "

@@ -9,6 +9,8 @@ parameters.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,5 +311,6 @@ class TrainConfig:
     remat: str = "full"  # none | full | dots
     seed: int = 0
     checkpoint_every: int = 200
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    # under $TMPDIR (the JAX package's /tmp/repro_ckpt where it is unset)
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
     keep_checkpoints: int = 3

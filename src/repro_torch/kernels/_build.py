@@ -12,6 +12,11 @@ the checkout's root (listed in `.gitignore`).  The library's file name
 carries a hash of the sources and flags, so an edited source never loads a
 stale build; a finished build is moved into place atomically, so two
 processes building at once cannot load a half-written file.
+
+`BUILD_HOOKS` are called with the `Library` each time `build()` resolves
+it (an nvcc build, or the load of a finished one), before it is cached:
+`obs.CompileWatch` records the build there and, when armed, raises from
+inside `build()`, so the kernel call that needed it is on the stack.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -49,6 +54,7 @@ class Library:
 
 
 _LIBRARY: Optional[Library] = None
+BUILD_HOOKS: List[Callable[[Library], None]] = []
 
 
 def _sources():
@@ -73,10 +79,20 @@ def _digest() -> str:
 
 
 def build() -> Library:
-    """Compile (if needed) and load the kernel library; cached per process."""
+    """Compile (if needed) and load the kernel library; cached per process.
+    Each resolution is passed to every hook in `BUILD_HOOKS` first."""
     global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
+    lib = _load()
+    for hook in list(BUILD_HOOKS):
+        hook(lib)
+    _LIBRARY = lib
+    return lib
+
+
+def _load() -> Library:
+    """Build the library of the current sources unless it exists, and load it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"libreprokernels-{_digest()}.so"
     log_path = target.with_suffix(".log")
@@ -89,8 +105,7 @@ def build() -> Library:
     log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(target))
     _declare(lib)
-    _LIBRARY = Library(lib=lib, path=target, build_s=build_s, log=log)
-    return _LIBRARY
+    return Library(lib=lib, path=target, build_s=build_s, log=log)
 
 
 def _run(cmds):

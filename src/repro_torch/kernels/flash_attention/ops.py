@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import obs
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
 from .. import _build
@@ -199,8 +200,14 @@ class _Flash(torch.autograd.Function):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, scale=None):
-    """(out (b, sq, a, d), lse (b, a, sq) f32)."""
-    if _build.dispatch_device("flash_attention", q) == "cpu":
+    """(out (b, sq, a, d), lse (b, a, sq) f32).  With observability on it
+    records its dispatch under JAX's op names (flash_attention_causal /
+    flash_attention_full), each distinct shape once."""
+    cpu = _build.dispatch_device("flash_attention", q) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("flash_attention_causal" if causal else "flash_attention_full",
+                            impl="plain" if cpu else "cuda", shape=tuple(q.shape))
+    if cpu:
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     return _flash_fwd_cuda(q, k, v, causal, scale)
 
@@ -296,6 +303,9 @@ def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=
     shape (b, slots, s_max, nkv, a, d).
     """
     if _build.dispatch_device("paged_decode", q) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch("paged_decode", impl="plain", shape=tuple(q.shape),
+                                site="int8" if k_scale is not None else "")
         return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
                                 k_scale=k_scale, v_scale=v_scale)
     return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
@@ -323,6 +333,10 @@ def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_s
     block-pool shape (b, num_blocks, block_size, nkv, a, d).
     """
     if _build.dispatch_device("paged_decode_blocktable", q) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch("paged_decode_blocktable", impl="plain", shape=tuple(q.shape),
+                                site="int8" if k_scale is not None else "",
+                                blocks={"block_size": k_blocks.shape[1]})
         return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
                                            scale=scale, k_scale=k_scale, v_scale=v_scale)
     tables = block_tables.to(torch.int32).contiguous()
@@ -391,6 +405,14 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
                 fn.tuned_misses += 1
             else:
                 fn.tuned_hits += 1
+    if obs.enabled():
+        blocks = {"tile": geo.tile, "splits": geo.splits}
+        if max_blocks:
+            blocks["block_size"] = depth
+        obs.record_dispatch(what, impl="cuda", shape=tuple(q.shape),
+                            site="int8" if quant else "", blocks=blocks,
+                            tuned_hit=(cfg is not None) if tuned and geometry is None
+                            and q.element_size() == 2 else None)
     with torch.cuda.device(q.device):
         status = lib.repro_paged_decode(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(k_scale),

@@ -25,11 +25,18 @@ count the forward's lookups.
 `fused_mlp_hidden_expert` is the MoE layer's batched hidden: every expert
 of a stack in ONE launch of the forward kernel (the grid's z axis is the
 expert), swiglu or gelu, forward only; it counts its own launches.
+
+With observability on, each forward records its dispatch (op
+"fused_mlp_<mlp_type>" or "fused_mlp_hidden_expert", "cuda" or "plain",
+the flattened shape, the tile), each distinct one once.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ... import obs
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from .. import _build
@@ -77,9 +84,12 @@ def _check_type(mlp_type: str) -> None:
 
 
 def fused_mlp_hidden(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned: bool = False,
-                     hw_name: str | None = None):
+                     hw_name: str | None = None, as_op: bool = False):
     """hidden = act-combine(x @ w_gate, x @ w_up).  x: (..., h) -> (..., f).
-    The tuning cache keys the flattened (m, h, f) problem."""
+    The tuning cache keys the flattened (m, h, f) problem.  `as_op`: when a
+    gradient is recorded, run the forward as the dispatcher op
+    `repro_torch::fused_mlp_hidden` (which a dispatch mode, such as
+    remat="dots"'s policy, can see) instead of `_FusedHidden`."""
     _check_type(mlp_type)
     lead, h = x.shape[:-1], x.shape[-1]
     f = w_up.shape[-1]
@@ -88,7 +98,8 @@ def fused_mlp_hidden(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned: bool =
         w_gate = None
     ins = (x2, w_up) if w_gate is None else (x2, w_gate, w_up)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        out = _FusedHidden.apply(x2, w_gate, w_up, mlp_type, tuned, hw_name)
+        fn = fused_hidden_op if as_op else _FusedHidden.apply
+        out = fn(x2, w_gate, w_up, mlp_type, tuned, hw_name)
     else:
         out = _hidden(x2, w_gate, w_up, mlp_type, tuned, hw_name)
     return out.reshape(*lead, f)
@@ -96,6 +107,9 @@ def fused_mlp_hidden(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned: bool =
 
 def _hidden(x2, w_gate, w_up, mlp_type: str, tuned: bool, hw_name):
     if _build.dispatch_device("fused_mlp_hidden", x2) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="plain",
+                                shape=(*x2.shape, w_up.shape[-1]))
         return fused_mlp_hidden_ref(x2, w_gate, w_up, mlp_type)
     return _fused_cuda(x2, w_gate, w_up, mlp_type, tuned, hw_name)
 
@@ -105,21 +119,37 @@ fused_mlp_hidden.tuned_hits = 0
 fused_mlp_hidden.tuned_misses = 0
 
 
+def _hidden_setup(ctx, inputs, output):
+    x2, w_gate, w_up, ctx.mlp_type, ctx.tuned, ctx.hw_name = inputs
+    ctx.save_for_backward(x2, w_gate, w_up)
+
+
+def _hidden_backward(ctx, dh):
+    x2, w_gate, w_up = ctx.saved_tensors
+    dx, dwg, dwu = fused_mlp_bwd(x2, w_gate, w_up, dh.contiguous(), mlp_type=ctx.mlp_type,
+                                 tuned=ctx.tuned, hw_name=ctx.hw_name)
+    return dx, dwg, dwu, None, None, None
+
+
 class _FusedHidden(torch.autograd.Function):
     """JAX's `_fused_gated` / `_fused_plain` (fused_mlp/ops.py:92-123)."""
 
-    @staticmethod
-    def forward(ctx, x2, w_gate, w_up, mlp_type, tuned, hw_name):
-        ctx.mlp_type, ctx.tuned, ctx.hw_name = mlp_type, tuned, hw_name
-        ctx.save_for_backward(x2, w_gate, w_up)
-        return _hidden(x2, w_gate, w_up, mlp_type, tuned, hw_name)
+    forward = staticmethod(_hidden)
+    setup_context = staticmethod(_hidden_setup)
+    backward = staticmethod(_hidden_backward)
 
-    @staticmethod
-    def backward(ctx, dh):
-        x2, w_gate, w_up = ctx.saved_tensors
-        dx, dwg, dwu = fused_mlp_bwd(x2, w_gate, w_up, dh.contiguous(), mlp_type=ctx.mlp_type,
-                                     tuned=ctx.tuned, hw_name=ctx.hw_name)
-        return dx, dwg, dwu, None, None, None
+
+@torch.library.custom_op("repro_torch::fused_mlp_hidden", mutates_args=())
+def fused_hidden_op(x2: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+                    mlp_type: str, tuned: bool, hw_name: Optional[str]) -> torch.Tensor:
+    """`_FusedHidden` as one dispatcher op with the same backward (the
+    kernel on a CUDA tensor, the plain version on a CPU one).  A dispatcher
+    op costs the host more per call than the Function, so only callers
+    that need a dispatch mode to see the product take it."""
+    return _hidden(x2, w_gate, w_up, mlp_type, tuned, hw_name)
+
+
+fused_hidden_op.register_autograd(_hidden_backward, setup_context=_hidden_setup)
 
 
 def _check_operands(what, x, w_gate, w_up, *rest):
@@ -155,6 +185,10 @@ def _fused_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=Non
                 fused_mlp_hidden.tuned_misses += 1
             else:
                 fused_mlp_hidden.tuned_hits += 1
+        if obs.enabled():
+            obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="cuda", shape=(m, k, f),
+                                blocks={"block_m": tile[0], "block_f": tile[1]},
+                                tuned_hit=(cfg is not None) if tuned else None)
     chunk = 16 // x.element_size()
     vec = int(k % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
     lib = _build.build().lib
@@ -187,6 +221,9 @@ def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned:
     if not is_gated(mlp_type):
         w_gate = None
     if _build.dispatch_device("fused_mlp_hidden_expert", x) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch("fused_mlp_hidden_expert", impl="plain",
+                                shape=(*x.shape, w_up.shape[-1]), site=mlp_type)
         return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
     ins = (x, w_up) if w_gate is None else (x, w_gate, w_up)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
@@ -213,7 +250,11 @@ def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_n
     out = torch.empty((e, m, f), dtype=x.dtype, device=x.device)
     if e == 0 or m == 0 or f == 0:
         return out
-    tile, _ = geometry(m, k, f, x.dtype, mlp_type, tuned=tuned, hw_name=hw_name)
+    tile, cfg = geometry(m, k, f, x.dtype, mlp_type, tuned=tuned, hw_name=hw_name)
+    if obs.enabled():
+        obs.record_dispatch("fused_mlp_hidden_expert", impl="cuda", shape=(e, m, k, f),
+                            site=mlp_type, blocks={"block_m": tile[0], "block_f": tile[1]},
+                            tuned_hit=(cfg is not None) if tuned else None)
     chunk = 16 // x.element_size()
     vec = int(k % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
     lib = _build.build().lib

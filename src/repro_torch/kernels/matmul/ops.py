@@ -31,11 +31,16 @@ transposed: wgrad).
 expert e of a stack in ONE launch of the same mainloop (the grid's z axis
 is the expert; no split of k), forward only; `matmul_expert.launches`
 counts it apart from `matmul.launches`.
+
+With observability on (`repro_torch.obs`), each call records its dispatch
+(`obs.record_dispatch`: op, "cuda" or "plain", (m, k, n), the layout as the
+site, the launch geometry), each distinct one once.
 """
 from __future__ import annotations
 
 import torch
 
+from ... import obs
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from ...tuning.candidates import split_depth
@@ -145,6 +150,8 @@ def keyed_matmul(a, b, a1=None, b1=None, *, tuned: bool = False, hw_name: str | 
     a2 = a.reshape(-1, k)
     a12 = None if a1 is None else a1.reshape(-1, k)
     if _build.dispatch_device("matmul", a2) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch(op, impl="plain", shape=(a2.shape[0], k, b.shape[-1]))
         out = matmul_ref(a2, b, a1=a12, b1=b1)
     else:
         out = _matmul_cuda(a2, b, a12, b1, tuned, hw_name, op, key_dtype)
@@ -206,6 +213,10 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
             else:
                 matmul.tuned_hits += 1
     splits = _cdiv(k, ks)
+    if obs.enabled():
+        obs.record_dispatch(op, impl="cuda", shape=(m, k, n), site=layout,
+                            blocks={"block_m": tm, "block_n": tn, "split_k": splits},
+                            tuned_hit=(cfg is not None) if tuned and forced is None else None)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     chunk = 16 // a.element_size()
@@ -240,6 +251,8 @@ def matmul_expert(x: torch.Tensor, w: torch.Tensor, *, tuned: bool = False,
     A CPU tensor runs the plain version, a per-expert einsum, differentiable
     as any torch op.  `matmul_expert.launches` counts launches."""
     if _build.dispatch_device("matmul_expert", x) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch("matmul_expert", impl="plain", shape=(*x.shape, w.shape[-1]))
         return matmul_expert_ref(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(f"matmul_expert: {MOE_TRAINING}")
@@ -263,8 +276,12 @@ def _matmul_expert_cuda(x, w, tuned=False, hw_name=None) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    (tm, tn, _), _ = geometry(m, k, n, x.dtype, tuned=tuned, hw_name=hw_name,
-                              num_sms=_build.num_sms(x.device))
+    (tm, tn, _), cfg = geometry(m, k, n, x.dtype, tuned=tuned, hw_name=hw_name,
+                                num_sms=_build.num_sms(x.device))
+    if obs.enabled():
+        obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n),
+                            blocks={"block_m": tm, "block_n": tn},
+                            tuned_hit=(cfg is not None) if tuned else None)
     chunk = 16 // x.element_size()
     vec = int(k % chunk == 0 and n % chunk == 0 and _build.aligned16(x, w))
     lib = _build.build().lib

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import obs
 from ...core.hardware import get_hardware
 from ...quant import QuantizedTensor, fp8_round_trip, k_major, quantize_int8, quantize_weight
 from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
@@ -168,6 +169,8 @@ def int8_matmul_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *, tuned:
     (1, n) f32 -> (m, n) `out_dtype`.  A tuned lookup keys the activation's
     dtype, `act_dtype` (default `out_dtype`)."""
     if _build.dispatch_device("int8_matmul", a_q) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch("int8_matmul", impl="plain", shape=(*a_q.shape, b_q.shape[-1]))
         return int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype)
     return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
                              act_dtype or out_dtype)
@@ -237,6 +240,11 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_nam
         (tm, tn, ks), cfg = int8_geometry(m, k, n, act_dtype or out_dtype, tuned=tuned,
                                           hw_name=hw_name, num_sms=_build.num_sms(dev))
         _count(int8_matmul, tuned, cfg)
+        if obs.enabled():
+            obs.record_dispatch("int8_matmul", impl="cuda", shape=(m, k, n),
+                                blocks={"block_m": tm, "block_n": tn,
+                                        "split_k": -(-k // ks)},
+                                tuned_hit=(cfg is not None) if tuned else None)
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_int8_matmul(
@@ -283,6 +291,9 @@ def int8_fused_mlp_q(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, *,
     if not is_gated(mlp_type):
         wg_q = wg_scale = None
     if _build.dispatch_device("int8_fused_mlp_hidden", x_q) == "cpu":
+        if obs.enabled():
+            obs.record_dispatch(int8_fused_mlp_op_name(mlp_type), impl="plain",
+                                shape=(*x_q.shape, wu_q.shape[-1]))
         return int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale,
                                   mlp_type=mlp_type, out_dtype=out_dtype)
     return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype,
@@ -309,6 +320,10 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
         tile, cfg = int8_fused_geometry(m, k, f, act_dtype or out_dtype, mlp_type, tuned=tuned,
                                         hw_name=hw_name)
         _count(int8_fused_mlp_hidden, tuned, cfg)
+        if obs.enabled():
+            obs.record_dispatch(int8_fused_mlp_op_name(mlp_type), impl="cuda", shape=(m, k, f),
+                                blocks={"block_m": tile[0], "block_f": tile[1]},
+                                tuned_hit=(cfg is not None) if tuned else None)
     if tile[1] != FUSED_TILE[1]:
         raise ValueError(f"int8_fused_mlp_hidden: tile {tile[0]} x {tile[1]}: the library "
                          f"instantiates {FUSED_TILE[1]} columns only (csrc/int8_fused_mlp.cu)")

@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ... import obs
 from .. import _build
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
@@ -211,8 +212,13 @@ ssd_chunk.launches = 0
 
 def _ssd_chunk_fwd(x_dt, B, C, seg):
     """The forward's dispatch: the plain version on a CPU tensor, the
-    kernel on a CUDA tensor."""
-    if _build.dispatch_device("ssd_chunk", x_dt) == "cpu":
+    kernel on a CUDA tensor.  With observability on it records its dispatch
+    (op "ssd_chunk"), each distinct shape once."""
+    cpu = _build.dispatch_device("ssd_chunk", x_dt) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("ssd_chunk", impl="plain" if cpu else "cuda",
+                            shape=(*x_dt.shape, B.shape[-1]))
+    if cpu:
         return ssd_chunk_ref(x_dt, B, C, seg)
     return _ssd_chunk_cuda(x_dt, B, C, seg)
 

@@ -28,6 +28,20 @@ static loop (the engines refuse MLA, as JAX's do), llama4-maverick (GQA,
 On the card each runs at the depth its config gives (the full configs
 hold 61 and 48 layers, beyond one card).
 
+Observability and faults, as in the JAX launcher: `--obs-dump DIR` turns
+`repro_torch.obs` on and writes its dump to DIR (read it with `python -m
+repro_torch.obs.view DIR`); `--watchdog` records every kernel-library build
+and, armed after the warm-up, fails the run on any later one (the library
+is cached per process, so today no steady-state call builds; see
+`obs/compile_watch.py`); `--chaos-seed
+N` serves under a seeded `FaultPlan` (bad prompts, deadline pressure, and
+on the prefix-cache pool block steals and copy-on-write storms) with the
+pool's invariants asserted after every step:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --smoke --engine --prefix-cache --requests 8 --gen 8 --chaos-seed 7 \
+        --obs-dump obs_dump --watchdog --device cpu
+
 Runs on the CUDA card; `--device cpu` runs the plain PyTorch versions on
 the host instead (there is no silent fallback).  Weights are random, drawn
 from `--seed` on the device.
@@ -41,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.registry import get_config, get_smoke_config
 from ..data.pipeline import synthetic_tokens
 from ..models import init_lm
@@ -109,7 +124,13 @@ def parse_shed_policy(spec: str, step_s: float):
 
 def run_engine(cfg, params, args, device: torch.device) -> None:
     """Continuous-batching engine over a synthetic request stream."""
-    from ..serving.engine import Engine, synthetic_requests
+    from ..serving.engine import Engine, FaultPlan, synthetic_requests
+
+    if args.obs_dump:
+        obs.enable()
+    watch = None
+    if args.watchdog:
+        watch = obs.CompileWatch().install()
 
     eng = Engine(params, cfg, max_batch=args.batch,
                  max_prompt=args.prompt_len, max_new=args.gen,
@@ -124,6 +145,12 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
     # warmup + one decode-step timing, so arrival patterns are expressed in
     # machine-relative units
     step_s = eng.calibrate_step_s()
+    if watch is not None:
+        # the kernel library is built and loaded; steady-state serving must
+        # not build again
+        print(f"watchdog: {len(watch.records)} builds during warmup; "
+              f"arming — any further build fails the run")
+        watch.arm()
 
     reqs = synthetic_requests(
         args.requests, pattern=args.arrival, min_prompt=4,
@@ -134,7 +161,20 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
         reqs = [dataclasses.replace(r, deadline_s=args.deadline_s) for r in reqs]
     shed = (parse_shed_policy(args.shed_policy, step_s)
             if args.shed_policy else None)
-    done, stats = eng.run(reqs, shed=shed)
+    faults = None
+    if args.chaos_seed is not None:
+        faults = FaultPlan.generate(args.chaos_seed, [r.rid for r in reqs],
+                                    num_steps=max(args.gen * 2, 8))
+        reqs = faults.apply_to_requests(reqs, eng.policy.seq_max)
+        print(f"chaos: seed {args.chaos_seed}, request faults "
+              f"{faults.request_faults}, {len(faults.events)} step events")
+    done, stats = eng.run(reqs, shed=shed, faults=faults,
+                          check_invariants=faults is not None)
+
+    if watch is not None:
+        watch.check()
+        watch.disarm()
+        print("watchdog: zero unexpected builds in steady state")
 
     print(f"served {stats.num_requests} requests "
           f"({stats.total_generated} tokens) in {stats.wall_s*1e3:.0f} ms "
@@ -151,6 +191,13 @@ def run_engine(cfg, params, args, device: torch.device) -> None:
     first_ok = next((c for c in done if c.ok), None)
     if first_ok is not None:
         print("sample:", first_ok.tokens[:16])
+
+    if args.obs_dump:
+        paths = obs.export_all(args.obs_dump, drift=eng.drift, watch=watch)
+        print(f"obs dump: {sorted(paths.values())}")
+        print(f"summarize with: python -m repro_torch.obs.view {args.obs_dump}")
+    if watch is not None:
+        watch.uninstall()
 
 
 def main(argv=None):
@@ -190,6 +237,16 @@ def main(argv=None):
                     help="admission control, e.g. 'depth=16,slo=0.25"
                          "[,lookahead=4]': shed beyond a ready-queue depth "
                          "and/or a predicted-TTFT SLO")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="inject a seeded FaultPlan (bad prompts, deadline "
+                         "pressure, block steals, COW storms) and assert "
+                         "pool invariants every step")
+    ap.add_argument("--obs-dump", default=None, metavar="DIR",
+                    help="enable observability and write trace/metrics/drift "
+                         "dumps to DIR (see `python -m repro_torch.obs.view DIR`)")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="record every kernel-library build, arm after "
+                         "calibration, and FAIL on any steady-state build")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)

@@ -15,9 +15,25 @@ silent fallback).  Params are float32 masters drawn from `--seed` on the
 device; the batches are the deterministic synthetic stream of
 `data/pipeline.py`.  At launch it prints the advisor's shape-rule findings
 for the config on the H100 (`core/advisor.check_alignment`), as JAX's
-launcher does for its chip.  Checkpointing (`--checkpoint-every`,
-`--resume`) and data/model parallelism (`--data`, `--model` > 1) come with
-later slices: passing those flags raises.
+launcher does for its chip.  Data/model parallelism (`--data`, `--model`
+> 1) comes with a later slice: passing those flags raises.
+
+Fault tolerance, as the JAX launcher's:
+  * a checkpoint every `--checkpoint-every` updates (an async host write,
+    `checkpoint/ckpt.py`, the JAX package's on-disk layout) and a final
+    one, into `--checkpoint-dir`;
+  * `--resume` restores the latest checkpoint and continues from it — the
+    batches are a pure function of (seed, step), so the resumed run sees
+    exactly the batches the uninterrupted one would have.
+A checkpoint is labelled by the number of updates applied (`step_k` holds
+k updates and `OptState.step == k`), so a run resumed from `step_k` starts
+at batch k and follows the uninterrupted run's trajectory.  (The JAX
+launcher labels a mid-run checkpoint one short, `step_s` after s + 1
+updates, and its resume applies batch s twice; the final checkpoint is
+labelled right in both.)
+
+With `REPRO_OBS=1` each step runs in a `train_step` span (the device
+synchronized inside it) and counts `train.steps` / `train.tokens`.
 """
 from __future__ import annotations
 
@@ -27,6 +43,8 @@ import time
 
 import torch
 
+from .. import obs
+from ..checkpoint.ckpt import Checkpointer
 from ..configs.base import MeshConfig, ShapeConfig, TrainConfig
 from ..configs.registry import get_config, get_smoke_config
 from ..core import advisor
@@ -47,15 +65,12 @@ def build(args):
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     tc = TrainConfig(total_steps=args.steps, warmup_steps=max(args.steps // 20, 1),
                      learning_rate=args.lr, optimizer=args.optimizer, remat=args.remat,
-                     seed=args.seed)
+                     checkpoint_every=args.checkpoint_every,
+                     checkpoint_dir=args.checkpoint_dir, seed=args.seed)
     return cfg, mesh_cfg, shape, tc
 
 
 def _refuse_unported(args) -> None:
-    if args.checkpoint_every is not None or args.resume:
-        raise NotImplementedError(
-            "--checkpoint-every / --resume are not ported yet: they come with the "
-            "checkpoint slice")
     if args.data != 1 or args.model != 1:
         raise NotImplementedError(
             "--data / --model > 1 are not ported yet: they come with the parallelism slice")
@@ -80,7 +95,9 @@ def main(argv=None):
                          "fused = the fused SwiGLU/MLP kernel + the tile GEMM")
     ap.add_argument("--microbatch", type=int, default=0,
                     help="rows per microbatch; 0 = no accumulation")
-    ap.add_argument("--checkpoint-every", type=int, default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--checkpoint-dir", default=TrainConfig.checkpoint_dir,
+                    help="default: repro_ckpt under $TMPDIR (/tmp where it is unset)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -107,14 +124,25 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(tc.seed)
     params = init_lm(gen, cfg, device=device, dtype=torch.float32)
     opt = init_opt(params, tc)
+    start_step = 0
+    ck = Checkpointer(tc.checkpoint_dir, keep=3)
+    if args.resume and ck.latest_step() is not None:
+        params, opt, start_step = ck.restore(params, opt)
+        print(f"resumed from step {start_step}")
     step_fn = make_train_step(cfg, tc, n_micro=n_micro)
 
     t0 = time.perf_counter()
     tokens_done = 0
-    for step in range(tc.total_steps):
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in make_batch(cfg, shape, step, tc.seed).items()}
-        params, opt, metrics = step_fn(params, opt, batch)
+    for step in range(start_step, tc.total_steps):
+        with obs.span("train_step", cat="train", step=step) if obs.enabled() else obs.NULL_SPAN:
+            batch = {k: torch.as_tensor(v, device=device)
+                     for k, v in make_batch(cfg, shape, step, tc.seed).items()}
+            params, opt, metrics = step_fn(params, opt, batch)
+            if obs.enabled() and device.type == "cuda":
+                torch.cuda.synchronize(device)
+        if obs.enabled():
+            obs.counter("train.steps").inc()
+            obs.counter("train.tokens").inc(shape.global_batch * shape.seq_len)
         tokens_done += shape.global_batch * shape.seq_len
         if step % args.log_every == 0 or step == tc.total_steps - 1:
             loss = float(metrics["loss"])   # waits for the step
@@ -122,6 +150,12 @@ def main(argv=None):
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"tok/s {tokens_done / max(dt, 1e-6):,.0f}", flush=True)
+        applied = step + 1    # updates in params and opt now (== opt.step)
+        if tc.checkpoint_every and applied % tc.checkpoint_every == 0 \
+                and applied < tc.total_steps:
+            ck.save(applied, params, opt, meta={"arch": cfg.name}, blocking=False)
+    ck.save(tc.total_steps, params, opt, meta={"arch": cfg.name})
+    ck.wait()
     print("done")
 
 

@@ -18,19 +18,36 @@ closure, as `jax.checkpoint` captures them), for every kind: a dense,
 MoE or pair layer, a Mamba2 layer, a hybrid superblock with zamba2's
 shared block captured the same way.  Every kernel on those paths is
 deterministic, so the recomputed layer gives the same bits and the loss
-and gradients equal remat="none"'s.  `"dots"` raises.
+and gradients equal remat="none"'s.
+
+`remat="dots"` keeps the output of every 2-D product of the layer and
+recomputes the rest in the backward: selective activation checkpointing
+(`create_selective_checkpoint_contexts`) whose policy saves `aten.mm` /
+`aten.addmm` (the "jnp" path's projections) and the kernel paths'
+dispatcher ops `repro_torch::linear_fwd` (the tile GEMM) and
+`repro_torch::fused_mlp_hidden` (the fused MLP's hidden; the layer runs
+inside `linear.products_as_ops()` so its kernel products are those ops), and recomputes
+everything else: attention's batched products, flash, the norms, rotary,
+the activations.  JAX's policy (`checkpoint_dots_with_no_batch_dims`)
+saves the same products under linear_impl="jnp"; on its Pallas impls it
+sees a `pallas_call`, not a `dot_general`, and saves no kernel output: the
+two packages then keep different tensors, with the same numbers.  The
+int8 path's products (`_QuantizedLinear`) are recomputed.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..quant import QuantizedTensor
 from .attention import apply_attention, init_attention
 from .layers import norm_apply, norm_init
+from .linear import products_as_ops
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
 from .ssm import apply_ssm, decode_ssm, init_ssm, init_ssm_cache
@@ -261,6 +278,23 @@ def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
 REMATS = ("none", "full", "dots")
 
 
+# The ops whose outputs remat="dots" keeps: every 2-D product (the custom
+# ops are registered by `models/linear.py` and `kernels/fused_mlp/ops.py`,
+# imported above).
+DOTS_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                            torch.ops.repro_torch.linear_fwd.default,
+                            torch.ops.repro_torch.fused_mlp_hidden.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _num_layers(tree) -> int:
     """The leading (layer) dim of a stacked params tree."""
     while isinstance(tree, dict):
@@ -277,27 +311,26 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
     block; block_tables: (b, max_blocks) when the caches are a
     physical block pool (attention.apply_gqa).  remat: "none" keeps every layer's activations for
     the backward, "full" recomputes each layer there (blocks.py:282-283 of
-    the JAX package).  Returns (x, caches, aux): aux the MoE layers'
+    the JAX package), "dots" keeps each layer's 2-D product outputs and
+    recomputes the rest (blocks.py:284-287; see the module docstring).  Returns (x, caches, aux): aux the MoE layers'
     load-balance losses summed in f32 (a 0-d tensor; 0 without MoE
     layers), as blocks.py:257-293 of the JAX package carries it."""
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}; valid: {list(REMATS)}")
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the GEMM outputs, recompute the rest) is not ported "
-            "yet: it comes with the remat-policy slice")
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (kind, sp) in enumerate(segments_params):
         _check_kind(kind)
         seg_cache = None if caches is None else caches[si]
         n = _num_layers(sp)
         for layer, p_l in enumerate(tree_unbind(sp, n)):
-            if remat == "full" and seg_cache is None:
+            if remat != "none" and seg_cache is None:
                 def body(h, p_l=p_l, kind=kind):
-                    out, _, a = _apply_core(p_l, h, cfg, kind, positions=positions,
-                                            shared=shared)
+                    with products_as_ops() if remat == "dots" else contextlib.nullcontext():
+                        out, _, a = _apply_core(p_l, h, cfg, kind, positions=positions,
+                                                shared=shared)
                     return out, a
-                x, aux = checkpoint(body, x, use_reentrant=False)
+                kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
+                x, aux = checkpoint(body, x, use_reentrant=False, **kw)
             else:
                 c_l = None if seg_cache is None else tree_index(seg_cache, layer)
                 x, _, aux = _apply_core(p_l, x, cfg, kind, positions=positions, cache=c_l,

@@ -28,7 +28,14 @@ Functions mirror JAX's straight-through VJPs (the int8 rounding is taken as
 the identity; the gradient GEMMs run the tile GEMM in high precision).
 They are taken only when a gradient is recorded: serving (under
 `no_grad`) calls the kernel wrappers directly and pays no
-`autograd.Function` on its ~170 calls per decode step.
+`autograd.Function` on its ~170 calls per decode step.  Inside
+`products_as_ops()` (remat="dots", `models/blocks.py`) the tile GEMM and
+the fused hidden run instead as the dispatcher ops
+`repro_torch::linear_fwd` and `repro_torch::fused_mlp_hidden`
+(`torch.library.custom_op`s with the Functions' backwards), so the remat
+policy can name them and keep their outputs, as it keeps `aten.mm`'s on
+the "jnp" path.  Elsewhere the Functions call the kernels directly: a
+dispatcher op costs the host more per call.
 
 The MoE layer's expert stacks go through `expert_linear` and
 `expert_fused_hidden`: one batched launch per expert stack on the card,
@@ -42,6 +49,7 @@ gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 
 import torch
@@ -65,22 +73,53 @@ def _check_impl(impl: str) -> None:
             f"unknown linear_impl {impl!r}; valid: {list(LINEAR_IMPLS)}")
 
 
+def _linear_setup(ctx, inputs, output):
+    x2, w, ctx.tuned = inputs
+    ctx.save_for_backward(x2, w)
+
+
+def _linear_backward(ctx, g):
+    x2, w = ctx.saved_tensors
+    g = g.contiguous()
+    dx = matmul(g, w.T, tuned=ctx.tuned) if ctx.needs_input_grad[0] else None
+    dw = matmul(x2.T, g, tuned=ctx.tuned) if ctx.needs_input_grad[1] else None
+    return dx, dw, None
+
+
 class _Linear(torch.autograd.Function):
     """JAX's `_pallas_linear` (models/linear.py:75-97): x2 (m, k) @ w (k, n)."""
 
     @staticmethod
-    def forward(ctx, x2, w, tuned):
-        ctx.tuned = tuned
-        ctx.save_for_backward(x2, w)
+    def forward(x2, w, tuned):
         return matmul(x2, w, tuned=tuned)
 
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g = g.contiguous()
-        dx = matmul(g, w.T, tuned=ctx.tuned) if ctx.needs_input_grad[0] else None
-        dw = matmul(x2.T, g, tuned=ctx.tuned) if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+    setup_context = staticmethod(_linear_setup)
+    backward = staticmethod(_linear_backward)
+
+
+@torch.library.custom_op("repro_torch::linear_fwd", mutates_args=())
+def linear_fwd(x2: torch.Tensor, w: torch.Tensor, tuned: bool) -> torch.Tensor:
+    """`_Linear` as one dispatcher op with the same backward: the tile GEMM
+    on a CUDA tensor, its plain version on a CPU one."""
+    return matmul(x2, w, tuned=tuned)
+
+
+linear_fwd.register_autograd(_linear_backward, setup_context=_linear_setup)
+
+_PRODUCTS_AS_OPS = False
+
+
+@contextlib.contextmanager
+def products_as_ops():
+    """Within it, a recorded kernel-path product runs as a dispatcher op
+    (`linear_fwd`, `repro_torch::fused_mlp_hidden`) that a dispatch mode
+    can see."""
+    global _PRODUCTS_AS_OPS
+    before, _PRODUCTS_AS_OPS = _PRODUCTS_AS_OPS, True
+    try:
+        yield
+    finally:
+        _PRODUCTS_AS_OPS = before
 
 
 class _QuantizedLinear(_Linear):
@@ -89,9 +128,7 @@ class _QuantizedLinear(_Linear):
     (straight-through)."""
 
     @staticmethod
-    def forward(ctx, x2, w, tuned):
-        ctx.tuned = tuned
-        ctx.save_for_backward(x2, w)
+    def forward(x2, w, tuned):
         return int8_matmul(x2, w, tuned=tuned)
 
 
@@ -144,7 +181,8 @@ def linear(x, w, *, impl: str = "jnp"):
     tuned = impl != "pallas"
     if _grad_recorded(x, w):
         lead, k = x.shape[:-1], x.shape[-1]
-        return _Linear.apply(x.reshape(-1, k), w, tuned).reshape(*lead, w.shape[-1])
+        fn = linear_fwd if _PRODUCTS_AS_OPS else _Linear.apply
+        return fn(x.reshape(-1, k), w, tuned).reshape(*lead, w.shape[-1])
     return matmul(x, w, tuned=tuned)
 
 
@@ -182,7 +220,8 @@ def fused_mlp(x, p, cfg):
     projection.  p: {w_gate (swiglu), w_up, w_down}; x: (..., h)."""
     dt = x.dtype
     w_gate = p["w_gate"].to(dt) if cfg.mlp_type == "swiglu" else None
-    hidden = fused_mlp_hidden(x, w_gate, p["w_up"].to(dt), mlp_type=cfg.mlp_type, tuned=True)
+    hidden = fused_mlp_hidden(x, w_gate, p["w_up"].to(dt), mlp_type=cfg.mlp_type, tuned=True,
+                              as_op=_PRODUCTS_AS_OPS)
     return linear(hidden, p["w_down"], impl="tuned")
 
 

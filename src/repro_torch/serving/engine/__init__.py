@@ -9,10 +9,12 @@ Public surface:
   BlockPool / PagedPool / PoolExhausted — block-table KV pool with prefix
                             caching, copy-on-write and LRU eviction (kv_pool.py)
   ShedPolicy / Shed       — admission control / overload shedding
+  FaultPlan / chaos_soak  — deterministic fault injection (faults.py)
   synthetic_requests      — workload generator
 """
 from .buckets import BucketPolicy, make_policy
 from .engine import Engine
+from .faults import FAULT_KINDS, FaultEvent, FaultPlan, SoakResult, chaos_soak
 from .kv_pool import BlockPool, PagedPool, PoolExhausted, SlotPool
 from .request import (FINISH_REASONS, OK_REASONS, Completion, EngineStats,
                       Request, SamplingParams)
@@ -23,6 +25,6 @@ __all__ = [
     "Engine", "Request", "SamplingParams", "Completion", "EngineStats",
     "FINISH_REASONS", "OK_REASONS", "BucketPolicy", "make_policy", "SlotPool",
     "BlockPool", "PagedPool", "PoolExhausted",
-    "RequestQueue", "Scheduler", "Shed", "ShedPolicy", "PATTERNS",
-    "synthetic_requests",
+    "RequestQueue", "Scheduler", "Shed", "ShedPolicy", "FAULT_KINDS", "FaultEvent",
+    "FaultPlan", "SoakResult", "chaos_soak", "PATTERNS", "synthetic_requests",
 ]

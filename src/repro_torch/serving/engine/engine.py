@@ -42,8 +42,17 @@ token-identical.  Retries are bounded; a request that exhausts them
 completes as `preempted-retry-exhausted` with the tokens it has.  The
 slot bucket may grow by the advisor's cost model (`grow_batch=True`), and
 the block-table pool's block size comes from the tuning cache where it has
-an entry.  Fault injection and observability come with later slices; their
-switches raise here.
+an entry.  `run(faults=)` takes a seeded `faults.FaultPlan` (block steals
+and copy-on-write storms at decode-step boundaries, released by the plan
+or by the engine's deadlock breaker); `faults.chaos_soak` diffs a faulted
+run against a fault-free one.
+
+Observability (`repro_torch.obs`, off by default): spans, instants,
+counters, gauges and a drift monitor at the JAX engine's sites and under
+its names (`admit`, `prefill`, `sample`, `decode_step`, `prepare_append`;
+`engine.*`, `kv.*`), each behind one `obs.enabled()` check.  With obs on,
+the prefill span waits for the device, so its time is the prefill's; the
+decode step's waits anyway (sampling reads the tokens).
 
 Device: the engine runs where its params live — CUDA by default (it raises
 when there is no card), or the CPU when the caller passes device="cpu",
@@ -58,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ... import obs
 from ...configs.base import ModelConfig
 from ...core.hardware import Hardware, get_hardware
 from ...models import apply_lm, init_caches
@@ -162,6 +172,12 @@ def _make_decode_bt(cfg: ModelConfig):
     return decode
 
 
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the device work behind `t` (a no-op on the host)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 def _stream_seed(seed: int, step: int) -> int:
     """Seed of a request's sample at `step`: independent of slot placement
     and step timing, so sampling is reproducible across scheduling
@@ -250,6 +266,8 @@ class Engine:
         self.params = params
         self.cfg = cfg
         hw = hw or get_hardware()
+        self.hw = hw
+        self.drift: Optional[obs.DriftMonitor] = None
         self.policy = policy or make_policy(
             cfg, hw, max_batch=max_batch, max_prompt=max_prompt,
             max_seq=max_prompt + max_new, grow_batch=grow_batch)
@@ -285,6 +303,7 @@ class Engine:
         self._admit_attempts: Dict[int, int] = {}
         self._admit_counter = 0
         self._queue: Optional[RequestQueue] = None
+        self._faults = None
 
     def _pick_block_size(self, hw: Hardware) -> int:
         """Physical KV block size: a tile-lattice choice, taken from the
@@ -362,6 +381,9 @@ class Engine:
             rid=req.rid, prompt_len=req.prompt_len, tokens=[],
             arrival_s=req.arrival_s, first_token_s=None, done_s=self._now(),
             finish_reason="rejected", detail=detail))
+        if obs.enabled():
+            obs.counter("engine.rejected").inc()
+            obs.instant("reject", rid=req.rid, detail=detail)
 
     def _drop(self, req: Request, reason: str, detail: str,
               done: List[Completion]) -> None:
@@ -383,39 +405,57 @@ class Engine:
                 arrival_s=req.arrival_s, first_token_s=res.first_token_s,
                 done_s=self._now(), itl_s=res.itl_s, cached_tokens=res.cached_tokens,
                 finish_reason=reason, detail=detail, preemptions=res.attempts))
+        if obs.enabled():
+            obs.counter(f"engine.{reason.split('-')[0]}").inc()
+            obs.instant("drop", rid=req.rid, reason=reason, detail=detail)
 
     def _admit(self, req: Request, slot: int, states: Dict[int, _SlotState],
                done: List[Completion]) -> None:
         res = self._resume.pop(req.rid, None)
-        try:
-            if self.prefix_cache:
-                logits, cached = self._prefill_paged(req, slot, res)
-            else:
-                cached = 0
-                bucket = self.policy.prompt_bucket(req.prompt_len)
-                padded = np.zeros((1, bucket), np.int32)
-                padded[0, :req.prompt_len] = req.tokens
-                logits, caches = self._prefill(
-                    self.params, torch.as_tensor(padded, device=self.device), req.prompt_len)
-                self.pool.write(slot, caches, req.prompt_len)
-        except PoolExhausted as e:
-            # admission raced a COW burst: the slot is returned, the request
-            # re-queued with a bounded retry budget
-            self.pool.release(slot)
-            self._retry_admission(req, res, f"pool exhausted: {e}", done)
-            return
-        except _DeadEnd as e:
-            self.pool.release(slot)
-            self._drop_or_requeue_dead_end(req, res, str(e), done)
-            return
-        sp = req.sampling
-        seed = sp.seed or req.rid
-        m = len(res.generated) if res is not None else 0
-        tok0 = int(sample(logits, np.asarray([sp.temperature], np.float32),
-                          np.asarray([seed]), np.asarray([m]))[0])
+        bucket = self.policy.prompt_bucket(req.prompt_len)
+        with (obs.span("admit", rid=req.rid, slot=slot, prompt_len=req.prompt_len,
+                       bucket=bucket, resume=res is not None)
+              if obs.enabled() else obs.NULL_SPAN):
+            try:
+                if self.prefix_cache:
+                    logits, cached = self._prefill_paged(req, slot, res)
+                else:
+                    cached = 0
+                    padded = np.zeros((1, bucket), np.int32)
+                    padded[0, :req.prompt_len] = req.tokens
+                    with (obs.span("prefill", bucket=bucket, rid=req.rid, cached_tokens=0)
+                          if obs.enabled() else obs.NULL_SPAN) as psp:
+                        logits, caches = self._prefill(
+                            self.params, torch.as_tensor(padded, device=self.device),
+                            req.prompt_len)
+                        if obs.enabled():
+                            _sync(logits)
+                    if obs.enabled() and self.drift is not None:
+                        self.drift.observe(f"prefill_{bucket}", psp.dur_s)
+                    self.pool.write(slot, caches, req.prompt_len)
+            except PoolExhausted as e:
+                # admission raced a COW burst / held blocks: the slot is
+                # returned, the request re-queued with a bounded retry budget
+                self.pool.release(slot)
+                self._retry_admission(req, res, f"pool exhausted: {e}", done)
+                return
+            except _DeadEnd as e:
+                self.pool.release(slot)
+                self._drop_or_requeue_dead_end(req, res, str(e), done)
+                return
+            sp = req.sampling
+            seed = sp.seed or req.rid
+            m = len(res.generated) if res is not None else 0
+            with obs.span("sample", cat="sample", batch=1) if obs.enabled() else obs.NULL_SPAN:
+                tok0 = int(sample(logits, np.asarray([sp.temperature], np.float32),
+                                  np.asarray([seed]), np.asarray([m]))[0])
         self.prefills += 1
         self._admit_counter += 1
         self._admit_attempts.pop(req.rid, None)
+        if obs.enabled():
+            obs.counter("engine.prefills").inc()
+            obs.counter("engine.tokens_generated").inc()
+            obs.counter("engine.prompt_tokens_cached").inc(cached)
         t = self._now()
         self._last_tok[slot] = tok0
         self._temps[slot] = sp.temperature
@@ -429,6 +469,8 @@ class Engine:
             # the continuation is what the uninterrupted run would have
             # produced; the preemption stall lands in the ITL trace
             self.resumes += 1
+            if obs.enabled():
+                obs.counter("engine.resumes").inc()
             st = _SlotState(req=req, generated=res.generated + [tok0], last_t_s=t,
                             first_token_s=res.first_token_s,
                             itl_s=res.itl_s + [t - res.last_t_s],
@@ -460,6 +502,8 @@ class Engine:
         else:
             self._admit_attempts[req.rid] = attempts
         self._queue.push(req)
+        if obs.enabled():
+            obs.counter("engine.admission_retries").inc()
 
     def _drop_or_requeue_dead_end(self, req: Request, res: Optional[_ResumeState],
                                   detail: str, done: List[Completion]) -> None:
@@ -499,10 +543,20 @@ class Engine:
         padded = np.zeros((1, min(bucket, self.policy.seq_max - p)), np.int32)
         padded[0, :len(suffix)] = suffix
         contig = pool.gather(slot)
-        logits, contig = self._prefill(
-            self.params, torch.as_tensor(padded, device=self.device), len(suffix), p, contig)
+        with (obs.span("prefill", bucket=bucket, rid=req.rid, cached_tokens=p)
+              if obs.enabled() else obs.NULL_SPAN) as psp:
+            logits, contig = self._prefill(
+                self.params, torch.as_tensor(padded, device=self.device), len(suffix), p,
+                contig)
+            if obs.enabled():
+                _sync(logits)
+        if obs.enabled() and self.drift is not None:
+            self.drift.observe(f"prefill_{bucket}", psp.dur_s)
         pool.scatter(slot, contig, p // pool.block_size)
         pool.commit(slot, tokens)
+        if obs.enabled():
+            obs.counter("kv.prefix_hit_tokens").inc(p)
+            self._kv_gauges()
         return logits, (p if res is None else res.cached_tokens)
 
     def _finished(self, st: _SlotState) -> bool:
@@ -526,6 +580,12 @@ class Engine:
         states.pop(slot, None)
         self._temps[slot] = 0.0
         self.pool.release(slot)
+        if obs.enabled():
+            obs.counter("engine.requests_completed").inc()
+            if reason == "timeout":
+                obs.counter("engine.timeout").inc()
+            obs.instant("complete", rid=st.req.rid, slot=slot,
+                        tokens=len(st.generated), reason=reason)
 
     # -- preemption ----------------------------------------------------------
 
@@ -545,6 +605,10 @@ class Engine:
         self.preemptions += 1
         self._temps[slot] = 0.0
         attempts = st.preemptions + 1
+        if obs.enabled():
+            obs.counter("engine.preemptions").inc()
+            obs.instant("preempt", rid=st.req.rid, slot=slot,
+                        generated=len(st.generated), attempts=attempts)
         if attempts > PREEMPT_RETRIES:
             self.pool.release(slot)
             done.append(Completion(
@@ -572,6 +636,16 @@ class Engine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
+    def _kv_gauges(self) -> None:
+        """Publish pool occupancy; block-level detail on the paged pool."""
+        obs.gauge("engine.live_slots").set(self.pool.num_active)
+        obs.gauge("engine.free_slots").set(self.pool.num_free)
+        if self.prefix_cache:
+            bp = self.pool.blocks
+            obs.gauge("kv.free_blocks").set(bp.num_free_blocks)
+            obs.gauge("kv.cached_blocks").set(bp.num_cached_blocks)
+            obs.gauge("kv.referenced_blocks").set(bp.num_referenced_blocks)
+
     @torch.no_grad()
     def run(self, requests: List[Request], *, policy: str = "continuous",
             shed: Optional[ShedPolicy] = None, faults=None,
@@ -579,17 +653,19 @@ class Engine:
         """Serve `requests`; returns (completions sorted by request id,
         aggregate stats).  Every request gets exactly one Completion.
         policy="static" = drain-then-refill baseline; `shed` = admission
-        control (scheduler.ShedPolicy); check_invariants asserts the
-        block-pool invariants after every decode step.  `faults` (a seeded
-        FaultPlan) comes with the observability-and-faults slice."""
-        if faults is not None:
-            raise NotImplementedError(
-                "run(faults=...) is not ported yet: fault injection comes with the "
-                "observability-and-faults slice")
+        control (scheduler.ShedPolicy); `faults` = a faults.FaultPlan
+        injecting deterministic failures at decode-step boundaries;
+        check_invariants asserts the block-pool invariants after every
+        decode step (chaos/CI mode)."""
         self.reset_stats()
         self._resume = {}
         self._admit_attempts = {}
         self._admit_counter = 0
+        self._faults = faults
+        if faults is not None:
+            faults.reset()
+        if obs.enabled() and self.drift is None:
+            self.drift = obs.DriftMonitor.for_engine(self.cfg, self.policy, self.hw)
         self._t0 = time.perf_counter()
         done: List[Completion] = []
         valid: List[Request] = []
@@ -610,6 +686,9 @@ class Engine:
                 self._drop(s.req, s.reason, s.detail, done)
             for req, slot in admits:
                 self._admit(req, slot, states, done)
+            if obs.enabled():
+                obs.gauge("engine.queue_depth").set(len(queue))
+                self._kv_gauges()
             if not states:
                 if admits or sheds:
                     continue    # progress was made; re-evaluate immediately
@@ -619,8 +698,11 @@ class Engine:
                     time.sleep(nxt - now + 1e-4)
                 elif len(queue):
                     # ready requests, an idle pool, and still no admission:
-                    # nothing left could free capacity — fail the head
-                    # request rather than spin forever
+                    # nothing left could free capacity.  Give injected holds
+                    # a chance to drain, else fail the head request rather
+                    # than spin forever
+                    if faults is not None and faults.drain_holds(self):
+                        continue
                     req = queue.pop_ready(now)
                     if req is not None:
                         self._drop_or_requeue_dead_end(
@@ -631,8 +713,11 @@ class Engine:
             if check_invariants and self.prefix_cache:
                 self.pool.blocks.check()
 
+        if faults is not None:
+            faults.drain_holds(self)
         if check_invariants and self.prefix_cache:
             self.pool.blocks.check()
+        self._faults = None
         self._queue = None
         wall = self._now()
         done.sort(key=lambda c: c.rid)
@@ -645,28 +730,44 @@ class Engine:
         On the block-table pool, KV backpressure (block exhaustion while
         making write positions appendable) preempts youngest-first instead
         of raising; preempted rows ride through the step masked-dead."""
+        if self._faults is not None:
+            self._faults.on_step(self, self.decode_steps)
         dev = self.device
-        if self.prefix_cache:
-            # make each live row's write position physically writable
-            # (tail-block alloc / copy-on-write) before the device step
-            for slot in list(states):
-                while slot in states:   # a row preempted as a victim drops out
-                    try:
-                        self.pool.prepare_append(slot)
-                        break
-                    except PoolExhausted:
-                        self._preempt(self._pick_victim(states), states, done)
-            if not states:
-                return      # every row was preempted: nothing to decode
-        pos = torch.as_tensor(np.asarray(self.pool.lengths, np.int32), device=dev)
-        tok = torch.as_tensor(self._last_tok[:, None], device=dev)
-        if self.prefix_cache:
-            tables = torch.as_tensor(self.pool.tables(), device=dev)
-            logits, self.pool.caches = self._decode(self.params, tok, self.pool.caches, pos,
-                                                    tables)
-        else:
-            logits, self.pool.caches = self._decode(self.params, tok, self.pool.caches, pos)
-        toks = sample(logits, self._temps, self._seeds, self._steps)
+        with (obs.span("decode_step", step=self.decode_steps, live=len(states),
+                       batch=self.policy.num_slots)
+              if obs.enabled() else obs.NULL_SPAN) as dsp:
+            if self.prefix_cache:
+                # make each live row's write position physically writable
+                # (tail-block alloc / copy-on-write) before the device step
+                with (obs.span("prepare_append", cat="kv", live=len(states))
+                      if obs.enabled() else obs.NULL_SPAN):
+                    for slot in list(states):
+                        while slot in states:   # a row preempted as a victim drops out
+                            try:
+                                self.pool.prepare_append(slot)
+                                break
+                            except PoolExhausted:
+                                self._preempt(self._pick_victim(states), states, done)
+                if not states:
+                    return      # every row was preempted: nothing to decode
+            pos = torch.as_tensor(np.asarray(self.pool.lengths, np.int32), device=dev)
+            tok = torch.as_tensor(self._last_tok[:, None], device=dev)
+            if self.prefix_cache:
+                tables = torch.as_tensor(self.pool.tables(), device=dev)
+                logits, self.pool.caches = self._decode(self.params, tok, self.pool.caches,
+                                                        pos, tables)
+            else:
+                logits, self.pool.caches = self._decode(self.params, tok, self.pool.caches,
+                                                        pos)
+            with (obs.span("sample", cat="sample", batch=self.policy.num_slots)
+                  if obs.enabled() else obs.NULL_SPAN):
+                toks = sample(logits, self._temps, self._seeds, self._steps)
+        if obs.enabled():
+            if self.drift is not None:
+                self.drift.observe("decode_step", dsp.dur_s)
+            obs.counter("engine.decode_steps").inc()
+            obs.counter("engine.tokens_generated").inc(len(states))
+            obs.histogram("engine.decode_step_s").observe(dsp.dur_s)
         self.decode_steps += 1
         t = self._now()
         for slot in list(states):

@@ -19,6 +19,8 @@ unreferenced cached blocks under pressure.  `BlockPool` is the host state
 machine, copied one to one; `PagedPool` wraps it with the device cache and
 three plain tensor functions in place of the JAX package's jitted programs:
 gather (`index_select`), scatter (`index_copy_`) and the COW block copy.
+With observability on, `BlockPool` counts `kv.blocks_allocated`,
+`kv.evictions`, `kv.prefix_hit_blocks` and `kv.cow_copies`, as JAX's does.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import obs
 from ...configs.base import ModelConfig
 from ...models import init_caches
 
@@ -165,12 +168,17 @@ class BlockPool:
 
     def _alloc_block(self) -> int:
         if self._free:
+            if obs.enabled():
+                obs.counter("kv.blocks_allocated").inc()
             return self._free.pop()
         if self._cached:  # evict the least-recently-used cached-free block
             blk, key = self._cached.popitem(last=False)
             del self._hash[key]
             del self._block_key[blk]
             self.evictions += 1
+            if obs.enabled():
+                obs.counter("kv.blocks_allocated").inc()
+                obs.counter("kv.evictions").inc()
             return blk
         raise PoolExhausted(
             f"all {self.num_blocks} blocks referenced; nothing evictable")
@@ -228,6 +236,8 @@ class BlockPool:
                 parent = key
                 matched += 1
         num_cached = matched * bs
+        if obs.enabled() and matched:
+            obs.counter("kv.prefix_hit_blocks").inc(matched)
 
         def rollback():
             for blk in table:
@@ -246,6 +256,8 @@ class BlockPool:
             self.ref[dst] = 1
             table[-1] = dst
             cows.append(CowCopy(src=src, dst=dst))
+            if obs.enabled():
+                obs.counter("kv.cow_copies").inc()
             num_cached = n - 1
         else:
             # fresh private blocks for the uncached remainder of the prompt
@@ -297,6 +309,8 @@ class BlockPool:
             self._unref(tgt)
             self.ref[dst] = 1
             seq.table[j] = dst
+            if obs.enabled():
+                obs.counter("kv.cow_copies").inc()
             return CowCopy(src=tgt, dst=dst)
         if tgt in self._block_key:
             # private but registered: writing would corrupt the cache entry

@@ -35,6 +35,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..core.hardware import Hardware, get_hardware
 from .cache import TunedConfig, TuningCache, dtype_name, get_default_cache, mixed_dtype
 from .candidates import (fallback_block_size, fp8_matmul_candidates, fused_mlp_candidates,
@@ -61,7 +62,9 @@ def _measure(op: str, fn, *args, iters: int, warmup: int) -> Tuple[float, float]
     """Time one candidate: (mean_us, std_us).  The mean is one pair of
     events around `iters` back-to-back calls (per-call events would add
     their own gaps to kernels of ~10 us); the std comes from a second loop
-    with per-iteration samples.  Raises unless an operand lies on the card."""
+    with per-iteration samples, which also feed the histogram
+    `tuning.<op>.us` when observability is on.  Raises unless an operand
+    lies on the card."""
     if not any(torch.is_tensor(a) and a.is_cuda for a in args):
         raise RuntimeError(f"autotune {op}: the search times the kernels on a CUDA device; "
                            f"its operands lie on the CPU, where the wrappers run their plain "
@@ -69,6 +72,8 @@ def _measure(op: str, fn, *args, iters: int, warmup: int) -> Tuple[float, float]
     mean = wall_us(fn, *args, iters=iters, warmup=warmup)
     _, samples = wall_us(fn, *args, iters=iters, warmup=0, return_samples=True)
     std = statistics.pstdev(samples) if len(samples) > 1 else 0.0
+    if obs.enabled():
+        obs.histogram(f"tuning.{op}.us").observe_many(samples)
     return mean, std
 
 

@@ -24,8 +24,9 @@ from repro.serving.engine import make_policy as jax_make_policy
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.hardware import H100_SXM, get_hardware
 from repro_torch.models.convert import params_from_jax
-from repro_torch.serving.engine import (BucketPolicy, Engine, Request, RequestQueue,
-                                        SamplingParams, make_policy, synthetic_requests)
+from repro_torch.serving.engine import (BucketPolicy, Engine, FaultEvent, FaultPlan, Request,
+                                        RequestQueue, SamplingParams, make_policy,
+                                        synthetic_requests)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "internlm2-1.8b"
@@ -129,13 +130,20 @@ def test_engine_refuses_to_run_without_a_card(smoke, monkeypatch):
 
 
 def test_engine_unported_switches_raise(smoke):
-    """The switch still unported: fault injection.  grow_batch (the
-    advisor's bucket growth) is ported and picks JAX's policy at the H100;
-    int8 weights (linear_impl="quantized") are ported and serve."""
+    """No engine switch is left unported: fault injection runs (a seeded
+    plan over an int8 block pool; tests/test_torch_faults.py holds it to
+    JAX), grow_batch (the advisor's bucket growth) picks JAX's policy at the
+    H100, int8 weights (linear_impl="quantized") serve; bad arguments
+    still raise."""
     jcfg, jparams, cfg, params = smoke
     eng = Engine(params, cfg, prefix_cache=True, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="observability-and-faults"):
-        eng.run([], faults=object())
+    reqs = [Request(rid=i, tokens=np.arange(1, 9, dtype=np.int32), max_new_tokens=4)
+            for i in range(3)]
+    plan = FaultPlan(request_faults={2: "garbage_prompt"},
+                     events=[FaultEvent(step=1, kind="cow_storm")], hold_steps=2)
+    done, _ = eng.run(plan.apply_to_requests(reqs, eng.policy.seq_max), faults=plan,
+                      check_invariants=True)
+    assert [c.finish_reason for c in done] == ["length", "length", "rejected"]
     want = JaxEngine(jparams, jcfg, grow_batch=True, hw=JAX_H100).policy
     got = Engine(params, cfg, grow_batch=True, device="cpu").policy
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -185,7 +193,10 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
 assert not bad, bad
 assert len(names) >= 30, names
 assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops",
-        "repro_torch.kernels.ssd.ref"} <= set(names), names
+        "repro_torch.kernels.ssd.ref", "repro_torch.obs", "repro_torch.obs.trace",
+        "repro_torch.obs.metrics", "repro_torch.obs.drift", "repro_torch.obs.compile_watch",
+        "repro_torch.obs.view", "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+        "repro_torch.serving.engine.faults"} <= set(names), names
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")

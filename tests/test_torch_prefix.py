@@ -41,8 +41,8 @@ from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_b
 from repro_torch.kernels.flash_attention.ref import gather_block_kv
 from repro_torch.models.convert import params_from_jax
 from repro_torch.quant import dequantize_kv, kv_bytes_per_token, quantize_kv
-from repro_torch.serving.engine import (BlockPool, BucketPolicy, Engine, PagedPool,
-                                        PoolExhausted, Request, synthetic_requests)
+from repro_torch.serving.engine import (BlockPool, BucketPolicy, Engine, FaultEvent, FaultPlan,
+                                        PagedPool, PoolExhausted, Request, synthetic_requests)
 from repro_torch.serving.serve_step import greedy_generate
 
 ARCH = "internlm2-1.8b"
@@ -486,9 +486,21 @@ def test_prefix_cache_with_int8(smoke):
 
 
 def test_unported_run_faults_raises(smoke):
+    """run(faults=) is ported: the prefix engine takes a FaultPlan (a block
+    steal holding the whole pool, released by the deadlock breaker) and
+    still finishes every request; anything but a plan raises."""
     _, eng = _engines(smoke, prefix_cache=True, block_size=8)
-    with pytest.raises(NotImplementedError, match="observability-and-faults"):
+    with pytest.raises(AttributeError):
         eng.run([], faults=object())
+    reqs = [Request(rid=i, tokens=np.arange(1, 11, dtype=np.int32), max_new_tokens=12)
+            for i in range(3)]
+    want, _ = eng.run(reqs)
+    plan = FaultPlan(events=[FaultEvent(step=1, kind="steal_blocks",
+                                        blocks=eng.pool.blocks.num_blocks)], hold_steps=50)
+    done, stats = eng.run(reqs, faults=plan, check_invariants=True)
+    assert stats.preemptions > 0
+    assert [(c.finish_reason, c.tokens) for c in done] == \
+        [(c.finish_reason, c.tokens) for c in want]
 
 
 def test_block_size_falls_back_to_the_lattice(smoke):

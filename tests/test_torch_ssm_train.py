@@ -198,11 +198,12 @@ def test_ssd_function_only_when_a_gradient_is_recorded(ref, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_launcher_runs_ssm_on_cpu(arch, capsys):
+def test_train_launcher_runs_ssm_on_cpu(arch, capsys, tmp_path):
     from repro_torch.launch import train
     train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
                 "--global-batch", "2", "--seq-len", str(SEQ), "--log-every", "1",
-                "--linear-impl", "fused", "--attn-impl", "flash"])
+                "--linear-impl", "fused", "--attn-impl", "flash",
+                "--checkpoint-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "step     1" in out and out.rstrip().endswith("done")
 

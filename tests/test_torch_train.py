@@ -9,6 +9,7 @@ the loss and every gradient leaf; 1e-5 (abs and rel) for one optimizer
 update on identical inputs (float32, the same arithmetic leaf by leaf).
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -155,8 +156,125 @@ def test_remat_full_equals_none(ref, linear_impl, attn_impl):
 
 
 def test_remat_dots_raises(ref):
-    with pytest.raises(NotImplementedError, match="remat-policy"):
-        lm_loss(_port_params(ref), _port_batch(ref), ref["cfg"], remat="dots")
+    """remat="dots" is ported (the tests below); an unknown policy still
+    raises, naming the valid ones."""
+    with pytest.raises(ValueError, match="'none', 'full', 'dots'"):
+        lm_loss(_port_params(ref), _port_batch(ref), ref["cfg"], remat="offload")
+    loss, _ = lm_loss(_port_params(ref), _port_batch(ref), ref["cfg"], remat="dots")
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("linear_impl,attn_impl", IMPLS + [("pallas", "flash")])
+def test_remat_dots_equals_none_and_jax(ref, linear_impl, attn_impl):
+    """remat="dots" (the 2-D products kept, the rest recomputed) changes no
+    number: loss and every gradient equal remat="none"'s (1e-6) and JAX's
+    remat="dots" (the training tolerance)."""
+    cfg = dataclasses.replace(ref["cfg"], linear_impl=linear_impl, attn_impl=attn_impl)
+    l0, g0, _ = _port_grads(_port_params(ref), _port_batch(ref), cfg, remat="none")
+    l1, g1, _ = _port_grads(_port_params(ref), _port_batch(ref), cfg, remat="dots")
+    np.testing.assert_allclose(l1, l0, rtol=1e-6, atol=1e-6)
+    for path in g0:
+        np.testing.assert_allclose(g1[path], g0[path], rtol=1e-6, atol=1e-6, err_msg=path)
+    jcfg = dataclasses.replace(ref["jcfg"], linear_impl=linear_impl, attn_impl=attn_impl)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, ref["jbatch"], jcfg, remat="dots"), has_aux=True))(
+        ref["jparams"])
+    want = dict(_walk(_np_tree(jgrads)))
+    np.testing.assert_allclose(l1, float(jloss), **GRAD_TOL)
+    for path, g in g1.items():
+        np.testing.assert_allclose(g, want[path], err_msg=path, **GRAD_TOL)
+
+
+def _saved_bytes(ref, cfg, remat):
+    """(bytes one layer keeps for the backward, 2-D products dispatched by
+    the backward).  Autograd's saves are counted with `saved_tensors_hooks`
+    (the layer's parameters and repeats of one storage left out); the
+    outputs remat="dots" keeps live in the selective checkpoint's own cache,
+    which no saved-tensor hook sees, so they are counted at the ops
+    `DOTS_SAVED_OPS` names, by a dispatch mode around the forward.  A
+    product served from that cache in the backward is not dispatched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.blocks import DOTS_SAVED_OPS, apply_stack
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    layer = adamw.tree_map(lambda t: t[:1].detach().clone().requires_grad_(True),
+                           _port_params(ref)["seg0"])
+    param_ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(layer)}
+    x = torch.randn(BATCH, SEQ, one.d_model, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    positions = torch.arange(SEQ)[None].expand(BATCH, SEQ)
+    seen, kept = set(), [0]
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in param_ptrs and ptr not in seen:
+            seen.add(ptr)
+            kept[0] += t.untyped_storage().nbytes()
+        return t
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count, self.nbytes = 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in DOTS_SAVED_OPS:
+                self.count += 1
+                self.nbytes += out.untyped_storage().nbytes()
+            return out
+
+    fwd, bwd = Products(), Products()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with fwd:
+            y, _, _ = apply_stack([("dense", layer)], one, x, positions=positions, remat=remat)
+    if remat == "dots":
+        kept[0] += fwd.nbytes
+    with bwd:
+        y.square().sum().backward()
+    return kept[0], bwd.count
+
+
+@pytest.mark.parametrize("linear_impl,attn_impl", IMPLS)
+def test_remat_saved_bytes_order(ref, linear_impl, attn_impl):
+    """One layer's saved bytes order as full < dots < none, and dots's
+    backward runs no forward product again (full's runs all of them)."""
+    cfg = dataclasses.replace(ref["cfg"], linear_impl=linear_impl, attn_impl=attn_impl)
+    (none, bn), (dots, bd), (full, bf) = (_saved_bytes(ref, cfg, r)
+                                          for r in ("none", "dots", "full"))
+    assert full < dots < none, (full, dots, none)
+    assert bd == bn < bf, (bn, bd, bf)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_kernel_products_are_dispatcher_ops_only_under_dots(ref, remat):
+    """The kernel-path products reach the dispatcher as custom ops (which
+    cost the host more per call) only inside remat="dots"'s layers, whose
+    policy must see them; "none" and "full" call the kernels through the
+    direct Functions."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch":
+                self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    cfg = dataclasses.replace(ref["cfg"], linear_impl="fused", attn_impl="flash")
+    params = _port_params(ref)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    with Ops() as mode:
+        lm_loss(params, _port_batch(ref), cfg, remat=remat)
+    if remat == "dots":
+        assert {"repro_torch::linear_fwd", "repro_torch::fused_mlp_hidden"} <= set(mode.names)
+    else:
+        assert mode.names == []
 
 
 # --- optimizer ---------------------------------------------------------------------------
@@ -280,12 +398,14 @@ def test_train_trajectory_matches_jax(ref, n_micro):
 @pytest.mark.parametrize("argv", [
     ["--attn-impl", "flash", "--linear-impl", "fused", "--microbatch", "1"],
     ["--optimizer", "adamw8bit", "--remat", "full"]])
-def test_train_launcher_runs_on_cpu_when_asked(argv, capsys):
+def test_train_launcher_runs_on_cpu_when_asked(argv, capsys, tmp_path):
     from repro_torch.launch import train
     train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2",
-                "--global-batch", "2", "--seq-len", "16", "--log-every", "1", *argv])
+                "--global-batch", "2", "--seq-len", "16", "--log-every", "1",
+                "--checkpoint-dir", str(tmp_path), *argv])
     out = capsys.readouterr().out
     assert "step     1" in out and out.rstrip().endswith("done")
+    assert os.listdir(tmp_path) == ["step_2"]      # the final checkpoint, as JAX's launcher
 
 
 def test_functions_only_when_a_gradient_is_recorded(ref, monkeypatch):
@@ -310,7 +430,7 @@ def test_functions_only_when_a_gradient_is_recorded(ref, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--resume"], "checkpoint"), (["--checkpoint-every", "5"], "checkpoint"),
+    (["--model", "2"], "parallelism"), (["--data", "2", "--model", "2"], "parallelism"),
     (["--data", "2"], "parallelism")])
 def test_train_launcher_refuses_unported_flags(argv, slice_name):
     from repro_torch.launch import train

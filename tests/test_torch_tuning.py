@@ -447,11 +447,11 @@ def test_linear_impls_pass_tuned_as_jax(impl, tuned, monkeypatch):
     assert len(seen) >= 4 and set(seen) == {tuned}
 
 
-def test_train_launcher_prints_jax_advisor_lines(capsys):
+def test_train_launcher_prints_jax_advisor_lines(capsys, tmp_path):
     """gpt3-smoke's findings on the H100, in JAX's launcher's format."""
     from repro_torch.launch import train
     train.main(["--arch", "gpt3-2.7b-c0", "--smoke", "--steps", "1", "--global-batch", "2",
-                "--seq-len", "16", "--device", "cpu"])
+                "--seq-len", "16", "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[advisor:")]
     jcfg = jax_get_smoke_config("gpt3-2.7b-c0")
     want = [f"[advisor:{f.severity}] {f.rule}: {f.message}"
