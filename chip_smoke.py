@@ -54,7 +54,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      stack) at deepseek-v3's decode and prefill capacities and
      llama4-maverick's, expert by expert against their plain versions,
      timed beside their bound, torch.bmm and the 2-D kernel launched once
-     per expert;
+     per expert; and the MoE training slice's and the int8 expert path's
+     (csrc/matmul.cu's batched nt, nt pair and tn layouts on `.mT` views,
+     csrc/fused_mlp_bwd.cu's batched recompute, csrc/int8_matmul.cu's
+     batched int8 GEMM) at the trained cuts' capacities and deepseek-v3's
+     decode capacity: every expert bit-identical to the 2-D kernel at the
+     same tile, unsplit, each within its bound of the plain version (the
+     int8 GEMM bit-identical to it), timed beside its bound and torch.bmm
+     on the same views;
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -118,6 +125,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the prefix engine (block-table pool) on the prefix workload, launch
      counts per run; the same logits check and planted faults; f32 token
      identity of each engine's kernel and plain paths;
+  10b. moe quantized serve: llama4-maverick at 1 pair, linear_impl=
+     "quantized" (the 2-D weights int8 from quantize_linear_params, the
+     expert stacks quantized per call and per expert), serve_step's prefill
+     of 4 x 1024 and 31 greedy decode steps with launch counts (3 batched
+     int8 GEMMs a pass); logits against the plain int8 path within 1e-6 and
+     identical greedy tokens, with the hot expert's scales doubled in the
+     batched launch as a planted fault;
   11. token identity: at full width, 4 layers, float32, the greedy tokens of
      the slot and prefix engines (roomy and tight), of the int8-KV slot and
      prefix engines, and of the int8-weight slot and prefix engines over
@@ -149,6 +163,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      printed; f32: dB without its dS term), 2 steps, launch counts (SSD forward and
      backward, flash forward and backward, fused MLP forward and backward,
      tile GEMMs), one profiled step;
+  14b. moe train: deepseek-v3 (1 MoE layer, MTP, 16 of 256 experts, top-8)
+     and llama4-maverick (1 pair, 8 of 128 experts, top-1) at full width,
+     float32 masters, bf16 compute, linear_impl="fused", AdamW, 4 x 1024
+     tokens: the step-0 check with the kernel path's routing replayed on
+     the plain path and every expert's gradient slice read, with three
+     planted faults in the batched backward that must break it; 4 steps,
+     expert launches by layout against the path's, where a step's time
+     goes, peak memory;
   15. obs serve: the serve phase's model and burst with observability
      (src/repro_torch/obs) off / on / on / off in turns (tok/s and ITL
      printed, not bounded); with obs on the engine's counters must equal
@@ -392,7 +414,7 @@ def build_phase() -> None:
 
 # gemm_sm90_kernel<TM, TN, TA, TB, PAIRS, ACT, BWD, BATCH> (csrc/gemm_sm90.cuh)
 GEMM_SM90 = "gemm_sm90_kernel"
-# int8_sm90_kernel<TM, TN, ACT, T> (csrc/gemm_sm90_s8.cuh)
+# int8_sm90_kernel<TM, TN, ACT, T, BATCH> (csrc/gemm_sm90_s8.cuh)
 INT8_SM90 = "int8_sm90_kernel"
 # ssd_chunk_sm90<PP> (csrc/ssd_chunk.cu, bf16)
 SSD_SM90 = "ssd_chunk_sm90"
@@ -439,7 +461,7 @@ def gemm_instance(fn: str) -> str:
         tm, tn, act = (int(v) for v in re.findall(r"Li(\d+)E", fn)[:3])
         out = "bf16" if "__nv_bfloat16" in fn else "f32"
         kind = f"int8_fused_mlp {ACTS[act]}" if act else "int8_matmul"
-        return f"{kind} {tm}x{tn} {out} out"
+        return f"{kind}{' expert-batched' if 'Lb1E' in fn else ''} {tm}x{tn} {out} out"
     tm, tn, ta, tb, pairs, act, bwd, batch = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:8])
     if bwd:
         kind = f"fused_mlp_bwd {ACTS[act]}"
@@ -2067,12 +2089,16 @@ def _worst_column(got, want) -> float:
 
 def _plain_int8():
     """Run the int8 kernels' plain versions on CUDA tensors for the duration
-    (the wrappers' kernel entries replaced by the plain functions)."""
+    (the wrappers' kernel entries replaced by the plain functions, the
+    batched int8 GEMM's among them)."""
     from repro_torch.kernels.quantized import ops
-    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
+    from repro_torch.kernels.quantized.ref import (int8_fused_mlp_ref, int8_matmul_expert_ref,
+                                                   int8_matmul_ref)
     stack = contextlib.ExitStack()
     stack.enter_context(_patched(ops, "_int8_matmul_cuda", lambda real: (
         lambda *args: int8_matmul_ref(*args[:5]))))
+    stack.enter_context(_patched(ops, "_int8_matmul_expert_cuda", lambda real: (
+        lambda *args: int8_matmul_expert_ref(*args[:5]))))
     stack.enter_context(_patched(ops, "_int8_fused_cuda", lambda real: (
         lambda *args: int8_fused_mlp_ref(*args[:6], mlp_type=args[6], out_dtype=args[7]))))
     return stack
@@ -2485,30 +2511,26 @@ def _ssm_timed(torch, what, fn, want, counters=None):
     return out, wall, e0.elapsed_time(e1), counts
 
 
-def _kernel_device_ms(torch, fn):
-    """Run fn() once with a pair of CUDA events around every tile GEMM,
-    fused MLP and SSD launch and one pair around the whole.  Returns (the
-    whole's device ms, {kernel: summed ms of its launches})."""
-    from repro_torch.kernels.fused_mlp import ops as fused_ops
-    from repro_torch.kernels.matmul import ops as matmul_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    pairs = {"matmul": [], "fused_mlp_hidden": [], "ssd_chunk": []}
+def _wrapper_device_ms(torch, fn, entries):
+    """fn() once with a pair of CUDA events around every call of each entry
+    (module, function name, name or a function of the call's arguments
+    giving one) and one pair around the whole.  Returns (the whole's device
+    ms, {name x calls: summed ms})."""
+    pairs = {}
 
     def timed(name):
         def wrap(real):
-            def f(*args):
+            def f(*args, **kw):
                 e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e[0].record()
-                out = real(*args)
+                out = real(*args, **kw)
                 e[1].record()
-                pairs[name].append(e)
+                pairs.setdefault(name(args) if callable(name) else name, []).append(e)
                 return out
             return f
         return wrap
     with contextlib.ExitStack() as stack:
-        for module, fname, name in ((matmul_ops, "_matmul_cuda", "matmul"),
-                                    (fused_ops, "_fused_cuda", "fused_mlp_hidden"),
-                                    (ssd_ops, "_ssd_chunk_cuda", "ssd_chunk")):
+        for module, fname, name in entries:
             stack.enter_context(_patched(module, fname, timed(name)))
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2516,8 +2538,18 @@ def _kernel_device_ms(torch, fn):
         fn()
         e1.record()
         torch.cuda.synchronize()
-    return e0.elapsed_time(e1), {n: sum(a.elapsed_time(b) for a, b in p)
-                                 for n, p in pairs.items() if p}
+    return e0.elapsed_time(e1), {f"{n} x{len(p)}": sum(a.elapsed_time(b) for a, b in p)
+                                 for n, p in pairs.items()}
+
+
+def _kernel_device_ms(torch, fn):
+    """`_wrapper_device_ms` around every tile GEMM, fused MLP and SSD launch."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as matmul_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return _wrapper_device_ms(torch, fn, [(matmul_ops, "_matmul_cuda", "matmul"),
+                                          (fused_ops, "_fused_cuda", "fused_mlp_hidden"),
+                                          (ssd_ops, "_ssd_chunk_cuda", "ssd_chunk")])
 
 
 def _per_position(got, want):
@@ -2838,43 +2870,17 @@ def moe_pass_launches(cfg) -> dict:
 
 
 def _moe_device_ms(torch, fn):
-    """fn() once with a pair of CUDA events around every tile GEMM, fused
-    MLP and batched expert launch, and one pair around the whole.  Returns
-    (the whole's device ms, {what: summed ms}); a tile GEMM of more than 64
-    rows in a decode step is MLA's decompression (k_nope and v from the
-    whole cached latent)."""
+    """`_wrapper_device_ms` around every tile GEMM, fused MLP and batched
+    expert launch; a tile GEMM of more than 64 rows in a decode step is
+    MLA's decompression (k_nope and v from the whole cached latent)."""
     from repro_torch.kernels.fused_mlp import ops as fused_ops
     from repro_torch.kernels.matmul import ops as matmul_ops
-    pairs = {}
-
-    def timed(name, rows=None):
-        def wrap(real):
-            def f(*args, **kw):
-                e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e[0].record()
-                out = real(*args, **kw)
-                e[1].record()
-                key = name if rows is None else rows(args)
-                pairs.setdefault(key, []).append(e)
-                return out
-            return f
-        return wrap
-    with contextlib.ExitStack() as stack:
-        for module, fname, name, rows in (
-                (matmul_ops, "_matmul_cuda", None, lambda a: (
-                    "tile GEMM > 64 rows" if a[0].shape[0] > 64 else "tile GEMM")),
-                (fused_ops, "_fused_cuda", "fused_mlp_hidden", None),
-                (matmul_ops, "_matmul_expert_cuda", "matmul_expert", None),
-                (fused_ops, "_fused_expert_cuda", "fused_mlp_hidden_expert", None)):
-            stack.enter_context(_patched(module, fname, timed(name, rows)))
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-    return e0.elapsed_time(e1), {f"{n} x{len(p)}": sum(a.elapsed_time(b) for a, b in p)
-                                 for n, p in pairs.items()}
+    return _wrapper_device_ms(torch, fn, [
+        (matmul_ops, "_matmul_cuda",
+         lambda a: "tile GEMM > 64 rows" if a[0].shape[0] > 64 else "tile GEMM"),
+        (fused_ops, "_fused_cuda", "fused_mlp_hidden"),
+        (matmul_ops, "_matmul_expert_cuda", "matmul_expert"),
+        (fused_ops, "_fused_expert_cuda", "fused_mlp_hidden_expert")])
 
 
 def _check_chunks(torch, got, plain, tol_fn, what: str) -> float:
@@ -2987,7 +2993,245 @@ def moe_kernel_phase(torch) -> dict:
                           library_ms=t["library_ms"] if name == "matmul_expert" else None)
         print(f"  {name}, one call at each shape: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
               + (f", torch.bmm {t['library_ms']:.4f}" if name == "matmul_expert" else "") + ")")
+    rows.update(moe_backward_kernels(torch))
+    rows.update(moe_int8_kernels(torch))
     return rows
+
+
+# The MoE training slice's batched launches (csrc/matmul.cu's nt, nt pair
+# and tn layouts with BATCH, csrc/fused_mlp_bwd.cu's batched recompute):
+# (experts, capacity rows, h, f) of the trained cuts' expert stacks at 4 x
+# 1024 tokens (MOE_TRAIN_CUTS: capacity 2560 and 640 rows an expert) and
+# deepseek-v3's decode capacity (8 rows, all 256 experts).  The int8 expert
+# path's batched GEMM (csrc/int8_matmul.cu) at the same shapes and at
+# llama4-maverick's decode capacity (the moe quantized serve's).
+MOE_BWD_SHAPES = {"deepseek-v3 train": (16, 2560, 7168, 2048),
+                  "llama4-maverick train": (8, 640, 5120, 8192),
+                  "deepseek-v3 decode": (256, 8, 7168, 2048)}
+MOE_INT8_SHAPES = {**MOE_BWD_SHAPES, "llama4-maverick decode": (128, 8, 5120, 8192)}
+
+
+def _per_expert_identical(torch, got, one, e: int, what: str) -> None:
+    """got[z] bit-identical to one(z), the 2-D kernel's launch on expert z's
+    operands at the batched launch's tile, unsplit, for every expert z."""
+    torch.cuda.synchronize()
+    bad = [z for z in range(e) if not torch.equal(got[z], one(z))]
+    if bad:
+        fail(f"{what}: experts {bad[:8]} differ from the 2-D kernel at the same tile, unsplit")
+    print(f"  {what}: all {e} experts bit-identical to the 2-D kernel at the same tile, unsplit")
+
+
+def _sum_row(tot: dict, name: str, ms, plain, bnd, by, lib, err) -> None:
+    t = tot.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
+                                  by={"bytes": 0.0, "operations": 0.0}))
+    t["ms"] += ms
+    t["plain_ms"] += plain
+    t["bound_ms"] += bnd
+    t["by"][by] += bnd
+    if lib is not None:
+        t["library_ms"] = (t["library_ms"] or 0.0) + lib
+    t["err"] = max(t["err"], err)
+
+
+def _rows_of(tot: dict, meta: dict) -> dict:
+    """Kernel-line rows from summed measurements; bound_by what bounds the
+    larger share of the summed bound where the shapes differ."""
+    rows = {}
+    for name, (src, rep) in meta.items():
+        t = tot[name]
+        rows[name] = dict(name=name, route="cuda", source=src, replaces=rep,
+                          max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                          bound_ms=t["bound_ms"],
+                          bound_by=max(t["by"], key=t["by"].get),
+                          library_ms=t["library_ms"])
+        print(f"  {name}, one call at each shape: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
+              + ("" if t["library_ms"] is None else f", torch.bmm {t['library_ms']:.4f}") + ")")
+    return rows
+
+
+def moe_backward_kernels(torch) -> dict:
+    """The MoE training slice's batched launches at MOE_BWD_SHAPES (bf16),
+    on `.mT` views of row-major stacks as the Functions' backwards pass
+    them: the dgrad (nt: w_down's, g @ w_down^T), the wgrad (tn: x^T @ du),
+    the batched recompute (dg, du) and the whole batched fused-MLP backward
+    (the recompute, the nt pair dg Wg^T + du Wu^T, two tn).  Each: every
+    expert bit-identical to the 2-D kernel at the same tile, unsplit; within
+    its bound of the plain version, EXPERT_CHUNK experts at a time; timed
+    beside its bound, the plain version and torch.bmm on the same views
+    where one call computes it.  Returns the rows matmul_expert_dgrad,
+    matmul_expert_wgrad and fused_mlp_bwd_expert (whose ms covers its own
+    nt pair and tn launches, as the 2-D fused_mlp_bwd row's does)."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_expert_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    from repro_torch.kernels.tolerance import check, fused_mlp_bwd_tol, matmul_tol
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(bf)
+
+    def gemm(label, what, a, b, a1=None, b1=None, library=None):
+        e, M, K = a.shape
+        N = b.shape[2]
+        pair = () if a1 is None else (a1, b1)
+        got = mm_ops.matmul_expert(a, b, *pair)
+        err = _check_chunks(
+            torch, got, lambda s: matmul_expert_ref(a[s], b[s], *(t[s] for t in pair)),
+            lambda s, want: matmul_tol(a[s], b[s], want, *(t[s] for t in pair)),
+            f"matmul_expert {what} {e} x ({M}x{K}x{N}) ({label})")
+        (tm, tn, _), _ = mm_ops.geometry(M, K, N, bf)
+        depth = -(-K // mm_ops.BLOCK_K) * mm_ops.BLOCK_K
+        _per_expert_identical(torch, got, lambda z: mm_ops._matmul_cuda(
+            a[z], b[z], *(t[z] for t in pair) if pair else (None, None),
+            forced=(tm, tn, depth)), e, f"matmul_expert {what} ({label}) at tile {tm}x{tn}")
+        del got
+        ms, host = time_ms(torch, [lambda: mm_ops.matmul_expert(a, b, *pair)], EXPERT_ITERS)
+        plain, _ = time_ms(torch, [lambda: matmul_expert_ref(a, b, *pair)], 2)
+        lib = time_ms(torch, [library], EXPERT_ITERS)[0] if library else None
+        n = 1 if a1 is None else 2
+        flops = 2.0 * n * e * M * K * N
+        bnd, by = bound(flops, 2.0 * (n * (e * M * K + e * K * N) + e * M * N))
+        print(f"    {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, "
+              + ("" if lib is None else f"torch.bmm {lib:.4f}, ")
+              + f"bound {bnd:.4f} by {by}); host {host:.1f} us per call")
+        return ms, plain, bnd, by, lib, err
+
+    tot = {}
+    print("moe training kernels (bf16, CUDA events; `.mT` views of row-major expert stacks):")
+    for label, (e, cap, h, f) in MOE_BWD_SHAPES.items():
+        torch.cuda.empty_cache()
+        # the dgrad of w_down: the output's cotangent gy (e, cap, h) against
+        # w_down (e, f, h) read transposed
+        gy = randn(e, cap, h)
+        wd = randn(e, f, h, scale=f ** -0.5)
+        _sum_row(tot, "matmul_expert_dgrad", *gemm(
+            label, "dgrad (nt)", gy, wd.mT, library=lambda: torch.bmm(gy, wd.mT)))
+        del gy, wd
+        torch.cuda.empty_cache()
+        x = randn(e, cap, h)
+        dh = randn(e, cap, f)
+        wg, wu = randn(e, h, f, scale=h ** -0.5), randn(e, h, f, scale=h ** -0.5)
+        # the recompute: dg, du of every expert
+        dg, du = fused_ops._recompute_expert_cuda(x, wg, wu, dh, "swiglu")
+        for i, part in enumerate(("dg", "du")):
+            _per_expert_identical(torch, (dg, du)[i], lambda z: fused_ops._recompute_cuda(
+                x[z], wg[z], wu[z], dh[z], "swiglu")[i], e,
+                f"fused_mlp_bwd_expert recompute {part} {e} x ({cap}x{h}x{f}) ({label})")
+        ms, _ = time_ms(torch, [lambda: fused_ops._recompute_expert_cuda(
+            x, wg, wu, dh, "swiglu")], EXPERT_ITERS)
+        flops = 4.0 * e * cap * h * f
+        bnd, by = bound(flops, 2.0 * (e * cap * h + 2 * e * h * f + 3 * e * cap * f))
+        print(f"    recompute alone {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bnd:.4f} "
+              f"by {by}; within its bound of the plain version through the whole backward's "
+              f"check below)")
+        # the wgrad (dWu = x^T du) and the dgrad pair (dx = dg Wg^T + du Wu^T)
+        _sum_row(tot, "matmul_expert_wgrad", *gemm(
+            label, "wgrad (tn)", x.mT, du, library=lambda: torch.bmm(x.mT, du)))
+        gemm(label, "dgrad pair (nt pair)", dg, wg.mT, du, wu.mT)
+        del dg, du
+        # the whole backward against its plain version, expert by expert
+        got = fused_ops.fused_mlp_bwd_expert(x, wg, wu, dh, mlp_type="swiglu")
+        torch.cuda.synchronize()
+        worst, err = 0.0, 0.0
+        for z in range(0, e, EXPERT_CHUNK):
+            sl = slice(z, z + EXPERT_CHUNK)
+            want = fused_mlp_bwd_expert_ref(x[sl], wg[sl], wu[sl], dh[sl], "swiglu")
+            tols = fused_mlp_bwd_tol(x[sl], wg[sl], wu[sl], dh[sl], "swiglu", want)
+            for n_, g_, w_, t_ in zip(("dx", "dwg", "dwu"), got, want, tols):
+                ok, er, ratio = check(g_[sl], w_, t_)
+                worst, err = max(worst, ratio), max(err, er)
+                if not ok:
+                    fail(f"fused_mlp_bwd_expert {n_} ({label}): experts {z}-"
+                         f"{z + EXPERT_CHUNK - 1} disagree with the plain version (worst err / "
+                         f"bound {ratio:.3f})")
+            del want, tols
+        del got
+        print(f"  fused_mlp_bwd_expert swiglu {e} x ({cap}x{h}x{f}) ({label}): dx, dwg, dwu "
+              f"max abs err {err:.3e}, worst err / bound {worst:.3f} ok")
+        ms, host = time_ms(torch, [lambda: fused_ops.fused_mlp_bwd_expert(
+            x, wg, wu, dh, mlp_type="swiglu")], EXPERT_ITERS)
+        plain, _ = time_ms(torch, [lambda: fused_mlp_bwd_expert_ref(x, wg, wu, dh, "swiglu")], 2)
+        flops = 12.0 * e * cap * h * f
+        bnd, by = bound(flops, 2.0 * (2 * e * cap * h + 4 * e * h * f + e * cap * f))
+        print(f"    the whole backward (1 recompute, 1 nt pair, 2 tn launches) {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, bound {bnd:.4f} by {by}); "
+              f"host {host:.1f} us per call")
+        _sum_row(tot, "fused_mlp_bwd_expert", ms, plain, bnd, by, None, err)
+        del x, dh, wg, wu
+    torch.cuda.empty_cache()
+    mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
+    mm_rep = "src/repro/kernels/matmul/kernel.py:35"
+    return _rows_of(tot, {
+        "matmul_expert_dgrad": (mm_src, mm_rep), "matmul_expert_wgrad": (mm_src, mm_rep),
+        "fused_mlp_bwd_expert": ("src/repro_torch/kernels/csrc/fused_mlp_bwd.cu",
+                                 "src/repro/kernels/fused_mlp/backward.py:109")})
+
+
+def moe_int8_kernels(torch) -> dict:
+    """The batched int8 GEMM (csrc/int8_matmul.cu `repro_int8_matmul_expert`)
+    at MOE_INT8_SHAPES, on operands quantized as `int8_matmul_expert` does
+    (bf16 rows per row, each expert's weight per output channel): bit-
+    identical to its plain version (exact int32 sums, the same de-scale) and,
+    expert by expert, to the 2-D int8 kernel at the same tile, unsplit;
+    timed beside its bound and the plain version (a per-expert torch._int_mm
+    loop, the int32 products alone, is printed as a measurement only).
+    Returns the row int8_matmul_expert."""
+    from repro_torch.kernels.quantized import ops
+    from repro_torch.kernels.quantized.ref import int8_matmul_expert_ref
+    from repro_torch.quant import quantize_int8
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tot = {}
+    print("moe int8 kernels (bf16 activations, int8 weights, CUDA events):")
+    for label, (e, cap, k, n) in MOE_INT8_SHAPES.items():
+        torch.cuda.empty_cache()
+        x = torch.randn((e, cap, k), generator=gen, device=dev).to(bf)
+        w = (torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5).to(bf)
+        a_q, a_s = quantize_int8(x, axis=-1)
+        wq = ops.quantize_experts(w)
+        del w
+        got = ops.int8_matmul_expert_q(a_q, a_s, wq.q, wq.scale, bf)
+        torch.cuda.synchronize()
+        for z in range(0, e, EXPERT_CHUNK):
+            sl = slice(z, z + EXPERT_CHUNK)
+            if not torch.equal(got[sl], int8_matmul_expert_ref(a_q[sl], a_s[sl], wq.q[sl],
+                                                                wq.scale[sl], bf)):
+                fail(f"int8_matmul_expert ({label}): experts {z}-{z + EXPERT_CHUNK - 1} differ "
+                     f"from the plain version")
+        (tm, tn, _), _ = ops.int8_geometry(cap, k, n, bf)
+        depth = -(-k // ops.BLOCK_K) * ops.BLOCK_K
+        print(f"  int8_matmul_expert {e} x ({cap}x{k}x{n}) ({label}): bit-identical to the plain "
+              f"version")
+        _per_expert_identical(torch, got, lambda z: ops._int8_matmul_cuda(
+            a_q[z], a_s[z], wq.q[z], wq.scale[z], bf, forced=(tm, tn, depth)), e,
+            f"int8_matmul_expert ({label}) at tile {tm}x{tn}")
+        del got
+        ms, host = time_ms(torch, [lambda: ops.int8_matmul_expert_q(
+            a_q, a_s, wq.q, wq.scale, bf)], EXPERT_ITERS)
+        plain, _ = time_ms(torch, [lambda: int8_matmul_expert_ref(a_q, a_s, wq.q, wq.scale, bf)],
+                           2)
+        int_mm = None
+        if cap >= 17:        # torch._int_mm takes more than 16 rows
+            int_mm, _ = time_ms(torch, [lambda: [torch._int_mm(a_q[z], wq.q[z])
+                                                 for z in range(e)]], 2)
+        ops_ = 2.0 * e * cap * k * n
+        bnd, by = bound(ops_, e * cap * k + e * k * n + 4.0 * e * (cap + n) + 2.0 * e * cap * n,
+                        PEAK_INT8_OPS)
+        print(f"    {ms:.4f} ms ({e * k * n / ms / 1e6:.0f} GB/s of int8 weights, "
+              f"{ops_ / ms / 1e9:.1f} TOP/s; plain {plain:.4f}, bound {bnd:.4f} by {by}"
+              + ("" if int_mm is None else f"; a per-expert torch._int_mm loop {int_mm:.4f}, "
+                 f"a measurement only") + f"); host {host:.1f} us per call")
+        _sum_row(tot, "int8_matmul_expert", ms, plain, bnd, by, None, 0.0)
+        del x, a_q, a_s, wq
+    torch.cuda.empty_cache()
+    return _rows_of(tot, {"int8_matmul_expert": ("src/repro_torch/kernels/csrc/int8_matmul.cu",
+                                                 "src/repro/kernels/quantized/kernel.py:52")})
 
 
 @contextlib.contextmanager
@@ -3607,14 +3851,21 @@ def _grads(torch, params, batch, cfg, remat="none"):
 
 
 def _grad_rels(gk, gp, names):
-    """||g_k - g_p|| / ||g_p|| for every leaf, and for every layer's slice of
-    a stacked leaf (a fault in one layer is not averaged over 24), worst
-    first: [(ratio, name)]."""
+    """||g_k - g_p|| / ||g_p|| for every leaf, for every layer's slice of a
+    stacked leaf (a fault in one layer is not averaged over 24), and for
+    every expert's slice of a stacked expert stack (a (layers, experts, .,
+    .) leaf under "moe/": a fault in one expert is not averaged over 16),
+    worst first: [(ratio, name)]."""
     out = []
     for a, b, n in zip(gk, gp, names):
         if n.startswith("seg"):
-            r = (a - b).flatten(1).norm(dim=1) / b.flatten(1).norm(dim=1).clamp_min(1e-30)
-            out += [(x, f"{n}[{i}]") for i, x in enumerate(r.tolist())]
+            lead = 2 if "/moe/w_" in n and a.dim() == 4 else 1
+            r = (a - b).flatten(lead).norm(dim=-1) / b.flatten(lead).norm(dim=-1).clamp_min(1e-30)
+            if lead == 1:
+                out += [(x, f"{n}[{i}]") for i, x in enumerate(r.tolist())]
+            else:
+                out += [(x, f"{n}[{i}][expert {j}]") for i, row in enumerate(r.tolist())
+                        for j, x in enumerate(row)]
         else:
             out.append((((a - b).norm() / b.norm().clamp_min(1e-30)).item(), n))
     return sorted(out, reverse=True)
@@ -3671,13 +3922,15 @@ def planted_faults(torch):
              "fused_mlp_bwd", dh_truncated)]
 
 
-def _path_rels(torch, params, batch, cfg, plain_cfg, plain, plain_remat, what, grad_bound):
-    """Step-0 loss and gradients of the kernel path and of the plain path
-    (`plain_cfg` inside `plain()`, with `plain_remat`) on the same params
-    and batch, printed beside `grad_bound`.  Returns (loss rel err,
-    [(grad rel err, leaf)], all finite, the plain path's gradients, the
-    leaves' names)."""
-    lk, gk = _grads(torch, params, batch, cfg)
+def _path_rels(torch, params, batch, cfg, plain_cfg, plain, plain_remat, what, grad_bound,
+               kernel=contextlib.nullcontext):
+    """Step-0 loss and gradients of the kernel path (inside `kernel()`) and
+    of the plain path (`plain_cfg` inside `plain()`, with `plain_remat`) on
+    the same params and batch, printed beside `grad_bound`.  Returns (loss
+    rel err, [(grad rel err, leaf)], all finite, the plain path's
+    gradients, the leaves' names)."""
+    with kernel():
+        lk, gk = _grads(torch, params, batch, cfg)
     with plain():
         lp, gp = _grads(torch, params, batch, plain_cfg, remat=plain_remat)
     rel_loss = abs(lk - lp) / abs(lp)
@@ -3697,15 +3950,18 @@ def _path_rels(torch, params, batch, cfg, plain_cfg, plain, plain_remat, what, g
 
 def step0_check(torch, params, batch, cfg, plain_cfg, faults=None,
                 plain=contextlib.nullcontext, plain_remat="none",
-                grad_bound=TRAIN_GRAD_REL_BOUND, check="step-0 check", held=None) -> None:
+                grad_bound=TRAIN_GRAD_REL_BOUND, check="step-0 check", held=None,
+                kernel=contextlib.nullcontext) -> None:
     """Step-0 loss and gradients, kernel path vs plain path on the same
     params and batch, within TRAIN_LOSS_REL_BOUND / `grad_bound`; then each
     planted fault (`planted_faults` by default) must break the gradient
     bound, or only those named in `held` (the others are printed).  The
-    plain path runs `plain_cfg` inside `plain()` (the SSD
-    kernels' plain versions for the SSM models), with `plain_remat`."""
+    kernel path's sound run runs inside `kernel()` (the MoE models: its
+    routing recorded), the plain path `plain_cfg` inside `plain()` (the SSD
+    kernels' plain versions for the SSM models; the MoE models: the kernel
+    path's routing replayed), with `plain_remat`."""
     rel_loss, rels, finite, gp, names = _path_rels(torch, params, batch, cfg, plain_cfg, plain,
-                                                   plain_remat, check, grad_bound)
+                                                   plain_remat, check, grad_bound, kernel)
     unseen = []
     for what, module, name, wrap in planted_faults(torch) if faults is None else faults:
         with _patched(module, name, wrap):
@@ -4027,6 +4283,362 @@ def hybrid_train_phase(torch) -> dict:
     return ssm_train(torch, cfg, f"hybrid train ({HYBRID_SUPERBLOCKS} of "
                                  f"{full.num_layers // full.hybrid_attn_every} superblocks)",
                      HYBRID_TRAIN_STEPS, faults[:1], [faults[1][0]])
+
+
+# --- the MoE training slice and the int8 expert path ----------------------------------
+
+# Both MoE configs trained at full width (every width, per-expert shape and
+# top-k as published), depth and expert count cut for one card: f32
+# masters, their gradients and AdamW's two moments take 16 B a parameter.
+# deepseek-v3: 1 MoE layer and no dense layer, the MTP block kept, 16 of
+# 256 experts (top-8 kept): ~3.5 B parameters, ~56 GB of state; capacity
+# 2560 rows an expert at 4 x 1024 tokens.  llama4-maverick: 1 [moe, dense]
+# pair, 8 of 128 experts (top-1): ~3.6 B parameters, ~57 GB; capacity 640.
+MOE_TRAIN_CUTS = {"deepseek-v3-671b": dict(num_layers=1, first_dense_layers=0, num_experts=16),
+                  "llama4-maverick-400b-a17b": dict(num_layers=2, num_experts=8)}
+MOE_FAULT_EXPERT = 1       # the expert each planted fault of the moe train phase hits
+
+
+class _RoutingReplay:
+    """The kernel path's routing, replayed on the plain path: inside
+    `record()` every `moe.route` call's top-k experts are kept (through
+    `_routing_log`); inside `replay()` the i-th route call returns the i-th
+    recorded experts with its own router probabilities and the gates
+    renormalised from them.  Both paths then send every token to the same
+    experts and drop the same entries (a bf16 near tie routes ~3.5% of the
+    tokens apart otherwise), and the router's gradient still flows through
+    the plain path's own probabilities.  `differ` counts, per route call of
+    the last replay, the tokens whose own top-k set differed."""
+
+    def __init__(self, torch):
+        self.torch, self.log, self.differ = torch, [], []
+
+    @contextlib.contextmanager
+    def record(self):
+        with _routing_log(self.torch) as log:
+            yield
+        self.log = log
+
+    @contextlib.contextmanager
+    def replay(self):
+        from repro_torch.models import moe as moe_mod
+        torch, recs, self.differ = self.torch, iter(self.log), []
+
+        def wrap(real):
+            def f(p, xt, cfg):
+                probs, _, own = real(p, xt, cfg)
+                idx = next(recs)["idx"]
+                self.differ.append(int((own.sort(-1).values != idx.sort(-1).values)
+                                       .any(-1).sum().item()))
+                gate = torch.gather(probs, -1, idx)
+                return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+            return f
+        with _patched(moe_mod, "route", wrap):
+            yield
+
+
+def moe_planted_faults(torch, expert: int):
+    """Faults in the batched backward the MoE step-0 check must see, each
+    planted alone on the kernel path by wrapping a function the Functions'
+    backwards call: (what, module, global name, wrapper)."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.models import linear as linear_mod
+
+    def dgrad_reads_expert0(real):
+        def f(x, w, *rest, **kw):
+            if not w.is_contiguous():          # w.mT: the dgrad g @ w^T
+                wc = w.mT.clone()
+                wc[expert] = wc[0]
+                w = wc.mT
+            return real(x, w, *rest, **kw)
+        return f
+
+    def wgrad_drops_k_tile(real):
+        def f(x, w, *rest, **kw):
+            if not x.is_contiguous():          # x.mT: the wgrad, k the capacity rows
+                xc = x.mT.clone()
+                xc[expert, :64] = 0
+                x = xc.mT
+            return real(x, w, *rest, **kw)
+        return f
+
+    def recompute_zeroes_dg(real):
+        def f(*args, **kw):
+            dg, du = real(*args, **kw)
+            dg[expert] = 0
+            return dg, du
+        return f
+
+    return [(f"the batched dgrad (w_down's) reads expert 0's weight for expert {expert}",
+             linear_mod, "matmul_expert", dgrad_reads_expert0),
+            (f"the batched wgrad (dWg, dWu) drops expert {expert}'s first 64-row k tile",
+             fused_ops, "matmul_expert", wgrad_drops_k_tile),
+            (f"the batched recompute writes expert {expert}'s dg as zeros", fused_ops,
+             "_recompute_expert_cuda", recompute_zeroes_dg)]
+
+
+def moe_train_launches(cfg) -> dict:
+    """Expert launches of one training step (linear_impl "fused", remat
+    "none"), per MoE layer: the batched fused hidden and w_down's batched
+    GEMM ("nn") forward; w_down's dgrad ("nt") and wgrad ("tn"); the
+    batched fused-MLP backward: its recompute, dx over both pairs ("nt"),
+    dWg and dWu ("tn")."""
+    n = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    return {"matmul_expert_nn": n, "matmul_expert_nt": 2 * n, "matmul_expert_tn": 3 * n,
+            "fused_mlp_hidden_expert": n, "fused_mlp_bwd_expert": n}
+
+
+def _moe_train_counters():
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+
+    def read():
+        out = {f"matmul_expert_{k}": v for k, v in mm_ops.matmul_expert.by_layout.items()}
+        out.update(fused_mlp_hidden_expert=fused_ops.fused_mlp_hidden_expert.launches,
+                   fused_mlp_bwd_expert=fused_ops.fused_mlp_bwd_expert.launches)
+        return out
+
+    def reset():
+        mm_ops.reset_launches()
+        fused_ops.fused_mlp_hidden_expert.launches = fused_ops.fused_mlp_bwd_expert.launches = 0
+    return read, reset
+
+
+def _train_step_entries():
+    """The kernel entries a MoE training step runs, each named by what it
+    computes (the tile GEMMs by layout)."""
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+
+    def layout(args):
+        return ("t" if not args[0].is_contiguous() else "n") + \
+            ("t" if not args[1].is_contiguous() else "n")
+    return [(mm_ops, "_matmul_cuda", lambda a: f"tile GEMM {layout(a)}"),
+            (fused_ops, "_fused_cuda", "fused_mlp_hidden"),
+            (fused_ops, "_recompute_cuda", "fused_mlp_bwd recompute"),
+            (mm_ops, "_matmul_expert_cuda", lambda a: f"matmul_expert {layout(a)}"
+             + (" pair" if len(a) > 2 and a[2] is not None else "")),
+            (fused_ops, "_fused_expert_cuda", "fused_mlp_hidden_expert"),
+            (fused_ops, "_recompute_expert_cuda", "fused_mlp_bwd_expert recompute")]
+
+
+def moe_train(torch, arch: str) -> dict:
+    """One MoE config (MOE_TRAIN_CUTS) trained at full width, f32 masters,
+    bf16 compute, linear_impl "fused", naive attention, AdamW, 4 x 1024
+    tokens: the step-0 check on replayed routing with per-expert gradient
+    slices and three planted faults, then TRAIN_STEPS steps with their
+    expert launches counted, where one step's time goes, peak memory.
+    Returns the expert launches of the steps."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+    from repro_torch.models.moe import _capacity
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, linear_impl="fused", attn_impl="naive", **MOE_TRAIN_CUTS[arch])
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp")
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_STEPS, learning_rate=3e-4,
+                     remat="none")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_all = sum(t.numel() for _, t in _paths(params))
+    label = f"moe train {cfg.name}"
+    print(f"{label}: full width (d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads"
+          f"{', MLA' if cfg.attn_type == 'mla' else ''}, expert d_ff {cfg.moe_d_ff}, top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared, vocab {cfg.vocab_size}), "
+          f"{cfg.num_layers} of {full.num_layers} layers ({cfg.num_moe_layers} MoE), "
+          f"{cfg.num_experts} of {full.num_experts} experts, MTP {cfg.mtp_depth}; "
+          f"{n_all / 1e9:.3f} B float32 master params, {16 * n_all / 1e9:.1f} GB with their "
+          f"gradients and AdamW's moments; capacity {_capacity(TOKENS, cfg)} rows an expert; "
+          f"compute {cfg.dtype}, linear_impl={cfg.linear_impl}, attn_impl={cfg.attn_impl}, "
+          f"AdamW, remat={tc.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ} (init "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in make_batch(cfg, shape, step, tc.seed).items()}
+
+    replay = _RoutingReplay(torch)
+    step0_check(torch, params, batch_at(0), cfg, plain_cfg,
+                faults=moe_planted_faults(torch, MOE_FAULT_EXPERT), kernel=replay.record,
+                plain=replay.replay, check=f"{label} step-0 check (routing replayed)")
+    rec = replay.log[0]
+    load = int(((rec["idx"] == MOE_FAULT_EXPERT) & rec["kept"]).sum().item())
+    print(f"  routing: {replay.differ} of {rec['idx'].shape[0]} tokens per MoE layer route to "
+          f"another top-{cfg.top_k} set on the plain path unreplayed; dropped entries "
+          f"{int(rec['dropped'].item())}; expert {MOE_FAULT_EXPERT} (the faults') keeps {load} "
+          f"entries")
+    if load < 64:
+        fail(f"{label}: expert {MOE_FAULT_EXPERT} keeps {load} entries, under the 64-row k tile "
+             f"the wgrad fault drops")
+
+    opt = init_opt(params, tc)
+    step_fn = make_train_step(cfg, tc)
+    before = {n: t.detach().flatten()[:64].clone() for n, t in _paths(params)}
+    batches = [batch_at(st) for st in range(TRAIN_STEPS)]
+    read, reset = _moe_train_counters()
+    torch.cuda.synchronize()
+    reset()
+    losses, times = [], []
+    for st in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[st])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        print(f"  step {st}: loss {losses[-1]:.4f}  grad_norm {m['grad_norm'].item():.4f}  "
+              f"lr {m['lr'].item():.3e}  {times[-1] * 1e3:.1f} ms")
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    still = [n for n, t in _paths(params) if torch.equal(t.detach().flatten()[:64], before[n])]
+    if still:
+        fail(f"{label}: parameters did not move: {still[:6]}")
+    want = {k: v * TRAIN_STEPS for k, v in moe_train_launches(cfg).items()}
+    print(f"  expert launches over {TRAIN_STEPS} steps: {json.dumps(counts)}")
+    if counts != want:
+        fail(f"{label}: expert launches {counts}, the path implies {want}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"  step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
+          f"{TOKENS / step_s:,.0f} tokens/s; every parameter moved; peak device memory "
+          f"{peak:.2f} GiB; card {nvidia_smi()}")
+    whole, kms = _wrapper_device_ms(torch, lambda: step_fn(params, opt, batches[0]),
+                                    _train_step_entries())
+    print(f"  one more step, CUDA events around each GEMM / MLP launch: {whole:.2f} ms in all; "
+          + ", ".join(f"{n} {v:.2f} ms ({100 * v / whole:.1f}%)"
+                      for n, v in sorted(kms.items(), key=lambda kv: -kv[1]))
+          + f"; the rest (attention, router, dispatch and combine, norms, loss, AdamW, gaps) "
+          f"{whole - sum(kms.values()):.2f} ms")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_train_phase(torch) -> dict:
+    """deepseek-v3 and llama4-maverick trained (`moe_train`); returns the
+    expert launches of both runs' steps, summed."""
+    out = {}
+    for arch in MOE_TRAIN_CUTS:
+        for k, v in moe_train(torch, arch).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def moe_quantized_serve_phase(torch) -> dict:
+    """llama4-maverick-400b-a17b at full width, MOE_LLAMA4_PAIRS [moe, dense]
+    pair, bf16 activations, linear_impl "quantized": the 2-D GEMM weights
+    prequantized (`quantize_linear_params`), the expert stacks bf16 and
+    quantized per call and per expert, as JAX's; served by serve_step: a
+    prefill of MOE_BATCH x MOE_PROMPT tokens and MOE_GEN - 1 greedy decode
+    steps, with the launch counts of each.  The kernel path against the
+    plain int8 path (every int8 kernel's plain version) on the same weights:
+    prefill logits at every position within QUANT_PLAIN_REL_BOUND and the
+    greedy tokens identical; the hot expert's weight scales doubled in the
+    batched launch must break the bound.  Returns the serve run's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.quantized import ops as q_ops
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.models.linear import quantize_linear_params
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = dataclasses.replace(full, num_layers=2 * MOE_LLAMA4_PAIRS, linear_impl="quantized")
+    params = quantize_linear_params(init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                                            device=dev))
+    torch.cuda.synchronize()
+    print(f"moe quantized serve: {cfg.name} at full width, {cfg.num_layers} of "
+          f"{full.num_layers} layers, {cfg.num_experts} experts of {cfg.moe_d_ff} top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared, bf16 activations; 2-D GEMM weights "
+          f"int8 per output channel, expert stacks bf16 quantized per call and per expert; "
+          f"weights {_param_bytes(params) / 1e9:.2f} GB; card {nvidia_smi()}")
+    per = moe_pass_launches(dataclasses.replace(cfg, linear_impl="fused"))
+    n_stacks = 3 if cfg.mlp_type == "swiglu" else 2
+    per_pass = {"int8_matmul": per["matmul"], "int8_fused_mlp_hidden": per["fused_mlp_hidden"],
+                "int8_matmul_expert": n_stacks * per["matmul_expert"], "matmul": 0,
+                "matmul_expert": 0}
+    counters = {"int8_matmul": q_ops.int8_matmul,
+                "int8_fused_mlp_hidden": q_ops.int8_fused_mlp_hidden,
+                "int8_matmul_expert": q_ops.int8_matmul_expert, "matmul": mm_ops.matmul,
+                "matmul_expert": mm_ops.matmul_expert}
+    prompts = torch.as_tensor(synthetic_tokens(0, 0, MOE_BATCH, MOE_PROMPT, cfg.vocab_size),
+                              device=dev).long()
+    prefill = make_prefill_step(cfg, MOE_PROMPT + MOE_GEN)
+    decode = make_decode_step(cfg)
+    V = cfg.vocab_size
+
+    def generate(what=None):
+        """Greedy tokens of a prefill and MOE_GEN - 1 decode steps; with
+        `what`, each counted and timed."""
+        run = (lambda f, want, w: _ssm_timed(torch, w, f, want, counters)) if what else (
+            lambda f, want, w: (f(), 0.0, 0.0, {}))
+        (logits, caches), pre_s, pre_ms, counts = run(
+            lambda: prefill(params, {"tokens": prompts}), per_pass, f"{what} prefill")
+        out = [torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)]
+
+        def steps():
+            for i in range(MOE_GEN - 1):
+                lg, _ = decode(params, out[-1], caches, MOE_PROMPT + i)
+                out.append(torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32))
+        _, dec_s, dec_ms, dcounts = run(
+            steps, {n: (MOE_GEN - 1) * k for n, k in per_pass.items()}, f"{what} decode")
+        if what:
+            print(f"  {what}: prefill {MOE_BATCH} x {MOE_PROMPT}: {pre_s * 1e3:.2f} ms host, "
+                  f"{pre_ms:.2f} ms between CUDA events; {MOE_GEN - 1} decode steps: "
+                  f"{dec_s * 1e3:.1f} ms host, {dec_ms:.1f} ms between events "
+                  f"({MOE_BATCH * (MOE_GEN - 1) / dec_s:.1f} tok/s); peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches per pass "
+                  f"{json.dumps(per_pass)} (as the path implies)")
+        return torch.cat(out, 1), {n: counts.get(n, 0) + dcounts.get(n, 0) for n in per_pass}
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        generate()       # warm
+        toks, launches = generate("kernel path")
+        with _plain_int8():
+            ptoks, _ = generate()
+        with _routing_log(torch) as log:
+            lk = apply_lm(params, prompts, cfg)[0][..., :V]
+        hot, hot_n = _hot_expert(torch, log[0])
+        with _plain_int8():
+            lp = apply_lm(params, prompts, cfg)[0][..., :V]
+
+        def doubled(real):
+            def f(a_q, a_s, b_q, b_s, *rest, **kw):
+                b_s = b_s.clone()
+                b_s[hot] *= 2.0
+                return real(a_q, a_s, b_q, b_s, *rest, **kw)
+            return f
+        with _patched(q_ops, "_int8_matmul_expert_cuda", doubled):
+            lf = apply_lm(params, prompts, cfg)[0][..., :V]
+    if not all(bool(torch.isfinite(t).all().item()) for t in (lk, lp, lf)):
+        fail("moe quantized serve: non-finite logits")
+    rel, rel_f = _rel(lk, lp), _rel(lf, lp)
+    same = bool(torch.equal(toks, ptoks))
+    print(f"  prefill logits ({MOE_BATCH} x {MOE_PROMPT}, every position), int8 kernels vs their "
+          f"plain versions on the same weights: rel err {rel:.3e}; planted fault (expert {hot}, "
+          f"{hot_n} entries, its weight scales x2 in the batched launch) {rel_f:.3e} (bound "
+          f"{QUANT_PLAIN_REL_BOUND}); greedy tokens ({MOE_BATCH} x {MOE_GEN}) identical: {same}")
+    if rel > QUANT_PLAIN_REL_BOUND or not same:
+        fail("moe quantized serve: the int8 kernel path differs from its plain path")
+    if rel_f <= QUANT_PLAIN_REL_BOUND:
+        fail("moe quantized serve: the bound does not see the planted scale fault")
+    del params, lk, lp, lf
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _paths(tree, prefix=""):
@@ -5062,11 +5674,13 @@ def main() -> None:
     phase("hybrid serve", hybrid_serve_phase, torch)
     moe = phase("moe serve", moe_serve_phase, torch)
     moe_engine = phase("moe engine", moe_engine_phase, torch)
+    moe_quantized = phase("moe quantized serve", moe_quantized_serve_phase, torch)
     phase("token identity", token_identity_phase, torch)
     phase("ssm token identity", ssm_token_identity_phase, torch)
     train = phase("train", train_phase, torch)
     ssm_train_counts = phase("ssm train", ssm_train_phase, torch)
     phase("hybrid train", hybrid_train_phase, torch)
+    moe_train_counts = phase("moe train", moe_train_phase, torch)
     phase("obs serve", obs_serve_phase, torch)
     phase("chaos", chaos_phase, torch)
     phase("checkpoint", checkpoint_phase, torch)
@@ -5089,7 +5703,11 @@ def main() -> None:
     # ssm train phase's timed steps (mamba2-780m, one a layer a step).  The
     # MoE slice's rows count the moe serve phase's prefill and decode steps
     # (deepseek-v3) and the moe engine phase's slot and prefix runs
-    # (llama4-maverick), one launch per MoE layer a pass.
+    # (llama4-maverick), one launch per MoE layer a pass.  The MoE training
+    # slice's rows count the moe train phase's steps (both models): w_down's
+    # batched dgrad ("nt") and wgrad ("tn"), and the batched fused-MLP
+    # backward, whose own nt pair and two tn launches ride in its row.  The
+    # int8 expert row counts the moe quantized serve run (3 a pass).
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
                 "int8_matmul": quantized["int8_matmul"],
@@ -5105,7 +5723,13 @@ def main() -> None:
                 "ssd_chunk_bwd": ssm_train_counts["ssd_chunk_bwd"],
                 "matmul_expert": moe["matmul_expert"] + moe_engine["matmul_expert"],
                 "fused_mlp_hidden_expert": moe["fused_mlp_hidden_expert"]
-                + moe_engine["fused_mlp_hidden_expert"]}
+                + moe_engine["fused_mlp_hidden_expert"],
+                "matmul_expert_dgrad": moe_train_counts["matmul_expert_nt"]
+                - moe_train_counts["fused_mlp_bwd_expert"],
+                "matmul_expert_wgrad": moe_train_counts["matmul_expert_tn"]
+                - 2 * moe_train_counts["fused_mlp_bwd_expert"],
+                "fused_mlp_bwd_expert": moe_train_counts["fused_mlp_bwd_expert"],
+                "int8_matmul_expert": moe_quantized["int8_matmul_expert"]}
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
@@ -5114,7 +5738,9 @@ def main() -> None:
              "paged_decode_int8", "paged_decode_blocktable_int8", "matmul_train",
              "fused_mlp_hidden_train", "flash_attention", "flash_attention_bwd",
              "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp",
-             "ssd_chunk", "ssd_chunk_bwd", "matmul_expert", "fused_mlp_hidden_expert")
+             "ssd_chunk", "ssd_chunk_bwd", "matmul_expert", "fused_mlp_hidden_expert",
+             "matmul_expert_dgrad", "matmul_expert_wgrad", "fused_mlp_bwd_expert",
+             "int8_matmul_expert")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

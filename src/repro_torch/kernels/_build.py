@@ -149,7 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_bwd.restype = i
     lib.repro_fused_mlp.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp.restype = i
-    lib.repro_matmul_expert.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.repro_matmul_expert.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.repro_matmul_expert.restype = i
     lib.repro_fused_mlp_expert.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp_expert.restype = i
@@ -160,6 +160,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_int8_matmul.restype = i
     lib.repro_int8_fused_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.repro_int8_fused_mlp.restype = i
+    lib.repro_int8_matmul_expert.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.repro_int8_matmul_expert.restype = i
+    lib.repro_fused_mlp_bwd_expert.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.repro_fused_mlp_bwd_expert.restype = i
     lib.repro_ssd_chunk.argtypes = [p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
                                     i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
     lib.repro_ssd_chunk.restype = i

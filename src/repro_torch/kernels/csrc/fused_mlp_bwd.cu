@@ -34,15 +34,26 @@
 using namespace repro;
 
 // f32: gemm_tile.cuh's FMA mainloop, the epilogue through shared memory.
-template <typename T, int ACT>
+// BATCH: grid z is the expert; X, the weights, and DH, DG, DU move by the
+// strides `bt` (a, b and c).
+template <typename T, int ACT, bool BATCH = false>
 __global__ void __launch_bounds__(NTHREADS)
 fused_mlp_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Wg, const T* __restrict__ Wu,
                      const T* __restrict__ DH, T* __restrict__ DG, T* __restrict__ DU, int m,
-                     int f, int h, int vec) {
+                     int f, int h, int vec, TileBatch bt) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
   using G = TileGeom<T, NB, false, false>;
   __shared__ __align__(128) unsigned char smem[G::BYTES];
 
+  if (BATCH) {
+    const long long z = blockIdx.z;
+    X += z * bt.a;
+    if (Wg) Wg += z * bt.b;
+    Wu += z * bt.b;
+    DH += z * bt.c;
+    if (DG) DG += z * bt.c;
+    DU += z * bt.c;
+  }
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const T* Bg[NB];
   Bg[0] = NB == 2 ? Wg : Wu;
@@ -83,7 +94,7 @@ static cudaError_t launch_f32(const float* x, const float* wg, const float* wu, 
                               cudaStream_t stream) {
   dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, 1);
   fused_mlp_bwd_kernel<float, ACT><<<grid, NTHREADS, 0, stream>>>(x, wg, wu, dh, dg, du, m, f, h,
-                                                                  vec);
+                                                                  vec, TileBatch{});
   return cudaGetLastError();
 }
 
@@ -129,4 +140,73 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* wg, const void* wu
   if (act == ACT_GELU)
     return (int)launch_f32<ACT_GELU>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
   return (int)launch_f32<ACT_RELU2>(xp, nullptr, up, dhp, nullptr, dup, m, f, h, vec, s);
+}
+
+// The expert-batched recompute behind the MoE layer's fused hidden under
+// autograd: dg[z], du[z] from x[z], Wg[z], Wu[z] and dh[z] for every expert
+// z in one launch (the grid's z axis), each at the 2-D kernel's tile.  The
+// wrapper (fused_mlp/ops.py `fused_mlp_bwd_expert`) finishes with the
+// batched tile GEMM: dx over both pairs in one nt launch, dWg and dWu in
+// two tn launches (csrc/matmul.cu `repro_matmul_expert`).
+//
+// Replaces: src/repro/kernels/fused_mlp/backward.py `fused_mlp_bwd_pallas`
+// per expert, which JAX runs through `fused_mlp_hidden`'s custom VJP under
+// `jax.lax.map` (src/repro/models/linear.py `expert_fused_hidden`,
+// :323-341).  Bound by operations at the training capacities (640-2560
+// rows an expert: ~1,000-1,600 FLOP per byte), as the 2-D kernel.  The MoE
+// layer maps every un-gated MLP to gelu, so relu2 has no batched
+// instantiation.
+template <int ACT>
+static cudaError_t launch_expert_bf16(const GemmArgs& g, int experts, int tm, int tn,
+                                      cudaStream_t stream) {
+  if (tm == 64 && tn == 64)
+    return gemm_sm90_launch<64, 64, false, false, 1, ACT, true, true>(g, experts, stream);
+  if (tm == 128 && tn == 128)
+    return gemm_sm90_launch<128, 128, false, false, 1, ACT, true, true>(g, experts, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int ACT>
+static cudaError_t launch_expert_f32(const float* x, const float* wg, const float* wu,
+                                     const float* dh, float* dg, float* du, int e, int m, int f,
+                                     int h, int vec, TileBatch bt, cudaStream_t stream) {
+  dim3 grid((f + BN - 1) / BN, (m + BM - 1) / BM, e);
+  fused_mlp_bwd_kernel<float, ACT, true>
+      <<<grid, NTHREADS, 0, stream>>>(x, wg, wu, dh, dg, du, m, f, h, vec, bt);
+  return cudaGetLastError();
+}
+
+// x (e, m, h); wg (swiglu only), wu (e, h, f); dh, dg (swiglu only), du
+// (e, m, f); all row-major, contiguous.  act: swiglu or gelu.  (tm, tn): the
+// tile, as repro_fused_mlp_bwd's.
+extern "C" int repro_fused_mlp_bwd_expert(const void* x, const void* wg, const void* wu,
+                                          const void* dh, void* dg, void* du, int e, int m, int f,
+                                          int h, int act, int dtype, int vec, int tm, int tn,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e <= 0 || e > 65535 || m <= 0 || f <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  if (act != ACT_SWIGLU && act != ACT_GELU) return (int)cudaErrorInvalidValue;
+  if (act == ACT_SWIGLU && (wg == nullptr || dg == nullptr)) return (int)cudaErrorInvalidValue;
+  const long long sa = (long long)m * h, sb = (long long)h * f, sc = (long long)m * f;
+  if (dtype == DT_BF16) {
+    using bf = __nv_bfloat16;
+    const GemmArgs g{static_cast<const bf*>(x), nullptr,
+                     static_cast<const bf*>(act == ACT_SWIGLU ? wg : wu),
+                     static_cast<const bf*>(act == ACT_SWIGLU ? wu : nullptr), nullptr, nullptr,
+                     static_cast<const bf*>(dh), static_cast<bf*>(act == ACT_SWIGLU ? dg : nullptr),
+                     static_cast<bf*>(du), m, f, h, h, vec, sa, sb, sc};
+    if (act == ACT_SWIGLU) return (int)launch_expert_bf16<ACT_SWIGLU>(g, e, tm, tn, s);
+    return (int)launch_expert_bf16<ACT_GELU>(g, e, tm, tn, s);
+  }
+  if (dtype != DT_F32 || tm != BM || tn != BN) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* up = static_cast<const float*>(wu);
+  const float* dhp = static_cast<const float*>(dh);
+  float* dup = static_cast<float*>(du);
+  const TileBatch bt{sa, sb, sc};
+  if (act == ACT_SWIGLU)
+    return (int)launch_expert_f32<ACT_SWIGLU>(xp, static_cast<const float*>(wg), up, dhp,
+                                              static_cast<float*>(dg), dup, e, m, f, h, vec, bt, s);
+  return (int)launch_expert_f32<ACT_GELU>(xp, nullptr, up, dhp, nullptr, dup, e, m, f, h, vec, bt,
+                                          s);
 }

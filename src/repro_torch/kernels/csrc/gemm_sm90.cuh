@@ -69,17 +69,24 @@ struct GemmArgs {
   __nv_bfloat16* du;        // backward: du (m, n)
   int m, n, k, k_split;
   int vec;  // every base 16-byte aligned, every row length a multiple of 8
-  // an expert-batched launch (BATCH): expert z's A, B0 and B1, and C, start
-  // z * sa, z * sb and z * sc elements after the bases
+  // an expert-batched launch (BATCH): expert z's A and A1, B0 and B1, and
+  // C, dh, dg and du start z * sa, z * sb and z * sc elements after the bases
   long long sa, sb, sc;
 };
 
-// The operands of expert z of a batched launch (every B at the same stride).
+// The operands of expert z of a batched launch: every A at one stride,
+// every B at another, and C with the backward's dh, dg and du at a third.
+// Every pointer moves, or expert z would read and write expert 0's tiles.
 __device__ __forceinline__ GemmArgs gemm_expert(GemmArgs g, int z) {
-  g.a += z * g.sa;
-  g.b0 += z * g.sb;
-  if (g.b1) g.b1 += z * g.sb;
-  g.c += z * g.sc;
+  const long long e = z;
+  g.a += e * g.sa;
+  if (g.a1) g.a1 += e * g.sa;
+  g.b0 += e * g.sb;
+  if (g.b1) g.b1 += e * g.sb;
+  if (g.c) g.c += e * g.sc;
+  if (g.dh) g.dh += e * g.sc;
+  if (g.dg) g.dg += e * g.sc;
+  if (g.du) g.du += e * g.sc;
   return g;
 }
 
@@ -215,7 +222,8 @@ __device__ __forceinline__ void gemm_put2(__nv_bfloat16* p, size_t o, float v0, 
 // k_split)) and writes its f32 partial to work[z].  BWD: the fused MLP's
 // backward epilogue (dh in, dg and du out) on the pre-activations.
 // BATCH: grid (ceil(m / TM), ceil(n / TN), experts), unsplit; block z runs
-// expert z's product (`gemm_expert`), the whole k range.
+// expert z's product (`gemm_expert`), the whole k range, in any layout and
+// with the backward epilogue too.
 template <int TM, int TN, bool TA, bool TB, int PAIRS, int ACT, bool BWD, bool BATCH = false>
 __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmArgs ga) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;

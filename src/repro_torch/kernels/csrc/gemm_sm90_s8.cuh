@@ -141,7 +141,22 @@ struct I8Args {
   void* c;                // C (m, n), T
   int m, n, k, k_split;
   int vec;  // both bases 16-byte aligned, k a multiple of 16
+  // an expert-batched launch (BATCH): expert z's A, Bt and C start z * sa,
+  // z * sb and z * sc elements after the bases, its activation scales z * m
+  // and its weight scales z * n
+  long long sa, sb, sc;
 };
+
+// The operands of expert z of a batched launch (NB = 1), C in T.
+template <typename T> __device__ __forceinline__ I8Args i8_expert(I8Args g, int z) {
+  const long long e = z;
+  g.a += e * g.sa;
+  g.b0 += e * g.sb;
+  g.a_scale += e * g.m;
+  g.b0_scale += e * g.n;
+  g.c = static_cast<T*>(g.c) + e * g.sc;
+  return g;
+}
 
 template <int TM, int TN, int NB> struct I8Smem {
   static constexpr int A_BYTES = TM * I8_BK;
@@ -293,14 +308,20 @@ __device__ __forceinline__ void i8_cluster_reduce(const int (&acc)[TN / 2], unsi
 // flight share B's column tiles and A stays in L2.  With splits > 1
 // (ACT_NONE; launched as clusters of (1, 1, splits)) block z covers k in
 // [z k_split, min(k, (z + 1) k_split)) and the cluster sums the partials.
-template <int TM, int TN, int ACT, typename T>
-__global__ void __launch_bounds__(TM / 64 * 128, 1) int8_sm90_kernel(const I8Args g) {
+// BATCH (ACT_NONE): grid (ceil(m / TM), ceil(n / TN), experts), no cluster
+// and no split; block z runs expert z's product (`i8_expert`), the whole k
+// range.
+template <int TM, int TN, int ACT, typename T, bool BATCH = false>
+__global__ void __launch_bounds__(TM / 64 * 128, 1) int8_sm90_kernel(const I8Args ga) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
+  static_assert(!BATCH || ACT == ACT_NONE, "a batched launch is the plain GEMM");
   extern __shared__ __align__(128) unsigned char smem[];
   signed char* ring = reinterpret_cast<signed char*>(sm90::align1024(smem));
 
+  const I8Args g = BATCH ? i8_expert<T>(ga, blockIdx.z) : ga;
   const int row0 = blockIdx.x * TM, col0 = blockIdx.y * TN;
-  const int k0 = blockIdx.z * g.k_split, k1 = min(g.k, k0 + g.k_split);
+  const int k0 = BATCH ? 0 : blockIdx.z * g.k_split;
+  const int k1 = BATCH ? g.k : min(g.k, k0 + g.k_split);
 
   int acc[NB][TN / 2];
 #pragma unroll
@@ -308,7 +329,7 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) int8_sm90_kernel(const I8Arg
 #pragma unroll
     for (int i = 0; i < TN / 2; ++i) acc[nb][i] = 0;
   I8Mainloop<TM, TN, NB>::run(acc, ring, g, k0, k1, row0, col0);
-  if constexpr (ACT == ACT_NONE) {
+  if constexpr (ACT == ACT_NONE && !BATCH) {
     if (gridDim.z > 1) {
       i8_cluster_reduce<TM, TN, T>(acc[0], reinterpret_cast<unsigned char*>(ring), g, row0, col0);
       return;
@@ -345,20 +366,22 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) int8_sm90_kernel(const I8Arg
 }
 
 // Launch one instantiation: its dynamic shared memory, then the grid, with
-// the blocks of each tile's k splits in one cluster (at most 8).
-template <int TM, int TN, int ACT, typename T>
+// the blocks of each tile's k splits in one cluster (at most 8).  BATCH:
+// `splits` is the number of experts, each block alone (no cluster).
+template <int TM, int TN, int ACT, typename T, bool BATCH = false>
 cudaError_t int8_sm90_launch(const I8Args& g, int splits, cudaStream_t s) {
   constexpr int NB = ACT == ACT_SWIGLU ? 2 : 1;
   constexpr int SMEM = I8Smem<TM, TN, NB>::BYTES;
   static_assert(TM * (TN + 8) * 4 <= SMEM - 1024, "the parked partial must fit the ring");
   const long long ny = (g.n + TN - 1) / TN;
-  if (ny > 65535 || splits < 1 || splits > 8 || (ACT != ACT_NONE && splits > 1))
+  if (ny > 65535 || splits < 1 || splits > (BATCH ? 65535 : 8) ||
+      (ACT != ACT_NONE && splits > 1))
     return cudaErrorInvalidValue;
-  auto* kern = int8_sm90_kernel<TM, TN, ACT, T>;
+  auto* kern = int8_sm90_kernel<TM, TN, ACT, T, BATCH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.m + TM - 1) / TM, (unsigned)ny, splits);
-  if (splits == 1) {
+  if (BATCH || splits == 1) {
     kern<<<grid, TM / 64 * 128, SMEM, s>>>(g);
     return cudaGetLastError();
   }

@@ -193,8 +193,9 @@ __device__ __forceinline__ void gemm_mainloop(TileMma<T, NB, TA, TB>& mma, unsig
   }
 }
 
-// Per-expert strides (elements) of an expert-batched launch: expert z's A,
-// B0 and B1, and C start z * a, z * b and z * c elements after the bases.
+// Per-expert strides (elements) of an expert-batched launch: expert z's A
+// and A1, B0 and B1, and C (with the backward's dh, dg and du) start z * a,
+// z * b and z * c elements after the bases.
 struct TileBatch {
   long long a, b, c;
 };
@@ -219,6 +220,7 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ A1, const T* __r
   if (BATCH) {
     const long long z = blockIdx.z;
     A += z * bt.a;
+    if (A1) A1 += z * bt.a;
     B0 += z * bt.b;
     if (B1) B1 += z * bt.b;
     C += z * bt.c;

@@ -57,3 +57,41 @@ extern "C" int repro_int8_matmul(const void* a, const void* bt, const void* a_sc
   if (dtype == DT_F32) return (int)launch_int8_matmul<float>(g, splits, tm, tn, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The expert-batched int8 GEMM behind the MoE layer's expert stacks under
+// linear_impl = "quantized": c[z] = (f32(a_q[z] . b_q[z]) * a_scale[z][row])
+// * b_scale[z][col] for every expert z in one launch (the grid's z axis), no
+// cluster and no split, each expert at the 2-D kernel's tile.
+//
+// Replaces: src/repro/kernels/quantized/kernel.py `int8_matmul_pallas` per
+// expert, which JAX runs through `_quantized_linear` under `jax.lax.map`
+// (src/repro/models/linear.py `expert_linear`, :225-231): per-expert
+// dynamic quantization, every expert at one (m, k, n) cache key.  Bound by
+// bytes as the batched bf16 GEMM (matmul.cu `repro_matmul_expert`) at the
+// serving capacities, with half its weight bytes; the experts times the
+// column tiles fill the card, so no split of k is needed.
+template <typename T>
+static cudaError_t launch_int8_expert(const I8Args& g, int experts, int tm, int tn,
+                                      cudaStream_t stream) {
+  if (tm == 64 && tn == 128)
+    return int8_sm90_launch<64, 128, ACT_NONE, T, true>(g, experts, stream);
+  if (tm == 128 && tn == 256)
+    return int8_sm90_launch<128, 256, ACT_NONE, T, true>(g, experts, stream);
+  return cudaErrorInvalidValue;
+}
+
+// a (e, m, k) int8 row-major; bt (e, n, k) int8 row-major (each expert's
+// weight B (k, n) K-major); a_scale (e, m) and b_scale (e, n) f32; c (e, m,
+// n) in `dtype`; (tm, tn) one of the instantiated tiles.
+extern "C" int repro_int8_matmul_expert(const void* a, const void* bt, const void* a_scale,
+                                        const void* b_scale, void* c, int e, int m, int n, int k,
+                                        int dtype, int vec, int tm, int tn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e <= 0 || e > 65535 || m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  const I8Args g{static_cast<const signed char*>(a), static_cast<const signed char*>(bt), nullptr,
+                 static_cast<const float*>(a_scale), static_cast<const float*>(b_scale), nullptr,
+                 c, m, n, k, k, vec, (long long)m * k, (long long)n * k, (long long)m * n};
+  if (dtype == DT_BF16) return (int)launch_int8_expert<__nv_bfloat16>(g, e, tm, tn, s);
+  if (dtype == DT_F32) return (int)launch_int8_expert<float>(g, e, tm, tn, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -59,14 +59,18 @@ static cudaError_t launch_bf16(const GemmArgs& g, int splits, int tm, int tn,
   return cudaErrorInvalidValue;
 }
 
+// The layouts instantiated, by code: 0 nn, 1 nt, 2 the nt pair, 3 tn; -1
+// for any other (no caller uses them).
+static int layout_code(int ta, int tb, bool pair) {
+  return !ta && !tb && !pair ? 0 : !ta && tb && !pair ? 1 : !ta && tb ? 2
+         : ta && !tb && !pair ? 3 : -1;
+}
+
 static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, const void* b1,
                                  void* c, void* work, int m, int n, int k, int k_split, int dtype,
                                  int ta, int tb, int vec, int tm, int tn, cudaStream_t stream) {
   const int splits = (k + k_split - 1) / k_split;
-  const bool pair = a1 != nullptr;
-  // layouts no caller uses are not instantiated: nn, nt, the nt pair, tn
-  const int layout = !ta && !tb && !pair ? 0 : !ta && tb && !pair ? 1 : !ta && tb ? 2
-                     : ta && !tb && !pair ? 3 : -1;
+  const int layout = layout_code(ta, tb, a1 != nullptr);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == DT_BF16) {
     using bf = __nv_bfloat16;
@@ -110,49 +114,94 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
   return cudaGetLastError();
 }
 
-// The expert-batched product behind the MoE layer's expert GEMMs:
-// c[z] = a[z] . b[z] for every expert z in one launch (the grid's z axis),
-// each expert at the 2-D forward's tile and unsplit.
+// The expert-batched product behind the MoE layer's expert GEMMs and their
+// gradients: c[z] = a[z] . b[z] (+ a1[z] . b1[z]) for every expert z in one
+// launch (the grid's z axis), each expert at the 2-D kernel's tile and
+// unsplit, in the 2-D kernel's layouts: nn (the forward), nt (the dgrad
+// g[z] . w[z]^T, and its two-pair form dg[z] . Wg[z]^T + du[z] . Wu[z]^T
+// for the fused-MLP backward's dx) and tn (the wgrad x[z]^T . g[z]).
 //
 // Replaces: src/repro/models/linear.py `expert_linear` (:212-235), which
 // runs one `matmul_pallas` per expert under `jax.lax.map`: a sequential
-// grid inside one TPU program.  Eager, that would be one wrapper call per
-// expert (256 for deepseek-v3, 128 for llama4-maverick), each paying the
-// host's 24-77 us; here the experts are blocks of one launch.
+// grid inside one TPU program, differentiated through `_pallas_linear`'s
+// custom VJP (:85-94) per expert.  Eager, that would be one wrapper call
+// per expert (256 for deepseek-v3, 128 for llama4-maverick), each paying
+// the host's 24-77 us; here the experts are blocks of one launch.
 //
-// What bounds it on the H100: bytes.  The capacity buffer holds every
-// expert, so every expert's weights are read: at decode (8-row capacity)
-// ~2 FLOP per weight byte, at a 4 x 1024-token prefill (160 rows) ~160,
-// both under the ~295 at which the tensor cores become the limit.  The
-// experts times the column tiles give thousands of blocks (256 x 56 for
-// deepseek-v3's w_down), so no split of k is needed to fill the card.
-template <int TM, int TN>
+// What bounds it on the H100: at decode, bytes.  The capacity buffer holds
+// every expert, so every expert's weights are read: at decode (8-row
+// capacity) ~2 FLOP per weight byte, at a 4 x 1024-token prefill (160
+// rows) ~160, both under the ~295 at which the tensor cores become the
+// limit.  At the training capacities (640-2560 rows an expert) the forward,
+// dgrad and wgrad are bound by operations (~600-1,500 FLOP per byte).  The
+// experts times the tiles give hundreds to thousands of blocks (256 x 56
+// for deepseek-v3's w_down at decode), so no split of k is needed to fill
+// the card.  The transposed operands are `.mT` views of row-major (E, ., .)
+// stacks, read in place by the descriptors as in the 2-D kernel; the wgrad
+// contracts over the capacity rows.
+template <int TM, int TN, bool TA, bool TB, int PAIRS>
 static cudaError_t launch_expert_bf16(const GemmArgs& g, int experts, cudaStream_t stream) {
-  return gemm_sm90_launch<TM, TN, false, false, 1, ACT_NONE, false, true>(g, experts, stream);
+  return gemm_sm90_launch<TM, TN, TA, TB, PAIRS, ACT_NONE, false, true>(g, experts, stream);
 }
 
-// a (e, m, k), b (e, k, n), c (e, m, n), each row-major and contiguous;
-// (tm, tn) one of bf16's instantiated tiles, or 64 x 64 for f32.
-extern "C" int repro_matmul_expert(const void* a, const void* b, void* c, int e, int m, int n,
-                                   int k, int dtype, int vec, int tm, int tn, void* stream) {
+template <bool TA, bool TB, int PAIRS>
+static cudaError_t launch_expert_tile(const GemmArgs& g, int experts, int tm, int tn,
+                                      cudaStream_t stream) {
+  if (tm == 64 && tn == 128) return launch_expert_bf16<64, 128, TA, TB, PAIRS>(g, experts, stream);
+  if (tm == 128 && tn == 128)
+    return launch_expert_bf16<128, 128, TA, TB, PAIRS>(g, experts, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <bool TA, bool TB, int PAIRS>
+static cudaError_t launch_expert_f32(const float* a, const float* a1, const float* b,
+                                     const float* b1, float* c, int e, int m, int n, int k,
+                                     int vec, TileBatch bt, cudaStream_t stream) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, e);
+  gemm_tile_kernel<float, ACT_NONE, TA, TB, PAIRS, true>
+      <<<grid, NTHREADS, 0, stream>>>(a, a1, b, b1, c, nullptr, m, n, k, k, vec, bt);
+  return cudaGetLastError();
+}
+
+// a (e, m, k) row-major, or (ta) each expert's transpose stored (e, k, m);
+// b (e, k, n) row-major, or (tb) stored (e, n, k); a1, b1: an optional
+// second pair with the shapes and layouts of a and b (null: none; nt only);
+// c (e, m, n) row-major.  (tm, tn) one of bf16's instantiated tiles, or
+// 64 x 64 for f32.  Every expert's operands are whole at the same
+// per-expert strides (m k, k n, m n elements) in either layout.
+extern "C" int repro_matmul_expert(const void* a, const void* b, const void* a1, const void* b1,
+                                   void* c, int e, int m, int n, int k, int dtype, int ta, int tb,
+                                   int vec, int tm, int tn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (e <= 0 || e > 65535 || m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  if ((a1 == nullptr) != (b1 == nullptr)) return (int)cudaErrorInvalidValue;
+  const int layout = layout_code(ta, tb, a1 != nullptr);
+  if (layout < 0) return (int)cudaErrorInvalidValue;
   const long long sa = (long long)m * k, sb = (long long)k * n, sc = (long long)m * n;
   if (dtype == DT_BF16) {
     using bf = __nv_bfloat16;
-    const GemmArgs g{static_cast<const bf*>(a), nullptr, static_cast<const bf*>(b), nullptr,
-                     static_cast<bf*>(c), nullptr, nullptr, nullptr, nullptr, m, n, k, k, vec,
-                     sa, sb, sc};
-    if (tm == 64 && tn == 128) return (int)launch_expert_bf16<64, 128>(g, e, s);
-    if (tm == 128 && tn == 128) return (int)launch_expert_bf16<128, 128>(g, e, s);
-    return (int)cudaErrorInvalidValue;
+    const GemmArgs g{static_cast<const bf*>(a), static_cast<const bf*>(a1),
+                     static_cast<const bf*>(b), static_cast<const bf*>(b1), static_cast<bf*>(c),
+                     nullptr, nullptr, nullptr, nullptr, m, n, k, k, vec, sa, sb, sc};
+    if (layout == 0) return (int)launch_expert_tile<false, false, 1>(g, e, tm, tn, s);
+    if (layout == 1) return (int)launch_expert_tile<false, true, 1>(g, e, tm, tn, s);
+    if (layout == 2) return (int)launch_expert_tile<false, true, 2>(g, e, tm, tn, s);
+    return (int)launch_expert_tile<true, false, 1>(g, e, tm, tn, s);
   }
   if (dtype != DT_F32 || tm != BM || tn != BN) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, e);
-  gemm_tile_kernel<float, ACT_NONE, false, false, 1, true><<<grid, NTHREADS, 0, s>>>(
-      static_cast<const float*>(a), nullptr, static_cast<const float*>(b), nullptr,
-      static_cast<float*>(c), nullptr, m, n, k, k, vec, TileBatch{sa, sb, sc});
-  return (int)cudaGetLastError();
+  const float* ap = static_cast<const float*>(a);
+  const float* a1p = static_cast<const float*>(a1);
+  const float* bp = static_cast<const float*>(b);
+  const float* b1p = static_cast<const float*>(b1);
+  float* cp = static_cast<float*>(c);
+  const TileBatch bt{sa, sb, sc};
+  if (layout == 0)
+    return (int)launch_expert_f32<false, false, 1>(ap, a1p, bp, b1p, cp, e, m, n, k, vec, bt, s);
+  if (layout == 1)
+    return (int)launch_expert_f32<false, true, 1>(ap, a1p, bp, b1p, cp, e, m, n, k, vec, bt, s);
+  if (layout == 2)
+    return (int)launch_expert_f32<false, true, 2>(ap, a1p, bp, b1p, cp, e, m, n, k, vec, bt, s);
+  return (int)launch_expert_f32<true, false, 1>(ap, a1p, bp, b1p, cp, e, m, n, k, vec, bt, s);
 }
 
 // a (m, k) row-major, or (ta) its transpose stored (k, m) row-major; b (k, n)

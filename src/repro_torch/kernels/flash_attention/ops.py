@@ -217,8 +217,14 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, scale=None):
     """(dq, dk, dv) from the forward's inputs, output o and lse, and the
-    output cotangent do."""
-    if _build.dispatch_device("flash_attention_bwd", q) == "cpu":
+    output cotangent do.  With observability on it records its dispatch
+    (op "flash_attention_bwd", site "causal" or "full"), each distinct
+    shape once."""
+    cpu = _build.dispatch_device("flash_attention_bwd", q) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("flash_attention_bwd", impl="plain" if cpu else "cuda",
+                            shape=tuple(q.shape), site="causal" if causal else "full")
+    if cpu:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
     return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
 

@@ -33,3 +33,14 @@ def fused_mlp_bwd_ref(x, w_gate, w_up, dh, mlp_type: str = "swiglu"):
     du = dhf * act(g)
     dx = dg @ wg.T + du @ wu.T
     return dx.to(x.dtype), (xf.T @ dg).to(w_gate.dtype), (xf.T @ du).to(w_up.dtype)
+
+
+def fused_mlp_bwd_expert_ref(x, w_gate, w_up, dh, mlp_type: str = "swiglu"):
+    """The batched backward's plain version, one expert at a time (as JAX
+    maps the 2-D backward over the experts).  x: (E, m, h); w_gate (gated
+    only), w_up: (E, h, f); dh: (E, m, f).  Returns (dx, dwg, dwu), dwg None
+    on the un-gated path."""
+    per = [fused_mlp_bwd_ref(x[z], None if w_gate is None else w_gate[z], w_up[z], dh[z],
+                             mlp_type) for z in range(x.shape[0])]
+    dx, dwg, dwu = zip(*per)
+    return torch.stack(dx), None if w_gate is None else torch.stack(dwg), torch.stack(dwu)

@@ -24,11 +24,15 @@ count the forward's lookups.
 
 `fused_mlp_hidden_expert` is the MoE layer's batched hidden: every expert
 of a stack in ONE launch of the forward kernel (the grid's z axis is the
-expert), swiglu or gelu, forward only; it counts its own launches.
+expert), swiglu or gelu.  `fused_mlp_bwd_expert` is its backward: ONE
+launch of the batched recompute kernel, then the batched tile GEMM
+(`matmul_expert`): dx over both pairs in one nt launch, dwg and dwu in two
+tn launches.  Each counts its own launches.
 
-With observability on, each forward records its dispatch (op
-"fused_mlp_<mlp_type>" or "fused_mlp_hidden_expert", "cuda" or "plain",
-the flattened shape, the tile), each distinct one once.
+With observability on, each forward and backward records its dispatch (op
+"fused_mlp_<mlp_type>", "fused_mlp_hidden_expert", "fused_mlp_bwd" or
+"fused_mlp_bwd_expert", "cuda" or "plain", the flattened shape, the tile),
+each distinct one once.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ from ... import obs
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from .. import _build
-from ..matmul.ops import MOE_TRAINING, matmul
-from .backward import fused_mlp_bwd_ref
+from ..matmul.ops import matmul, matmul_expert
+from .backward import fused_mlp_bwd_expert_ref, fused_mlp_bwd_ref
 from .ref import MLP_TYPES, fused_mlp_hidden_ref, is_gated
 
 # csrc/gemm_tile.cuh `Act`
@@ -212,12 +216,10 @@ def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned:
     x: (E, m, h); w_gate (swiglu only), w_up: (E, h, f) -> (E, m, f).  A
     CUDA tensor launches csrc/fused_mlp.cu `repro_fused_mlp_expert` once for
     all E experts, each at `geometry(m, h, f)`'s tile (the per-expert
-    tuning key); forward only (raises under autograd).  A CPU tensor runs
-    the plain version (`fused_mlp_hidden_ref`, whose products batch over
-    the expert axis).  `fused_mlp_hidden_expert.launches` counts launches."""
-    if mlp_type not in EXPERT_MLP_TYPES:
-        raise ValueError(f"fused_mlp_hidden_expert: mlp_type {mlp_type!r}; valid: "
-                         f"{list(EXPERT_MLP_TYPES)}")
+    tuning key).  A CPU tensor runs the plain version
+    (`fused_mlp_hidden_ref`, whose products batch over the expert axis).
+    `fused_mlp_hidden_expert.launches` counts launches."""
+    _check_expert_type("fused_mlp_hidden_expert", mlp_type)
     if not is_gated(mlp_type):
         w_gate = None
     if _build.dispatch_device("fused_mlp_hidden_expert", x) == "cpu":
@@ -225,26 +227,36 @@ def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned:
             obs.record_dispatch("fused_mlp_hidden_expert", impl="plain",
                                 shape=(*x.shape, w_up.shape[-1]), site=mlp_type)
         return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
-    ins = (x, w_up) if w_gate is None else (x, w_gate, w_up)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise NotImplementedError(f"fused_mlp_hidden_expert: {MOE_TRAINING}")
     return _fused_expert_cuda(x, w_gate, w_up, mlp_type, tuned, hw_name)
 
 
 fused_mlp_hidden_expert.launches = 0
 
 
-def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=None):
-    """Launch csrc/fused_mlp.cu `repro_fused_mlp_expert`."""
+def _check_expert_type(what: str, mlp_type: str) -> None:
+    if mlp_type not in EXPERT_MLP_TYPES:
+        raise ValueError(f"{what}: mlp_type {mlp_type!r}; valid: {list(EXPERT_MLP_TYPES)}")
+
+
+def _check_expert_operands(what, x, w_gate, w_up, *rest):
+    """Raise unless x (E, m, h) and the (E, h, f) weights (and `rest`) are
+    contiguous CUDA tensors of one dtype on one device; the weights."""
     ws = (w_up,) if w_gate is None else (w_gate, w_up)
-    _build.cuda_operands("fused_mlp_hidden_expert", x, *ws)
+    _build.cuda_operands(what, x, *ws, *rest)
     for w in ws:
-        if w.dtype != x.dtype:
-            raise TypeError(f"fused_mlp_hidden_expert: dtypes {x.dtype} and {w.dtype}")
         if x.dim() != 3 or w.shape != w_up.shape or w.dim() != 3 \
                 or w.shape[:2] != (x.shape[0], x.shape[2]):
-            raise ValueError(f"fused_mlp_hidden_expert: x {tuple(x.shape)} against "
+            raise ValueError(f"{what}: x {tuple(x.shape)} against "
                              f"weights {[tuple(t.shape) for t in ws]}")
+    for t in (*ws, *rest):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{what}: dtypes {x.dtype} and {t.dtype}")
+    return ws
+
+
+def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=None):
+    """Launch csrc/fused_mlp.cu `repro_fused_mlp_expert`."""
+    ws = _check_expert_operands("fused_mlp_hidden_expert", x, w_gate, w_up)
     e, m, k = x.shape
     f = w_up.shape[2]
     out = torch.empty((e, m, f), dtype=x.dtype, device=x.device)
@@ -278,7 +290,13 @@ def fused_mlp_bwd(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned: bool 
     x2, dh2 = x.reshape(-1, h), dh.reshape(-1, w_up.shape[-1])
     if not is_gated(mlp_type):
         w_gate = None
-    if _build.dispatch_device("fused_mlp_bwd", x2) == "cpu":
+    cpu = _build.dispatch_device("fused_mlp_bwd", x2) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("fused_mlp_bwd", impl="plain" if cpu else "cuda",
+                            shape=(*x2.shape, w_up.shape[-1]), site=mlp_type,
+                            blocks=None if cpu else dict(zip(("block_m", "block_f"),
+                                                             pick_tile(x2.shape[0], x2.dtype))))
+    if cpu:
         dx, dwg, dwu = fused_mlp_bwd_ref(x2, w_gate, w_up, dh2, mlp_type)
     else:
         dx, dwg, dwu = _bwd_cuda(x2, w_gate, w_up, dh2, mlp_type, tuned, hw_name)
@@ -288,12 +306,13 @@ def fused_mlp_bwd(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned: bool 
 fused_mlp_bwd.launches = 0
 
 
-def _bwd_cuda(x, w_gate, w_up, dh, mlp_type: str, tuned: bool, hw_name):
+def _recompute_cuda(x, w_gate, w_up, dh, mlp_type: str):
+    """Launch csrc/fused_mlp_bwd.cu `repro_fused_mlp_bwd`: (dg, du) in the
+    compute dtype, dg None on the un-gated path."""
     ws = _check_operands("fused_mlp_bwd", x, w_gate, w_up, dh)
     if dh.shape != (x.shape[0], w_up.shape[1]):
         raise ValueError(f"fused_mlp_bwd: dh {tuple(dh.shape)} for x {tuple(x.shape)} and "
                          f"weights {tuple(w_up.shape)}")
-    dt = _build.dtype_code(x.dtype)
     m, h = x.shape
     f = w_up.shape[1]
     du = torch.empty_like(dh)
@@ -305,12 +324,79 @@ def _bwd_cuda(x, w_gate, w_up, dh, mlp_type: str, tuned: bool, hw_name):
         with torch.cuda.device(x.device):
             status = lib.repro_fused_mlp_bwd(
                 _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
-                _build.ptr(dg), _build.ptr(du), m, f, h, ACT_CODES[mlp_type], dt, vec,
-                *pick_tile(m, x.dtype), _build.stream_of(x.device))
+                _build.ptr(dg), _build.ptr(du), m, f, h, ACT_CODES[mlp_type],
+                _build.dtype_code(x.dtype), vec, *pick_tile(m, x.dtype),
+                _build.stream_of(x.device))
         _build.check(status, "fused_mlp_bwd")
         fused_mlp_bwd.launches += 1
+    return dg, du
+
+
+def _bwd_cuda(x, w_gate, w_up, dh, mlp_type: str, tuned: bool, hw_name):
+    dg, du = _recompute_cuda(x, w_gate, w_up, dh, mlp_type)
     kw = dict(tuned=tuned, hw_name=hw_name)
     if w_gate is None:
         return matmul(du, w_up.T, **kw), None, matmul(x.T, du, **kw)
     dx = matmul(dg, w_gate.T, du, w_up.T, **kw)
     return dx, matmul(x.T, dg, **kw), matmul(x.T, du, **kw)
+
+def fused_mlp_bwd_expert(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned: bool = False,
+                         hw_name: str | None = None):
+    """(dx, dwg, dwu) of `fused_mlp_hidden_expert`; dwg None for gelu.
+    x: (E, m, h); w_gate (swiglu only), w_up: (E, h, f); dh: (E, m, f).  A
+    CUDA tensor launches csrc/fused_mlp_bwd.cu `repro_fused_mlp_bwd_expert`
+    once for all E experts (dg, du in the compute dtype), then
+    `matmul_expert` three times: dx over both pairs (nt), dwg and dwu (tn),
+    operands read in place; `tuned` and `hw_name` pass to those.  A CPU
+    tensor runs the plain version, per expert (`fused_mlp_bwd_expert_ref`).
+    `fused_mlp_bwd_expert.launches` counts the recompute launches."""
+    _check_expert_type("fused_mlp_bwd_expert", mlp_type)
+    if not is_gated(mlp_type):
+        w_gate = None
+    cpu = _build.dispatch_device("fused_mlp_bwd_expert", x) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("fused_mlp_bwd_expert", impl="plain" if cpu else "cuda",
+                            shape=(*x.shape, w_up.shape[-1]), site=mlp_type,
+                            blocks=None if cpu else dict(zip(("block_m", "block_f"),
+                                                             pick_tile(x.shape[1], x.dtype))))
+    if cpu:
+        return fused_mlp_bwd_expert_ref(x, w_gate, w_up, dh, mlp_type)
+    return _bwd_expert_cuda(x, w_gate, w_up, dh, mlp_type, tuned, hw_name)
+
+
+fused_mlp_bwd_expert.launches = 0
+
+
+def _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type: str):
+    """Launch csrc/fused_mlp_bwd.cu `repro_fused_mlp_bwd_expert`: (dg, du)
+    of every expert in the compute dtype, dg None for gelu."""
+    ws = _check_expert_operands("fused_mlp_bwd_expert", x, w_gate, w_up, dh)
+    e, m, h = x.shape
+    f = w_up.shape[2]
+    if dh.shape != (e, m, f):
+        raise ValueError(f"fused_mlp_bwd_expert: dh {tuple(dh.shape)} for x {tuple(x.shape)} "
+                         f"and weights {tuple(w_up.shape)}")
+    du = torch.empty_like(dh)
+    dg = None if w_gate is None else torch.empty_like(dh)
+    if e and m and f:
+        chunk = 16 // x.element_size()
+        vec = int(h % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws, dh))
+        lib = _build.build().lib
+        with torch.cuda.device(x.device):
+            status = lib.repro_fused_mlp_bwd_expert(
+                _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
+                _build.ptr(dg), _build.ptr(du), e, m, f, h, ACT_CODES[mlp_type],
+                _build.dtype_code(x.dtype), vec, *pick_tile(m, x.dtype),
+                _build.stream_of(x.device))
+        _build.check(status, "fused_mlp_bwd_expert")
+        fused_mlp_bwd_expert.launches += 1
+    return dg, du
+
+
+def _bwd_expert_cuda(x, w_gate, w_up, dh, mlp_type: str, tuned: bool, hw_name):
+    dg, du = _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type)
+    kw = dict(tuned=tuned, hw_name=hw_name)
+    if w_gate is None:
+        return matmul_expert(du, w_up.mT, **kw), None, matmul_expert(x.mT, du, **kw)
+    dx = matmul_expert(dg, w_gate.mT, du, w_up.mT, **kw)
+    return dx, matmul_expert(x.mT, dg, **kw), matmul_expert(x.mT, du, **kw)

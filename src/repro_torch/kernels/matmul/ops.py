@@ -27,10 +27,13 @@ kernel, the reduce riding with them; `matmul.by_layout` splits that count
 by operand layout: "nn" (forward), "nt" (B transposed: dgrad) and "tn" (A
 transposed: wgrad).
 
-`matmul_expert` is the MoE layer's batched product, X[e] @ W[e] for every
-expert e of a stack in ONE launch of the same mainloop (the grid's z axis
-is the expert; no split of k), forward only; `matmul_expert.launches`
-counts it apart from `matmul.launches`.
+`matmul_expert` is the MoE layer's batched product, X[e] @ W[e] (+ X1[e] @
+W1[e]) for every expert e of a stack in ONE launch of the same mainloop
+(the grid's z axis is the expert; no split of k), in the same layouts:
+each operand a row-major (E, ., .) stack or the `.mT` view of one, so the
+expert dgrad `matmul_expert(g, w.mT)` and wgrad `matmul_expert(x.mT, g)`
+copy nothing.  `matmul_expert.launches` counts it apart from
+`matmul.launches`, and `matmul_expert.by_layout` by layout.
 
 With observability on (`repro_torch.obs`), each call records its dispatch
 (`obs.record_dispatch`: op, "cuda" or "plain", (m, k, n), the layout as the
@@ -165,9 +168,12 @@ matmul.tuned_misses = 0
 
 
 def reset_launches() -> None:
+    """Zero the 2-D and the batched launch's counters."""
     matmul.launches = 0
     matmul.by_layout = dict.fromkeys(LAYOUTS, 0)
     matmul.tuned_hits = matmul.tuned_misses = 0
+    matmul_expert.launches = 0
+    matmul_expert.by_layout = dict.fromkeys(LAYOUTS, 0)
 
 
 def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype=None,
@@ -236,61 +242,92 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
 
 # --- the expert-batched launch (the MoE layer's expert GEMMs) -----------------------
 
-MOE_TRAINING = ("the batched expert launch is forward-only on the card: its dgrad and wgrad "
-                "come with the MoE-training slice")
+def expert_transposed(what: str, t: torch.Tensor) -> bool:
+    """False for a row-major (E, r, c) stack, True for the `.mT` view of
+    one (each expert's matrix transposed); raise for any other strides."""
+    if t.dim() != 3:
+        raise ValueError(f"{what}: expert stacks are 3-D (got shape {tuple(t.shape)})")
+    if t.is_contiguous():
+        return False
+    if t.mT.is_contiguous():
+        return True
+    raise ValueError(f"{what}: the kernel takes row-major expert stacks or their .mT views "
+                     f"(got strides {t.stride()} for shape {tuple(t.shape)})")
 
 
-def matmul_expert(x: torch.Tensor, w: torch.Tensor, *, tuned: bool = False,
+def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = None,
+                  w1: torch.Tensor | None = None, *, tuned: bool = False,
                   hw_name: str | None = None) -> torch.Tensor:
-    """Per-expert C[e] = X[e] @ W[e], f32 accumulation, output in X's dtype.
-    x: (E, m, k); w: (E, k, n) -> (E, m, n).  A CUDA tensor launches
+    """Per-expert C[e] = X[e] @ W[e] (+ X1[e] @ W1[e]), f32 accumulation,
+    output in X's dtype.  x: (E, m, k); w: (E, k, n) -> (E, m, n); x1, w1
+    (optional): the shapes and layouts of x and w.  A CUDA tensor launches
     csrc/matmul.cu `repro_matmul_expert` once for all E experts (the grid's
     z axis is the expert), each at `geometry(m, k, n)`'s tile and unsplit,
     so a tuning-cache entry for the per-expert (m, k, n) applies, as JAX's
-    per-expert `tuned=True` key does; forward only (raises under autograd).
-    A CPU tensor runs the plain version, a per-expert einsum, differentiable
-    as any torch op.  `matmul_expert.launches` counts launches."""
+    per-expert `tuned=True` key does.  Layouts: nn, nt (w a `.mT` view: the
+    dgrad, alone or with a second pair) and tn (x a `.mT` view: the wgrad).
+    A CPU tensor runs the plain version, a per-expert einsum."""
     if _build.dispatch_device("matmul_expert", x) == "cpu":
         if obs.enabled():
             obs.record_dispatch("matmul_expert", impl="plain", shape=(*x.shape, w.shape[-1]))
-        return matmul_expert_ref(x, w)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(f"matmul_expert: {MOE_TRAINING}")
-    return _matmul_expert_cuda(x, w, tuned, hw_name)
+        return matmul_expert_ref(x, w, x1, w1)
+    return _matmul_expert_cuda(x, w, x1, w1, tuned, hw_name)
 
 
 matmul_expert.launches = 0
+matmul_expert.by_layout = dict.fromkeys(LAYOUTS, 0)
 
 
-def _matmul_expert_cuda(x, w, tuned=False, hw_name=None) -> torch.Tensor:
+def _matmul_expert_cuda(x, w, x1=None, w1=None, tuned=False, hw_name=None) -> torch.Tensor:
     """Launch csrc/matmul.cu `repro_matmul_expert`."""
-    _build.cuda_operands("matmul_expert", x, w)
-    if w.dtype != x.dtype:
-        raise TypeError(f"matmul_expert: dtypes {x.dtype} and {w.dtype}")
-    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
-        raise ValueError(f"matmul_expert: x {tuple(x.shape)} against w {tuple(w.shape)}")
+    pair = (x, w) if x1 is None else (x, w, x1, w1)
+    if (x1 is None) != (w1 is None):
+        raise ValueError("matmul_expert: x1 and w1 come together")
+    dev = x.device
+    for t in pair:
+        if t.device != dev:
+            raise ValueError(f"matmul_expert: operands on {dev} and {t.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"matmul_expert: dtypes {x.dtype} and {t.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1] or (
+            x1 is not None and (x1.shape != x.shape or w1.shape != w.shape)):
+        raise ValueError(f"matmul_expert: shapes {[tuple(t.shape) for t in pair]}")
+    ta, tb = expert_transposed("matmul_expert", x), expert_transposed("matmul_expert", w)
+    if x1 is not None and (expert_transposed("matmul_expert", x1),
+                           expert_transposed("matmul_expert", w1)) != (ta, tb):
+        raise ValueError("matmul_expert: the two pairs need the same layouts")
+    layout = ("t" if ta else "n") + ("t" if tb else "n")
+    if layout not in LAYOUTS or (x1 is not None and layout != "nt"):
+        raise ValueError(f"matmul_expert: layout {layout!r}"
+                         f"{' with a second pair' if x1 is not None else ''} is not instantiated "
+                         f"(csrc/matmul.cu)")
     e, m, k = x.shape
     n = w.shape[2]
-    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((e, m, n), dtype=x.dtype, device=dev)
     if e == 0 or m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
     (tm, tn, _), cfg = geometry(m, k, n, x.dtype, tuned=tuned, hw_name=hw_name,
-                                num_sms=_build.num_sms(x.device))
+                                num_sms=_build.num_sms(dev))
     if obs.enabled():
-        obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n),
+        obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n), site=layout,
                             blocks={"block_m": tm, "block_n": tn},
                             tuned_hit=(cfg is not None) if tuned else None)
     chunk = 16 // x.element_size()
-    vec = int(k % chunk == 0 and n % chunk == 0 and _build.aligned16(x, w))
+    # every operand's row length a multiple of 16 bytes (then so is every
+    # expert's stride, m k or k n elements)
+    lda, ldb = (m if ta else k), (k if tb else n)
+    vec = int(lda % chunk == 0 and ldb % chunk == 0 and _build.aligned16(*pair))
     lib = _build.build().lib
-    with torch.cuda.device(x.device):
-        status = lib.repro_matmul_expert(_build.ptr(x), _build.ptr(w), _build.ptr(out), e, m, n,
-                                         k, _build.dtype_code(x.dtype), vec, tm, tn,
-                                         _build.stream_of(x.device))
+    with torch.cuda.device(dev):
+        status = lib.repro_matmul_expert(_build.ptr(x), _build.ptr(w), _build.ptr(x1),
+                                         _build.ptr(w1), _build.ptr(out), e, m, n, k,
+                                         _build.dtype_code(x.dtype), int(ta), int(tb), vec, tm,
+                                         tn, _build.stream_of(dev))
     _build.check(status, "matmul_expert")
     matmul_expert.launches += 1
+    matmul_expert.by_layout[layout] += 1
     return out
 
 

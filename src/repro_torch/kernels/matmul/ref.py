@@ -1,5 +1,7 @@
 """Plain PyTorch version of the tile GEMM kernel (the CPU path, and what the
 CUDA kernel is held against)."""
+from __future__ import annotations
+
 import torch
 
 
@@ -13,7 +15,12 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *, a1=None,
     return acc.to(out_dtype)
 
 
-def matmul_expert_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-expert X[e] @ W[e] in f32, rounded once to X's dtype.
-    x: (E, m, k); w: (E, k, n) -> (E, m, n)."""
-    return torch.einsum("emk,ekn->emn", x.float(), w.float()).to(x.dtype)
+def matmul_expert_ref(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = None,
+                      w1: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-expert X[e] @ W[e] (+ X1[e] @ W1[e]) in f32, rounded once to X's
+    dtype.  x: (E, m, k); w: (E, k, n) -> (E, m, n); any strides (the
+    kernel's `.mT` views among them)."""
+    acc = torch.einsum("emk,ekn->emn", x.float(), w.float())
+    if x1 is not None:
+        acc = acc + torch.einsum("emk,ekn->emn", x1.float(), w1.float())
+    return acc.to(x.dtype)

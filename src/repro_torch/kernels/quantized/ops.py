@@ -16,6 +16,13 @@ dispatch on the device: a CPU tensor runs the plain version (`ref.py`), a
 CUDA tensor launches the kernel — or raises.  `int8_matmul.launches` and
 `int8_fused_mlp_hidden.launches` count kernel launches.
 
+`int8_matmul_expert` is the MoE layer's expert stacks on the int8 path:
+each expert's rows quantized per row, each expert's weight per output
+channel (a float stack per call, as JAX quantizes per expert under
+`lax.map`), then ONE launch of `csrc/int8_matmul.cu`
+`repro_int8_matmul_expert` for all experts (the grid's z axis), each at
+the 2-D kernel's tile for the per-expert (m, k, n), unsplit.
+
 The kernels (`csrc/gemm_sm90_s8.cuh`, s8 `wgmma`) read each weight K-major:
 a (k, n) payload that is the `.mT` view of a contiguous (n, k) tensor, as
 `quant.quantize_weight` and `params_from_jax` hold it.  A row-major (k, n)
@@ -44,7 +51,7 @@ from .. import _build
 from ..fused_mlp.ops import ACT_CODES, _check_type
 from ..fused_mlp.ref import is_gated
 from ..matmul.ops import keyed_matmul, split_k
-from .ref import int8_fused_mlp_ref, int8_matmul_ref
+from .ref import int8_fused_mlp_ref, int8_matmul_expert_ref, int8_matmul_ref
 
 BLOCK_K = 128            # csrc/gemm_sm90_s8.cuh I8_BK: the k step (one 128-byte atom), the split's unit
 DECODE_TILE = (64, 128)  # (rows, columns) at most 64 rows: one warpgroup, every weight byte read once
@@ -252,6 +259,112 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_nam
             _build.ptr(out), m, n, k, ks, dt, _vec(k, a_q, bt), tm, tn, _build.stream_of(dev))
     _build.check(status, "int8_matmul")
     int8_matmul.launches += 1
+    return out
+
+
+# --- the expert-batched int8 GEMM (the MoE layer's stacks under "quantized") -------
+
+EXPERT_QUANT_ELEMS = 1 << 28   # weight elements quantized at once: 1 GiB of f32 temporaries
+
+
+def quantize_experts(w: torch.Tensor) -> QuantizedTensor:
+    """`quantize_weight` of an (E, k, n) float expert stack, a slice of
+    experts at a time: each expert's scales reduce over its own k, so the
+    slices give the whole stack's payload and scales, while the f32
+    temporaries of a whole stack (21 GB for llama4-maverick's 128 experts)
+    would not fit beside the weights."""
+    e, k, n = w.shape
+    step = max(1, EXPERT_QUANT_ELEMS // max(1, k * n))
+    if step >= e:
+        return quantize_weight(w, "int8")
+    q = torch.empty((e, n, k), dtype=torch.int8, device=w.device)
+    scale = torch.empty((e, 1, n), dtype=torch.float32, device=w.device)
+    for s in range(0, e, step):
+        part = quantize_weight(w[s:s + step], "int8")
+        q[s:s + step] = part.q.mT
+        scale[s:s + step] = part.scale
+    return QuantizedTensor(q=q.mT, scale=scale, axis=-2)
+
+
+def int8_matmul_expert(x: torch.Tensor, w, *, out_dtype=None, tuned: bool = False,
+                       hw_name: str | None = None) -> torch.Tensor:
+    """Per-expert C[e] = dequant(quant(X[e]) @ quant(W[e])).  x: (E, m, k)
+    float, quantized per row; w: (E, k, n) float, quantized per output
+    channel of each expert (`quantize_experts`: a K-major payload, (E, 1, n)
+    scales), or such a `QuantizedTensor`.  Output (E, m, n) in `out_dtype`
+    (default x's).  A tuned lookup keys the per-expert (m, k, n), which
+    every expert shares, with x's dtype and int8."""
+    if isinstance(w, QuantizedTensor) or w.dtype == torch.int8:
+        wq = _as_quantized(w)
+    else:
+        wq = quantize_experts(w)
+    a_q, a_scale = quantize_int8(x, axis=-1)
+    return int8_matmul_expert_q(a_q, a_scale, wq.q, wq.scale, out_dtype or x.dtype,
+                                tuned=tuned, hw_name=hw_name, act_dtype=x.dtype)
+
+
+int8_matmul_expert.launches = 0
+int8_matmul_expert.relayouts = 0
+int8_matmul_expert.tuned_hits = 0
+int8_matmul_expert.tuned_misses = 0
+
+
+def int8_matmul_expert_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *,
+                         tuned: bool = False, hw_name: str | None = None,
+                         act_dtype=None) -> torch.Tensor:
+    """The batched kernel's function on quantized operands: a_q (E, m, k)
+    int8, a_scale (E, m, 1) f32; b_q (E, k, n) int8 (K-major, or row-major
+    and relaid), b_scale (E, 1, n) f32 -> (E, m, n) `out_dtype`.  A CPU
+    tensor runs the plain version, one expert at a time."""
+    cpu = _build.dispatch_device("int8_matmul_expert", a_q) == "cpu"
+    if cpu:
+        if obs.enabled():
+            obs.record_dispatch("int8_matmul", impl="plain", site="expert",
+                                shape=(*a_q.shape, b_q.shape[-1]))
+        return int8_matmul_expert_ref(a_q, a_scale, b_q, b_scale, out_dtype)
+    return _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
+                                    act_dtype or out_dtype)
+
+
+def _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_name=None,
+                             act_dtype=None):
+    """Launch csrc/int8_matmul.cu `repro_int8_matmul_expert`."""
+    what = "int8_matmul_expert"
+    if a_q.dim() != 3 or b_q.dim() != 3 or b_q.shape[:2] != (a_q.shape[0], a_q.shape[2]):
+        raise ValueError(f"{what}: x {tuple(a_q.shape)} against weight {tuple(b_q.shape)}")
+    e, m, k = a_q.shape
+    n = b_q.shape[2]
+    for t in (a_q, b_q):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{what}: payloads must be int8, got {t.dtype}")
+    for s, want in ((a_scale, (e, m, 1)), (b_scale, (e, 1, n))):
+        if s.dtype != torch.float32 or tuple(s.shape) != want:
+            raise ValueError(f"{what}: scales {tuple(s.shape)} {s.dtype}, want {want} float32")
+    _build.cuda_operands(what, a_q, a_scale, b_scale)
+    if b_q.device != a_q.device:
+        raise ValueError(f"{what}: operands on {a_q.device} and {b_q.device}")
+    dev = a_q.device
+    out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
+    if e == 0 or m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    bt = _k_major(what, int8_matmul_expert, b_q)
+    (tm, tn, _), cfg = int8_geometry(m, k, n, act_dtype or out_dtype, tuned=tuned,
+                                     hw_name=hw_name, num_sms=_build.num_sms(dev))
+    _count(int8_matmul_expert, tuned, cfg)
+    if obs.enabled():
+        obs.record_dispatch("int8_matmul", impl="cuda", shape=(e, m, k, n), site="expert",
+                            blocks={"block_m": tm, "block_n": tn},
+                            tuned_hit=(cfg is not None) if tuned else None)
+    lib = _build.build().lib
+    with torch.cuda.device(dev):
+        status = lib.repro_int8_matmul_expert(
+            _build.ptr(a_q), _build.ptr(bt), _build.ptr(a_scale), _build.ptr(b_scale),
+            _build.ptr(out), e, m, n, k, _build.dtype_code(out_dtype), _vec(k, a_q, bt), tm, tn,
+            _build.stream_of(dev))
+    _build.check(status, what)
+    int8_matmul_expert.launches += 1
     return out
 
 

@@ -29,6 +29,14 @@ def int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32):
     return (int8_product(a_q, b_q) * a_scale * b_scale).to(out_dtype)
 
 
+def int8_matmul_expert_ref(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32):
+    """The batched int8 GEMM's plain version, one expert at a time: a_q (E,
+    m, k) int8, a_scale (E, m, 1); b_q (E, k, n) int8, b_scale (E, 1, n).
+    Returns (E, m, n) in `out_dtype`."""
+    return torch.stack([int8_matmul_ref(a_q[z], a_scale[z], b_q[z], b_scale[z], out_dtype)
+                        for z in range(a_q.shape[0])])
+
+
 def int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, *,
                        mlp_type: str = "swiglu", out_dtype=torch.float32):
     """The int8-weight fused-MLP hidden: de-scaled gate / up products and the

@@ -244,8 +244,14 @@ def ssd_chunk_bwd(x_dt, B, C, seg, dY, dS):
     """The gradient of `ssd_chunk` from its operands and the cotangents dY
     (..., nc, Q, P) of Y_diag and dS (..., nc, N, P) of S.  Returns (dX, dB,
     dC, dseg): dX, dB, dC in the operands' dtype and shapes (dB, dC per head
-    where B and C are expanded over the heads), dseg f32."""
-    if _build.dispatch_device("ssd_chunk_bwd", x_dt) == "cpu":
+    where B and C are expanded over the heads), dseg f32.  With
+    observability on it records its dispatch (op "ssd_chunk_bwd"), each
+    distinct shape once."""
+    cpu = _build.dispatch_device("ssd_chunk_bwd", x_dt) == "cpu"
+    if obs.enabled():
+        obs.record_dispatch("ssd_chunk_bwd", impl="plain" if cpu else "cuda",
+                            shape=(*x_dt.shape, B.shape[-1]))
+    if cpu:
         return ssd_chunk_bwd_ref(x_dt, B, C, seg, dY, dS)
     return _ssd_chunk_bwd_cuda(x_dt, B, C, seg, dY, dS)
 

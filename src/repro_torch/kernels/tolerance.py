@@ -170,7 +170,9 @@ def fused_mlp_bwd_tol(x, w_gate, w_up, dh, mlp_type: str, want):
     plain version's (dx, dwg, dwu).  g and u carry their sum errors eg, eu
     into dg = dh u act'(g) and du = dh act(g) (plain: du = dh act'(u))
     through the slopes; the kernel then rounds dg and du to the input dtype
-    and the dx / dW products sum 2f (dx) or m (dW) terms."""
+    and the dx / dW products sum 2f (dx) or m (dW) terms.  With a leading
+    expert axis on every operand, each expert's bounds (the batched
+    backward)."""
     xf, dhf, wu = x.float(), dh.float().abs(), w_up.float()
     r = _rounds(x.dtype)
     u = xf @ wu
@@ -188,14 +190,14 @@ def fused_mlp_bwd_tol(x, w_gate, w_up, dh, mlp_type: str, want):
     else:
         du = dhf * DACTS[mlp_type](u).abs()
         e_du = dhf * curve * eu + (r + 16.0 * U) * du
-    f = w_up.shape[1]
-    e_dx = e_du @ wu.abs().T + 3.0 * 2 * f * U * (du @ wu.abs().T)
-    e_dwu = xf.abs().T @ e_du + 3.0 * x.shape[0] * U * (xf.abs().T @ du)
+    f = w_up.shape[-1]
+    e_dx = e_du @ wu.abs().mT + 3.0 * 2 * f * U * (du @ wu.abs().mT)
+    e_dwu = xf.abs().mT @ e_du + 3.0 * x.shape[-2] * U * (xf.abs().mT @ du)
     dx, dwg, dwu = want
     if not is_gated(mlp_type):
         return _bound(dx, e_dx), None, _bound(dwu, e_dwu)
-    e_dx = e_dx + e_dg @ wg.abs().T + 3.0 * 2 * f * U * (dg @ wg.abs().T)
-    e_dwg = xf.abs().T @ e_dg + 3.0 * x.shape[0] * U * (xf.abs().T @ dg)
+    e_dx = e_dx + e_dg @ wg.abs().mT + 3.0 * 2 * f * U * (dg @ wg.abs().mT)
+    e_dwg = xf.abs().mT @ e_dg + 3.0 * x.shape[-2] * U * (xf.abs().mT @ dg)
     return _bound(dx, e_dx), _bound(dwg, e_dwg), _bound(dwu, e_dwu)
 
 

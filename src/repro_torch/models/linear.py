@@ -38,9 +38,13 @@ the "jnp" path.  Elsewhere the Functions call the kernels directly: a
 dispatcher op costs the host more per call.
 
 The MoE layer's expert stacks go through `expert_linear` and
-`expert_fused_hidden`: one batched launch per expert stack on the card,
-forward only (the launch raises under autograd: MoE training comes with
-its own slice); on the CPU the plain versions, differentiable.
+`expert_fused_hidden`: one batched launch per expert stack on the card.
+Under autograd they take `_ExpertLinear` (its dgrad and wgrad the batched
+tile GEMM on `.mT` views), `_QuantizedExpertLinear` (the batched int8
+forward, `_ExpertLinear`'s backward: straight-through) and
+`_FusedHiddenExpert` (the batched recompute backward), on either device:
+the plain versions on CPU tensors, the kernels on CUDA ones.  remat="dots"
+cannot name these Functions, so it recomputes the expert products.
 
 Weights are cast to the activation dtype per call, as JAX does: a no-op on
 the serving path (params arrive in the compute dtype), and on the training
@@ -54,10 +58,11 @@ import re
 
 import torch
 
-from ..kernels.fused_mlp.ops import fused_mlp_hidden, fused_mlp_hidden_expert
+from ..kernels.fused_mlp.ops import (fused_mlp_bwd_expert, fused_mlp_hidden,
+                                     fused_mlp_hidden_expert)
 from ..kernels.fused_mlp.ref import fused_mlp_hidden_ref
 from ..kernels.matmul.ops import matmul, matmul_expert
-from ..kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul
+from ..kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul, int8_matmul_expert
 from ..quant import QuantizedTensor, quantize_weight
 
 LINEAR_IMPLS = ("jnp", "pallas", "tuned", "fused", "quantized")
@@ -186,33 +191,100 @@ def linear(x, w, *, impl: str = "jnp"):
     return matmul(x, w, tuned=tuned)
 
 
+def _expert_setup(ctx, inputs, output):
+    x, w, ctx.tuned = inputs
+    ctx.save_for_backward(x, w)
+
+
+def _expert_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    g = g.contiguous()
+    dx = matmul_expert(g, w.mT, tuned=ctx.tuned) if ctx.needs_input_grad[0] else None
+    dw = matmul_expert(x.mT, g, tuned=ctx.tuned) if ctx.needs_input_grad[1] else None
+    return dx, dw, None
+
+
+class _ExpertLinear(torch.autograd.Function):
+    """JAX's `_pallas_linear` mapped over the experts (models/linear.py:
+    232-235): x (e, m, k) @ w (e, k, n), the dgrad g @ w^T and the wgrad
+    x^T @ g each one batched launch on `.mT` views."""
+
+    @staticmethod
+    def forward(x, w, tuned):
+        return matmul_expert(x, w, tuned=tuned)
+
+    setup_context = staticmethod(_expert_setup)
+    backward = staticmethod(_expert_backward)
+
+
+class _QuantizedExpertLinear(_ExpertLinear):
+    """JAX's `_quantized_linear` mapped over the experts (models/linear.py:
+    225-231): the batched int8 forward on a float expert stack, quantized
+    per call; `_ExpertLinear`'s float dgrad and wgrad (straight-through)."""
+
+    @staticmethod
+    def forward(x, w, tuned):
+        return int8_matmul_expert(x, w, tuned=tuned)
+
+
+class _FusedHiddenExpert(torch.autograd.Function):
+    """JAX's `fused_mlp_hidden` custom VJP mapped over the experts
+    (models/linear.py:323-341): the batched fused forward; it saves only
+    its inputs, and the backward recomputes the gate/up pre-activations
+    (`fused_mlp_bwd_expert`)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, mlp_type):
+        ctx.mlp_type = mlp_type
+        ctx.save_for_backward(x, w_gate, w_up)
+        return fused_mlp_hidden_expert(x, w_gate, w_up, mlp_type=mlp_type, tuned=True)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w_gate, w_up = ctx.saved_tensors
+        dx, dwg, dwu = fused_mlp_bwd_expert(x, w_gate, w_up, dh.contiguous(),
+                                            mlp_type=ctx.mlp_type, tuned=True)
+        return dx, dwg, dwu, None
+
+
 def expert_linear(x, w, *, impl: str = "jnp"):
     """Batched per-expert GEMM: x (e, m, k) @ w (e, k, n) -> (e, m, n).
 
     "jnp" keeps the einsum; "pallas", "tuned" and "fused" run ONE launch of
     the tile GEMM for all experts (`matmul_expert`, the expert on the grid's
     z axis) where JAX maps one Pallas kernel per expert (`lax.map`); "tuned"
-    and "fused" look up the per-expert (m, k, n) key, as JAX's do.  The
-    batched launch is forward-only on the card."""
+    and "fused" look up the per-expert (m, k, n) key, as JAX's do.
+    "quantized" runs ONE launch of the int8 GEMM (`int8_matmul_expert`),
+    the float stack quantized per call and per expert, as JAX's.  When a
+    gradient is recorded they run as `_ExpertLinear` /
+    `_QuantizedExpertLinear`."""
     _check_impl(impl)
-    if impl == "quantized":
-        raise NotImplementedError(
-            "expert_linear(impl='quantized') (per-expert int8 quantization) is not ported yet: "
-            "it comes with the int8-expert slice")
     w = w.to(x.dtype)
     if impl == "jnp":
         return torch.einsum("emk,ekn->emn", x, w)
-    return matmul_expert(x, w, tuned=impl != "pallas")
+    x = x.contiguous()
+    if impl == "quantized":
+        if _grad_recorded(x, w):
+            return _QuantizedExpertLinear.apply(x, w, True)
+        return int8_matmul_expert(x, w, tuned=True)
+    tuned = impl != "pallas"
+    if _grad_recorded(x, w):
+        return _ExpertLinear.apply(x, w, tuned)
+    return matmul_expert(x, w, tuned=tuned)
 
 
 def expert_fused_hidden(x, w_gate, w_up, *, mlp_type: str):
     """Per-expert fused hidden: x (e, m, h) with (e, h, f) expert weights ->
     (e, m, f), one launch of the fused MLP kernel for all experts
     (`fused_mlp_hidden_expert`, tuned), the MoE counterpart of `fused_mlp`'s
-    hidden half."""
+    hidden half; `_FusedHiddenExpert` when a gradient is recorded."""
     dt = x.dtype
     w_gate = None if mlp_type != "swiglu" else w_gate.to(dt)
-    return fused_mlp_hidden_expert(x, w_gate, w_up.to(dt), mlp_type=mlp_type, tuned=True)
+    w_up = w_up.to(dt)
+    x = x.contiguous()
+    if _grad_recorded(x, w_gate, w_up):
+        return _FusedHiddenExpert.apply(x, w_gate, w_up, mlp_type)
+    return fused_mlp_hidden_expert(x, w_gate, w_up, mlp_type=mlp_type, tuned=True)
 
 
 def fused_mlp(x, p, cfg):

@@ -6,8 +6,14 @@ decoupled weight decay on every leaf).
 Unlike the JAX functions, `apply_updates` updates in place: each parameter
 and moment tensor is overwritten with its new value (and the same dicts are
 returned), so a step needs one leaf's temporaries, not a second copy of
-the parameters and moments.  The arithmetic is JAX's, in float32, leaf by
-leaf.  `init_opt` and the state's `step` live on the parameters' device.
+the parameters and moments.  The float32 moments' update runs a slice of
+UPDATE_CHUNK elements at a time: its arithmetic is elementwise, so the
+slices give the same bits, and the temporaries stay ~2 GB where a whole
+embedding's (3.7-4.1 GB a tensor at deepseek-v3's and llama4-maverick's
+vocabularies, ~8 live at once) would not fit beside a full-width MoE's
+masters, gradients and moments.  The arithmetic is JAX's, in float32, leaf
+by leaf.  `init_opt` and the state's `step` live on the parameters'
+device.
 """
 from __future__ import annotations
 
@@ -110,6 +116,19 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda x: x.float() * scale, grads), g
 
 
+UPDATE_CHUNK = 1 << 26     # elements of a float32 leaf updated at once
+
+
+def _adamw(p, g, m, v, clip, lr, bc1, bc2, b1, b2, eps, wd):
+    """AdamW's arithmetic on a leaf (or a slice of one) and its float32
+    moments: (new p, new m, new v) in float32."""
+    g = g.float() * clip
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    pn = p.float()
+    return pn - lr * (m / bc1 / (torch.sqrt(v / bc2) + eps) + wd * pn), m, v
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, tc: TrainConfig,
                   b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
@@ -127,22 +146,20 @@ def apply_updates(params, grads, state: OptState, tc: TrainConfig,
     flat_g = list(tree_leaves(grads))
     flat_m = list(tree_leaves(state.m, _is_quant))
     flat_v = list(tree_leaves(state.v, _is_quant))
+    hyper = (clip, lr, bc1, bc2, b1, b2, eps, tc.weight_decay)
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g = g.float() * clip
-        m_f = dequantize_i8(m, p.shape) if eightbit else m
-        v_f = dequantize_i8(v, p.shape) if eightbit else v
-        m_f = b1 * m_f + (1 - b1) * g
-        v_f = b2 * v_f + (1 - b2) * torch.square(g)
-        mh = m_f / bc1
-        vh = v_f / bc2
-        pn = p.float()
-        pn = pn - lr * (mh / (torch.sqrt(vh) + eps) + tc.weight_decay * pn)
-        p.copy_(pn)
         if eightbit:
+            pn, m_f, v_f = _adamw(p, g, dequantize_i8(m, p.shape), dequantize_i8(v, p.shape),
+                                  *hyper)
+            p.copy_(pn)
             for old, new in ((m, quantize_i8(m_f)), (v, quantize_i8(v_f))):
                 old["codes"].copy_(new["codes"])
                 old["scale"].copy_(new["scale"])
-        else:
-            m.copy_(m_f)
-            v.copy_(v_f)
+            continue
+        pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
+        for i in range(0, pf.numel(), UPDATE_CHUNK):
+            sl = slice(i, i + UPDATE_CHUNK)
+            for old, new in zip((pf[sl], mf[sl], vf[sl]),
+                                _adamw(pf[sl], gf[sl], mf[sl], vf[sl], *hyper)):
+                old.copy_(new)
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

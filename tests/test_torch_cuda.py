@@ -1389,24 +1389,187 @@ def test_fused_mlp_hidden_expert(cuda, dtype, mlp_type, e, m, h, f):
         assert torch.equal(got[z], one), z
 
 
-def test_expert_launch_is_forward_only_on_the_card(cuda):
-    """Under autograd the batched launches raise, naming the MoE-training
-    slice; the 2-D launches are unchanged (their own tests above)."""
-    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
+# (experts, capacity rows, h, f) of the MoE training path's batched
+# backward: deepseek-v3's and llama4-maverick's per-expert shapes at their
+# training capacities (2560 and 640 rows at 4 x 1024 tokens; 3 experts for
+# time), deepseek-v3's decode capacity (8), and ragged ones
+EXPERT_BWD_CASES = [(3, 2560, 7168, 2048), (3, 640, 5120, 8192), (3, 8, 7168, 2048),
+                    (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45)]
+
+
+def _unsplit(k: int, dtype) -> int:
+    from repro_torch.kernels.matmul import ops
+    step = ops.F32_BLOCK_K if dtype == torch.float32 else ops.BLOCK_K
+    return -(-k // step) * step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nt", "nt pair", "tn"])
+@pytest.mark.parametrize("e,m,h,f", EXPERT_BWD_CASES)
+def test_matmul_expert_backward_layouts(cuda, dtype, layout, e, m, h, f):
+    """The batched dgrad (g @ w.mT, alone or as the fused backward's pair)
+    and wgrad (x.mT @ g) on `.mT` views of row-major stacks: one launch,
+    counted by layout, each expert within its bound of the plain version
+    and bit-identical to the 2-D kernel at the same tile, unsplit."""
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    x, w = _expert_operands(cuda, dtype, e, m, h, f, 4)
+    g, w1 = _expert_operands(cuda, dtype, e, m, f, h, 5)
+    g = g * 0.1
+    a1 = b1 = None
+    if layout == "tn":
+        a, b = x.mT, g
+    else:
+        a, b = g, (w * (h / f) ** 0.5).mT
+        if layout == "nt pair":
+            a1, b1 = torch.flip(g, dims=[1]).contiguous(), w1.transpose(1, 2).contiguous().mT
+    key = layout[:2]
+    before = ops.matmul_expert.launches, ops.matmul_expert.by_layout[key]
+    got = ops.matmul_expert(a, b, a1, b1)
+    torch.cuda.synchronize()
+    assert (ops.matmul_expert.launches, ops.matmul_expert.by_layout[key]) == \
+        (before[0] + 1, before[1] + 1)
+    want = matmul_expert_ref(a, b, a1, b1)
+    _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
+    M, K, N = a.shape[1], a.shape[2], b.shape[2]
+    (tm, tn, _), _ = ops.geometry(M, K, N, dtype)
+    for z in range(e):
+        one = ops._matmul_cuda(a[z], b[z], None if a1 is None else a1[z],
+                               None if b1 is None else b1[z], forced=(tm, tn, _unsplit(K, dtype)))
+        assert torch.equal(got[z], one), z
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mlp_type", ["swiglu", "gelu"])
+@pytest.mark.parametrize("e,m,h,f", EXPERT_BWD_CASES)
+def test_fused_mlp_bwd_expert(cuda, dtype, mlp_type, e, m, h, f):
+    """The batched fused-MLP backward: one recompute launch (each expert's
+    dg, du bit-identical to the 2-D recompute kernel), then the nt pair and
+    the tn products (bit-identical to the 2-D kernel, unsplit); dx, dwg,
+    dwu within `fused_mlp_bwd_tol` of the per-expert plain version."""
+    from repro_torch.kernels.fused_mlp import ops
+    from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_expert_ref
+    from repro_torch.kernels.matmul import ops as mm
+    x, wg = _expert_operands(cuda, dtype, e, m, h, f, 6)
+    dh, wu = _expert_operands(cuda, dtype, e, m, f, h, 7)
+    wu = (wu.transpose(1, 2) * (f / h) ** 0.5).contiguous()
+    wg = wg if mlp_type == "swiglu" else None
+    before = ops.fused_mlp_bwd_expert.launches, dict(mm.matmul_expert.by_layout)
+    dx, dwg, dwu = ops.fused_mlp_bwd_expert(x, wg, wu, dh, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    assert ops.fused_mlp_bwd_expert.launches == before[0] + 1
+    assert mm.matmul_expert.by_layout["nt"] == before[1]["nt"] + 1
+    assert mm.matmul_expert.by_layout["tn"] == before[1]["tn"] + (2 if wg is not None else 1)
+    want = fused_mlp_bwd_expert_ref(x, wg, wu, dh, mlp_type)
+    tols = tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)
+    for got_t, want_t, tol in zip((dx, dwg, dwu), want, tols):
+        if want_t is not None:
+            _close(got_t, want_t, tol)
+    dg, du = ops._recompute_expert_cuda(x, wg, wu, dh, mlp_type)
+    for z in range(e):
+        dg1, du1 = ops._recompute_cuda(x[z], None if wg is None else wg[z], wu[z], dh[z],
+                                       mlp_type)
+        assert torch.equal(du[z], du1) and (wg is None or torch.equal(dg[z], dg1)), z
+        tile = (*mm.geometry(m, f, h, dtype)[0][:2], _unsplit(f, dtype))
+        pair = (dg[z], wg[z].T, du[z], wu[z].T) if wg is not None else (du[z], wu[z].T, None, None)
+        assert torch.equal(dx[z], mm._matmul_cuda(*pair, forced=tile)), z
+        tile = (*mm.geometry(h, m, f, dtype)[0][:2], _unsplit(m, dtype))
+        assert torch.equal(dwu[z], mm._matmul_cuda(x[z].T, du[z], None, None, forced=tile)), z
+        if wg is not None:
+            assert torch.equal(dwg[z], mm._matmul_cuda(x[z].T, dg[z], None, None, forced=tile)), z
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n", [(3, 8, 5120, 8192), (3, 8, 8192, 5120), (3, 160, 7168, 2048),
+                                     (3, 640, 5120, 8192), (5, 13, 72, 200), (1, 130, 96, 40),
+                                     (4, 64, 70, 45)])
+def test_int8_matmul_expert(cuda, out_dtype, e, m, k, n):
+    """The batched int8 GEMM: one launch, bit-identical to its plain version
+    (exact int32 sums, the same de-scale) and, expert by expert, to the
+    2-D int8 kernel at the same tile, unsplit."""
+    from repro_torch.kernels.quantized import ops
+    from repro_torch.kernels.quantized.ref import int8_matmul_expert_ref
+    from repro_torch.quant import quantize_int8, quantize_weight
+    x, w = _expert_operands(cuda, out_dtype, e, m, k, n, 8)
+    before = ops.int8_matmul_expert.launches, ops.int8_matmul_expert.relayouts
+    got = ops.int8_matmul_expert(x, w)
+    torch.cuda.synchronize()
+    assert (ops.int8_matmul_expert.launches, ops.int8_matmul_expert.relayouts) == \
+        (before[0] + 1, before[1])
+    a_q, a_s = quantize_int8(x, axis=-1)
+    wq = quantize_weight(w)
+    assert torch.equal(got, int8_matmul_expert_ref(a_q, a_s, wq.q, wq.scale, out_dtype))
+    (tm, tn, _), _ = ops.int8_geometry(m, k, n, out_dtype)
+    for z in range(e):
+        one = ops._int8_matmul_cuda(a_q[z], a_s[z], wq.q[z], wq.scale[z], out_dtype,
+                                    forced=(tm, tn, -(-k // ops.BLOCK_K) * ops.BLOCK_K))
+        assert torch.equal(got[z], one), z
+
+
+def test_expert_launches_under_autograd_on_the_card(cuda):
+    """Under autograd the expert paths run their Functions on the card:
+    expert_linear (fused, quantized) and expert_fused_hidden forward through
+    the batched kernels, and their backwards launch the batched nt and tn
+    products and the batched recompute; the gradients agree with the same
+    Functions on the host (f32, sums in another order)."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_expert
     from repro_torch.kernels.matmul.ops import matmul_expert
+    from repro_torch.kernels.quantized.ops import int8_matmul_expert
     from repro_torch.models.linear import expert_fused_hidden, expert_linear
-    x, w = _expert_operands(cuda, torch.bfloat16, 2, 8, 64, 32, 3)
-    w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="MoE-training slice"):
-        matmul_expert(x, w)
-    with pytest.raises(NotImplementedError, match="MoE-training slice"):
-        expert_linear(x, w, impl="fused")
-    with pytest.raises(NotImplementedError, match="MoE-training slice"):
-        fused_mlp_hidden_expert(x, w, w, mlp_type="swiglu")
-    with pytest.raises(NotImplementedError, match="MoE-training slice"):
-        expert_fused_hidden(x, w, w, mlp_type="swiglu")
-    with torch.no_grad():
-        assert matmul_expert(x, w).shape == (2, 8, 32)
+    rng = np.random.default_rng(9)
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * c)
+            for s, c in (((2, 24, 64), 1.0), ((2, 64, 48), 0.125), ((2, 64, 48), 0.125))]
+
+    def grads(device, fn):
+        ts = [t.to(device, copy=True).requires_grad_() for t in host]
+        fn(*ts).square().sum().backward()
+        return [None if t.grad is None else t.grad.cpu() for t in ts]
+    for impl in ("fused", "quantized"):
+        before = dict(matmul_expert.by_layout), int8_matmul_expert.launches
+
+        def fn(x, w, _):
+            return expert_linear(x, w, impl=impl)
+        got = grads(cuda, fn)
+        assert [g is None for g in got] == [False, False, True]
+        assert matmul_expert.by_layout["nt"] == before[0]["nt"] + 1
+        assert matmul_expert.by_layout["tn"] == before[0]["tn"] + 1
+        assert matmul_expert.by_layout["nn"] == before[0]["nn"] + (impl == "fused")
+        assert int8_matmul_expert.launches == before[1] + (impl == "quantized")
+        for a, b in zip(got[:2], grads("cpu", fn)[:2]):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    before = fused_mlp_bwd_expert.launches
+
+    def fn(x, wg, wu):
+        return expert_fused_hidden(x, wg, wu, mlp_type="swiglu")
+    got = grads(cuda, fn)
+    assert fused_mlp_bwd_expert.launches == before + 1
+    for a, b in zip(got, grads("cpu", fn)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["fused", "quantized"])
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "deepseek-v3-671b"])
+def test_moe_smoke_gradients_on_the_card_match_the_cpu(cuda, arch, impl):
+    """lm_loss and every gradient leaf of the MoE smoke model (f32) on the
+    card, through the batched forward and backward launches, against the
+    same params on the host (the plain versions)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), linear_impl=impl)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, ShapeConfig("t", 16, 2, "train"), 0, 0).items()}
+
+    def run(p, b):
+        leaves = list(tree_leaves(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = lm_loss(p, b, cfg)
+        return loss.item(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    want = run(params, batch)
+    got = run(tree_map(lambda t: t.detach().to(cuda), params),
+              {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "deepseek-v3-671b"])

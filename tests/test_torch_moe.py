@@ -142,9 +142,14 @@ def test_expert_fused_hidden_matches_jax(mlp_type):
 
 
 def test_expert_paths_refuse_what_is_not_ported():
+    """relu2 and shard_map dispatch are refused, as in JAX; the quantized
+    expert path is ported and bit-identical to JAX's under `jax.jit`."""
+    rng = np.random.default_rng(9)
+    xq, wq = _np(rng, (2, 8, 16)), _np(rng, (2, 16, 8), 0.25)
+    want = np.asarray(jax.jit(lambda x, w: jax_expert_linear(x, w, impl="quantized"))(
+        jnp.asarray(xq), jnp.asarray(wq)))
+    np.testing.assert_array_equal(expert_linear(_t(xq), _t(wq), impl="quantized").numpy(), want)
     x, w = torch.zeros(2, 8, 16), torch.zeros(2, 16, 8)
-    with pytest.raises(NotImplementedError, match="int8-expert slice"):
-        expert_linear(x, w, impl="quantized")
     with pytest.raises(ValueError, match="mlp_type"):
         expert_fused_hidden(x, None, w, mlp_type="relu2")
     cfg = dataclasses.replace(get_smoke_config(LLAMA4), moe_dispatch="shard_map")

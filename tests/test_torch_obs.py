@@ -199,6 +199,45 @@ class TestDispatch:
         matmul(torch.ones(4, 8), torch.ones(8, 3))
         assert obs.get_metrics().snapshot()["counters"]["dispatch.matmul.plain"] == 3
 
+    def test_backward_kernels_record_dispatch_rows(self):
+        """One backward pass through the fused MLP, flash attention, the SSD
+        chunk and the MoE layer's expert Functions records a dispatch row
+        for each backward kernel (plain on the CPU), beside the forwards'."""
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+        from repro_torch.kernels.ssd.ops import ssd_chunk
+        from repro_torch.models.linear import expert_fused_hidden, expert_linear
+        obs.enable(annotate_device=False)
+        gen = torch.Generator().manual_seed(0)
+
+        def leaf(*shape):
+            return (torch.randn(shape, generator=gen) * 0.3).requires_grad_()
+        x, wg, wu = leaf(6, 16), leaf(16, 24), leaf(16, 24)
+        q, k, v = leaf(1, 8, 4, 16), leaf(1, 8, 2, 16), leaf(1, 8, 2, 16)
+        xd, B, C = leaf(1, 2, 2, 4, 8), leaf(1, 2, 2, 4, 8), leaf(1, 2, 2, 4, 8)
+        seg = torch.cumsum(-torch.rand((1, 2, 2, 4), generator=gen), -1).requires_grad_()
+        xe, we, wge, wue = leaf(2, 8, 16), leaf(2, 16, 24), leaf(2, 16, 24), leaf(2, 16, 24)
+        y, s = ssd_chunk(xd, B, C, seg)
+        loss = (fused_mlp_hidden(x, wg, wu, mlp_type="swiglu").sum()
+                + flash_attention(q, k, v).sum() + y.sum() + s.sum()
+                + expert_linear(xe, we, impl="fused").sum()
+                + expert_fused_hidden(xe, wge, wue, mlp_type="gelu").sum())
+        loss.backward()
+        rows = {(e["name"], e["args"]["site"], tuple(e["args"]["shape"]))
+                for e in obs.get_tracer().events()
+                if e.get("cat") == "dispatch" and e["args"]["impl"] == "plain"}
+        for row in [("fused_mlp_bwd", "swiglu", (6, 16, 24)),
+                    ("flash_attention_bwd", "causal", (1, 8, 4, 16)),
+                    ("ssd_chunk_bwd", "", (1, 2, 2, 4, 8, 8)),
+                    ("fused_mlp_bwd_expert", "gelu", (2, 8, 16, 24)),
+                    ("matmul_expert", "", (2, 8, 24, 16)),       # expert_linear's dgrad
+                    ("matmul_expert", "", (2, 16, 8, 24))]:      # ... and its wgrad
+            assert row in rows, row
+        counters = obs.get_metrics().snapshot()["counters"]
+        for op in ("fused_mlp_bwd", "flash_attention_bwd", "ssd_chunk_bwd",
+                   "fused_mlp_bwd_expert"):
+            assert counters[f"dispatch.{op}.plain"] == 1, op
+
     def test_tuning_samples_feed_a_histogram(self, monkeypatch):
         from repro_torch.tuning import search
 
