@@ -61,7 +61,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      decode capacity: every expert bit-identical to the 2-D kernel at the
      same tile, unsplit, each within its bound of the plain version (the
      int8 GEMM bit-identical to it), timed beside its bound and torch.bmm
-     on the same views;
+     on the same views; then the encoder-decoder and VLM slice's shapes
+     through the same kernels: flash forward at whisper-small's four
+     non-causal shapes (1500 x 1500, 448 / 32 / 1 x 1500; 12 heads of 64)
+     and internvl2-76b's causal 2048 (64 / 8 heads of 128) beside SDPA,
+     flash backward at the training ones, the fused GELU MLP at 768 / 3072
+     and SwiGLU at 8192 / 28672 both ways, the tile GEMM at whisper's
+     projections and head and internvl2's w_down (K 28672), forward, dgrad
+     and wgrad;
   4. serve: the port's continuous-batching Engine serving internlm2-1.8b at
      full width (24 layers, random weights from a seed) with
      linear_impl="fused" and the paged decode kernel; every kernel's launch
@@ -132,6 +139,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      int8 GEMMs a pass); logits against the plain int8 path within 1e-6 and
      identical greedy tokens, with the hot expert's scales doubled in the
      batched launch as a planted fault;
+  10c. whisper serve: whisper-small at full size (12 + 12 layers, d 768),
+     bf16, linear_impl="fused", attn_impl="flash", served by serve_step
+     (the engines refuse an encoder-decoder): 4 x 1500 frames from the
+     batch stub, a prefill of 4 x 32 tokens (the encoder inside), one
+     apply_encoder whose output every decode step takes, 31 greedy decode
+     steps; launch counts per run (24 flash launches a prefill, 12 a
+     decode step); prefill logits against the plain path; one decode step
+     after a prefill of 31 tokens against a prefill of 32; f32 greedy
+     tokens of the kernel and plain paths identical but at a near tie;
+  10d. internvl serve: internvl2-76b at full width, 8 of its 80 layers, bf16,
+     served by serve_step: a prefill of 4 x (1024 patches + 64 tokens), 31
+     greedy decode steps, launch counts, prefill logits against the plain
+     path, the decode handoff;
   11. token identity: at full width, 4 layers, float32, the greedy tokens of
      the slot and prefix engines (roomy and tight), of the int8-KV slot and
      prefix engines, and of the int8-weight slot and prefix engines over
@@ -171,6 +191,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      planted faults in the batched backward that must break it; 4 steps,
      expert launches by layout against the path's, where a step's time
      goes, peak memory;
+  14c. whisper train: whisper-small at full size, float32 masters, bf16
+     compute, fused, flash, AdamW, 4 x 448 tokens with 4 x 1500 frames:
+     the step-0 check reading every layer slice of the encoder, the
+     decoder and the cross-attention blocks and pos_embed, with three
+     planted faults (the cross-attention causal, one encoder key tile's dk
+     and dv dropped, pos_embed's gradient zeroed); 4 steps, launch counts;
+  14d. internvl train: internvl2-76b at full width, 2 layers, the same on 4
+     x (1024 patches + 1024 tokens), flash causal over the 2048
+     positions; planted faults: linear's wgrad k tile, kv head 0's dk and
+     a patch key tile's dk / dv held, the dense truncated-dh fault printed
+     (it hides in bf16 rounding at two layers); peak memory;
+  14e. blocked: attn_impl="blocked" (plain PyTorch) against the naive path
+     on the card at whisper-small's encoder shape (a padded tail) and
+     internlm2-1.8b's causal prefill into a cache, each element within
+     its bound (kernels/tolerance.py blocked_sdpa_tol), timed beside the
+     naive path and flash; one whisper-small forward under blocked against
+     flash;
   15. obs serve: the serve phase's model and burst with observability
      (src/repro_torch/obs) off / on / on / off in turns (tok/s and ITL
      printed, not bounded); with obs on the engine's counters must equal
@@ -957,35 +994,186 @@ def gemm_rates(tot: dict) -> str:
             f"of the bound, {tot['ms'] / tot['library_ms']:.2f}x torch.matmul")
 
 
-def _sdpa_ms(torch, q, k, v, do):
+def _sdpa_ms(torch, q, k, v, do, causal=True, iters=TRAIN_ITERS):
     """torch's scaled_dot_product_attention on the same tensors (as (b, h,
-    s, d) views), causal, GQA (`enable_gqa`): (forward ms, forward +
-    backward ms).  Timed here as a yardstick only; the port never calls it."""
+    s, d) views), causal (top-left, as flash) or not, GQA (`enable_gqa`):
+    (forward ms, forward + backward ms).  Timed here as a yardstick only;
+    the port never calls it."""
     F = torch.nn.functional
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
 
     def fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     def fwd_bwd():
         ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True).backward(dot)
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                       enable_gqa=True).backward(dot)
 
-    return time_ms(torch, [fwd], TRAIN_ITERS)[0], time_ms(torch, [fwd_bwd], TRAIN_ITERS)[0]
+    return time_ms(torch, [fwd], iters)[0], time_ms(torch, [fwd_bwd], iters)[0]
+
+
+def _flash_case(torch, randn, label, b, sq, skv, a, nkv, d, causal, bwd, check_b,
+                iters=TRAIN_ITERS):
+    """Flash forward (and backward) at one shape, bf16: checked against the
+    plain version on the first `check_b` rows, then timed at b rows by CUDA
+    events (`iters` calls) beside the plain version, SDPA at the same
+    causality and the bound at the true head dim.  Returns the
+    measurements."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+    from repro_torch.kernels.tolerance import flash_attention_bwd_tol, flash_attention_tol
+
+    shape = f"b={b} sq={sq} skv={skv} a={a} nkv={nkv} d={d} {'causal' if causal else 'full'}"
+    qkv = copies(torch, lambda: (randn(b, sq, a, d), randn(b, skv, nkv, d),
+                                 randn(b, skv, nkv, d), randn(b, sq, a, d)),
+                 2 * (2 * b * sq * a + 2 * b * skv * nkv) * d)
+    q, k, v, do = (t[:check_b] for t in qkv[0])
+    want = flash_attention_ref(q, k, v, causal=causal)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    t_out, t_lse = flash_attention_tol(q, k, v, want, causal=causal)
+    err = compare(torch, out, want[0], t_out, f"{label} flash_attention out ({shape}, "
+                                              f"checked at b={check_b})")
+    compare(torch, lse, want[1], t_lse, f"{label} flash_attention lse")
+    del out, lse, t_out, t_lse
+    errb = None
+    if bwd:
+        gwant = flash_attention_bwd_ref(q, k, v, *want, do, causal=causal)
+        got = flash_attention_bwd(q, k, v, *want, do, causal=causal)
+        tols = flash_attention_bwd_tol(q, k, v, *want, do, gwant, causal=causal)
+        errb = max(compare(torch, g_, w_, t_, f"{label} flash_attention_bwd {n_}")
+                   for n_, g_, w_, t_ in zip(("dq", "dk", "dv"), got, gwant, tols))
+        del gwant, got, tols
+    del want
+    torch.cuda.empty_cache()
+    fwd_in = [(q_, k_, v_) for q_, k_, v_, _ in qkv]
+    ms, _ = time_ms(torch, [lambda t=t: flash_attention_fwd(*t, causal=causal) for t in fwd_in],
+                    iters)
+    plain, _ = time_ms(torch, [lambda t=t: flash_attention_ref(*t, causal=causal)
+                               for t in fwd_in], iters)
+    sdpa_f, sdpa_fb = _sdpa_ms(torch, *qkv[0], causal=causal, iters=iters)
+    pairs = b * a * (sq * (sq + 1) // 2 if causal and sq == skv else sq * skv)
+    io = 2.0 * (2 * b * sq * a * d + 2 * b * skv * nkv * d)       # q, o; k, v
+    bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * sq)
+    res = dict(ms=ms, plain_ms=plain, sdpa_ms=sdpa_f, bound_ms=bnd, bound_by=by, err=err)
+    line = (f"    {label} {shape}: forward {ms:.4f} ms (plain {plain:.4f}, SDPA {sdpa_f:.4f}: "
+            f"{ms / sdpa_f:.2f}x; bound {bnd:.4f} by {by}, {bnd / ms:.3f} of it; "
+            f"{4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s)")
+    if bwd:
+        bwd_in = []
+        for q_, k_, v_, do_ in qkv:
+            o_, l_ = flash_attention_fwd(q_, k_, v_, causal=causal)
+            bwd_in.append((q_, k_, v_, o_, l_, do_))
+        ms_b, _ = time_ms(torch, [lambda t=t: flash_attention_bwd(*t, causal=causal)
+                                  for t in bwd_in], iters)
+        plain_b, _ = time_ms(torch, [lambda t=t: flash_attention_bwd_ref(*t, causal=causal)
+                                     for t in bwd_in], iters)
+        bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * sq * a * d + 8.0 * b * a * sq)
+        res.update(ms_b=ms_b, plain_b=plain_b, sdpa_b=sdpa_fb - sdpa_f, bound_b=bnd_b, by_b=by_b,
+                   errb=errb)
+        line += (f"; backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA forward+backward less "
+                 f"its forward {sdpa_fb - sdpa_f:.4f}: {ms_b / (sdpa_fb - sdpa_f):.2f}x; bound "
+                 f"{bnd_b:.4f} by {by_b}, {bnd_b / ms_b:.3f} of it; "
+                 f"{10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s)")
+        del bwd_in
+    print(line)
+    del qkv, fwd_in
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mlp_case(torch, randn, label, mlp_type, m, h, f, bwd, iters=TRAIN_ITERS) -> dict:
+    """The fused MLP's hidden (and its backward: the recompute kernel and
+    its tile GEMMs) at (m, h, f), bf16, checked and timed (`iters` calls)
+    beside the plain version and the bound."""
+    from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_ref
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref, is_gated
+    from repro_torch.kernels.tolerance import fused_mlp_bwd_tol, fused_mlp_hidden_tol
+
+    gated = is_gated(mlp_type)
+    nw = 2 if gated else 1
+    ins = copies(torch, lambda: (randn(m, h), randn(h, f, scale=h ** -0.5),
+                                 randn(h, f, scale=h ** -0.5), randn(m, f)),
+                 (m * h + nw * h * f + m * f) * 2)
+    shape = f"{mlp_type} {m}x{h}x{f}"
+    x, wg, wu, dh = ins[0]
+    want = fused_mlp_hidden_ref(x, wg, wu, mlp_type)
+    err = compare(torch, fused_mlp_hidden(x, wg, wu, mlp_type=mlp_type), want,
+                  fused_mlp_hidden_tol(x, wg, wu, mlp_type, want),
+                  f"{label} fused_mlp_hidden {shape}")
+    del want
+    ms, _ = time_ms(torch, [lambda t=t: fused_mlp_hidden(*t[:3], mlp_type=mlp_type)
+                            for t in ins], iters)
+    plain, _ = time_ms(torch, [lambda t=t: fused_mlp_hidden_ref(*t[:3], mlp_type)
+                               for t in ins], iters)
+    flops = 2.0 * nw * m * h * f
+    bnd, by = bound(flops, 2.0 * (m * h + nw * h * f + m * f))
+    res = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, err=err)
+    line = (f"    {label} fused MLP {shape}: forward {ms:.4f} ms (plain {plain:.4f}, bound "
+            f"{bnd:.4f} by {by}, {bnd / ms:.3f} of it; {flops / ms / 1e9:.1f} TFLOP/s)")
+    if bwd:
+        want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+        got = fused_mlp_bwd(x, wg, wu, dh, mlp_type=mlp_type)
+        tols = fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)
+        errb = max(compare(torch, g_, w_, t_, f"{label} fused_mlp_bwd {shape} {n_}")
+                   for n_, g_, w_, t_ in zip(("dx", "dwg", "dwu"), got, want, tols)
+                   if w_ is not None)
+        del want, got, tols
+        torch.cuda.empty_cache()
+        ms_b, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd(*t, mlp_type=mlp_type) for t in ins],
+                          iters)
+        plain_b, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd_ref(*t, mlp_type)
+                                     for t in ins], iters)
+        flops_b = 3.0 * flops            # recomputed hidden, dx, the weight gradients
+        bnd_b, by_b = bound(flops_b, 2.0 * (2 * m * h + 2 * nw * h * f + m * f))
+        res.update(ms_b=ms_b, plain_b=plain_b, bound_b=bnd_b, by_b=by_b, errb=errb)
+        line += (f"; backward {ms_b:.4f} ms (plain {plain_b:.4f}, bound {bnd_b:.4f} by {by_b}, "
+                 f"{bnd_b / ms_b:.3f} of it; {flops_b / ms_b / 1e9:.1f} TFLOP/s)")
+    print(line)
+    del ins
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gemm_case(torch, randn, label, layout, m, k, n, iters=TRAIN_ITERS) -> dict:
+    """The tile GEMM at (m, k, n) in one layout: "forward" x @ w, "dgrad"
+    g @ w^T (w stored (n, k), read transposed), "wgrad" x^T @ g (x stored
+    (k, m)), bf16, checked and timed beside the plain version,
+    torch.matmul and the bound."""
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.tolerance import matmul_tol
+
+    def make():
+        if layout == "forward":
+            return randn(m, k), randn(k, n, scale=k ** -0.5)
+        if layout == "dgrad":
+            return randn(m, k), randn(n, k, scale=k ** -0.5).T
+        return randn(k, m).T, randn(k, n, scale=k ** -0.5)
+    ops = copies(torch, make, (m * k + k * n) * 2)
+    a, b = ops[0]
+    want = matmul_ref(a, b)
+    err = compare(torch, matmul(a, b), want, matmul_tol(a, b, want),
+                  f"{label} matmul {layout} {m}x{k}x{n}")
+    del want
+    ms, _ = time_ms(torch, [lambda o=o: matmul(*o) for o in ops], iters)
+    plain, _ = time_ms(torch, [lambda o=o: matmul_ref(*o) for o in ops], iters)
+    lib, _ = time_ms(torch, [lambda o=o: torch.matmul(*o) for o in ops], iters)
+    flops = 2.0 * m * k * n
+    bnd, by = bound(flops, 2.0 * (m * k + k * n + m * n))
+    print(f"    {label} matmul {layout} {m}x{k}x{n}: {ms:.4f} ms (plain {plain:.4f}, "
+          f"torch.matmul {lib:.4f}: {ms / lib:.2f}x; bound {bnd:.4f} by {by}, {bnd / ms:.3f} of "
+          f"it; {flops / ms / 1e9:.1f} TFLOP/s)")
+    del ops
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by, err=err)
 
 
 def train_kernel_phase(torch) -> dict:
     """The training slice's kernels at its full-width shapes (bf16)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
-                                                         flash_attention_ref)
-    from repro_torch.kernels.fused_mlp.backward import fused_mlp_bwd_ref
-    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, fused_mlp_hidden
-    from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
-    from repro_torch.kernels.tolerance import (flash_attention_bwd_tol, flash_attention_tol,
-                                               fused_mlp_bwd_tol, fused_mlp_hidden_tol)
-
     dev = torch.device("cuda")
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -994,101 +1182,37 @@ def train_kernel_phase(torch) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
     rows = {}
-    print(f"kernels at the training shapes ({TOKENS} tokens, bf16, CUDA events):")
-
+    print(f"kernels at the training shapes ({TOKENS} tokens, bf16, CUDA events; 24 launches "
+          f"per step each):")
     # flash attention: q (4, 1024, 16, 128), k / v (4, 1024, 8, 128), causal
-    b, s, a, nkv, d = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
-    qkv = copies(torch, lambda: (randn(b, s, a, d), randn(b, s, nkv, d), randn(b, s, nkv, d),
-                                 randn(b, s, a, d)), 3 * b * s * a * d * 2)
-    q, k, v, do = qkv[0]
-    want = flash_attention_ref(q, k, v)
-    out, lse = flash_attention_fwd(q, k, v)
-    t_out, t_lse = flash_attention_tol(q, k, v, want)
-    err = compare(torch, out, want[0], t_out, f"flash_attention out b={b} s={s} a={a} "
-                                              f"nkv={nkv} d={d} causal")
-    compare(torch, lse, want[1], t_lse, "flash_attention lse")
-    del t_out, t_lse
-    o, lse_p = want
-    gwant = flash_attention_bwd_ref(q, k, v, o, lse_p, do)
-    got = flash_attention_bwd(q, k, v, o, lse_p, do)
-    tols = flash_attention_bwd_tol(q, k, v, o, lse_p, do, gwant)
-    errb = max(compare(torch, g_, w_, t_, f"flash_attention_bwd {n_}")
-               for n_, g_, w_, t_ in zip(("dq", "dk", "dv"), got, gwant, tols))
-    del gwant, got, tols, want
-    fwd_in = [(q_, k_, v_) for q_, k_, v_, _ in qkv]
-    bwd_in = []
-    for q_, k_, v_, do_ in qkv:
-        o_, l_ = flash_attention_fwd(q_, k_, v_)
-        bwd_in.append((q_, k_, v_, o_, l_, do_))
-    ms, _ = time_ms(torch, [lambda t=t: flash_attention_fwd(*t) for t in fwd_in], TRAIN_ITERS)
-    plain, _ = time_ms(torch, [lambda t=t: flash_attention_ref(*t) for t in fwd_in], TRAIN_ITERS)
-    ms_b, _ = time_ms(torch, [lambda t=t: flash_attention_bwd(*t) for t in bwd_in], TRAIN_ITERS)
-    plain_b, _ = time_ms(torch, [lambda t=t: flash_attention_bwd_ref(*t) for t in bwd_in],
-                         TRAIN_ITERS)
-    sdpa_f, sdpa_fb = _sdpa_ms(torch, q, k, v, do)
-    sdpa_b = sdpa_fb - sdpa_f
-    pairs = b * a * s * (s + 1) // 2        # live (query, key) pairs, causal
-    io = 2.0 * (2 * b * s * a * d + 2 * b * s * nkv * d)      # q, o; k, v
-    bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * s)
-    bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * s * a * d + 8.0 * b * a * s)
-    print(f"    forward {ms:.4f} ms (plain {plain:.4f}, SDPA {sdpa_f:.4f}: {ms / sdpa_f:.2f}x, "
-          f"bound {bnd:.4f} by {by}; {4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s); 24 launches "
-          f"per step")
-    print(f"    backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA forward+backward "
-          f"{sdpa_fb:.4f} less its forward = {sdpa_b:.4f}: {ms_b / sdpa_b:.2f}x, bound "
-          f"{bnd_b:.4f} by {by_b}; {10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s); 24 launches "
-          f"per step")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    fl = _flash_case(torch, randn, "train", b, s, s, 16, 8, 128, True, True, b, TRAIN_ITERS)
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:115", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=sdpa_f)
+        replaces="src/repro/kernels/flash_attention/kernel.py:115", max_abs_err=fl["err"],
+        ms=fl["ms"], plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+        library_ms=fl["sdpa_ms"])
     rows["flash_attention_bwd"] = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention/backward.py:115", max_abs_err=errb, ms=ms_b,
-        plain_ms=plain_b, bound_ms=bnd_b, bound_by=by_b, library_ms=sdpa_b)
-    del qkv, fwd_in, bwd_in, q, k, v, do, o, lse_p, out, lse
+        replaces="src/repro/kernels/flash_attention/backward.py:115", max_abs_err=fl["errb"],
+        ms=fl["ms_b"], plain_ms=fl["plain_b"], bound_ms=fl["bound_b"], bound_by=fl["by_b"],
+        library_ms=fl["sdpa_b"])
 
-    # fused SwiGLU forward and backward: x (4096, 2048), the (2048, 8192)
-    # gate/up pair, dh (4096, 8192)
-    m, h, f = TOKENS, 2048, 8192
-    ins = copies(torch, lambda: (randn(m, h), randn(h, f, scale=h ** -0.5),
-                                 randn(h, f, scale=h ** -0.5), randn(m, f)),
-                 (m * h + 2 * h * f + m * f) * 2)
-    want = fused_mlp_hidden_ref(*ins[0][:3])
-    err = compare(torch, fused_mlp_hidden(*ins[0][:3]), want,
-                  fused_mlp_hidden_tol(*ins[0][:3], "swiglu", want),
-                  f"fused_mlp_hidden swiglu {m}x{h}x{f}")
-    del want
-    ms, _ = time_ms(torch, [lambda t=t: fused_mlp_hidden(*t[:3]) for t in ins], TRAIN_ITERS)
-    plain, _ = time_ms(torch, [lambda t=t: fused_mlp_hidden_ref(*t[:3]) for t in ins],
-                       TRAIN_ITERS)
-    flops = 4.0 * m * h * f
-    bnd, by = bound(flops, 2.0 * (m * h + 2 * h * f + m * f))
-    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
-          f"{flops / ms / 1e9:.1f} TFLOP/s); 24 launches per step")
+    # fused SwiGLU forward and backward (+3 tile GEMMs): x (4096, 2048), the
+    # (2048, 8192) gate/up pair, dh (4096, 8192)
+    mlp = _mlp_case(torch, randn, "train", "swiglu", TOKENS, 2048, 8192, True, TRAIN_ITERS)
     rows["fused_mlp_hidden_train"] = dict(
         name="fused_mlp_hidden_train", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_mlp.cu",
-        replaces="src/repro/kernels/fused_mlp/kernel.py:64", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
-    want = fused_mlp_bwd_ref(*ins[0], "swiglu")
-    got = fused_mlp_bwd(*ins[0], mlp_type="swiglu")
-    tols = fused_mlp_bwd_tol(*ins[0], "swiglu", want)
-    err = max(compare(torch, g_, w_, t_, f"fused_mlp_bwd swiglu {m}x{h}x{f} {n_}")
-              for n_, g_, w_, t_ in zip(("dx", "dwg", "dwu"), got, want, tols))
-    del want, got, tols
-    ms, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd(*t) for t in ins], TRAIN_ITERS)
-    plain, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd_ref(*t) for t in ins], TRAIN_ITERS)
-    flops = 12.0 * m * h * f   # g, u recomputed; dx over both pairs; dwg; dwu
-    bnd, by = bound(flops, 2.0 * (2 * m * h + 4 * h * f + m * f))
-    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
-          f"{flops / ms / 1e9:.1f} TFLOP/s); 24 launches per step (+3 tile GEMMs each)")
+        replaces="src/repro/kernels/fused_mlp/kernel.py:64", max_abs_err=mlp["err"],
+        ms=mlp["ms"], plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"],
+        bound_by=mlp["bound_by"], library_ms=None)
     rows["fused_mlp_bwd"] = dict(
         name="fused_mlp_bwd", route="cuda", source="src/repro_torch/kernels/csrc/fused_mlp_bwd.cu",
-        replaces="src/repro/kernels/fused_mlp/backward.py:109", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
-    del ins
+        replaces="src/repro/kernels/fused_mlp/backward.py:109", max_abs_err=mlp["errb"],
+        ms=mlp["ms_b"], plain_ms=mlp["plain_b"], bound_ms=mlp["bound_b"], bound_by=mlp["by_b"],
+        library_ms=None)
 
     _train_gemm_rows(torch, randn, rows)
     torch.cuda.empty_cache()
@@ -1107,48 +1231,19 @@ def attention_table_phase(torch) -> None:
     each checked against its plain version at b 1 (the plain version's f32
     scores at a = 64 take 1 GiB a tensor) and timed at b 4 beside SDPA and
     the bound at the true head dim (the kernels pad d in shared memory)."""
-    from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd,
-                                                         flash_attention_fwd, flash_padded_d)
-    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
-                                                         flash_attention_ref)
-    from repro_torch.kernels.tolerance import flash_attention_bwd_tol, flash_attention_tol
+    from repro_torch.kernels.flash_attention.ops import flash_padded_d
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
     b, s = GPT3_BATCH, GPT3_SEQ
     print(f"attention at gpt3-2.7b C0-C3 (d_model 2560, b {b}, s {s}, causal, bf16; CUDA events):")
     for name, (a, d) in GPT3_ATTENTION.items():
-        q, k, v, do = (torch.randn((b, s, a, d), generator=gen, device=dev).to(torch.bfloat16)
-                       for _ in range(4))
-        q1, k1, v1, do1 = q[:1], k[:1], v[:1], do[:1]
-        want = flash_attention_ref(q1, k1, v1)
-        out, lse = flash_attention_fwd(q1, k1, v1)
-        t_out, t_lse = flash_attention_tol(q1, k1, v1, want)
-        compare(torch, out, want[0], t_out, f"{name} flash_attention out b=1 a={a} d={d}")
-        compare(torch, lse, want[1], t_lse, f"{name} flash_attention lse")
-        del t_out, t_lse, out, lse
-        gwant = flash_attention_bwd_ref(q1, k1, v1, *want, do1)
-        got = flash_attention_bwd(q1, k1, v1, *want, do1)
-        tols = flash_attention_bwd_tol(q1, k1, v1, *want, do1, gwant)
-        for n_, g_, w_, t_ in zip(("dq", "dk", "dv"), got, gwant, tols):
-            compare(torch, g_, w_, t_, f"{name} flash_attention_bwd {n_}")
-        del want, gwant, got, tols
-        torch.cuda.empty_cache()
-        o, lse = flash_attention_fwd(q, k, v)
-        ms, _ = time_ms(torch, [lambda: flash_attention_fwd(q, k, v)], TRAIN_ITERS)
-        ms_b, _ = time_ms(torch, [lambda: flash_attention_bwd(q, k, v, o, lse, do)], TRAIN_ITERS)
-        sdpa_f, sdpa_fb = _sdpa_ms(torch, q, k, v, do)
-        pairs = b * a * s * (s + 1) // 2
-        io = 2.0 * 4 * b * s * a * d                 # q, k, v, o
-        bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * s)
-        bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * s * a * d + 8.0 * b * a * s)
-        print(f"  {name} a={a} d={d} (padded {flash_padded_d(d)}): forward {ms:.4f} ms (SDPA "
-              f"{sdpa_f:.4f}: {ms / sdpa_f:.2f}x; bound {bnd:.4f} by {by}; "
-              f"{4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s at the true d); backward {ms_b:.4f} ms "
-              f"(SDPA {sdpa_fb - sdpa_f:.4f}: {ms_b / (sdpa_fb - sdpa_f):.2f}x; bound "
-              f"{bnd_b:.4f} by {by_b}; {10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s)")
-        del q, k, v, do, o, lse
-        torch.cuda.empty_cache()
+        _flash_case(torch, randn, f"{name} (d padded to {flash_padded_d(d)})", b, s, s, a, a, d,
+                    True, True, 1, TRAIN_ITERS)
 
 
 # --- serve phase ------------------------------------------------------------------------
@@ -3852,13 +3947,14 @@ def _grads(torch, params, batch, cfg, remat="none"):
 
 def _grad_rels(gk, gp, names):
     """||g_k - g_p|| / ||g_p|| for every leaf, for every layer's slice of a
-    stacked leaf (a fault in one layer is not averaged over 24), and for
+    stacked leaf (a decoder segment's, whisper's encoder's and its
+    cross-attention blocks': a fault in one layer is not averaged over 24), and for
     every expert's slice of a stacked expert stack (a (layers, experts, .,
     .) leaf under "moe/": a fault in one expert is not averaged over 16),
     worst first: [(ratio, name)]."""
     out = []
     for a, b, n in zip(gk, gp, names):
-        if n.startswith("seg"):
+        if n.startswith(("seg", "encoder/seg", "xattn/")):
             lead = 2 if "/moe/w_" in n and a.dim() == 4 else 1
             r = (a - b).flatten(lead).norm(dim=-1) / b.flatten(lead).norm(dim=-1).clamp_min(1e-30)
             if lead == 1:
@@ -5637,6 +5733,671 @@ def codesign_phase(torch, cache) -> None:
 
 
 
+# --- the encoder-decoder and VLM slice ------------------------------------------------------
+
+# whisper-small (arXiv:2212.04356) at full size: 12 encoder + 12 decoder
+# layers, d 768, 12 heads of 64 (multi-head), d_ff 3072 (GELU), LayerNorm,
+# learned positions, vocab 51865 (51968 padded); the encoder over 1500
+# frames, the output of its conv frontend, which data/pipeline.py stubs.
+# Served: 4 prompts of 32 tokens, then 31 greedy decode steps; trained on 4
+# x 448 target tokens (whisper's longest) with 4 x 1500 frames.
+WHISPER = "whisper-small"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN = 4, 32, 32
+ENCDEC_TRAIN_SEQ = 448
+# internvl2-76b (arXiv:2404.16821) at full width: d 8192, 64 / 8 heads of
+# 128, d_ff 28672 (SwiGLU), vocab 128256, 1024 patch embeddings (the stub)
+# before the text.  Its depth is cut from 80 layers to 8 to serve (8 x
+# 0.856 B + 2.10 B of embedding and head = 8.95 B parameters, 17.9 GB bf16)
+# and to 2 to train (3.81 B float32 masters, 61.0 GB with their gradients
+# and AdamW's moments; the step peaks at 67.33 GiB on the card, PERF.md).
+# Served: 4 x (1024 patches + 64 prompt tokens), 31 greedy decode steps;
+# trained on 4 x (1024 patches + 1024 tokens).
+INTERNVL = "internvl2-76b"
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 8, 2
+VLM_PROMPT, VLM_TRAIN_SEQ = 64, 2048
+# One decode step after a prefill of s - 1 tokens against a prefill of s
+# (bf16, the kernel path both times): the decode step's self-attention
+# reads the cache on the naive path and its cross-attention runs flash at
+# sq = 1, where the prefill ran flash at sq = s; GEMMs at 4 rows against
+# s x 4 rows sum in another order.  Relative norm over the last position's
+# logits:
+ENCDEC_HANDOFF_REL_BOUND = 0.05
+ENCDEC_ITERS = 10          # timed calls at the slice's largest shapes
+
+
+def _encdec_counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd, paged_decode
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
+    from repro_torch.kernels.matmul.ops import matmul
+    return {"matmul": matmul, "fused_mlp_hidden": fused_mlp_hidden,
+            "flash_attention": flash_attention_fwd, "paged_decode": paged_decode}
+
+
+def _encdec_layers(cfg) -> tuple:
+    """(decoder layers L, encoder layers Le, cross-attention blocks X)."""
+    enc = cfg.is_encoder_decoder
+    return cfg.num_layers, cfg.num_encoder_layers if enc else 0, cfg.num_layers if enc else 0
+
+
+def encdec_pass_launches(cfg, what: str) -> dict:
+    """Kernel launches of one serving pass of whisper or internvl under
+    linear_impl "fused", attn_impl "flash":
+      an encoder layer: 4 projections and w_down (tile GEMMs), one fused MLP,
+      one flash launch (non-causal);
+      a decoder layer: the same GEMMs and fused MLP; its self-attention
+      reads the cache on the naive path (prefill and decode, as in JAX);
+      a cross-attention block (whisper): 4 tile GEMMs and one flash launch
+      (non-causal; at decode too, at sq = 1: it keeps no cache);
+      the head: one tile GEMM.
+    what: "prefill" (the encoder runs inside it), "encoder"
+    (`apply_encoder` alone) or "decode" (one step given enc_out).  No
+    paged-decode launch: the static loop decodes on the naive path."""
+    L, Le, X = _encdec_layers(cfg)
+    if what == "encoder":
+        return {"matmul": 5 * Le, "fused_mlp_hidden": Le, "flash_attention": Le,
+                "paged_decode": 0}
+    enc = Le if what == "prefill" else 0
+    return {"matmul": 5 * enc + 5 * L + 4 * X + 1, "fused_mlp_hidden": enc + L,
+            "flash_attention": enc + X, "paged_decode": 0}
+
+
+def encdec_step_launches(cfg) -> dict:
+    """Kernel launches of one training step (remat "none", fused, flash):
+    n = 5 Le + 5 L + 4 X + 1 forward GEMMs ("nn"), each with its dgrad
+    ("nt") and wgrad ("tn"), every input requiring a gradient (the
+    encoder's through pos_embed); each of the F = Le + L fused MLPs adds its
+    backward's dx ("nt") and dWu ("tn"), and under SwiGLU dWg ("tn") too;
+    flash runs Le + L + X times each way (the encoder and the
+    cross-attention non-causal, the decoder causal).  internvl (Le = X = 0)
+    gives `per_step_launches`'s dense count."""
+    L, Le, X = _encdec_layers(cfg)
+    n, F = 5 * Le + 5 * L + 4 * X + 1, Le + L
+    wg = 2 if cfg.mlp_type == "swiglu" else 1
+    return {"matmul": 3 * n + F + wg * F, "matmul_nn": n, "matmul_nt": n + F,
+            "matmul_tn": n + wg * F, "fused_mlp_hidden": F, "fused_mlp_bwd": F,
+            "flash_attention": Le + L + X, "flash_attention_bwd": Le + L + X,
+            "paged_decode": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}
+
+
+def encdec_kernel_phase(torch) -> dict:
+    """The ported kernels at the shapes the encoder-decoder and VLM paths
+    put through them (bf16), each against its plain version and timed by
+    CUDA events beside its bound: flash forward at whisper-small's four
+    non-causal shapes (the encoder's 1500 x 1500, the training
+    cross-attention's 448 x 1500, the prefill's 32 x 1500, the decode
+    step's 1 x 1500; 12 heads of 64) and internvl2-76b's causal 2048 (64 / 8
+    heads of 128), beside SDPA at the same causality; flash backward at the
+    encoder's, the training cross-attention's and internvl2's; the fused
+    MLP (GELU 768 / 3072 at the encoder's 6000 and the decoder's 1792
+    training rows; SwiGLU 8192 / 28672 at internvl2's 4352 prefill, 4
+    decode and 8192 training rows) forward and, at the training rows,
+    backward; the tile GEMM at whisper's projection, w_down and head and
+    at internvl2's w_down (K 28672), forward, dgrad and wgrad.  Returns the
+    kernels line's rows for the headline shapes (their launches come from
+    the slice's serve and train phases)."""
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    B, it = ENCDEC_BATCH, ENCDEC_ITERS
+    print("kernels at the encoder-decoder and VLM shapes (bf16, CUDA events; whisper-small: 12 "
+          "heads of 64, d 768 / 3072; internvl2-76b: 64 / 8 heads of 128, d 8192 / 28672):")
+    enc = _flash_case(torch, randn, "whisper encoder", B, 1500, 1500, 12, 12, 64, False, True, B,
+                      it)
+    for label, sq, bwd in (("whisper train cross", ENCDEC_TRAIN_SEQ, True),
+                           ("whisper prefill cross", ENCDEC_PROMPT, False),
+                           ("whisper decode cross", 1, False)):
+        _flash_case(torch, randn, label, B, sq, 1500, 12, 12, 64, False, bwd, B, it)
+    _flash_case(torch, randn, "internvl train", B, VLM_TRAIN_SEQ, VLM_TRAIN_SEQ, 64, 8, 128, True,
+                True, 1, it)
+    mlp_enc = _mlp_case(torch, randn, "whisper encoder", "gelu", B * 1500, 768, 3072, True, it)
+    _mlp_case(torch, randn, "whisper train decoder", "gelu", B * ENCDEC_TRAIN_SEQ, 768, 3072,
+              True, it)
+    _mlp_case(torch, randn, "internvl prefill", "swiglu", B * (1024 + VLM_PROMPT), 8192, 28672,
+              False, it)
+    _mlp_case(torch, randn, "internvl decode", "swiglu", B, 8192, 28672, False, it)
+    mlp_vlm = _mlp_case(torch, randn, "internvl train", "swiglu", B * VLM_TRAIN_SEQ, 8192, 28672,
+                        True, it)
+    for label, m, k, n in (("whisper encoder q/k/v/o", B * 1500, 768, 768),
+                           ("whisper train w_down", B * ENCDEC_TRAIN_SEQ, 3072, 768),
+                           ("whisper train head", B * ENCDEC_TRAIN_SEQ, 768, 51968),
+                           ("whisper decode head", B, 768, 51968),
+                           ("internvl decode w_down", B, 28672, 8192)):
+        _gemm_case(torch, randn, label, "forward", m, k, n, it)
+    vlm = {g: _gemm_case(torch, randn, "internvl train w_down", g, *shape, it)
+           for g, shape in (("forward", (B * VLM_TRAIN_SEQ, 28672, 8192)),
+                            ("dgrad", (B * VLM_TRAIN_SEQ, 8192, 28672)),
+                            ("wgrad", (28672, B * VLM_TRAIN_SEQ, 8192)))}
+    src = "src/repro_torch/kernels/csrc/"
+    fl, fl_b = "src/repro/kernels/flash_attention/kernel.py:115", \
+        "src/repro/kernels/flash_attention/backward.py:115"
+    fm, fm_b = "src/repro/kernels/fused_mlp/kernel.py:64", \
+        "src/repro/kernels/fused_mlp/backward.py:109"
+
+    def row(name, source, replaces, r, bwd=False, library=None):
+        keys = (("errb", "ms_b", "plain_b", "bound_b", "by_b") if bwd
+                else ("err", "ms", "plain_ms", "bound_ms", "bound_by"))
+        return dict(name=name, route="cuda", source=src + source, replaces=replaces,
+                    **dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                               (r[k] for k in keys))), library_ms=library)
+    return {
+        "flash_attention_encdec": row("flash_attention_encdec", "flash_attention.cu", fl, enc,
+                                      library=enc["sdpa_ms"]),
+        "flash_attention_bwd_encdec": row("flash_attention_bwd_encdec", "flash_attention_bwd.cu",
+                                          fl_b, enc, bwd=True, library=enc["sdpa_b"]),
+        "fused_mlp_hidden_encdec": row("fused_mlp_hidden_encdec", "fused_mlp.cu", fm, mlp_enc),
+        "fused_mlp_hidden_vlm": row("fused_mlp_hidden_vlm", "fused_mlp.cu", fm, mlp_vlm),
+        "fused_mlp_bwd_vlm": row("fused_mlp_bwd_vlm", "fused_mlp_bwd.cu", fm_b, mlp_vlm,
+                                 bwd=True),
+        "matmul_vlm": dict(name="matmul_vlm", route="cuda", source=src + "matmul.cu",
+                           replaces="src/repro/kernels/matmul/kernel.py:35",
+                           max_abs_err=max(r["err"] for r in vlm.values()),
+                           ms=sum(r["ms"] for r in vlm.values()),
+                           plain_ms=sum(r["plain_ms"] for r in vlm.values()),
+                           bound_ms=sum(r["bound_ms"] for r in vlm.values()),
+                           bound_by="operations",
+                           library_ms=sum(r["library_ms"] for r in vlm.values()))}
+
+
+def _encdec_entries():
+    """The kernel entries of the encoder-decoder and VLM paths, each named by
+    what it computes (the tile GEMMs by layout)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    return _train_step_entries()[:3] + [(flash_ops, "_flash_fwd_cuda", "flash forward"),
+                                        (flash_ops, "_flash_bwd_cuda", "flash backward")]
+
+
+def _where_ms(what: str, whole: float, kms: dict, rest: str) -> str:
+    return (f"  {what}, CUDA events around each kernel launch: {whole:.2f} ms in all; "
+            + ", ".join(f"{n} {v:.2f} ms ({100 * v / whole:.1f}%)"
+                        for n, v in sorted(kms.items(), key=lambda kv: -kv[1]))
+            + f"; the rest ({rest}) {whole - sum(kms.values()):.2f} ms")
+
+
+def _greedy(torch, cfg, params, batch, start: int, steps: int, enc_out=None, keep=False):
+    """serve_step's prefill, then `steps` greedy decode steps at positions
+    start, start + 1, ... (enc_out to each).  Returns (tokens (b, steps +
+    1), each step's logits if `keep`)."""
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+    V = cfg.vocab_size
+    logits, caches = make_prefill_step(cfg, start + steps + 1)(params, batch)
+    decode = make_decode_step(cfg)
+    seen = [logits[:, :V].float()] if keep else []
+    tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+    out = [tok]
+    for i in range(steps):
+        logits, _ = decode(params, tok, caches, start + i, enc_out)
+        tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+        out.append(tok)
+        if keep:
+            seen.append(logits[:, :V].float())
+    return torch.cat(out, 1), seen
+
+
+def _static_serve(torch, label: str, cfg, params, batch, start: int) -> dict:
+    """A warm prefill through serve_step, then a timed prefill and
+    ENCDEC_GEN - 1 greedy decode steps at positions start, start + 1, ...,
+    each run's launches against the path's (`encdec_pass_launches`);
+    an encoder-decoder's `apply_encoder` runs once between them, counted
+    too, and its output goes to every decode step.  Returns the launches
+    over the timed runs."""
+    from repro_torch.models import apply_encoder
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+    counters = _encdec_counters()
+    V, steps = cfg.vocab_size, ENCDEC_GEN - 1
+    prefill = make_prefill_step(cfg, start + ENCDEC_GEN)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        prefill(params, batch)   # warm
+        (logits, caches), pre_s, pre_ms, total = _ssm_timed(
+            torch, f"{label} prefill", lambda: prefill(params, batch),
+            encdec_pass_launches(cfg, "prefill"), counters)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out, enc_s, enc_ms, ecounts = _ssm_timed(
+                torch, f"{label} encoder", lambda: apply_encoder(params, batch["encoder_frames"],
+                                                                 cfg),
+                encdec_pass_launches(cfg, "encoder"), counters)
+            total = {n: total[n] + ecounts[n] for n in total}
+        tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+        out, times = [tok], []
+
+        def run_decode():
+            nonlocal tok
+            for i in range(steps):
+                t = time.perf_counter()
+                lg, _ = decode(params, tok, caches, start + i, enc_out)
+                tok = torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32)
+                out.append(tok)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+        per_step = encdec_pass_launches(cfg, "decode")
+        _, dec_s, dec_ms, dcounts = _ssm_timed(
+            torch, f"{label} decode", run_decode, {n: steps * k for n, k in per_step.items()},
+            counters)
+        total = {n: total[n] + dcounts[n] for n in total}
+        toks = torch.cat(out, 1)
+        if not bool(torch.isfinite(logits).all().item()) or not bool(
+                ((toks >= 0) & (toks < V)).all().item()):
+            fail(f"{label}: non-finite logits or a token outside the vocabulary")
+        where = [_where_ms("one more prefill", *_wrapper_device_ms(
+                     torch, lambda: prefill(params, batch), _encdec_entries()),
+                     "eager work and gaps"),
+                 _where_ms("one more decode step", *_wrapper_device_ms(
+                     torch, lambda: decode(params, tok, caches, start + steps, enc_out),
+                     _encdec_entries()), "the naive self-attention over the cache, eager work, "
+                                         "gaps")]
+    b = toks.shape[0]
+    times.sort()
+    print(f"  prefill {b} x {start}: {pre_s * 1e3:.2f} ms host, {pre_ms:.2f} ms between CUDA "
+          f"events ({b * start / pre_s:,.0f} tok/s)"
+          + (f"; apply_encoder once more for the decode steps: {enc_s * 1e3:.2f} ms host, "
+             f"{enc_ms:.2f} ms between events" if enc_out is not None else "")
+          + f"; {steps} decode steps: {dec_s * 1e3:.1f} ms host, {dec_ms:.1f} ms between events, "
+          f"step p50 {times[len(times) // 2] * 1e3:.2f} ms, max {times[-1] * 1e3:.2f} ms "
+          f"({b * steps / dec_s:,.1f} tok/s); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB")
+    print(f"  launches per prefill {json.dumps(encdec_pass_launches(cfg, 'prefill'))}, per decode "
+          f"step {json.dumps(per_step)} (as the path implies); sample row 0: "
+          f"{toks[0, :12].tolist()}")
+    print("\n".join(where))
+    return total
+
+
+def _serve_checks(torch, label: str, cfg, plain_cfg, params, batch, start: int, **inputs):
+    """Prefill logits over every position, kernel path vs plain path on the
+    same weights (LOGITS_REL_BOUND); one decode step after a prefill of
+    start - 1 positions against a prefill of start, the kernel path both
+    times (ENCDEC_HANDOFF_REL_BOUND).  `inputs`: the batch's patch_embeds
+    or encoder_frames."""
+    from repro_torch.models import apply_encoder, apply_lm
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+    V = cfg.vocab_size
+    toks = batch["tokens"]
+    with torch.no_grad():
+        lk = apply_lm(params, toks, cfg, **inputs)[0][..., :V]
+        lp = apply_lm(params, toks, plain_cfg, **inputs)[0][..., :V]
+        if not (bool(torch.isfinite(lk).all().item()) and bool(torch.isfinite(lp).all().item())):
+            fail(f"{label}: prefill logits not finite")
+        rel, pos = _rel(lk, lp), _per_position(lk, lp)
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        print(f"  prefill logits ({tuple(lk.shape[:2])} positions), kernel path vs plain path "
+              f"(jnp, naive): rel err {rel:.3e} (bound {LOGITS_REL_BOUND}); worst position "
+              f"{pos.max().item():.3e}; greedy agreement {agree:.3f}")
+        if rel > LOGITS_REL_BOUND:
+            fail(f"{label}: prefill logits differ from the plain path by {rel:.3e}")
+        del lk, lp, pos
+        prefill = make_prefill_step(cfg, start + 1)
+        short = dict(batch, tokens=toks[:, :-1])
+        _, caches = prefill(params, short)
+        enc = (apply_encoder(params, batch["encoder_frames"], cfg)
+               if cfg.is_encoder_decoder else None)
+        ld, _ = make_decode_step(cfg)(params, toks[:, -1:], caches, start - 1, enc)
+        lf, _ = prefill(params, batch)
+        rel = _rel(ld[:, :V], lf[:, :V])
+        rows = ((ld[:, :V].float() - lf[:, :V].float()).norm(dim=-1)
+                / lf[:, :V].float().norm(dim=-1)).tolist()
+        print(f"  decode step at position {start - 1} after a prefill of {start - 1} vs a "
+              f"prefill of {start}: rel err {rel:.3e}, rows {[f'{r:.2e}' for r in rows]} (bound "
+              f"{ENCDEC_HANDOFF_REL_BOUND}); argmax equal {bool((ld.argmax(-1) == lf.argmax(-1)).all())}")
+        if rel > ENCDEC_HANDOFF_REL_BOUND:
+            fail(f"{label}: the decode step after a prefill differs from the prefill by {rel:.3e}")
+
+
+def _token_identity(torch, label: str, cfg, plain_cfg, params, batch, start: int) -> None:
+    """Greedy tokens of the kernel path and the plain path (f32) through
+    serve_step, each decoding from its own encoder output: identical, but
+    where a row diverges at a near tie of the plain path's top-2 logits
+    there (TOKEN_GAP_REL)."""
+    from repro_torch.models import apply_encoder
+    frames = batch.get("encoder_frames")
+    with torch.no_grad():
+        runs = []
+        for c, keep in ((cfg, False), (plain_cfg, True)):
+            enc = None if frames is None else apply_encoder(params, frames, c)
+            runs.append(_greedy(torch, c, params, batch, start, ENCDEC_GEN - 1, enc, keep))
+        (tk, _), (tp, seen) = runs
+    tk, tp = tk.tolist(), tp.tolist()
+    same = sum(a == b for a, b in zip(tk, tp))
+    print(f"  f32 greedy tokens, kernel path vs plain path: identical {same}/{len(tk)} rows of "
+          f"{ENCDEC_GEN}")
+    for r, (a, b) in enumerate(zip(tk, tp)):
+        t = _first_divergence(a, b)
+        if t is None:
+            continue
+        top = seen[t][r].topk(2).values
+        gap = ((top[0] - top[1]) / top[0].abs()).item()
+        print(f"    row {r} diverges at token {t}: plain path's top-2 gap {gap:.3e} (near tie "
+              f"below {TOKEN_GAP_REL})")
+        if gap > TOKEN_GAP_REL:
+            fail(f"{label}: f32 tokens of row {r} diverge at token {t} without a near tie")
+
+
+def whisper_serve_phase(torch) -> dict:
+    """whisper-small at full size, bf16, linear_impl "fused", attn_impl
+    "flash", served by serve_step (the engines refuse an encoder-decoder, as
+    JAX's): 4 x 1500 frames from the batch stub, a prefill of 4 x 32 tokens
+    (the encoder inside), apply_encoder once, 31 greedy decode steps given
+    its output; launch counts per run; prefill logits against the plain
+    path; the decode handoff; f32 token identity of the kernel and plain
+    paths.  Returns the launches of the timed runs."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(WHISPER), linear_impl="fused", attn_impl="flash")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    n = sum(t.numel() for _, t in _paths(params))
+    print(f"whisper serve: {cfg.name} at full size ({cfg.num_encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, d {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab_size}, {cfg.encoder_seq} frames); {n / 1e6:.1f} M params in "
+          f"{cfg.dtype}, linear_impl={cfg.linear_impl}, attn_impl={cfg.attn_impl}; card "
+          f"{nvidia_smi()}")
+    shape = ShapeConfig("chip_smoke", ENCDEC_PROMPT, ENCDEC_BATCH, "prefill")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, 0, 0).items()
+             if k != "labels"}
+    counts = _static_serve(torch, "whisper serve", cfg, params, batch, ENCDEC_PROMPT)
+    _serve_checks(torch, "whisper serve", cfg, plain_cfg, params, batch, ENCDEC_PROMPT,
+                  encoder_frames=batch["encoder_frames"])
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg32, device=dev)
+    _token_identity(torch, "whisper serve", cfg32, dataclasses.replace(plain_cfg, dtype="float32"),
+                    params, batch, ENCDEC_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_planted_faults(torch):
+    """Faults whisper's step-0 check must see, each planted alone on the
+    kernel path: (what, module, global name, wrapper of the real
+    function)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import lm as lm_mod
+
+    def cross_causal(real):
+        def f(q, k, v, *, causal=True, scale=None):
+            return real(q, k, v, causal=causal or q.shape[1] != k.shape[1], scale=scale)
+        return f
+
+    def encoder_key_tile_dropped(real):
+        calls = []
+
+        def f(q, k, v, *args, **kw):
+            dq, dk, dv = real(q, k, v, *args, **kw)
+            if q.shape[1] == k.shape[1] == 1500:
+                calls.append(1)
+                if len(calls) == 1:    # the backward's first encoder layer: the last one
+                    dk[:, 64:128] = 0
+                    dv[:, 64:128] = 0
+            return dq, dk, dv
+        return f
+
+    def pos_embed_grad_zeroed(real):
+        def f(params, *args, **kw):
+            pe = params["pos_embed"]
+            return real({**params, "pos_embed": pe.detach() + 0 * pe}, *args, **kw)
+        return f
+
+    return [("the cross-attention runs causal", attention_mod, "flash_attention", cross_causal),
+            ("the last encoder layer's flash backward drops key tile 64-127 of dk and dv",
+             flash_ops, "flash_attention_bwd", encoder_key_tile_dropped),
+            ("pos_embed's gradient is zeroed", lm_mod, "apply_lm", pos_embed_grad_zeroed)]
+
+
+def vlm_planted_faults(torch, num_patches: int):
+    """The dense planted faults (`planted_faults`) and one of the VLM path:
+    the flash backward drops dk and dv of patch keys 64-127 (the text
+    attends to the patches, so their keys and values get a gradient)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def patch_key_tile_dropped(real):
+        def f(q, k, v, *args, **kw):
+            dq, dk, dv = real(q, k, v, *args, **kw)
+            if k.shape[1] >= num_patches >= 128:
+                dk[:, 64:128] = 0
+                dv[:, 64:128] = 0
+            return dq, dk, dv
+        return f
+
+    return planted_faults(torch) + [
+        ("the flash backward drops dk and dv of patch keys 64-127", flash_ops,
+         "flash_attention_bwd", patch_key_tile_dropped)]
+
+
+# At internvl2-76b's two layers the fused-MLP backward's truncated dh reads
+# 2.48e-2 against a sound worst of 5.44e-3 (2.40e-2 at one layer; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md): it hides under TRAIN_GRAD_REL_BOUND and
+# is printed, the other three are held.
+VLM_HELD_FAULTS = ("linear's wgrad drops its last 64-token k tile",
+                   "the last layer's flash backward zeroes kv head 0's dk",
+                   "the flash backward drops dk and dv of patch keys 64-127")
+
+
+def _encdec_train(torch, label: str, cfg, plain_cfg, seq: int, faults, held=None) -> dict:
+    """f32 masters, bf16 compute, AdamW, ENCDEC_BATCH x seq positions: the
+    step-0 check with its planted faults (each must break the gradient
+    bound, or those named in `held`), TRAIN_STEPS steps (losses finite,
+    every leaf moving, launches as the path implies), step time, peak
+    memory.  Returns the launches of the steps."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_STEPS, learning_rate=3e-4,
+                     remat="none")
+    shape = ShapeConfig("chip_smoke", seq, ENCDEC_BATCH, "train")
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_all = sum(t.numel() for _, t in _paths(params))
+    print(f"{label}: {n_all / 1e9:.3f} B float32 master params ({16 * n_all / 1e9:.1f} GB with "
+          f"their gradients and AdamW's moments); compute {cfg.dtype}, linear_impl="
+          f"{cfg.linear_impl}, attn_impl={cfg.attn_impl}, AdamW, remat={tc.remat}, batch "
+          f"{ENCDEC_BATCH} x {seq} (init {time.perf_counter() - t0:.1f} s)")
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in make_batch(cfg, shape, step, tc.seed).items()}
+
+    step0_check(torch, params, batch_at(0), cfg, plain_cfg, faults=faults,
+                check=f"{label} step-0 check", held=held)
+    opt = init_opt(params, tc)
+    step_fn = make_train_step(cfg, tc)
+    before = {n: t.detach().flatten()[:64].clone() for n, t in _paths(params)}
+    matmul_ops, fns = _train_counters()
+    batches = [batch_at(st) for st in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    losses, times = [], []
+    for st in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[st])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        print(f"  step {st}: loss {losses[-1]:.4f}  grad_norm {m['grad_norm'].item():.4f}  "
+              f"lr {m['lr'].item():.3e}  {times[-1] * 1e3:.1f} ms")
+    counts = _read_counts(matmul_ops, fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    still = [n for n, t in _paths(params) if torch.equal(t.detach().flatten()[:64], before[n])]
+    if still:
+        fail(f"{label}: parameters did not move: {still[:6]}")
+    want = {k: v * TRAIN_STEPS for k, v in encdec_step_launches(cfg).items()}
+    print(f"  kernel launches over {TRAIN_STEPS} steps: {json.dumps(counts)}")
+    if counts != want:
+        fail(f"{label}: launches {counts}, the path implies {want}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = ENCDEC_BATCH * seq
+    print(f"  step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
+          f"{tokens / step_s:,.0f} positions/s; every parameter moved; peak device memory "
+          f"{peak:.2f} GiB; card {nvidia_smi()}")
+    print(_where_ms("one more step", *_wrapper_device_ms(
+        torch, lambda: step_fn(params, opt, batches[0]), _encdec_entries()),
+        "norms, attention's eager parts, the loss, AdamW, gaps"))
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def whisper_train_phase(torch) -> dict:
+    """whisper-small at full size trained on 4 x 448 target tokens with 4 x
+    1500 frames (`_encdec_train`), its step-0 check reading every layer
+    slice of the encoder, the decoder and the cross-attention blocks and
+    pos_embed, with three planted faults (`encdec_planted_faults`)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(WHISPER), linear_impl="fused", attn_impl="flash")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+    return _encdec_train(torch, f"whisper train {cfg.name}", cfg, plain_cfg, ENCDEC_TRAIN_SEQ,
+                         encdec_planted_faults(torch))
+
+
+def internvl_serve_phase(torch) -> dict:
+    """internvl2-76b at full width, VLM_SERVE_LAYERS of its 80 layers, bf16,
+    linear_impl "fused", attn_impl "flash", served by serve_step: a
+    prefill of 4 x (1024 patches + 64 tokens) and 31 greedy decode steps,
+    launch counts per run, prefill logits against the plain path, the
+    decode handoff.  Returns the launches of the timed runs."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import init_lm
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(INTERNVL)
+    cfg = dataclasses.replace(full, num_layers=VLM_SERVE_LAYERS, linear_impl="fused",
+                              attn_impl="flash")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in _paths(params))
+    print(f"internvl serve: {cfg.name} at full width (d {cfg.d_model}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.num_patches} patches), {cfg.num_layers} of {full.num_layers} layers; "
+          f"{n / 1e9:.3f} B params, {2 * n / 1e9:.1f} GB in {cfg.dtype} (init "
+          f"{time.perf_counter() - t0:.1f} s); linear_impl={cfg.linear_impl}, "
+          f"attn_impl={cfg.attn_impl}; card {nvidia_smi()}")
+    start = cfg.num_patches + VLM_PROMPT
+    shape = ShapeConfig("chip_smoke", start, ENCDEC_BATCH, "prefill")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, 0, 0).items()
+             if k != "labels"}
+    counts = _static_serve(torch, "internvl serve", cfg, params, batch, start)
+    _serve_checks(torch, "internvl serve", cfg, plain_cfg, params, batch, start,
+                  patch_embeds=batch["patch_embeds"])
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def internvl_train_phase(torch) -> dict:
+    """internvl2-76b at full width, VLM_TRAIN_LAYERS layer(s), trained on 4 x
+    (1024 patches + 1024 tokens) with flash causal over the 2048 positions
+    (`_encdec_train`; the dense planted faults and a patch key tile's
+    dk / dv dropped, VLM_HELD_FAULTS held)."""
+    from repro_torch.configs.registry import get_config
+    full = get_config(INTERNVL)
+    cfg = dataclasses.replace(full, num_layers=VLM_TRAIN_LAYERS, linear_impl="fused",
+                              attn_impl="flash")
+    plain_cfg = dataclasses.replace(cfg, linear_impl="jnp", attn_impl="naive")
+    return _encdec_train(torch, f"internvl train {cfg.name} ({cfg.num_layers} of "
+                                f"{full.num_layers} layers)", cfg, plain_cfg, VLM_TRAIN_SEQ,
+                         vlm_planted_faults(torch, cfg.num_patches), held=VLM_HELD_FAULTS)
+
+
+def blocked_phase(torch) -> None:
+    """attn_impl "blocked" on the card: blocked_sdpa (plain PyTorch, a loop
+    over KV blocks) against the naive _sdpa on the same bf16 inputs, every
+    element within `blocked_sdpa_tol` (its bf16 accumulator charged), at
+    whisper-small's encoder shape (1500 keys in blocks of 1024: a padded
+    tail) and at internlm2-1.8b's causal prefill of 1024 tokens into a
+    2048-deep cache at offset 512 (kv_len 1536); each timed beside the
+    naive path and flash.  Then one forward of whisper-small (bf16, fused)
+    under "blocked" against "flash", timed.  No kernel: no row of the
+    kernels line."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.tolerance import blocked_sdpa_tol
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.models.attention import _sdpa
+    from repro_torch.models.blocked_attention import blocked_sdpa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    bf = torch.bfloat16
+    print("blocked attention (plain PyTorch) against the naive path, bf16:")
+    for label, b, sq, skv, a, nkv, d, causal, q0, kv_len in (
+            ("whisper-small encoder", 4, 1500, 1500, 12, 12, 64, False, None, None),
+            ("internlm2-1.8b prefill into a cache", 4, 1024, 2048, 16, 8, 128, True, 512, 1536)):
+        q = torch.randn((b, sq, a, d), generator=gen, device=dev).to(bf)
+        k, v = (torch.randn((b, skv, nkv, d), generator=gen, device=dev).to(bf) for _ in range(2))
+        q_pos = None if q0 is None else torch.arange(q0, q0 + sq, device=dev)
+        kw = dict(q_pos=q_pos, kv_len=kv_len)
+        want = _sdpa(q, k, v, causal, **kw)
+        got = blocked_sdpa(q, k, v, causal=causal, block_kv=1024, **kw)
+        compare(torch, got, want, blocked_sdpa_tol(q, k, v, want, causal, block_kv=1024, **kw),
+                f"{label} (b={b} sq={sq} skv={skv} a={a} nkv={nkv} d={d}"
+                f"{'' if q0 is None else f', q at {q0}..{q0 + sq - 1}, kv_len {kv_len}'}, "
+                f"blocks of 1024)")
+        print(f"    ||blocked - naive|| / ||naive|| {_rel(got, want):.3e}")
+        ms, _ = time_ms(torch, [lambda: blocked_sdpa(q, k, v, causal=causal, block_kv=1024, **kw)],
+                        ENCDEC_ITERS)
+        naive, _ = time_ms(torch, [lambda: _sdpa(q, k, v, causal, **kw)], ENCDEC_ITERS)
+        line = f"    blocked {ms:.4f} ms, naive {naive:.4f} ms"
+        if q0 is None:
+            fl, _ = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
+                            ENCDEC_ITERS)
+            line += f", flash {fl:.4f} ms"
+        print(line)
+        del q, k, v, want, got
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(WHISPER), linear_impl="fused", attn_impl="flash")
+    blk = dataclasses.replace(cfg, attn_impl="blocked")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+        cfg, ShapeConfig("chip_smoke", ENCDEC_TRAIN_SEQ, ENCDEC_BATCH, "train"), 0, 0).items()}
+    V = cfg.vocab_size
+    with torch.no_grad():
+        def fwd(c):
+            return apply_lm(params, batch["tokens"], c,
+                            encoder_frames=batch["encoder_frames"])[0][..., :V]
+        lf, lb = fwd(cfg), fwd(blk)
+        rel = _rel(lb, lf)
+        ms_f, _ = time_ms(torch, [lambda: fwd(cfg)], 5)
+        ms_b, _ = time_ms(torch, [lambda: fwd(blk)], 5)
+    print(f"  whisper-small forward ({ENCDEC_BATCH} x {ENCDEC_TRAIN_SEQ} tokens, {ENCDEC_BATCH} x "
+          f"{cfg.encoder_seq} frames, bf16): blocked vs flash logits rel {rel:.3e} (bound "
+          f"{LOGITS_REL_BOUND}); {ms_b:.2f} ms blocked, {ms_f:.2f} ms flash (CUDA events)")
+    if not (bool(torch.isfinite(lb).all().item()) and rel <= LOGITS_REL_BOUND):
+        fail(f"blocked: whisper-small's logits under blocked differ from flash's by {rel:.3e}")
+    del params, lf, lb
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     t0 = time.perf_counter()
     torch = setup()
@@ -5665,6 +6426,7 @@ def main() -> None:
     rows.update(phase("ssd kernels", ssd_kernel_phase, torch))
     rows.update(phase("ssd backward", ssd_bwd_kernel_phase, torch))
     rows.update(phase("moe kernels", moe_kernel_phase, torch))
+    rows.update(phase("encdec kernels", encdec_kernel_phase, torch))
     if PARENT:
         phase("ssd backward a/b", ssd_bwd_ab_phase)
     counts = phase("serve", serve_phase, torch)
@@ -5675,12 +6437,17 @@ def main() -> None:
     moe = phase("moe serve", moe_serve_phase, torch)
     moe_engine = phase("moe engine", moe_engine_phase, torch)
     moe_quantized = phase("moe quantized serve", moe_quantized_serve_phase, torch)
+    whisper = phase("whisper serve", whisper_serve_phase, torch)
+    internvl = phase("internvl serve", internvl_serve_phase, torch)
     phase("token identity", token_identity_phase, torch)
     phase("ssm token identity", ssm_token_identity_phase, torch)
     train = phase("train", train_phase, torch)
     ssm_train_counts = phase("ssm train", ssm_train_phase, torch)
     phase("hybrid train", hybrid_train_phase, torch)
     moe_train_counts = phase("moe train", moe_train_phase, torch)
+    whisper_train = phase("whisper train", whisper_train_phase, torch)
+    internvl_train = phase("internvl train", internvl_train_phase, torch)
+    phase("blocked", blocked_phase, torch)
     phase("obs serve", obs_serve_phase, torch)
     phase("chaos", chaos_phase, torch)
     phase("checkpoint", checkpoint_phase, torch)
@@ -5707,7 +6474,12 @@ def main() -> None:
     # slice's rows count the moe train phase's steps (both models): w_down's
     # batched dgrad ("nt") and wgrad ("tn"), and the batched fused-MLP
     # backward, whose own nt pair and two tn launches ride in its row.  The
-    # int8 expert row counts the moe quantized serve run (3 a pass).
+    # int8 expert row counts the moe quantized serve run (3 a pass).  The
+    # encoder-decoder rows count the whisper serve phase's timed prefill,
+    # its one apply_encoder and its decode steps, and the whisper train
+    # phase's steps; the VLM rows the internvl serve phase's timed runs and
+    # the internvl train phase's steps (matmul_vlm: every tile GEMM launch
+    # of both, as its ms sums w_down's forward, dgrad and wgrad).
     launches = {"matmul": counts["matmul"], "fused_mlp_hidden": counts["fused_mlp_hidden"],
                 "paged_decode": counts["paged_decode"], **prefix,
                 "int8_matmul": quantized["int8_matmul"],
@@ -5729,7 +6501,16 @@ def main() -> None:
                 "matmul_expert_wgrad": moe_train_counts["matmul_expert_tn"]
                 - 2 * moe_train_counts["fused_mlp_bwd_expert"],
                 "fused_mlp_bwd_expert": moe_train_counts["fused_mlp_bwd_expert"],
-                "int8_matmul_expert": moe_quantized["int8_matmul_expert"]}
+                "int8_matmul_expert": moe_quantized["int8_matmul_expert"],
+                "flash_attention_encdec": whisper["flash_attention"]
+                + whisper_train["flash_attention"],
+                "flash_attention_bwd_encdec": whisper_train["flash_attention_bwd"],
+                "fused_mlp_hidden_encdec": whisper["fused_mlp_hidden"]
+                + whisper_train["fused_mlp_hidden"],
+                "matmul_vlm": internvl["matmul"] + internvl_train["matmul"],
+                "fused_mlp_hidden_vlm": internvl["fused_mlp_hidden"]
+                + internvl_train["fused_mlp_hidden"],
+                "fused_mlp_bwd_vlm": internvl_train["fused_mlp_bwd"]}
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
@@ -5740,7 +6521,8 @@ def main() -> None:
              "fused_mlp_bwd", "matmul_dgrad", "matmul_wgrad", "int8_matmul", "int8_fused_mlp",
              "ssd_chunk", "ssd_chunk_bwd", "matmul_expert", "fused_mlp_hidden_expert",
              "matmul_expert_dgrad", "matmul_expert_wgrad", "fused_mlp_bwd_expert",
-             "int8_matmul_expert")
+             "int8_matmul_expert", "flash_attention_encdec", "flash_attention_bwd_encdec",
+             "fused_mlp_hidden_encdec", "matmul_vlm", "fused_mlp_hidden_vlm", "fused_mlp_bwd_vlm")
     print(json.dumps({"kernels": [rows[n] for n in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 package's `data/pipeline.py`, so both packages draw identical streams).
 
 Stateless: batch(step) is a pure function of (seed, step, shape), and each
-process materializes only its slice of the global batch.  The VLM patch
-and audio-frame stubs come with the other-families slice."""
+process materializes only its slice of the global batch, with the
+deterministic VLM patch-embedding and audio-frame stubs where the
+architecture needs them."""
 from __future__ import annotations
 
 from typing import Dict
@@ -46,14 +47,28 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
                seed: int = 1234, process_index: int = 0,
                process_count: int = 1) -> Dict[str, np.ndarray]:
     """The (host-local slice of the) training batch for `step`: tokens and
-    labels, (rows, seq_len) int32."""
-    if (cfg.family == "vlm" and cfg.num_patches) or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: VLM patch and encoder-frame inputs are not ported yet: they "
-            f"come with the other-families slice")
+    labels, (rows, seq_len) int32.  A VLM's batch adds "patch_embeds" (rows,
+    num_patches, d_model) f32 and shortens the tokens to seq_len -
+    num_patches, so the stream stays seq_len long; an encoder-decoder's adds
+    "encoder_frames" (rows, encoder_seq, d_model) f32."""
     gb = shape.global_batch
     assert gb % process_count == 0, "global batch must divide hosts"
     local = gb // process_count
     row0 = process_index * local
     toks = synthetic_tokens(seed, step, local, shape.seq_len, cfg.vocab_size, row0=row0)
-    return {"tokens": toks, "labels": toks}
+    batch: Dict[str, np.ndarray] = {"tokens": toks, "labels": toks}
+    if cfg.family == "vlm" and cfg.num_patches:
+        r = _xorshift(_keys(seed + 7, step, local, row0))[:, None, None]
+        grid = (np.arange(cfg.num_patches)[None, :, None]
+                + np.arange(cfg.d_model)[None, None, :])
+        batch["patch_embeds"] = (np.sin(0.01 * (grid + (r % 1000).astype(np.int64)))
+                                 ).astype(np.float32)
+        batch["tokens"] = toks[:, : shape.seq_len - cfg.num_patches]
+        batch["labels"] = batch["tokens"]
+    if cfg.is_encoder_decoder:
+        r = _xorshift(_keys(seed + 13, step, local, row0))[:, None, None]
+        grid = (np.arange(cfg.encoder_seq)[None, :, None]
+                + np.arange(cfg.d_model)[None, None, :])
+        batch["encoder_frames"] = (np.sin(0.02 * (grid + (r % 997).astype(np.int64)))
+                                   ).astype(np.float32)
+    return batch

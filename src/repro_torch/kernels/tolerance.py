@@ -286,6 +286,50 @@ def flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal: bool = True, scal
     return _bound(dq, e_dq), _bound(dk, e_dk), _bound(dv, e_dv)
 
 
+def blocked_sdpa_tol(q, k, v, want, causal: bool, q_pos=None, kv_len=None,
+                     block_kv: int = 1024):
+    """Bound on blocked attention (`models/blocked_attention.py`, plain
+    PyTorch) against the naive score/AOV path (`models/attention._sdpa`)
+    on the same inputs, `want` the naive path's output.  Both run in the
+    input dtype with f32 softmax statistics.  A score moves by the
+    roundings of q / sqrt(d) and of sqrt(d) itself (blocked), of the score
+    product's output (both sides): 4 half-ulps of sum|q k| scale, plus the
+    d-term f32 sums; a score error delta moves each weight by a factor
+    within e^(+-2 delta).  Each side rounds the weights to the input dtype
+    before P.V (a half-ulp each) and the softmax sums n terms ((4 n + 128)
+    u).  The blocked accumulator stays in the input dtype: per block it
+    rounds the block's P.V, alpha, acc * alpha and the sum (4 half-ulps of
+    at most sum_j w_j |v_j|), and the final 1 / l once more; the P.V
+    products sum skv terms in f32 on each side.  All act on sum_j w_j
+    |v_j|; the naive product's own rounding is `_bound`'s."""
+    b, sq, a, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = a // nkv
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    qh = q.float().reshape(b, sq, nkv, g, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) * scale
+    s_abs = torch.einsum("bqkgd,bskd->bkgqs", qh.abs(), k.float().abs()) * scale
+    pos = torch.arange(skv, device=dev)
+    live = (pos < (skv if kv_len is None else kv_len))[None, :].expand(sq, skv)
+    if causal:
+        qp = torch.arange(sq, device=dev) if q_pos is None else q_pos
+        live = live & (pos[None, :] <= qp[:, None])
+    s = torch.where(live, s, float("-inf"))
+    s_abs = torch.where(live, s_abs, 0.0)
+    n = live.sum(-1).float()[:, None]                       # (sq, 1)
+    h = _rounds(q.dtype)
+    delta = (4.0 * h + 6.0 * d * U) * s_abs.amax(-1, keepdim=True)
+    w = torch.nan_to_num(torch.softmax(s, dim=-1))
+    w_abs_v = torch.einsum("bkgqs,bskd->bqkgd", w, v.float().abs()).reshape(b, sq, a, d)
+    nblk = -(-skv // min(block_kv, skv))
+    rel = (torch.expm1(2.0 * delta) + (4.0 * n + 128.0) * U).squeeze(-1)   # (b, nkv, g, sq)
+    # + the P.V products' skv-term sums on both sides
+    rel = rel.permute(0, 3, 1, 2).reshape(b, sq, a, 1) + (2.0 + 4.0 * nblk + 1.0) * h \
+        + 6.0 * skv * U
+    return _bound(want, rel * w_abs_v)
+
+
 def ssd_chunk_tol(x_dt, B, C, seg, want):
     """Bounds on (Y_diag, S) of the SSD chunk kernel; `want` is the plain
     version's.  CB = C B^T sums N terms (off by e_cb = 3 N u sum|C B|), the

@@ -28,6 +28,15 @@ static loop (the engines refuse MLA, as JAX's do), llama4-maverick (GQA,
 On the card each runs at the depth its config gives (the full configs
 hold 61 and 48 layers, beyond one card).
 
+The encoder-decoder and the VLM run through the static loop only (the
+engines serve text-only decoders, as JAX's): whisper-small is given zero
+encoder frames, as JAX's launcher gives it, its encoder runs once and every
+decode step reuses its output; internvl2-76b serves text prompts (its
+patch stub comes with `data.pipeline.make_batch`):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --smoke --device cpu
+
 Observability and faults, as in the JAX launcher: `--obs-dump DIR` turns
 `repro_torch.obs` on and writes its dump to DIR (read it with `python -m
 repro_torch.obs.view DIR`); `--watchdog` records every kernel-library build
@@ -58,7 +67,7 @@ import torch
 from .. import obs
 from ..configs.registry import get_config, get_smoke_config
 from ..data.pipeline import synthetic_tokens
-from ..models import init_lm
+from ..models import apply_encoder, init_lm
 from ..serving.engine.engine import resolve_device
 from ..serving.serve_step import make_decode_step, make_prefill_step
 
@@ -71,15 +80,25 @@ def _sync(device: torch.device) -> None:
 @torch.no_grad()
 def run_static(cfg, params, args, device: torch.device) -> None:
     """Static-batch greedy loop: slots idle once a sequence finishes — the
-    baseline the engine improves on."""
+    baseline the engine improves on.  An encoder-decoder gets zero frames
+    (serve.py:39-41 of the JAX package); its encoder output is computed once
+    and passed to every decode step, which JAX's static loop omits
+    (ROADMAP, reference faults)."""
     s_max = args.prompt_len + args.gen
     prompts = torch.as_tensor(synthetic_tokens(args.seed, 0, args.batch,
                                                args.prompt_len, cfg.vocab_size), device=device)
+    batch = {"tokens": prompts}
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                                              dtype=torch.float32, device=device)
     prefill = make_prefill_step(cfg, s_max)
     decode = make_decode_step(cfg)
 
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompts})
+    logits, caches = prefill(params, batch)
+    if cfg.is_encoder_decoder:
+        enc_out = apply_encoder(params, batch["encoder_frames"], cfg)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -88,7 +107,7 @@ def run_static(cfg, params, args, device: torch.device) -> None:
     idx = args.prompt_len
     t0 = time.perf_counter()
     for _ in range(args.gen - 1):
-        logits, caches = decode(params, tok, caches, idx)
+        logits, caches = decode(params, tok, caches, idx, enc_out)
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         out.append(tok)
         idx += 1

@@ -9,7 +9,10 @@
 
 Trains the dense decoder (internlm2, ...), mamba2 and zamba2 (the SSD
 chunk kernel forward and its backward kernel; zamba2's shared attention
-through flash with `--attn-impl flash`).  Runs on the CUDA card; `--device
+through flash with `--attn-impl flash`), the MoE family, whisper-small
+(its batches carry the encoder-frame stub) and internvl2-76b (the
+patch-embedding stub); `--attn-impl blocked` runs the blocked
+online-softmax attention in plain PyTorch.  Runs on the CUDA card; `--device
 cpu` runs the plain PyTorch versions on the host instead (there is no
 silent fallback).  Params are float32 masters drawn from `--seed` on the
 device; the batches are the deterministic synthetic stream of
@@ -88,7 +91,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adamw8bit"])
     ap.add_argument("--remat", default="none", choices=["none", "full", "dots"])
-    ap.add_argument("--attn-impl", default=None, choices=[None, "naive", "flash"])
+    ap.add_argument("--attn-impl", default=None, choices=[None, "naive", "blocked", "flash"])
     ap.add_argument("--linear-impl", default=None,
                     choices=[None, "jnp", "pallas", "tuned", "fused"],
                     help="dispatch for every dense projection GEMM (models/linear.py); "

@@ -1,7 +1,10 @@
 """GQA attention: the naive score/AOV decomposition, the flash-attention
-kernels (training: cache-free, differentiable) and the paged decode kernel
-over the serving slot pool or block-table pool, float or int8; and
-DeepSeek-V3's multi-head latent attention (MLA) with its latent cache.
+kernels (training and cache-free passes: causal self-attention,
+non-causal encoder and cross-attention; differentiable), blocked
+online-softmax attention in plain PyTorch (`blocked_attention.py`) and
+the paged decode kernel over the serving slot pool or block-table pool,
+float or int8; and DeepSeek-V3's multi-head latent attention (MLA) with its
+latent cache.
 
 Caches are updated in place: the JAX package returns new cache arrays
 (`dynamic_update_slice`, a one-hot `where`, donated buffers); the port
@@ -20,10 +23,12 @@ from ..kernels.flash_attention.ops import (flash_attention, paged_decode,
                                            paged_decode_blocktable)
 from ..kernels.flash_attention.ref import gather_block_kv
 from ..quant import dequantize_kv, quantize_kv
+from .blocked_attention import blocked_sdpa
 from .layers import apply_rotary, dense_init
 from .linear import linear
 
 NEG_INF = -1e30
+ATTN_IMPLS = ("naive", "paged", "flash", "blocked")
 
 
 def init_gqa(gen: Optional[torch.Generator], cfg: ModelConfig, *, lead=(), device=None,
@@ -78,10 +83,6 @@ def _sdpa(q, k, v, causal: bool, q_pos=None, kv_len=None):
     return out.reshape(b, sq, a, v.shape[-1])
 
 
-def _unsupported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with the {slice_name} slice")
-
-
 def _write_rows(leaf, rows, cols, val):
     """leaf[rows[i], cols[i]] = val[i], in place (one `index_put_`)."""
     leaf.index_put_((rows, cols), val.to(leaf.dtype))
@@ -95,9 +96,13 @@ def _write_slice(leaf, ci: int, val):
     leaf[:, ci:ci + val.shape[1]].copy_(val)
 
 
-def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None,
-              block_tables=None):
+def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cache_index=None,
+              kv_input=None, block_tables=None):
     """x: (b, s, h).  Returns (out, cache).
+
+    causal: mask keys after each query (self-attention); an encoder passes
+    False.  kv_input: (b, s_kv, h) -- keys and values are projected from it
+    instead of x (cross-attention: no rotary, no mask, no cache write).
 
     cache: dict(k=(b, s_max, kv, hd), v=...) or None; written in place.  An
     int8 cache (cfg.kv_dtype="int8") also holds k_scale, v_scale (b, s_max,
@@ -113,24 +118,26 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     is private (the pool's copy-on-write), so rows never collide; dead rows
     all write the pool's garbage block, which is never read.
     """
-    if cfg.attn_impl not in ("naive", "paged", "flash"):
-        raise _unsupported(f"attn_impl={cfg.attn_impl!r}", "tuning")
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; valid: {list(ATTN_IMPLS)}")
     b, s, h = x.shape
     a, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     impl = cfg.linear_impl
+    src = x if kv_input is None else kv_input
     q = linear(x, p["wq"], impl=impl)
-    k = linear(x, p["wk"], impl=impl)
-    v = linear(x, p["wv"], impl=impl)
+    k = linear(src, p["wk"], impl=impl)
+    v = linear(src, p["wv"], impl=impl)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     q = q.reshape(b, s, a, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
-    if cfg.pos_emb == "rotary":
+    k = k.reshape(b, src.shape[1], nkv, hd)
+    v = v.reshape(b, src.shape[1], nkv, hd)
+    if cfg.pos_emb == "rotary" and kv_input is None:
         q = apply_rotary(q, positions, cfg.rope_theta)
         k = apply_rotary(k, positions, cfg.rope_theta)
+    masked = causal and kv_input is None
     quant = cache is not None and "k_scale" in cache
     # what a write stores, per cache leaf
     if quant:
@@ -139,10 +146,11 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     else:
         new = {"k": k, "v": v}
     scales = (cache["k_scale"], cache["v_scale"]) if quant else (None, None)
-    paged = cfg.attn_impl == "paged" and cache is not None and s == 1
+    is_decode = cache is not None and s == 1
+    paged = cfg.attn_impl == "paged" and is_decode
 
     if block_tables is not None:
-        if cache is None or s != 1 or not (torch.is_tensor(cache_index)
+        if cache is None or s != 1 or kv_input is not None or not (torch.is_tensor(cache_index)
                                           and cache_index.dim() == 1):
             raise ValueError("block_tables requires single-token decode with a (b,) "
                              "cache_index into a block-pool cache")
@@ -162,12 +170,12 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
             if quant:
                 kg = dequantize_kv(kg, gather_block_kv(scales[0], block_tables), q.dtype)
                 vg = dequantize_kv(vg, gather_block_kv(scales[1], block_tables), q.dtype)
-            out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=True, q_pos=positions,
+            out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=causal, q_pos=positions,
                         kv_len=lengths)
         return linear(out.reshape(b, s, a * hd), p["wo"], impl=impl), cache
 
     kv_len = None
-    if cache is not None:
+    if cache is not None and kv_input is None:
         if torch.is_tensor(cache_index) and cache_index.dim():
             # per-row write positions (serving-engine slot pool)
             assert s == 1, "vector cache_index requires single-token decode"
@@ -183,9 +191,11 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
             v = dequantize_kv(v, scales[1], q.dtype)
         kv_len = cache_index + s
     if cfg.attn_impl == "flash" and cache is None:
-        # the flash kernels with their fused backward: the training path.
-        # Cache-backed prefill and decode stay on the paths below, as in JAX
-        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=True)
+        # the flash kernels with their fused backward: training and every
+        # cache-free pass (the encoder; cross-attention, at decode too, at
+        # sq = 1).  Cache-backed prefill and decode stay on the paths below,
+        # as in JAX (attention.py:232)
+        out = flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=masked)
     elif paged:
         # paged decode kernel over the slot pool (identity slot map here;
         # the kernel's gather-by-slot path is exercised by its tests)
@@ -194,8 +204,13 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
                            torch.arange(b, dtype=torch.int32, device=x.device),
                            lengths.contiguous(), k_scale=scales[0], v_scale=scales[1],
                            tuned=True)[:, None]
+    elif cfg.attn_impl == "blocked" and not is_decode:
+        # prefill (into a cache too: kv_len masks its tail) and training
+        out = blocked_sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=masked,
+                           q_pos=positions if positions.dim() == 1 else positions[0],
+                           kv_len=kv_len, block_kv=cfg.attn_block_kv)
     else:
-        out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=True,
+        out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=masked,
                     q_pos=positions, kv_len=kv_len)
     out = linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)
     return out, cache
@@ -276,6 +291,9 @@ def init_attention(gen, cfg: ModelConfig, **kw):
 
 def apply_attention(p, x, cfg: ModelConfig, **kw):
     if cfg.attn_type == "mla":
+        # MLA is causal self-attention only: JAX drops both (attention.py:324-327)
+        kw.pop("kv_input", None)
+        kw.pop("causal", None)
         if kw.pop("block_tables", None) is not None:
             raise ValueError("block-table KV paging is not supported for MLA")
         return apply_mla(p, x, cfg, **kw)

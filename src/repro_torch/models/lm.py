@@ -1,20 +1,27 @@
-"""Decoder-only LM: params, caches and the forward pass.
+"""Full models: params, caches and the forward pass of the decoder-only
+LM, the VLM (a patch-embedding stub prepended to the token stream) and the
+encoder-decoder (whisper; its conv frontend is a stub: the frames arrive as
+embeddings).
 
 Parameter layout (the JAX package's pytree, key for key):
   embed        (v, h)            token embedding
+  pos_embed    (max_pos, h)      learned positions (pos_emb == "learned"),
+                                 max_pos = max(encoder_seq, 8192)
   seg{i}       stacked params    one entry per stack_plan segment
   shared       zamba2's shared attention + MLP block (hybrid only)
   final_norm
   lm_head      (h, v)            untied output head
+  encoder      whisper's encoder: seg0 (dense layers, stacked), final_norm
+  xattn        whisper's cross-attention blocks, stacked per decoder
+               layer: norm, attn
   mtp          deepseek's multi-token-prediction head: proj (2h, h), a
                dense block, norm (mtp_depth > 0)
 For serving, GEMM weights and the embedding are held in the compute dtype
 (`convert.params_from_jax`); for training every leaf is a float32 master
 and `linear` casts per call, as JAX does.  Norm gains are float32 either
 way, as are the SSM's conv kernels and biases, A_log, D and dt_bias (JAX
-keeps them in float32 and casts per use).  The encoder-decoder and VLM
-parts and learned positions come with their own slice; sharding
-constraints have no counterpart on one card and are dropped.
+keeps them in float32 and casts per use); `pos_embed` is held as `embed`
+is.  Sharding constraints have no counterpart on one card and are dropped.
 """
 from __future__ import annotations
 
@@ -22,19 +29,15 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from .attention import apply_attention, init_attention
 from .blocks import (_apply_core, apply_stack, init_cache_segment, init_segment, init_shared,
-                     stack_plan)
+                     stack_plan, tree_unbind)
 from .layers import compute_dtype, dense_init, embed_init, norm_apply, norm_init
 from .linear import linear
-
-
-def _check_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.num_patches or cfg.pos_emb == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, VLM and learned positions are not "
-            f"ported yet: they come with the encoder-decoder and VLM slice")
+from .mlp import apply_mlp
 
 
 def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig, *, device,
@@ -46,10 +49,12 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig, *, device,
     norm gains in float32 — the layout `convert.params_from_jax` returns.
     `gen=None` uses the device's default generator (as the meta device
     needs)."""
-    _check_decoder_only(cfg)
     dtype = dtype or compute_dtype(cfg.dtype)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.padded_vocab_size, cfg.d_model, device=device, dtype=dtype)}
+    if cfg.pos_emb == "learned":
+        params["pos_embed"] = embed_init(gen, max(cfg.encoder_seq, 8192), cfg.d_model,
+                                         device=device, dtype=dtype)
     for i, (kind, n) in enumerate(stack_plan(cfg)):
         params[f"seg{i}"] = init_segment(gen, cfg, kind, n, device=device, dtype=dtype)
     shared = init_shared(gen, cfg, device=device, dtype=dtype)
@@ -59,6 +64,15 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig, *, device,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size,
                                        device=device, dtype=dtype)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "seg0": init_segment(gen, cfg, "dense", cfg.num_encoder_layers, device=device,
+                                 dtype=dtype),
+            "final_norm": norm_init(cfg.d_model, cfg.norm_type, device=device)}
+        lead = (cfg.num_layers,)
+        params["xattn"] = {
+            "norm": norm_init(cfg.d_model, cfg.norm_type, lead=lead, device=device),
+            "attn": init_attention(gen, cfg, lead=lead, device=device, dtype=dtype)}
     if cfg.mtp_depth:
         block = init_segment(gen, cfg, "dense", 1, device=device, dtype=dtype)
         params["mtp"] = {
@@ -81,13 +95,48 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype=torch.bfloat16, 
             for kind, n in stack_plan(cfg)]
 
 
+# --- encoder (whisper; the conv frontend is a stub: frames are embeddings) ----------
+
+def apply_encoder(params, frames, cfg: ModelConfig, remat: str = "none"):
+    """frames: (b, enc_seq, h) precomputed frame embeddings (the stub).
+    Learned positions, pre-norm blocks of non-causal self-attention and
+    MLP, the final norm (lm.py:74-96 of the JAX package).  remat="full"
+    recomputes each layer in the backward; "dots" keeps everything, as
+    JAX's encoder does."""
+    dt = compute_dtype(cfg.dtype)
+    x = frames.to(dt)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.pos_emb == "learned":
+        x = x + params["pos_embed"][positions].to(dt)[None]
+    enc = params["encoder"]
+
+    def body(h, p_l):
+        hn = norm_apply(p_l["norm1"], h, cfg.norm_type)
+        a, _ = apply_attention(p_l["attn"], hn, cfg, positions=positions, causal=False)
+        h = h + a
+        return h + apply_mlp(p_l["mlp"], norm_apply(p_l["norm2"], h, cfg.norm_type), cfg)
+
+    for p_l in tree_unbind(enc["seg0"], cfg.num_encoder_layers):
+        if remat == "full":
+            x = checkpoint(body, x, p_l, use_reentrant=False)
+        else:
+            x = body(x, p_l)
+    return norm_apply(enc["final_norm"], x, cfg.norm_type)
+
+
 def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
              cache_index=None, decode=False, remat: str = "none", block_tables=None,
+             patch_embeds=None, encoder_frames=None, enc_out=None,
              return_hidden: bool = False):
     """tokens: (b, s) integer tensor.  Returns (logits, caches, aux), and
     with `return_hidden` the pre-norm hidden state last, as JAX's
     (logits, caches, aux[, hidden]); aux is the MoE layers' load-balance
     loss (a 0-d f32 tensor, 0 without MoE layers).
+
+    patch_embeds: (b, n_patches, h) -- the VLM stub, prepended to the token
+    stream (the causal mask spans the patches, as JAX's does).
+    encoder_frames: (b, enc_seq, h) -- the whisper stub; the encoder runs on
+    them unless `enc_out`, its output, is given (decode steps reuse it).
 
     cache_index: an int (prefill write offset) or a (b,) tensor of per-row
     offsets (engine decode).  Caches are updated in place and returned.
@@ -98,13 +147,15 @@ def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
     block pool (leaves (n, num_blocks, block_size, kv, hd)) and row b's
     logical block j lives at block_tables[b, j]; single-token decode only.
     """
-    _check_decoder_only(cfg)
     dt = compute_dtype(cfg.dtype)
     b, s = tokens.shape
     dev = tokens.device
     # cast, then scale in the compute dtype (lm.py:117's order)
     scale = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.float32).to(dt)
     x = params["embed"][tokens].to(dt) * scale  # a 0-d host tensor: no copy
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(dt), x], dim=1)
+        s = x.shape[1]
 
     if positions is None:
         if torch.is_tensor(cache_index) and cache_index.dim():
@@ -113,12 +164,30 @@ def apply_lm(params, tokens, cfg: ModelConfig, *, positions=None, caches=None,
         else:
             start = 0 if cache_index is None else int(cache_index)
             positions = start + torch.arange(s, device=dev)
+    if cfg.pos_emb == "learned":
+        pe = params["pos_embed"][positions].to(dt)
+        x = x + (pe if positions.dim() > 1 else pe[None])
+
+    if cfg.is_encoder_decoder and enc_out is None:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs encoder_frames or enc_out")
+        enc_out = apply_encoder(params, encoder_frames, cfg, remat)
 
     segs = [(kind, params[f"seg{i}"]) for i, (kind, n) in enumerate(stack_plan(cfg))]
     x, caches, aux = apply_stack(segs, cfg, x, positions=positions, caches=caches,
                                  cache_index=cache_index, decode=decode,
                                  shared=params.get("shared"), remat=remat,
                                  block_tables=block_tables)
+
+    if cfg.is_encoder_decoder:
+        # whisper's cross-attention: the stacked blocks applied after the
+        # self-attention stack (lm.py:149-156 of the JAX package, its
+        # documented simplification: the same GEMM inventory)
+        for p_l in tree_unbind(params["xattn"], cfg.num_layers):
+            hn = norm_apply(p_l["norm"], x, cfg.norm_type)
+            a, _ = apply_attention(p_l["attn"], hn, cfg, positions=positions, causal=False,
+                                   kv_input=enc_out)
+            x = x + a
 
     hidden = x
     x = norm_apply(params["final_norm"], x, cfg.norm_type)
@@ -150,18 +219,22 @@ def softmax_xent(logits, labels, mask=None):
 
 
 def lm_loss(params, batch, cfg: ModelConfig, remat: str = "none"):
-    """batch: dict(tokens, labels[, loss_mask]).  Returns (loss, metrics)
-    (lm.py:185-221 of the JAX package): the next-token loss, plus 0.001 x
-    the MoE aux loss ("aux_loss") where the model has experts, plus 0.3 x
-    the depth-1 MTP loss ("mtp_loss") where it has an MTP head.  VLM and
-    encoder inputs raise with their slice."""
-    if batch.get("patch_embeds") is not None or batch.get("encoder_frames") is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: VLM / encoder inputs are not ported yet: they come with the "
-            f"encoder-decoder and VLM slice")
+    """batch: dict(tokens, labels[, loss_mask, patch_embeds,
+    encoder_frames]).  Returns (loss, metrics) (lm.py:185-221 of the JAX
+    package): the next-token loss over the text positions (a VLM's patch
+    positions are sliced off), plus 0.001 x the MoE aux loss ("aux_loss")
+    where the model has experts, plus 0.3 x the depth-1 MTP loss
+    ("mtp_loss") where it has an MTP head."""
+    patches = batch.get("patch_embeds")
     logits, _, aux, hidden = apply_lm(params, batch["tokens"], cfg, remat=remat,
+                                      patch_embeds=patches,
+                                      encoder_frames=batch.get("encoder_frames"),
                                       return_hidden=True)
     mask = batch.get("loss_mask")
+    npatch = 0 if patches is None else patches.shape[1]
+    if npatch:
+        logits = logits[:, npatch:]
+        hidden = hidden[:, npatch:]
     loss = softmax_xent(logits[:, :-1], batch["labels"][:, 1:],
                         None if mask is None else mask[:, 1:])
     metrics = {"lm_loss": loss}

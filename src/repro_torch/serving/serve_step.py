@@ -10,30 +10,37 @@ from ..models.layers import compute_dtype
 
 def make_prefill_step(cfg: ModelConfig, s_max: int):
     """prefill(params, batch) -> (next_token_logits, caches); batch holds
-    "tokens" (b, s), on the params' device."""
+    "tokens" (b, s) and, where the model takes them, "patch_embeds" (a VLM:
+    the caches then hold n_patches + s positions, so s_max counts the
+    patches) or "encoder_frames" (an encoder-decoder), on the params'
+    device."""
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         b = tokens.shape[0]
         caches = init_caches(cfg, b, s_max, compute_dtype(cfg.dtype), tokens.device)
-        logits, caches, _ = apply_lm(params, tokens, cfg, caches=caches, cache_index=0)
+        logits, caches, _ = apply_lm(params, tokens, cfg, caches=caches, cache_index=0,
+                                     patch_embeds=batch.get("patch_embeds"),
+                                     encoder_frames=batch.get("encoder_frames"))
         return logits[:, -1], caches
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
-    """decode(params, token, caches, index) -> (logits, caches).
+    """decode(params, token, caches, index, enc_out=None) -> (logits, caches).
 
-    token: (b, 1); index: int — the cache write position (and the rotary
-    position of the new token).  The caches are written in place.  SSM
-    layers take their recurrent step (`decode=True`, as the JAX package's
-    decode step passes).
+    token: (b, 1); index: int — the cache write position (and the rotary or
+    learned position of the new token).  The caches are written in place.
+    SSM layers take their recurrent step (`decode=True`, as the JAX
+    package's decode step passes).  enc_out: an encoder-decoder's encoder
+    output (`models.apply_encoder`), computed once per request batch; the
+    cross-attention projects its K/V from it every step, as JAX's does.
     """
 
-    def decode(params, token, caches, index):
+    def decode(params, token, caches, index, enc_out=None):
         logits, caches, _ = apply_lm(params, token, cfg, caches=caches, cache_index=index,
-                                  decode=True)
+                                     decode=True, enc_out=enc_out)
         return logits[:, -1], caches
 
     return decode

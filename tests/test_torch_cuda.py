@@ -1588,3 +1588,124 @@ def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         assert torch.equal(greedy_generate(on_card, cfg, toks.to(cuda), 5).cpu(),
                            greedy_generate(params, cfg, toks, 5))
+
+
+# --- the encoder-decoder and VLM slice: new shapes through the ported kernels ----------
+
+# whisper-small's attention (12 heads of 64, multi-head, non-causal): the
+# encoder's 1500 x 1500, the training cross-attention's 448 x 1500, the
+# prefill's 32 x 1500 and the decode step's 1 x 1500; internvl2-76b's causal
+# self-attention at 2048 positions (64 / 8 heads of 128).  (b, sq, skv, a,
+# nkv, d, causal)
+WHISPER_FLASH_CASES = [(4, 1500, 1500, 12, 12, 64, False), (4, 448, 1500, 12, 12, 64, False),
+                       (4, 32, 1500, 12, 12, 64, False), (4, 1, 1500, 12, 12, 64, False)]
+INTERNVL_FLASH_CASE = (1, 2048, 2048, 64, 8, 128, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", WHISPER_FLASH_CASES + [INTERNVL_FLASH_CASE])
+def test_flash_attention_fwd_at_the_encdec_and_vlm_shapes(cuda, dtype, b, sq, skv, a, nkv, d,
+                                                          causal):
+    rng = np.random.default_rng(30)
+    q, k, v, _ = _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d)
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    t_out, t_lse = tolerance.flash_attention_tol(q, k, v, want, causal=causal)
+    _close(out, want[0], t_out)
+    _close(lse, want[1], t_lse)
+
+
+# the backward where training runs it: whisper's encoder and its
+# cross-attention over 448 target tokens, internvl2's self-attention
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal",
+                         WHISPER_FLASH_CASES[:2] + [INTERNVL_FLASH_CASE])
+def test_flash_attention_bwd_at_the_encdec_and_vlm_shapes(cuda, dtype, b, sq, skv, a, nkv, d,
+                                                          causal):
+    rng = np.random.default_rng(31)
+    q, k, v, do = _flash_inputs(rng, dtype, cuda, b, sq, skv, a, nkv, d)
+    o, lse = flash_attention_ref(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    tols = tolerance.flash_attention_bwd_tol(q, k, v, o, lse, do, want, causal=causal)
+    for g, w, t in zip(got, want, tols):
+        _close(g, w, t)
+
+
+# whisper-small's GEMMs (d 768, d_ff 3072, the padded 51968-column head) at
+# the encoder's 6000 rows and the training decoder's 1792, and
+# internvl2-76b's w_down (K = 28672) at its 8192 training rows and 64
+# decode rows, in every layout training launches.  (m, k, n)
+ENCDEC_VLM_GEMMS = [(6000, 768, 768), (1792, 3072, 768), (1792, 768, 51968),
+                    (8192, 28672, 8192), (64, 28672, 8192)]
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "nt pair"])
+@pytest.mark.parametrize("m,k,n", ENCDEC_VLM_GEMMS)
+def test_matmul_at_the_encdec_and_vlm_shapes(cuda, layout, m, k, n):
+    rng = np.random.default_rng(32)
+    a, b, a1, b1 = _layout_operands(rng, torch.bfloat16, cuda, layout, m, k, n)
+    before = matmul.launches
+    got = matmul(a, b, a1, b1)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, a1=a1, b1=b1)
+    _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
+
+
+# the fused MLP both ways: whisper's GELU 768 / 3072 at the encoder's and
+# the decoder's training rows, internvl2's SwiGLU 8192 / 28672 at 4 x 2048
+# training rows and 64 decode rows.  (mlp_type, m, h, f)
+ENCDEC_VLM_MLPS = [("gelu", 6000, 768, 3072), ("gelu", 1792, 768, 3072),
+                   ("swiglu", 8192, 8192, 28672), ("swiglu", 64, 8192, 28672)]
+
+
+@pytest.mark.parametrize("mlp_type,m,h,f", ENCDEC_VLM_MLPS)
+def test_fused_mlp_at_the_encdec_and_vlm_shapes(cuda, mlp_type, m, h, f):
+    rng = np.random.default_rng(33)
+    bf = torch.bfloat16
+    x = _rand(rng, (m, h), bf, cuda)
+    wg, wu = (_rand(rng, (h, f), bf, cuda, h ** -0.5) for _ in range(2))
+    dh = _rand(rng, (m, f), bf, cuda)
+    got = fused_mlp_hidden(x, wg, wu, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    want = fused_mlp_hidden_ref(x, wg, wu, mlp_type)
+    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, mlp_type, want))
+    del got, want
+    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type=mlp_type)
+    torch.cuda.synchronize()
+    want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+    for g, w, t in zip(got, want, tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _close(g, w, t)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-76b"])
+def test_encdec_and_vlm_grads_kernel_path_match_plain_path(cuda, arch):
+    """The smoke configs in f32 on the card: loss and every gradient leaf
+    (the encoder's, the cross-attention's, pos_embed's) of (fused, flash)
+    against (jnp, naive) and (jnp, blocked) on the same params and batch."""
+    base = get_smoke_config(arch)
+    shape = ShapeConfig("t", 40, 2, "train")
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), base, device=cuda,
+                     dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in make_batch(base, shape, 0, 0).items()}
+    leaves = list(tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    runs = []
+    for li, ai in (("fused", "flash"), ("jnp", "naive"), ("jnp", "blocked")):
+        loss, _ = lm_loss(params, batch, dataclasses.replace(base, linear_impl=li, attn_impl=ai))
+        runs.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    (lk, gk), *plain = runs
+    for lp, gp in plain:
+        assert abs(lk - lp) <= 1e-5 * abs(lp)
+        for a, b in zip(gk, gp):
+            assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4

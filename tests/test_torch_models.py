@@ -366,6 +366,12 @@ def test_init_lm_scales_match_jax(smoke):
 
 
 def test_unported_paths_raise(smoke):
+    """The refusals the port keeps (an unknown linear_impl or attn_impl, a
+    block table outside single-token decode, the engines on whisper-small
+    and internvl2-76b, as JAX's engine refuses them), and what was refused
+    before and is ported now: int8 weights, attn_impl="blocked" (equal to
+    the naive path), whisper-small's params (on the meta device)."""
+    from repro_torch.serving.engine import Engine
     _, _, cfg, params = smoke
     x = torch.zeros(1, 2, cfg.d_model)
     # the int8 path is ported: a zero weight quantizes to zeros (scale EPS / 127)
@@ -374,9 +380,21 @@ def test_unported_paths_raise(smoke):
     with pytest.raises(ValueError, match="unknown linear_impl"):
         linear(x, torch.zeros(cfg.d_model, 4), impl="xla")
     p = tree_index(params["seg0"]["attn"], 0)
-    with pytest.raises(NotImplementedError, match="tuning"):
-        apply_gqa(p, x, dataclasses.replace(cfg, attn_impl="blocked"), positions=torch.arange(2))
+    with pytest.raises(ValueError, match="unknown attn_impl 'splash'"):
+        apply_gqa(p, x, dataclasses.replace(cfg, attn_impl="splash"), positions=torch.arange(2))
+    xr = torch.from_numpy(_np(np.random.default_rng(9), (2, 5, cfg.d_model)))
+    blocked, _ = apply_gqa(p, xr, dataclasses.replace(cfg, attn_impl="blocked", attn_block_kv=2),
+                           positions=torch.arange(5))
+    naive, _ = apply_gqa(p, xr, cfg, positions=torch.arange(5))
+    np.testing.assert_allclose(blocked.numpy(), naive.numpy(), **TOL)
     with pytest.raises(ValueError, match="block_tables requires single-token decode"):
         apply_gqa(p, x, cfg, positions=torch.arange(2), block_tables=torch.zeros(1, 1))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        init_lm(None, get_config("whisper-small"), device="meta")
+    for arch in ("whisper-small", "internvl2-76b"):
+        full = get_config(arch)
+        meta = init_lm(None, full, device="meta")
+        with pytest.raises(NotImplementedError, match="attention-based decoders"):
+            Engine(meta, full, device="cpu")
+    assert meta["embed"].shape == (full.padded_vocab_size, full.d_model)
+    whisper = init_lm(None, get_config("whisper-small"), device="meta")
+    assert whisper["encoder"]["seg0"]["attn"]["wq"].shape == (12, 768, 768)
+    assert whisper["xattn"]["attn"]["wk"].shape == (12, 768, 768)
