@@ -233,6 +233,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
   18. remat: the train phase's model, step 0 at remat none, dots and full,
      twice: loss and gradients within the train check's bounds of none's,
      peak memory ordered full < dots < none; one profiled pass each;
+  18b. parallel kernels (after the encdec kernels): the tile GEMM (forward,
+     dgrad, wgrad), the fused SwiGLU both ways, flash both ways and the
+     expert-batched launches at the per-shard shapes of the parallel
+     phases (internlm2-1.8b at model=2: 8 / 4 heads of 128, d_ff 4096, a
+     vocab shard of 46272, 2 x 1024 rows a data rank; llama4-maverick at
+     model=2: 20 / 4 heads (g = 5), d_ff 8192, a vocab shard of 101024, 8
+     of 16 experts at a 320-row capacity), each against its plain version
+     and timed beside its bound;
+  18c. parallel: four ranks on the one card over gloo (launch/mesh.spawn;
+     NCCL refuses two ranks on one card, so the collectives are
+     host-staged), in turn: parallel train (internlm2-1.8b at full width,
+     4 of 24 layers, data=2 x model=2, f32 masters, bf16, fused + flash,
+     AdamW, 4 x 1024 tokens: step 0's loss, every gradient leaf and layer
+     slice and the clip norm against the unsharded step on the card, with
+     three planted faults (the last layer's w_down all-reduce dropped,
+     gradients not summed over data, the clip norm of one rank's blocks)
+     that must break them; 2 steps with per-rank times, launch counts and
+     peak memory; the checkpoint saved at (2, 2), restored onto data=4 x
+     model=1 and one more step against the unsharded run's), parallel serve
+     (the same model at model=2 through serve_step: prefill 4 x 1024 and 8
+     decode steps, logits against the unsharded run; f32 greedy tokens at
+     2 layers identical but at a near tie), parallel moe (llama4-maverick,
+     1 pair, 16 experts: prefill logits at model=2 under "auto" and
+     "shard_map", at data=2 and capacity factor 0.5 under "auto" (global
+     slots; the dropped count printed, > 0) and "shard_map" (against the
+     unsharded run of each rank's rows), over all positions and at the
+     worst routing-agreed one; one expert's w_down doubled on rank 1 must
+     break them), pipeline (the 4 layers in 2 stages, 4 microbatches of 1
+     x 1024: bit-identical to the layers applied in one process);
   19. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
      serve shapes (the bf16 projections and lm_head at 16 and 64 rows, the
      fused SwiGLU), its int8-serve shapes (the int8 GEMM at 64, 128 and 256
@@ -3382,16 +3411,9 @@ def _routing_log(torch):
     def wrap(real):
         def f(p, xt, cfg):
             probs, gate, idx = real(p, xt, cfg)
-            t, k = idx.shape
-            flat = idx.reshape(-1)
-            order = torch.argsort(flat, stable=True)
-            se = flat[order]
-            start = torch.searchsorted(se, torch.arange(probs.shape[1], device=idx.device))
-            keep = torch.arange(t * k, device=idx.device) - start[se] < moe_mod._capacity(t, cfg)
-            kept = torch.empty_like(keep)
-            kept[order] = keep
-            log.append({"probs": probs.detach(), "idx": idx.detach(), "kept": kept.view(t, k),
-                        "dropped": (~keep).sum()})
+            kept = _kept(torch, idx, moe_mod._capacity(idx.shape[0], cfg), probs.shape[1])
+            log.append({"probs": probs.detach(), "idx": idx.detach(), "kept": kept,
+                        "dropped": (~kept).sum()})
             return probs, gate, idx
         return f
     with _patched(moe_mod, "route", wrap):
@@ -6398,6 +6420,741 @@ def blocked_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# --- parallelism: per-shard kernels, and ranks on the one card ----------------------------
+
+# The parallel phases run several ranks on the one card over gloo (NCCL
+# refuses two ranks on one device): their collectives go through host
+# memory, so their times say nothing about NVLink.  internlm2-1.8b at full
+# width, its depth cut to PAR_LAYERS; llama4-maverick at full width, one
+# [moe, dense] pair, PAR_EXPERTS of its 128 experts.
+PAR_LAYERS = 4
+PAR_STEPS = 2              # timed steps of the sharded run (then save, restore, two more)
+PAR_DECODE = 8             # decode steps of the parallel serve run
+PAR_EXPERTS = 16
+PAR_LOW_CF = 0.5           # a capacity factor at which llama4's entries drop
+PAR_TIMEOUT = 900          # seconds for the whole world of ranks
+# The restored run's two steps (data=4, model=1, the 2 x 2 run's checkpoint
+# after PAR_STEPS updates; the second's loss reads the restored moments
+# through the first's update) against the unsharded run's steps at the same
+# indices: the step-0 bound's sources (bf16 GEMM outputs rounded per shard
+# and summed in another order), carried through the AdamW updates whose
+# elements with a near-zero gradient move by up to the learning rate either
+# way.
+PAR_RESTORE_LOSS_REL_BOUND = 1e-3
+# The restored state's digests (`_state_digests`) against the saved one's:
+# the same numbers summed in float64 in another block order.
+PAR_RESTORE_DIGEST_BOUND = 1e-9
+# llama4's prefill logits, sharded against unsharded, at the worst position
+# whose routing (top-1 expert and kept entry) agrees in both runs: each
+# row-parallel output is rounded to bf16 per shard before the sum, one more
+# rounding than the unsharded GEMM's (2^-9 relative), through 2 layers and
+# the head.
+PAR_POSITION_REL_BOUND = 0.02
+
+
+def parallel_kernel_phase(torch) -> None:
+    """The kernels at the per-shard shapes the parallel phases launch, each
+    against its plain version within its bound, timed beside its bound:
+    internlm2-1.8b at model=2 (a data rank's 2 x 1024 training rows: 8 / 4
+    heads of 128, d_ff 4096, q/o 1024 and k/v 512 columns, a vocab shard of
+    46272), llama4-maverick at model=2 (its 4 x 1024 prefill: 20 / 4 heads,
+    g = 5, dense d_ff 8192, a vocab shard of 101024, 8 of 16 experts at a
+    320-row capacity)."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
+    from repro_torch.kernels.matmul.ops import matmul_expert
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    from repro_torch.kernels.tolerance import fused_mlp_hidden_tol, matmul_tol
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    print("kernels at the per-shard shapes (bf16, CUDA events):")
+    m = TRAIN_BATCH // 2 * TRAIN_SEQ
+    for k, n in ((2048, 1024), (2048, 512), (1024, 2048), (4096, 2048), (2048, 46272)):
+        for layout in ("forward", "dgrad", "wgrad"):
+            _gemm_case(torch, randn, "internlm2 model=2", layout, m, k, n)
+    _gemm_case(torch, randn, "llama4 model=2 head", "forward", TOKENS, 5120, 101024, iters=10)
+    _mlp_case(torch, randn, "internlm2 model=2", "swiglu", m, 2048, 4096, True)
+    _mlp_case(torch, randn, "llama4 model=2 dense", "swiglu", TOKENS, 5120, 8192, False, iters=10)
+    _flash_case(torch, randn, "internlm2 model=2", TRAIN_BATCH // 2, TRAIN_SEQ, TRAIN_SEQ, 8, 4,
+                128, True, True, TRAIN_BATCH // 2)
+    _flash_case(torch, randn, "llama4 model=2", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 20, 4, 128,
+                True, False, 1)
+    e, cap, h, f = PAR_EXPERTS // 2, 320, 5120, 8192
+    x, wg, wu = randn(e, cap, h), randn(e, h, f, scale=h ** -0.5), randn(e, h, f, scale=h ** -0.5)
+    wd = randn(e, f, h, scale=f ** -0.5)
+    hdn = fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu")
+    want = fused_mlp_hidden_ref(x, wg, wu, "swiglu")
+    compare(torch, hdn, want, fused_mlp_hidden_tol(x, wg, wu, "swiglu", want),
+            f"llama4 model=2 fused_mlp_hidden_expert {e} x {cap}x{h}x{f}")
+    del want
+    out = matmul_expert(hdn, wd)
+    want = matmul_expert_ref(hdn, wd)
+    compare(torch, out, want, matmul_tol(hdn, wd, want),
+            f"llama4 model=2 matmul_expert (w_down) {e} x {cap}x{f}x{h}")
+    del want, out
+    for what, call, plain, flops, nbytes in (
+            ("fused_mlp_hidden_expert", lambda: fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu"),
+             lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu"), 4.0 * e * cap * h * f,
+             2.0 * e * (cap * h + 2 * h * f + cap * f)),
+            ("matmul_expert w_down", lambda: matmul_expert(hdn, wd),
+             lambda: matmul_expert_ref(hdn, wd), 2.0 * e * cap * f * h,
+             2.0 * e * (cap * f + f * h + cap * h))):
+        ms, _ = time_ms(torch, [call], 10)
+        pl, _ = time_ms(torch, [plain], 10)
+        bnd, by = bound(flops, nbytes)
+        print(f"    llama4 model=2 {what} {e} experts x {cap} rows: {ms:.4f} ms (plain {pl:.4f}, "
+              f"bound {bnd:.4f} by {by}, {bnd / ms:.3f} of it)")
+    del x, wg, wu, wd, hdn
+    torch.cuda.empty_cache()
+
+
+def parallel_phase(torch) -> dict:
+    """Four ranks on the one card (`launch/mesh.spawn`, gloo): the parallel
+    train, serve, moe and pipeline runs in turn (`_parallel_rank`), each on a
+    mesh over the first ranks of the world.  Returns each run's seconds."""
+    import tempfile
+    from repro_torch.launch import mesh as mesh_lib
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        backend = mesh_lib.spawn(_parallel_rank, 4, (tmp,), device="cuda", timeout=PAR_TIMEOUT)
+        with open(os.path.join(tmp, "times.json")) as f:
+            times = json.load(f)
+    print(f"parallel: 4 ranks on {torch.cuda.get_device_name(0)} over {backend} (host-staged "
+          f"collectives); run seconds {json.dumps({k: round(v, 1) for k, v in times.items()})}")
+    return times
+
+
+def _parallel_rank(rank, world, dev, tmp) -> None:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.tuning.cache import TuningCache, set_default_cache
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_default_cache(TuningCache())      # the wrappers' rules, as the other phases
+    times = {}
+    for name, run in (("parallel train", _par_train), ("parallel serve", _par_serve),
+                      ("parallel moe", _par_moe), ("pipeline", _par_pipeline)):
+        dist.barrier()
+        t0 = time.perf_counter()
+        run(torch, rank, dev, tmp)
+        torch.cuda.empty_cache()
+        dist.barrier()
+        times[name] = time.perf_counter() - t0
+    if rank == 0:
+        with open(os.path.join(tmp, "times.json"), "w") as f:
+            json.dump(times, f)
+
+
+def _say(rank: int, msg: str) -> None:
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def _rank_line(rank: int, msg: str) -> None:
+    print(f"    rank {rank}: {msg}", flush=True)
+
+
+def _internlm2_cut(**kw):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("internlm2-1.8b"), num_layers=PAR_LAYERS, **kw)
+
+
+def _row_allreduce_dropped(cfg):
+    """Fault: the last layer's w_down all-reduce skipped (each forward calls
+    reduce_from_tp 1 + 2L times: the embedding, then wo and w_down a
+    layer)."""
+    from repro_torch.parallel import sharding as sh
+    per_pass = 1 + 2 * cfg.num_layers
+    calls = []
+
+    def wrap(real):
+        def f(x):
+            calls.append(1)
+            return x if len(calls) % per_pass == 0 else real(x)
+        return f
+    return _patched(sh, "reduce_from_tp", wrap)
+
+
+@contextlib.contextmanager
+def _grads_not_summed_over_data():
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+
+    def local(t, group, dim):
+        return t.chunk(comm.size(group), dim=dim)[comm.rank(group)].contiguous()
+    with _patched(sh.Plan, "reduce_grads", lambda real: lambda self, g, s: g), \
+            _patched(comm, "reduce_scatter", lambda real: local):
+        yield
+
+
+def _local_clip_norm():
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as sh
+
+    def wrap(real):
+        def f(self, tree, specs):
+            return sum(_sq_sum(t) for t in tree_leaves(tree))
+        return f
+    return _patched(sh.Plan, "global_sq_sum", wrap)
+
+
+def _sq_sum(t):
+    return (t.float() ** 2).sum()
+
+
+def _moments_restored_from_next_rank():
+    """Fault: restore reshards every first-moment leaf with the next rank's
+    block (the blocks rotated over `data`)."""
+    from repro_torch.checkpoint import ckpt
+
+    def wrap(real):
+        def f(template, flat, prefix="", specs=None, mesh=None):
+            leaf = not isinstance(template, dict)
+            if mesh is not None and leaf and prefix.startswith("opt/.m/"):
+                mesh = type(mesh)(mesh.cfg, rank=(mesh.rank + 1) % mesh.size)
+            return real(template, flat, prefix, specs, mesh)
+        return f
+    return _patched(ckpt, "_unflatten_into", wrap)
+
+
+def _state_digests(torch, plan, params, opt):
+    """One float64 number for each leaf of params and both moments, the same
+    for the same whole leaves on any mesh: each rank's block contracted
+    with a fixed vector over each dim's global index (so a block in the
+    wrong place changes it), summed over the ranks, each block counted once;
+    and the same of the magnitudes, to scale a comparison."""
+    from repro_torch.checkpoint.ckpt import state_specs
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import comm
+    mesh = plan.mesh
+    pspecs, ospecs = state_specs(plan, params, opt)
+    leaves = [t for tree in (params, opt.m, opt.v) for t in tree_leaves(tree)]
+    specs = [s for tree in (pspecs, ospecs.m, ospecs.v) for s in tree_leaves(tree)]
+    sums, mags = [], []
+    for t, spec in zip(leaves, specs):
+        x = t.detach().double()
+        a = x.abs()
+        for d in reversed(range(x.dim())):
+            e = spec[d] if d < len(spec) else None
+            n = t.shape[d]
+            at = torch.arange(mesh.index(e) * n, (mesh.index(e) + 1) * n, device=t.device,
+                              dtype=torch.float64)
+            u = torch.cos(0.7 * (d + 1) * at + 0.3)
+            x, a = x @ u, a @ u.abs()
+        copies = mesh.size // math.prod(mesh.axis_size(e) for e in spec)
+        sums.append(x / copies)
+        mags.append(a / copies)
+    group = mesh.group(mesh.axis_names)
+    return (comm.all_reduce(torch.stack(sums), group),
+            comm.all_reduce(torch.stack(mags), group))
+
+
+def _digest_gap(saved, restored) -> float:
+    """The largest gap over the leaves, relative to the leaf's magnitude."""
+    (s, m), (r, _) = saved, restored
+    return ((s - r).abs() / m.clamp_min(1e-300)).max().item()
+
+
+def _par_train(torch, rank, dev, tmp) -> None:
+    """internlm2-1.8b (PAR_LAYERS layers, full width) at data=2 x model=2:
+    step 0's loss, every gradient leaf and layer slice and the clip norm,
+    gathered whole, against the unsharded step on the card (rank 0), with
+    three planted faults, under remat="none" and again under "full" (each
+    with its peak memory); PAR_STEPS timed steps; the checkpoint saved at
+    (2, 2) and restored onto data=4 x model=1: the state's digests against
+    the saved state's (a fault: the first moments' blocks rotated), then
+    two more steps against the unsharded run's steps at those indices."""
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.optim.adamw import global_norm, init_opt, tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _internlm2_cut(linear_impl="fused", attn_impl="flash")
+    tc = TrainConfig(total_steps=PAR_STEPS + 2, warmup_steps=PAR_STEPS + 2, learning_rate=3e-4,
+                     remat="none")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                make_batch(cfg, shape, s, tc.seed).items()} for s in range(PAR_STEPS + 2)]
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    plan = sh.Plan(cfg, mesh)
+
+    def whole_params():
+        return init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                       dtype=torch.float32)
+
+    full = whole_params()
+    names = [path for path, _ in _paths(full)]
+    local = plan.shard(full)
+    specs = plan.specs(local)
+    _say(rank, f"parallel train: {cfg.name} at {PAR_LAYERS} of 24 layers, full width, data=2 x "
+               f"model=2 ({mesh.backend}), f32 masters, bf16 compute, fused + flash, AdamW, "
+               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step (2 rows a data rank)")
+    # the unsharded step 0 on the same card, on every rank: each keeps its
+    # block of the gradients, so a comparison sums a few norms over the ranks
+    lk, gk = _grads(torch, full, batches[0], cfg)
+    gn = torch.sqrt(sum(_sq_sum(g) for g in gk)).item()
+    it = iter(gk)
+    ref_blocks = list(tree_leaves(plan.shard(tree_map(lambda _: next(it), full), specs)))
+    del gk
+    for p in tree_leaves(full):
+        p.requires_grad_(False)
+    if rank == 0:       # the unsharded run's losses, for the restored step
+        opt = init_opt(full, tc)
+        step = make_train_step(cfg, tc)
+        ref_losses = []
+        for s in range(PAR_STEPS + 2):
+            full, opt, m = step(full, opt, batches[s])
+            ref_losses.append(m["loss"].item())
+        del opt
+        print(f"  unsharded (rank 0): step-0 loss {lk:.6f}, grad norm {gn:.4f}; losses "
+              f"{[round(x, 5) for x in ref_losses]}", flush=True)
+    del full
+    torch.cuda.empty_cache()
+
+    def sharded_step0(remat="none"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with sh.use(plan):
+            leaves = list(tree_leaves(local))
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, metrics = lm_loss(local, plan.batch_rows(batches[0]), cfg, remat=remat)
+            g = iter(torch.autograd.grad(loss, leaves))
+            del loss
+            g = plan.reduce_grads(tree_map(lambda _: next(g), local), specs)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            norm = global_norm(g, plan, specs).item()
+            rels = _block_grad_rels(torch, mesh, list(tree_leaves(g)), ref_blocks, names)
+        return metrics["loss"].item(), rels, norm, peak
+
+    def reading(what, res):
+        loss, rels, norm, _ = res
+        rel_loss = abs(loss - lk) / abs(lk)
+        rel_norm = abs(norm - gn) / gn
+        print(f"  {what}: loss {loss:.6f} (rel {rel_loss:.3e}, bound {TRAIN_LOSS_REL_BOUND}); "
+              f"worst gradient leaf or layer slice {rels[0][0]:.3e} ({rels[0][1]}), median "
+              f"{rels[len(rels) // 2][0]:.3e} (bound {TRAIN_GRAD_REL_BOUND}); clip norm "
+              f"{norm:.4f} (rel {rel_norm:.3e}, bound {TRAIN_GRAD_REL_BOUND})", flush=True)
+        return (rel_loss <= TRAIN_LOSS_REL_BOUND and rels[0][0] <= TRAIN_GRAD_REL_BOUND
+                and rel_norm <= TRAIN_GRAD_REL_BOUND)
+
+    peaks = {}
+    for remat in ("none", "full"):
+        sound = sharded_step0(remat)
+        peaks[remat] = sound[3]
+        if rank == 0 and not reading(f"step 0, sharded vs unsharded, remat={remat}", sound):
+            fail(f"parallel train: the sharded step 0 (remat={remat}) breaks its bounds")
+        del sound
+    _rank_line(rank, f"parallel train step 0 (forward + backward + gradient reductions): peak "
+                     f"device memory {peaks['none']:.2f} GiB at remat=none, "
+                     f"{peaks['full']:.2f} GiB at remat=full (the layers' FSDP gathers freed "
+                     "after each layer's forward and gathered again in its backward)")
+    for what, planted in (("fault: the last layer's w_down all-reduce dropped",
+                           lambda: _row_allreduce_dropped(cfg)),
+                          ("fault: gradients not summed over data", _grads_not_summed_over_data),
+                          ("fault: the clip norm over one rank's blocks", _local_clip_norm)):
+        with planted():
+            res = sharded_step0()
+        if rank == 0 and reading(what, res):
+            fail(f"parallel train: the bounds do not see the {what}")
+        del res
+    del ref_blocks
+    torch.cuda.empty_cache()
+
+    opt = init_opt(local, tc)
+    step_fn = make_train_step(cfg, tc, plan=plan)
+    matmul_ops, fns = _train_counters()
+    torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for s in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        local, opt, m = step_fn(local, opt, batches[s])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    counts = _read_counts(matmul_ops, fns)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _rank_line(rank, f"parallel train steps {[round(t * 1e3, 1) for t in times]} ms, losses "
+                     f"{[round(x, 5) for x in losses]}, peak device memory {peak:.2f} GiB, "
+                     f"launches {json.dumps(counts)}")
+    want = {k: v * PAR_STEPS for k, v in per_step_launches(cfg).items()}
+    for name, n in counts.items():
+        if n != want[name]:
+            fail(f"parallel train rank {rank}: {name}: {n} launches, the path implies "
+                 f"{want[name]}")
+    if rank == 0:
+        print(f"  sharded losses {losses} vs unsharded {ref_losses[:PAR_STEPS]}", flush=True)
+
+    ck = Checkpointer(os.path.join(tmp, "ckpt"))
+    digests = _state_digests(torch, plan, local, opt)
+    t0 = time.perf_counter()
+    ck.save(PAR_STEPS, local, opt, plan=plan)
+    saved = time.perf_counter() - t0
+    del local, opt
+    torch.cuda.empty_cache()
+    mesh41 = make_mesh(MeshConfig(data=4, model=1))
+    plan41 = sh.Plan(cfg, mesh41)
+    template = plan41.shard(whole_params())
+    torch.cuda.empty_cache()
+    with _moments_restored_from_next_rank():
+        params, opt, _ = ck.restore(template, init_opt(template, tc), plan=plan41)
+    bad_gap = _digest_gap(digests, _state_digests(torch, plan41, params, opt))
+    del params, opt
+    t0 = time.perf_counter()
+    params, opt, step = ck.restore(template, init_opt(template, tc), plan=plan41)
+    restored = time.perf_counter() - t0
+    gap = _digest_gap(digests, _state_digests(torch, plan41, params, opt))
+    del template
+    if rank == 0:
+        print(f"  restored at data=4 x model=1 from the 2 x 2 checkpoint of step {step} (save "
+              f"{saved:.1f} s, restore {restored:.1f} s): state digests {gap:.3e} from the saved "
+              f"state's (bound {PAR_RESTORE_DIGEST_BOUND}); fault: the first moments' blocks "
+              f"rotated over data: {bad_gap:.3e}", flush=True)
+        if gap > PAR_RESTORE_DIGEST_BOUND:
+            fail("parallel train: the restored state differs from the saved one")
+        if bad_gap <= PAR_RESTORE_DIGEST_BOUND:
+            fail("parallel train: the digests do not see the first moments' blocks rotated")
+    step_fn = make_train_step(cfg, tc, plan=plan41)
+    for s in (step, step + 1):
+        params, opt, m = step_fn(params, opt, batches[s])
+        loss = m["loss"].item()
+        if rank == 0:
+            rel = abs(loss - ref_losses[s]) / abs(ref_losses[s])
+            print(f"  restored run, step {s}: loss {loss:.6f} vs unsharded {ref_losses[s]:.6f} "
+                  f"(rel {rel:.3e}, bound {PAR_RESTORE_LOSS_REL_BOUND})", flush=True)
+            if rel > PAR_RESTORE_LOSS_REL_BOUND:
+                fail(f"parallel train: the restored run's step {s} differs from the unsharded one")
+    del params, opt
+
+
+def _block_grad_rels(torch, mesh, got, want, names):
+    """`_grad_rels` of gradients held as blocks, each rank its own of every
+    leaf (`got` and `want` alike): the squared norms of each leaf and layer
+    slice summed over the mesh's ranks.  A leaf replicated on k ranks counts
+    k times in both sums, so each ratio is the whole leaf's."""
+    from repro_torch.parallel import comm
+    num, den, labels = [], [], []
+    for a, b, n in zip(got, want, names):
+        lead = 1 if n.startswith("seg") else 0
+        d, w = (a.float() - b.float()), b.float()
+        num.append(d.square().flatten(lead).sum(-1).reshape(-1))
+        den.append(w.square().flatten(lead).sum(-1).reshape(-1))
+        labels += [f"{n}[{i}]" for i in range(a.shape[0])] if lead else [n]
+    group = mesh.group(mesh.axis_names)
+    num = comm.all_reduce(torch.cat(num), group)
+    den = comm.all_reduce(torch.cat(den), group)
+    rel = (num / den.clamp_min(1e-60)).sqrt().tolist()
+    return sorted(zip(rel, labels), reverse=True)
+
+
+def _greedy_logits(torch, params, cfg, prompts, steps, plan=None, forced=None):
+    """Prefill and `steps` decode steps through serve_step: every step's
+    logits (steps + 1, b, v) and the tokens fed (`forced`, or greedy)."""
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+    s0 = prompts.shape[1]
+    prefill = make_prefill_step(cfg, s0 + steps, plan)
+    decode = make_decode_step(cfg, plan)
+    with torch.no_grad():
+        logits, caches = prefill(params, {"tokens": prompts})
+        out, toks = [logits], []
+        for i in range(steps):
+            tok = (forced[:, i:i + 1] if forced is not None
+                   else torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(torch.int32))
+            toks.append(tok)
+            logits, caches = decode(params, tok, caches, s0 + i)
+            out.append(logits)
+    return torch.stack(out), torch.cat(toks, dim=1)
+
+
+def _par_serve(torch, rank, dev, tmp) -> None:
+    """The same cut model at model=2 through serve_step (prefill 4 x 1024,
+    PAR_DECODE decode steps, the paged decode kernel at 4 KV heads a rank):
+    bf16 logits against the unsharded run on the same tokens; then at f32
+    and 2 layers, greedy tokens identical but at a near tie."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    if mesh is None:
+        return
+    cfg = _internlm2_cut(linear_impl="fused", attn_impl="paged")
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    plan = sh.Plan(cfg, mesh)
+    local = plan.shard(full)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device=dev)
+    forced = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, PAR_DECODE), generator=gen, device=dev,
+                           dtype=torch.int32)
+    matmul_ops, fns = _train_counters()
+    torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    t0 = time.perf_counter()
+    got, _ = _greedy_logits(torch, local, cfg, prompts, PAR_DECODE, plan, forced)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _read_counts(matmul_ops, fns).items() if v}
+    _rank_line(rank, f"parallel serve (model=2) prefill + {PAR_DECODE} decode steps "
+                     f"{wall * 1e3:.1f} ms, launches {json.dumps(counts)}")
+    for name in ("matmul", "fused_mlp_hidden", "paged_decode"):
+        if not counts.get(name):
+            fail(f"parallel serve rank {rank}: no {name} launch")
+    if rank == 0:
+        want, _ = _greedy_logits(torch, full, cfg, prompts, PAR_DECODE, forced=forced)
+        rel = _rel(got[..., :cfg.vocab_size], want[..., :cfg.vocab_size])
+        print(f"  parallel serve: {cfg.name} at {PAR_LAYERS} layers, model=2 ({mesh.backend}), "
+              f"bf16, prefill {TRAIN_BATCH} x {TRAIN_SEQ} + {PAR_DECODE} decode steps on the "
+              f"same tokens: logits rel err {rel:.3e} vs unsharded (bound {LOGITS_REL_BOUND})",
+              flush=True)
+        if rel > LOGITS_REL_BOUND:
+            fail("parallel serve: sharded logits differ from the unsharded run's")
+        del want
+    del full, local, got
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    full = init_lm(torch.Generator(device=dev).manual_seed(1), cfg32, device=dev)
+    local = sh.Plan(cfg32, mesh).shard(full)
+    _, toks = _greedy_logits(torch, local, cfg32, prompts, PAR_DECODE, sh.Plan(cfg32, mesh))
+    if rank == 0:
+        want, wtoks = _greedy_logits(torch, full, cfg32, prompts, PAR_DECODE)
+        for r in range(TRAIN_BATCH):
+            diff = (toks[r] != wtoks[r]).nonzero()
+            if len(diff) == 0:
+                continue
+            i = int(diff[0])
+            top = want[i, r, :cfg32.vocab_size].float().topk(2).values
+            gap = ((top[0] - top[1]) / top[0].abs()).item()
+            print(f"    f32 row {r}: first divergence at decode step {i}, the unsharded top-2 "
+                  f"gap {gap:.3e} (near-tie bound {TOKEN_GAP_REL})", flush=True)
+            if gap > TOKEN_GAP_REL:
+                fail("parallel serve: f32 greedy tokens diverge without a near tie")
+        same = int((toks == wtoks).all(dim=1).sum().item())
+        print(f"  parallel serve f32 (2 layers): {same} of {TRAIN_BATCH} rows' greedy tokens "
+              f"identical to the unsharded run's", flush=True)
+
+
+def _kept(torch, idx, cap: int, e: int):
+    """Which of the entries (t, k) `apply_moe` keeps at capacity `cap`, in
+    the order given (the stable sort by expert)."""
+    t, k = idx.shape
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    se = flat[order]
+    start = torch.searchsorted(se, torch.arange(e, device=idx.device))
+    keep = torch.arange(t * k, device=idx.device) - start[se] < cap
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    return kept.view(t, k)
+
+
+def _par_moe(torch, rank, dev, tmp) -> None:
+    """llama4-maverick (one [moe, dense] pair, PAR_EXPERTS experts, full
+    width), bf16, fused + flash: prefill logits of 4 x 1024 tokens at
+    model=2 ("auto", then "shard_map") against the unsharded run; at
+    data=2 and PAR_LOW_CF ("auto": the global batch's capacity and slots,
+    against the unsharded run; "shard_map": each data rank's own capacity,
+    against the unsharded run of each rank's rows); one expert's w_down
+    doubled on one rank must break the bounds."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import apply_lm, init_lm
+    from repro_torch.models import linear as linear_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+
+    tp = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    dp = make_mesh(MeshConfig(data=2, fsdp=False), ranks=[0, 1])   # params whole over data
+    if tp is None:
+        return
+    base = dataclasses.replace(get_config("llama4-maverick-400b-a17b"), num_layers=2,
+                               num_experts=PAR_EXPERTS, linear_impl="fused", attn_impl="flash")
+    V = base.vocab_size
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), base, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompts = torch.randint(0, V, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device=dev)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    _say(rank, f"parallel moe: {base.name}, 1 [moe, dense] pair, {PAR_EXPERTS} experts, full "
+               f"width, bf16, fused + flash, prefill {TRAIN_BATCH} x {TRAIN_SEQ}")
+
+    def routed(fn):
+        """fn()'s logits and each MoE layer's top-1 experts (as `route` saw them)."""
+        log = []
+
+        def wrap(real):
+            def f(p, xt, c):
+                probs, gate, idx = real(p, xt, c)
+                log.append(idx.detach())
+                return probs, gate, idx
+            return f
+        with _patched(moe_mod, "route", wrap), torch.no_grad():
+            out = fn()
+        return out, log
+
+    def reference(cfg, halves=False):
+        rows = [slice(0, 2), slice(2, 4)] if halves else [slice(None)]
+        logits, idx = [], []
+        for r in rows:
+            lg, log = routed(lambda r=r: apply_lm(full, prompts[r], cfg)[0][..., :V])
+            logits.append(lg)
+            idx.append(log)
+        n = TRAIN_SEQ * (2 if halves else TRAIN_BATCH)
+        cap = moe_mod._capacity(n, cfg)
+        rec = [{"idx": torch.cat([i[layer] for i in idx]),
+                "kept": torch.cat([_kept(torch, i[layer], cap, PAR_EXPERTS) for i in idx])}
+               for layer in range(len(idx[0]))]
+        return torch.cat(logits), rec
+
+    def sharded(cfg, mesh, fault=False):
+        plan = sh.Plan(cfg, mesh)
+        local = plan.shard(full)
+        rows = plan.batch_rows({"tokens": prompts})["tokens"]
+        ctx = (_moe_fault(torch, "w_down", 0) if fault and mesh.rank == 1
+               else contextlib.nullcontext())
+        matmul_ops, fns = _train_counters()
+        expert = [linear_mod.matmul_expert, linear_mod.fused_mlp_hidden_expert]
+        for fn in expert:
+            fn.launches = 0
+        _reset_counts(matmul_ops, fns)
+        with sh.use(plan), ctx:
+            lg, log = routed(lambda: apply_lm(local, rows, cfg)[0][..., :V])
+        counts = {**{k: v for k, v in _read_counts(matmul_ops, fns).items() if v},
+                  "matmul_expert": expert[0].launches, "fused_mlp_hidden_expert": expert[1].launches}
+        if plan.dp > 1:
+            lg = comm.all_gather(lg, plan.dp_group, 0)
+            log = [comm.all_gather(i, plan.dp_group, 0) for i in log]
+        del local
+        return lg, log, counts
+
+    def check(label, got, glog, want, rec, cfg, cap_tokens, must_break=False):
+        cap = moe_mod._capacity(cap_tokens, cfg)
+        n = len(glog[0]) // (TRAIN_BATCH * TRAIN_SEQ // cap_tokens)
+        grec = [{"idx": i, "kept": torch.cat([_kept(torch, c, cap, PAR_EXPERTS)
+                                              for c in i.split(n)])} for i in glog]
+        rel = _rel(got, want)
+        pos = _per_position(got, want)
+        agreed = _agreed_positions(torch, cfg, grec, rec, pos.shape)
+        worst = (pos * agreed).max().item()
+        dropped = [int((~r["kept"]).sum().item()) for r in rec]
+        print(f"  {label}: logits rel err {rel:.3e} (bound {LOGITS_REL_BOUND}); worst position "
+              f"{worst:.3e} over the {int(agreed.sum().item())} of {agreed.numel()} whose routing "
+              f"agrees (bound {PAR_POSITION_REL_BOUND}); dropped entries (unsharded) {dropped}",
+              flush=True)
+        ok = rel <= LOGITS_REL_BOUND and worst <= PAR_POSITION_REL_BOUND
+        if must_break and ok:
+            fail(f"parallel moe: the bounds do not see the {label}")
+        if not must_break and not ok:
+            fail(f"parallel moe: {label} breaks its bounds")
+        return dropped
+
+    auto = base
+    smap = dataclasses.replace(base, moe_dispatch="shard_map")
+    low = dataclasses.replace(base, moe_capacity_factor=PAR_LOW_CF)
+    low_smap = dataclasses.replace(smap, moe_capacity_factor=PAR_LOW_CF)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    refs = {}
+    if rank == 0:
+        refs["auto"] = reference(auto)
+    for label, cfg, mesh, ref, cap_tokens, fault in (
+            ("model=2 auto", auto, tp, "auto", tokens, False),
+            ("fault: one expert's w_down doubled on rank 1 (model=2 auto)", auto, tp, "auto",
+             tokens, True),
+            ("model=2 shard_map", smap, tp, "auto", tokens, False),
+            (f"data=2 auto at capacity factor {PAR_LOW_CF}", low, dp, "low", tokens, False),
+            (f"data=2 shard_map at capacity factor {PAR_LOW_CF}", low_smap, dp, "halves",
+             tokens // 2, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, glog, counts = sharded(cfg, mesh, fault)
+        torch.cuda.synchronize()
+        _rank_line(rank, f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms, launches "
+                         f"{json.dumps(counts)}")
+        if not fault and not (counts.get("matmul") and counts["matmul_expert"]
+                              and counts["fused_mlp_hidden_expert"]
+                              and counts.get("flash_attention")):
+            fail(f"parallel moe rank {rank}: {label} missed a kernel ({counts})")
+        if rank == 0:
+            if ref not in refs:
+                refs[ref] = reference(low, halves=ref == "halves")
+            dropped = check(label, got, glog, *refs[ref], cfg, cap_tokens, must_break=fault)
+            if ref == "low" and not sum(dropped):
+                fail("parallel moe: no entry dropped at the low capacity factor")
+        del got, glog
+        torch.cuda.empty_cache()
+
+
+def _par_pipeline(torch, rank, dev, tmp) -> None:
+    """internlm2-1.8b's PAR_LAYERS layers in 2 stages (ranks 0 and 1),
+    4 microbatches of 1 x 1024, the layers' forward (bf16, fused + flash)
+    as stage_fn: the outputs bit-identical to the same layers applied
+    microbatch by microbatch in one process."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.models.blocks import apply_stack
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.pipeline import pipeline_apply, split_layers_into_stages
+
+    mesh = make_mesh(MeshConfig(pod=2), ranks=[0, 1])
+    if mesh is None:
+        return
+    cfg = _internlm2_cut(linear_impl="fused", attn_impl="flash")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1, TRAIN_SEQ), generator=gen, device=dev)
+    x = params["embed"][tokens] * math.sqrt(cfg.d_model)
+    positions = torch.arange(TRAIN_SEQ, device=dev)
+
+    def stage_fn(p, h):
+        return apply_stack([("dense", p)], cfg, h, positions=positions)[0]
+
+    staged = split_layers_into_stages(params["seg0"], 2)
+    local = sh.Plan(cfg, mesh).shard(staged, _stage_specs(staged))
+    matmul_ops, fns = _train_counters()
+    _reset_counts(matmul_ops, fns)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline_apply(stage_fn, local, x, mesh, axis="pod")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _read_counts(matmul_ops, fns).items() if v}
+        _rank_line(rank, f"pipeline stage {mesh.index('pod')}: {wall * 1e3:.1f} ms, launches "
+                         f"{json.dumps(counts)}")
+        if not (counts.get("matmul") and counts.get("flash_attention")
+                and counts.get("fused_mlp_hidden")):
+            fail(f"pipeline rank {rank}: a kernel of the layers was not launched ({counts})")
+        if rank == 0:
+            want = torch.stack([stage_fn(params["seg0"], x[m]) for m in range(x.shape[0])])
+            same = torch.equal(y, want)
+            print(f"  pipeline: {cfg.name}, {PAR_LAYERS} layers in 2 stages, 4 microbatches of 1 x "
+                  f"{TRAIN_SEQ}: outputs bit-identical to one process applying the layers: "
+                  f"{same} (max abs diff {(y.float() - want.float()).abs().max().item():.3e})",
+                  flush=True)
+            if not same:
+                fail("pipeline: the pipelined outputs differ from the sequential stack's")
+
+
+def _stage_specs(tree):
+    """Every leaf of a (stages, L / stages, ...) tree split over `pod`."""
+    if isinstance(tree, dict):
+        return {k: _stage_specs(v) for k, v in tree.items()}
+    return ("pod",)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     torch = setup()
@@ -6427,6 +7184,7 @@ def main() -> None:
     rows.update(phase("ssd backward", ssd_bwd_kernel_phase, torch))
     rows.update(phase("moe kernels", moe_kernel_phase, torch))
     rows.update(phase("encdec kernels", encdec_kernel_phase, torch))
+    phase("parallel kernels", parallel_kernel_phase, torch)
     if PARENT:
         phase("ssd backward a/b", ssd_bwd_ab_phase)
     counts = phase("serve", serve_phase, torch)
@@ -6452,6 +7210,7 @@ def main() -> None:
     phase("chaos", chaos_phase, torch)
     phase("checkpoint", checkpoint_phase, torch)
     phase("remat", remat_phase, torch)
+    spent.update(phase("parallel", parallel_phase, torch))
     cache = phase("tuning", tuning_phase, torch)
     phase("codesign", codesign_phase, torch, cache)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "

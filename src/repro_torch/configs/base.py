@@ -284,7 +284,7 @@ class MeshConfig:
     model: int = 1
     pod: int = 1
     pod_role: str = "data"  # data | pipeline
-    fsdp: bool = True  # shard params/optimizer over the data axis (ZeRO-3)
+    fsdp: bool = True  # shard params/optimizer over the data axis, gathered where used
 
     @property
     def num_devices(self) -> int:

@@ -18,8 +18,22 @@ silent fallback).  Params are float32 masters drawn from `--seed` on the
 device; the batches are the deterministic synthetic stream of
 `data/pipeline.py`.  At launch it prints the advisor's shape-rule findings
 for the config on the H100 (`core/advisor.check_alignment`), as JAX's
-launcher does for its chip.  Data/model parallelism (`--data`, `--model`
-> 1) comes with a later slice: passing those flags raises.
+launcher does for its chip.
+
+`--data D --model T` trains on a D x T mesh (`parallel/sharding.py`): FSDP
+and data parallelism over `data`, tensor and expert parallelism over
+`model`, the same step as one device takes.  Started without `torchrun`,
+it spawns its own D x T ranks on this host (`launch/mesh.spawn`); under
+`torchrun` it joins the world it finds.  NCCL where each rank has a card
+of its own, gloo where the ranks share one (the one H100: its
+communication goes through host memory) or run on the host; the launcher
+prints which.  Every rank draws the whole params from `--seed` on the host
+(so the model must fit in host memory once per rank) and moves only its
+block to the device; the model gathers each data-sharded leaf where it uses
+it, a layer at a time.  Rank 0 prints.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+        --smoke --data 2 --model 2 --device cpu --steps 2
 
 Fault tolerance, as the JAX launcher's:
   * a checkpoint every `--checkpoint-every` updates (an async host write,
@@ -42,9 +56,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..checkpoint.ckpt import Checkpointer
@@ -54,7 +71,9 @@ from ..core import advisor
 from ..data.pipeline import make_batch
 from ..models import init_lm
 from ..optim.adamw import init_opt
+from ..parallel import sharding as sh
 from ..serving.engine.engine import resolve_device
+from . import mesh as mesh_lib
 from ..train.train_step import make_train_step, num_microbatches
 
 
@@ -73,13 +92,7 @@ def build(args):
     return cfg, mesh_cfg, shape, tc
 
 
-def _refuse_unported(args) -> None:
-    if args.data != 1 or args.model != 1:
-        raise NotImplementedError(
-            "--data / --model > 1 are not ported yet: they come with the parallelism slice")
-
-
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
@@ -97,7 +110,7 @@ def main(argv=None):
                     help="dispatch for every dense projection GEMM (models/linear.py); "
                          "fused = the fused SwiGLU/MLP kernel + the tile GEMM")
     ap.add_argument("--microbatch", type=int, default=0,
-                    help="rows per microbatch; 0 = no accumulation")
+                    help="rows per microbatch on each data rank; 0 = no accumulation")
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--checkpoint-dir", default=TrainConfig.checkpoint_dir,
                     help="default: repro_ckpt under $TMPDIR (/tmp where it is unset)")
@@ -106,33 +119,76 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
-    args = ap.parse_args(argv)
-    _refuse_unported(args)
+    return ap
 
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg, mesh_cfg, shape, tc = build(args)
+    cfg, mesh_cfg, shape, _ = build(args)
+    if mesh_cfg.num_devices == 1:
+        return train(args, device)
+    # refuse what the plan does not cover before any rank starts
+    sh.check_supported(cfg, mesh_cfg)
+    errs = sh.validate_divisibility(cfg, mesh_cfg, shape.global_batch)
+    if errs:
+        raise ValueError(f"{cfg.name} on mesh {mesh_cfg.data} x {mesh_cfg.model}: "
+                         + "; ".join(errs))
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:   # under torchrun
+        rank, world, dev = mesh_lib.init_from_env(device)
+        try:
+            return train(args, dev, rank)
+        finally:
+            dist.destroy_process_group()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    backend = mesh_lib.spawn(_rank_main, mesh_cfg.num_devices, (argv,), device=device)
+    print(f"done: {mesh_cfg.num_devices} ranks over {backend}")
 
-    # shape-rule report (the paper's contribution, surfaced at launch)
+
+def _rank_main(rank: int, world: int, device, argv) -> None:
+    train(_parser().parse_args(argv), device, rank)
+
+
+def train(args, device, rank: int = 0):
+    cfg, mesh_cfg, shape, tc = build(args)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    plan = None
+    if mesh_cfg.num_devices > 1:
+        mesh = mesh_lib.make_mesh(mesh_cfg)
+        plan = sh.Plan(cfg, mesh)
+        say(f"mesh: data={mesh_cfg.data} x model={mesh_cfg.model}, backend {mesh.backend}, "
+            f"rank 0 on {device}")
+
+    # shape-rule report (the paper's contribution, surfaced at launch), at
+    # the shard widths the mesh gives
     findings = advisor.check_alignment(cfg, tp=mesh_cfg.model,
                                        global_batch=shape.global_batch)
     for f in findings:
         if f.severity != "ok":
-            print(f"[advisor:{f.severity}] {f.rule}: {f.message}")
+            say(f"[advisor:{f.severity}] {f.rule}: {f.message}")
 
     n_micro = 1
     if args.microbatch:
         tc = dataclasses.replace(tc, microbatch_per_device=args.microbatch)
         n_micro = num_microbatches(shape, mesh_cfg, tc)
 
-    gen = torch.Generator(device=device).manual_seed(tc.seed)
-    params = init_lm(gen, cfg, device=device, dtype=torch.float32)
+    if plan is None:
+        params = init_lm(torch.Generator(device=device).manual_seed(tc.seed), cfg, device=device,
+                         dtype=torch.float32)
+    else:
+        # drawn whole on the host and sharded there: the device holds only
+        # this rank's blocks
+        whole = init_lm(torch.Generator().manual_seed(tc.seed), cfg, device="cpu",
+                        dtype=torch.float32)
+        params = plan.shard(whole, device=device)
+        del whole
     opt = init_opt(params, tc)
     start_step = 0
     ck = Checkpointer(tc.checkpoint_dir, keep=3)
     if args.resume and ck.latest_step() is not None:
-        params, opt, start_step = ck.restore(params, opt)
-        print(f"resumed from step {start_step}")
-    step_fn = make_train_step(cfg, tc, n_micro=n_micro)
+        params, opt, start_step = ck.restore(params, opt, plan=plan)
+        say(f"resumed from step {start_step}")
+    step_fn = make_train_step(cfg, tc, n_micro=n_micro, plan=plan)
 
     t0 = time.perf_counter()
     tokens_done = 0
@@ -150,16 +206,16 @@ def main(argv=None):
         if step % args.log_every == 0 or step == tc.total_steps - 1:
             loss = float(metrics["loss"])   # waits for the step
             dt = time.perf_counter() - t0
-            print(f"step {step:5d}  loss {loss:.4f}  "
-                  f"grad_norm {float(metrics['grad_norm']):.3f}  "
-                  f"tok/s {tokens_done / max(dt, 1e-6):,.0f}", flush=True)
+            say(f"step {step:5d}  loss {loss:.4f}  "
+                f"grad_norm {float(metrics['grad_norm']):.3f}  "
+                f"tok/s {tokens_done / max(dt, 1e-6):,.0f}", flush=True)
         applied = step + 1    # updates in params and opt now (== opt.step)
         if tc.checkpoint_every and applied % tc.checkpoint_every == 0 \
                 and applied < tc.total_steps:
-            ck.save(applied, params, opt, meta={"arch": cfg.name}, blocking=False)
-    ck.save(tc.total_steps, params, opt, meta={"arch": cfg.name})
+            ck.save(applied, params, opt, meta={"arch": cfg.name}, blocking=False, plan=plan)
+    ck.save(tc.total_steps, params, opt, meta={"arch": cfg.name}, plan=plan)
     ck.wait()
-    print("done")
+    say("done")
 
 
 if __name__ == "__main__":

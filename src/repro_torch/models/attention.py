@@ -11,6 +11,12 @@ Caches are updated in place: the JAX package returns new cache arrays
 writes the same values into the caller's tensors with `copy_` (scalar
 `cache_index`, prefill) and one `index_put_` per layer (vector
 `cache_index`, engine decode), and returns those same tensors.
+
+Under tensor parallelism (`parallel/sharding.py`) a GQA layer holds its
+rank's whole KV groups: wq / wk / wv (and their biases) column-sharded, so
+the rank computes num_heads / model query heads over num_kv_heads / model
+KV heads, and its cache holds those KV heads; wo is row-sharded and its
+output summed over `model` (`reduce_from_tp`).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import (flash_attention, paged_decode,
                                            paged_decode_blocktable)
 from ..kernels.flash_attention.ref import gather_block_kv
+from ..parallel import sharding as sh
 from ..quant import dequantize_kv, quantize_kv
 from .blocked_attention import blocked_sdpa
 from .layers import apply_rotary, dense_init
@@ -121,9 +128,11 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; valid: {list(ATTN_IMPLS)}")
     b, s, h = x.shape
-    a, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = sh.tp_size()
+    a, nkv, hd = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     impl = cfg.linear_impl
-    src = x if kv_input is None else kv_input
+    x = sh.copy_to_tp(x)
+    src = x if kv_input is None else sh.copy_to_tp(kv_input)
     q = linear(x, p["wq"], impl=impl)
     k = linear(src, p["wk"], impl=impl)
     v = linear(src, p["wv"], impl=impl)
@@ -172,7 +181,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
                 vg = dequantize_kv(vg, gather_block_kv(scales[1], block_tables), q.dtype)
             out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=causal, q_pos=positions,
                         kv_len=lengths)
-        return linear(out.reshape(b, s, a * hd), p["wo"], impl=impl), cache
+        return sh.reduce_from_tp(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)), cache
 
     kv_len = None
     if cache is not None and kv_input is None:
@@ -212,7 +221,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     else:
         out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=masked,
                     q_pos=positions, kv_len=kv_len)
-    out = linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)
+    out = sh.reduce_from_tp(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl))
     return out, cache
 
 

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as sh
 from ..quant import QuantizedTensor
 from .attention import apply_attention, init_attention
 from .layers import norm_apply, norm_init
@@ -194,7 +195,9 @@ def _kv_cache(cfg: ModelConfig, n: int, batch: int, s_max: int, dtype, device):
     if cfg.attn_type == "mla":
         return {"latent": torch.zeros((n, batch, s_max, cfg.kv_lora_rank + cfg.qk_rope_dim),
                                       dtype=store, device=device)}
-    shape = (n, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    # under tensor parallelism, this rank's KV heads (cache_specs shards the
+    # sequence instead: the same numbers, another layout)
+    shape = (n, batch, s_max, cfg.num_kv_heads // sh.tp_size(), cfg.head_dim)
     leaves = {"k": torch.zeros(shape, dtype=store, device=device),
               "v": torch.zeros(shape, dtype=store, device=device)}
     if store == torch.int8:
@@ -325,6 +328,7 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
         for layer, p_l in enumerate(tree_unbind(sp, n)):
             if remat != "none" and seg_cache is None:
                 def body(h, p_l=p_l, kind=kind):
+                    p_l = sh.fsdp_use(p_l)    # gathered again in the recompute
                     with products_as_ops() if remat == "dots" else contextlib.nullcontext():
                         out, _, a = _apply_core(p_l, h, cfg, kind, positions=positions,
                                                 shared=shared)
@@ -333,7 +337,8 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
                 x, aux = checkpoint(body, x, use_reentrant=False, **kw)
             else:
                 c_l = None if seg_cache is None else tree_index(seg_cache, layer)
-                x, _, aux = _apply_core(p_l, x, cfg, kind, positions=positions, cache=c_l,
+                x, _, aux = _apply_core(sh.fsdp_use(p_l), x, cfg, kind, positions=positions,
+                                        cache=c_l,
                                         cache_index=cache_index, block_tables=block_tables,
                                         decode=decode, shared=shared)
             if aux is not None:

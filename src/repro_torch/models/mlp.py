@@ -1,4 +1,8 @@
-"""MLP variants: standard 2-matrix (gelu / squared-ReLU) and SwiGLU (3-matrix)."""
+"""MLP variants: standard 2-matrix (gelu / squared-ReLU) and SwiGLU (3-matrix).
+
+Under tensor parallelism w_gate / w_up are column-sharded and w_down
+row-sharded (d_ff / model a rank): the input enters through `copy_to_tp`,
+the output leaves through one all-reduce over `model`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -6,6 +10,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding as sh
 from .layers import activation, dense_init
 from .linear import fused_mlp, linear, quantized_mlp
 
@@ -29,6 +34,12 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: int | None 
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
+    return sh.reduce_from_tp(mlp_partial(p, sh.copy_to_tp(x), cfg))
+
+
+def mlp_partial(p, x, cfg: ModelConfig):
+    """The MLP on this rank's d_ff columns: its share of the output, before
+    the sum over `model` (the whole output without a plan)."""
     impl = cfg.linear_impl
     if impl == "fused":
         # gate+up GEMM pair and the silu*mul combine run as ONE kernel

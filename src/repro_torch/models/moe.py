@@ -8,8 +8,13 @@ batched launch per expert stack (`linear.expert_linear`,
 `linear.expert_fused_hidden`).  Dispatch is sort-based: entries (token,
 choice) are sorted by expert (stable), positioned within their expert's
 capacity window, and scattered into an (E, capacity, h) buffer; entries
-past the window drop.  One device has nothing to shard, so JAX's layout
-anchors (`parallel.sharding.constrain`) have no counterpart here.
+past the window drop.  JAX's layout anchors (`parallel.sharding.constrain`)
+have no counterpart: under a sharding plan the dispatch is explicit.  The
+experts are sharded on `model` (the (E, h, f) specs), each rank packs and
+runs only its own experts' entries, and the combine is one all-reduce over
+`model`; under data parallelism the capacity and each entry's slot are the
+global batch's, as JAX's "auto" dispatch computes them
+(`global_slots`).
 
 Two places differ from a literal translation, for the card's sake:
   * dispatch: JAX adds every entry into the buffer, the dropped ones as
@@ -31,9 +36,11 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel import comm
+from ..parallel import sharding as sh
 from .layers import dense_init
 from .linear import expert_fused_hidden, expert_linear, linear
-from .mlp import apply_mlp, init_mlp
+from .mlp import init_mlp, mlp_partial
 
 MOE_DISPATCHES = ("auto", "shard_map")
 
@@ -71,20 +78,39 @@ def route(p, xt, cfg: ModelConfig):
 
 
 def apply_moe(p, x, cfg: ModelConfig):
-    """x: (b, s, h) -> (y, aux_loss); aux_loss a 0-d f32 tensor."""
+    """x: (b, s, h) -> (y, aux_loss); aux_loss a 0-d f32 tensor.
+    moe_dispatch "shard_map" under a sharding plan takes JAX's explicit
+    expert-parallel schedule (`moe_shardmap.py`); without a plan it is the
+    "auto" dispatch, as JAX's falls back without a mesh."""
     if cfg.moe_dispatch not in MOE_DISPATCHES:
         raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}; valid: "
                          f"{list(MOE_DISPATCHES)}")
-    if cfg.moe_dispatch == "shard_map":
-        raise NotImplementedError(
-            "moe_dispatch='shard_map' (expert-parallel dispatch across devices) is not "
-            "ported yet: it comes with the parallelism slice")
+    if cfg.moe_dispatch == "shard_map" and sh.active() is not None:
+        from .moe_shardmap import apply_moe_shardmap
+        return apply_moe_shardmap(p, x, cfg)
+    return apply_moe_auto(p, x, cfg)
+
+
+def global_slots(counts, t: int):
+    """Under data parallelism: (each local expert's entries on the data
+    ranks before this one, the global token count).  JAX's "auto" dispatch
+    packs the global batch, so an entry's slot in its expert's capacity
+    window counts every earlier rank's entries (an exclusive scan of the E
+    counts over the data ranks), and the capacity is the global batch's."""
+    dp = sh.dp_size()
+    if dp == 1:
+        return torch.zeros_like(counts), t
+    every = sh.gather_dp(counts[None], 0)                 # (dp, E)
+    return every[:sh.active().dp_rank].sum(0), t * dp
+
+
+def apply_moe_auto(p, x, cfg: ModelConfig):
+    """JAX's "auto" dispatch: capacity and slots over the global batch, the
+    experts this rank holds (all of them without a plan)."""
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
     xt = x.reshape(b * s, h)
     t = b * s
-    cap = _capacity(t, cfg)
-    impl = cfg.linear_impl
     dev = x.device
 
     probs, gate, idx = route(p, xt, cfg)
@@ -92,21 +118,51 @@ def apply_moe(p, x, cfg: ModelConfig):
     # f32 integers in any order (and need no host sync, as bincount would)
     counts = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
         0, idx.reshape(-1), torch.ones(t * k, dtype=torch.float32, device=dev))
-    aux = e * (counts / (t * k) * probs.mean(0)).sum()
+    before, t_all = global_slots(counts, t)
+    if t_all == t:
+        frac_probs = probs.mean(0)
+    else:   # the global batch's statistics, the same on every data rank
+        counts = comm.all_reduce(counts, sh.active().dp_group)
+        frac_probs = sh.sum_over_dp(probs.sum(0)) / t_all
+    aux = e * (counts / (t_all * k) * frac_probs).sum()
+    y = dispatch_combine(p, xt, gate, idx, cfg, _capacity(t_all, cfg), before)
+    return y.reshape(b, s, h), aux
+
+
+def dispatch_combine(p, xt, gate, idx, cfg: ModelConfig, cap: int, before):
+    """Pack the entries of this rank's experts into their capacity windows,
+    run the expert FFN, and sum each token's kept outputs; plus the shared
+    expert.  `before[e]`: entries of expert e that come earlier in the
+    global order (on other data ranks); an entry is kept where its global
+    slot is under `cap`.  Under tensor parallelism the experts are this
+    rank's E / model (p's stacks), the sum runs over `model` once."""
+    t, h = xt.shape
+    k = cfg.top_k
+    impl = cfg.linear_impl
+    dev = xt.device
+    e_loc = p["w_up"].shape[0]
+    lo = sh.tp_rank() * e_loc
+    # replicated inputs to this rank's share of the experts: their
+    # gradients are summed over `model` (the router's is not: every rank
+    # computes it whole)
+    xin, gate = sh.copy_to_tp(xt), sh.copy_to_tp(gate)
 
     # ---- sort-based dispatch -------------------------------------------------
-    flat_expert = idx.reshape(-1)                       # (t*k,)
+    flat_expert = idx.reshape(-1) - lo                  # (t*k,), local ids
+    local = (flat_expert >= 0) & (flat_expert < e_loc)
+    flat_expert = torch.where(local, flat_expert, e_loc)
     order = torch.argsort(flat_expert, stable=True)
     se = flat_expert[order]
     st = torch.div(order, k, rounding_mode="floor")     # the entry's token
-    seg_start = torch.searchsorted(se, torch.arange(e, device=dev), side="left")
-    pos = torch.arange(t * k, device=dev) - seg_start[se]
-    keep = pos < cap
+    seg_start = torch.searchsorted(se, torch.arange(e_loc, device=dev), side="left")
+    sec = se.clamp_max(e_loc - 1)
+    pos = torch.arange(t * k, device=dev) - seg_start[sec]
+    keep = (se < e_loc) & (pos + before[lo + sec] < cap)
     # dropped entries go to a trash row past the (e * cap) buffer
-    dst = torch.where(keep, se * cap + pos, e * cap)
-    buf = torch.zeros((e * cap + 1, h), dtype=x.dtype, device=dev)
-    buf.index_put_((dst,), xt[st])
-    buf = buf[:e * cap].view(e, cap, h)
+    dst = torch.where(keep, se * cap + pos, e_loc * cap)
+    buf = torch.zeros((e_loc * cap + 1, h), dtype=xt.dtype, device=dev)
+    buf.index_put_((dst,), xin[st])
+    buf = buf[:e_loc * cap].view(e_loc, cap, h)
 
     # ---- batched expert GEMMs (E x (cap,h)x(h,f)), one launch per stack ----
     if impl == "fused":
@@ -119,12 +175,12 @@ def apply_moe(p, x, cfg: ModelConfig):
     else:
         hdn = torch.nn.functional.gelu(expert_linear(buf, p["w_up"], impl=impl),
                                        approximate="tanh")
-    out_buf = expert_linear(hdn, p["w_down"], impl=impl).reshape(e * cap, h)
+    out_buf = expert_linear(hdn, p["w_down"], impl=impl).reshape(e_loc * cap, h)
 
     # ---- gather back + combine, in ascending expert order per token ----------
-    picked = torch.where(keep[:, None], out_buf[dst.clamp_max(e * cap - 1)],
-                         torch.zeros((), dtype=x.dtype, device=dev))
-    contrib = picked * gate.reshape(-1)[order].to(x.dtype)[:, None]
+    picked = torch.where(keep[:, None], out_buf[dst.clamp_max(e_loc * cap - 1)],
+                         torch.zeros((), dtype=xt.dtype, device=dev))
+    contrib = picked * gate.reshape(-1)[order].to(xt.dtype)[:, None]
     inv = torch.empty_like(order)
     inv[order] = torch.arange(t * k, device=dev)
     # token i's entries in sorted (= ascending expert) order
@@ -135,5 +191,5 @@ def apply_moe(p, x, cfg: ModelConfig):
         y = y + c[:, j]
 
     if cfg.num_shared_experts:
-        y = y + apply_mlp(p["shared"], xt, cfg)
-    return y.reshape(b, s, h), aux
+        y = y + mlp_partial(p["shared"], xin, cfg)
+    return sh.reduce_from_tp(y)

@@ -14,6 +14,16 @@ vocabularies, ~8 live at once) would not fit beside a full-width MoE's
 masters, gradients and moments.  The arithmetic is JAX's, in float32, leaf
 by leaf.  `init_opt` and the state's `step` live on the parameters'
 device.
+
+Under a sharding plan (`parallel/sharding.py`) params, gradients and
+moments are this rank's blocks: the clip norm sums each leaf's squares
+over the axes that shard it (`Plan.global_sq_sum`), and adamw8bit's row
+absmax is the whole row's (`Plan.row_absmax`: a column-parallel leaf
+shards the last dim over `model`, a row-parallel one over `data`).  The
+int8 moments are sharded as their parameter is, their scales as the
+parameter but whole along the last dim.  (JAX's spec tree names the
+moment leaves "codes" and "scale", which no rule matches, so its int8
+moments are replicated: the same numbers.)
 """
 from __future__ import annotations
 
@@ -45,12 +55,16 @@ def tree_map(fn, tree, *rest, is_leaf=None):
 
 # --- row-wise int8 quantization ------------------------------------------------------
 
-def quantize_i8(x: torch.Tensor):
+def quantize_i8(x: torch.Tensor, row_max=None):
     """x (param shape, f32) -> {codes: int8 same shape, scale: f32
-    absmax/127 over the last dim (keepdims)}."""
+    absmax/127 over the last dim (keepdims)}.  row_max: takes the local
+    absmax to the whole row's (a sharded row)."""
     if x.dim() == 0:
         x = x[None]
-    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
+    scale = amax / 127.0
     scale = scale.clamp_min(1e-12)
     codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return {"codes": codes, "scale": scale.float()}
@@ -100,7 +114,11 @@ def init_opt(params, tc: TrainConfig) -> OptState:
                     tree_map(zero, params), tree_map(zero, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, plan=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf; under a sharding plan, over the global
+    tree whose blocks `tree` holds."""
+    if plan is not None:
+        return torch.sqrt(plan.global_sq_sum(tree, specs))
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
@@ -131,9 +149,12 @@ def _adamw(p, g, m, v, clip, lr, bc1, bc2, b1, b2, eps, wd):
 
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, tc: TrainConfig,
-                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8):
-    """One AdamW step, in place.  Returns (params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, *, plan=None,
+                  specs=None):
+    """One AdamW step, in place.  Returns (params, new_state, metrics).
+    plan, specs: a sharding plan and the params' spec tree, when the trees
+    hold this rank's blocks."""
+    gnorm = global_norm(grads, plan, specs)
     clip = _clip_scale(gnorm, tc.grad_clip)
     step = state.step + 1
     lr = lr_schedule(tc)(step)
@@ -146,13 +167,15 @@ def apply_updates(params, grads, state: OptState, tc: TrainConfig,
     flat_g = list(tree_leaves(grads))
     flat_m = list(tree_leaves(state.m, _is_quant))
     flat_v = list(tree_leaves(state.v, _is_quant))
+    flat_s = [()] * len(flat_p) if plan is None else list(tree_leaves(specs))
     hyper = (clip, lr, bc1, bc2, b1, b2, eps, tc.weight_decay)
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+    for p, g, m, v, spec in zip(flat_p, flat_g, flat_m, flat_v, flat_s):
         if eightbit:
             pn, m_f, v_f = _adamw(p, g, dequantize_i8(m, p.shape), dequantize_i8(v, p.shape),
                                   *hyper)
             p.copy_(pn)
-            for old, new in ((m, quantize_i8(m_f)), (v, quantize_i8(v_f))):
+            row_max = None if plan is None else (lambda a, spec=spec: plan.row_absmax(a, spec))
+            for old, new in ((m, quantize_i8(m_f, row_max)), (v, quantize_i8(v_f, row_max))):
                 old["codes"].copy_(new["codes"])
                 old["scale"].copy_(new["scale"])
             continue

@@ -1,0 +1,519 @@
+"""Sharding: the JAX package's spec trees, and the explicit plan that does
+what its SPMD partitioner does.
+
+Mesh axes (as in JAX):
+  pod    outer data parallelism
+  data   data parallelism + FSDP (parameters and moments sharded)
+  model  tensor parallelism (Megatron column / row pairs), expert
+         parallelism, vocab sharding
+
+`param_specs`, `batch_specs`, `cache_specs`, `strip_axis` and
+`validate_divisibility` are JAX's, name for name.  A spec is a plain tuple
+with one entry per dim: None, an axis name, or a tuple of axis names, with
+leading Nones for stacked dims — JAX's `PartitionSpec` entries, as
+`_base_spec` gives them.
+
+JAX places each leaf by its spec and lets XLA insert the collectives, so a
+sharded step computes what the single-device step computes.  PyTorch has no
+partitioner that knows the port's kernels, so the `Plan` says where each
+collective goes and the model calls it:
+  * column-parallel projections (wq, wk, wv, w_gate, w_up and their biases)
+    take their input through `copy_to_tp` (all-reduce of the input's
+    gradient); row-parallel ones (wo, w_down) end in `reduce_from_tp`, one
+    all-reduce over `model`;
+  * the embedding is vocab-sharded (each rank looks up its rows, one
+    all-reduce), the head column-parallel, its loss a vocab-parallel cross
+    entropy (`models/lm.py`);
+  * experts are sharded on `model`: each rank runs its own experts'
+    assignments and the combine is one all-reduce (`models/moe.py`);
+  * FSDP: the model gathers each data-sharded leaf where it uses it
+    (`fsdp_use`: a layer's leaves in the layer loop, the embedding and
+    head where they are applied), through `fsdp_gather`, whose backward
+    reduce-scatters the gradient to the rank's block; the train step
+    all-reduces the other leaves' gradients over the data axes
+    (`reduce_grads`); the loss is each rank's share of the global mean, so
+    the sum over ranks is the global batch's gradient.  A gathered layer
+    lives as long as autograd keeps what was computed from it: under
+    remat="full" or "dots" the gather runs inside the recomputed body, so
+    the whole leaves are freed after the layer's forward and gathered
+    again in its backward; under remat="none" each layer's
+    compute-dtype weight copies stay saved for the backward, as they are
+    on one device;
+  * the clip norm sums each leaf's squares over the axes that shard it
+    (`global_sq_sum`), and adamw8bit's row absmax is taken over the whole
+    row (`row_absmax`).
+JAX's activation context (`set_activation_context` / `constrain`) has no
+counterpart: its job, telling the partitioner where activations live, is
+what the plan above does by construction.  Model code reads the plan in
+force (`use(plan)`, `active()`); with none, every helper is the identity
+and the model is the single-device one.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Any, Optional
+
+import torch
+
+from ..configs.base import MeshConfig, ModelConfig
+from . import comm
+
+# --- spec trees (the JAX package's, one to one) ----------------------------------------
+
+def _axes(mesh):
+    return set(mesh.axis_names)
+
+
+def _base_spec(name: str, path: str, ndim_base: int, fsdp: Optional[str]):
+    col = (fsdp, "model")       # (in, out) column-parallel
+    row = ("model", fsdp)       # (in, out) row-parallel
+    if name == "embed":
+        return ("model", fsdp), 2          # (vocab, h)
+    if name == "lm_head":
+        return (fsdp, "model"), 2          # (h, vocab)
+    if name == "pos_embed":
+        return (None, fsdp), 2
+    if name in ("wq", "wk", "wv", "wq_down", "wq_up", "wkv_down", "wk_up", "wv_up"):
+        return col, 2
+    if name in ("wo", "out_proj"):
+        return row, 2
+    if name in ("w_up", "w_gate"):
+        if ndim_base == 3:                   # MoE expert stack (E, h, f)
+            return ("model", fsdp, None), 3
+        return col, 2
+    if name == "w_down":
+        if ndim_base == 3:                   # (E, f, h)
+            return ("model", None, fsdp), 3
+        return row, 2
+    if name == "router":
+        return (fsdp, None), 2
+    if name == "proj":                        # MTP projection (2h, h)
+        return (fsdp, None), 2
+    if name in ("in_z", "in_x"):
+        return col, 2
+    if name in ("in_B", "in_C", "in_dt"):     # small n-dim: shard only fan-in
+        return (fsdp, None), 2
+    if name == "conv_x":
+        return (None, "model"), 2
+    if name in ("conv_B", "conv_C"):
+        return (None, None), 2
+    if name == "conv_bx":
+        return ("model",), 1
+    if name in ("conv_bB", "conv_bC"):
+        return (None,), 1
+    if name in ("A_log", "D", "dt_bias"):
+        return ("model",), 1                 # nh sharded with d_inner
+    if name in ("bq", "bk", "bv"):
+        return ("model",), 1
+    if name in ("scale", "bias"):
+        # the SSD gated-norm scale lives on the TP-sharded d_inner dim
+        if ".ssm." in path or "/ssm/" in path:
+            return ("model",), 1
+        return (None,), 1
+    return None, None
+
+
+def _ndim(leaf) -> int:
+    return leaf.dim() if torch.is_tensor(leaf) else len(leaf.shape)
+
+
+def _map(fn, tree, path=()):
+    """fn(path, leaf) over a tree of dicts and lists (a tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(params: Any, cfg: ModelConfig, mesh, fsdp: bool = True) -> Any:
+    """The spec tree matching `params` (leaves: tensors, or anything with a
+    `.shape`).  A leaf with no rule is replicated: ()."""
+    fsdp_ax = "data" if (fsdp and "data" in _axes(mesh)) else None
+
+    def spec(path, leaf):
+        pstr = "." + ".".join(str(k) for k in path) + "."
+        name = str(path[-1])
+        # MoE routed-expert stacks carry a leading expert dim (E, h, f)
+        is_expert = (name in ("w_up", "w_gate", "w_down")
+                     and ".moe." in pstr and ".shared." not in pstr)
+        base, nd = _base_spec(name, pstr, 3 if is_expert else 2, fsdp_ax)
+        if base is None:
+            return ()
+        lead = _ndim(leaf) - nd
+        if lead < 0:
+            return ()
+        return (*([None] * lead), *base)
+
+    return _map(spec, params)
+
+
+def _P(*entries) -> tuple:
+    """A spec as JAX's `PartitionSpec` holds it: a one-axis tuple entry is
+    that axis's name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries)
+
+
+def batch_specs(cfg: ModelConfig, mesh) -> Any:
+    """Input batch: global batch dim sharded over (pod, data)."""
+    dp = ("pod", "data") if "pod" in _axes(mesh) else ("data",)
+    return {"tokens": _P(dp, None), "labels": _P(dp, None), "loss_mask": _P(dp, None),
+            "patch_embeds": _P(dp, None, None), "encoder_frames": _P(dp, None, None)}
+
+
+def cache_specs(cfg: ModelConfig, mesh) -> Any:
+    """Decode caches as JAX shards them: batch over (pod, data), SEQUENCE
+    over model (its flash-decode-style distributed softmax); SSM states
+    shard their head dim on `model`.  The port's plan holds attention
+    caches sharded by KV head instead (the heads its column-parallel q / k
+    / v produce), with the same numbers; these specs are JAX's, as data."""
+    from ..models.blocks import stack_plan
+    dp = ("pod", "data") if "pod" in _axes(mesh) else ("data",)
+
+    def one(kind):
+        kv = {"k": _P(None, dp, "model", None, None), "v": _P(None, dp, "model", None, None)}
+        if cfg.attn_type == "mla":
+            kv = {"latent": _P(None, dp, "model", None)}
+        ssm = {"state": _P(None, dp, "model", None, None), "conv_x": _P(None, dp, None, "model"),
+               "conv_B": _P(None, dp, None, None), "conv_C": _P(None, dp, None, None)}
+        if kind in ("dense", "moe"):
+            return kv
+        if kind == "pair":
+            return {"moe_blk": kv, "dense_blk": kv}
+        if kind == "ssm":
+            return ssm
+        if kind == "hybrid_super":
+            ssm2 = {k: (*s[:1], None, *s[1:]) for k, s in ssm.items()}
+            return {"ssm": ssm2, "shared_attn": kv}
+        raise ValueError(kind)
+
+    return [one(kind) for kind, _ in stack_plan(cfg)]
+
+
+def strip_axis(spec_tree: Any, axis: str = "model") -> Any:
+    """Remove one mesh axis from every spec (e.g. disable TP for models whose
+    per-shard widths fall under the 128-lane tile)."""
+    def fix(_, p):
+        return tuple(None if e == axis else
+                     (tuple(a for a in e if a != axis) if isinstance(e, tuple) else e)
+                     for e in p)
+    return _map(fix, spec_tree)
+
+
+def validate_divisibility(cfg: ModelConfig, mesh_cfg: MeshConfig,
+                          global_batch: int) -> list[str]:
+    """Hard constraints that must hold before lowering (paper §VI-B rules)."""
+    errs = []
+    t, d = mesh_cfg.model, mesh_cfg.dp
+    if global_batch % d:
+        errs.append(f"global_batch {global_batch} % dp {d} != 0")
+    if cfg.num_heads and cfg.num_heads % t:
+        errs.append(f"num_heads {cfg.num_heads} % tp {t} != 0")
+    if cfg.d_ff and cfg.d_ff % t:
+        errs.append(f"d_ff {cfg.d_ff} % tp {t} != 0")
+    if cfg.num_experts and cfg.num_experts % t:
+        errs.append(f"experts {cfg.num_experts} % ep {t} != 0")
+    if cfg.ssm_state and cfg.ssm_d_inner % t:
+        errs.append(f"ssm_d_inner {cfg.ssm_d_inner} % tp {t} != 0")
+    return errs
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec shards over, in dim order."""
+    out = []
+    for e in spec:
+        out.extend(() if e is None else (e,) if isinstance(e, str) else e)
+    return tuple(out)
+
+
+# --- leaves on a mesh --------------------------------------------------------------------
+
+def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf `t` (a copy, outside autograd)."""
+    t = t.detach()
+    for dim, e in enumerate(spec):
+        n = mesh.axis_size(e)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split "
+                             f"{n} ways over {e}")
+        step = t.shape[dim] // n
+        t = t.narrow(dim, mesh.index(e) * step, step)
+    return t.clone()
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's block (a collective over the axes
+    that shard it; no gradient)."""
+    with torch.no_grad():
+        for dim, e in enumerate(spec):
+            if mesh.axis_size(e) > 1:
+                t = comm.all_gather(t, mesh.group(e), dim)
+    return t
+
+
+def gather_leaf_to_host(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+    """The whole leaf as a host tensor on the mesh's rank 0 (None on the
+    others): each rank sends its block once, and rank 0 places every block
+    by its sender's coordinates."""
+    group = mesh.group(mesh.axis_names)
+    blocks = comm.gather_to_host(t, torch.distributed.get_process_group_ranks(group)[0]
+                                 if group is not None else 0, group)
+    if blocks is None:
+        return None
+    shape = [n * mesh.axis_size(e) for n, e in zip(t.shape, spec)] + list(t.shape[len(spec):])
+    whole = torch.empty(shape, dtype=t.dtype)
+    for r, block in enumerate(blocks):
+        at = type(mesh)(mesh.cfg, rank=r)
+        view = whole
+        for dim, e in enumerate(spec):
+            n = block.shape[dim]
+            view = view.narrow(dim, at.index(e) * n, n)
+        view.copy_(block)
+    return whole
+
+
+def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
+    """Raise for what the explicit plan does not cover.  Under data
+    parallelism every family runs (each rank computes whole layers);
+    tensor parallelism covers GQA attention with dense or MoE MLPs."""
+    t = mesh_cfg.model
+    if t == 1:
+        return
+    family = None
+    if cfg.family in ("ssm", "hybrid"):
+        family = "SSM" if cfg.family == "ssm" else "hybrid"
+    elif cfg.attn_type == "mla":
+        family = "MLA"
+    elif cfg.is_encoder_decoder:
+        family = "encoder-decoder"
+    elif cfg.family == "vlm":
+        family = "VLM"
+    if family:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (model={t}) is not ported for the {family} family; "
+            "it runs under data parallelism (--data) only")
+    if cfg.seq_parallel:
+        raise NotImplementedError(
+            f"{cfg.name}: sequence parallelism (seq_parallel=True) is not ported (model={t})")
+    if cfg.linear_impl == "quantized":
+        raise NotImplementedError(
+            f"{cfg.name}: linear_impl='quantized' under tensor parallelism (model={t}) is not "
+            "ported: a row-parallel shard's per-channel int8 scales differ from the whole weight's")
+    if cfg.num_kv_heads % t:
+        raise ValueError(
+            f"{cfg.name}: num_kv_heads {cfg.num_kv_heads} % model {t} != 0: GQA heads split as "
+            f"whole KV groups (num_heads {cfg.num_heads}, num_kv_heads {cfg.num_kv_heads})")
+    errs = validate_divisibility(cfg, mesh_cfg, mesh_cfg.dp)
+    if cfg.padded_vocab_size % t:
+        errs.append(f"padded vocab {cfg.padded_vocab_size} % tp {t} != 0")
+    if cfg.num_experts and cfg.num_shared_experts and cfg.moe_d_ff % t:
+        errs.append(f"moe_d_ff {cfg.moe_d_ff} % tp {t} != 0")
+    if errs:
+        raise ValueError(f"{cfg.name}: " + "; ".join(errs))
+
+
+# --- the plan ----------------------------------------------------------------------------
+
+class Plan:
+    """Where each collective of a sharded step goes, for one config on one
+    mesh (`launch/mesh.make_mesh`)."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        check_supported(cfg, mesh.cfg)
+        self.cfg, self.mesh = cfg, mesh
+        self.fsdp = mesh.cfg.fsdp
+        self.tp, self.tp_rank = mesh.shape["model"], mesh.coords["model"]
+        self.tp_group = mesh.group("model")
+        self.dp_axes = (("pod", "data") if mesh.cfg.pod > 1 and mesh.cfg.pod_role == "data"
+                        else ("data",))
+        self.dp, self.dp_rank = mesh.axis_size(self.dp_axes), mesh.index(self.dp_axes)
+        self.dp_group = mesh.group(self.dp_axes)
+
+    def specs(self, tree) -> Any:
+        return param_specs(tree, self.cfg, self.mesh, self.fsdp)
+
+    @property
+    def data_sharded(self) -> bool:
+        """Whether the params are sharded over `data` (FSDP on a data axis
+        of more than one rank)."""
+        return self.fsdp and self.mesh.shape["data"] > 1
+
+    def shard(self, tree, specs=None, device=None) -> Any:
+        """This rank's blocks of a tree of whole leaves (moved to `device`
+        leaf by leaf, where one is given)."""
+        specs = self.specs(tree) if specs is None else specs
+
+        def one(path, t):
+            return local_shard(t, _at(specs, path), self.mesh).to(device or t.device)
+        return _map(one, tree)
+
+    def gather(self, tree, specs=None) -> Any:
+        """Whole leaves from every rank's blocks (a collective)."""
+        specs = self.specs(tree) if specs is None else specs
+        return _map(lambda path, t: gather_leaf(t, _at(specs, path), self.mesh), tree)
+
+    def fsdp_gather(self, tree, specs) -> Any:
+        """Every data-sharded dim gathered, differentiably (its gradient is
+        reduce-scattered back to the shard)."""
+        group = self.mesh.group("data")
+
+        def one(path, t):
+            for dim, e in enumerate(_at(specs, path)):
+                if e == "data" and group is not None:
+                    t = comm.fsdp_gather(t, group, dim)
+            return t
+        return _map(one, tree)
+
+    def reduce_grads(self, grads, specs) -> Any:
+        """Sum each gradient over the data axes that do not shard its leaf
+        (the sharded ones were reduce-scattered by `fsdp_gather`)."""
+        def one(path, g):
+            axes = tuple(a for a in self.dp_axes if a not in spec_axes(_at(specs, path)))
+            return comm.all_reduce(g, self.mesh.group(axes))
+        return _map(one, grads)
+
+    def global_sq_sum(self, tree, specs) -> torch.Tensor:
+        """The sum of squares of the global tree: each leaf's local sum,
+        summed over the axes that shard it (a replicated leaf counts once)."""
+        by_axes = {}
+        for path, t in _paths(tree):
+            key = frozenset(a for a in spec_axes(_at(specs, path)) if self.mesh.shape[a] > 1)
+            s = torch.sum(torch.square(t.float()))
+            by_axes[key] = by_axes[key] + s if key in by_axes else s
+        total = None
+        for key in sorted(by_axes, key=sorted):
+            s = comm.all_reduce(by_axes[key], self.mesh.group(tuple(sorted(key))))
+            total = s if total is None else total + s
+        return total
+
+    def row_absmax(self, amax: torch.Tensor, spec) -> torch.Tensor:
+        """A row's absmax (over the last dim) across the ranks that shard
+        the last dim."""
+        last = spec[-1] if len(spec) else None
+        return comm.all_reduce(amax, self.mesh.group(last), op="max") if last else amax
+
+    def batch_rows(self, batch, n_micro: int = 1):
+        """This data rank's rows of a global batch: its slice of each of the
+        n_micro global microbatches, as JAX shards each microbatch."""
+        if self.dp == 1:
+            return batch
+
+        def rows(v):
+            mb = v.shape[0] // n_micro
+            if mb % self.dp:
+                raise ValueError(f"a microbatch of {mb} rows does not split over dp {self.dp}")
+            loc = mb // self.dp
+            v = v.reshape(n_micro, mb, *v.shape[1:])[:, self.dp_rank * loc:(self.dp_rank + 1) * loc]
+            return v.reshape(n_micro * loc, *v.shape[2:])
+        return {k: rows(v) for k, v in batch.items()}
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+# --- the plan in force, and the model's collectives -----------------------------------
+
+_ACTIVE: Optional[Plan] = None
+
+
+@contextlib.contextmanager
+def use(plan: Optional[Plan]):
+    """Run the model under `plan` (None: single device)."""
+    global _ACTIVE
+    before, _ACTIVE = _ACTIVE, plan
+    try:
+        yield plan
+    finally:
+        _ACTIVE = before
+
+
+def under(plan: Optional[Plan]):
+    """Decorator: run the function under `plan`."""
+    def wrap(fn):
+        if plan is None:
+            return fn
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with use(plan):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def active() -> Optional[Plan]:
+    return _ACTIVE
+
+
+def fsdp_use(tree, name: Optional[str] = None):
+    """Data-sharded params made whole where the model uses them, under a
+    plan whose params are sharded over `data` (the identity otherwise):
+    a differentiable all-gather whose backward reduce-scatters the
+    gradient to the rank's block.  `tree`: one leaf named `name`, or a
+    subtree whose paths the spec rules read (a layer, a block)."""
+    plan = _ACTIVE
+    if tree is None or plan is None or not plan.data_sharded:
+        return tree
+    if name is not None:
+        return plan.fsdp_gather({name: tree}, plan.specs({name: tree}))[name]
+    return plan.fsdp_gather(tree, plan.specs(tree))
+
+
+def tp_size() -> int:
+    return 1 if _ACTIVE is None else _ACTIVE.tp
+
+
+def tp_rank() -> int:
+    return 0 if _ACTIVE is None else _ACTIVE.tp_rank
+
+
+def dp_size() -> int:
+    return 1 if _ACTIVE is None else _ACTIVE.dp
+
+
+def _tp_group():
+    return None if _ACTIVE is None else _ACTIVE.tp_group
+
+
+def _dp_group():
+    return None if _ACTIVE is None else _ACTIVE.dp_group
+
+
+def copy_to_tp(x):
+    """A replicated input to column-parallel layers (Megatron's f)."""
+    return comm.copy_to(x, _tp_group())
+
+
+def reduce_from_tp(x):
+    """The all-reduce after a row-parallel layer (Megatron's g)."""
+    return comm.reduce_from(x, _tp_group())
+
+
+def gather_from_tp(x, dim: int):
+    """Column shards concatenated along `dim` (the logits' vocab)."""
+    return comm.gather_from(x, _tp_group(), dim)
+
+
+def sum_over_dp(x):
+    """A statistic summed over the data ranks, differentiably: each rank's
+    loss is its share of the global one."""
+    return comm.sum_across(x, _dp_group())
+
+
+def gather_dp(x, dim: int = 0):
+    """Every data rank's `x` concatenated along `dim` (no gradient)."""
+    return comm.all_gather(x, _dp_group(), dim)

@@ -10,16 +10,28 @@ inside the layer loop (`models/blocks.py`).  It trains every family
 its backward kernel under `kernels/ssd/ops.py` `_SSDChunk`); the MoE and
 MLA families on the host (their metrics, aux_loss and mtp_loss, pass
 through), since the card's batched expert launch is forward-only.
+
+Under a sharding plan (`parallel/sharding.py`; `launch/train.py --data /
+--model`) params and moments are this rank's blocks.  Each rank takes its
+rows of every global microbatch (`Plan.batch_rows`) and the gradient of
+its share of the global loss; the model gathers each data-sharded leaf
+where it uses it, a layer at a time (`sharding.fsdp_use`: the gradient
+comes back reduce-scattered to the block).  The step all-reduces the
+other leaves' gradients over the data axes (`Plan.reduce_grads`) and
+updates its blocks (the clip norm and adamw8bit's row absmax over the
+global tree).  The sum over ranks is the global batch's gradient, so the
+step is the single-device one.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import MeshConfig, ModelConfig, ShapeConfig, TrainConfig
 from ..models import lm_loss
 from ..optim.adamw import OptState, apply_updates, tree_leaves, tree_map
+from ..parallel import sharding as sh
 
 
 def num_microbatches(shape: ShapeConfig, mesh_cfg: MeshConfig, tc: TrainConfig) -> int:
@@ -35,21 +47,30 @@ def _grads(params, leaves, batch, cfg, tc):
     loss, metrics = lm_loss(params, batch, cfg, remat=tc.remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    # metrics["loss"] is the global loss (`loss` a rank's share under a plan)
+    return metrics["loss"].detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_micro: int = 1):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_micro: int = 1,
+                    plan: Optional[sh.Plan] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     batch: dict of (global_batch, ...) tensors on the params' device.  With
     n_micro > 1 the batch splits into n_micro equal microbatches whose
     gradients are summed in float32 and averaged, as are loss and metrics.
+    plan: a sharding plan; params and opt_state are then this rank's
+    blocks (`Plan.shard`) and batch is still the global batch.
     """
 
+    @sh.under(plan)
     def train_step(params, opt_state: OptState, batch: Dict[str, torch.Tensor]):
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
+        specs = None
+        if plan is not None:
+            specs = plan.specs(params)
+            batch = plan.batch_rows(batch, n_micro)
         if n_micro == 1:
             loss, metrics, grads = _grads(params, leaves, batch, cfg, tc)
         else:
@@ -69,7 +90,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_micro: int = 1):
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
-        params, opt_state, om = apply_updates(params, grads, opt_state, tc)
+        if plan is not None:
+            grads = plan.reduce_grads(grads, specs)
+        params, opt_state, om = apply_updates(params, grads, opt_state, tc, plan=plan,
+                                              specs=specs)
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss"] = loss

@@ -1709,3 +1709,92 @@ def test_encdec_and_vlm_grads_kernel_path_match_plain_path(cuda, arch):
         assert abs(lk - lp) <= 1e-5 * abs(lp)
         for a, b in zip(gk, gp):
             assert torch.isfinite(a).all() and _rel(a, b) <= 1e-4
+
+
+# --- per-shard shapes of the parallel paths ---------------------------------------------
+# internlm2-1.8b at model=2 (8 / 4 heads of 128, d_ff 4096 a rank, a vocab
+# shard of 46272) at data=2's 2048 training rows a rank; llama4-maverick at
+# model=2 (20 / 4 heads, g = 5; dense d_ff 8192; a vocab shard of 101024,
+# not a multiple of 64; 8 of 16 experts) at a 4 x 1024 prefill.  (m, k, n)
+SHARD_GEMMS = [(2048, 2048, 1024), (2048, 2048, 512), (2048, 1024, 2048), (2048, 4096, 2048),
+               (2048, 2048, 46272), (4096, 5120, 101024)]
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("m,k,n", SHARD_GEMMS)
+def test_matmul_at_the_shard_shapes(cuda, layout, m, k, n):
+    rng = np.random.default_rng(40)
+    a, b, a1, b1 = _layout_operands(rng, torch.bfloat16, cuda, layout, m, k, n)
+    before = matmul.launches
+    got = matmul(a, b, a1, b1)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, a1=a1, b1=b1)
+    _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
+
+
+@pytest.mark.parametrize("m,h,f", [(2048, 2048, 4096), (4096, 5120, 8192)])
+def test_fused_mlp_at_the_shard_shapes(cuda, m, h, f):
+    rng = np.random.default_rng(41)
+    bf = torch.bfloat16
+    x = _rand(rng, (m, h), bf, cuda)
+    wg, wu = (_rand(rng, (h, f), bf, cuda, h ** -0.5) for _ in range(2))
+    dh = _rand(rng, (m, f), bf, cuda)
+    got = fused_mlp_hidden(x, wg, wu, mlp_type="swiglu")
+    torch.cuda.synchronize()
+    want = fused_mlp_hidden_ref(x, wg, wu, "swiglu")
+    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, "swiglu", want))
+    del got, want
+    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type="swiglu")
+    torch.cuda.synchronize()
+    want = fused_mlp_bwd_ref(x, wg, wu, dh, "swiglu")
+    for g, w, t in zip(got, want, tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, "swiglu", want)):
+        _close(g, w, t)
+
+
+# (b, sq, skv, a, nkv, d, causal): internlm2 at model=2 (2 rows a data
+# rank), llama4-maverick at model=2 (g = 5)
+SHARD_FLASH_CASES = [(2, 1024, 1024, 8, 4, 128, True), (4, 1024, 1024, 20, 4, 128, True)]
+
+
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", SHARD_FLASH_CASES)
+def test_flash_attention_at_the_shard_shapes(cuda, b, sq, skv, a, nkv, d, causal):
+    rng = np.random.default_rng(42)
+    q, k, v, do = _flash_inputs(rng, torch.bfloat16, cuda, b, sq, skv, a, nkv, d)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    t_out, t_lse = tolerance.flash_attention_tol(q, k, v, want, causal=causal)
+    _close(out, want[0], t_out)
+    _close(lse, want[1], t_lse)
+    got = flash_attention_bwd(q, k, v, *want, do, causal=causal)
+    gwant = flash_attention_bwd_ref(q, k, v, *want, do, causal=causal)
+    tols = tolerance.flash_attention_bwd_tol(q, k, v, *want, do, gwant, causal=causal)
+    for g, w, t in zip(got, gwant, tols):
+        _close(g, w, t)
+
+
+# llama4-maverick's expert stacks at model=2: 8 of its 16 experts a rank, at
+# the 4 x 1024 prefill's capacity (320 rows) and a data rank's local one
+# under shard_map at data=2 (160)
+@pytest.mark.parametrize("cap", [320, 160])
+def test_expert_launches_at_the_shard_shapes(cuda, cap):
+    from repro_torch.kernels.fused_mlp import ops as fops
+    from repro_torch.kernels.matmul import ops as mops
+    from repro_torch.kernels.matmul.ref import matmul_expert_ref
+    bf = torch.bfloat16
+    x, wg = _expert_operands(cuda, bf, 8, cap, 5120, 8192, 43)
+    _, wu = _expert_operands(cuda, bf, 8, cap, 5120, 8192, 44)
+    before = fops.fused_mlp_hidden_expert.launches
+    hdn = fops.fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu")
+    torch.cuda.synchronize()
+    assert fops.fused_mlp_hidden_expert.launches == before + 1
+    want = fused_mlp_hidden_ref(x, wg, wu, "swiglu")
+    _close(hdn, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, "swiglu", want))
+    del want
+    _, wd = _expert_operands(cuda, bf, 8, cap, 8192, 5120, 45)
+    before = mops.matmul_expert.launches
+    got = mops.matmul_expert(hdn, wd)
+    torch.cuda.synchronize()
+    assert mops.matmul_expert.launches == before + 1
+    want = matmul_expert_ref(hdn, wd)
+    _close(got, want, tolerance.matmul_tol(hdn, wd, want))

@@ -142,8 +142,10 @@ def test_expert_fused_hidden_matches_jax(mlp_type):
 
 
 def test_expert_paths_refuse_what_is_not_ported():
-    """relu2 and shard_map dispatch are refused, as in JAX; the quantized
-    expert path is ported and bit-identical to JAX's under `jax.jit`."""
+    """relu2 is refused, as in JAX; the quantized expert path is ported and
+    bit-identical to JAX's under `jax.jit`; shard_map dispatch is ported
+    (tests/test_torch_parallel_moe.py) and without a sharding plan is the
+    "auto" dispatch, as JAX's falls back without a mesh."""
     rng = np.random.default_rng(9)
     xq, wq = _np(rng, (2, 8, 16)), _np(rng, (2, 16, 8), 0.25)
     want = np.asarray(jax.jit(lambda x, w: jax_expert_linear(x, w, impl="quantized"))(
@@ -154,8 +156,10 @@ def test_expert_paths_refuse_what_is_not_ported():
         expert_fused_hidden(x, None, w, mlp_type="relu2")
     cfg = dataclasses.replace(get_smoke_config(LLAMA4), moe_dispatch="shard_map")
     p = init_moe(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        apply_moe(p, torch.zeros(1, 4, cfg.d_model), cfg)
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    got, aux = apply_moe(p, x, cfg)
+    want, want_aux = apply_moe(p, x, dataclasses.replace(cfg, moe_dispatch="auto"))
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 # --- the properties of tests/test_moe.py, on the port --------------------------------

@@ -430,12 +430,24 @@ def test_functions_only_when_a_gradient_is_recorded(ref, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["--model", "2"], "parallelism"), (["--data", "2", "--model", "2"], "parallelism"),
+    (["--arch", "deepseek-v3-671b", "--model", "2"], "parallelism"),
+    (["--arch", "mamba2-780m", "--data", "2", "--model", "2"], "parallelism"),
     (["--data", "2"], "parallelism")])
-def test_train_launcher_refuses_unported_flags(argv, slice_name):
+def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd):
+    """--data / --model are ported: tensor parallelism (--model) is refused,
+    before any rank starts, only for the families the plan does not cover
+    (MLA, SSM, ...), naming the family; --data runs every family (here
+    internlm2-smoke on two ranks over gloo)."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=slice_name):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
+    base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1", "--global-batch", "2",
+            "--seq-len", "8", "--checkpoint-dir", str(tmp_path)]
+    if "--model" in argv:
+        family = "MLA" if "deepseek-v3-671b" in argv else "SSM"
+        with pytest.raises(NotImplementedError, match=f"tensor {slice_name}.*{family} family"):
+            train.main([*base, *argv])
+        return
+    train.main([*base, *argv])
+    assert "done: 2 ranks over gloo" in capfd.readouterr().out
 
 
 def test_train_launcher_refuses_to_run_without_a_card(monkeypatch):
