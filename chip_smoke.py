@@ -6459,7 +6459,14 @@ def parallel_kernel_phase(torch) -> None:
     heads of 128, d_ff 4096, q/o 1024 and k/v 512 columns, a vocab shard of
     46272), llama4-maverick at model=2 (its 4 x 1024 prefill: 20 / 4 heads,
     g = 5, dense d_ff 8192, a vocab shard of 101024, 8 of 16 experts at a
-    320-row capacity)."""
+    320-row capacity, torch.bmm beside the batched w_down); then the other
+    families at model=2: deepseek-v3's MLA projections (wq_down 768 and
+    wkv_down 288 columns, wq_up / wk_up / wv_up over 64 heads, wo) and
+    dense SwiGLU 9216, whisper-small's 384-column projections, GELU 1536
+    and flash non-causal at 6 heads of 64 over 1500 frames, zamba2-2.7b's
+    GELU 5120, internvl2-76b's SwiGLU 14336, and the SSD kernel and its
+    backward at 24 (mamba2-780m) and 40 (zamba2-2.7b) heads."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
     from repro_torch.kernels.matmul.ops import matmul_expert
@@ -6497,19 +6504,89 @@ def parallel_kernel_phase(torch) -> None:
     compare(torch, out, want, matmul_tol(hdn, wd, want),
             f"llama4 model=2 matmul_expert (w_down) {e} x {cap}x{f}x{h}")
     del want, out
-    for what, call, plain, flops, nbytes in (
+    for what, call, plain, lib, flops, nbytes in (
             ("fused_mlp_hidden_expert", lambda: fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu"),
-             lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu"), 4.0 * e * cap * h * f,
+             lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu"), None, 4.0 * e * cap * h * f,
              2.0 * e * (cap * h + 2 * h * f + cap * f)),
             ("matmul_expert w_down", lambda: matmul_expert(hdn, wd),
-             lambda: matmul_expert_ref(hdn, wd), 2.0 * e * cap * f * h,
-             2.0 * e * (cap * f + f * h + cap * h))):
+             lambda: matmul_expert_ref(hdn, wd), lambda: torch.bmm(hdn, wd),
+             2.0 * e * cap * f * h, 2.0 * e * (cap * f + f * h + cap * h))):
         ms, _ = time_ms(torch, [call], 10)
         pl, _ = time_ms(torch, [plain], 10)
         bnd, by = bound(flops, nbytes)
-        print(f"    llama4 model=2 {what} {e} experts x {cap} rows: {ms:.4f} ms (plain {pl:.4f}, "
-              f"bound {bnd:.4f} by {by}, {bnd / ms:.3f} of it)")
+        line = (f"    llama4 model=2 {what} {e} experts x {cap} rows: {ms:.4f} ms (plain {pl:.4f}, "
+                f"bound {bnd:.4f} by {by}, {bnd / ms:.3f} of it")
+        if lib is not None:
+            lib_ms, _ = time_ms(torch, [lib], 10)
+            line += f"; torch.bmm {lib_ms:.4f}: {ms / lib_ms:.2f}x"
+        print(line + ")")
     del x, wg, wu, wd, hdn
+    torch.cuda.empty_cache()
+
+    # the MLA, SSM, hybrid, encoder-decoder and VLM families at model=2
+    print("kernels at the other families' per-shard shapes (model=2, bf16, CUDA events):")
+    for what, (k, n) in (("wq_down", (7168, 768)), ("wkv_down, a column tail", (7168, 288)),
+                         ("wq_up, 64 heads", (1536, 12288)), ("wk_up / wv_up", (512, 8192)),
+                         ("wo", (8192, 7168))):
+        _gemm_case(torch, randn, f"deepseek-v3 model=2 {what}", "forward", TOKENS, k, n, iters=10)
+    frames = ENCDEC_BATCH * get_config(WHISPER).encoder_seq
+    _gemm_case(torch, randn, "whisper model=2 q / k / v, 6 heads", "forward", frames, 768, 384)
+    _mlp_case(torch, randn, "whisper model=2", "gelu", frames, 768, 1536, True)
+    _mlp_case(torch, randn, "zamba2-2.7b model=2", "gelu", TOKENS, 2560, 5120, False)
+    _mlp_case(torch, randn, "deepseek-v3 model=2 dense", "swiglu", TOKENS, 7168, 9216, False,
+              iters=10)
+    _mlp_case(torch, randn, "internvl2 model=2", "swiglu", TOKENS, 8192, 14336, False, iters=10)
+    _flash_case(torch, randn, "whisper model=2 encoder", ENCDEC_BATCH, 1500, 1500, 6, 6, 64, False,
+                True, ENCDEC_BATCH, ENCDEC_ITERS)
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        _ssd_shard_case(torch, gen, arch, 2)
+
+
+def _ssd_shard_case(torch, gen, arch: str, t: int) -> None:
+    """The SSD chunk kernel and its backward at `arch`'s heads / t (mamba2:
+    24 of 48; zamba2: 40 of 80, three 12-head slabs and a tail of 4), 4 x
+    1024 tokens at the slow decay, bf16: every element within its bound,
+    then timed beside the plain versions and the bounds."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.ssd.ops import bwd_launch_shape, ssd_chunk, ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+    from repro_torch.kernels.tolerance import ssd_chunk_bwd_tol, ssd_chunk_tol
+    c = get_config(arch)
+    h, p, n, q = c.ssm_nheads // t, c.ssm_head_dim, c.ssm_state, c.ssm_chunk
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    label = f"{arch} model={t} ssd ({h} heads, P {p}, N {n})"
+    ops = ssd_bwd_operands(torch, gen, b, s, h, p, n, q, torch.bfloat16, SSD_SLOW_DECAY)
+    want = ssd_chunk_ref(*ops[:4])
+    for name, g, w, tol in zip(("Y", "S"), ssd_chunk(*ops[:4]), want,
+                               ssd_chunk_tol(*ops[:4], want)):
+        compare(torch, g, w, tol, f"{label} ssd_chunk {name}")
+    want = ssd_chunk_bwd_ref(*ops)
+    for name, g, w, tol in zip(("dX", "dB", "dC", "dseg"), ssd_chunk_bwd(*ops), want,
+                               ssd_chunk_bwd_tol(*ops, want)):
+        compare(torch, g, w, tol, f"{label} ssd_chunk_bwd {name}")
+    del ops, want
+    torch.cuda.empty_cache()
+    ops = copies(torch, lambda: ssd_bwd_operands(torch, gen, b, s, h, p, n, q, torch.bfloat16),
+                 2 * b * s * (2 * h * p + 2 * n) + 2 * b * s * h * n * p // min(q, s))
+    ms, _ = time_ms(torch, [lambda o=o: ssd_chunk(*o[:4]) for o in ops], iters=TRAIN_ITERS)
+    plain, _ = time_ms(torch, [lambda o=o: ssd_chunk_ref(*o[:4]) for o in ops[:1]],
+                       iters=TRAIN_ITERS // 4)
+    ms_b, _ = time_ms(torch, [lambda o=o: ssd_chunk_bwd(*o) for o in ops], iters=TRAIN_ITERS)
+    plain_b, _ = time_ms(torch, [lambda o=o: ssd_chunk_bwd_ref(*o) for o in ops[:1]],
+                         iters=TRAIN_ITERS // 4)
+    bnd, by = bound(*ssd_work(b, s, h, p, n, q, 2))
+    bnd_b, by_b = bound(*ssd_bwd_work(b, s, h, p, n, q, 2))
+    ls = _ssd_launch(ops[0][:4])
+    x, B, C = ops[0][:3]
+    lb = bwd_launch_shape(tuple(x.shape[:3]), x.shape[3], B.stride()[:5], C.stride()[:5],
+                          x.shape[4], n, p)
+    tail = h % ls.heads
+    print(f"    {label}: forward {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}, "
+          f"{bnd / ms:.3f} of it); backward {ms_b:.4f} ms (plain {plain_b:.4f}, bound {bnd_b:.4f} "
+          f"by {by_b}, {bnd_b / ms_b:.3f} of it); forward launch {-(-h // ls.heads)} slabs of "
+          f"{ls.heads} heads{f' (the last of {tail})' if tail else ''}, {ls.grid} blocks; backward "
+          f"{lb.grid} blocks of {lb.heads} heads; no single PyTorch call computes it")
+    del ops
     torch.cuda.empty_cache()
 
 
@@ -6537,7 +6614,10 @@ def _parallel_rank(rank, world, dev, tmp) -> None:
     set_default_cache(TuningCache())      # the wrappers' rules, as the other phases
     times = {}
     for name, run in (("parallel train", _par_train), ("parallel serve", _par_serve),
-                      ("parallel moe", _par_moe), ("pipeline", _par_pipeline)):
+                      ("parallel moe", _par_moe), ("pipeline", _par_pipeline),
+                      ("parallel ssm", _par_ssm), ("parallel mla", _par_mla),
+                      ("parallel whisper", _par_whisper), ("parallel internvl", _par_internvl),
+                      ("parallel seq", _par_seq)):
         dist.barrier()
         t0 = time.perf_counter()
         run(torch, rank, dev, tmp)
@@ -6661,19 +6741,19 @@ def _digest_gap(saved, restored) -> float:
 
 def _par_train(torch, rank, dev, tmp) -> None:
     """internlm2-1.8b (PAR_LAYERS layers, full width) at data=2 x model=2:
-    step 0's loss, every gradient leaf and layer slice and the clip norm,
-    gathered whole, against the unsharded step on the card (rank 0), with
-    three planted faults, under remat="none" and again under "full" (each
-    with its peak memory); PAR_STEPS timed steps; the checkpoint saved at
-    (2, 2) and restored onto data=4 x model=1: the state's digests against
-    the saved state's (a fault: the first moments' blocks rotated), then
-    two more steps against the unsharded run's steps at those indices."""
+    step 0 through `_par_family_train` (the loss, every gradient leaf and
+    layer slice and the clip norm, gathered whole, against the unsharded
+    step on the card, under remat="none" and "full" with each peak, three
+    planted faults); PAR_STEPS timed steps; the checkpoint saved at (2, 2)
+    and restored onto data=4 x model=1: the state's digests against the
+    saved state's (a fault: the first moments' blocks rotated), then two
+    more steps against the unsharded run's steps at those indices."""
     from repro_torch.checkpoint.ckpt import Checkpointer
     from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import init_lm, lm_loss
-    from repro_torch.optim.adamw import global_norm, init_opt, tree_leaves, tree_map
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
     from repro_torch.parallel import sharding as sh
     from repro_torch.train.train_step import make_train_step
 
@@ -6683,115 +6763,60 @@ def _par_train(torch, rank, dev, tmp) -> None:
     shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                 make_batch(cfg, shape, s, tc.seed).items()} for s in range(PAR_STEPS + 2)]
-    mesh = make_mesh(MeshConfig(data=2, model=2))
-    plan = sh.Plan(cfg, mesh)
+    _say(rank, f"parallel train: {cfg.name} at {PAR_LAYERS} of 24 layers, full width, data=2 x "
+               f"model=2, f32 masters, bf16 compute, fused + flash, AdamW, {TRAIN_BATCH} x "
+               f"{TRAIN_SEQ} tokens a step (2 rows a data rank)")
+    _par_family_train(torch, rank, dev, "parallel train", cfg, batches[0], TRAIN_GRAD_REL_BOUND,
+                      ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
+                       "flash_attention_bwd"),
+                      [("the last layer's w_down all-reduce dropped",
+                        lambda: _row_allreduce_dropped(cfg)),
+                       ("gradients not summed over data", _grads_not_summed_over_data),
+                       ("the clip norm over one rank's blocks", _local_clip_norm)],
+                      remats=("none", "full"))
 
     def whole_params():
         return init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
                        dtype=torch.float32)
 
-    full = whole_params()
-    names = [path for path, _ in _paths(full)]
-    local = plan.shard(full)
-    specs = plan.specs(local)
-    _say(rank, f"parallel train: {cfg.name} at {PAR_LAYERS} of 24 layers, full width, data=2 x "
-               f"model=2 ({mesh.backend}), f32 masters, bf16 compute, fused + flash, AdamW, "
-               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step (2 rows a data rank)")
-    # the unsharded step 0 on the same card, on every rank: each keeps its
-    # block of the gradients, so a comparison sums a few norms over the ranks
-    lk, gk = _grads(torch, full, batches[0], cfg)
-    gn = torch.sqrt(sum(_sq_sum(g) for g in gk)).item()
-    it = iter(gk)
-    ref_blocks = list(tree_leaves(plan.shard(tree_map(lambda _: next(it), full), specs)))
-    del gk
-    for p in tree_leaves(full):
-        p.requires_grad_(False)
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    plan = sh.Plan(cfg, mesh)
+    local = plan.shard(whole_params())
     if rank == 0:       # the unsharded run's losses, for the restored step
+        full = whole_params()
         opt = init_opt(full, tc)
         step = make_train_step(cfg, tc)
         ref_losses = []
         for s in range(PAR_STEPS + 2):
             full, opt, m = step(full, opt, batches[s])
             ref_losses.append(m["loss"].item())
-        del opt
-        print(f"  unsharded (rank 0): step-0 loss {lk:.6f}, grad norm {gn:.4f}; losses "
-              f"{[round(x, 5) for x in ref_losses]}", flush=True)
-    del full
-    torch.cuda.empty_cache()
-
-    def sharded_step0(remat="none"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with sh.use(plan):
-            leaves = list(tree_leaves(local))
-            for p in leaves:
-                p.requires_grad_(True)
-            loss, metrics = lm_loss(local, plan.batch_rows(batches[0]), cfg, remat=remat)
-            g = iter(torch.autograd.grad(loss, leaves))
-            del loss
-            g = plan.reduce_grads(tree_map(lambda _: next(g), local), specs)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            norm = global_norm(g, plan, specs).item()
-            rels = _block_grad_rels(torch, mesh, list(tree_leaves(g)), ref_blocks, names)
-        return metrics["loss"].item(), rels, norm, peak
-
-    def reading(what, res):
-        loss, rels, norm, _ = res
-        rel_loss = abs(loss - lk) / abs(lk)
-        rel_norm = abs(norm - gn) / gn
-        print(f"  {what}: loss {loss:.6f} (rel {rel_loss:.3e}, bound {TRAIN_LOSS_REL_BOUND}); "
-              f"worst gradient leaf or layer slice {rels[0][0]:.3e} ({rels[0][1]}), median "
-              f"{rels[len(rels) // 2][0]:.3e} (bound {TRAIN_GRAD_REL_BOUND}); clip norm "
-              f"{norm:.4f} (rel {rel_norm:.3e}, bound {TRAIN_GRAD_REL_BOUND})", flush=True)
-        return (rel_loss <= TRAIN_LOSS_REL_BOUND and rels[0][0] <= TRAIN_GRAD_REL_BOUND
-                and rel_norm <= TRAIN_GRAD_REL_BOUND)
-
-    peaks = {}
-    for remat in ("none", "full"):
-        sound = sharded_step0(remat)
-        peaks[remat] = sound[3]
-        if rank == 0 and not reading(f"step 0, sharded vs unsharded, remat={remat}", sound):
-            fail(f"parallel train: the sharded step 0 (remat={remat}) breaks its bounds")
-        del sound
-    _rank_line(rank, f"parallel train step 0 (forward + backward + gradient reductions): peak "
-                     f"device memory {peaks['none']:.2f} GiB at remat=none, "
-                     f"{peaks['full']:.2f} GiB at remat=full (the layers' FSDP gathers freed "
-                     "after each layer's forward and gathered again in its backward)")
-    for what, planted in (("fault: the last layer's w_down all-reduce dropped",
-                           lambda: _row_allreduce_dropped(cfg)),
-                          ("fault: gradients not summed over data", _grads_not_summed_over_data),
-                          ("fault: the clip norm over one rank's blocks", _local_clip_norm)):
-        with planted():
-            res = sharded_step0()
-        if rank == 0 and reading(what, res):
-            fail(f"parallel train: the bounds do not see the {what}")
-        del res
-    del ref_blocks
+        del full, opt
+        print(f"  unsharded (rank 0): losses {[round(x, 5) for x in ref_losses]}", flush=True)
     torch.cuda.empty_cache()
 
     opt = init_opt(local, tc)
     step_fn = make_train_step(cfg, tc, plan=plan)
-    matmul_ops, fns = _train_counters()
-    torch.cuda.synchronize()
-    _reset_counts(matmul_ops, fns)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for s in range(PAR_STEPS):
-        t0 = time.perf_counter()
-        local, opt, m = step_fn(local, opt, batches[s])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m["loss"].item())
-    counts = _read_counts(matmul_ops, fns)
+
+    def steps():
+        nonlocal local, opt
+        for s in range(PAR_STEPS):
+            t0 = time.perf_counter()
+            local, opt, m = step_fn(local, opt, batches[s])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+    _, _, counts = _counted(torch, steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _rank_line(rank, f"parallel train steps {[round(t * 1e3, 1) for t in times]} ms, losses "
                      f"{[round(x, 5) for x in losses]}, peak device memory {peak:.2f} GiB, "
                      f"launches {json.dumps(counts)}")
     want = {k: v * PAR_STEPS for k, v in per_step_launches(cfg).items()}
-    for name, n in counts.items():
-        if n != want[name]:
-            fail(f"parallel train rank {rank}: {name}: {n} launches, the path implies "
-                 f"{want[name]}")
+    for name in sorted(set(want) | set(counts)):
+        if counts.get(name, 0) != want.get(name, 0):
+            fail(f"parallel train rank {rank}: {name}: {counts.get(name, 0)} launches, the path "
+                 f"implies {want.get(name, 0)}")
     if rank == 0:
         print(f"  sharded losses {losses} vs unsharded {ref_losses[:PAR_STEPS]}", flush=True)
 
@@ -6837,29 +6862,9 @@ def _par_train(torch, rank, dev, tmp) -> None:
     del params, opt
 
 
-def _block_grad_rels(torch, mesh, got, want, names):
-    """`_grad_rels` of gradients held as blocks, each rank its own of every
-    leaf (`got` and `want` alike): the squared norms of each leaf and layer
-    slice summed over the mesh's ranks.  A leaf replicated on k ranks counts
-    k times in both sums, so each ratio is the whole leaf's."""
-    from repro_torch.parallel import comm
-    num, den, labels = [], [], []
-    for a, b, n in zip(got, want, names):
-        lead = 1 if n.startswith("seg") else 0
-        d, w = (a.float() - b.float()), b.float()
-        num.append(d.square().flatten(lead).sum(-1).reshape(-1))
-        den.append(w.square().flatten(lead).sum(-1).reshape(-1))
-        labels += [f"{n}[{i}]" for i in range(a.shape[0])] if lead else [n]
-    group = mesh.group(mesh.axis_names)
-    num = comm.all_reduce(torch.cat(num), group)
-    den = comm.all_reduce(torch.cat(den), group)
-    rel = (num / den.clamp_min(1e-60)).sqrt().tolist()
-    return sorted(zip(rel, labels), reverse=True)
-
-
-def _greedy_logits(torch, params, cfg, prompts, steps, plan=None, forced=None):
-    """Prefill and `steps` decode steps through serve_step: every step's
-    logits (steps + 1, b, v) and the tokens fed (`forced`, or greedy)."""
+def _greedy_logits(torch, params, cfg, prompts, steps, plan=None):
+    """Prefill and `steps` greedy decode steps through serve_step: every
+    step's logits (steps + 1, b, v) and the tokens fed."""
     from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
     s0 = prompts.shape[1]
     prefill = make_prefill_step(cfg, s0 + steps, plan)
@@ -6868,8 +6873,7 @@ def _greedy_logits(torch, params, cfg, prompts, steps, plan=None, forced=None):
         logits, caches = prefill(params, {"tokens": prompts})
         out, toks = [logits], []
         for i in range(steps):
-            tok = (forced[:, i:i + 1] if forced is not None
-                   else torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(torch.int32))
+            tok = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None].to(torch.int32)
             toks.append(tok)
             logits, caches = decode(params, tok, caches, s0 + i)
             out.append(logits)
@@ -6879,50 +6883,24 @@ def _greedy_logits(torch, params, cfg, prompts, steps, plan=None, forced=None):
 def _par_serve(torch, rank, dev, tmp) -> None:
     """The same cut model at model=2 through serve_step (prefill 4 x 1024,
     PAR_DECODE decode steps, the paged decode kernel at 4 KV heads a rank):
-    bf16 logits against the unsharded run on the same tokens; then at f32
-    and 2 layers, greedy tokens identical but at a near tie."""
+    bf16 logits against the unsharded run on the same tokens
+    (`_par_family_serve`); then at f32 and 2 layers, greedy tokens identical
+    but at a near tie."""
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_lm
     from repro_torch.parallel import sharding as sh
 
+    cfg = _internlm2_cut(linear_impl="fused", attn_impl="paged")
+    batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+    _say(rank, f"parallel serve: {cfg.name} at {PAR_LAYERS} layers, model=2, bf16")
+    _par_family_serve(torch, rank, dev, "parallel serve", cfg, batch, PAR_DECODE,
+                      ("matmul", "fused_mlp_hidden", "paged_decode"), [])
+
     mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
     if mesh is None:
         return
-    cfg = _internlm2_cut(linear_impl="fused", attn_impl="paged")
-    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
-    plan = sh.Plan(cfg, mesh)
-    local = plan.shard(full)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    prompts = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device=dev)
-    forced = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, PAR_DECODE), generator=gen, device=dev,
-                           dtype=torch.int32)
-    matmul_ops, fns = _train_counters()
-    torch.cuda.synchronize()
-    _reset_counts(matmul_ops, fns)
-    t0 = time.perf_counter()
-    got, _ = _greedy_logits(torch, local, cfg, prompts, PAR_DECODE, plan, forced)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k: v for k, v in _read_counts(matmul_ops, fns).items() if v}
-    _rank_line(rank, f"parallel serve (model=2) prefill + {PAR_DECODE} decode steps "
-                     f"{wall * 1e3:.1f} ms, launches {json.dumps(counts)}")
-    for name in ("matmul", "fused_mlp_hidden", "paged_decode"):
-        if not counts.get(name):
-            fail(f"parallel serve rank {rank}: no {name} launch")
-    if rank == 0:
-        want, _ = _greedy_logits(torch, full, cfg, prompts, PAR_DECODE, forced=forced)
-        rel = _rel(got[..., :cfg.vocab_size], want[..., :cfg.vocab_size])
-        print(f"  parallel serve: {cfg.name} at {PAR_LAYERS} layers, model=2 ({mesh.backend}), "
-              f"bf16, prefill {TRAIN_BATCH} x {TRAIN_SEQ} + {PAR_DECODE} decode steps on the "
-              f"same tokens: logits rel err {rel:.3e} vs unsharded (bound {LOGITS_REL_BOUND})",
-              flush=True)
-        if rel > LOGITS_REL_BOUND:
-            fail("parallel serve: sharded logits differ from the unsharded run's")
-        del want
-    del full, local, got
-    torch.cuda.empty_cache()
-
+    prompts = batch["tokens"]
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     full = init_lm(torch.Generator(device=dev).manual_seed(1), cfg32, device=dev)
     local = sh.Plan(cfg32, mesh).shard(full)
@@ -6971,7 +6949,6 @@ def _par_moe(torch, rank, dev, tmp) -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import apply_lm, init_lm
-    from repro_torch.models import linear as linear_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.parallel import comm
     from repro_torch.parallel import sharding as sh
@@ -7024,15 +7001,9 @@ def _par_moe(torch, rank, dev, tmp) -> None:
         rows = plan.batch_rows({"tokens": prompts})["tokens"]
         ctx = (_moe_fault(torch, "w_down", 0) if fault and mesh.rank == 1
                else contextlib.nullcontext())
-        matmul_ops, fns = _train_counters()
-        expert = [linear_mod.matmul_expert, linear_mod.fused_mlp_hidden_expert]
-        for fn in expert:
-            fn.launches = 0
-        _reset_counts(matmul_ops, fns)
         with sh.use(plan), ctx:
-            lg, log = routed(lambda: apply_lm(local, rows, cfg)[0][..., :V])
-        counts = {**{k: v for k, v in _read_counts(matmul_ops, fns).items() if v},
-                  "matmul_expert": expert[0].launches, "fused_mlp_hidden_expert": expert[1].launches}
+            (lg, log), _, counts = _counted(
+                torch, lambda: routed(lambda: apply_lm(local, rows, cfg)[0][..., :V]))
         if plan.dp > 1:
             lg = comm.all_gather(lg, plan.dp_group, 0)
             log = [comm.all_gather(i, plan.dp_group, 0) for i in log]
@@ -7082,8 +7053,8 @@ def _par_moe(torch, rank, dev, tmp) -> None:
         torch.cuda.synchronize()
         _rank_line(rank, f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms, launches "
                          f"{json.dumps(counts)}")
-        if not fault and not (counts.get("matmul") and counts["matmul_expert"]
-                              and counts["fused_mlp_hidden_expert"]
+        if not fault and not (counts.get("matmul") and counts.get("matmul_expert")
+                              and counts.get("fused_mlp_hidden_expert")
                               and counts.get("flash_attention")):
             fail(f"parallel moe rank {rank}: {label} missed a kernel ({counts})")
         if rank == 0:
@@ -7123,15 +7094,9 @@ def _par_pipeline(torch, rank, dev, tmp) -> None:
 
     staged = split_layers_into_stages(params["seg0"], 2)
     local = sh.Plan(cfg, mesh).shard(staged, _stage_specs(staged))
-    matmul_ops, fns = _train_counters()
-    _reset_counts(matmul_ops, fns)
     with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = pipeline_apply(stage_fn, local, x, mesh, axis="pod")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: v for k, v in _read_counts(matmul_ops, fns).items() if v}
+        y, wall, counts = _counted(torch, lambda: pipeline_apply(stage_fn, local, x, mesh,
+                                                                 axis="pod"))
         _rank_line(rank, f"pipeline stage {mesh.index('pod')}: {wall * 1e3:.1f} ms, launches "
                          f"{json.dumps(counts)}")
         if not (counts.get("matmul") and counts.get("flash_attention")
@@ -7146,6 +7111,575 @@ def _par_pipeline(torch, rank, dev, tmp) -> None:
                   flush=True)
             if not same:
                 fail("pipeline: the pipelined outputs differ from the sequential stack's")
+
+
+# --- tensor and sequence parallelism of the other families ---------------------------------
+#
+# Each at full width, its depth cut, against the unsharded run of the same
+# weights on the same card (rank 0), within the parallel phase's bounds: the serve runs'
+# logits over every position and step to LOGITS_REL_BOUND, the (2, 2) step
+# 0's loss to `_par_loss_bound` and every gradient leaf and layer slice to
+# TRAIN_GRAD_REL_BOUND (the SSM families' to SSM_BF16_GRAD_REL_BOUND:
+# A_log's layer slices, whose per-position terms cancel, carry the bf16
+# roundings furthest, as in the ssm train phase).  Cuts: mamba2-780m at
+# PAR_LAYERS of 48 layers, zamba2-2.7b at one superblock (6 of 54 layers),
+# deepseek-v3 at 1 dense + 1 MoE layer of PAR_EXPERTS experts with MTP, its
+# (2, 2) step at the dense MLA layer alone (the moe train phase's MoE cut
+# takes 67.5 GiB on one card, and over gloo the step's time follows its f32
+# bytes: with the MTP head it took 83-91 s a rank), whisper-small whole,
+# internvl2-76b at PAR_VLM_LAYERS of 80 layers with its 1024 patches.
+PAR_ZAMBA_LAYERS = 6
+PAR_VLM_LAYERS = 2
+PAR_VLM_DECODE = 4
+# internlm2-1.8b under seq_parallel: 2 of 24 layers (its step 0 runs three
+# times: with the flag, without it, and with the planted fault; at
+# PAR_LAYERS the case took 48.0 s of a 946.8 s run)
+PAR_SEQ_LAYERS = 2
+
+
+def _par_loss_bound(cfg) -> float:
+    """Step 0's loss, sharded against unsharded.  `_par_train` holds the
+    4-layer internlm2 cut, whose forward sums 8 row-parallel outputs over
+    `model` (wo and w_down a layer), to TRAIN_LOSS_REL_BOUND (it reads
+    1.535e-5).
+    Each such output is rounded to bf16 per shard before the sum, one
+    rounding more than the unsharded GEMM's; the roundings are independent,
+    so the loss's error grows as the square root of their count: the bound
+    is TRAIN_LOSS_REL_BOUND x sqrt(n / 8), never below it.  whisper-small
+    sums 60 (12 encoder and 12 decoder layers' wo and w_down, 12
+    cross-attention wo): 1.37e-4."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        n = L                                     # out_proj
+    elif cfg.family == "hybrid":
+        n = L + 2 * (L // cfg.hybrid_attn_every)  # out_proj; the shared block's wo, w_down
+    else:
+        n = 2 * L + (2 * cfg.num_encoder_layers + L if cfg.is_encoder_decoder else 0)
+    n += 2 * cfg.mtp_depth
+    return TRAIN_LOSS_REL_BOUND * max(1.0, math.sqrt(n / 8))
+
+
+def _family_logits(torch, params, cfg, batch, forced, plan=None, keep=None):
+    """serve_step's prefill of `batch` (tokens, and the patches or frames
+    the model takes) and one decode step per column of `forced`; an
+    encoder-decoder's encoder output computed once, under the plan, for the
+    decode steps.  Every step's logits, (steps + 1, b, v), and keep(the
+    caches after the last step) (None without `keep`)."""
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+    s0 = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
+                                     if "patch_embeds" in batch else 0)
+    steps = forced.shape[1]
+    with torch.no_grad():
+        logits, caches = make_prefill_step(cfg, s0 + steps, plan)(params, batch)
+        enc = None
+        if "encoder_frames" in batch:
+            with sh.use(plan):
+                enc = lm_mod.apply_encoder(params, batch["encoder_frames"], cfg)
+        decode = make_decode_step(cfg, plan)
+        out = [logits]
+        for i in range(steps):
+            logits, caches = decode(params, forced[:, i:i + 1], caches, s0 + i, enc)
+            out.append(logits)
+    return torch.stack(out), (keep(caches) if keep else None)
+
+
+def _family_batch(torch, cfg, seq, rows, dev, kind="prefill"):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    batch = make_batch(cfg, ShapeConfig("chip_smoke", seq, rows, kind), 0, 0)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if kind == "train" or k != "labels" and k != "loss_mask"}
+
+
+def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, other=None,
+                      keep=None):
+    """`cfg` served at model=2 (ranks 0 and 1) through serve_step: prefill
+    and `steps` decode steps on forced tokens, the launches counted on each
+    rank (every kernel of `need` launched), the logits against the
+    unsharded run's (rank 0) within LOGITS_REL_BOUND, and so a cache leaf
+    each rank holds whole (`keep(caches)`, where given); each planted fault
+    ((what, context), run alone) must break one of them.  `other`: a second
+    config whose sharded run is held to the same bound against this one's
+    (the same run without a flag)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    if mesh is None:
+        return
+    V = cfg.vocab_size
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    plan = sh.Plan(cfg, mesh)
+    local = plan.shard(full)
+    if rank:
+        del full
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b = batch["tokens"].shape[0]
+    forced = torch.randint(0, V, (b, steps), generator=gen, device=dev, dtype=torch.int32)
+    (got, gkeep), wall, counts = _counted(
+        torch, lambda: _family_logits(torch, local, cfg, batch, forced, plan, keep))
+    shape = " x ".join(str(n) for n in batch["tokens"].shape)
+    _rank_line(rank, f"{label} (model=2) prefill {shape} + {steps} decode steps "
+                     f"{wall * 1e3:.1f} ms, launches {json.dumps(counts)}")
+    for name in need:
+        if not counts.get(name):
+            fail(f"{label} rank {rank}: no {name} launch")
+
+    def gaps(logits, kept):
+        """(logits rel err, kept cache rel err or 0) against the unsharded run."""
+        return (_rel(logits[..., :V], want),
+                _rel(kept, wkeep) if keep else 0.0)
+
+    if rank == 0:
+        want, wkeep = _family_logits(torch, full, cfg, batch, forced, keep=keep)
+        want = want[..., :V]
+        rel, rel_c = gaps(got, gkeep)
+        print(f"  {label}: {cfg.name}, model=2 ({mesh.backend}), bf16, prefill {shape} + {steps} "
+              f"decode steps on the same tokens: logits rel err {rel:.3e} vs unsharded"
+              f"{f', the cache leaf each rank holds whole {rel_c:.3e}' if keep else ''} (bound "
+              f"{LOGITS_REL_BOUND})", flush=True)
+        if not (bool(torch.isfinite(got).all().item()) and max(rel, rel_c) <= LOGITS_REL_BOUND):
+            fail(f"{label}: sharded logits differ from the unsharded run's")
+    if other is not None:
+        again, _ = _family_logits(torch, local, other, batch, forced, sh.Plan(other, mesh))
+        if rank == 0:
+            rel = _rel(got[..., :V], again[..., :V])
+            print(f"    the same without seq_parallel, against it: logits rel err {rel:.3e} "
+                  f"(bound {LOGITS_REL_BOUND})", flush=True)
+            if rel > LOGITS_REL_BOUND:
+                fail(f"{label}: the run with seq_parallel differs from the run without it")
+        del again
+    del got
+    for what, ctx in faults:
+        with ctx():
+            bad, bkeep = _family_logits(torch, local, cfg, batch, forced, plan, keep)
+        if rank == 0:
+            rel, rel_c = gaps(bad, bkeep)
+            print(f"    fault: {what}: logits rel err {rel:.3e}"
+                  f"{f', the cache leaf {rel_c:.3e}' if keep else ''}", flush=True)
+            if max(rel, rel_c) <= LOGITS_REL_BOUND:
+                fail(f"{label}: the bound does not see {what}")
+        del bad, bkeep
+    del local, gkeep
+    if rank == 0:
+        del full, want, wkeep
+    torch.cuda.empty_cache()
+
+
+def _counted(torch, fn):
+    """fn() with every kernel wrapper's launch count (the expert-batched
+    ones too) set to 0 just before: (fn's result, wall seconds, the counts
+    that moved)."""
+    from repro_torch.models import linear as linear_mod
+    matmul_ops, fns = _train_counters()
+    expert = {"matmul_expert": linear_mod.matmul_expert,
+              "fused_mlp_hidden_expert": linear_mod.fused_mlp_hidden_expert}
+    torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    for f in expert.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**{k: v for k, v in _read_counts(matmul_ops, fns).items() if v},
+              **{k: f.launches for k, f in expert.items() if f.launches}}
+    return out, wall, counts
+
+
+def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, faults, other=None,
+                      remats=("none",)):
+    """Step 0 of `cfg` at data=2 x model=2 (FSDP, f32 masters, bf16
+    compute): the loss, every gradient leaf (gathered whole to rank 0's
+    host) and the clip norm against the unsharded step on rank 0 (the loss
+    within `_par_loss_bound`, every leaf and layer slice and the norm within
+    `grad_bound`), under each remat of `remats` with its peak memory; the
+    launches of the first counted on each rank.  Each planted fault must
+    break the bounds; its run reads every leaf but the embedding and the
+    head (whose f32 gathers over gloo are most of deepseek's step).
+    `other`: a second config whose sharded step 0 is held to the same
+    bounds against this one's (the same run without a flag)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                   dtype=torch.float32)
+    names = [path for path, _ in _paths(full)]
+    plan = sh.Plan(cfg, mesh)
+    local = plan.shard(full)
+    specs = list(tree_leaves(plan.specs(local)))
+    ref = None
+    if rank == 0:      # kept in host memory: the sharded ranks share the card
+        lk, gk = _grads(torch, full, batch, cfg)
+        gn = torch.sqrt(sum(_sq_sum(g) for g in gk)).item()
+        ref = (lk, [g.detach().cpu() for g in gk], gn)
+        del gk
+    del full
+    torch.cuda.empty_cache()
+
+    def step0(c, remat="none", skip=()):
+        p_ = sh.Plan(c, mesh)
+        with sh.use(p_):
+            leaves = list(tree_leaves(local))
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, metrics = lm_loss(local, p_.batch_rows(batch), c, remat=remat)
+            g = iter(torch.autograd.grad(loss, leaves))
+            del loss
+            g = p_.reduce_grads(tree_map(lambda _: next(g), local), p_.specs(local))
+            norm = global_norm(g, p_, p_.specs(local)).item()
+        return metrics["loss"].item(), [
+            None if n in skip else sh.gather_leaf_to_host(t, s, mesh)
+            for t, s, n in zip(tree_leaves(g), specs, names)], norm
+
+    loss_bound = _par_loss_bound(cfg)
+
+    def reading(what, res, against):
+        loss, whole, norm = res
+        lk, gk, gn = against
+        rel_loss = abs(loss - lk) / abs(lk)
+        rel_norm = abs(norm - gn) / gn
+        rels = sorted(r for g, w, n in zip(whole, gk, names) if g is not None
+                      for r in _grad_rels([g.to(dev)], [w.to(dev)], [n]))
+        worst = rels[-1]
+        print(f"  {what}: loss {loss:.6f} (rel {rel_loss:.3e}, bound {loss_bound:.3g}); worst "
+              f"gradient leaf or layer slice {worst[0]:.3e} ({worst[1]}), median "
+              f"{rels[len(rels) // 2][0]:.3e}, clip norm rel {rel_norm:.3e} (bound {grad_bound})",
+              flush=True)
+        return rel_loss <= loss_bound and worst[0] <= grad_bound and rel_norm <= grad_bound
+
+    shape = " x ".join(str(n) for n in batch["tokens"].shape)
+    sound, peaks = None, {}
+    for remat in remats:
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, counts = _counted(torch, lambda: step0(cfg, remat))
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if sound is None:
+            sound = res
+            _rank_line(rank, f"{label} step 0 at (2, 2) (forward, backward, gradient reductions "
+                             f"and the gather to rank 0): {wall * 1e3:.1f} ms, launches "
+                             f"{json.dumps(counts)}")
+            for name in need:
+                if not counts.get(name):
+                    fail(f"{label} rank {rank}: no {name} launch")
+        if rank == 0 and not reading(f"{label}: {cfg.name}, data=2 x model=2, remat={remat}, "
+                                     f"step 0 on {shape} tokens, sharded vs unsharded", res, ref):
+            fail(f"{label}: the sharded step 0 (remat={remat}) breaks its bounds")
+        del res
+    _rank_line(rank, f"{label} step 0 peak device memory " + ", ".join(
+        f"{v:.2f} GiB at remat={k}" for k, v in peaks.items()))
+    if other is not None:
+        res = step0(other)
+        if rank == 0 and not reading(f"{label}: the same without seq_parallel, against it",
+                                     sound, res):
+            fail(f"{label}: the run with seq_parallel differs from the run without it")
+        del res
+    del sound
+    for what, ctx in faults:
+        with ctx():
+            res = step0(cfg, skip=("embed", "lm_head"))
+        if rank == 0 and reading(f"    fault: {what}", res, ref):
+            fail(f"{label}: the bounds do not see {what}")
+        del res
+    del local, ref
+    torch.cuda.empty_cache()
+
+
+def _gated_norm_sum_dropped():
+    """Fault: the SSD gated norm's mean square over this rank's columns."""
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "sum_over_tp", lambda real: lambda x: x)
+
+
+def _latent_slice(torch):
+    """Fault: each rank's slice of MLA's down-projected latents in place of
+    the gathered latent (repeated to its width)."""
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "gather_latent",
+                    lambda real: lambda x, dim=-1: torch.cat([x] * sh.tp_size(), dim=dim))
+
+
+def _q_latent_slice(torch):
+    """Fault: MLA's q latent alone (the first of each layer's two gathers)
+    replaced by the rank's slice, repeated to its width."""
+    from repro_torch.parallel import sharding as sh
+    calls = []
+
+    def wrap(real):
+        def f(x, dim=-1):
+            calls.append(1)
+            return torch.cat([x] * sh.tp_size(), dim=dim) if len(calls) % 2 else real(x, dim)
+        return f
+    return _patched(sh, "gather_latent", wrap)
+
+
+def _tp_exit_dropped():
+    """Fault: every row-parallel exit's sum over `model` skipped."""
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "tp_exit", lambda real: lambda x: x)
+
+
+def _seq_norm_sum_dropped():
+    """Fault: under seq_parallel the norm gains' gradients left as each
+    rank's partial over its sequence shard."""
+    from repro_torch.models import blocks
+    return _patched(blocks, "_norms_summed_over_tp", lambda real: lambda p: p)
+
+
+def _seq_local_slice():
+    """Fault: every sequence-parallel reduce-scatter replaced by the rank's
+    slice of its own partial sums."""
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "seq_reduce_scatter", lambda real: lambda x: x.chunk(
+        sh.tp_size(), dim=1)[sh.tp_rank()].contiguous())
+
+
+def _encoder_allreduce_dropped():
+    """Fault: the encoder's row-parallel all-reduces (wo, w_down) skipped."""
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.parallel import sharding as sh
+
+    def wrap(real):
+        def f(*args, **kwargs):
+            with _patched(sh, "reduce_from_tp", lambda r: lambda x: x):
+                return real(*args, **kwargs)
+        return f
+    return _patched(lm_mod, "apply_encoder", wrap)
+
+
+def _par_ssm(torch, rank, dev, tmp) -> None:
+    """mamba2-780m (PAR_LAYERS layers) and zamba2-2.7b (one superblock) at
+    full width: model=2 serve (prefill 4 x 1024 + PAR_DECODE decode steps:
+    24 / 40 heads a rank through the SSD kernel, the SSM cache's state and
+    conv_x tail the rank's heads and channels); then step 0 at (2, 2); the
+    gated norm's sum over `model` dropped as the fault of each."""
+    from repro_torch.configs.registry import get_config
+    for arch, layers, need in (("mamba2-780m", PAR_LAYERS, ("matmul", "ssd_chunk")),
+                               ("zamba2-2.7b", PAR_ZAMBA_LAYERS,
+                                ("matmul", "ssd_chunk", "fused_mlp_hidden", "paged_decode"))):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, linear_impl="fused",
+                                  attn_impl="paged")
+        _say(rank, f"parallel ssm: {arch} at {layers} of {get_config(arch).num_layers} layers, "
+                   f"full width")
+        batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+        _par_family_serve(torch, rank, dev, f"parallel {arch} serve", cfg, batch, PAR_DECODE,
+                          need, [("the gated norm's sum over model dropped",
+                                  _gated_norm_sum_dropped)])
+        torch.distributed.barrier()
+        tcfg = dataclasses.replace(cfg, attn_impl="flash")
+        tbatch = _family_batch(torch, tcfg, TRAIN_SEQ, TRAIN_BATCH, dev, "train")
+        tneed = ("matmul", "ssd_chunk", "ssd_chunk_bwd") + (
+            ("fused_mlp_hidden", "fused_mlp_bwd", "flash_attention", "flash_attention_bwd")
+            if cfg.family == "hybrid" else ())
+        _par_family_train(torch, rank, dev, f"parallel {arch} train", tcfg, tbatch,
+                          SSM_BF16_GRAD_REL_BOUND, tneed,
+                          [("the gated norm's sum over model dropped", _gated_norm_sum_dropped)])
+        torch.distributed.barrier()
+
+
+def _par_mla(torch, rank, dev, tmp) -> None:
+    """deepseek-v3 at full width, 1 dense + 1 MoE layer (PAR_EXPERTS
+    experts), MTP: model=2 serve (prefill 4 x 1024 + PAR_DECODE decode
+    steps) with the whole latent cache each rank holds held to the
+    unsharded run's, the gathered latent replaced by each rank's slice as
+    the fault (at random init attention moves the logits little: the slice
+    read 4.04e-2 in the logits against the sound 4.49e-3, inside
+    LOGITS_REL_BOUND; the cache it writes is wrong throughout); one MLA
+    layer's output at model=2 (`_par_mla_layer`: the q side's faults); the
+    dense layer and MTP's losses at model=2 (`_par_mtp_forward`); then step
+    0 at (2, 2) of the dense MLA layer alone, the latent slice its fault."""
+    from repro_torch.configs.registry import get_config
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=2, first_dense_layers=1, num_experts=PAR_EXPERTS,
+                              linear_impl="fused", attn_impl="flash")
+    _say(rank, f"parallel mla: {cfg.name}, 1 dense + 1 MoE layer ({PAR_EXPERTS} experts), MTP, "
+               f"full width")
+    batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+    _par_family_serve(torch, rank, dev, "parallel deepseek-v3 serve", cfg, batch, PAR_DECODE,
+                      ("matmul", "fused_mlp_hidden", "matmul_expert", "fused_mlp_hidden_expert"),
+                      [("the gathered MLA latent replaced by the rank's own slice",
+                        lambda: _latent_slice(torch))], keep=lambda caches: caches[0]["latent"])
+    torch.distributed.barrier()
+    tcfg = dataclasses.replace(cfg, num_layers=1, num_experts=0, mtp_depth=0)
+    _par_mla_layer(torch, rank, dev, tcfg)
+    torch.distributed.barrier()
+    _par_mtp_forward(torch, rank, dev, dataclasses.replace(cfg, num_layers=1, num_experts=0))
+    torch.distributed.barrier()
+    tbatch = _family_batch(torch, tcfg, TRAIN_SEQ, TRAIN_BATCH, dev, "train")
+    _par_family_train(torch, rank, dev, "parallel deepseek-v3 train", tcfg, tbatch,
+                      TRAIN_GRAD_REL_BOUND, ("matmul", "fused_mlp_hidden", "fused_mlp_bwd"),
+                      [("the gathered MLA latent replaced by the rank's own slice",
+                        lambda: _latent_slice(torch))])
+    torch.distributed.barrier()
+
+
+def _par_mla_layer(torch, rank, dev, cfg) -> None:
+    """One MLA attention layer (`apply_mla`, layer 0 of `cfg`) at model=2
+    (ranks 0 and 1) on the same bf16 input of 4 x 1024 tokens: its output,
+    after wo's sum over `model`, against the unsharded layer's (rank 0)
+    within LOGITS_REL_BOUND.  The serve case's logits hardly see the
+    attention at random init, so the q side's faults are held here: the q
+    latent alone replaced by the rank's slice, and wo's sum dropped."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.models.attention import apply_mla
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    if mesh is None:
+        return
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    plan = sh.Plan(cfg, mesh)
+    attn = {k: v[0] for k, v in plan.shard(full)["seg0"]["attn"].items()}
+    whole = {k: v[0] for k, v in full["seg0"]["attn"].items()}
+    del full
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(TRAIN_SEQ, device=dev)
+
+    def run(p, use):
+        with torch.no_grad(), sh.use(use):
+            return apply_mla(p, x, cfg, positions=pos)[0]
+    got = run(attn, plan)
+    if rank == 0:
+        want = run(whole, None)
+        rel = _rel(got, want)
+        print(f"  parallel deepseek-v3 MLA layer: apply_mla at model=2, bf16, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens: output rel err {rel:.3e} vs unsharded (bound "
+              f"{LOGITS_REL_BOUND})", flush=True)
+        if not (bool(torch.isfinite(got).all().item()) and rel <= LOGITS_REL_BOUND):
+            fail("parallel deepseek-v3 MLA layer: the sharded output differs from the unsharded")
+    for what, ctx in (("the q latent alone replaced by the rank's own slice",
+                       lambda: _q_latent_slice(torch)),
+                      ("wo's sum over model dropped", _tp_exit_dropped)):
+        with ctx():
+            bad = run(attn, plan)
+        if rank == 0:
+            rel = _rel(bad, want)
+            print(f"    fault: {what}: output rel err {rel:.3e}", flush=True)
+            if rel <= LOGITS_REL_BOUND:
+                fail(f"parallel deepseek-v3 MLA layer: the bound does not see {what}")
+    del attn, whole, got
+    torch.cuda.empty_cache()
+
+
+def _par_mtp_forward(torch, rank, dev, cfg) -> None:
+    """lm_loss's forward at model=2 (ranks 0 and 1), bf16: the next-token
+    loss and the MTP head's (its input's next-token embedding from the
+    vocab-sharded table, its head column-parallel), each within
+    `_par_loss_bound` of the unsharded forward's (rank 0).  `cfg` has no
+    routed experts, so no token routes differently on the two runs."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    if mesh is None:
+        return
+    full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    plan = sh.Plan(cfg, mesh)
+    local = plan.shard(full)
+    if rank:
+        del full
+    batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev, "train")
+    with torch.no_grad(), sh.use(plan):
+        got = {k: v.item() for k, v in lm_loss(local, batch, cfg)[1].items()}
+    if rank == 0:
+        with torch.no_grad():
+            want = {k: v.item() for k, v in lm_loss(full, batch, cfg)[1].items()}
+        bound = _par_loss_bound(cfg)
+        rels = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("lm_loss", "mtp_loss")}
+        print(f"  parallel deepseek-v3 MTP: the dense MLA layer + MTP at model=2, bf16, lm_loss's "
+              f"forward on {TRAIN_BATCH} x {TRAIN_SEQ} tokens: lm_loss {got['lm_loss']:.6f} (rel "
+              f"{rels['lm_loss']:.3e}), mtp_loss {got['mtp_loss']:.6f} (rel {rels['mtp_loss']:.3e}) "
+              f"vs unsharded (bound {bound:.3g})", flush=True)
+        if max(rels.values()) > bound:
+            fail("parallel deepseek-v3 MTP: the sharded losses differ from the unsharded ones")
+        del full
+    del local
+    torch.cuda.empty_cache()
+
+
+def _par_whisper(torch, rank, dev, tmp) -> None:
+    """whisper-small at full size: model=2 serve (4 x 1500 frames, prefill
+    4 x 32 with its encoder, one apply_encoder, PAR_DECODE decode steps; 6
+    heads a rank); then step 0 at (2, 2) on 4 x 448 tokens; the encoder's
+    row-parallel all-reduces dropped as the fault of each."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(WHISPER), linear_impl="fused", attn_impl="flash")
+    _say(rank, f"parallel whisper: {cfg.name} at full size")
+    batch = _family_batch(torch, cfg, ENCDEC_PROMPT, ENCDEC_BATCH, dev)
+    _par_family_serve(torch, rank, dev, "parallel whisper serve", cfg, batch, PAR_DECODE,
+                      ("matmul", "fused_mlp_hidden", "flash_attention"),
+                      [("the encoder's row-parallel all-reduces dropped",
+                        _encoder_allreduce_dropped)])
+    torch.distributed.barrier()
+    tbatch = _family_batch(torch, cfg, ENCDEC_TRAIN_SEQ, ENCDEC_BATCH, dev, "train")
+    _par_family_train(torch, rank, dev, "parallel whisper train", cfg, tbatch,
+                      TRAIN_GRAD_REL_BOUND, ("matmul", "fused_mlp_hidden", "fused_mlp_bwd",
+                                             "flash_attention", "flash_attention_bwd"),
+                      [("the encoder's row-parallel all-reduces dropped",
+                        _encoder_allreduce_dropped)])
+    torch.distributed.barrier()
+
+
+def _par_internvl(torch, rank, dev, tmp) -> None:
+    """internvl2-76b at full width, PAR_VLM_LAYERS layers: model=2 serve
+    of 4 x (1024 patches + 64 tokens) + PAR_VLM_DECODE decode steps under
+    the dense GQA plan (32 / 4 heads a rank), the last layer's w_down
+    all-reduce dropped as the fault."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(INTERNVL), num_layers=PAR_VLM_LAYERS,
+                              linear_impl="fused", attn_impl="paged")
+    _say(rank, f"parallel internvl: {cfg.name} at {PAR_VLM_LAYERS} of 80 layers, full width, "
+               f"{cfg.num_patches} patches")
+    batch = _family_batch(torch, cfg, cfg.num_patches + VLM_PROMPT, TRAIN_BATCH, dev)
+    _par_family_serve(torch, rank, dev, "parallel internvl2 serve", cfg, batch, PAR_VLM_DECODE,
+                      ("matmul", "fused_mlp_hidden", "paged_decode"),
+                      [("the last layer's w_down all-reduce dropped",
+                        lambda: _row_allreduce_dropped(cfg))])
+    torch.distributed.barrier()
+
+
+def _par_seq(torch, rank, dev, tmp) -> None:
+    """internlm2-1.8b (PAR_SEQ_LAYERS layers) with seq_parallel=True: step 0 at
+    (2, 2) against the unsharded step and against the same sharded step
+    without the flag, the reduce-scatter replaced by a local slice and the
+    norm gains' gradient sum dropped as the faults; a model=2 prefill +
+    PAR_DECODE decode steps against the unsharded run."""
+    cfg = dataclasses.replace(_internlm2_cut(linear_impl="fused", attn_impl="flash",
+                                             seq_parallel=True), num_layers=PAR_SEQ_LAYERS)
+    plain = dataclasses.replace(cfg, seq_parallel=False)
+    _say(rank, f"parallel seq: {cfg.name} at {PAR_SEQ_LAYERS} layers, full width, "
+               f"seq_parallel=True")
+    tbatch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev, "train")
+    _par_family_train(torch, rank, dev, "parallel seq train", cfg, tbatch, TRAIN_GRAD_REL_BOUND,
+                      ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
+                       "flash_attention_bwd"),
+                      [("the sequence-parallel reduce-scatter replaced by a local slice",
+                        _seq_local_slice),
+                       ("the norm gains' gradient sum over model dropped", _seq_norm_sum_dropped)],
+                      other=plain)
+    torch.distributed.barrier()
+    scfg = dataclasses.replace(cfg, attn_impl="paged")
+    batch = _family_batch(torch, scfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+    _par_family_serve(torch, rank, dev, "parallel seq serve", scfg, batch, PAR_DECODE,
+                      ("matmul", "fused_mlp_hidden", "paged_decode"),
+                      [("the sequence-parallel reduce-scatter replaced by a local slice",
+                        _seq_local_slice)], other=dataclasses.replace(scfg, seq_parallel=False))
+    torch.distributed.barrier()
 
 
 def _stage_specs(tree):

@@ -16,7 +16,9 @@ Under tensor parallelism (`parallel/sharding.py`) a GQA layer holds its
 rank's whole KV groups: wq / wk / wv (and their biases) column-sharded, so
 the rank computes num_heads / model query heads over num_kv_heads / model
 KV heads, and its cache holds those KV heads; wo is row-sharded and its
-output summed over `model` (`reduce_from_tp`).
+output summed over `model` (`tp_exit`: `reduce_from_tp`, or under sequence
+parallelism a reduce-scatter on the sequence; the input enters through
+`tp_enter`).  MLA: see `apply_mla`.
 """
 from __future__ import annotations
 
@@ -127,11 +129,11 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     """
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; valid: {list(ATTN_IMPLS)}")
-    b, s, h = x.shape
     tp = sh.tp_size()
     a, nkv, hd = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     impl = cfg.linear_impl
-    x = sh.copy_to_tp(x)
+    x = sh.tp_enter(x)
+    b, s, h = x.shape
     src = x if kv_input is None else sh.copy_to_tp(kv_input)
     q = linear(x, p["wq"], impl=impl)
     k = linear(src, p["wk"], impl=impl)
@@ -181,7 +183,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
                 vg = dequantize_kv(vg, gather_block_kv(scales[1], block_tables), q.dtype)
             out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=causal, q_pos=positions,
                         kv_len=lengths)
-        return sh.reduce_from_tp(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)), cache
+        return sh.tp_exit(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)), cache
 
     kv_len = None
     if cache is not None and kv_input is None:
@@ -221,7 +223,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     else:
         out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=masked,
                     q_pos=positions, kv_len=kv_len)
-    out = sh.reduce_from_tp(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl))
+    out = sh.tp_exit(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl))
     return out, cache
 
 
@@ -255,18 +257,28 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     schedule is what `core/` models.  The scores are the plain `_sdpa`
     product, which JAX also computes outside any Pallas kernel.  A per-row
     (tensor) cache_index raises, as JAX's `dynamic_update_slice` does.
+
+    Under tensor parallelism the spec tree column-shards wq_down and
+    wkv_down as well: each rank's slice of the (b, s, q_lora) and (b, s,
+    kv_lora + rope) latents is all-gathered (`gather_latent`, whose
+    backward reduce-scatters the heads' partial gradients) before wq_up /
+    wk_up / wv_up, which are column-parallel over heads (a / model a
+    rank); wo is row-parallel.  Every rank caches the whole latent, since
+    its heads read all of it (JAX's cache_specs shard it on the sequence:
+    the same numbers, another layout).
     """
-    b, s, _ = x.shape
-    a = cfg.num_heads
+    a = cfg.num_heads // sh.tp_size()
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     impl = cfg.linear_impl
-    q = linear(linear(x, p["wq_down"], impl=impl), p["wq_up"], impl=impl)
+    x = sh.tp_enter(x)
+    b, s, _ = x.shape
+    q = linear(sh.gather_latent(linear(x, p["wq_down"], impl=impl)), p["wq_up"], impl=impl)
     q = q.reshape(b, s, a, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rotary(q_rope, positions, cfg.rope_theta)
 
-    latent = linear(x, p["wkv_down"], impl=impl)  # (b, s, kvr + rope)
+    latent = sh.gather_latent(linear(x, p["wkv_down"], impl=impl))  # (b, s, kvr + rope)
     c_kv, k_rope_flat = latent[..., :kvr], latent[..., kvr:]
     k_rope = apply_rotary(k_rope_flat[..., None, :], positions, cfg.rope_theta)
 
@@ -290,7 +302,7 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     k_full = torch.cat([k_nope, k_rope.expand(b, skv, a, rope)], dim=-1)
     out = _sdpa(q_full, k_full, v, causal=True,
                 q_pos=positions[0] if positions.dim() > 1 else positions, kv_len=kv_len)
-    out = linear(out.reshape(b, s, a * vd), p["wo"], impl=impl)
+    out = sh.tp_exit(linear(out.reshape(b, s, a * vd), p["wo"], impl=impl))
     return out, cache
 
 

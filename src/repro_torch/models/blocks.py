@@ -12,6 +12,12 @@ replaces `lax.scan`: layer l reads the views `t[l]`.  Kinds:
                  (zamba2: the shared weights live outside the segment)
 The attention of a dense, moe or pair layer is GQA or MLA (`attn_type`).
 
+Under `seq_parallel` with tensor parallelism (`parallel/sharding.py`)
+the residual stream of the dense, moe and pair layers is this rank's
+sequence shard (`apply_stack` splits it before the first such layer and
+gathers it after the last); the layer's norms run on the shard, and their
+gains' gradients are summed over `model`.
+
 `remat="full"` recomputes each layer in the backward
 (`torch.utils.checkpoint`, non-reentrant: the layer's params reach it by
 closure, as `jax.checkpoint` captures them), for every kind: a dense,
@@ -227,14 +233,48 @@ def _ssm_layer(p, x, cfg: ModelConfig, cache, decode: bool):
     return y
 
 
+# the kinds whose residual stream `seq_parallel` splits on the sequence
+SEQ_KINDS = ("dense", "moe", "pair")
+
+
+def _norms_summed_over_tp(p):
+    """A layer's norm gains, used on this rank's sequence shard: their
+    gradients are summed over `model` (`copy_to_tp`).  The rule is by name.
+    Inside a sequence region a layer's leaves are sharded on `model` (their
+    gradients the rank's own), or replicated and applied to whole tokens
+    after `tp_enter` / `tokens_whole` (the MoE router: each rank's gradient
+    is already the whole one), or replicated and applied to the rank's
+    sequence shard: the "norm*" gains only.  A leaf of the last kind under
+    another name must be added here (the CPU parity test plants this sum's
+    absence and reads every gradient leaf)."""
+    return {k: ({n: sh.copy_to_tp(t) for n, t in v.items()} if k.startswith("norm") else v)
+            for k, v in p.items()}
+
+
+def apply_layer(p, x, cfg: ModelConfig, kind: str, **kw):
+    """`_apply_core` on a whole residual stream, split on the sequence
+    around the layer where `seq_parallel` applies (the MTP block)."""
+    if not (kind in SEQ_KINDS and sh.seq_parallel(cfg, x.shape[1])):
+        return _apply_core(p, x, cfg, kind, **kw)
+    x, cache, aux = _apply_core(p, sh.scatter_seq(x), cfg, kind, seq_sharded=True, **kw)
+    return sh.gather_seq(x), cache, aux
+
+
 def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
                 cache=None, cache_index=None, block_tables=None, decode=False,
-                shared=None):
+                shared=None, seq_sharded=False):
     """One layer (a dense, MoE or Mamba2 layer, a [moe, dense] pair, or a
     hybrid superblock).  `decode`: single-token steps through the SSM
-    recurrence (attention decodes from its cache either way).  Returns
-    (x, cache, aux): aux the MoE load-balance loss (0-d f32) of a moe or
-    pair layer, None for the other kinds."""
+    recurrence (attention decodes from its cache either way).
+    `seq_sharded`: x is this rank's sequence shard (a dense, moe or pair
+    layer under `seq_parallel`; `positions` stay the whole sequence's).
+    Returns (x, cache, aux): aux the MoE load-balance loss (0-d f32) of a
+    moe or pair layer, None for the other kinds."""
+    if seq_sharded and kind != "pair":
+        with sh.seq_region():
+            return _apply_core(_norms_summed_over_tp(p), x, cfg, kind, positions=positions,
+                               cache=cache, cache_index=cache_index,
+                               block_tables=block_tables, decode=decode, shared=shared)
     if kind == "ssm":
         return x + _ssm_layer(p, x, cfg, cache, decode), cache, None
     if kind == "hybrid_super":
@@ -253,7 +293,7 @@ def _apply_core(p, x, cfg: ModelConfig, kind: str, *, positions,
         return x, cache, None
     if kind == "pair":
         kw = dict(positions=positions, cache_index=cache_index, block_tables=block_tables,
-                  decode=decode)
+                  decode=decode, seq_sharded=seq_sharded)
         x, _, a1 = _apply_core(p["moe_blk"], x, cfg, "moe",
                                cache=None if cache is None else cache["moe_blk"], **kw)
         x, _, _ = _apply_core(p["dense_blk"], x, cfg, "dense",
@@ -321,17 +361,22 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r}; valid: {list(REMATS)}")
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    seq_par = sh.seq_parallel(cfg, x.shape[1])
+    sharded = False       # x is this rank's sequence shard
     for si, (kind, sp) in enumerate(segments_params):
         _check_kind(kind)
         seg_cache = None if caches is None else caches[si]
         n = _num_layers(sp)
+        if seq_par and sharded != (kind in SEQ_KINDS):
+            sharded = not sharded
+            x = sh.scatter_seq(x) if sharded else sh.gather_seq(x)
         for layer, p_l in enumerate(tree_unbind(sp, n)):
             if remat != "none" and seg_cache is None:
-                def body(h, p_l=p_l, kind=kind):
+                def body(h, p_l=p_l, kind=kind, sharded=sharded):
                     p_l = sh.fsdp_use(p_l)    # gathered again in the recompute
                     with products_as_ops() if remat == "dots" else contextlib.nullcontext():
                         out, _, a = _apply_core(p_l, h, cfg, kind, positions=positions,
-                                                shared=shared)
+                                                shared=shared, seq_sharded=sharded)
                     return out, a
                 kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
                 x, aux = checkpoint(body, x, use_reentrant=False, **kw)
@@ -340,7 +385,9 @@ def apply_stack(segments_params, cfg: ModelConfig, x, *, positions,
                 x, _, aux = _apply_core(sh.fsdp_use(p_l), x, cfg, kind, positions=positions,
                                         cache=c_l,
                                         cache_index=cache_index, block_tables=block_tables,
-                                        decode=decode, shared=shared)
+                                        decode=decode, shared=shared, seq_sharded=sharded)
             if aux is not None:
                 total_aux = total_aux + aux
+    if sharded:
+        x = sh.gather_seq(x)
     return x, caches, total_aux

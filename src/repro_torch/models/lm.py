@@ -43,7 +43,7 @@ from ..configs.base import ModelConfig
 from ..parallel import comm
 from ..parallel import sharding as sh
 from .attention import apply_attention, init_attention
-from .blocks import (_apply_core, apply_stack, init_cache_segment, init_segment, init_shared,
+from .blocks import (apply_layer, apply_stack, init_cache_segment, init_segment, init_shared,
                      stack_plan, tree_unbind)
 from .layers import compute_dtype, dense_init, embed_init, norm_apply, norm_init
 from .linear import linear
@@ -340,14 +340,14 @@ def lm_loss(params, batch, cfg: ModelConfig, remat: str = "none"):
         dt = compute_dtype(cfg.dtype)
         mtp = sh.fsdp_use(params["mtp"])
         embed = sh.fsdp_use(params["embed"], "embed")
-        emb_next = embed[batch["labels"]].to(dt)
+        emb_next = _embed(embed, batch["labels"], dt)
         mtp_in = linear(torch.cat([hidden.to(dt), emb_next], dim=-1), mtp["proj"],
                         impl=cfg.linear_impl)
         pos = torch.arange(mtp_in.shape[1], device=mtp_in.device)
-        h2, _, _ = _apply_core(mtp["block"], mtp_in, cfg, "dense", positions=pos)
+        h2, _, _ = apply_layer(mtp["block"], mtp_in, cfg, "dense", positions=pos)
         h2 = norm_apply(mtp["norm"], h2, cfg.norm_type)
         head = embed.T if cfg.tie_embeddings else sh.fsdp_use(params["lm_head"], "lm_head")
-        mtp_logits = linear(h2, head, impl=cfg.linear_impl)
+        mtp_logits = linear(sh.copy_to_tp(h2), head, impl=cfg.linear_impl)
         mtp_loss = xent(mtp_logits[:, :-2], batch["labels"][:, 2:])
         metrics["mtp_loss"] = mtp_loss
         loss = loss + 0.3 * mtp_loss

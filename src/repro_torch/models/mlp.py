@@ -1,8 +1,10 @@
 """MLP variants: standard 2-matrix (gelu / squared-ReLU) and SwiGLU (3-matrix).
 
 Under tensor parallelism w_gate / w_up are column-sharded and w_down
-row-sharded (d_ff / model a rank): the input enters through `copy_to_tp`,
-the output leaves through one all-reduce over `model`."""
+row-sharded (d_ff / model a rank): the input enters through `tp_enter`
+(`copy_to_tp`; under sequence parallelism an all-gather on the sequence),
+the output leaves through `tp_exit` (one all-reduce over `model`, or a
+reduce-scatter on the sequence)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,7 +36,7 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: int | None 
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
-    return sh.reduce_from_tp(mlp_partial(p, sh.copy_to_tp(x), cfg))
+    return sh.tp_exit(mlp_partial(p, sh.tp_enter(x), cfg))
 
 
 def mlp_partial(p, x, cfg: ModelConfig):

@@ -14,7 +14,9 @@ experts are sharded on `model` (the (E, h, f) specs), each rank packs and
 runs only its own experts' entries, and the combine is one all-reduce over
 `model`; under data parallelism the capacity and each entry's slot are the
 global batch's, as JAX's "auto" dispatch computes them
-(`global_slots`).
+(`global_slots`).  Under sequence parallelism the layer's input, a
+sequence shard, is all-gathered first (`tokens_whole`) and the combine is
+a reduce-scatter on the sequence instead (`tp_exit`).
 
 Two places differ from a literal translation, for the card's sake:
   * dispatch: JAX adds every entry into the buffer, the dropped ones as
@@ -107,6 +109,7 @@ def global_slots(counts, t: int):
 def apply_moe_auto(p, x, cfg: ModelConfig):
     """JAX's "auto" dispatch: capacity and slots over the global batch, the
     experts this rank holds (all of them without a plan)."""
+    x = sh.tokens_whole(x)
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
     xt = x.reshape(b * s, h)
@@ -126,7 +129,7 @@ def apply_moe_auto(p, x, cfg: ModelConfig):
         frac_probs = sh.sum_over_dp(probs.sum(0)) / t_all
     aux = e * (counts / (t_all * k) * frac_probs).sum()
     y = dispatch_combine(p, xt, gate, idx, cfg, _capacity(t_all, cfg), before)
-    return y.reshape(b, s, h), aux
+    return sh.tp_exit(y.reshape(b, s, h)), aux
 
 
 def dispatch_combine(p, xt, gate, idx, cfg: ModelConfig, cap: int, before):
@@ -135,7 +138,8 @@ def dispatch_combine(p, xt, gate, idx, cfg: ModelConfig, cap: int, before):
     expert.  `before[e]`: entries of expert e that come earlier in the
     global order (on other data ranks); an entry is kept where its global
     slot is under `cap`.  Under tensor parallelism the experts are this
-    rank's E / model (p's stacks), the sum runs over `model` once."""
+    rank's E / model (p's stacks), and the result is this rank's share of
+    the sum over `model`, which the caller takes (`tp_exit`)."""
     t, h = xt.shape
     k = cfg.top_k
     impl = cfg.linear_impl
@@ -192,4 +196,4 @@ def dispatch_combine(p, xt, gate, idx, cfg: ModelConfig, cap: int, before):
 
     if cfg.num_shared_experts:
         y = y + mlp_partial(p["shared"], xin, cfg)
-    return sh.reduce_from_tp(y)
+    return y

@@ -27,6 +27,7 @@ def apply_moe_shardmap(p, x, cfg: ModelConfig):
     """x: (b, s, h), this data rank's tokens -> (y, aux)."""
     if sh.active() is None:
         return moe.apply_moe_auto(p, x, cfg)
+    x = sh.tokens_whole(x)
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.top_k
     t_loc = b * s
@@ -38,4 +39,4 @@ def apply_moe_shardmap(p, x, cfg: ModelConfig):
     aux = e * (counts / (t_loc * k) * probs.mean(0)).sum()
     y = moe.dispatch_combine(p, xt, gate, idx, cfg, moe._capacity(t_loc, cfg),
                              torch.zeros_like(counts))
-    return y.reshape(b, s, h), aux
+    return sh.tp_exit(y.reshape(b, s, h)), aux

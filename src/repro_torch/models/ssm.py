@@ -27,6 +27,17 @@ sequential loop where JAX runs an associative scan: the same recurrence,
 summed in another order, over a list of the per-chunk states stacked once,
 so autograd sees no in-place write), Y_off, the gated norm and the decode
 step.
+
+Under tensor parallelism (`parallel/sharding.py`, JAX's spec rules) a
+rank holds nh / model heads: in_z / in_x, conv_x / conv_bx, A_log / D /
+dt_bias and the gated norm's gain are column-sharded, out_proj is
+row-parallel and ends in `reduce_from_tp`.  in_B, in_C, in_dt and the B /
+C convs are replicated: each rank computes them whole from the replicated
+input and takes its own heads' columns of dt and its own groups of B / C
+(`_rank_groups`).  The gated norm's mean square runs over the whole
+d_inner, so its (b, s) statistic is summed over `model` (`sum_over_tp`).
+The cache follows JAX's `cache_specs`: the state and conv_x tail are the
+rank's heads and channels, the conv_B / conv_C tails whole.
 """
 from __future__ import annotations
 
@@ -37,17 +48,43 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd.ops import ssd_chunk
-from .layers import dense_init, norm_apply, norm_init
+from ..parallel import sharding as sh
+from .layers import dense_init, norm_init
 from .linear import linear
 
 
-def _dims(cfg: ModelConfig):
-    di = cfg.ssm_d_inner
+def _dims(cfg: ModelConfig, whole: bool = False):
+    """(d_inner, N, P, heads, groups) of this rank: d_inner and the heads
+    over `model`, the groups a rank's heads span (`_rank_groups`); with
+    `whole`, the model's."""
+    t = 1 if whole else sh.tp_size()
+    di = cfg.ssm_d_inner // t
     N = cfg.ssm_state
     P = cfg.ssm_head_dim
     nh = di // P
     g = cfg.ssm_ngroups
-    return di, N, P, nh, g
+    return di, N, P, nh, max(g // t, 1)
+
+
+def _rank_groups(v, cfg: ModelConfig):
+    """This rank's groups of a replicated (..., groups * N) B or C: its
+    block where the groups split over `model`, else the one group its
+    heads lie in.  Either way its gradient is summed over `model`."""
+    t, g, N = sh.tp_size(), cfg.ssm_ngroups, cfg.ssm_state
+    if g % t == 0:
+        return sh.scatter_to_tp(v, -1)
+    gi = sh.tp_rank() * g // t
+    return sh.copy_to_tp(v)[..., gi * N:(gi + 1) * N]
+
+
+def _gated_norm(p, y, z):
+    """RMSNorm(y * silu(z)) over d_inner, `norm_apply`'s arithmetic: the
+    mean square is the mean of the ranks' equal column blocks' means,
+    summed over `model` (one rank: its own mean)."""
+    v = y * F.silu(z)
+    vf = v.float()
+    ms = sh.sum_over_tp(vf.square().mean(dim=-1, keepdim=True)) / sh.tp_size()
+    return (vf * torch.rsqrt(ms + 1e-5) * p["scale"]).to(v.dtype)
 
 
 def init_ssm(gen: Optional[torch.Generator], cfg: ModelConfig, *, lead=(), device=None,
@@ -57,7 +94,7 @@ def init_ssm(gen: Optional[torch.Generator], cfg: ModelConfig, *, lead=(), devic
     norm's gain stay float32, as JAX keeps them (it casts the conv kernels
     and D per use, and adds dt_bias in float32)."""
     h = cfg.d_model
-    di, N, P, nh, g = _dims(cfg)
+    di, N, P, nh, g = _dims(cfg, whole=True)
     kw = dict(lead=lead, device=device, dtype=dtype)
 
     def normal(cols, scale):
@@ -114,14 +151,15 @@ def apply_ssm(p, x, cfg: ModelConfig, *, state=None):
     dtype = x.dtype
     impl = cfg.linear_impl
 
-    z = linear(x, p["in_z"], impl=impl)
-    u_x = linear(x, p["in_x"], impl=impl)
-    u_B = linear(x, p["in_B"], impl=impl)
+    xc = sh.copy_to_tp(x)                              # into the column-parallel pair
+    z = linear(xc, p["in_z"], impl=impl)
+    u_x = linear(xc, p["in_x"], impl=impl)
+    u_B = linear(x, p["in_B"], impl=impl)              # replicated: whole on every rank
     u_C = linear(x, p["in_C"], impl=impl)
     xr = _causal_conv(u_x, p["conv_x"].to(dtype), p["conv_bx"])
-    Bv = _causal_conv(u_B, p["conv_B"].to(dtype), p["conv_bB"])
-    Cv = _causal_conv(u_C, p["conv_C"].to(dtype), p["conv_bC"])
-    dt = linear(x, p["in_dt"], impl=impl)
+    Bv = _rank_groups(_causal_conv(u_B, p["conv_B"].to(dtype), p["conv_bB"]), cfg)
+    Cv = _rank_groups(_causal_conv(u_C, p["conv_C"].to(dtype), p["conv_bC"]), cfg)
+    dt = sh.scatter_to_tp(linear(x, p["in_dt"], impl=impl), -1)    # this rank's heads
 
     # conv-state tails for the handoff: the last (width - 1) pre-activation rows
     w1 = cfg.conv_width - 1
@@ -176,16 +214,19 @@ def apply_ssm(p, x, cfg: ModelConfig, *, state=None):
     y = y_diag + y_off.reshape(b, sp, nh, P)
     y = y + xin * p["D"].to(dtype)[None, None, :, None]
     y = y.reshape(b, sp, di)[:, :s]
-    y = norm_apply(p["norm"], y * F.silu(z))
-    return linear(y, p["out_proj"], impl=impl), (run, conv_tails)
+    y = _gated_norm(p["norm"], y, z)
+    return sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl)), (run, conv_tails)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None, *,
                    lead=()):
     """Zeros: the SSM state (b, nh, N, P) and each conv branch's tail (b,
     width - 1, channels), with `lead` dims in front (the stacked layers).
-    Real zeros, one buffer per layer: the caches are written in place."""
-    di, N, P, nh, g = _dims(cfg)
+    Real zeros, one buffer per layer: the caches are written in place.
+    Under tensor parallelism: this rank's heads and x channels, B and C
+    whole."""
+    di, N, P, nh, _ = _dims(cfg)
+    g = cfg.ssm_ngroups
     w = cfg.conv_width - 1
     shapes = {"state": (batch, nh, N, P), "conv_x": (batch, w, di),
               "conv_B": (batch, w, g * N), "conv_C": (batch, w, g * N)}
@@ -208,14 +249,16 @@ def decode_ssm(p, x, cfg: ModelConfig, cache):
     dtype = x.dtype
     xt = x[:, 0]
     impl = cfg.linear_impl
-    z = linear(xt, p["in_z"], impl=impl)
-    xr, ncx = _conv_step(cache["conv_x"].to(dtype), linear(xt, p["in_x"], impl=impl),
+    xc = sh.copy_to_tp(xt)
+    z = linear(xc, p["in_z"], impl=impl)
+    xr, ncx = _conv_step(cache["conv_x"].to(dtype), linear(xc, p["in_x"], impl=impl),
                          p["conv_x"].to(dtype), p["conv_bx"])
     Bv, ncB = _conv_step(cache["conv_B"].to(dtype), linear(xt, p["in_B"], impl=impl),
                          p["conv_B"].to(dtype), p["conv_bB"])
     Cv, ncC = _conv_step(cache["conv_C"].to(dtype), linear(xt, p["in_C"], impl=impl),
                          p["conv_C"].to(dtype), p["conv_bC"])
-    dt = linear(xt, p["in_dt"], impl=impl)
+    Bv, Cv = _rank_groups(Bv, cfg), _rank_groups(Cv, cfg)
+    dt = sh.scatter_to_tp(linear(xt, p["in_dt"], impl=impl), -1)
 
     xin = xr.reshape(b, nh, P)
     Bh = Bv.reshape(b, g, 1, N).expand(b, g, nh // g, N).reshape(b, nh, N)
@@ -230,6 +273,6 @@ def decode_ssm(p, x, cfg: ModelConfig, cache):
     state = state * dA[..., None, None] + torch.einsum("bhn,bhp->bhnp", Bh, x_dt)
     y = torch.einsum("bhnp,bhn->bhp", state, Ch) + xin * p["D"].to(dtype)[None, :, None]
     y = y.reshape(b, di)
-    y = norm_apply(p["norm"], y * F.silu(z))
-    out = linear(y, p["out_proj"], impl=impl)[:, None]
+    y = _gated_norm(p["norm"], y, z)
+    out = sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl))[:, None]
     return out, {"state": state, "conv_x": ncx, "conv_B": ncB, "conv_C": ncC}

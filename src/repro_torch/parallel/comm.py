@@ -17,7 +17,14 @@ The autograd forms say what the objective is across the group:
                  an objective that is the sum of the ranks' losses
   gather_from    all-gather forward, this rank's slice backward
   fsdp_gather    all-gather forward, reduce-scatter (sum) backward: a
-                 sharded parameter used whole by ranks whose losses add up
+                 sharded tensor used whole by ranks whose losses add up
+                 (a parameter over `data`; MLA's latent, and a sequence
+                 shard entering column-parallel layers, over `model`)
+  scatter_to     this rank's slice forward, all-gather backward
+  reduce_scatter_from
+                 reduce-scatter forward, all-gather backward: partial
+                 sums of which each rank keeps its slice (a row-parallel
+                 exit under sequence parallelism)
 """
 from __future__ import annotations
 
@@ -178,6 +185,28 @@ class _FsdpGather(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(size(group), dim=dim)[rank(group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 def copy_to(x, group):
     return x if group is None else _CopyTo.apply(x, group)
 
@@ -196,6 +225,14 @@ def gather_from(x, group, dim: int):
 
 def fsdp_gather(x, group, dim: int):
     return x if group is None else _FsdpGather.apply(x, group, dim)
+
+
+def scatter_to(x, group, dim: int):
+    return x if group is None else _ScatterTo.apply(x, group, dim)
+
+
+def reduce_scatter_from(x, group, dim: int):
+    return x if group is None else _ReduceScatterFrom.apply(x, group, dim)
 
 
 # --- point to point under autograd (the pipeline's hops) ------------------------------

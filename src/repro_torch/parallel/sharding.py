@@ -26,6 +26,13 @@ collective goes and the model calls it:
     entropy (`models/lm.py`);
   * experts are sharded on `model`: each rank runs its own experts'
     assignments and the combine is one all-reduce (`models/moe.py`);
+  * MLA: the column-sharded down projections' latents are all-gathered
+    (`gather_latent`) before the up projections, which are column-parallel
+    over heads (`models/attention.py` `apply_mla`);
+  * the SSM block: d_inner and its heads over `model`, B / C / dt computed
+    whole and sliced to the rank's heads (`scatter_to_tp`), the gated
+    norm's mean square summed over `model` (`sum_over_tp`; `models/ssm.py`);
+  * sequence parallelism (`cfg.seq_parallel`): below;
   * FSDP: the model gathers each data-sharded leaf where it uses it
     (`fsdp_use`: a layer's leaves in the layer loop, the embedding and
     head where they are applied), through `fsdp_gather`, whose backward
@@ -276,33 +283,20 @@ def gather_leaf_to_host(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
 
 
 def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
-    """Raise for what the explicit plan does not cover.  Under data
-    parallelism every family runs (each rank computes whole layers);
-    tensor parallelism covers GQA attention with dense or MoE MLPs."""
+    """Raise for what the explicit plan does not cover.  Every family runs
+    under data and tensor parallelism, and under `seq_parallel`; refused
+    under `model` > 1: int8 weights (a row-parallel shard's per-channel
+    scales differ from the whole weight's), and GQA KV heads that do not
+    split into whole groups (JAX's spec splits wk / wv columns mid-head
+    there).  Then the widths that must split over `model`."""
     t = mesh_cfg.model
     if t == 1:
         return
-    family = None
-    if cfg.family in ("ssm", "hybrid"):
-        family = "SSM" if cfg.family == "ssm" else "hybrid"
-    elif cfg.attn_type == "mla":
-        family = "MLA"
-    elif cfg.is_encoder_decoder:
-        family = "encoder-decoder"
-    elif cfg.family == "vlm":
-        family = "VLM"
-    if family:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model={t}) is not ported for the {family} family; "
-            "it runs under data parallelism (--data) only")
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: sequence parallelism (seq_parallel=True) is not ported (model={t})")
     if cfg.linear_impl == "quantized":
         raise NotImplementedError(
             f"{cfg.name}: linear_impl='quantized' under tensor parallelism (model={t}) is not "
             "ported: a row-parallel shard's per-channel int8 scales differ from the whole weight's")
-    if cfg.num_kv_heads % t:
+    if cfg.attn_type == "gqa" and cfg.num_kv_heads % t:
         raise ValueError(
             f"{cfg.name}: num_kv_heads {cfg.num_kv_heads} % model {t} != 0: GQA heads split as "
             f"whole KV groups (num_heads {cfg.num_heads}, num_kv_heads {cfg.num_kv_heads})")
@@ -311,6 +305,18 @@ def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
         errs.append(f"padded vocab {cfg.padded_vocab_size} % tp {t} != 0")
     if cfg.num_experts and cfg.num_shared_experts and cfg.moe_d_ff % t:
         errs.append(f"moe_d_ff {cfg.moe_d_ff} % tp {t} != 0")
+    if cfg.attn_type == "mla":
+        # the down projections are column-sharded (their outputs gathered)
+        for name, n in (("q_lora_rank", cfg.q_lora_rank),
+                        ("kv_lora_rank + qk_rope_dim", cfg.kv_lora_rank + cfg.qk_rope_dim)):
+            if n % t:
+                errs.append(f"{name} {n} % tp {t} != 0")
+    if cfg.ssm_state:
+        nh, g = cfg.ssm_nheads, cfg.ssm_ngroups
+        if nh % t:
+            errs.append(f"ssm heads {nh} % tp {t} != 0")
+        if g % t and t % g:
+            errs.append(f"ssm_ngroups {g} and tp {t}: neither divides the other")
     if errs:
         raise ValueError(f"{cfg.name}: " + "; ".join(errs))
 
@@ -508,6 +514,25 @@ def gather_from_tp(x, dim: int):
     return comm.gather_from(x, _tp_group(), dim)
 
 
+def gather_latent(x, dim: int = -1):
+    """MLA's down projections' column shards made whole for this rank's
+    heads, which all read the whole latent: all-gather forward, and the
+    heads' partial gradients reduce-scattered back (`comm.fsdp_gather`)."""
+    return comm.fsdp_gather(x, _tp_group(), dim % x.dim())
+
+
+def scatter_to_tp(x, dim: int):
+    """This rank's block of a replicated tensor along `dim` (its heads'
+    columns), whose gradient is all-gathered back."""
+    return comm.scatter_to(x, _tp_group(), dim % x.dim())
+
+
+def sum_over_tp(x):
+    """A statistic of this rank's columns summed over `model`, both ways
+    (the SSD gated norm's mean square over the sharded d_inner)."""
+    return comm.sum_across(x, _tp_group())
+
+
 def sum_over_dp(x):
     """A statistic summed over the data ranks, differentiably: each rank's
     loss is its share of the global one."""
@@ -517,3 +542,81 @@ def sum_over_dp(x):
 def gather_dp(x, dim: int = 0):
     """Every data rank's `x` concatenated along `dim` (no gradient)."""
     return comm.all_gather(x, _dp_group(), dim)
+
+
+# --- sequence parallelism (cfg.seq_parallel) ------------------------------------------
+#
+# Between the dense and MoE layers' blocks the residual stream is split on
+# the sequence (dim 1) over `model` (JAX's "btd_sp" constraint,
+# blocks.py:173-175 of the JAX package), so the norms run on each rank's
+# shard.  Inside such a layer (`seq_region`) each column-parallel entry is
+# an all-gather on the sequence, whose backward reduce-scatters the
+# gradient, and each row-parallel exit a reduce-scatter on the sequence,
+# whose backward all-gathers it; outside one they are `copy_to_tp` and
+# `reduce_from_tp`.
+
+SEQ_DIM = 1
+_SEQ = False
+
+
+def seq_parallel(cfg: ModelConfig, s: int) -> bool:
+    """Whether a pass over `s` positions splits the residual stream on the
+    sequence: the flag, tensor parallelism, and s > 1 (decode keeps its
+    plain placement, as JAX's constraint does)."""
+    return bool(cfg.seq_parallel) and tp_size() > 1 and s > 1
+
+
+@contextlib.contextmanager
+def seq_region():
+    """Inside: the layer's input is this rank's sequence shard."""
+    global _SEQ
+    before, _SEQ = _SEQ, True
+    try:
+        yield
+    finally:
+        _SEQ = before
+
+
+def scatter_seq(x):
+    """The residual stream split on the sequence: this rank's block (its
+    gradient all-gathered back).  t must divide the sequence."""
+    s, t = x.shape[SEQ_DIM], tp_size()
+    if s % t:
+        raise ValueError(f"seq_parallel: sequence length {s} does not split over model {t} "
+                         f"({s} % {t} != 0)")
+    return comm.scatter_to(x, _tp_group(), SEQ_DIM)
+
+
+def gather_seq(x):
+    """The sequence shards made whole for replicated work after them (the
+    head, a kind that runs whole): all-gather, this rank's slice back."""
+    return comm.gather_from(x, _tp_group(), SEQ_DIM)
+
+
+def seq_reduce_scatter(x):
+    """A row-parallel exit inside a sequence region: the partial sums
+    reduce-scattered on the sequence."""
+    return comm.reduce_scatter_from(x, _tp_group(), SEQ_DIM)
+
+
+def tp_enter(x):
+    """The input of column-parallel layers: `copy_to_tp`, or inside a
+    sequence region the all-gather of the sequence shards."""
+    if _SEQ:
+        return comm.fsdp_gather(x, _tp_group(), SEQ_DIM)
+    return copy_to_tp(x)
+
+
+def tp_exit(x):
+    """The output of a row-parallel layer: `reduce_from_tp`, or inside a
+    sequence region the reduce-scatter on the sequence."""
+    if _SEQ:
+        return seq_reduce_scatter(x)
+    return reduce_from_tp(x)
+
+
+def tokens_whole(x):
+    """A layer that runs every token whole on each rank (the MoE router and
+    dispatch, whose replicated inputs take `copy_to_tp` themselves): inside
+    a sequence region the shards all-gathered, this rank's slice back."""
+    return gather_seq(x) if _SEQ else x

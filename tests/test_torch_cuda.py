@@ -1716,8 +1716,16 @@ def test_encdec_and_vlm_grads_kernel_path_match_plain_path(cuda, arch):
 # shard of 46272) at data=2's 2048 training rows a rank; llama4-maverick at
 # model=2 (20 / 4 heads, g = 5; dense d_ff 8192; a vocab shard of 101024,
 # not a multiple of 64; 8 of 16 experts) at a 4 x 1024 prefill.  (m, k, n)
+# The MLA, SSM, hybrid, encoder-decoder and VLM families at model=2:
+# deepseek-v3's per-shard MLA projections at its 4 x 1024 prefill
+# (wq_down 7168 x 768 and wkv_down 7168 x 288, a column tail past the
+# 128-wide tile; wq_up 1536 x 12288, wk_up / wv_up 512 x 8192, wo 8192 x
+# 7168 over 64 heads a rank) and whisper-small's q / k / v at 384 columns
+# (6 heads of 64) over 4 x 1500 encoder frames.
 SHARD_GEMMS = [(2048, 2048, 1024), (2048, 2048, 512), (2048, 1024, 2048), (2048, 4096, 2048),
-               (2048, 2048, 46272), (4096, 5120, 101024)]
+               (2048, 2048, 46272), (4096, 5120, 101024),
+               (4096, 7168, 768), (4096, 7168, 288), (4096, 1536, 12288), (4096, 512, 8192),
+               (4096, 8192, 7168), (6000, 768, 384)]
 
 
 @pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
@@ -1733,28 +1741,41 @@ def test_matmul_at_the_shard_shapes(cuda, layout, m, k, n):
     _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
 
 
-@pytest.mark.parametrize("m,h,f", [(2048, 2048, 4096), (4096, 5120, 8192)])
-def test_fused_mlp_at_the_shard_shapes(cuda, m, h, f):
+# (m, h, f, mlp_type): d_ff / 2 a rank at model=2: internlm2, llama4's
+# dense layer; whisper-small (GELU 1536, 4 x 1500 frames), zamba2-2.7b's
+# shared block (GELU 5120), deepseek-v3's dense layer (SwiGLU 9216) and
+# internvl2-76b (SwiGLU 14336), at 4 x 1024 rows
+SHARD_MLPS = [(2048, 2048, 4096, "swiglu"), (4096, 5120, 8192, "swiglu"),
+              (6000, 768, 1536, "gelu"), (4096, 2560, 5120, "gelu"),
+              (4096, 7168, 9216, "swiglu"), (4096, 8192, 14336, "swiglu")]
+
+
+@pytest.mark.parametrize("m,h,f,mlp_type", SHARD_MLPS)
+def test_fused_mlp_at_the_shard_shapes(cuda, m, h, f, mlp_type):
     rng = np.random.default_rng(41)
     bf = torch.bfloat16
     x = _rand(rng, (m, h), bf, cuda)
     wg, wu = (_rand(rng, (h, f), bf, cuda, h ** -0.5) for _ in range(2))
     dh = _rand(rng, (m, f), bf, cuda)
-    got = fused_mlp_hidden(x, wg, wu, mlp_type="swiglu")
+    got = fused_mlp_hidden(x, wg, wu, mlp_type=mlp_type)
     torch.cuda.synchronize()
-    want = fused_mlp_hidden_ref(x, wg, wu, "swiglu")
-    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, "swiglu", want))
+    want = fused_mlp_hidden_ref(x, wg, wu, mlp_type)
+    _close(got, want, tolerance.fused_mlp_hidden_tol(x, wg, wu, mlp_type, want))
     del got, want
-    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type="swiglu")
+    got = fused_mlp_bwd(x, wg, wu, dh, mlp_type=mlp_type)
     torch.cuda.synchronize()
-    want = fused_mlp_bwd_ref(x, wg, wu, dh, "swiglu")
-    for g, w, t in zip(got, want, tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, "swiglu", want)):
-        _close(g, w, t)
+    want = fused_mlp_bwd_ref(x, wg, wu, dh, mlp_type)
+    for g, w, t in zip(got, want, tolerance.fused_mlp_bwd_tol(x, wg, wu, dh, mlp_type, want)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _close(g, w, t)
 
 
 # (b, sq, skv, a, nkv, d, causal): internlm2 at model=2 (2 rows a data
-# rank), llama4-maverick at model=2 (g = 5)
-SHARD_FLASH_CASES = [(2, 1024, 1024, 8, 4, 128, True), (4, 1024, 1024, 20, 4, 128, True)]
+# rank), llama4-maverick at model=2 (g = 5), whisper-small's encoder at
+# model=2 (6 heads of 64 over 1500 frames, non-causal)
+SHARD_FLASH_CASES = [(2, 1024, 1024, 8, 4, 128, True), (4, 1024, 1024, 20, 4, 128, True),
+                     (4, 1500, 1500, 6, 6, 64, False)]
 
 
 @pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", SHARD_FLASH_CASES)
@@ -1771,6 +1792,26 @@ def test_flash_attention_at_the_shard_shapes(cuda, b, sq, skv, a, nkv, d, causal
     tols = tolerance.flash_attention_bwd_tol(q, k, v, *want, do, gwant, causal=causal)
     for g, w, t in zip(got, gwant, tols):
         _close(g, w, t)
+
+
+# the paged decode kernel at the model=2 serve runs' per-shard heads:
+# zamba2-2.7b's shared attention (16 KV heads of 80, g = 1) and
+# internvl2-76b (4 KV heads of 128, g = 8), 4 rows of up to 1096 tokens
+@pytest.mark.parametrize("nkv,g,d", [(16, 1, 80), (4, 8, 128)])
+def test_paged_decode_at_the_shard_shapes(cuda, nkv, g, d):
+    rng = np.random.default_rng(46)
+    bf = torch.bfloat16
+    b, s_max = 4, 1096
+    q = _rand(rng, (b, nkv * g, d), bf, cuda)
+    kp, vp = (_rand(rng, (b, s_max, nkv, d), bf, cuda) for _ in range(2))
+    slot_idx = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([1025, s_max, 1, 700], dtype=torch.int32, device=cuda)
+    before = paged_decode.launches
+    got = paged_decode(q, kp, vp, slot_idx, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
 
 
 # llama4-maverick's expert stacks at model=2: 8 of its 16 experts a rank, at
@@ -1798,3 +1839,28 @@ def test_expert_launches_at_the_shard_shapes(cuda, cap):
     assert mops.matmul_expert.launches == before + 1
     want = matmul_expert_ref(hdn, wd)
     _close(got, want, tolerance.matmul_tol(hdn, wd, want))
+
+
+# The SSD chunk kernel and its backward at model=2: mamba2-780m's 24 of 48
+# heads (N 128) and zamba2-2.7b's 40 of 80 (N 64), 4 x 1024 tokens in
+# chunks of 256; 40 heads are three 12-head slabs and a tail of 4
+@pytest.mark.parametrize("nh,N", [(24, 128), (40, 64)])
+def test_ssd_chunk_at_the_shard_shapes(cuda, nh, N):
+    from repro_torch.kernels.ssd.ops import launch_shape, ssd_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_chunk_bwd_ref
+    bf = torch.bfloat16
+    rng = np.random.default_rng(nh)
+    x, B, C, seg = _ssd_operands(rng, (4, 1, nh), 4, 256, 64, N, bf, cuda, step=SLOW_DECAY)
+    ls = launch_shape(tuple(x.shape[:3]), 4, B.stride()[:5], C.stride()[:5], 256, N, 64)
+    assert ls.heads == 12 and (nh % ls.heads == 0) == (nh == 24)
+    got = ssd_chunk(x, B, C, seg)
+    want = ssd_chunk_ref(x, B, C, seg)
+    for g, w, tol in zip(got, want, tolerance.ssd_chunk_tol(x, B, C, seg, want)):
+        _close(g, w, tol)
+    dY = _rand(rng, x.shape, bf, cuda)
+    dS = _rand(rng, (*x.shape[:-2], N, 64), bf, cuda)
+    ops = (x, B, C, seg, dY, dS)
+    got = ssd_chunk_bwd(*ops)
+    want = ssd_chunk_bwd_ref(*ops)
+    for g, w, tol in zip(got, want, tolerance.ssd_chunk_bwd_tol(*ops, want)):
+        _close(g, w, tol)

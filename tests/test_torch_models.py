@@ -368,13 +368,13 @@ def test_init_lm_scales_match_jax(smoke):
 def test_unported_paths_raise(smoke):
     """The refusals the port keeps (an unknown linear_impl or attn_impl, a
     block table outside single-token decode, the engines on whisper-small
-    and internvl2-76b, as JAX's engine refuses them; tensor parallelism on
-    the MLA, SSM, hybrid, encoder-decoder and VLM families and sequence
-    parallelism, each naming what it refuses; KV heads that do not split
-    into whole groups over `model`), and what was refused before and is
-    ported now: int8 weights, attn_impl="blocked" (equal to the naive
-    path), whisper-small's params (on the meta device), tensor parallelism
-    on the dense and MoE GQA families."""
+    and internvl2-76b, as JAX's engine refuses them; under tensor
+    parallelism, int8 weights and KV heads that do not split into whole
+    groups over `model`, each naming what it refuses), and what was refused
+    before and is ported now: int8 weights, attn_impl="blocked" (equal to
+    the naive path), whisper-small's params (on the meta device), tensor
+    parallelism on every family (dense and MoE GQA, MLA, SSM, hybrid,
+    encoder-decoder, VLM) and sequence parallelism."""
     from repro_torch.serving.engine import Engine
     _, _, cfg, params = smoke
     x = torch.zeros(1, 2, cfg.d_model)
@@ -403,14 +403,13 @@ def test_unported_paths_raise(smoke):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.sharding import Plan
     tp2 = Mesh(MeshConfig(model=2))
-    for arch, family in (("deepseek-v3-671b", "MLA"), ("mamba2-780m", "SSM"),
-                         ("zamba2-2.7b", "hybrid"), ("whisper-small", "encoder-decoder"),
-                         ("internvl2-76b", "VLM")):
-        with pytest.raises(NotImplementedError, match=f"model=2.*{family}"):
-            Plan(get_config(arch), tp2)
+    for arch in ("deepseek-v3-671b", "mamba2-780m", "zamba2-2.7b", "whisper-small",
+                 "internvl2-76b"):
+        assert Plan(get_config(arch), tp2).tp == 2
         Plan(get_config(arch), Mesh(MeshConfig(data=2)))     # data parallelism runs
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        Plan(dataclasses.replace(get_config("internlm2-1.8b"), seq_parallel=True), tp2)
+        with pytest.raises(NotImplementedError, match=r"linear_impl='quantized'.*model=2"):
+            Plan(dataclasses.replace(get_config(arch), linear_impl="quantized"), tp2)
+    assert Plan(dataclasses.replace(get_config("internlm2-1.8b"), seq_parallel=True), tp2).tp == 2
     with pytest.raises(ValueError, match=r"num_kv_heads 8 % model 16.*num_heads 16"):
         Plan(get_config("internlm2-1.8b"), Mesh(MeshConfig(model=16)))
     for arch in ("internlm2-1.8b", "llama4-maverick-400b-a17b"):

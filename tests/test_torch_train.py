@@ -434,20 +434,21 @@ def test_functions_only_when_a_gradient_is_recorded(ref, monkeypatch):
     (["--arch", "mamba2-780m", "--data", "2", "--model", "2"], "parallelism"),
     (["--data", "2"], "parallelism")])
 def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd):
-    """--data / --model are ported: tensor parallelism (--model) is refused,
-    before any rank starts, only for the families the plan does not cover
-    (MLA, SSM, ...), naming the family; --data runs every family (here
-    internlm2-smoke on two ranks over gloo)."""
+    """--data / --model are ported for every family: deepseek-smoke (MLA,
+    MoE, MTP) at --model 2 and mamba2-smoke at --data 2 --model 2 run over
+    gloo, as internlm2-smoke at --data 2 does.  What tensor parallelism
+    still refuses, before any rank starts, is KV heads that do not split
+    into whole groups (internlm2-smoke's 2 over --model 4, named); int8
+    weights, its other refusal, have no launcher flag
+    (test_torch_models.py::test_unported_paths_raise holds it)."""
     from repro_torch.launch import train
     base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1", "--global-batch", "2",
             "--seq-len", "8", "--checkpoint-dir", str(tmp_path)]
-    if "--model" in argv:
-        family = "MLA" if "deepseek-v3-671b" in argv else "SSM"
-        with pytest.raises(NotImplementedError, match=f"tensor {slice_name}.*{family} family"):
-            train.main([*base, *argv])
-        return
     train.main([*base, *argv])
-    assert "done: 2 ranks over gloo" in capfd.readouterr().out
+    ranks = 4 if "--data" in argv and "--model" in argv else 2
+    assert f"done: {ranks} ranks over gloo" in capfd.readouterr().out
+    with pytest.raises(ValueError, match="num_kv_heads 2 % model 4.*whole KV groups"):
+        train.main([*base, "--model", "4"])
 
 
 def test_train_launcher_refuses_to_run_without_a_card(monkeypatch):

@@ -9,7 +9,8 @@ job's "dir" (params.npz: the JAX package's params flattened by "/" path;
 inputs.npz for the pipeline) and its mesh's rank 0 writes out.npz there.
 Each case runs sound first, then once for each planted fault of
 job["faults"] (`planted`), under "<fault>/" keys.  Imports torch and the
-port only: the JAX side is the tests'.  `run_suite` is the tests' entry.
+port only: the JAX side is the tests'.  `run_suite` (or `start_suite`, then
+`finish_suite`) is the tests' entry.
 """
 from __future__ import annotations
 
@@ -30,12 +31,15 @@ from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig  # noq
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import blocks as blocks_mod  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import lm_loss, moe, moe_shardmap  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.optim.adamw import OptState, init_opt, tree_leaves  # noqa: E402
 from repro_torch.parallel import comm, pipeline  # noqa: E402
 from repro_torch.parallel import sharding as sh  # noqa: E402
 from repro_torch.serving.serve_step import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 
@@ -51,6 +55,17 @@ def _local_reduce_scatter(t, group, dim):
 
 _STEP = [0]      # the train case's step, for faults that start late
 _row_absmax = sh.Plan.row_absmax
+_apply_encoder = lm_mod.apply_encoder
+
+
+def _encoder_without_allreduce(*args, **kwargs):
+    """apply_encoder with its row-parallel all-reduces (wo, w_down) skipped."""
+    real = sh.reduce_from_tp
+    sh.reduce_from_tp = lambda x: x
+    try:
+        return _apply_encoder(*args, **kwargs)
+    finally:
+        sh.reduce_from_tp = real
 
 
 FAULTS = {
@@ -70,6 +85,21 @@ FAULTS = {
     "local_capacity": [(moe, "global_slots", lambda counts, t: (torch.zeros_like(counts), t))],
     # shard_map with the global capacity and slots of "auto"
     "shardmap_global": [(moe_shardmap, "apply_moe_shardmap", moe.apply_moe_auto)],
+    # MLA: each rank's slice of the down projections' latents in place of
+    # the gathered latent (repeated to its width)
+    "latent_slice": [(sh, "gather_latent",
+                      lambda x, dim=-1: torch.cat([x] * sh.tp_size(), dim=dim))],
+    # the SSD gated norm's mean square over this rank's columns only
+    "norm_sum_dropped": [(sh, "sum_over_tp", lambda x: x)],
+    # sequence parallelism: each row-parallel exit keeps this rank's slice
+    # of its own partial sums, never summed over `model`
+    "seq_local_slice": [(sh, "seq_reduce_scatter",
+                         lambda x: x.chunk(sh.tp_size(), dim=1)[sh.tp_rank()].contiguous())],
+    # the encoder's row-parallel all-reduces dropped (the decoder's kept)
+    "encoder_allreduce_dropped": [(lm_mod, "apply_encoder", _encoder_without_allreduce)],
+    # sequence parallelism: the norm gains' gradients left as each rank's
+    # partial over its sequence shard, never summed over `model`
+    "seq_norm_sum_dropped": [(blocks_mod, "_norms_summed_over_tp", lambda p: p)],
 }
 
 
@@ -185,11 +215,28 @@ def _batch(cfg, job, step):
 
 # --- cases ------------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def recording_grads(plan, record):
+    """The train step's reduced gradients of its first update, gathered
+    whole, into record (read where `apply_updates` takes them)."""
+    real = train_step_mod.apply_updates
+
+    def f(params, grads, opt_state, tc, plan=None, specs=None):
+        if not record:
+            record.update(_flat(plan.gather(grads, specs), "grads/"))
+        return real(params, grads, opt_state, tc, plan=plan, specs=specs)
+    train_step_mod.apply_updates = f
+    try:
+        yield
+    finally:
+        train_step_mod.apply_updates = real
+
+
 def train_case(mesh, d, job):
     """Steps at a (data, model) mesh from the JAX params: each step's loss
     and grad norm, params and moments gathered after each step (step{i}/)
-    and at the end; the sound run saves a checkpoint (ckpt/) with the
-    plan."""
+    and at the end, and with job["grads"] step 0's gradients (grads/); the
+    sound run saves a checkpoint (ckpt/) with the plan."""
     cfg = _cfg(job)
     plan = sh.Plan(cfg, mesh)
     whole = _whole_params(d, cfg, job)
@@ -200,10 +247,11 @@ def train_case(mesh, d, job):
             params = plan.shard(whole)
             opt = init_opt(params, tc)
             step_fn = make_train_step(cfg, tc, n_micro=job.get("n_micro", 1), plan=plan)
-            losses, norms, steps, gathers = [], [], {}, [0]
+            losses, norms, steps, gathers, grads = [], [], {}, [0], {}
             for i in range(job["steps"]):
                 _STEP[0] = i
-                with counting_gathers(gathers):
+                with counting_gathers(gathers), (recording_grads(plan, grads) if job.get("grads")
+                                                 else contextlib.nullcontext()):
                     params, opt, m = step_fn(params, opt, _batch(cfg, job, i))
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
@@ -211,7 +259,7 @@ def train_case(mesh, d, job):
                               _flat_state(*gather_state(plan, params, opt)).items()})
             gathered, state = gather_state(plan, params, opt)
         key = "" if fault is None else f"{fault}/"
-        out.update({key + k: v for k, v in steps.items()})
+        out.update({key + k: v for k, v in {**steps, **grads}.items()})
         out[key + "loss"] = np.array(losses)
         out[key + "grad_norm"] = np.array(norms)
         out[key + "fsdp_gathers"] = np.array(gathers[0])
@@ -281,28 +329,43 @@ def _tree_like(tree, it):
 
 def serve_case(mesh, d, job):
     """Prefill and job["decode"] greedy decode steps under tensor
-    parallelism: every step's logits."""
+    parallelism: every step's logits and the greedy tokens.  inputs.npz
+    (where given) holds the tokens and the model's patch_embeds or
+    encoder_frames (an encoder-decoder's output then computed once, under
+    the plan, for the decode steps); else tokens.npy."""
     cfg = _cfg(job)
     plan = sh.Plan(cfg, mesh)
-    with np.load(os.path.join(d, "params.npz")) as z:
+    with np.load(os.path.join(job.get("params", d), "params.npz")) as z:
         whole = params_from_jax(_nest({k: z[k] for k in z.files}), cfg, "cpu")
-    tokens = torch.from_numpy(np.load(os.path.join(d, "tokens.npy")))
+    if os.path.exists(os.path.join(d, "inputs.npz")):
+        with np.load(os.path.join(d, "inputs.npz")) as z:
+            inputs = {k: torch.from_numpy(z[k]) for k in z.files}
+    else:
+        inputs = {"tokens": torch.from_numpy(np.load(os.path.join(d, "tokens.npy")))}
+    tokens = inputs["tokens"]
+    lead = inputs["patch_embeds"].shape[1] if "patch_embeds" in inputs else 0
     out = {}
     for fault in [None] + job.get("faults", []):
         with planted(fault), torch.no_grad():
             params = plan.shard(whole)
-            s0 = tokens.shape[1]
-            logits, caches = make_prefill_step(cfg, s0 + job["decode"], plan)(
-                params, {"tokens": tokens})
-            steps = [logits]
+            s0 = lead + tokens.shape[1]
+            logits, caches = make_prefill_step(cfg, s0 + job["decode"], plan)(params, inputs)
+            enc_out = None
+            if "encoder_frames" in inputs:
+                with sh.use(plan):
+                    enc_out = lm_mod.apply_encoder(params, inputs["encoder_frames"], cfg)
+            steps, toks = [logits], []
             decode = make_decode_step(cfg, plan)
             for i in range(job["decode"]):
                 tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-                logits, caches = decode(params, tok, caches, s0 + i)
+                toks.append(tok)
+                logits, caches = decode(params, tok, caches, s0 + i, enc_out)
                 steps.append(logits)
         key = "" if fault is None else f"{fault}/"
         out[key + "logits"] = torch.stack(steps).numpy()
-        out[key + "cache_k"] = caches[0]["k"].numpy()
+        out[key + "tokens"] = torch.cat(toks, dim=1).numpy()
+        if "k" in caches[0]:
+            out[key + "cache_k"] = caches[0]["k"].numpy()
     if mesh.rank == 0:
         np.savez(os.path.join(d, "out.npz"), **out)
 
@@ -362,14 +425,29 @@ def flat_paths(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree, dtype=np.float32)}
 
 
-def run_suite(d, jobs, timeout: float = 240):
-    """Run the case jobs (each with its "dir") in one world; returns each
-    job's outputs, in order (a pipeline job: a list, one per rank)."""
+def start_suite(d, jobs):
+    """Start the case jobs (each with its "dir") in one world of ranks, in
+    a subprocess; `finish_suite` waits for it.  The callers compute their
+    references meanwhile."""
     with open(os.path.join(d, "suite.json"), "w") as f:
         json.dump(jobs, f)
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(d)], capture_output=True,
-                       text=True, timeout=timeout)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-5000:]
+    with open(os.path.join(d, "suite.log"), "w") as log:   # a file: no pipe to fill
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), str(d)],
+                                stdout=log, stderr=subprocess.STDOUT)
+    proc.log = os.path.join(d, "suite.log")
+    return proc
+
+
+def finish_suite(proc, jobs, timeout: float = 240):
+    """Each job's outputs, in order (a pipeline job: a list, one per rank)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(proc.log) as f:
+        log = f.read()
+    assert proc.returncode == 0, log[-8000:]
     outs = []
     for job in jobs:
         if job["case"] == "pipeline":
@@ -379,6 +457,12 @@ def run_suite(d, jobs, timeout: float = 240):
             with np.load(os.path.join(job["dir"], "out.npz")) as z:
                 outs.append({k: z[k] for k in z.files})
     return outs
+
+
+def run_suite(d, jobs, timeout: float = 240):
+    """Run the case jobs (each with its "dir") in one world; returns each
+    job's outputs, in order (a pipeline job: a list, one per rank)."""
+    return finish_suite(start_suite(d, jobs), jobs, timeout)
 
 
 def main():
