@@ -654,9 +654,31 @@ def time_ms(torch, calls, iters=ITERS):
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least ms the card could take, what bounds it); `peak` is the rate of
-    the operations' type."""
+    the operations' type.  Every caller takes (flops, nbytes) from the
+    kernel's `cost` function (`kernel_cost`), the numbers the kernel charges
+    the op counter (src/repro_torch/core/op_analysis.py)."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def kernel_cost(name: str, *args, **kw):
+    """(FLOPs, bytes) of a kernel's work from its wrapper module's cost
+    function: "matmul", "matmul_expert", "fused_mlp", "fused_mlp_bwd" (the
+    recompute and its tile GEMMs, summed), "flash", "flash_bwd", "paged",
+    "int8", "int8_fused", "ssd", "ssd_bwd"."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_mlp import ops as fused_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.quantized import ops as q_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    if name == "fused_mlp_bwd":
+        launches = fused_ops.bwd_launches(*args, **kw)
+        return sum(x[1] for x in launches), sum(x[2] for x in launches)
+    fn = {"matmul": mm_ops.cost, "matmul_expert": mm_ops.expert_cost, "fused_mlp": fused_ops.cost,
+          "flash": flash_ops.flash_cost, "flash_bwd": flash_ops.flash_bwd_cost,
+          "paged": flash_ops.paged_cost, "int8": q_ops.cost, "int8_fused": q_ops.fused_cost,
+          "ssd": ssd_ops.cost, "ssd_bwd": ssd_ops.bwd_cost}[name]
+    return fn(*args, **kw)
 
 
 def compare(torch, got, want, tol, what: str) -> float:
@@ -714,7 +736,7 @@ def kernel_phase(torch) -> dict:
         ms, host = time_ms(torch, [lambda b=b: matmul(a, b) for b in bs])
         plain, _ = time_ms(torch, [lambda b=b: matmul_ref(a, b) for b in bs])
         lib, lib_host = time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs])
-        bnd, by = bound(2.0 * ROWS * k * n, 2.0 * (ROWS * k + k * n + ROWS * n))
+        bnd, by = bound(*kernel_cost("matmul", ROWS, k, n, 2))
         print(f"    {ms:.4f} ms (plain {plain:.4f}, torch.matmul {lib:.4f}, bound {bnd:.4f} "
               f"by {by}); {per_step} launches per decode step; host {host:.1f} us per call "
               f"(torch.matmul {lib_host:.1f})")
@@ -745,7 +767,7 @@ def kernel_phase(torch) -> dict:
                   f"fused_mlp_hidden swiglu {ROWS}x{h}x{f}")
     ms, host = time_ms(torch, [lambda w=w: fused_mlp_hidden(x, *w) for w in ws])
     plain, _ = time_ms(torch, [lambda w=w: fused_mlp_hidden_ref(x, *w) for w in ws])
-    bnd, by = bound(2.0 * 2 * ROWS * h * f, 2.0 * (ROWS * h + 2 * h * f + ROWS * f))
+    bnd, by = bound(*kernel_cost("fused_mlp", ROWS, h, f, True, 2))
     print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}); "
           f"24 launches per decode step; host {host:.1f} us per call")
     rows["fused_mlp_hidden"] = dict(
@@ -773,8 +795,7 @@ def kernel_phase(torch) -> dict:
     plain, _ = time_ms(torch, [lambda p=p: paged_decode_ref(q, *p, slot_idx, lengths)
                                for p in pools])
     live = int(lengths.sum().item())
-    bnd, by = bound(4.0 * a * d * live,
-                    2.0 * (2 * b * a * d + 2 * live * nkv * d) + 8.0 * b)
+    bnd, by = bound(*kernel_cost("paged", b, a, nkv, d, live, 2, 2, b))
     print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; {live} live tokens; "
           f"{paged_pick(b, nkv, a // nkv, d, s_max, 2)}); 24 launches per decode step; host "
           f"{host:.1f} us per call")
@@ -872,9 +893,8 @@ def paged_group_check(torch, randn, gen) -> None:
     plain12, _ = time_ms(torch, [lambda: paged_decode_ref(q, kp, vp, slot_idx, lengths)])
     plain2, _ = time_ms(torch, [lambda: paged_decode_ref(q2, kp, vp, slot_idx, lengths)])
     live = int(lengths.sum().item())
-    bnd12 = bound(4.0 * a * d * live, 2.0 * (2 * b * a * d + 2 * live * nkv * d) + 8.0 * b)[0]
-    bnd2 = bound(4.0 * 2 * nkv * d * live,
-                 2.0 * (2 * b * 2 * nkv * d + 2 * live * nkv * d) + 8.0 * b)[0]
+    bnd12 = bound(*kernel_cost("paged", b, a, nkv, d, live, 2, 2, b))[0]
+    bnd2 = bound(*kernel_cost("paged", b, 2 * nkv, nkv, d, live, 2, 2, b))[0]
     print(f"    plain g=12 {plain12:.4f} ms, g=2 {plain2:.4f} ms; bound g=12 {bnd12:.4f} ms, "
           f"g=2 {bnd2:.4f} ms (bytes)")
     print(f"    slot kernel, bf16 pool ({int(lengths.sum().item())} live tokens): g=12 {ms12:.4f} "
@@ -910,8 +930,8 @@ def paged_long_context(torch, randn, gen) -> None:
             f"paged_decode long context b={b} a={a} nkv={nkv} d={d} {s_max} live tokens a row")
     ms, host = time_ms(torch, [lambda: paged_decode(q, kp, vp, slot_idx, lengths)])
     plain, _ = time_ms(torch, [lambda: paged_decode_ref(q, kp, vp, slot_idx, lengths)], iters=5)
-    nbytes = 2.0 * b * s_max * nkv * d * 2 + 2.0 * 2 * b * a * d + 8.0 * b
-    bnd, by = bound(4.0 * a * d * b * s_max, nbytes)
+    flops, nbytes = kernel_cost("paged", b, a, nkv, d, b * s_max, 2, 2, b)
+    bnd, by = bound(flops, nbytes)
     print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
           f"{nbytes / ms / 1e6:.0f} GB/s, "
           f"{bnd / ms:.2f} of the bound's speed; {paged_pick(b, nkv, a // nkv, d, s_max, 2)}); "
@@ -955,7 +975,7 @@ def _train_gemm_rows(torch, randn, rows) -> None:
             ms, _ = time_ms(torch, [lambda o=o: matmul(*o) for o in ops], TRAIN_ITERS)
             plain, _ = time_ms(torch, [lambda o=o: matmul_ref(*o) for o in ops], TRAIN_ITERS)
             lib, _ = time_ms(torch, [lambda o=o: torch.matmul(*o) for o in ops], TRAIN_ITERS)
-            bnd, by = bound(2.0 * TOKENS * k * n, 2.0 * (TOKENS * k + k * n + TOKENS * n))
+            bnd, by = bound(*kernel_cost("matmul", TOKENS, k, n, 2))
             print(f"    {ms:.4f} ms (plain {plain:.4f}, torch.matmul {lib:.4f}, bound {bnd:.4f} "
                   f"by {by}; {2.0 * TOKENS * k * n / ms / 1e9:.1f} TFLOP/s); "
                   f"{per_step} launches per step")
@@ -1083,13 +1103,12 @@ def _flash_case(torch, randn, label, b, sq, skv, a, nkv, d, causal, bwd, check_b
     plain, _ = time_ms(torch, [lambda t=t: flash_attention_ref(*t, causal=causal)
                                for t in fwd_in], iters)
     sdpa_f, sdpa_fb = _sdpa_ms(torch, *qkv[0], causal=causal, iters=iters)
-    pairs = b * a * (sq * (sq + 1) // 2 if causal and sq == skv else sq * skv)
-    io = 2.0 * (2 * b * sq * a * d + 2 * b * skv * nkv * d)       # q, o; k, v
-    bnd, by = bound(4.0 * pairs * d, io + 4.0 * b * a * sq)
+    flops, nbytes = kernel_cost("flash", b, sq, skv, a, nkv, d, causal, 2)
+    bnd, by = bound(flops, nbytes)
     res = dict(ms=ms, plain_ms=plain, sdpa_ms=sdpa_f, bound_ms=bnd, bound_by=by, err=err)
     line = (f"    {label} {shape}: forward {ms:.4f} ms (plain {plain:.4f}, SDPA {sdpa_f:.4f}: "
             f"{ms / sdpa_f:.2f}x; bound {bnd:.4f} by {by}, {bnd / ms:.3f} of it; "
-            f"{4.0 * pairs * d / ms / 1e9:.1f} TFLOP/s)")
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
     if bwd:
         bwd_in = []
         for q_, k_, v_, do_ in qkv:
@@ -1099,13 +1118,14 @@ def _flash_case(torch, randn, label, b, sq, skv, a, nkv, d, causal, bwd, check_b
                                   for t in bwd_in], iters)
         plain_b, _ = time_ms(torch, [lambda t=t: flash_attention_bwd_ref(*t, causal=causal)
                                      for t in bwd_in], iters)
-        bnd_b, by_b = bound(10.0 * pairs * d, 2.0 * io + 2.0 * b * sq * a * d + 8.0 * b * a * sq)
+        flops_b, nbytes_b = kernel_cost("flash_bwd", b, sq, skv, a, nkv, d, causal, 2)
+        bnd_b, by_b = bound(flops_b, nbytes_b)
         res.update(ms_b=ms_b, plain_b=plain_b, sdpa_b=sdpa_fb - sdpa_f, bound_b=bnd_b, by_b=by_b,
                    errb=errb)
         line += (f"; backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA forward+backward less "
                  f"its forward {sdpa_fb - sdpa_f:.4f}: {ms_b / (sdpa_fb - sdpa_f):.2f}x; bound "
                  f"{bnd_b:.4f} by {by_b}, {bnd_b / ms_b:.3f} of it; "
-                 f"{10.0 * pairs * d / ms_b / 1e9:.1f} TFLOP/s)")
+                 f"{flops_b / ms_b / 1e9:.1f} TFLOP/s)")
         del bwd_in
     print(line)
     del qkv, fwd_in
@@ -1138,8 +1158,8 @@ def _mlp_case(torch, randn, label, mlp_type, m, h, f, bwd, iters=TRAIN_ITERS) ->
                             for t in ins], iters)
     plain, _ = time_ms(torch, [lambda t=t: fused_mlp_hidden_ref(*t[:3], mlp_type)
                                for t in ins], iters)
-    flops = 2.0 * nw * m * h * f
-    bnd, by = bound(flops, 2.0 * (m * h + nw * h * f + m * f))
+    flops, nbytes = kernel_cost("fused_mlp", m, h, f, gated, 2)
+    bnd, by = bound(flops, nbytes)
     res = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, err=err)
     line = (f"    {label} fused MLP {shape}: forward {ms:.4f} ms (plain {plain:.4f}, bound "
             f"{bnd:.4f} by {by}, {bnd / ms:.3f} of it; {flops / ms / 1e9:.1f} TFLOP/s)")
@@ -1156,8 +1176,9 @@ def _mlp_case(torch, randn, label, mlp_type, m, h, f, bwd, iters=TRAIN_ITERS) ->
                           iters)
         plain_b, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd_ref(*t, mlp_type)
                                      for t in ins], iters)
-        flops_b = 3.0 * flops            # recomputed hidden, dx, the weight gradients
-        bnd_b, by_b = bound(flops_b, 2.0 * (2 * m * h + 2 * nw * h * f + m * f))
+        # the recompute, dx, the weight gradients: every launch's cost summed
+        flops_b, nbytes_b = kernel_cost("fused_mlp_bwd", m, h, f, gated, 2)
+        bnd_b, by_b = bound(flops_b, nbytes_b)
         res.update(ms_b=ms_b, plain_b=plain_b, bound_b=bnd_b, by_b=by_b, errb=errb)
         line += (f"; backward {ms_b:.4f} ms (plain {plain_b:.4f}, bound {bnd_b:.4f} by {by_b}, "
                  f"{bnd_b / ms_b:.3f} of it; {flops_b / ms_b / 1e9:.1f} TFLOP/s)")
@@ -1191,8 +1212,8 @@ def _gemm_case(torch, randn, label, layout, m, k, n, iters=TRAIN_ITERS) -> dict:
     ms, _ = time_ms(torch, [lambda o=o: matmul(*o) for o in ops], iters)
     plain, _ = time_ms(torch, [lambda o=o: matmul_ref(*o) for o in ops], iters)
     lib, _ = time_ms(torch, [lambda o=o: torch.matmul(*o) for o in ops], iters)
-    flops = 2.0 * m * k * n
-    bnd, by = bound(flops, 2.0 * (m * k + k * n + m * n))
+    flops, nbytes = kernel_cost("matmul", m, k, n, 2)
+    bnd, by = bound(flops, nbytes)
     print(f"    {label} matmul {layout} {m}x{k}x{n}: {ms:.4f} ms (plain {plain:.4f}, "
           f"torch.matmul {lib:.4f}: {ms / lib:.2f}x; bound {bnd:.4f} by {by}, {bnd / ms:.3f} of "
           f"it; {flops / ms / 1e9:.1f} TFLOP/s)")
@@ -1593,10 +1614,8 @@ def prefix_kernel_phase(torch) -> dict:
         # from HBM once —, lengths, and the index: each row's table entries
         # of its live blocks (its own memory) or its slot id
         toks = unique if index is tables else live
-        scales = 0 if el == 2 else 2 * 4 * toks * nkv
         entries = used if index is tables else b
-        bnd, by = bound(4.0 * a * d * live, 2.0 * 2 * b * a * d + 2.0 * toks * nkv * d * el
-                        + scales + 4.0 * b + 4.0 * entries)
+        bnd, by = bound(*kernel_cost("paged", b, a, nkv, d, live, 2, el, entries, read=toks))
         print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}; "
               f"{paged_pick(b, nkv, a // nkv, d, s_max, el)}); 24 launches per decode step; "
               f"host {host:.1f} us per call")
@@ -2085,9 +2104,6 @@ def int8_kernel_phase(torch) -> dict:
         w = quantize_weight(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
         return w.q, w.scale
 
-    def gemm_bytes(m, k, n):   # int8 operands, f32 scales, bf16 out
-        return m * k + k * n + 4.0 * (m + n) + 2.0 * m * n
-
     rows = {}
     print(f"int8 kernels (int8 operands, weights K-major, bf16 out, CUDA events, weights rotated "
           f"past L2); card {nvidia_smi()}:")
@@ -2104,7 +2120,7 @@ def int8_kernel_phase(torch) -> dict:
         plain, _ = time_ms(torch, [lambda w=w: int8_matmul_ref(a_q, a_s, *w, bf) for w in ws])
         lib, sums = _int_mm_ms(torch, a_q, ws)
         same = bool(torch.equal((sums.float() * a_s * ws[0][1]).to(bf), got))
-        bnd, by = bound(2.0 * ROWS * k * n, gemm_bytes(ROWS, k, n), PEAK_INT8_OPS)
+        bnd, by = bound(*kernel_cost("int8", ROWS, k, n, 2), PEAK_INT8_OPS)
         tm, tn, ks = launch_shape(ROWS, n, k, sms)
         print(f"    {ms:.4f} ms = {ms / bnd:.2f}x its bound {bnd:.4f} (by {by}; tile {tm}x{tn}, "
               f"{-(-k // ks)} splits of {ks}); "
@@ -2140,7 +2156,7 @@ def int8_kernel_phase(torch) -> dict:
                 continue
             ms, _ = time_ms(torch, [lambda: int8_matmul_q(a_q, a_s, b_q, b_s, bf)], TRAIN_ITERS)
             lib, _ = _int_mm_ms(torch, a_q, [(b_q, b_s)], TRAIN_ITERS)
-            bnd, by = bound(2.0 * m * k * n, gemm_bytes(m, k, n), PEAK_INT8_OPS)
+            bnd, by = bound(*kernel_cost("int8", m, k, n, 2), PEAK_INT8_OPS)
             for key, val in (("ms", ms), ("library_ms", lib), ("bound_ms", bnd)):
                 long[key] += val
             tm, tn, ks = launch_shape(m, n, k, sms)
@@ -2183,8 +2199,7 @@ def int8_kernel_phase(torch) -> dict:
                                for w in ws])
     plain, _ = time_ms(torch, [lambda w=w: int8_fused_mlp_ref(x_q, x_s, *w, out_dtype=bf)
                                for w in ws])
-    bnd, by = bound(2.0 * 2 * ROWS * h * f, ROWS * h + 2.0 * h * f + 4.0 * (ROWS + 2 * f)
-                    + 2.0 * ROWS * f, PEAK_INT8_OPS)
+    bnd, by = bound(*kernel_cost("int8_fused", ROWS, h, f, True, 2), PEAK_INT8_OPS)
     print(f"    {ms:.4f} ms = {ms / bnd:.2f}x its bound {bnd:.4f} (by {by}); plain {plain:.4f}; "
           f"24 launches per decode step ({24 * ms:.4f} ms); host {host:.1f} us per call")
     rows["int8_fused_mlp"] = dict(
@@ -2381,10 +2396,7 @@ def ssd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int):
     C B^T and of (C B^T o L) X, and S = B^T (decay o X); x_dt read and Y
     written once, B and C read once per group, seg read and S written."""
     Q = min(chunk, s)
-    pairs, tri = b * nh * (s // Q), Q * (Q + 1) / 2
-    flops = pairs * (2.0 * N * tri + 2.0 * P * tri + 2.0 * N * P * Q)
-    nbytes = elem * (2 * b * s * nh * P + 2 * b * s * N + pairs * N * P) + 4 * b * s * nh
-    return flops, nbytes
+    return kernel_cost("ssd", b * nh, s // Q, Q, P, N, b * s * N, elem)
 
 
 def _ssd_launch(ops):
@@ -2477,11 +2489,7 @@ def ssd_bwd_work(b: int, s: int, nh: int, P: int, N: int, chunk: int, elem: int)
     sums over the heads, are its design's own cost, `ssd_bwd_head_bytes`),
     dS read, seg and dseg."""
     Q = min(chunk, s)
-    nc = s // Q
-    pairs, tri = b * nh * nc, Q * (Q + 1) / 2
-    flops = b * nc * 2.0 * N * tri + pairs * (2.0 * tri * (2 * P + 2 * N) + 4.0 * Q * N * P)
-    nbytes = elem * (3 * b * s * nh * P + 4 * b * s * N + pairs * N * P) + 8 * b * s * nh
-    return flops, nbytes
+    return kernel_cost("ssd_bwd", b * nh, s // Q, Q, P, N, b * s * N, elem)
 
 
 def ssd_bwd_head_bytes(b: int, s: int, nh: int, N: int, elem: int) -> int:
@@ -3066,7 +3074,8 @@ def moe_kernel_phase(torch) -> dict:
         tile, _ = fused_ops.geometry(cap, h, f, bf, "swiglu")
         loop, loop_host = time_ms(torch, [lambda: [fused_ops._fused_cuda(
             x[z], wg[z], wu[z], "swiglu", forced=tile) for z in range(e)]], 2)
-        bnd, by = bound(2.0 * 2 * e * cap * h * f, 2.0 * (e * cap * h + 2 * e * h * f + e * cap * f))
+        fl, nb = kernel_cost("fused_mlp", cap, h, f, True, 2)
+        bnd, by = bound(e * fl, e * nb)
         print(f"    {ms:.4f} ms ({2 * 2 * e * h * f / ms / 1e6:.0f} GB/s of weights; plain "
               f"{plain:.4f}, bound {bnd:.4f} by {by}, the 2-D kernel once per expert at tile "
               f"{tile[0]}x{tile[1]} {loop:.4f} ms with {loop_host / 1e3:.2f} ms of host); "
@@ -3090,7 +3099,7 @@ def moe_kernel_phase(torch) -> dict:
         depth = -(-f // mm_ops.BLOCK_K) * mm_ops.BLOCK_K
         loop, loop_host = time_ms(torch, [lambda: [mm_ops._matmul_cuda(
             xd[z], wd[z], None, None, forced=(tm, tn, depth)) for z in range(e)]], 2)
-        bnd, by = bound(2.0 * e * cap * f * h, 2.0 * (e * cap * f + e * f * h + e * cap * h))
+        bnd, by = bound(*kernel_cost("matmul_expert", e, cap, f, h, 2))
         print(f"    {ms:.4f} ms ({2 * e * f * h / ms / 1e6:.0f} GB/s of weights; plain "
               f"{plain:.4f}, torch.bmm {lib:.4f}, bound {bnd:.4f} by {by}, the 2-D kernel once "
               f"per expert at tile {tm}x{tn} {loop:.4f} ms with {loop_host / 1e3:.2f} ms of "
@@ -3216,9 +3225,8 @@ def moe_backward_kernels(torch) -> dict:
         ms, host = time_ms(torch, [lambda: mm_ops.matmul_expert(a, b, *pair)], EXPERT_ITERS)
         plain, _ = time_ms(torch, [lambda: matmul_expert_ref(a, b, *pair)], 2)
         lib = time_ms(torch, [library], EXPERT_ITERS)[0] if library else None
-        n = 1 if a1 is None else 2
-        flops = 2.0 * n * e * M * K * N
-        bnd, by = bound(flops, 2.0 * (n * (e * M * K + e * K * N) + e * M * N))
+        flops, nbytes = kernel_cost("matmul_expert", e, M, K, N, 2, 1 if a1 is None else 2)
+        bnd, by = bound(flops, nbytes)
         print(f"    {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, "
               + ("" if lib is None else f"torch.bmm {lib:.4f}, ")
               + f"bound {bnd:.4f} by {by}); host {host:.1f} us per call")
@@ -3247,8 +3255,9 @@ def moe_backward_kernels(torch) -> dict:
                 f"fused_mlp_bwd_expert recompute {part} {e} x ({cap}x{h}x{f}) ({label})")
         ms, _ = time_ms(torch, [lambda: fused_ops._recompute_expert_cuda(
             x, wg, wu, dh, "swiglu")], EXPERT_ITERS)
-        flops = 4.0 * e * cap * h * f
-        bnd, by = bound(flops, 2.0 * (e * cap * h + 2 * e * h * f + 3 * e * cap * f))
+        rec = fused_ops.bwd_launches(cap, h, f, True, 2, e)[0]
+        flops = rec[1]
+        bnd, by = bound(*rec[1:])
         print(f"    recompute alone {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bnd:.4f} "
               f"by {by}; within its bound of the plain version through the whole backward's "
               f"check below)")
@@ -3279,8 +3288,8 @@ def moe_backward_kernels(torch) -> dict:
         ms, host = time_ms(torch, [lambda: fused_ops.fused_mlp_bwd_expert(
             x, wg, wu, dh, mlp_type="swiglu")], EXPERT_ITERS)
         plain, _ = time_ms(torch, [lambda: fused_mlp_bwd_expert_ref(x, wg, wu, dh, "swiglu")], 2)
-        flops = 12.0 * e * cap * h * f
-        bnd, by = bound(flops, 2.0 * (2 * e * cap * h + 4 * e * h * f + e * cap * f))
+        flops, nbytes = kernel_cost("fused_mlp_bwd", cap, h, f, True, 2, e)
+        bnd, by = bound(flops, nbytes)
         print(f"    the whole backward (1 recompute, 1 nt pair, 2 tn launches) {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.4f}, bound {bnd:.4f} by {by}); "
               f"host {host:.1f} us per call")
@@ -3344,9 +3353,8 @@ def moe_int8_kernels(torch) -> dict:
         if cap >= 17:        # torch._int_mm takes more than 16 rows
             int_mm, _ = time_ms(torch, [lambda: [torch._int_mm(a_q[z], wq.q[z])
                                                  for z in range(e)]], 2)
-        ops_ = 2.0 * e * cap * k * n
-        bnd, by = bound(ops_, e * cap * k + e * k * n + 4.0 * e * (cap + n) + 2.0 * e * cap * n,
-                        PEAK_INT8_OPS)
+        ops_, nbytes = kernel_cost("int8", cap, k, n, 2, e)
+        bnd, by = bound(ops_, nbytes, PEAK_INT8_OPS)
         print(f"    {ms:.4f} ms ({e * k * n / ms / 1e6:.0f} GB/s of int8 weights, "
               f"{ops_ / ms / 1e9:.1f} TOP/s; plain {plain:.4f}, bound {bnd:.4f} by {by}"
               + ("" if int_mm is None else f"; a per-expert torch._int_mm loop {int_mm:.4f}, "
@@ -6465,7 +6473,10 @@ def parallel_kernel_phase(torch) -> None:
     dense SwiGLU 9216, whisper-small's 384-column projections, GELU 1536
     and flash non-causal at 6 heads of 64 over 1500 frames, zamba2-2.7b's
     GELU 5120, internvl2-76b's SwiGLU 14336, and the SSD kernel and its
-    backward at 24 (mamba2-780m) and 40 (zamba2-2.7b) heads."""
+    backward at 24 (mamba2-780m) and 40 (zamba2-2.7b) heads; flash forward
+    and backward at the KV-replicated shards of model=16 (1 / 4 / 6 / 6 query
+    heads over one KV head: internlm2-1.8b, internvl2-76b, command-r-plus-104b,
+    nemotron-4-340b at d 192)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
@@ -6506,11 +6517,11 @@ def parallel_kernel_phase(torch) -> None:
     del want, out
     for what, call, plain, lib, flops, nbytes in (
             ("fused_mlp_hidden_expert", lambda: fused_mlp_hidden_expert(x, wg, wu, mlp_type="swiglu"),
-             lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu"), None, 4.0 * e * cap * h * f,
-             2.0 * e * (cap * h + 2 * h * f + cap * f)),
+             lambda: fused_mlp_hidden_ref(x, wg, wu, "swiglu"), None,
+             *(e * v for v in kernel_cost("fused_mlp", cap, h, f, True, 2))),
             ("matmul_expert w_down", lambda: matmul_expert(hdn, wd),
              lambda: matmul_expert_ref(hdn, wd), lambda: torch.bmm(hdn, wd),
-             2.0 * e * cap * f * h, 2.0 * e * (cap * f + f * h + cap * h))):
+             *kernel_cost("matmul_expert", e, cap, f, h, 2))):
         ms, _ = time_ms(torch, [call], 10)
         pl, _ = time_ms(torch, [plain], 10)
         bnd, by = bound(flops, nbytes)
@@ -6540,6 +6551,13 @@ def parallel_kernel_phase(torch) -> None:
                 True, ENCDEC_BATCH, ENCDEC_ITERS)
     for arch in ("mamba2-780m", "zamba2-2.7b"):
         _ssd_shard_case(torch, gen, arch, 2)
+    # KV heads replicated at model=16: one KV head a rank under a/16 query
+    # heads, a data rank's one 4096-token training row (the dry run's train_4k)
+    print("flash at the KV-replicated per-shard shapes (model=16, one KV head a rank):")
+    for arch in ("internlm2-1.8b", "internvl2-76b", "command-r-plus-104b", "nemotron-4-340b"):
+        c = get_config(arch)
+        _flash_case(torch, randn, f"{arch} model=16", 1, 4096, 4096, c.num_heads // 16, 1,
+                    c.head_dim, True, True, 1, 10)
 
 
 def _ssd_shard_case(torch, gen, arch: str, t: int) -> None:
@@ -6617,7 +6635,7 @@ def _parallel_rank(rank, world, dev, tmp) -> None:
                       ("parallel moe", _par_moe), ("pipeline", _par_pipeline),
                       ("parallel ssm", _par_ssm), ("parallel mla", _par_mla),
                       ("parallel whisper", _par_whisper), ("parallel internvl", _par_internvl),
-                      ("parallel seq", _par_seq)):
+                      ("parallel seq", _par_seq), ("parallel kv", _par_kv)):
         dist.barrier()
         t0 = time.perf_counter()
         run(torch, rank, dev, tmp)
@@ -6692,11 +6710,11 @@ def _moments_restored_from_next_rank():
     from repro_torch.checkpoint import ckpt
 
     def wrap(real):
-        def f(template, flat, prefix="", specs=None, mesh=None):
+        def f(template, flat, prefix="", specs=None, mesh=None, rep_of=None):
             leaf = not isinstance(template, dict)
             if mesh is not None and leaf and prefix.startswith("opt/.m/"):
                 mesh = type(mesh)(mesh.cfg, rank=(mesh.rank + 1) % mesh.size)
-            return real(template, flat, prefix, specs, mesh)
+            return real(template, flat, prefix, specs, mesh, rep_of)
         return f
     return _patched(ckpt, "_unflatten_into", wrap)
 
@@ -6754,6 +6772,7 @@ def _par_train(torch, rank, dev, tmp) -> None:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_lm
     from repro_torch.optim.adamw import init_opt
+    from repro_torch.parallel import comm
     from repro_torch.parallel import sharding as sh
     from repro_torch.train.train_step import make_train_step
 
@@ -6797,17 +6816,20 @@ def _par_train(torch, rank, dev, tmp) -> None:
     opt = init_opt(local, tc)
     step_fn = make_train_step(cfg, tc, plan=plan)
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, census = [], [], {}
 
     def steps():
         nonlocal local, opt
         for s in range(PAR_STEPS):
             t0 = time.perf_counter()
-            local, opt, m = step_fn(local, opt, batches[s])
+            with comm.census() if s == 0 else contextlib.nullcontext({}) as rec:
+                local, opt, m = step_fn(local, opt, batches[s])
+            census.update(rec)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(m["loss"].item())
     _, _, counts = _counted(torch, steps)
+    _census_check(torch, rank, cfg, tc, batches[0], census)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _rank_line(rank, f"parallel train steps {[round(t * 1e3, 1) for t in times]} ms, losses "
                      f"{[round(x, 5) for x in losses]}, peak device memory {peak:.2f} GiB, "
@@ -6860,6 +6882,70 @@ def _par_train(torch, rank, dev, tmp) -> None:
             if rel > PAR_RESTORE_LOSS_REL_BOUND:
                 fail(f"parallel train: the restored run's step {s} differs from the unsharded one")
     del params, opt
+
+
+def _census_check(torch, rank, cfg, tc, batch, census) -> None:
+    """A (2, 2) gloo step's collective census (kind -> wire bytes) against
+    the dry run's virtual-group trace of this rank's same step on meta."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.train_step import make_train_step
+    plan = sh.Plan(cfg, virtual_mesh(MeshConfig(data=2, model=2), rank))
+    params = plan.shard(init_lm(None, cfg, device="meta", dtype=torch.float32))
+    with comm.census() as virtual:
+        make_train_step(cfg, tc, plan=plan)(params, init_opt(params, tc), {
+            k: torch.empty_like(v, device="meta") for k, v in batch.items()})
+    _rank_line(rank, f"collective census of step 0 (wire bytes): gloo "
+                     f"{json.dumps(census)}, virtual trace {json.dumps(virtual)}")
+    if census != virtual or not census:
+        fail(f"parallel train rank {rank}: the gloo step's collectives differ from the dry "
+             f"run's virtual trace")
+
+
+def _kv_grads_unsummed():
+    """Fault: the replicas' wk / wv gradients left as each rank's partial
+    (no sum over the ranks that hold a KV head)."""
+    from repro_torch.parallel import sharding as sh
+
+    def wrap(real):
+        def f(self, grads, specs):
+            kv, self.kv_group = self.kv_group, None
+            try:
+                return real(self, grads, specs)
+            finally:
+                self.kv_group = kv
+        return f
+    return _patched(sh.Plan, "reduce_grads", wrap)
+
+
+def _par_kv(torch, rank, dev, tmp) -> None:
+    """internlm2-smoke (4 query heads over 2 KV heads) at model=4, each KV
+    head replicated on two ranks (`sharding.kv_replication`): served
+    (prefill + decode steps through the kernels) against the unsharded run
+    on rank 0, and step 0 at data=1 x model=4 against the unsharded step
+    (every gradient leaf, the clip norm), with the replicas' wk / wv
+    gradients left unsummed as a planted fault.  No registered full-width
+    config has fewer than four KV heads, so full-width replication cannot
+    run on four ranks; the card tests hold its per-shard kernel shapes."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.configs.registry import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), linear_impl="fused",
+                              attn_impl="flash")
+    _say(rank, f"parallel kv: {cfg.name} ({cfg.num_heads} query heads over {cfg.num_kv_heads} "
+               f"KV heads) at model=4: each KV head on two ranks, {cfg.dtype}, fused + flash")
+    _par_family_serve(torch, rank, dev, "parallel kv serve", cfg,
+                      _family_batch(torch, cfg, 64, 4, dev), 4, ("matmul", "fused_mlp_hidden"),
+                      [], model=4)
+    _par_family_train(torch, rank, dev, "parallel kv train", cfg,
+                      _family_batch(torch, cfg, 64, 4, dev, kind="train"), TRAIN_GRAD_REL_BOUND,
+                      ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
+                       "flash_attention_bwd"),
+                      [("the replicas' wk / wv gradients left unsummed", _kv_grads_unsummed)],
+                      mesh_cfg=MeshConfig(data=1, model=4))
 
 
 def _greedy_logits(torch, params, cfg, prompts, steps, plan=None):
@@ -7194,8 +7280,8 @@ def _family_batch(torch, cfg, seq, rows, dev, kind="prefill"):
 
 
 def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, other=None,
-                      keep=None):
-    """`cfg` served at model=2 (ranks 0 and 1) through serve_step: prefill
+                      keep=None, model=2):
+    """`cfg` served at model=2 (ranks 0 and 1; `model` ranks) through serve_step: prefill
     and `steps` decode steps on forced tokens, the launches counted on each
     rank (every kernel of `need` launched), the logits against the
     unsharded run's (rank 0) within LOGITS_REL_BOUND, and so a cache leaf
@@ -7208,7 +7294,7 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
     from repro_torch.models import init_lm
     from repro_torch.parallel import sharding as sh
 
-    mesh = make_mesh(MeshConfig(model=2), ranks=[0, 1])
+    mesh = make_mesh(MeshConfig(model=model), ranks=list(range(model)))
     if mesh is None:
         return
     V = cfg.vocab_size
@@ -7224,7 +7310,7 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
     (got, gkeep), wall, counts = _counted(
         torch, lambda: _family_logits(torch, local, cfg, batch, forced, plan, keep))
     shape = " x ".join(str(n) for n in batch["tokens"].shape)
-    _rank_line(rank, f"{label} (model=2) prefill {shape} + {steps} decode steps "
+    _rank_line(rank, f"{label} (model={model}) prefill {shape} + {steps} decode steps "
                      f"{wall * 1e3:.1f} ms, launches {json.dumps(counts)}")
     for name in need:
         if not counts.get(name):
@@ -7239,7 +7325,7 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
         want, wkeep = _family_logits(torch, full, cfg, batch, forced, keep=keep)
         want = want[..., :V]
         rel, rel_c = gaps(got, gkeep)
-        print(f"  {label}: {cfg.name}, model=2 ({mesh.backend}), bf16, prefill {shape} + {steps} "
+        print(f"  {label}: {cfg.name}, model={model} ({mesh.backend}), {cfg.dtype}, prefill {shape} + {steps} "
               f"decode steps on the same tokens: logits rel err {rel:.3e} vs unsharded"
               f"{f', the cache leaf each rank holds whole {rel_c:.3e}' if keep else ''} (bound "
               f"{LOGITS_REL_BOUND})", flush=True)
@@ -7293,8 +7379,8 @@ def _counted(torch, fn):
 
 
 def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, faults, other=None,
-                      remats=("none",)):
-    """Step 0 of `cfg` at data=2 x model=2 (FSDP, f32 masters, bf16
+                      remats=("none",), mesh_cfg=None):
+    """Step 0 of `cfg` at data=2 x model=2 (or `mesh_cfg`; FSDP, f32 masters, bf16
     compute): the loss, every gradient leaf (gathered whole to rank 0's
     host) and the clip norm against the unsharded step on rank 0 (the loss
     within `_par_loss_bound`, every leaf and layer slice and the norm within
@@ -7310,7 +7396,9 @@ def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, fau
     from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
     from repro_torch.parallel import sharding as sh
 
-    mesh = make_mesh(MeshConfig(data=2, model=2))
+    mesh_cfg = mesh_cfg or MeshConfig(data=2, model=2)
+    at = f"({mesh_cfg.data}, {mesh_cfg.model})"
+    mesh = make_mesh(mesh_cfg)
     full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
                    dtype=torch.float32)
     names = [path for path, _ in _paths(full)]
@@ -7338,7 +7426,7 @@ def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, fau
             g = p_.reduce_grads(tree_map(lambda _: next(g), local), p_.specs(local))
             norm = global_norm(g, p_, p_.specs(local)).item()
         return metrics["loss"].item(), [
-            None if n in skip else sh.gather_leaf_to_host(t, s, mesh)
+            None if n in skip else sh.gather_leaf_to_host(t, s, mesh, p_.rep_of(n.split("/")))
             for t, s, n in zip(tree_leaves(g), specs, names)], norm
 
     loss_bound = _par_loss_bound(cfg)
@@ -7365,13 +7453,14 @@ def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, fau
         peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
         if sound is None:
             sound = res
-            _rank_line(rank, f"{label} step 0 at (2, 2) (forward, backward, gradient reductions "
+            _rank_line(rank, f"{label} step 0 at {at} (forward, backward, gradient reductions "
                              f"and the gather to rank 0): {wall * 1e3:.1f} ms, launches "
                              f"{json.dumps(counts)}")
             for name in need:
                 if not counts.get(name):
                     fail(f"{label} rank {rank}: no {name} launch")
-        if rank == 0 and not reading(f"{label}: {cfg.name}, data=2 x model=2, remat={remat}, "
+        if rank == 0 and not reading(f"{label}: {cfg.name}, data={mesh_cfg.data} x "
+                                     f"model={mesh_cfg.model}, remat={remat}, "
                                      f"step 0 on {shape} tokens, sharded vs unsharded", res, ref):
             fail(f"{label}: the sharded step 0 (remat={remat}) breaks its bounds")
         del res
@@ -7688,6 +7777,176 @@ def _stage_specs(tree):
         return {k: _stage_specs(v) for k, v in tree.items()}
     return ("pod",)
 
+# --- dry run: the op counter held against the card ------------------------------------
+
+DRYRUN_LAYERS = 4
+DRYRUN_TIMED = 5              # warm steps timed without the counter
+DRYRUN_ROWS = (("internlm2-1.8b", "train_4k"), ("command-r-plus-104b", "decode_32k"),
+               ("deepseek-v3-671b", "train_4k"), ("mamba2-780m", "long_500k"))
+# the op counter's kernel names, against each wrapper's launch counter
+DRYRUN_COUNTERS = {"matmul": "matmul", "fused_mlp_hidden": "fused_mlp_hidden",
+                   "fused_mlp_bwd": "fused_mlp_bwd", "flash_attention_fwd": "flash_attention",
+                   "flash_attention_bwd": "flash_attention_bwd"}
+
+
+def _meta_tree(torch, tree):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def _counted_step(torch, step_fn, params, opt, batch, trace_one=False):
+    """(Counter, launches by counter name) of one train step under the op
+    counter; the step's arguments are cloned first (it updates in place)."""
+    from repro_torch.core import op_analysis
+    from repro_torch.optim.adamw import OptState, tree_map
+    p = tree_map(lambda t: t.detach().clone(), params)
+    o = OptState(opt.step.clone(), tree_map(lambda t: t.clone(), opt.m),
+                 tree_map(lambda t: t.clone(), opt.v))
+    matmul_ops, fns = _train_counters()
+    if batch["tokens"].is_cuda:
+        torch.cuda.synchronize()
+    _reset_counts(matmul_ops, fns)
+    with op_analysis.count(trace_one) as c:
+        step_fn(p, o, batch)
+    if batch["tokens"].is_cuda:
+        torch.cuda.synchronize()
+    return c, _read_counts(matmul_ops, fns)
+
+
+def _counts_gap(a, b) -> list:
+    """What differs between two Counts (FLOPs, bytes, collectives and every
+    kernel's charge): [] where they are equal."""
+    out = [k for k in ("flops", "bytes", "dots", "s2_bytes", "coll") if getattr(a, k) != getattr(b, k)]
+    return out + [f"kernel {k}" for k in sorted(set(a.kernels) | set(b.kernels))
+                  if a.kernels.get(k) != b.kernels.get(k)]
+
+
+def _charge_dropped(kernel: str):
+    """Fault: a wrapper's charge dropped (planted for the meta trace only:
+    it then undercounts the kernel)."""
+    from repro_torch.core import op_analysis
+
+    def wrap(real):
+        def f(name, flops, nbytes):
+            if name != kernel:
+                real(name, flops, nbytes)
+        return f
+    return _patched(op_analysis, "charge", wrap)
+
+
+def dryrun_phase(torch) -> dict:
+    """The op counter (src/repro_torch/core/op_analysis.py) against the card:
+    internlm2-1.8b at full width, DRYRUN_LAYERS layers, one train step of 4 x
+    1024 tokens (f32 masters, bf16 compute, fused + flash) counted on the
+    card equals the meta trace of the same step exactly (FLOPs, bytes, every
+    kernel's charge), and every kernel's charged launches equal its
+    wrapper's counter; a planted fault (the fused MLP's meta charge dropped)
+    must break the equality.  DRYRUN_TIMED warm steps timed without the
+    counter: the median is at least the report's compute term; MFU, the
+    three terms, the roofline fraction and the meta peak beside the card's.
+    Then the dry run's 16 x 16 rows of DRYRUN_ROWS (analytic, H100
+    roofline).  Returns the rows."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import roofline
+    from repro_torch.core.hardware import get_hardware
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import tree_bytes
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=DRYRUN_LAYERS,
+                              linear_impl="fused", attn_impl="flash")
+    tc = TrainConfig(total_steps=DRYRUN_TIMED + 2, warmup_steps=1, remat="none")
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, shape, 0, 0).items()}
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                     dtype=torch.float32)
+    opt = init_opt(params, tc)
+    step_fn = make_train_step(cfg, tc)
+    mparams, mopt = _meta_tree(torch, params), init_opt(_meta_tree(torch, params), tc)
+    mbatch = _meta_tree(torch, batch)
+    for _ in range(2):          # per-device caches (the rotary table) filled on both devices
+        _counted_step(torch, step_fn, params, opt, batch)
+        _counted_step(torch, step_fn, mparams, mopt, mbatch)
+    torch.cuda.reset_peak_memory_stats()
+    card, launches = _counted_step(torch, step_fn, params, opt, batch)
+    card_peak = torch.cuda.max_memory_allocated()
+    meta, _ = _counted_step(torch, step_fn, mparams, mopt, mbatch)
+    counts, mcounts = card.counts, meta.counts
+    print(f"dryrun: {cfg.name} at {DRYRUN_LAYERS} of 24 layers, full width, f32 masters, bf16 "
+          f"compute, fused + flash, AdamW, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: one step counted "
+          f"on the card: {counts.flops / 1e12:.4f} TFLOP, {counts.bytes / 1e9:.4f} GB; the meta "
+          f"trace: {mcounts.flops / 1e12:.4f} TFLOP, {mcounts.bytes / 1e9:.4f} GB")
+    for name, row in sorted(counts.kernels.items()):
+        print(f"    {name}: {row['launches']} launches, {row['flops'] / 1e9:.3f} GFLOP, "
+              f"{row['bytes'] / 1e6:.3f} MB (meta: {mcounts.kernels.get(name)})")
+    gap = _counts_gap(counts, mcounts)
+    if gap:
+        fail(f"dryrun: the card's count and the meta trace differ in {gap}")
+    for name, counter in DRYRUN_COUNTERS.items():
+        charged = counts.kernels.get(name, {}).get("launches", 0)
+        if charged != launches[counter] or charged <= 0:
+            fail(f"dryrun: {name}: {charged} launches charged, its wrapper counted "
+                 f"{launches[counter]}")
+    with _charge_dropped("fused_mlp_hidden"):
+        bad, _ = _counted_step(torch, step_fn, mparams, mopt, mbatch)
+    bad_gap = _counts_gap(counts, bad.counts)
+    print(f"  card == meta: FLOPs, bytes, s2 bytes and {len(counts.kernels)} kernels' charges "
+          f"equal; charged launches == wrapper counters "
+          f"{json.dumps({k: launches[v] for k, v in DRYRUN_COUNTERS.items()})}; fault (the "
+          f"fused MLP's meta charge dropped): differs in {bad_gap}")
+    if not bad_gap:
+        fail("dryrun: the equality does not see a dropped meta charge")
+
+    times = []
+    for i in range(DRYRUN_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[len(times) // 2]
+    hw = get_hardware("h100")
+    model_flops = dryrun.model_flops_total(cfg, shape, 3.0)
+    rep = roofline.build_report(cfg.name, "4x1024", "1", 1, counts.flops, counts.bytes,
+                                {"total": 0.0}, model_flops, hw=hw)
+    meta_peak = tree_bytes(params) + tree_bytes(opt) + tree_bytes(batch) + meta.peak_bytes
+    print(f"  step {step_s * 1e3:.2f} ms (median of {DRYRUN_TIMED} warm steps, no counter); "
+          f"MFU {model_flops / step_s / hw.peak_flops:.4f} (6 N D = {model_flops / 1e12:.3f} "
+          f"TFLOP / step / {hw.peak_flops / 1e12:.0f} TFLOP/s); analytic terms: compute "
+          f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms, collective "
+          f"{rep.collective_s * 1e3:.3f} ms ({rep.dominant}), roofline_fraction "
+          f"{rep.roofline_fraction:.4f}; peak memory: meta {meta_peak / 2 ** 30:.3f} GiB, card "
+          f"{card_peak / 2 ** 30:.3f} GiB (max_memory_allocated, the counted step); card "
+          f"{nvidia_smi()}")
+    if step_s < rep.compute_s:
+        fail(f"dryrun: a step of {step_s * 1e3:.3f} ms beats the compute term "
+             f"{rep.compute_s * 1e3:.3f} ms")
+    del params, opt, mparams, mopt
+    torch.cuda.empty_cache()
+
+    rows = []
+    for arch, shp in DRYRUN_ROWS:
+        row = dryrun.run_cell(arch, shp)
+        rows.append(row)
+        if row["status"] != "ok":
+            fail(f"dryrun {arch} {shp}: {row.get('error')}")
+        print(f"  16x16 {arch} {shp} (analytic, H100 roofline): compute {row['compute_s']:.4f} s, "
+              f"memory {row['memory_s']:.4f} s, collective {row['collective_s']:.4f} s "
+              f"({row['dominant']}), roofline_fraction {row['roofline_fraction']:.4f}, "
+              f"{row['hlo_flops'] / 1e12:.2f} TFLOP, {row['hlo_bytes'] / 1e9:.2f} GB, collectives "
+              f"{row['coll_bytes'] / 1e9:.2f} GB a rank; peak {row['mem']['peak_bytes'] / 2 ** 30:.2f}"
+              f" GiB, arguments {row['mem']['argument_bytes'] / 2 ** 30:.2f} GiB; traced in "
+              f"{row['trace_s']} s")
+    return rows
+
+
 
 def main() -> None:
     t0 = time.perf_counter()
@@ -7745,6 +8004,7 @@ def main() -> None:
     phase("checkpoint", checkpoint_phase, torch)
     phase("remat", remat_phase, torch)
     spent.update(phase("parallel", parallel_phase, torch))
+    phase("dryrun", dryrun_phase, torch)
     cache = phase("tuning", tuning_phase, torch)
     phase("codesign", codesign_phase, torch, cache)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "

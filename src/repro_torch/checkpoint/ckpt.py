@@ -27,9 +27,9 @@ Elastic restore, as JAX's launcher does it (`repro/launch/train.py`: the
 mesh is rebuilt from the current world and restore reshards the leaves
 onto it).  Under a sharding plan (`parallel/sharding.py`) the trees hold
 this rank's blocks: `save(..., plan=)` gathers every leaf whole to rank 0,
-leaf by leaf (a collective: every rank calls it), and rank 0 writes the
-same format, so a checkpoint written on one mesh, or by either package,
-restores on any;
+leaf by leaf (a collective: every rank calls it; of a KV block replicated
+over `model`, one replica), and rank 0 writes the same format, so a
+checkpoint written on one mesh, or by either package, restores on any;
 `restore(..., plan=)` reads the whole leaves and keeps this rank's block
 of each, by the spec tree of the mesh it runs on.
 """
@@ -67,7 +67,7 @@ def _flatten(tree: Any, prefix: str = "", specs: Any = None, plan=None) -> Dict[
     elif plan is None:
         out[prefix[:-1]] = _host_copy(tree)
     else:
-        whole = gather_leaf_to_host(tree, specs, plan.mesh)
+        whole = gather_leaf_to_host(tree, specs, plan.mesh, plan.rep_of(prefix.split("/")))
         if whole is not None:
             out[prefix[:-1]] = _host_copy(whole)
     return out
@@ -101,21 +101,24 @@ def _as_template(key: str, arr, like: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _unflatten_into(template: Any, flat: Dict[str, np.ndarray], prefix: str = "",
-                    specs: Any = None, mesh=None) -> Any:
+                    specs: Any = None, mesh=None, rep_of=None) -> Any:
+    """`rep_of(path)`: a leaf's KV replication over `model` (`Plan.rep_of`)."""
     if isinstance(template, OptState):
         return OptState(*(_unflatten_into(getattr(template, f), flat, f"{prefix}.{f}/",
-                                          None if specs is None else getattr(specs, f), mesh)
+                                          None if specs is None else getattr(specs, f), mesh,
+                                          rep_of)
                           for f in OptState._fields))
     if isinstance(template, dict):
         return {k: _unflatten_into(v, flat, f"{prefix}{k}/", None if specs is None else specs[k],
-                                   mesh)
+                                   mesh, rep_of)
                 for k, v in template.items()}
     key = prefix[:-1]
     if key not in flat:
         raise KeyError(f"checkpoint has no leaf {key!r}")
     arr = flat[key]
     if specs is not None:
-        arr = local_shard(_as_template(key, arr, None), specs, mesh)
+        arr = local_shard(_as_template(key, arr, None), specs, mesh,
+                          rep_of(key.split("/")) if rep_of else 1)
     return _as_template(key, arr, template)
 
 
@@ -223,14 +226,14 @@ class Checkpointer:
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step}")
-        pspecs = ospecs = mesh = None
+        pspecs = ospecs = mesh = rep_of = None
         if plan is not None:
             pspecs, ospecs = state_specs(plan, params_template, opt_template)
-            mesh = plan.mesh
+            mesh, rep_of = plan.mesh, plan.rep_of
         # leaf by leaf from the archive: a rank holds one whole leaf at a time
         with np.load(os.path.join(path, "leaves.npz")) as flat:
-            params = _unflatten_into(params_template, flat, "params/", pspecs, mesh)
+            params = _unflatten_into(params_template, flat, "params/", pspecs, mesh, rep_of)
             opt = None
             if opt_template is not None:
-                opt = _unflatten_into(opt_template, flat, "opt/", ospecs, mesh)
+                opt = _unflatten_into(opt_template, flat, "opt/", ospecs, mesh, rep_of)
         return params, opt, step

@@ -2,10 +2,13 @@
 
 Where its inputs come from: in the JAX package, the compiled XLA program
 (`core/hlo_analysis.py` on the post-SPMD HLO text).  The port has no
-compiled program; its counterpart of that module comes with the dry-run
-slice (launch/dryrun.py on the meta device), with `torch.utils.flop_counter`
-in place of the HLO walk.  Until then `build_report` takes the numbers from
-its caller, and `collective_bytes` parses HLO text as the JAX package's does.
+compiled program: `launch/dryrun.py` traces one rank's step on the meta
+device over a virtual mesh, and `core/op_analysis.py` counts it in place of
+the HLO walk (dot FLOPs of the aten matrix products, the eager program's
+bytes, each hand-written kernel charged by its `cost` function, the
+collectives' wire bytes from `parallel/comm.py`'s census).  `build_report`
+takes those numbers; `collective_bytes` parses HLO text as the JAX
+package's does.  A report's peak is its own hardware's (`hw.peak_flops`).
 The JAX package's description follows:
 
   compute term    = HLO_FLOPs / (chips * peak_FLOP/s)
@@ -93,6 +96,9 @@ class RooflineReport:
     collective_s: float
     model_flops: float  # 6*N*D per-chip-equivalent useful training FLOPs
     bytes_per_device: Optional[float] = None  # from memory_analysis
+    # the report's hardware peak (not a field: the rows stay JAX's);
+    # build_report sets it, a report made directly reads the default chip's
+    _peak_flops = get_hardware().peak_flops
 
     @property
     def dominant(self) -> str:
@@ -117,10 +123,7 @@ class RooflineReport:
         """Useful-FLOPs throughput vs chip peak, given the bound step time
         (an analytic MFU)."""
         t = self.step_time_lower_bound
-        return (self.model_flops / t) / _PEAK if t else 0.0
-
-
-_PEAK = 197e12  # set at report build; kept for the property above
+        return (self.model_flops / t) / self._peak_flops if t else 0.0
 
 
 def build_report(arch: str, shape: str, mesh: str, num_chips: int,
@@ -130,18 +133,15 @@ def build_report(arch: str, shape: str, mesh: str, num_chips: int,
                  bytes_per_device: Optional[float] = None) -> RooflineReport:
     """Assemble a RooflineReport from per-chip quantities.
 
-    flops/nbytes/coll come from `core.hlo_analysis.analyze_hlo` on the
-    compiled (post-SPMD) HLO text — NOT from raw `cost_analysis()`, which
-    counts while-loop bodies once and so under-reports scanned models; the
-    raw value is still recorded by the dry-run for reference.
+    flops/nbytes/coll come from `core.op_analysis` on one rank's traced
+    step (the JAX package's from `core.hlo_analysis.analyze_hlo` on the
+    compiled, post-SPMD HLO text).
     `model_flops_total` is whole-cluster useful FLOPs per step (6·N_active·D
     train / 2·N_active·D serve), divided by chips here.
     """
     hw = hw or get_hardware()
-    global _PEAK
-    _PEAK = hw.peak_flops
     total = float(coll.get("total", sum(coll.values())))
-    return RooflineReport(
+    report = RooflineReport(
         arch=arch, shape=shape, mesh=mesh, num_chips=num_chips,
         hlo_flops=flops,
         hlo_bytes=nbytes,
@@ -153,6 +153,8 @@ def build_report(arch: str, shape: str, mesh: str, num_chips: int,
         model_flops=model_flops_total / max(num_chips, 1),
         bytes_per_device=bytes_per_device,
     )
+    object.__setattr__(report, "_peak_flops", hw.peak_flops)
+    return report
 
 
 def to_row(r: RooflineReport) -> Dict[str, object]:

@@ -205,8 +205,13 @@ def aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+META_SMS = 132   # the H100 SXM's SMs: the launch shapes a meta trace plans for
+
+
 @functools.lru_cache(maxsize=None)
 def num_sms(device) -> int:
+    if torch.device(device).type == "meta":
+        return META_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -219,13 +224,20 @@ def ptr(t) -> Optional[ctypes.c_void_p]:
 
 
 def dispatch_device(what: str, t) -> str:
-    """'cpu' (plain PyTorch version) or 'cuda' (the kernel); raise on any
-    other device — there is no fallback."""
+    """'cpu' (plain PyTorch version), 'cuda' (the kernel) or 'meta' (the
+    CUDA path's shape checks, then outputs of the kernel's shapes and
+    dtypes, and the kernel charged to the op counter: a dry run's trace);
+    raise on any other device — there is no fallback."""
     kind = t.device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: no kernel for device {t.device} "
-                         f"(CPU runs the plain version, CUDA the kernel)")
+                         f"(CPU runs the plain version, CUDA the kernel, meta traces it)")
     return kind
+
+
+def traced(device) -> bool:
+    """True on the meta device: the launch is planned and charged, not made."""
+    return torch.device(device).type == "meta"
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from ... import obs
+from ...core import op_analysis
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
 from .. import _build
@@ -172,6 +173,72 @@ def paged_geometry(op: str, key_shape: tuple, q_dtype, kv_dtype, b: int, nkv: in
     return paged_launch(b, nkv, g, d, capacity, kv_itemsize, q_itemsize), None
 
 
+# --- the kernels' work: what a launch charges the op counter (core/op_analysis.py)
+# and what chip_smoke's bounds are computed from
+
+FLASH_QUERY_TILE = 64   # csrc/flash_attention.cu BQ: the forward kernel's query rows a block
+
+
+def flash_pairs(b: int, sq: int, skv: int, a: int, causal: bool) -> int:
+    """(query, key) pairs the flash kernels compute: under the top-left
+    causal mask query i reads keys 0..min(i, skv - 1)."""
+    if not causal:
+        return b * a * sq * skv
+    inside = min(sq, skv)
+    return b * a * (inside * (inside + 1) // 2 + (sq - inside) * skv)
+
+
+def flash_cost(b: int, sq: int, skv: int, a: int, nkv: int, d: int, causal: bool,
+               itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward launch: Q K^T and P V over the pairs;
+    q, k, v read and o written once, lse (f32) written."""
+    io = itemsize * (2 * b * sq * a * d + 2 * b * skv * nkv * d)
+    return 4.0 * flash_pairs(b, sq, skv, a, causal) * d, float(io + 4 * b * a * sq)
+
+
+def flash_bwd_cost(b: int, sq: int, skv: int, a: int, nkv: int, d: int, causal: bool,
+                   itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one backward launch: S and P recomputed, dP, dQ,
+    dK and dV (ten products of the pairs' size); q, k, v, o and do read,
+    dq, dk and dv written, lse read and the row sums di written (f32)."""
+    io = itemsize * (2 * b * sq * a * d + 2 * b * skv * nkv * d)
+    return (10.0 * flash_pairs(b, sq, skv, a, causal) * d,
+            float(2 * io + itemsize * b * sq * a * d + 8 * b * a * sq))
+
+
+def paged_cost(b: int, a: int, nkv: int, d: int, live: int, q_itemsize: int,
+               kv_itemsize: int, entries: int, read: int | None = None) -> tuple[float, float]:
+    """(FLOPs, bytes) of one paged-decode launch over `live` tokens: q read
+    and o written, the K and V (and an int8 pool's two f32 scales) of
+    `read` tokens read once (default the live ones; fewer where rows share
+    blocks), lengths and `entries` index entries (slot ids, or the table
+    entries of the live blocks) read."""
+    read = live if read is None else read
+    scales = 8 * read * nkv if kv_itemsize == 1 else 0
+    return (4.0 * a * d * live, float(q_itemsize * 2 * b * a * d
+                                      + kv_itemsize * 2 * read * nkv * d + scales
+                                      + 4 * b + 4 * entries))
+
+
+def _paged_charge(what: str, q, k_pool, lengths, quant: bool, capacity: int,
+                  block: int = 0) -> None:
+    """Charge a paged-decode launch to the op counter, if one is on: the
+    live tokens read from `lengths` (every row at its `capacity` on the
+    meta device, whose values are unknown); `block`: a block pool's block
+    size (0: a slot pool)."""
+    if op_analysis.active() is None:
+        return
+    b, a, d = q.shape
+    nkv = k_pool.shape[2]
+    if _build.traced(q.device):
+        live, entries = b * capacity, b * (capacity // block if block else 1)
+    else:
+        live = int(lengths.sum())
+        entries = int(((lengths.long() + block - 1) // block).sum()) if block else b
+    op_analysis.charge(what + (".int8" if quant else ""), *paged_cost(
+        b, a, nkv, d, live, q.element_size(), k_pool.element_size(), entries))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """q: (b, sq, a, d); k, v: (b, skv, nkv, d), a % nkv == 0.  Returns (b,
     sq, a, d).  The causal mask is top-left (key j live for query i when
@@ -208,8 +275,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, scale=None):
         obs.record_dispatch("flash_attention_causal" if causal else "flash_attention_full",
                             impl="plain" if cpu else "cuda", shape=tuple(q.shape))
     if cpu:
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _flash_fwd_cuda(q, k, v, causal, scale)
+        b, sq, a, d = q.shape
+        with op_analysis.charged("flash_attention_fwd", *flash_cost(
+                b, sq, k.shape[1], a, k.shape[2], d, causal, q.element_size())):
+            # in the kernel's layout, so what follows runs the same ops on any device
+            return tuple(t.contiguous() for t in flash_attention_ref(q, k, v, causal=causal,
+                                                                      scale=scale))
+    with op_analysis.opaque():
+        return _flash_fwd_cuda(q, k, v, causal, scale)
 
 
 flash_attention_fwd.launches = 0
@@ -225,8 +298,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, scale=None)
         obs.record_dispatch("flash_attention_bwd", impl="plain" if cpu else "cuda",
                             shape=tuple(q.shape), site="causal" if causal else "full")
     if cpu:
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, scale=scale)
-    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        b, sq, a, d = q.shape
+        with op_analysis.charged("flash_attention_bwd", *flash_bwd_cost(
+                b, sq, k.shape[1], a, k.shape[2], d, causal, q.element_size())):
+            return tuple(t.contiguous() for t in flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, scale=scale))
+    with op_analysis.opaque():
+        return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
 
 
 flash_attention_bwd.launches = 0
@@ -258,6 +336,10 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
         return out, lse
     if skv == 0:
         return out.zero_(), lse.zero_()
+    op_analysis.charge("flash_attention_fwd", *flash_cost(b, sq, skv, a, nkv, d, causal,
+                                                          q.element_size()))
+    if _build.traced(q.device):
+        return out, lse
     lib = _build.build().lib
     with torch.cuda.device(q.device):
         status = lib.repro_flash_fwd(_build.ptr(q), _build.ptr(k), _build.ptr(v),
@@ -284,6 +366,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     # bf16: the kernel adds dq into f32 scratch with atomics, then rounds it
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
               if q.dtype == torch.bfloat16 else None)
+    op_analysis.charge("flash_attention_bwd", *flash_bwd_cost(b, sq, skv, a, nkv, d, causal,
+                                                              q.element_size()))
+    if _build.traced(q.device):
+        return dq, dk, dv
     lib = _build.build().lib
     with torch.cuda.device(q.device):
         status = lib.repro_flash_bwd(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
@@ -312,10 +398,14 @@ def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=
         if obs.enabled():
             obs.record_dispatch("paged_decode", impl="plain", shape=tuple(q.shape),
                                 site="int8" if k_scale is not None else "")
-        return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
-                                k_scale=k_scale, v_scale=v_scale)
-    return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
-                       slot_idx.to(torch.int32), lengths, 0, scale, None, tuned, hw_name)
+        _paged_charge("paged_decode", q, k_pool, lengths, k_scale is not None,
+                      k_pool.shape[1])
+        with op_analysis.opaque():
+            return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
+                                    k_scale=k_scale, v_scale=v_scale)
+    with op_analysis.opaque():
+        return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
+                           slot_idx.to(torch.int32), lengths, 0, scale, None, tuned, hw_name)
 
 
 paged_decode.launches = 0        # float pools
@@ -343,14 +433,18 @@ def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_s
             obs.record_dispatch("paged_decode_blocktable", impl="plain", shape=tuple(q.shape),
                                 site="int8" if k_scale is not None else "",
                                 blocks={"block_size": k_blocks.shape[1]})
-        return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
-                                           scale=scale, k_scale=k_scale, v_scale=v_scale)
-    tables = block_tables.to(torch.int32).contiguous()
-    if tables.dim() != 2 or tables.shape[0] != q.shape[0] or tables.shape[1] < 1:
-        raise ValueError(f"paged_decode_blocktable: block_tables {tuple(tables.shape)} for "
-                         f"{q.shape[0]} rows")
-    return _paged_cuda(paged_decode_blocktable, q, k_blocks, v_blocks, k_scale, v_scale,
-                       tables, lengths, tables.shape[1], scale, None, tuned, hw_name)
+        _paged_charge("paged_decode_blocktable", q, k_blocks, lengths, k_scale is not None,
+                      block_tables.shape[1] * k_blocks.shape[1], k_blocks.shape[1])
+        with op_analysis.opaque():
+            return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
+                                               scale=scale, k_scale=k_scale, v_scale=v_scale)
+    with op_analysis.opaque():
+        tables = block_tables.to(torch.int32).contiguous()
+        if tables.dim() != 2 or tables.shape[0] != q.shape[0] or tables.shape[1] < 1:
+            raise ValueError(f"paged_decode_blocktable: block_tables {tuple(tables.shape)} for "
+                             f"{q.shape[0]} rows")
+        return _paged_cuda(paged_decode_blocktable, q, k_blocks, v_blocks, k_scale, v_scale,
+                           tables, lengths, tables.shape[1], scale, None, tuned, hw_name)
 
 
 paged_decode_blocktable.launches = 0        # float pools
@@ -398,8 +492,11 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib = _build.build().lib
     capacity = max_blocks * depth if max_blocks else depth
+    _paged_charge(what, q, k_pool, lengths, quant, capacity, depth if max_blocks else 0)
+    if _build.traced(q.device):
+        return out
+    lib = _build.build().lib
     if geometry is not None:
         geo = paged_launch(b, nkv, g, d, capacity, k_pool.element_size(), q.element_size(),
                            *geometry)

@@ -29,6 +29,12 @@ launch of the batched recompute kernel, then the batched tile GEMM
 (`matmul_expert`): dx over both pairs in one nt launch, dwg and dwu in two
 tn launches.  Each counts its own launches.
 
+`cost` (the forward kernel) and `bwd_cost` (the recompute kernel) are the
+kernels' work; `bwd_launches` lists every launch of the backward, its tile
+GEMMs' included: what a call charges the op counter
+(`core/op_analysis.py`) on any device, and what chip_smoke's bounds are
+computed from.
+
 With observability on, each forward and backward records its dispatch (op
 "fused_mlp_<mlp_type>", "fused_mlp_hidden_expert", "fused_mlp_bwd" or
 "fused_mlp_bwd_expert", "cuda" or "plain", the flattened shape, the tile),
@@ -41,9 +47,11 @@ from typing import Optional
 import torch
 
 from ... import obs
+from ...core import op_analysis
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from .. import _build
+from ..matmul.ops import cost as matmul_cost
 from ..matmul.ops import matmul, matmul_expert
 from .backward import fused_mlp_bwd_expert_ref, fused_mlp_bwd_ref
 from .ref import MLP_TYPES, fused_mlp_hidden_ref, is_gated
@@ -82,6 +90,39 @@ def geometry(m: int, h: int, f: int, dtype, mlp_type: str, *, tuned: bool = Fals
     return pick_tile(m, dtype), None
 
 
+def cost(m: int, h: int, f: int, gated: bool, itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward launch: x (m, h) against the gate/up
+    pair (or w_up alone), hidden (m, f) written."""
+    nw = 2 if gated else 1
+    return 2.0 * nw * m * h * f, float(itemsize * (m * h + nw * h * f + m * f))
+
+
+def bwd_cost(m: int, h: int, f: int, gated: bool, itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one recompute launch: the gate/up pre-activations
+    again from x and the weights, dh read, dg and du written."""
+    nw = 2 if gated else 1
+    return 2.0 * nw * m * h * f, float(itemsize * (m * h + nw * h * f + m * f + nw * m * f))
+
+
+def bwd_launches(m: int, h: int, f: int, gated: bool, itemsize: int, e: int = 0) -> list:
+    """[(kernel, FLOPs, bytes)] of the backward's launches: the recompute,
+    then the tile GEMM's dx (both pairs in one launch) and the weight
+    gradients; `e` experts: the batched launches, each e times the work."""
+    k = max(e, 1)
+    rec = bwd_cost(m, h, f, gated, itemsize)
+    dx = matmul_cost(m, f, h, itemsize, 2 if gated else 1)
+    dw = matmul_cost(h, m, f, itemsize)
+    suffix = "_expert" if e else ""
+    out = [("fused_mlp_bwd" + suffix, *rec), ("matmul" + suffix, *dx)]
+    out += [("matmul" + suffix, *dw)] * (2 if gated else 1)
+    return [(name, k * fl, k * nb) for name, fl, nb in out]
+
+
+def _charge_bwd(m: int, h: int, f: int, gated: bool, itemsize: int, e: int = 0) -> None:
+    for name, fl, nb in bwd_launches(m, h, f, gated, itemsize, e):
+        op_analysis.charge(name, fl, nb)
+
+
 def _check_type(mlp_type: str) -> None:
     if mlp_type not in MLP_TYPES:
         raise ValueError(f"unknown mlp_type {mlp_type!r}; valid: {list(MLP_TYPES)}")
@@ -114,8 +155,11 @@ def _hidden(x2, w_gate, w_up, mlp_type: str, tuned: bool, hw_name):
         if obs.enabled():
             obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="plain",
                                 shape=(*x2.shape, w_up.shape[-1]))
-        return fused_mlp_hidden_ref(x2, w_gate, w_up, mlp_type)
-    return _fused_cuda(x2, w_gate, w_up, mlp_type, tuned, hw_name)
+        with op_analysis.charged("fused_mlp_hidden", *cost(
+                *x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())):
+            return fused_mlp_hidden_ref(x2, w_gate, w_up, mlp_type)
+    with op_analysis.opaque():
+        return _fused_cuda(x2, w_gate, w_up, mlp_type, tuned, hw_name)
 
 
 fused_mlp_hidden.launches = 0
@@ -193,6 +237,9 @@ def _fused_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=Non
             obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="cuda", shape=(m, k, f),
                                 blocks={"block_m": tile[0], "block_f": tile[1]},
                                 tuned_hit=(cfg is not None) if tuned else None)
+    op_analysis.charge("fused_mlp_hidden", *cost(m, k, f, w_gate is not None, x.element_size()))
+    if _build.traced(x.device):
+        return out
     chunk = 16 // x.element_size()
     vec = int(k % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
     lib = _build.build().lib
@@ -226,8 +273,12 @@ def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned:
         if obs.enabled():
             obs.record_dispatch("fused_mlp_hidden_expert", impl="plain",
                                 shape=(*x.shape, w_up.shape[-1]), site=mlp_type)
-        return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
-    return _fused_expert_cuda(x, w_gate, w_up, mlp_type, tuned, hw_name)
+        e, m, h = x.shape
+        fl, nb = cost(m, h, w_up.shape[-1], w_gate is not None, x.element_size())
+        with op_analysis.charged("fused_mlp_hidden_expert", e * fl, e * nb):
+            return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
+    with op_analysis.opaque():
+        return _fused_expert_cuda(x, w_gate, w_up, mlp_type, tuned, hw_name)
 
 
 fused_mlp_hidden_expert.launches = 0
@@ -267,6 +318,10 @@ def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_n
         obs.record_dispatch("fused_mlp_hidden_expert", impl="cuda", shape=(e, m, k, f),
                             site=mlp_type, blocks={"block_m": tile[0], "block_f": tile[1]},
                             tuned_hit=(cfg is not None) if tuned else None)
+    fl, nb = cost(m, k, f, w_gate is not None, x.element_size())
+    op_analysis.charge("fused_mlp_hidden_expert", e * fl, e * nb)
+    if _build.traced(x.device):
+        return out
     chunk = 16 // x.element_size()
     vec = int(k % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
     lib = _build.build().lib
@@ -297,9 +352,12 @@ def fused_mlp_bwd(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned: bool 
                             blocks=None if cpu else dict(zip(("block_m", "block_f"),
                                                              pick_tile(x2.shape[0], x2.dtype))))
     if cpu:
-        dx, dwg, dwu = fused_mlp_bwd_ref(x2, w_gate, w_up, dh2, mlp_type)
+        _charge_bwd(*x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())
+        with op_analysis.opaque():
+            dx, dwg, dwu = fused_mlp_bwd_ref(x2, w_gate, w_up, dh2, mlp_type)
     else:
-        dx, dwg, dwu = _bwd_cuda(x2, w_gate, w_up, dh2, mlp_type, tuned, hw_name)
+        with op_analysis.opaque():
+            dx, dwg, dwu = _bwd_cuda(x2, w_gate, w_up, dh2, mlp_type, tuned, hw_name)
     return dx.reshape(*lead, h), dwg, dwu
 
 
@@ -318,6 +376,10 @@ def _recompute_cuda(x, w_gate, w_up, dh, mlp_type: str):
     du = torch.empty_like(dh)
     dg = None if w_gate is None else torch.empty_like(dh)
     if m and f:
+        op_analysis.charge("fused_mlp_bwd", *bwd_cost(m, h, f, w_gate is not None,
+                                                      x.element_size()))
+        if _build.traced(x.device):
+            return dg, du
         chunk = 16 // x.element_size()
         vec = int(h % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws))
         lib = _build.build().lib
@@ -360,8 +422,12 @@ def fused_mlp_bwd_expert(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned
                             blocks=None if cpu else dict(zip(("block_m", "block_f"),
                                                              pick_tile(x.shape[1], x.dtype))))
     if cpu:
-        return fused_mlp_bwd_expert_ref(x, w_gate, w_up, dh, mlp_type)
-    return _bwd_expert_cuda(x, w_gate, w_up, dh, mlp_type, tuned, hw_name)
+        e, m, h = x.shape
+        _charge_bwd(m, h, w_up.shape[-1], w_gate is not None, x.element_size(), e)
+        with op_analysis.opaque():
+            return fused_mlp_bwd_expert_ref(x, w_gate, w_up, dh, mlp_type)
+    with op_analysis.opaque():
+        return _bwd_expert_cuda(x, w_gate, w_up, dh, mlp_type, tuned, hw_name)
 
 
 fused_mlp_bwd_expert.launches = 0
@@ -379,6 +445,10 @@ def _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type: str):
     du = torch.empty_like(dh)
     dg = None if w_gate is None else torch.empty_like(dh)
     if e and m and f:
+        rec = bwd_cost(m, h, f, w_gate is not None, x.element_size())
+        op_analysis.charge("fused_mlp_bwd_expert", e * rec[0], e * rec[1])
+        if _build.traced(x.device):
+            return dg, du
         chunk = 16 // x.element_size()
         vec = int(h % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws, dh))
         lib = _build.build().lib

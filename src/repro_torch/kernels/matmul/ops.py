@@ -35,6 +35,12 @@ expert dgrad `matmul_expert(g, w.mT)` and wgrad `matmul_expert(x.mT, g)`
 copy nothing.  `matmul_expert.launches` counts it apart from
 `matmul.launches`, and `matmul_expert.by_layout` by layout.
 
+`cost` and `expert_cost` are the kernels' work (FLOPs and the bytes each
+operand read once and the output written once take): what a launch
+charges the op counter (`core/op_analysis.py`; a CPU call charges the
+launch its CUDA path makes, a meta call the launch it would make) and
+what chip_smoke's bounds are computed from.
+
 With observability on (`repro_torch.obs`), each call records its dispatch
 (`obs.record_dispatch`: op, "cuda" or "plain", (m, k, n), the layout as the
 site, the launch geometry), each distinct one once.
@@ -44,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from ... import obs
+from ...core import op_analysis
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from ...tuning.candidates import split_depth
@@ -124,6 +131,19 @@ def geometry(m: int, k: int, n: int, dtype, *, tuned: bool = False,
     return launch_shape(m, n, k, dtype, num_sms), None
 
 
+def cost(m: int, k: int, n: int, itemsize: int, pairs: int = 1) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: C (m, n) = sum over `pairs` of A (m, k)
+    @ B (k, n), operands and output `itemsize` bytes an element."""
+    return 2.0 * pairs * m * k * n, float(itemsize * (pairs * (m * k + k * n) + m * n))
+
+
+def expert_cost(e: int, m: int, k: int, n: int, itemsize: int,
+                pairs: int = 1) -> tuple[float, float]:
+    """(FLOPs, bytes) of one batched launch over e experts."""
+    flops, nbytes = cost(m, k, n, itemsize, pairs)
+    return e * flops, e * nbytes
+
+
 def transposed(what: str, t: torch.Tensor) -> bool:
     """False for a row-major (contiguous) 2-D operand, True for the
     transpose of one; raise for any other strides."""
@@ -155,9 +175,13 @@ def keyed_matmul(a, b, a1=None, b1=None, *, tuned: bool = False, hw_name: str | 
     if _build.dispatch_device("matmul", a2) == "cpu":
         if obs.enabled():
             obs.record_dispatch(op, impl="plain", shape=(a2.shape[0], k, b.shape[-1]))
-        out = matmul_ref(a2, b, a1=a12, b1=b1)
+        m, n = a2.shape[0], b.shape[-1]
+        with op_analysis.charged("matmul", *cost(m, k, n, a2.element_size(),
+                                                 1 if a1 is None else 2)):
+            out = matmul_ref(a2, b, a1=a12, b1=b1)
     else:
-        out = _matmul_cuda(a2, b, a12, b1, tuned, hw_name, op, key_dtype)
+        with op_analysis.opaque():
+            out = _matmul_cuda(a2, b, a12, b1, tuned, hw_name, op, key_dtype)
     return out.reshape(*lead, b.shape[-1])
 
 
@@ -223,6 +247,9 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
         obs.record_dispatch(op, impl="cuda", shape=(m, k, n), site=layout,
                             blocks={"block_m": tm, "block_n": tn, "split_k": splits},
                             tuned_hit=(cfg is not None) if tuned and forced is None else None)
+    op_analysis.charge("matmul", *cost(m, k, n, a.element_size(), 1 if a1 is None else 2))
+    if _build.traced(dev):
+        return out
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     chunk = 16 // a.element_size()
@@ -270,8 +297,11 @@ def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = No
     if _build.dispatch_device("matmul_expert", x) == "cpu":
         if obs.enabled():
             obs.record_dispatch("matmul_expert", impl="plain", shape=(*x.shape, w.shape[-1]))
-        return matmul_expert_ref(x, w, x1, w1)
-    return _matmul_expert_cuda(x, w, x1, w1, tuned, hw_name)
+        with op_analysis.charged("matmul_expert", *expert_cost(
+                *x.shape, w.shape[-1], x.element_size(), 1 if x1 is None else 2)):
+            return matmul_expert_ref(x, w, x1, w1)
+    with op_analysis.opaque():
+        return _matmul_expert_cuda(x, w, x1, w1, tuned, hw_name)
 
 
 matmul_expert.launches = 0
@@ -314,6 +344,10 @@ def _matmul_expert_cuda(x, w, x1=None, w1=None, tuned=False, hw_name=None) -> to
         obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n), site=layout,
                             blocks={"block_m": tm, "block_n": tn},
                             tuned_hit=(cfg is not None) if tuned else None)
+    op_analysis.charge("matmul_expert", *expert_cost(e, m, k, n, x.element_size(),
+                                                     1 if x1 is None else 2))
+    if _build.traced(dev):
+        return out
     chunk = 16 // x.element_size()
     # every operand's row length a multiple of 16 bytes (then so is every
     # expert's stride, m k or k n elements)

@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from ... import obs
+from ...core import op_analysis
 from ...core.hardware import get_hardware
 from ...quant import QuantizedTensor, fp8_round_trip, k_major, quantize_int8, quantize_weight
 from ...tuning.cache import TunedConfig, dtype_name, lookup, mixed_dtype
@@ -133,6 +134,22 @@ def _count(fn, tuned: bool, cfg) -> None:
             fn.tuned_hits += 1
 
 
+def cost(m: int, k: int, n: int, out_itemsize: int, e: int = 1) -> tuple[float, float]:
+    """(operations, bytes) of one int8 GEMM launch (e experts): int8
+    operands read once, their f32 row and column scales, the output
+    written.  What a launch charges the op counter (core/op_analysis.py)
+    and chip_smoke's bounds read."""
+    return 2.0 * e * m * k * n, float(e * (m * k + k * n + 4 * (m + n) + out_itemsize * m * n))
+
+
+def fused_cost(m: int, h: int, f: int, gated: bool, out_itemsize: int) -> tuple[float, float]:
+    """(operations, bytes) of one int8 fused-MLP launch: x and each weight
+    read once with their f32 scales, the hidden written."""
+    nw = 2 if gated else 1
+    return (2.0 * nw * m * h * f,
+            float(m * h + nw * h * f + 4 * (m + nw * f) + out_itemsize * m * f))
+
+
 def _as_quantized(w, name: str = "weight") -> QuantizedTensor:
     """A prequantized container passes through; a float matrix quantizes
     per output channel."""
@@ -178,9 +195,12 @@ def int8_matmul_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *, tuned:
     if _build.dispatch_device("int8_matmul", a_q) == "cpu":
         if obs.enabled():
             obs.record_dispatch("int8_matmul", impl="plain", shape=(*a_q.shape, b_q.shape[-1]))
-        return int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype)
-    return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
-                             act_dtype or out_dtype)
+        with op_analysis.charged("int8_matmul", *cost(*a_q.shape, b_q.shape[-1],
+                                                      out_dtype.itemsize)):
+            return int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype)
+    with op_analysis.opaque():
+        return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
+                                 act_dtype or out_dtype)
 
 
 def _check_int8(what: str, x_q, x_scale, ws) -> None:
@@ -252,6 +272,9 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_nam
                                 blocks={"block_m": tm, "block_n": tn,
                                         "split_k": -(-k // ks)},
                                 tuned_hit=(cfg is not None) if tuned else None)
+    op_analysis.charge("int8_matmul", *cost(m, k, n, out_dtype.itemsize))
+    if _build.traced(dev):
+        return out
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_int8_matmul(
@@ -321,9 +344,13 @@ def int8_matmul_expert_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *,
         if obs.enabled():
             obs.record_dispatch("int8_matmul", impl="plain", site="expert",
                                 shape=(*a_q.shape, b_q.shape[-1]))
-        return int8_matmul_expert_ref(a_q, a_scale, b_q, b_scale, out_dtype)
-    return _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
-                                    act_dtype or out_dtype)
+        e, m, k = a_q.shape
+        with op_analysis.charged("int8_matmul_expert", *cost(m, k, b_q.shape[-1],
+                                                             out_dtype.itemsize, e)):
+            return int8_matmul_expert_ref(a_q, a_scale, b_q, b_scale, out_dtype)
+    with op_analysis.opaque():
+        return _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
+                                        act_dtype or out_dtype)
 
 
 def _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_name=None,
@@ -357,6 +384,9 @@ def _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False,
         obs.record_dispatch("int8_matmul", impl="cuda", shape=(e, m, k, n), site="expert",
                             blocks={"block_m": tm, "block_n": tn},
                             tuned_hit=(cfg is not None) if tuned else None)
+    op_analysis.charge("int8_matmul_expert", *cost(m, k, n, out_dtype.itemsize, e))
+    if _build.traced(dev):
+        return out
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_int8_matmul_expert(
@@ -407,10 +437,13 @@ def int8_fused_mlp_q(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, *,
         if obs.enabled():
             obs.record_dispatch(int8_fused_mlp_op_name(mlp_type), impl="plain",
                                 shape=(*x_q.shape, wu_q.shape[-1]))
-        return int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale,
-                                  mlp_type=mlp_type, out_dtype=out_dtype)
-    return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype,
-                            tuned, hw_name, act_dtype or out_dtype)
+        with op_analysis.charged("int8_fused_mlp_hidden", *fused_cost(
+                *x_q.shape, wu_q.shape[-1], wg_q is not None, out_dtype.itemsize)):
+            return int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale,
+                                      mlp_type=mlp_type, out_dtype=out_dtype)
+    with op_analysis.opaque():
+        return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type,
+                                out_dtype, tuned, hw_name, act_dtype or out_dtype)
 
 
 def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out_dtype,
@@ -440,6 +473,10 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
     if tile[1] != FUSED_TILE[1]:
         raise ValueError(f"int8_fused_mlp_hidden: tile {tile[0]} x {tile[1]}: the library "
                          f"instantiates {FUSED_TILE[1]} columns only (csrc/int8_fused_mlp.cu)")
+    op_analysis.charge("int8_fused_mlp_hidden", *fused_cost(m, k, f, wg_q is not None,
+                                                            out_dtype.itemsize))
+    if _build.traced(x_q.device):
+        return out
     lib = _build.build().lib
     with torch.cuda.device(x_q.device):
         status = lib.repro_int8_fused_mlp(

@@ -42,6 +42,7 @@ import math
 import torch
 
 from ... import obs
+from ...core import op_analysis
 from .. import _build
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
@@ -198,6 +199,45 @@ def copy_width(t: torch.Tensor, strides, d: int) -> int:
     return 16 if whole else 2
 
 
+def _distinct(t: torch.Tensor) -> int:
+    """Elements of `t` in memory: a dim expanded (stride 0) counts once."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+
+def cost(lead: int, nc: int, Q: int, P: int, N: int, bc: int, elem: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of the SSD chunk function over `lead` sequence-heads
+    of nc chunks: the causal half of C B^T and of (C B^T o L) X, and S =
+    B^T (decay o X); x_dt read and Y written once, B and C (`bc` elements
+    in memory each: read once per group) read, seg read and S written.
+    What a launch charges the op counter (core/op_analysis.py) and
+    chip_smoke's bounds read."""
+    tri = Q * (Q + 1) / 2
+    flops = lead * nc * (2.0 * N * tri + 2.0 * P * tri + 2.0 * N * P * Q)
+    return flops, float(elem * (2 * lead * nc * Q * P + 2 * bc + lead * nc * N * P)
+                        + 4 * lead * nc * Q)
+
+
+def bwd_cost(lead: int, nc: int, Q: int, P: int, N: int, bc: int,
+             elem: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of the SSD chunk gradient: the causal half of C B^T
+    once per group (`bc` // (nc Q N) groups) and, per head, of dY X^T, dC,
+    dB and dX, and the chunk-state products B dS and X dS^T; x_dt, dY and
+    dX once, B and C read and dB and dC written once per group, dS read,
+    seg and dseg."""
+    tri = Q * (Q + 1) / 2
+    groups = bc // (nc * Q * N)
+    flops = groups * nc * 2.0 * N * tri + lead * nc * (2.0 * tri * (2 * P + 2 * N)
+                                                       + 4.0 * Q * N * P)
+    return flops, float(elem * (3 * lead * nc * Q * P + 4 * bc + lead * nc * N * P)
+                        + 8 * lead * nc * Q)
+
+
+def _cost_of(fn, x_dt, B):
+    nc, Q, P = x_dt.shape[-3:]
+    return fn(math.prod(x_dt.shape[:-3]), nc, Q, P, B.shape[-1], _distinct(B),
+              x_dt.element_size())
+
+
 def ssd_chunk(x_dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor, seg: torch.Tensor):
     """x_dt: (..., nc, Q, P); B, C: (..., nc, Q, N) in x_dt's dtype; seg:
     (..., nc, Q) f32, the within-chunk cumulative sum of dt * A.  Returns
@@ -219,8 +259,10 @@ def _ssd_chunk_fwd(x_dt, B, C, seg):
         obs.record_dispatch("ssd_chunk", impl="plain" if cpu else "cuda",
                             shape=(*x_dt.shape, B.shape[-1]))
     if cpu:
-        return ssd_chunk_ref(x_dt, B, C, seg)
-    return _ssd_chunk_cuda(x_dt, B, C, seg)
+        with op_analysis.charged("ssd_chunk", *_cost_of(cost, x_dt, B)):
+            return ssd_chunk_ref(x_dt, B, C, seg)
+    with op_analysis.opaque():
+        return _ssd_chunk_cuda(x_dt, B, C, seg)
 
 
 class _SSDChunk(torch.autograd.Function):
@@ -252,8 +294,10 @@ def ssd_chunk_bwd(x_dt, B, C, seg, dY, dS):
         obs.record_dispatch("ssd_chunk_bwd", impl="plain" if cpu else "cuda",
                             shape=(*x_dt.shape, B.shape[-1]))
     if cpu:
-        return ssd_chunk_bwd_ref(x_dt, B, C, seg, dY, dS)
-    return _ssd_chunk_bwd_cuda(x_dt, B, C, seg, dY, dS)
+        with op_analysis.charged("ssd_chunk_bwd", *_cost_of(bwd_cost, x_dt, B)):
+            return ssd_chunk_bwd_ref(x_dt, B, C, seg, dY, dS)
+    with op_analysis.opaque():
+        return _ssd_chunk_bwd_cuda(x_dt, B, C, seg, dY, dS)
 
 
 ssd_chunk_bwd.launches = 0
@@ -306,6 +350,9 @@ def _ssd_chunk_cuda(x, B, C, seg, heads=None):
         slab, shared, smem = shape.heads, int(shape.shared), shape.smem
         widths = copy_width(x, sx, P) | copy_width(B, sb, N) << 8 | copy_width(C, sc, N) << 16
     arr = (ctypes.c_longlong * len(vals))(*vals)
+    op_analysis.charge("ssd_chunk", *_cost_of(cost, x, B))
+    if _build.traced(dev):
+        return y, s
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_ssd_chunk(_build.ptr(x), _build.ptr(B), _build.ptr(C), _build.ptr(seg),
@@ -377,6 +424,9 @@ def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS, heads=None):
         esum = torch.empty(math.prod(lead3) * nc * -(-Q // ROWS), dtype=torch.float32, device=dev)
     vals = sum((strides(t) for t in (x, B, C, seg, dY, dS, dx, db, dc, dseg)), ())
     arr = (ctypes.c_longlong * len(vals))(*vals)
+    op_analysis.charge("ssd_chunk_bwd", *_cost_of(bwd_cost, x, B))
+    if _build.traced(dev):
+        return dx, db, dc, dseg
     lib = _build.build().lib
     with torch.cuda.device(dev):
         status = lib.repro_ssd_chunk_bwd(*map(_build.ptr, (x, B, C, seg, dY, dS, dx, db, dc, dseg)),

@@ -82,6 +82,13 @@ class Mesh:
         key = frozenset(a for a in _axes_of(axes) if self.shape[a] > 1)
         return self._groups.get(key) if key else None
 
+    def replica_group(self, axis: str, n: int):
+        """The group of the n ranks along `axis` that share this rank's
+        block of size n (coordinates c with c // n equal; every other axis
+        fixed): the replicas of a KV head over `model`.  None where n is 1
+        or the mesh has no groups."""
+        return self._groups.get((axis, n)) if n > 1 else None
+
     def barrier(self) -> None:
         """Wait for every rank of the mesh."""
         g = self.group(self.axis_names)
@@ -127,9 +134,37 @@ def make_mesh(mesh_cfg: MeshConfig, ranks: Optional[Sequence[int]] = None) -> Op
                 g = dist.group.WORLD if len(members) == world else dist.new_group(members)
                 if me in members:
                     groups[frozenset(span)] = g
+    # replica groups along `model` (Mesh.replica_group): every proper divisor
+    t = shape["model"]
+    for n in (n for n in range(2, t) if t % n == 0):
+        for at in itertools.product(range(shape["pod"]), range(shape["data"]), range(t // n)):
+            members = sorted(ranks[_rank_of({"pod": at[0], "data": at[1], "model": at[2] * n + c},
+                                            shape)] for c in range(n))
+            g = dist.new_group(members)
+            if me in members:
+                groups[("model", n)] = g
     if me not in ranks:
         return None
     return Mesh(mesh_cfg, ranks.index(me), groups, dist.get_backend())
+
+
+def virtual_mesh(mesh_cfg: MeshConfig, rank: int = 0) -> Mesh:
+    """A mesh of `mesh_cfg`'s shape seen from `rank`, whose groups are
+    `comm.VirtualGroup`s: each collective returns a tensor of the right
+    shape and dtype without communicating (the dry run's trace of one
+    rank's step on a mesh that does not exist)."""
+    from ..parallel.comm import VirtualGroup
+    mesh = Mesh(mesh_cfg, rank)
+    axes = [a for a in ("pod", "data", "model") if mesh.shape[a] > 1]
+    groups = {}
+    for n in range(1, len(axes) + 1):
+        for span in itertools.combinations(axes, n):
+            groups[frozenset(span)] = VirtualGroup(mesh.axis_size(span), mesh.index(span))
+    t = mesh.shape["model"]
+    for n in (n for n in range(2, t) if t % n == 0):
+        groups[("model", n)] = VirtualGroup(n, mesh.coords["model"] % n)
+    mesh._groups, mesh.backend = groups, "virtual"
+    return mesh
 
 
 def choose_backend(world_size: int, device: torch.device) -> str:

@@ -18,7 +18,11 @@ the rank computes num_heads / model query heads over num_kv_heads / model
 KV heads, and its cache holds those KV heads; wo is row-sharded and its
 output summed over `model` (`tp_exit`: `reduce_from_tp`, or under sequence
 parallelism a reduce-scatter on the sequence; the input enters through
-`tp_enter`).  MLA: see `apply_mla`.
+`tp_enter`).  Where `model` is a multiple of num_kv_heads larger than it,
+a rank holds num_heads / model query heads and the one KV head they read
+(`sharding.kv_replication`: its wk / wv columns, its cache), and the
+replicas' wk / wv gradients are summed by the train step.  MLA: see
+`apply_mla`.
 """
 from __future__ import annotations
 
@@ -129,8 +133,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     """
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; valid: {list(ATTN_IMPLS)}")
-    tp = sh.tp_size()
-    a, nkv, hd = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
+    a, nkv, hd = cfg.num_heads // sh.tp_size(), sh.local_kv_heads(cfg), cfg.head_dim
     impl = cfg.linear_impl
     x = sh.tp_enter(x)
     b, s, h = x.shape

@@ -201,9 +201,10 @@ def _kv_cache(cfg: ModelConfig, n: int, batch: int, s_max: int, dtype, device):
     if cfg.attn_type == "mla":
         return {"latent": torch.zeros((n, batch, s_max, cfg.kv_lora_rank + cfg.qk_rope_dim),
                                       dtype=store, device=device)}
-    # under tensor parallelism, this rank's KV heads (cache_specs shards the
-    # sequence instead: the same numbers, another layout)
-    shape = (n, batch, s_max, cfg.num_kv_heads // sh.tp_size(), cfg.head_dim)
+    # under tensor parallelism, this rank's KV heads, or its one replicated
+    # KV head (cache_specs shards the sequence instead: the same numbers,
+    # another layout)
+    shape = (n, batch, s_max, sh.local_kv_heads(cfg), cfg.head_dim)
     leaves = {"k": torch.zeros(shape, dtype=store, device=device),
               "v": torch.zeros(shape, dtype=store, device=device)}
     if store == torch.int8:

@@ -25,25 +25,87 @@ The autograd forms say what the objective is across the group:
                  reduce-scatter forward, all-gather backward: partial
                  sums of which each rank keeps its slice (a row-parallel
                  exit under sequence parallelism)
+
+The census: inside `census()` every collective adds the bytes it puts on
+the wire to its kind (JAX's HLO names: "all-reduce", "all-gather",
+"reduce-scatter"; "collective-permute" for a point-to-point send): the
+output buffer in the wire's dtype (float32 for a widened sum), as the JAX
+package's HLO walk counts output-shape bytes.  A gloo reduce-scatter, run
+as an all-reduce and a slice, counts as one reduce-scatter of the slice,
+so gloo, NCCL and the dry run's virtual groups agree.
+
+A `VirtualGroup` stands for a group of a mesh that does not exist (the dry
+run, `launch/mesh.virtual_mesh`): each collective makes the same buffers
+as on NCCL and returns a tensor of the right shape and dtype, without
+communicating.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import contextlib
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 
+class VirtualGroup:
+    """A group of `size` ranks in which this one is `rank`; nothing is sent."""
+
+    def __init__(self, size: int, rank: int):
+        self.size, self.rank = size, rank
+
+    def __repr__(self):
+        return f"VirtualGroup(size={self.size}, rank={self.rank})"
+
+
+def _virtual(group) -> bool:
+    return isinstance(group, VirtualGroup)
+
+
 def size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.size if _virtual(group) else dist.get_world_size(group)
 
 
 def rank(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    if group is None:
+        return 0
+    return group.rank if _virtual(group) else dist.get_rank(group)
 
 
 def _host_staged(t: torch.Tensor, group) -> bool:
-    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    return t.device.type != "cpu" and not _virtual(group) and dist.get_backend(group) == "gloo"
+
+
+def _gloo(group) -> bool:
+    return not _virtual(group) and dist.get_backend(group) == "gloo"
+
+
+_LISTENERS: List[Callable[[str, float], None]] = []
+
+
+@contextlib.contextmanager
+def listen(fn: Callable[[str, float], None]):
+    """fn(kind, wire bytes) for every collective run inside."""
+    _LISTENERS.append(fn)
+    try:
+        yield
+    finally:
+        _LISTENERS.remove(fn)
+
+
+@contextlib.contextmanager
+def census():
+    """{kind: wire bytes} of every collective run inside."""
+    rec: Dict[str, float] = {}
+    with listen(lambda kind, n: rec.__setitem__(kind, rec.get(kind, 0.0) + n)):
+        yield rec
+
+
+def _record(kind: str, numel: int, dtype) -> None:
+    for fn in _LISTENERS:
+        fn(kind, float(numel * dtype.itemsize))
 
 
 def _wire(t: torch.Tensor, group, widen: bool) -> torch.Tensor:
@@ -57,12 +119,19 @@ def _wire(t: torch.Tensor, group, widen: bool) -> torch.Tensor:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+def _all_reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
+    buf = _wire(t, group, widen=op == "sum")
+    if not _virtual(group):
+        dist.all_reduce(buf, _OPS[op], group=group)
+    return buf
+
+
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The elementwise sum (or max) over the group, on every rank."""
     if group is None:
         return t
-    buf = _wire(t, group, widen=op == "sum")
-    dist.all_reduce(buf, _OPS[op], group=group)
+    buf = _all_reduce(t, group, op)
+    _record("all-reduce", buf.numel(), buf.dtype)
     return buf.to(t.device, t.dtype)
 
 
@@ -72,7 +141,11 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return t
     buf = _wire(t.contiguous(), group, widen=False)
     parts = [torch.empty_like(buf) for _ in range(size(group))]
-    dist.all_gather(parts, buf, group=group)
+    if _virtual(group):
+        parts[rank(group)] = buf
+    else:
+        dist.all_gather(parts, buf, group=group)
+    _record("all-gather", buf.numel() * len(parts), buf.dtype)
     return torch.cat(parts, dim=dim).to(t.device)
 
 
@@ -81,13 +154,17 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group is None:
         return t
     n, r = size(group), rank(group)
-    if dist.get_backend(group) == "gloo":
+    if _gloo(group):
         # gloo has no reduce-scatter: the whole sum, then this rank's slice
-        return all_reduce(t, group).chunk(n, dim=dim)[r].contiguous()
+        buf = _all_reduce(t, group, "sum")
+        _record("reduce-scatter", buf.numel() // n, buf.dtype)
+        return buf.to(t.device, t.dtype).chunk(n, dim=dim)[r].contiguous()
     src = t.movedim(dim, 0).contiguous()
     wide = src.float() if src.dtype in (torch.bfloat16, torch.float16) else src
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=wide.dtype, device=src.device)
-    dist.reduce_scatter_tensor(out, wide, group=group)
+    if not _virtual(group):
+        dist.reduce_scatter_tensor(out, wide, group=group)
+    _record("reduce-scatter", out.numel(), out.dtype)
     return out.to(t.dtype).movedim(0, dim).contiguous()
 
 
@@ -97,7 +174,7 @@ def gather_to_host(t: torch.Tensor, dst: int, group) -> Optional[List[torch.Tens
     if group is None:
         return [t.detach().to("cpu", copy=True)]
     buf = t.detach().contiguous()
-    if dist.get_backend(group) == "gloo":
+    if _gloo(group):
         buf = buf.to("cpu", copy=True)
     mine = dist.get_rank() == dst
     parts = [torch.empty_like(buf) for _ in range(size(group))] if mine else None
@@ -110,7 +187,9 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     if group is None:
         return t
     buf = _wire(t.contiguous(), group, widen=False)
-    dist.broadcast(buf, src, group=group)
+    if not _virtual(group):
+        dist.broadcast(buf, src, group=group)
+    _record("broadcast", buf.numel(), buf.dtype)
     return buf.to(t.device)
 
 
@@ -118,6 +197,7 @@ def send(t: torch.Tensor, dst: int, tag: int, group):
     """Start sending `t` to global rank `dst`; returns (work, buffer): keep
     both until `work.wait()`."""
     buf = _wire(t.contiguous(), group, widen=False)
+    _record("collective-permute", buf.numel(), buf.dtype)
     return dist.isend(buf, dst, group=group, tag=tag), buf
 
 

@@ -236,59 +236,107 @@ def spec_axes(spec) -> tuple:
 
 # --- leaves on a mesh --------------------------------------------------------------------
 
-def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of the whole leaf `t` (a copy, outside autograd)."""
+def _split(mesh, e, rep: int) -> tuple:
+    """(blocks, this rank's block) of a dim sharded over `e`; a KV leaf
+    replicated `rep` times over `model` splits into model / rep blocks,
+    rank r holding block r // rep."""
+    n, i = mesh.axis_size(e), mesh.index(e)
+    if rep > 1 and e == "model":
+        return n // rep, i // rep
+    return n, i
+
+
+def local_shard(t: torch.Tensor, spec, mesh, rep: int = 1) -> torch.Tensor:
+    """This rank's block of the whole leaf `t` (a copy, outside autograd);
+    `rep`: the leaf's KV replication over `model` (`kv_replication`)."""
     t = t.detach()
     for dim, e in enumerate(spec):
-        n = mesh.axis_size(e)
+        n, i = _split(mesh, e, rep)
         if n == 1:
             continue
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split "
                              f"{n} ways over {e}")
         step = t.shape[dim] // n
-        t = t.narrow(dim, mesh.index(e) * step, step)
+        t = t.narrow(dim, i * step, step)
     return t.clone()
 
 
-def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather_leaf(t: torch.Tensor, spec, mesh, rep: int = 1) -> torch.Tensor:
     """The whole leaf from every rank's block (a collective over the axes
-    that shard it; no gradient)."""
+    that shard it; no gradient); of a KV leaf replicated `rep` times, one
+    replica of each block."""
     with torch.no_grad():
         for dim, e in enumerate(spec):
-            if mesh.axis_size(e) > 1:
+            n = mesh.axis_size(e)
+            if n > 1:
                 t = comm.all_gather(t, mesh.group(e), dim)
+                if _split(mesh, e, rep)[0] < n:
+                    t = torch.cat(t.chunk(n, dim)[::rep], dim)
     return t
 
 
-def gather_leaf_to_host(t: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+def gather_leaf_to_host(t: torch.Tensor, spec, mesh, rep: int = 1) -> Optional[torch.Tensor]:
     """The whole leaf as a host tensor on the mesh's rank 0 (None on the
     others): each rank sends its block once, and rank 0 places every block
-    by its sender's coordinates."""
+    by its sender's coordinates (the replicas of a KV block, `rep`, on one
+    place)."""
     group = mesh.group(mesh.axis_names)
     blocks = comm.gather_to_host(t, torch.distributed.get_process_group_ranks(group)[0]
                                  if group is not None else 0, group)
     if blocks is None:
         return None
-    shape = [n * mesh.axis_size(e) for n, e in zip(t.shape, spec)] + list(t.shape[len(spec):])
+    shape = [n * _split(mesh, e, rep)[0] for n, e in zip(t.shape, spec)] + \
+        list(t.shape[len(spec):])
     whole = torch.empty(shape, dtype=t.dtype)
     for r, block in enumerate(blocks):
         at = type(mesh)(mesh.cfg, rank=r)
         view = whole
         for dim, e in enumerate(spec):
             n = block.shape[dim]
-            view = view.narrow(dim, at.index(e) * n, n)
+            view = view.narrow(dim, _split(at, e, rep)[1] * n, n)
         view.copy_(block)
     return whole
+
+
+# --- KV heads replicated over `model` ----------------------------------------------
+#
+# A GQA layer whose KV heads are fewer than `model` ranks (t a multiple of
+# num_kv_heads, num_heads a multiple of t) takes Megatron's route: rank r
+# holds query heads [r a / t, (r + 1) a / t) and the one KV head they read,
+# r nkv // t, as its wk / wv (bk / bv) columns and its cache.  A KV head's
+# columns then live on t / nkv ranks, whose partial gradients are summed
+# over that replica group (`Plan.kv_group`) before the data axes.  JAX's
+# spec trees split those columns mid-head over all t ranks instead; they
+# stay JAX's, as data, and `Plan.rep_of` says which leaves are replicated.
+
+KV_LEAVES = frozenset(("wk", "wv", "bk", "bv"))
+
+
+def kv_replication(cfg: ModelConfig, t: int) -> int:
+    """Ranks of `model` that hold each KV head: t / num_kv_heads where t is
+    a larger multiple of num_kv_heads, else 1 (whole KV groups a rank)."""
+    nkv = cfg.num_kv_heads
+    if cfg.attn_type != "gqa" or not nkv or t <= nkv or t % nkv:
+        return 1
+    return t // nkv
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """KV heads a rank holds under the plan in force."""
+    t = tp_size()
+    return cfg.num_kv_heads // t if kv_replication(cfg, t) == 1 else 1
 
 
 def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
     """Raise for what the explicit plan does not cover.  Every family runs
     under data and tensor parallelism, and under `seq_parallel`; refused
     under `model` > 1: int8 weights (a row-parallel shard's per-channel
-    scales differ from the whole weight's), and GQA KV heads that do not
-    split into whole groups (JAX's spec splits wk / wv columns mid-head
-    there).  Then the widths that must split over `model`."""
+    scales differ from the whole weight's), and query heads that do not
+    split over `model` (JAX's GSPMD splits those mid-head).  GQA KV heads
+    split into whole groups, or are replicated where `model` is a multiple
+    of them (`kv_replication`).  Then the widths that must split over
+    `model`."""
     t = mesh_cfg.model
     if t == 1:
         return
@@ -296,10 +344,15 @@ def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: linear_impl='quantized' under tensor parallelism (model={t}) is not "
             "ported: a row-parallel shard's per-channel int8 scales differ from the whole weight's")
-    if cfg.attn_type == "gqa" and cfg.num_kv_heads % t:
+    if cfg.num_heads and cfg.num_heads % t:
         raise ValueError(
-            f"{cfg.name}: num_kv_heads {cfg.num_kv_heads} % model {t} != 0: GQA heads split as "
-            f"whole KV groups (num_heads {cfg.num_heads}, num_kv_heads {cfg.num_kv_heads})")
+            f"{cfg.name}: num_heads {cfg.num_heads} % model {t} != 0: query heads do not split "
+            f"over model (JAX splits them mid-head)")
+    nkv = cfg.num_kv_heads
+    if cfg.attn_type == "gqa" and nkv % t and kv_replication(cfg, t) == 1:
+        raise ValueError(
+            f"{cfg.name}: num_kv_heads {nkv} and model {t}: KV heads neither split into whole "
+            f"groups nor replicate (num_heads {cfg.num_heads})")
     errs = validate_divisibility(cfg, mesh_cfg, mesh_cfg.dp)
     if cfg.padded_vocab_size % t:
         errs.append(f"padded vocab {cfg.padded_vocab_size} % tp {t} != 0")
@@ -337,6 +390,15 @@ class Plan:
                         else ("data",))
         self.dp, self.dp_rank = mesh.axis_size(self.dp_axes), mesh.index(self.dp_axes)
         self.dp_group = mesh.group(self.dp_axes)
+        # the ranks of `model` that hold this rank's KV head (None: no replication)
+        self.kv_rep = kv_replication(cfg, self.tp)
+        self.kv_group = mesh.replica_group("model", self.kv_rep) if self.kv_rep > 1 else None
+
+    def rep_of(self, path) -> int:
+        """The KV replication of the leaf at `path` (1: not replicated)."""
+        if self.kv_rep > 1 and any(str(k) in KV_LEAVES for k in path):
+            return self.kv_rep
+        return 1
 
     def specs(self, tree) -> Any:
         return param_specs(tree, self.cfg, self.mesh, self.fsdp)
@@ -353,13 +415,15 @@ class Plan:
         specs = self.specs(tree) if specs is None else specs
 
         def one(path, t):
-            return local_shard(t, _at(specs, path), self.mesh).to(device or t.device)
+            return local_shard(t, _at(specs, path), self.mesh, self.rep_of(path)).to(
+                device or t.device)
         return _map(one, tree)
 
     def gather(self, tree, specs=None) -> Any:
         """Whole leaves from every rank's blocks (a collective)."""
         specs = self.specs(tree) if specs is None else specs
-        return _map(lambda path, t: gather_leaf(t, _at(specs, path), self.mesh), tree)
+        return _map(lambda path, t: gather_leaf(t, _at(specs, path), self.mesh,
+                                                self.rep_of(path)), tree)
 
     def fsdp_gather(self, tree, specs) -> Any:
         """Every data-sharded dim gathered, differentiably (its gradient is
@@ -375,19 +439,23 @@ class Plan:
 
     def reduce_grads(self, grads, specs) -> Any:
         """Sum each gradient over the data axes that do not shard its leaf
-        (the sharded ones were reduce-scattered by `fsdp_gather`)."""
+        (the sharded ones were reduce-scattered by `fsdp_gather`); a
+        replicated KV block's first over the ranks that hold it."""
         def one(path, g):
+            if self.rep_of(path) > 1:
+                g = comm.all_reduce(g, self.kv_group)
             axes = tuple(a for a in self.dp_axes if a not in spec_axes(_at(specs, path)))
             return comm.all_reduce(g, self.mesh.group(axes))
         return _map(one, grads)
 
     def global_sq_sum(self, tree, specs) -> torch.Tensor:
         """The sum of squares of the global tree: each leaf's local sum,
-        summed over the axes that shard it (a replicated leaf counts once)."""
+        summed over the axes that shard it (a replicated leaf counts once,
+        a KV block replicated over `model` once per replica group)."""
         by_axes = {}
         for path, t in _paths(tree):
             key = frozenset(a for a in spec_axes(_at(specs, path)) if self.mesh.shape[a] > 1)
-            s = torch.sum(torch.square(t.float()))
+            s = torch.sum(torch.square(t.float())) / self.rep_of(path)
             by_axes[key] = by_axes[key] + s if key in by_axes else s
         total = None
         for key in sorted(by_axes, key=sorted):

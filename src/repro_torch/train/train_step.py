@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import MeshConfig, ModelConfig, ShapeConfig, TrainConfig
+from ..core import op_analysis
 from ..models import lm_loss
 from ..optim.adamw import OptState, apply_updates, tree_leaves, tree_map
 from ..parallel import sharding as sh
@@ -78,16 +79,19 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_micro: int = 1,
                      for k, v in batch.items()}
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
             loss = torch.zeros((), device=leaves[0].device)
-            ms = []
-            for i in range(n_micro):
+            zero, sums = torch.zeros_like(loss), {}
+            # JAX's scan over microbatches: under the op counter's trace_one
+            # rule one pass runs, counted n_micro times (core/op_analysis.py);
+            # every pass does the same work, the metrics' sums included
+            for i in op_analysis.repeat("microbatch", n_micro):
                 l, m, g = _grads(params, leaves, {k: v[i] for k, v in micro.items()}, cfg, tc)
                 for acc, gi in zip(grads, g):
                     acc.add_(gi.float())
                 loss = loss + l
-                ms.append(m)
+                sums = {k: sums.get(k, zero) + v for k, v in m.items()}
             grads = [g / n_micro for g in grads]
             loss = loss / n_micro
-            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+            metrics = {k: v / n_micro for k, v in sums.items()}
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         if plan is not None:

@@ -1814,6 +1814,42 @@ def test_paged_decode_at_the_shard_shapes(cuda, nkv, g, d):
     _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
 
 
+# KV heads replicated at model=16 (one KV head a rank): internlm2-1.8b's
+# 1, internvl2-76b's 4, command-r-plus-104b's 6 (d 128) and nemotron-4-340b's
+# 6 (d 192) query heads over it; flash forward and backward over a 2048-token
+# row, the paged decode over 8 rows of up to 2048 tokens
+KV_REPLICATED_SHARDS = [(1, 128), (4, 128), (6, 128), (6, 192)]
+
+
+@pytest.mark.parametrize("a,d", KV_REPLICATED_SHARDS)
+def test_kv_replicated_shard_shapes(cuda, a, d):
+    rng = np.random.default_rng(47)
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(rng, bf, cuda, 1, 2048, 2048, a, 1, d)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    t_out, t_lse = tolerance.flash_attention_tol(q, k, v, want, causal=True)
+    _close(out, want[0], t_out)
+    _close(lse, want[1], t_lse)
+    got = flash_attention_bwd(q, k, v, *want, do, causal=True)
+    gwant = flash_attention_bwd_ref(q, k, v, *want, do, causal=True)
+    for g, w, t in zip(got, gwant, tolerance.flash_attention_bwd_tol(q, k, v, *want, do, gwant,
+                                                                   causal=True)):
+        _close(g, w, t)
+    b, s_max = 8, 2048
+    q = _rand(rng, (b, a, d), bf, cuda)
+    kp, vp = (_rand(rng, (b, s_max, 1, d), bf, cuda) for _ in range(2))
+    slot_idx = torch.arange(b, dtype=torch.int32, device=cuda).flip(0)
+    lengths = torch.tensor([2048, 1, 1500, 64, 2047, 700, 1024, 333], dtype=torch.int32,
+                           device=cuda)
+    before = paged_decode.launches
+    got = paged_decode(q, kp, vp, slot_idx, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 1
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths)
+    _close(got, want, tolerance.paged_decode_tol(q, kp, vp, slot_idx, lengths, want))
+
+
 # llama4-maverick's expert stacks at model=2: 8 of its 16 experts a rank, at
 # the 4 x 1024 prefill's capacity (320 rows) and a data rank's local one
 # under shard_map at data=2 (160)

@@ -382,20 +382,35 @@ def test_cpu_runs_plain_versions_without_launching():
 
 
 def test_other_devices_raise():
-    """No silent fallback: a device that is neither CPU nor CUDA raises."""
+    """No silent fallback: a device that is neither CPU, CUDA nor meta
+    raises.  Meta traces the kernel instead (the dry run): the CUDA path's
+    shape checks, outputs of the kernel's shapes and dtypes, no launch."""
+    from types import SimpleNamespace
+    for kind in ("xpu", "mps", "hpu"):
+        for what in ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
+                     "flash_attention_bwd", "paged_decode", "ssd_chunk", "int8_matmul"):
+            with pytest.raises(ValueError, match="no kernel for device"):
+                _build.dispatch_device(what, SimpleNamespace(device=torch.device(kind)))
+    counters = (matmul, fused_mlp_hidden, fused_mlp_bwd, flash_attention_fwd,
+                flash_attention_bwd)
+    before = [c.launches for c in counters]
     a = torch.empty(4, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        matmul(a, torch.empty(8, 8, device="meta"))
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fused_mlp_hidden(a, None, torch.empty(8, 8, device="meta"), mlp_type="gelu")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fused_mlp_bwd(a, None, torch.empty(8, 8, device="meta"), torch.empty(4, 8, device="meta"),
-                      mlp_type="gelu")
-    qm = torch.empty(1, 3, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        flash_attention(qm, qm[:, :, :1], qm[:, :, :1])
-    with pytest.raises(ValueError, match="no kernel for device"):
-        flash_attention_bwd(qm, qm, qm, qm, torch.empty(1, 2, 3, device="meta"), qm)
+    assert matmul(a, torch.empty(8, 6, device="meta")).shape == (4, 6)
+    assert fused_mlp_hidden(a, None, torch.empty(8, 6, device="meta"),
+                            mlp_type="gelu").shape == (4, 6)
+    dx, dwg, dwu = fused_mlp_bwd(a, None, torch.empty(8, 6, device="meta"),
+                                 torch.empty(4, 6, device="meta"), mlp_type="gelu")
+    assert (dx.shape, dwg, dwu.shape) == ((4, 8), None, (8, 6))
+    qm, kvm = torch.empty(1, 3, 2, 16, device="meta"), torch.empty(1, 3, 1, 16, device="meta")
+    assert flash_attention(qm, kvm, kvm).shape == qm.shape
+    got = flash_attention_bwd(qm, qm, qm, qm, torch.empty(1, 2, 3, device="meta"), qm)
+    assert [g.device.type for g in got] == ["meta"] * 3
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="matmul: shapes"):
+        matmul(a, torch.empty(6, 6, device="meta"))
+    with pytest.raises(ValueError, match="head dims"):
+        big = torch.empty(1, 3, 2, 300, device="meta")
+        flash_attention(big, big, big)
 
 
 def test_build_is_lazy_and_keyed_by_sources():

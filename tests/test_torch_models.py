@@ -369,12 +369,13 @@ def test_unported_paths_raise(smoke):
     """The refusals the port keeps (an unknown linear_impl or attn_impl, a
     block table outside single-token decode, the engines on whisper-small
     and internvl2-76b, as JAX's engine refuses them; under tensor
-    parallelism, int8 weights and KV heads that do not split into whole
-    groups over `model`, each naming what it refuses), and what was refused
-    before and is ported now: int8 weights, attn_impl="blocked" (equal to
-    the naive path), whisper-small's params (on the meta device), tensor
-    parallelism on every family (dense and MoE GQA, MLA, SSM, hybrid,
-    encoder-decoder, VLM) and sequence parallelism."""
+    parallelism, int8 weights and query heads that do not split over
+    `model`, each naming what it refuses), and what was refused before and
+    is ported now: int8 weights, attn_impl="blocked" (equal to the naive
+    path), whisper-small's params (on the meta device), tensor parallelism
+    on every family (dense and MoE GQA, MLA, SSM, hybrid, encoder-decoder,
+    VLM), sequence parallelism, and KV heads fewer than `model` ranks
+    (replicated: internlm2-1.8b's 8 over model=16)."""
     from repro_torch.serving.engine import Engine
     _, _, cfg, params = smoke
     x = torch.zeros(1, 2, cfg.d_model)
@@ -410,8 +411,9 @@ def test_unported_paths_raise(smoke):
         with pytest.raises(NotImplementedError, match=r"linear_impl='quantized'.*model=2"):
             Plan(dataclasses.replace(get_config(arch), linear_impl="quantized"), tp2)
     assert Plan(dataclasses.replace(get_config("internlm2-1.8b"), seq_parallel=True), tp2).tp == 2
-    with pytest.raises(ValueError, match=r"num_kv_heads 8 % model 16.*num_heads 16"):
-        Plan(get_config("internlm2-1.8b"), Mesh(MeshConfig(model=16)))
+    assert Plan(get_config("internlm2-1.8b"), Mesh(MeshConfig(model=16))).kv_rep == 2
+    with pytest.raises(ValueError, match=r"num_heads 40 % model 16 != 0"):
+        Plan(get_config("llama4-maverick-400b-a17b"), Mesh(MeshConfig(model=16)))
     for arch in ("internlm2-1.8b", "llama4-maverick-400b-a17b"):
         assert Plan(get_config(arch), tp2).tp == 2
     whisper = init_lm(None, get_config("whisper-small"), device="meta")

@@ -13,6 +13,7 @@ tokens identical to the JAX Engine's on the same requests, policy and
 weights.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +37,7 @@ from repro.serving.engine import PoolExhausted as JaxPoolExhausted
 from repro.serving.serve_step import greedy_generate as jax_greedy_generate
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.hardware import H100_SXM
-from repro_torch.kernels import tolerance
+from repro_torch.kernels import _build, tolerance
 from repro_torch.kernels.flash_attention.ops import paged_decode, paged_decode_blocktable
 from repro_torch.kernels.flash_attention.ref import gather_block_kv
 from repro_torch.models.convert import params_from_jax
@@ -266,9 +267,15 @@ def test_blocktable_decode_counts_nothing_on_the_cpu():
     paged_decode_blocktable(q, kq, kq, tables, lengths, k_scale=ks, v_scale=ks)
     assert (paged_decode_blocktable.launches, paged_decode_blocktable.int8_launches,
             paged_decode.launches, paged_decode.int8_launches) == before
+    # meta traces the kernel (the dry run's device): its output's shape, no launch
+    out = paged_decode_blocktable(q.to("meta"), kp.to("meta"), vp.to("meta"), tables.to("meta"),
+                                  lengths.to("meta"))
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert (paged_decode_blocktable.launches, paged_decode_blocktable.int8_launches,
+            paged_decode.launches, paged_decode.int8_launches) == before
     with pytest.raises(ValueError, match="no kernel for device"):
-        paged_decode_blocktable(q.to("meta"), kp.to("meta"), vp.to("meta"), tables.to("meta"),
-                                lengths.to("meta"))
+        _build.dispatch_device("paged_decode_blocktable",
+                               SimpleNamespace(device=torch.device("xpu")))
 
 
 def _blocktable_exact(q, kf, vf, tables, lengths):

@@ -96,6 +96,39 @@ def mamba():
 SLOW_DECAY = 0.02
 
 
+@pytest.fixture
+def full_f32():
+    """Both sides' float32 products at full precision for the test, whatever
+    an earlier test or import left set: torch's matmul precision (on the
+    CPU oneDNN may take "medium" as leave to multiply float32 in bfloat16)
+    and JAX's default dot precision.  Restored after."""
+    before = torch.get_float32_matmul_precision()
+    mkldnn = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
+    before_mkldnn = getattr(mkldnn, "fp32_precision", None)
+    torch.set_float32_matmul_precision("highest")
+    if before_mkldnn is not None:
+        mkldnn.fp32_precision = "ieee"
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+        if before_mkldnn is not None:
+            mkldnn.fp32_precision = before_mkldnn
+
+
+def _ssd_f64(x, B, C, seg):
+    """The SSD op in float64 (numpy): the oracle a failure measures both
+    sides against, so its message says which one moved."""
+    x, B, C, seg = (np.asarray(a, np.float64) for a in (x, B, C, seg))
+    Q = x.shape[-2]
+    L = np.exp(np.where(np.tril(np.ones((Q, Q), bool)), seg[..., :, None] - seg[..., None, :],
+                        -np.inf))
+    y = np.einsum("...qk,...kp->...qp", np.einsum("...qn,...kn->...qk", C, B) * L, x)
+    S = np.einsum("...qn,...qp->...np", B, x * np.exp(seg[..., -1:] - seg)[..., None])
+    return y, S
+
+
 def _ssd_inputs(rng, bh, nc, Q, P, N, step=1.0):
     x, B, C = (_np(rng, (bh, nc, Q, d), 0.5) for d in (P, N, N))
     seg = -np.cumsum(rng.uniform(0.0, step, size=(bh, nc, Q)), axis=-1).astype(np.float32)
@@ -107,9 +140,10 @@ def _ssd_inputs(rng, bh, nc, Q, P, N, step=1.0):
     (3, 2, 100, 24, 40),     # a ragged chunk (a prompt shorter than ssm_chunk)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_chunk_matches_jax_kernel(bh, nc, Q, P, N, dtype):
+def test_ssd_chunk_matches_jax_kernel(bh, nc, Q, P, N, dtype, full_f32):
     """At the JAX tests' decay and at SLOW_DECAY, where every key tile of
-    the chunk weighs in Y and every row in S."""
+    the chunk weighs in Y and every row in S.  A failure names each side's
+    largest gap to the float64 oracle."""
     rng = np.random.default_rng(Q + P)
     for step in (1.0, SLOW_DECAY):
         x, B, C, seg = _ssd_inputs(rng, bh, nc, Q, P, N, step)
@@ -120,10 +154,12 @@ def test_ssd_chunk_matches_jax_kernel(bh, nc, Q, P, N, dtype):
         xt, Bt, Ct = (_t(a).to(td) for a in (x, B, C))
         got = ssd_chunk(xt, Bt, Ct, _t(seg))
         tols = tolerance.ssd_chunk_tol(xt, Bt, Ct, _t(seg), got)
-        for g, w, tol in zip(got, want, tols):
+        for name, g, w, tol, exact in zip("YS", got, want, tols, _ssd_f64(x, B, C, seg)):
             assert g.dtype == td
             ok, err, ratio = tolerance.check(_t(np.asarray(w.astype(jnp.float32))), g, tol)
-            assert ok, (err, ratio, step)
+            assert ok, (name, err, ratio, step,
+                        {"jax vs f64": float(np.max(np.abs(np.asarray(w, np.float64) - exact))),
+                         "port vs f64": float(np.max(np.abs(g.double().numpy() - exact)))})
 
 
 def test_ssd_chunk_takes_the_models_strided_views():

@@ -436,10 +436,11 @@ def test_functions_only_when_a_gradient_is_recorded(ref, monkeypatch):
 def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd):
     """--data / --model are ported for every family: deepseek-smoke (MLA,
     MoE, MTP) at --model 2 and mamba2-smoke at --data 2 --model 2 run over
-    gloo, as internlm2-smoke at --data 2 does.  What tensor parallelism
-    still refuses, before any rank starts, is KV heads that do not split
-    into whole groups (internlm2-smoke's 2 over --model 4, named); int8
-    weights, its other refusal, have no launcher flag
+    gloo, as internlm2-smoke at --data 2 does, and internlm2-smoke at
+    --model 4, whose 2 KV heads are replicated over 4 ranks.  What tensor
+    parallelism still refuses, before any rank starts, is query heads that
+    do not split over `model` (internlm2-smoke's 4 over --model 3, named);
+    int8 weights, its other refusal, have no launcher flag
     (test_torch_models.py::test_unported_paths_raise holds it)."""
     from repro_torch.launch import train
     base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1", "--global-batch", "2",
@@ -447,8 +448,11 @@ def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd
     train.main([*base, *argv])
     ranks = 4 if "--data" in argv and "--model" in argv else 2
     assert f"done: {ranks} ranks over gloo" in capfd.readouterr().out
-    with pytest.raises(ValueError, match="num_kv_heads 2 % model 4.*whole KV groups"):
+    if "--data" in argv and "--model" not in argv:
         train.main([*base, "--model", "4"])
+        assert "done: 4 ranks over gloo" in capfd.readouterr().out
+    with pytest.raises(ValueError, match=r"num_heads 4 % model 3 != 0.*mid-head"):
+        train.main([*base, "--model", "3"])
 
 
 def test_train_launcher_refuses_to_run_without_a_card(monkeypatch):

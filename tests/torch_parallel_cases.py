@@ -55,6 +55,17 @@ def _local_reduce_scatter(t, group, dim):
 
 _STEP = [0]      # the train case's step, for faults that start late
 _row_absmax = sh.Plan.row_absmax
+_reduce_grads = sh.Plan.reduce_grads
+
+
+def _kv_grads_unsummed(self, grads, specs):
+    """reduce_grads with each replicated KV block's gradient left as this
+    rank's partial (no sum over the ranks that hold the KV head)."""
+    kv_group, self.kv_group = self.kv_group, None
+    try:
+        return _reduce_grads(self, grads, specs)
+    finally:
+        self.kv_group = kv_group
 _apply_encoder = lm_mod.apply_encoder
 
 
@@ -100,6 +111,8 @@ FAULTS = {
     # sequence parallelism: the norm gains' gradients left as each rank's
     # partial over its sequence shard, never summed over `model`
     "seq_norm_sum_dropped": [(blocks_mod, "_norms_summed_over_tp", lambda p: p)],
+    # KV heads replicated over `model`: the replicas' wk / wv gradients not summed
+    "kv_grads_unsummed": [(sh.Plan, "reduce_grads", _kv_grads_unsummed)],
 }
 
 
@@ -392,7 +405,21 @@ def pipeline_case(mesh, d, job):
     np.savez(os.path.join(d, f"out{mesh.rank}.npz"), **out)
 
 
-CASES = {"train": train_case, "restore": restore_case, "grads": grads_case,
+def census_case(mesh, d, job):
+    """One train step at the mesh under the collective census: each rank
+    writes its census (kind -> wire bytes) to census<rank>.json."""
+    cfg = _cfg(job)
+    plan = sh.Plan(cfg, mesh)
+    tc = _tc(job)
+    params = plan.shard(init_lm_f32(cfg))
+    opt = init_opt(params, tc)
+    with comm.census() as rec:
+        make_train_step(cfg, tc, plan=plan)(params, opt, _batch(cfg, job, 0))
+    with open(os.path.join(d, f"census{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+CASES = {"census": census_case, "train": train_case, "restore": restore_case, "grads": grads_case,
          "serve": serve_case, "pipeline": pipeline_case}
 
 
@@ -453,6 +480,9 @@ def finish_suite(proc, jobs, timeout: float = 240):
         if job["case"] == "pipeline":
             outs.append([dict(np.load(os.path.join(job["dir"], f"out{i}.npz")))
                          for i in range(job["world"])])
+        elif job["case"] == "census":
+            outs.append([json.load(open(os.path.join(job["dir"], f"census{i}.json")))
+                         for i in range(_world(job))])
         else:
             with np.load(os.path.join(job["dir"], "out.npz")) as z:
                 outs.append({k: z[k] for k in z.files})
