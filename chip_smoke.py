@@ -583,19 +583,20 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[:200]}")
     ops = ("HGMMA", "IGMMA", "LDGSTS", "UTMALDG")
-    counts, fn, names, hmma = {}, None, set(), set()
+    counts, fn, names, hmma, rows = {}, None, set(), set(), []
     for line in out.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             names.add(fn)
+            # the counts this function's lines add to, found once a function
+            rows = [counts.setdefault(k, {}).setdefault(fn, dict.fromkeys(ops, 0))
+                    for k in PRODUCTS if k in fn]
             continue
-        if fn and re.search(r"\bHMMA\b", line):
+        if fn and "HMMA" in line and re.search(r"\bHMMA\b", line):
             hmma.add(fn)
-        for kernel in PRODUCTS:
-            if fn and kernel in fn:
-                per = counts.setdefault(kernel, {}).setdefault(fn, dict.fromkeys(ops, 0))
-                for op in ops:
-                    per[op] += op in line
+        for per in rows:
+            for op in ops:
+                per[op] += op in line
     for kernel, product in PRODUCTS.items():
         fns = counts.get(kernel, {})
         mm = [c[product] for c in fns.values()]
@@ -664,17 +665,15 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 def kernel_cost(name: str, *args, **kw):
     """(FLOPs, bytes) of a kernel's work from its wrapper module's cost
     function: "matmul", "matmul_expert", "fused_mlp", "fused_mlp_bwd" (the
-    recompute and its tile GEMMs, summed), "flash", "flash_bwd", "paged",
-    "int8", "int8_fused", "ssd", "ssd_bwd"."""
+    whole backward as a function, `bwd_function_cost`), "flash",
+    "flash_bwd", "paged", "int8", "int8_fused", "ssd", "ssd_bwd"."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.fused_mlp import ops as fused_ops
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.quantized import ops as q_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    if name == "fused_mlp_bwd":
-        launches = fused_ops.bwd_launches(*args, **kw)
-        return sum(x[1] for x in launches), sum(x[2] for x in launches)
     fn = {"matmul": mm_ops.cost, "matmul_expert": mm_ops.expert_cost, "fused_mlp": fused_ops.cost,
+          "fused_mlp_bwd": fused_ops.bwd_function_cost,
           "flash": flash_ops.flash_cost, "flash_bwd": flash_ops.flash_bwd_cost,
           "paged": flash_ops.paged_cost, "int8": q_ops.cost, "int8_fused": q_ops.fused_cost,
           "ssd": ssd_ops.cost, "ssd_bwd": ssd_ops.bwd_cost}[name]
@@ -1176,7 +1175,7 @@ def _mlp_case(torch, randn, label, mlp_type, m, h, f, bwd, iters=TRAIN_ITERS) ->
                           iters)
         plain_b, _ = time_ms(torch, [lambda t=t: fused_mlp_bwd_ref(*t, mlp_type)
                                      for t in ins], iters)
-        # the recompute, dx, the weight gradients: every launch's cost summed
+        # the recompute, dx, the weight gradients: the function's own work
         flops_b, nbytes_b = kernel_cost("fused_mlp_bwd", m, h, f, gated, 2)
         bnd_b, by_b = bound(flops_b, nbytes_b)
         res.update(ms_b=ms_b, plain_b=plain_b, bound_b=bnd_b, by_b=by_b, errb=errb)
@@ -6433,9 +6432,11 @@ def blocked_phase(torch) -> None:
 # The parallel phases run several ranks on the one card over gloo (NCCL
 # refuses two ranks on one device): their collectives go through host
 # memory, so their times say nothing about NVLink.  internlm2-1.8b at full
-# width, its depth cut to PAR_LAYERS; llama4-maverick at full width, one
-# [moe, dense] pair, PAR_EXPERTS of its 128 experts.
-PAR_LAYERS = 4
+# width, its depth cut to PAR_LAYERS (4 through PR 29; 2 since, for the
+# script's time on a slow host: the collectives' bytes follow the depth);
+# llama4-maverick at full width, one [moe, dense] pair, PAR_EXPERTS of its
+# 128 experts.
+PAR_LAYERS = 2
 PAR_STEPS = 2              # timed steps of the sharded run (then save, restore, two more)
 PAR_DECODE = 8             # decode steps of the parallel serve run
 PAR_EXPERTS = 16
@@ -7218,8 +7219,8 @@ PAR_ZAMBA_LAYERS = 6
 PAR_VLM_LAYERS = 2
 PAR_VLM_DECODE = 4
 # internlm2-1.8b under seq_parallel: 2 of 24 layers (its step 0 runs three
-# times: with the flag, without it, and with the planted fault; at
-# PAR_LAYERS the case took 48.0 s of a 946.8 s run)
+# times: with the flag, without it, and with the planted fault; at 4
+# layers the case took 48.0 s of a 946.8 s run)
 PAR_SEQ_LAYERS = 2
 
 
@@ -7294,7 +7295,8 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
     from repro_torch.models import init_lm
     from repro_torch.parallel import sharding as sh
 
-    mesh = make_mesh(MeshConfig(model=model), ranks=list(range(model)))
+    mesh = make_mesh(MeshConfig(model=model), ranks=list(range(model)),
+                     kv_rep=sh.kv_replication(cfg, model))
     if mesh is None:
         return
     V = cfg.vocab_size
@@ -7398,7 +7400,7 @@ def _par_family_train(torch, rank, dev, label, cfg, batch, grad_bound, need, fau
 
     mesh_cfg = mesh_cfg or MeshConfig(data=2, model=2)
     at = f"({mesh_cfg.data}, {mesh_cfg.model})"
-    mesh = make_mesh(mesh_cfg)
+    mesh = make_mesh(mesh_cfg, kv_rep=sh.kv_replication(cfg, mesh_cfg.model))
     full = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
                    dtype=torch.float32)
     names = [path for path, _ in _paths(full)]
@@ -7827,11 +7829,11 @@ def _charge_dropped(kernel: str):
     from repro_torch.core import op_analysis
 
     def wrap(real):
-        def f(name, flops, nbytes):
+        def f(self, name, flops, nbytes):
             if name != kernel:
-                real(name, flops, nbytes)
+                real(self, name, flops, nbytes)
         return f
-    return _patched(op_analysis, "charge", wrap)
+    return _patched(op_analysis.Counter, "charge", wrap)
 
 
 def dryrun_phase(torch) -> dict:

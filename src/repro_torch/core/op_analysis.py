@@ -19,12 +19,14 @@ Counting rules:
   s2_bytes  — JAX's `_is_s2` rule: the bytes of ops whose output has two
               equal dims of at least 2048 (naive attention's s^2 tensors).
   kernels   — a hand-written kernel is charged as the kernel, whatever
-              device runs it: each wrapper calls `charge(name, flops,
-              bytes)` from its kernel's `cost` function where it launches
-              (or, on the meta device, where it would), and on the CPU for
-              the launches its CUDA path would make; the aten ops of its
-              plain version run `opaque()` and are not counted.  A CPU
-              run, a CUDA run and a meta trace of a step count the same.
+              device runs it: each public wrapper dispatches (plain
+              version, launch or meta outputs) inside one `kernel(name,
+              cost)` block, which charges its `cost` function's numbers
+              once; nothing inside is counted, neither aten ops nor the
+              kernels it calls (a backward's cost lists its tile GEMMs).
+              A CPU run, a CUDA run and a meta trace of a step count the
+              same.  With no counter on, the block is a shared null
+              context and `cost` is not called.
   coll      — the collectives' wire bytes by kind (`parallel/comm.py`'s
               census): output bytes in the wire's dtype.
   loops     — JAX's trip counts: `repeat("microbatch", n)` runs the train
@@ -48,8 +50,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.multiprocessing.reductions import StorageWeakRef
 
+# JAX's kinds, and the pipeline's broadcast (`parallel/comm.py` records it;
+# the HLO walk has no such kind)
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-               "collective-permute")
+               "collective-permute", "broadcast")
 
 _aten = torch.ops.aten
 _DOTS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default}
@@ -180,10 +184,6 @@ class Counter(TorchDispatchMode):
 _ACTIVE: list = []
 
 
-def active() -> Optional[Counter]:
-    return _ACTIVE[-1] if _ACTIVE else None
-
-
 @contextlib.contextmanager
 def count(trace_one: bool = False):
     """Count what runs inside; yields the `Counter` (its `.counts` and
@@ -198,41 +198,42 @@ def count(trace_one: bool = False):
         _ACTIVE.remove(c)
 
 
-def charge(kernel: str, flops: float, nbytes: float) -> None:
-    """A hand-written kernel's launch (`cost` functions' numbers), charged
-    to the counter in force, if any."""
-    c = active()
-    if c is not None:
-        c.charge(kernel, flops, nbytes)
+class _Opaque:
+    """Holds a counter's opaque depth up for a `with` block."""
+    __slots__ = ("c",)
+
+    def __init__(self, c: Counter):
+        self.c = c
+
+    def __enter__(self):
+        self.c.opaque += 1
+
+    def __exit__(self, *exc):
+        self.c.opaque -= 1
 
 
-@contextlib.contextmanager
-def opaque():
-    """The aten ops inside are a kernel's plain version or its launch's
-    plumbing: not counted (the kernel is charged instead)."""
-    c = active()
-    if c is not None:
-        c.opaque += 1
-    try:
-        yield
-    finally:
-        if c is not None:
-            c.opaque -= 1
+_NULL = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def charged(kernel: str, flops: float, nbytes: float):
-    """`charge` the kernel, and run its plain version `opaque()`."""
-    charge(kernel, flops, nbytes)
-    with opaque():
-        yield
+def kernel(name: Optional[str], cost):
+    """The block a kernel wrapper dispatches in.  With a counter on, the
+    kernel `name` is charged `cost()` (FLOPs, bytes) once, or, with `name`
+    None, each launch of the list `cost()` gives ((kernel, FLOPs, bytes));
+    nothing inside is counted.  With none on, a shared null context."""
+    if not _ACTIVE:
+        return _NULL
+    c = _ACTIVE[-1]
+    if not c.opaque:
+        for launch in (cost() if name is None else [(name, *cost())]):
+            c.charge(*launch)
+    return _Opaque(c)
 
 
 def repeat(name: str, n: int) -> Iterator[int]:
     """range(n) for a loop of n identical passes (JAX's while loop with a
     known trip count): recorded in `loops`; under `count(trace_one=True)`
     only pass 0 runs, counted n times."""
-    c = active()
+    c = _ACTIVE[-1] if _ACTIVE else None
     if c is None:
         yield from range(n)
         return

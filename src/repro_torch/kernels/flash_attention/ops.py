@@ -220,14 +220,10 @@ def paged_cost(b: int, a: int, nkv: int, d: int, live: int, q_itemsize: int,
                                       + 4 * b + 4 * entries))
 
 
-def _paged_charge(what: str, q, k_pool, lengths, quant: bool, capacity: int,
-                  block: int = 0) -> None:
-    """Charge a paged-decode launch to the op counter, if one is on: the
-    live tokens read from `lengths` (every row at its `capacity` on the
-    meta device, whose values are unknown); `block`: a block pool's block
-    size (0: a slot pool)."""
-    if op_analysis.active() is None:
-        return
+def _paged_work(q, k_pool, lengths, capacity: int, block: int = 0) -> tuple[float, float]:
+    """`paged_cost` of a paged-decode call: the live tokens read from
+    `lengths` (every row at its `capacity` on the meta device, whose values
+    are unknown); `block`: a block pool's block size (0: a slot pool)."""
     b, a, d = q.shape
     nkv = k_pool.shape[2]
     if _build.traced(q.device):
@@ -235,8 +231,7 @@ def _paged_charge(what: str, q, k_pool, lengths, quant: bool, capacity: int,
     else:
         live = int(lengths.sum())
         entries = int(((lengths.long() + block - 1) // block).sum()) if block else b
-    op_analysis.charge(what + (".int8" if quant else ""), *paged_cost(
-        b, a, nkv, d, live, q.element_size(), k_pool.element_size(), entries))
+    return paged_cost(b, a, nkv, d, live, q.element_size(), k_pool.element_size(), entries)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
@@ -274,14 +269,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, scale=None):
     if obs.enabled():
         obs.record_dispatch("flash_attention_causal" if causal else "flash_attention_full",
                             impl="plain" if cpu else "cuda", shape=tuple(q.shape))
-    if cpu:
-        b, sq, a, d = q.shape
-        with op_analysis.charged("flash_attention_fwd", *flash_cost(
-                b, sq, k.shape[1], a, k.shape[2], d, causal, q.element_size())):
+    with op_analysis.kernel("flash_attention_fwd", lambda: flash_cost(
+            *q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], causal,
+            q.element_size())):
+        if cpu:
             # in the kernel's layout, so what follows runs the same ops on any device
             return tuple(t.contiguous() for t in flash_attention_ref(q, k, v, causal=causal,
                                                                       scale=scale))
-    with op_analysis.opaque():
         return _flash_fwd_cuda(q, k, v, causal, scale)
 
 
@@ -297,13 +291,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, scale=None)
     if obs.enabled():
         obs.record_dispatch("flash_attention_bwd", impl="plain" if cpu else "cuda",
                             shape=tuple(q.shape), site="causal" if causal else "full")
-    if cpu:
-        b, sq, a, d = q.shape
-        with op_analysis.charged("flash_attention_bwd", *flash_bwd_cost(
-                b, sq, k.shape[1], a, k.shape[2], d, causal, q.element_size())):
+    with op_analysis.kernel("flash_attention_bwd", lambda: flash_bwd_cost(
+            *q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], causal,
+            q.element_size())):
+        if cpu:
             return tuple(t.contiguous() for t in flash_attention_bwd_ref(
                 q, k, v, o, lse, do, causal=causal, scale=scale))
-    with op_analysis.opaque():
         return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
 
 
@@ -336,8 +329,6 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
         return out, lse
     if skv == 0:
         return out.zero_(), lse.zero_()
-    op_analysis.charge("flash_attention_fwd", *flash_cost(b, sq, skv, a, nkv, d, causal,
-                                                          q.element_size()))
     if _build.traced(q.device):
         return out, lse
     lib = _build.build().lib
@@ -366,8 +357,6 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     # bf16: the kernel adds dq into f32 scratch with atomics, then rounds it
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
               if q.dtype == torch.bfloat16 else None)
-    op_analysis.charge("flash_attention_bwd", *flash_bwd_cost(b, sq, skv, a, nkv, d, causal,
-                                                              q.element_size()))
     if _build.traced(q.device):
         return dq, dk, dv
     lib = _build.build().lib
@@ -394,16 +383,15 @@ def paged_decode(q, k_pool, v_pool, slot_idx, lengths, *, k_scale=None, v_scale=
     element it reads).  Returns (b, a, d).  A tuned lookup keys the pool
     shape (b, slots, s_max, nkv, a, d).
     """
-    if _build.dispatch_device("paged_decode", q) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch("paged_decode", impl="plain", shape=tuple(q.shape),
-                                site="int8" if k_scale is not None else "")
-        _paged_charge("paged_decode", q, k_pool, lengths, k_scale is not None,
-                      k_pool.shape[1])
-        with op_analysis.opaque():
+    cpu = _build.dispatch_device("paged_decode", q) == "cpu"
+    with op_analysis.kernel("paged_decode" if k_scale is None else "paged_decode.int8",
+                            lambda: _paged_work(q, k_pool, lengths, k_pool.shape[1])):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("paged_decode", impl="plain", shape=tuple(q.shape),
+                                    site="int8" if k_scale is not None else "")
             return paged_decode_ref(q, k_pool, v_pool, slot_idx, lengths, scale=scale,
                                     k_scale=k_scale, v_scale=v_scale)
-    with op_analysis.opaque():
         return _paged_cuda(paged_decode, q, k_pool, v_pool, k_scale, v_scale,
                            slot_idx.to(torch.int32), lengths, 0, scale, None, tuned, hw_name)
 
@@ -428,17 +416,19 @@ def paged_decode_blocktable(q, k_blocks, v_blocks, block_tables, lengths, *, k_s
     tile may span blocks.  Returns (b, a, d).  A tuned lookup keys the
     block-pool shape (b, num_blocks, block_size, nkv, a, d).
     """
-    if _build.dispatch_device("paged_decode_blocktable", q) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch("paged_decode_blocktable", impl="plain", shape=tuple(q.shape),
-                                site="int8" if k_scale is not None else "",
-                                blocks={"block_size": k_blocks.shape[1]})
-        _paged_charge("paged_decode_blocktable", q, k_blocks, lengths, k_scale is not None,
-                      block_tables.shape[1] * k_blocks.shape[1], k_blocks.shape[1])
-        with op_analysis.opaque():
+    cpu = _build.dispatch_device("paged_decode_blocktable", q) == "cpu"
+    with op_analysis.kernel(
+            "paged_decode_blocktable" if k_scale is None else "paged_decode_blocktable.int8",
+            lambda: _paged_work(q, k_blocks, lengths, block_tables.shape[1] * k_blocks.shape[1],
+                                k_blocks.shape[1])):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("paged_decode_blocktable", impl="plain",
+                                    shape=tuple(q.shape),
+                                    site="int8" if k_scale is not None else "",
+                                    blocks={"block_size": k_blocks.shape[1]})
             return paged_decode_blocktable_ref(q, k_blocks, v_blocks, block_tables, lengths,
                                                scale=scale, k_scale=k_scale, v_scale=v_scale)
-    with op_analysis.opaque():
         tables = block_tables.to(torch.int32).contiguous()
         if tables.dim() != 2 or tables.shape[0] != q.shape[0] or tables.shape[1] < 1:
             raise ValueError(f"paged_decode_blocktable: block_tables {tuple(tables.shape)} for "
@@ -493,7 +483,6 @@ def _paged_cuda(fn, q, k_pool, v_pool, k_scale, v_scale, index, lengths, max_blo
     if b == 0:
         return out
     capacity = max_blocks * depth if max_blocks else depth
-    _paged_charge(what, q, k_pool, lengths, quant, capacity, depth if max_blocks else 0)
     if _build.traced(q.device):
         return out
     lib = _build.build().lib

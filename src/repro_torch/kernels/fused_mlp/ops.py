@@ -32,8 +32,11 @@ tn launches.  Each counts its own launches.
 `cost` (the forward kernel) and `bwd_cost` (the recompute kernel) are the
 kernels' work; `bwd_launches` lists every launch of the backward, its tile
 GEMMs' included: what a call charges the op counter
-(`core/op_analysis.py`) on any device, and what chip_smoke's bounds are
-computed from.
+(`core/op_analysis.py`) on any device.  `bwd_function_cost` is the
+backward's work as a function (each operand read once, each gradient
+written once), what chip_smoke's bound for the whole backward is computed
+from: the launches' sum also counts the design's own traffic (the weights
+read again by the recompute, dg and du written and read back).
 
 With observability on, each forward and backward records its dispatch (op
 "fused_mlp_<mlp_type>", "fused_mlp_hidden_expert", "fused_mlp_bwd" or
@@ -118,9 +121,14 @@ def bwd_launches(m: int, h: int, f: int, gated: bool, itemsize: int, e: int = 0)
     return [(name, k * fl, k * nb) for name, fl, nb in out]
 
 
-def _charge_bwd(m: int, h: int, f: int, gated: bool, itemsize: int, e: int = 0) -> None:
-    for name, fl, nb in bwd_launches(m, h, f, gated, itemsize, e):
-        op_analysis.charge(name, fl, nb)
+def bwd_function_cost(m: int, h: int, f: int, gated: bool, itemsize: int,
+                      e: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) of the backward as a function: the launches' FLOPs;
+    x, the weights and dh read once, dx and the weight gradients written
+    once; `e` experts: e times the work."""
+    nw, k = (2 if gated else 1), max(e, 1)
+    flops = sum(fl for _, fl, _ in bwd_launches(m, h, f, gated, itemsize, e))
+    return flops, float(k * itemsize * (2 * m * h + 2 * nw * h * f + m * f))
 
 
 def _check_type(mlp_type: str) -> None:
@@ -151,14 +159,14 @@ def fused_mlp_hidden(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned: bool =
 
 
 def _hidden(x2, w_gate, w_up, mlp_type: str, tuned: bool, hw_name):
-    if _build.dispatch_device("fused_mlp_hidden", x2) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="plain",
-                                shape=(*x2.shape, w_up.shape[-1]))
-        with op_analysis.charged("fused_mlp_hidden", *cost(
-                *x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())):
+    cpu = _build.dispatch_device("fused_mlp_hidden", x2) == "cpu"
+    with op_analysis.kernel("fused_mlp_hidden", lambda: cost(
+            *x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="plain",
+                                    shape=(*x2.shape, w_up.shape[-1]))
             return fused_mlp_hidden_ref(x2, w_gate, w_up, mlp_type)
-    with op_analysis.opaque():
         return _fused_cuda(x2, w_gate, w_up, mlp_type, tuned, hw_name)
 
 
@@ -237,7 +245,6 @@ def _fused_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_name=Non
             obs.record_dispatch(fused_mlp_op_name(mlp_type), impl="cuda", shape=(m, k, f),
                                 blocks={"block_m": tile[0], "block_f": tile[1]},
                                 tuned_hit=(cfg is not None) if tuned else None)
-    op_analysis.charge("fused_mlp_hidden", *cost(m, k, f, w_gate is not None, x.element_size()))
     if _build.traced(x.device):
         return out
     chunk = 16 // x.element_size()
@@ -269,15 +276,18 @@ def fused_mlp_hidden_expert(x, w_gate, w_up, *, mlp_type: str = "swiglu", tuned:
     _check_expert_type("fused_mlp_hidden_expert", mlp_type)
     if not is_gated(mlp_type):
         w_gate = None
-    if _build.dispatch_device("fused_mlp_hidden_expert", x) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch("fused_mlp_hidden_expert", impl="plain",
-                                shape=(*x.shape, w_up.shape[-1]), site=mlp_type)
+    cpu = _build.dispatch_device("fused_mlp_hidden_expert", x) == "cpu"
+
+    def work():
         e, m, h = x.shape
         fl, nb = cost(m, h, w_up.shape[-1], w_gate is not None, x.element_size())
-        with op_analysis.charged("fused_mlp_hidden_expert", e * fl, e * nb):
+        return e * fl, e * nb
+    with op_analysis.kernel("fused_mlp_hidden_expert", work):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("fused_mlp_hidden_expert", impl="plain",
+                                    shape=(*x.shape, w_up.shape[-1]), site=mlp_type)
             return fused_mlp_hidden_ref(x, w_gate, w_up, mlp_type)
-    with op_analysis.opaque():
         return _fused_expert_cuda(x, w_gate, w_up, mlp_type, tuned, hw_name)
 
 
@@ -318,8 +328,6 @@ def _fused_expert_cuda(x, w_gate, w_up, mlp_type: str, tuned: bool = False, hw_n
         obs.record_dispatch("fused_mlp_hidden_expert", impl="cuda", shape=(e, m, k, f),
                             site=mlp_type, blocks={"block_m": tile[0], "block_f": tile[1]},
                             tuned_hit=(cfg is not None) if tuned else None)
-    fl, nb = cost(m, k, f, w_gate is not None, x.element_size())
-    op_analysis.charge("fused_mlp_hidden_expert", e * fl, e * nb)
     if _build.traced(x.device):
         return out
     chunk = 16 // x.element_size()
@@ -351,12 +359,12 @@ def fused_mlp_bwd(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned: bool 
                             shape=(*x2.shape, w_up.shape[-1]), site=mlp_type,
                             blocks=None if cpu else dict(zip(("block_m", "block_f"),
                                                              pick_tile(x2.shape[0], x2.dtype))))
-    if cpu:
-        _charge_bwd(*x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())
-        with op_analysis.opaque():
+    # the recompute and its three tile GEMMs, charged here, not by `matmul`
+    with op_analysis.kernel(None, lambda: bwd_launches(
+            *x2.shape, w_up.shape[-1], w_gate is not None, x2.element_size())):
+        if cpu:
             dx, dwg, dwu = fused_mlp_bwd_ref(x2, w_gate, w_up, dh2, mlp_type)
-    else:
-        with op_analysis.opaque():
+        else:
             dx, dwg, dwu = _bwd_cuda(x2, w_gate, w_up, dh2, mlp_type, tuned, hw_name)
     return dx.reshape(*lead, h), dwg, dwu
 
@@ -376,8 +384,6 @@ def _recompute_cuda(x, w_gate, w_up, dh, mlp_type: str):
     du = torch.empty_like(dh)
     dg = None if w_gate is None else torch.empty_like(dh)
     if m and f:
-        op_analysis.charge("fused_mlp_bwd", *bwd_cost(m, h, f, w_gate is not None,
-                                                      x.element_size()))
         if _build.traced(x.device):
             return dg, du
         chunk = 16 // x.element_size()
@@ -421,12 +427,10 @@ def fused_mlp_bwd_expert(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned
                             shape=(*x.shape, w_up.shape[-1]), site=mlp_type,
                             blocks=None if cpu else dict(zip(("block_m", "block_f"),
                                                              pick_tile(x.shape[1], x.dtype))))
-    if cpu:
-        e, m, h = x.shape
-        _charge_bwd(m, h, w_up.shape[-1], w_gate is not None, x.element_size(), e)
-        with op_analysis.opaque():
+    with op_analysis.kernel(None, lambda: bwd_launches(
+            *x.shape[1:], w_up.shape[-1], w_gate is not None, x.element_size(), x.shape[0])):
+        if cpu:
             return fused_mlp_bwd_expert_ref(x, w_gate, w_up, dh, mlp_type)
-    with op_analysis.opaque():
         return _bwd_expert_cuda(x, w_gate, w_up, dh, mlp_type, tuned, hw_name)
 
 
@@ -445,8 +449,6 @@ def _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type: str):
     du = torch.empty_like(dh)
     dg = None if w_gate is None else torch.empty_like(dh)
     if e and m and f:
-        rec = bwd_cost(m, h, f, w_gate is not None, x.element_size())
-        op_analysis.charge("fused_mlp_bwd_expert", e * rec[0], e * rec[1])
         if _build.traced(x.device):
             return dg, du
         chunk = 16 // x.element_size()

@@ -36,10 +36,9 @@ copy nothing.  `matmul_expert.launches` counts it apart from
 `matmul.launches`, and `matmul_expert.by_layout` by layout.
 
 `cost` and `expert_cost` are the kernels' work (FLOPs and the bytes each
-operand read once and the output written once take): what a launch
-charges the op counter (`core/op_analysis.py`; a CPU call charges the
-launch its CUDA path makes, a meta call the launch it would make) and
-what chip_smoke's bounds are computed from.
+operand read once and the output written once take): what a call
+charges the op counter (`core/op_analysis.py`) on any device, and what
+chip_smoke's bounds are computed from.
 
 With observability on (`repro_torch.obs`), each call records its dispatch
 (`obs.record_dispatch`: op, "cuda" or "plain", (m, k, n), the layout as the
@@ -172,15 +171,14 @@ def keyed_matmul(a, b, a1=None, b1=None, *, tuned: bool = False, hw_name: str | 
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k)
     a12 = None if a1 is None else a1.reshape(-1, k)
-    if _build.dispatch_device("matmul", a2) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch(op, impl="plain", shape=(a2.shape[0], k, b.shape[-1]))
-        m, n = a2.shape[0], b.shape[-1]
-        with op_analysis.charged("matmul", *cost(m, k, n, a2.element_size(),
-                                                 1 if a1 is None else 2)):
+    cpu = _build.dispatch_device("matmul", a2) == "cpu"
+    with op_analysis.kernel("matmul", lambda: cost(a2.shape[0], k, b.shape[-1],
+                                                   a2.element_size(), 1 if a1 is None else 2)):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch(op, impl="plain", shape=(a2.shape[0], k, b.shape[-1]))
             out = matmul_ref(a2, b, a1=a12, b1=b1)
-    else:
-        with op_analysis.opaque():
+        else:
             out = _matmul_cuda(a2, b, a12, b1, tuned, hw_name, op, key_dtype)
     return out.reshape(*lead, b.shape[-1])
 
@@ -247,7 +245,6 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
         obs.record_dispatch(op, impl="cuda", shape=(m, k, n), site=layout,
                             blocks={"block_m": tm, "block_n": tn, "split_k": splits},
                             tuned_hit=(cfg is not None) if tuned and forced is None else None)
-    op_analysis.charge("matmul", *cost(m, k, n, a.element_size(), 1 if a1 is None else 2))
     if _build.traced(dev):
         return out
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
@@ -294,13 +291,13 @@ def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = No
     per-expert `tuned=True` key does.  Layouts: nn, nt (w a `.mT` view: the
     dgrad, alone or with a second pair) and tn (x a `.mT` view: the wgrad).
     A CPU tensor runs the plain version, a per-expert einsum."""
-    if _build.dispatch_device("matmul_expert", x) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch("matmul_expert", impl="plain", shape=(*x.shape, w.shape[-1]))
-        with op_analysis.charged("matmul_expert", *expert_cost(
-                *x.shape, w.shape[-1], x.element_size(), 1 if x1 is None else 2)):
+    cpu = _build.dispatch_device("matmul_expert", x) == "cpu"
+    with op_analysis.kernel("matmul_expert", lambda: expert_cost(
+            *x.shape, w.shape[-1], x.element_size(), 1 if x1 is None else 2)):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("matmul_expert", impl="plain", shape=(*x.shape, w.shape[-1]))
             return matmul_expert_ref(x, w, x1, w1)
-    with op_analysis.opaque():
         return _matmul_expert_cuda(x, w, x1, w1, tuned, hw_name)
 
 
@@ -344,8 +341,6 @@ def _matmul_expert_cuda(x, w, x1=None, w1=None, tuned=False, hw_name=None) -> to
         obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n), site=layout,
                             blocks={"block_m": tm, "block_n": tn},
                             tuned_hit=(cfg is not None) if tuned else None)
-    op_analysis.charge("matmul_expert", *expert_cost(e, m, k, n, x.element_size(),
-                                                     1 if x1 is None else 2))
     if _build.traced(dev):
         return out
     chunk = 16 // x.element_size()

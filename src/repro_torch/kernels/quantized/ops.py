@@ -137,7 +137,7 @@ def _count(fn, tuned: bool, cfg) -> None:
 def cost(m: int, k: int, n: int, out_itemsize: int, e: int = 1) -> tuple[float, float]:
     """(operations, bytes) of one int8 GEMM launch (e experts): int8
     operands read once, their f32 row and column scales, the output
-    written.  What a launch charges the op counter (core/op_analysis.py)
+    written.  What a call charges the op counter (core/op_analysis.py)
     and chip_smoke's bounds read."""
     return 2.0 * e * m * k * n, float(e * (m * k + k * n + 4 * (m + n) + out_itemsize * m * n))
 
@@ -192,13 +192,14 @@ def int8_matmul_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *, tuned:
     (m, 1) f32; b_q (k, n) int8 (K-major, or row-major and relaid), b_scale
     (1, n) f32 -> (m, n) `out_dtype`.  A tuned lookup keys the activation's
     dtype, `act_dtype` (default `out_dtype`)."""
-    if _build.dispatch_device("int8_matmul", a_q) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch("int8_matmul", impl="plain", shape=(*a_q.shape, b_q.shape[-1]))
-        with op_analysis.charged("int8_matmul", *cost(*a_q.shape, b_q.shape[-1],
-                                                      out_dtype.itemsize)):
+    cpu = _build.dispatch_device("int8_matmul", a_q) == "cpu"
+    with op_analysis.kernel("int8_matmul", lambda: cost(*a_q.shape, b_q.shape[-1],
+                                                        out_dtype.itemsize)):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("int8_matmul", impl="plain",
+                                    shape=(*a_q.shape, b_q.shape[-1]))
             return int8_matmul_ref(a_q, a_scale, b_q, b_scale, out_dtype)
-    with op_analysis.opaque():
         return _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
                                  act_dtype or out_dtype)
 
@@ -272,7 +273,6 @@ def _int8_matmul_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False, hw_nam
                                 blocks={"block_m": tm, "block_n": tn,
                                         "split_k": -(-k // ks)},
                                 tuned_hit=(cfg is not None) if tuned else None)
-    op_analysis.charge("int8_matmul", *cost(m, k, n, out_dtype.itemsize))
     if _build.traced(dev):
         return out
     lib = _build.build().lib
@@ -340,15 +340,13 @@ def int8_matmul_expert_q(a_q, a_scale, b_q, b_scale, out_dtype=torch.float32, *,
     and relaid), b_scale (E, 1, n) f32 -> (E, m, n) `out_dtype`.  A CPU
     tensor runs the plain version, one expert at a time."""
     cpu = _build.dispatch_device("int8_matmul_expert", a_q) == "cpu"
-    if cpu:
-        if obs.enabled():
-            obs.record_dispatch("int8_matmul", impl="plain", site="expert",
-                                shape=(*a_q.shape, b_q.shape[-1]))
-        e, m, k = a_q.shape
-        with op_analysis.charged("int8_matmul_expert", *cost(m, k, b_q.shape[-1],
-                                                             out_dtype.itemsize, e)):
+    with op_analysis.kernel("int8_matmul_expert", lambda: cost(
+            *a_q.shape[1:], b_q.shape[-1], out_dtype.itemsize, a_q.shape[0])):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch("int8_matmul", impl="plain", site="expert",
+                                    shape=(*a_q.shape, b_q.shape[-1]))
             return int8_matmul_expert_ref(a_q, a_scale, b_q, b_scale, out_dtype)
-    with op_analysis.opaque():
         return _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned, hw_name,
                                         act_dtype or out_dtype)
 
@@ -384,7 +382,6 @@ def _int8_matmul_expert_cuda(a_q, a_scale, b_q, b_scale, out_dtype, tuned=False,
         obs.record_dispatch("int8_matmul", impl="cuda", shape=(e, m, k, n), site="expert",
                             blocks={"block_m": tm, "block_n": tn},
                             tuned_hit=(cfg is not None) if tuned else None)
-    op_analysis.charge("int8_matmul_expert", *cost(m, k, n, out_dtype.itemsize, e))
     if _build.traced(dev):
         return out
     lib = _build.build().lib
@@ -433,15 +430,15 @@ def int8_fused_mlp_q(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, *,
     _check_type(mlp_type)
     if not is_gated(mlp_type):
         wg_q = wg_scale = None
-    if _build.dispatch_device("int8_fused_mlp_hidden", x_q) == "cpu":
-        if obs.enabled():
-            obs.record_dispatch(int8_fused_mlp_op_name(mlp_type), impl="plain",
-                                shape=(*x_q.shape, wu_q.shape[-1]))
-        with op_analysis.charged("int8_fused_mlp_hidden", *fused_cost(
-                *x_q.shape, wu_q.shape[-1], wg_q is not None, out_dtype.itemsize)):
+    cpu = _build.dispatch_device("int8_fused_mlp_hidden", x_q) == "cpu"
+    with op_analysis.kernel("int8_fused_mlp_hidden", lambda: fused_cost(
+            *x_q.shape, wu_q.shape[-1], wg_q is not None, out_dtype.itemsize)):
+        if cpu:
+            if obs.enabled():
+                obs.record_dispatch(int8_fused_mlp_op_name(mlp_type), impl="plain",
+                                    shape=(*x_q.shape, wu_q.shape[-1]))
             return int8_fused_mlp_ref(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale,
                                       mlp_type=mlp_type, out_dtype=out_dtype)
-    with op_analysis.opaque():
         return _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type,
                                 out_dtype, tuned, hw_name, act_dtype or out_dtype)
 
@@ -473,8 +470,6 @@ def _int8_fused_cuda(x_q, x_scale, wg_q, wg_scale, wu_q, wu_scale, mlp_type, out
     if tile[1] != FUSED_TILE[1]:
         raise ValueError(f"int8_fused_mlp_hidden: tile {tile[0]} x {tile[1]}: the library "
                          f"instantiates {FUSED_TILE[1]} columns only (csrc/int8_fused_mlp.cu)")
-    op_analysis.charge("int8_fused_mlp_hidden", *fused_cost(m, k, f, wg_q is not None,
-                                                            out_dtype.itemsize))
     if _build.traced(x_q.device):
         return out
     lib = _build.build().lib

@@ -209,7 +209,7 @@ def cost(lead: int, nc: int, Q: int, P: int, N: int, bc: int, elem: int) -> tupl
     of nc chunks: the causal half of C B^T and of (C B^T o L) X, and S =
     B^T (decay o X); x_dt read and Y written once, B and C (`bc` elements
     in memory each: read once per group) read, seg read and S written.
-    What a launch charges the op counter (core/op_analysis.py) and
+    What a call charges the op counter (core/op_analysis.py) and
     chip_smoke's bounds read."""
     tri = Q * (Q + 1) / 2
     flops = lead * nc * (2.0 * N * tri + 2.0 * P * tri + 2.0 * N * P * Q)
@@ -258,10 +258,9 @@ def _ssd_chunk_fwd(x_dt, B, C, seg):
     if obs.enabled():
         obs.record_dispatch("ssd_chunk", impl="plain" if cpu else "cuda",
                             shape=(*x_dt.shape, B.shape[-1]))
-    if cpu:
-        with op_analysis.charged("ssd_chunk", *_cost_of(cost, x_dt, B)):
+    with op_analysis.kernel("ssd_chunk", lambda: _cost_of(cost, x_dt, B)):
+        if cpu:
             return ssd_chunk_ref(x_dt, B, C, seg)
-    with op_analysis.opaque():
         return _ssd_chunk_cuda(x_dt, B, C, seg)
 
 
@@ -293,10 +292,9 @@ def ssd_chunk_bwd(x_dt, B, C, seg, dY, dS):
     if obs.enabled():
         obs.record_dispatch("ssd_chunk_bwd", impl="plain" if cpu else "cuda",
                             shape=(*x_dt.shape, B.shape[-1]))
-    if cpu:
-        with op_analysis.charged("ssd_chunk_bwd", *_cost_of(bwd_cost, x_dt, B)):
+    with op_analysis.kernel("ssd_chunk_bwd", lambda: _cost_of(bwd_cost, x_dt, B)):
+        if cpu:
             return ssd_chunk_bwd_ref(x_dt, B, C, seg, dY, dS)
-    with op_analysis.opaque():
         return _ssd_chunk_bwd_cuda(x_dt, B, C, seg, dY, dS)
 
 
@@ -350,7 +348,6 @@ def _ssd_chunk_cuda(x, B, C, seg, heads=None):
         slab, shared, smem = shape.heads, int(shape.shared), shape.smem
         widths = copy_width(x, sx, P) | copy_width(B, sb, N) << 8 | copy_width(C, sc, N) << 16
     arr = (ctypes.c_longlong * len(vals))(*vals)
-    op_analysis.charge("ssd_chunk", *_cost_of(cost, x, B))
     if _build.traced(dev):
         return y, s
     lib = _build.build().lib
@@ -424,7 +421,6 @@ def _ssd_chunk_bwd_cuda(x, B, C, seg, dY, dS, heads=None):
         esum = torch.empty(math.prod(lead3) * nc * -(-Q // ROWS), dtype=torch.float32, device=dev)
     vals = sum((strides(t) for t in (x, B, C, seg, dY, dS, dx, db, dc, dseg)), ())
     arr = (ctypes.c_longlong * len(vals))(*vals)
-    op_analysis.charge("ssd_chunk_bwd", *_cost_of(bwd_cost, x, B))
     if _build.traced(dev):
         return dx, db, dc, dseg
     lib = _build.build().lib

@@ -120,7 +120,7 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
     shape = SHAPES[shape_name]
     serving = shape.mode != "train"
     mesh_cfg = _mesh_config(multi_pod, no_tp, serving)
-    mesh = virtual_mesh(mesh_cfg, rank)
+    mesh = virtual_mesh(mesh_cfg, rank, sh.kv_replication(cfg, mesh_cfg.model))
     plan = sh.Plan(cfg, mesh)
     dp = mesh_cfg.dp
     small_batch = shape.global_batch < dp
@@ -134,11 +134,8 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
         n_micro = 1 if small_batch else max(rows // tc.microbatch_per_device, 1)
         params = param_structs(cfg, plan=plan)
         opt = opt_structs(cfg, tc, plan)
-        if small_batch:
-            plan.batch_rows = lambda batch, n_micro=1: batch
-            batch = input_specs(cfg, shape, rows=rows)
-        else:
-            batch = input_specs(cfg, shape)
+        # the global batch; `Plan.batch_rows` takes this rank's rows (b < dp: all of them)
+        batch = input_specs(cfg, shape)
         args = tree_bytes(params) + tree_bytes(opt) + tree_bytes(batch) * rows // \
             batch["tokens"].shape[0]
         step = make_train_step(cfg, tc, n_micro=n_micro, plan=plan)

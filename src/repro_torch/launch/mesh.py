@@ -85,9 +85,15 @@ class Mesh:
     def replica_group(self, axis: str, n: int):
         """The group of the n ranks along `axis` that share this rank's
         block of size n (coordinates c with c // n equal; every other axis
-        fixed): the replicas of a KV head over `model`.  None where n is 1
-        or the mesh has no groups."""
-        return self._groups.get((axis, n)) if n > 1 else None
+        fixed): the replicas of a KV head over `model`, made where the mesh
+        was (`make_mesh(..., kv_rep=n)`).  None where n is 1 or the mesh has
+        no groups; raise where it has groups but not this one."""
+        if n <= 1 or not self._groups:
+            return None
+        if (axis, n) not in self._groups:
+            raise ValueError(f"{self!r} has no replica group of {n} along {axis!r}: make the "
+                             f"mesh with kv_rep={n}")
+        return self._groups[(axis, n)]
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh."""
@@ -110,11 +116,14 @@ def _rank_of(coords: Dict[str, int], shape: Dict[str, int]) -> int:
     return (coords["pod"] * shape["data"] + coords["data"]) * shape["model"] + coords["model"]
 
 
-def make_mesh(mesh_cfg: MeshConfig, ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+def make_mesh(mesh_cfg: MeshConfig, ranks: Optional[Sequence[int]] = None,
+              kv_rep: int = 1) -> Optional[Mesh]:
     """The mesh over the initialised world (or over the global `ranks` of
     it, in mesh order), whose size must be mesh_cfg.num_devices.  Every rank
     of the world calls it and makes every group, in one order, as
-    `dist.new_group` requires; a rank outside `ranks` gets None."""
+    `dist.new_group` requires; a rank outside `ranks` gets None.  `kv_rep`
+    > 1 also makes the replica groups of that size along `model`
+    (`Mesh.replica_group`; `sharding.kv_replication` of the model)."""
     world = dist.get_world_size()
     ranks = list(range(world)) if ranks is None else list(ranks)
     if len(ranks) != mesh_cfg.num_devices:
@@ -134,25 +143,26 @@ def make_mesh(mesh_cfg: MeshConfig, ranks: Optional[Sequence[int]] = None) -> Op
                 g = dist.group.WORLD if len(members) == world else dist.new_group(members)
                 if me in members:
                     groups[frozenset(span)] = g
-    # replica groups along `model` (Mesh.replica_group): every proper divisor
-    t = shape["model"]
-    for n in (n for n in range(2, t) if t % n == 0):
-        for at in itertools.product(range(shape["pod"]), range(shape["data"]), range(t // n)):
-            members = sorted(ranks[_rank_of({"pod": at[0], "data": at[1], "model": at[2] * n + c},
-                                            shape)] for c in range(n))
+    if kv_rep > 1:
+        for at in itertools.product(range(shape["pod"]), range(shape["data"]),
+                                    range(shape["model"] // kv_rep)):
+            members = sorted(ranks[_rank_of({"pod": at[0], "data": at[1],
+                                             "model": at[2] * kv_rep + c}, shape)]
+                             for c in range(kv_rep))
             g = dist.new_group(members)
             if me in members:
-                groups[("model", n)] = g
+                groups[("model", kv_rep)] = g
     if me not in ranks:
         return None
     return Mesh(mesh_cfg, ranks.index(me), groups, dist.get_backend())
 
 
-def virtual_mesh(mesh_cfg: MeshConfig, rank: int = 0) -> Mesh:
-    """A mesh of `mesh_cfg`'s shape seen from `rank`, whose groups are
-    `comm.VirtualGroup`s: each collective returns a tensor of the right
-    shape and dtype without communicating (the dry run's trace of one
-    rank's step on a mesh that does not exist)."""
+def virtual_mesh(mesh_cfg: MeshConfig, rank: int = 0, kv_rep: int = 1) -> Mesh:
+    """A mesh of `mesh_cfg`'s shape seen from `rank`, whose groups
+    (`kv_rep` as `make_mesh`'s) are `comm.VirtualGroup`s: each collective
+    returns a tensor of the right shape and dtype without communicating
+    (the dry run's trace of one rank's step on a mesh that does not
+    exist)."""
     from ..parallel.comm import VirtualGroup
     mesh = Mesh(mesh_cfg, rank)
     axes = [a for a in ("pod", "data", "model") if mesh.shape[a] > 1]
@@ -160,9 +170,8 @@ def virtual_mesh(mesh_cfg: MeshConfig, rank: int = 0) -> Mesh:
     for n in range(1, len(axes) + 1):
         for span in itertools.combinations(axes, n):
             groups[frozenset(span)] = VirtualGroup(mesh.axis_size(span), mesh.index(span))
-    t = mesh.shape["model"]
-    for n in (n for n in range(2, t) if t % n == 0):
-        groups[("model", n)] = VirtualGroup(n, mesh.coords["model"] % n)
+    if kv_rep > 1:
+        groups[("model", kv_rep)] = VirtualGroup(kv_rep, mesh.coords["model"] % kv_rep)
     mesh._groups, mesh.backend = groups, "virtual"
     return mesh
 

@@ -154,7 +154,7 @@ def train(args, device, rank: int = 0):
     say = print if rank == 0 else (lambda *a, **k: None)
     plan = None
     if mesh_cfg.num_devices > 1:
-        mesh = mesh_lib.make_mesh(mesh_cfg)
+        mesh = mesh_lib.make_mesh(mesh_cfg, kv_rep=sh.kv_replication(cfg, mesh_cfg.model))
         plan = sh.Plan(cfg, mesh)
         say(f"mesh: data={mesh_cfg.data} x model={mesh_cfg.model}, backend {mesh.backend}, "
             f"rank 0 on {device}")

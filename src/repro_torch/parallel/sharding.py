@@ -471,12 +471,18 @@ class Plan:
 
     def batch_rows(self, batch, n_micro: int = 1):
         """This data rank's rows of a global batch: its slice of each of the
-        n_micro global microbatches, as JAX shards each microbatch."""
+        n_micro global microbatches, as JAX shards each microbatch.  A
+        microbatch of fewer rows than dp is replicated over the data ranks
+        (JAX's `_fix_small_batch`): each takes it whole, and the loss
+        shares (`lm_loss`, over every rank's token count) still sum to its
+        mean."""
         if self.dp == 1:
             return batch
 
         def rows(v):
             mb = v.shape[0] // n_micro
+            if mb < self.dp:
+                return v
             if mb % self.dp:
                 raise ValueError(f"a microbatch of {mb} rows does not split over dp {self.dp}")
             loc = mb // self.dp

@@ -10,7 +10,8 @@
     attention), a train step at 4 x 64 tokens at remat "none" and "full",
     a prefill and a decode step;
   * a CPU run and a meta trace of the same step count the same (flash and
-    fused impls), and each kernel's charge is its `cost` function's;
+    fused impls), a dropped charge breaks that, each kernel's charge is its
+    `cost` function's, and with no counter on no cost is computed;
   * tracing n_micro = 4 in full equals one microbatch counted 4 times;
   * the virtual group's collective census at world 4 equals four gloo
     ranks' census, rank by rank and kind by kind;
@@ -263,6 +264,52 @@ def test_kernel_charges_are_their_cost_functions():
     assert c.counts.kernels == want
     assert c.counts.flops == sum(r["flops"] for r in want.values())
     assert c.counts.bytes == sum(r["bytes"] for r in want.values())
+
+
+def test_a_dropped_charge_breaks_cpu_against_meta():
+    """The fault chip_smoke plants on the card: the fused MLP's charge
+    dropped from the meta trace alone makes it differ from the CPU run."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), linear_impl="fused", attn_impl="flash")
+    tc = TrainConfig(total_steps=4, warmup_steps=1, remat="none")
+    cpu = _count_train(cfg, tc, "cpu")
+    real = op_analysis.Counter.charge
+
+    def dropped(self, name, flops, nbytes):
+        if name != "fused_mlp_hidden":
+            real(self, name, flops, nbytes)
+    op_analysis.Counter.charge = dropped
+    try:
+        meta = _count_train(cfg, tc, "meta")
+    finally:
+        op_analysis.Counter.charge = real
+    assert cpu.flops != meta.flops and "fused_mlp_hidden" not in meta.kernels
+
+
+def test_no_counter_no_charge_work():
+    """With no counter on, a wrapper's block is one shared null context and
+    its cost function is never called (the wrappers' host time per call)."""
+    def cost():
+        raise AssertionError("cost computed with no counter on")
+    assert op_analysis.kernel("matmul", cost) is op_analysis.kernel(None, cost)
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn(8, 16, generator=g), torch.randn(16, 4, generator=g)
+    torch.testing.assert_close(matmul_ops.matmul(x, w), x @ w)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_fused_bwd_bound_counts_the_function(gated):
+    """chip_smoke's bound for the whole fused backward: the launches' FLOPs,
+    but bytes of the function (x, the weights and dh read once, dx and the
+    weight gradients written once), fewer than the launches' sum, which
+    also counts the recompute's weight reads and dg / du round trips."""
+    m, h, f, e = 24, 32, 48, 3
+    nw = 2 if gated else 1
+    for k in (0, e):
+        launches = fused_ops.bwd_launches(m, h, f, gated, 2, k)
+        flops, nbytes = fused_ops.bwd_function_cost(m, h, f, gated, 2, k)
+        assert flops == sum(fl for _, fl, _ in launches) == max(k, 1) * 6 * nw * m * h * f
+        assert nbytes == max(k, 1) * 2 * (2 * m * h + 2 * nw * h * f + m * f)
+        assert nbytes < sum(nb for _, _, nb in launches)
 
 
 def test_microbatches_traced_once_equal_the_full_loop():

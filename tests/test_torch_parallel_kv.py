@@ -69,6 +69,37 @@ def test_production_mesh_refuses_heads_that_do_not_split(arch):
         sh.check_supported(get_config(arch), production_mesh_config())
 
 
+def test_only_the_plans_replica_group_is_made():
+    """A mesh holds the replica group of the size it was made with; a Plan
+    whose KV replication the mesh lacks is refused by name."""
+    from repro_torch.launch.mesh import virtual_mesh
+    cfg = get_smoke_config(ARCH)
+    rep = sh.kv_replication(cfg, MODEL)
+    mesh = virtual_mesh(MeshConfig(model=MODEL), 1, kv_rep=rep)
+    assert rep == 2 and sh.Plan(cfg, mesh).kv_group.size == rep
+    assert [k for k in mesh._groups if isinstance(k, tuple)] == [("model", rep)]
+    with pytest.raises(ValueError, match="kv_rep=2"):
+        sh.Plan(cfg, virtual_mesh(MeshConfig(model=MODEL), 1))
+    assert sh.Plan(cfg, Mesh(MeshConfig(model=MODEL))).kv_group is None   # no groups at all
+
+
+@pytest.mark.parametrize("rows,n_micro", [(2, 1), (3, 1), (8, 1), (8, 2)])
+def test_batch_rows_replicates_a_batch_smaller_than_dp(rows, n_micro):
+    """JAX's `_fix_small_batch`: a microbatch of fewer rows than dp is
+    taken whole by every data rank; a larger one splits, one slice a rank."""
+    dp = 4
+    plan = sh.Plan(get_smoke_config(ARCH), Mesh(MeshConfig(data=dp), rank=1))
+    batch = {"tokens": torch.arange(rows * 3).reshape(rows, 3)}
+    got = plan.batch_rows(batch, n_micro)["tokens"]
+    mb = rows // n_micro
+    if mb < dp:
+        assert torch.equal(got, batch["tokens"])
+    else:
+        loc = mb // dp
+        want = batch["tokens"].reshape(n_micro, mb, 3)[:, loc:2 * loc].reshape(-1, 3)
+        assert torch.equal(got, want)
+
+
 def test_replicated_blocks_of_a_kv_leaf():
     """At model 4 over 2 KV heads, ranks 0-1 hold KV head 0's columns and
     ranks 2-3 KV head 1's; a replicated leaf's blocks gathered to the host

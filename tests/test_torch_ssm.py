@@ -19,6 +19,7 @@ tests run it.  Tolerances, and why:
   * greedy tokens: identical.
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -101,10 +102,16 @@ def full_f32():
     """Both sides' float32 products at full precision for the test, whatever
     an earlier test or import left set: torch's matmul precision (on the
     CPU oneDNN may take "medium" as leave to multiply float32 in bfloat16)
-    and JAX's default dot precision.  Restored after."""
+    and JAX's default dot precision.  Restored after.  A state other than
+    the defaults on entry is reported as a warning: whether such state
+    caused a failure seen once under xdist is not established."""
     before = torch.get_float32_matmul_precision()
     mkldnn = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
     before_mkldnn = getattr(mkldnn, "fp32_precision", None)
+    before_jax = jax.config.jax_default_matmul_precision
+    if before != "highest" or before_mkldnn not in (None, "none", "ieee") or before_jax:
+        warnings.warn(f"float32 products entered reduced: torch {before!r}, oneDNN "
+                      f"{before_mkldnn!r}, JAX {before_jax!r}")
     torch.set_float32_matmul_precision("highest")
     if before_mkldnn is not None:
         mkldnn.fp32_precision = "ieee"

@@ -433,7 +433,8 @@ def suite(rank, world, dev, jobs):
         mesh_cfg = (MeshConfig(pod=n) if job["case"] == "pipeline"
                     else MeshConfig(data=job["data"], model=job["model"],
                                     fsdp=job.get("fsdp", True)))
-        mesh = mesh_lib.make_mesh(mesh_cfg, ranks=range(n))
+        kv_rep = sh.kv_replication(_cfg(job), mesh_cfg.model) if "arch" in job else 1
+        mesh = mesh_lib.make_mesh(mesh_cfg, ranks=range(n), kv_rep=kv_rep)
         if mesh is not None:
             CASES[job["case"]](mesh, job["dir"], job)
         torch.distributed.barrier()
