@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bf16 SSD chunk kernel (csrc/ssd_chunk.cu ssd_chunk_sm90), of the
      bf16 paged-decode kernel (csrc/paged_decode.cu paged_decode_sm90) and
      of the bf16 SSD backward's key and query walks (csrc/ssd_chunk_bwd.cu
-     ssd_bwd_keys, ssd_bwd_queries) HGMMA and LDGSTS; no GEMM, SSD, SSD
+     ssd_bwd_keys, ssd_bwd_queries) HGMMA and LDGSTS, and every
+     instantiation of the expert-batched TMA mainloop (csrc/gemm_sm90_tma.cuh
+     expert_gemm_tma: the batched matmul's layouts and the batched
+     recompute) HGMMA and TMA loads (UTMALDG); no GEMM, SSD, SSD
      backward or paged-decode instantiation may spill or have its products
      serialized by ptxas (C7511, C7515, C7520); no kernel may issue
      warp-level tensor products (HMMA: WMMA, mma.sync), and no bf16
@@ -49,15 +52,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      training shapes: 4 x 1024 tokens), bf16 and f32, timed at both training
      shapes beside the forward kernel on the same operands; with `--parent
      DIR` (a checkout of the parent commit) also the parent's SSD backward
-     and this one's in turns; then the MoE slice's expert-batched launches
-     (csrc/matmul.cu and csrc/fused_mlp.cu, one launch for every expert of a
+     and this one's in turns, and the parent's expert-batched launches and
+     this one's (tuning/expert_gemm_times.py); then the MoE slice's
+     expert-batched launches (csrc/matmul_expert.cu, the TMA route, and
+     csrc/fused_mlp.cu, one launch for every expert of a
      stack) at deepseek-v3's decode and prefill capacities and
      llama4-maverick's, expert by expert against their plain versions,
      timed beside their bound, torch.bmm and the 2-D kernel launched once
-     per expert; and the MoE training slice's and the int8 expert path's
-     (csrc/matmul.cu's batched nt, nt pair and tn layouts on `.mT` views,
-     csrc/fused_mlp_bwd.cu's batched recompute, csrc/int8_matmul.cu's
-     batched int8 GEMM) at the trained cuts' capacities and deepseek-v3's
+     per expert, every expert of the GEMM bit-identical to the 2-D kernel
+     at the same tile, unsplit; and the MoE training slice's and the int8
+     expert path's (csrc/matmul_expert.cu's batched nt, nt pair and tn
+     layouts on `.mT` views and csrc/fused_mlp_bwd_expert.cu's batched
+     recompute, each of which must take the TMA route, and
+     csrc/int8_matmul.cu's batched int8 GEMM) at the trained cuts'
+     capacities and deepseek-v3's
      decode capacity: every expert bit-identical to the 2-D kernel at the
      same tile, unsplit, each within its bound of the plain version (the
      int8 GEMM bit-identical to it), timed beside its bound and torch.bmm
@@ -304,7 +312,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # `--parent DIR`: a checkout of the parent commit, for the SSD backward's
-# A/B in turns (`ssd_bwd_ab_phase`); not given, the phase does not run
+# and the expert-batched launches' A/B in turns (`ssd_bwd_ab_phase`,
+# `expert_ab_phase`); not given, those phases do not run
 PARENT = sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv[1:] else None
 
 # NVIDIA H100 SXM data sheet, dense: bf16 and int8 tensor cores, and HBM3
@@ -488,10 +497,15 @@ SSD_SM90 = "ssd_chunk_sm90"
 PAGED_SM90 = "paged_decode_sm90"
 # ssd_bwd_keys / ssd_bwd_queries<DNW, SHARED> (csrc/ssd_chunk_bwd.cu, bf16)
 SSD_BWD_KEYS, SSD_BWD_QUERIES = "ssd_bwd_keys", "ssd_bwd_queries"
+# expert_gemm_tma<TM, TN, TA, TB, PAIRS, ACT, BWD> (csrc/gemm_sm90_tma.cuh)
+EXPERT_TMA = "expert_gemm_tma"
 # the warpgroup product each mainloop's SASS must issue: bf16 HGMMA, s8 IGMMA
 PRODUCTS = {"flash_fwd_sm90": "HGMMA", "flash_bwd_sm90": "HGMMA", GEMM_SM90: "HGMMA",
             INT8_SM90: "IGMMA", SSD_SM90: "HGMMA", PAGED_SM90: "HGMMA", SSD_BWD_KEYS: "HGMMA",
-            SSD_BWD_QUERIES: "HGMMA"}
+            SSD_BWD_QUERIES: "HGMMA", EXPERT_TMA: "HGMMA"}
+# mainloops whose every instantiation must load by TMA (UTMALDG); the others
+# may stage with cp.async (LDGSTS) or TMA
+TMA_LOADS = (EXPERT_TMA,)
 # kernels that must not exist: bf16 instantiations of the f32-only FMA
 # kernels (csrc/gemm_tile.cuh, csrc/fused_mlp_bwd.cu; bf16 runs on
 # gemm_sm90), the int8 WMMA tile kernel that gemm_sm90_s8 replaced, the
@@ -511,7 +525,7 @@ def gemm_instance(fn: str) -> str:
     instantiation from its mangled template arguments: the kernel it serves,
     the tile and the layout (bf16) or output type (int8), the padded head
     dim (SSD, paged decode), or the dB / dC column slice and the scores'
-    route (SSD backward)."""
+    route (SSD backward); expert_gemm_tma's kernel, layout and tile."""
     for walk in (SSD_BWD_KEYS, SSD_BWD_QUERIES):
         if walk in fn:
             dnw, shared = re.findall(r"L[ib](\d+)E", fn)[:2]
@@ -528,6 +542,11 @@ def gemm_instance(fn: str) -> str:
         out = "bf16" if "__nv_bfloat16" in fn else "f32"
         kind = f"int8_fused_mlp {ACTS[act]}" if act else "int8_matmul"
         return f"{kind}{' expert-batched' if 'Lb1E' in fn else ''} {tm}x{tn} {out} out"
+    if EXPERT_TMA in fn:
+        tm, tn, ta, tb, pairs, act, bwd = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:7])
+        kind = (f"fused_mlp_bwd {ACTS[act]}" if bwd else
+                f"matmul {'t' if ta else 'n'}{'t' if tb else 'n'}{' pair' if pairs == 2 else ''}")
+        return f"{kind} expert-batched TMA {tm}x{tn}"
     tm, tn, ta, tb, pairs, act, bwd, batch = (int(v) for v in re.findall(r"L[ib](\d+)E", fn)[:8])
     if bwd:
         kind = f"fused_mlp_bwd {ACTS[act]}"
@@ -573,7 +592,8 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     the int8 GEMM and fused MLP, of the bf16 SSD chunk kernel, of the bf16
     paged-decode kernel and of the bf16 SSD backward's two walks must issue
     warpgroup products (HGMMA; IGMMA for int8) and stage its tiles with
-    asynchronous copies (LDGSTS, cp.async; or UTMALDG, TMA); ptxas must
+    asynchronous copies (LDGSTS, cp.async; or UTMALDG, TMA), and each of the
+    expert-batched TMA mainloop HGMMA and UTMALDG (TMA_LOADS); ptxas must
     report no spill and no serialized products for any GEMM, SSD, SSD
     backward or paged-decode instantiation; no kernel of the
     library may issue warp-level tensor products (HMMA: WMMA or mma.sync);
@@ -600,15 +620,16 @@ def sass_check(cuobjdump: Path, lib_path: Path, log: str) -> None:
     for kernel, product in PRODUCTS.items():
         fns = counts.get(kernel, {})
         mm = [c[product] for c in fns.values()]
-        ld = [c["LDGSTS"] + c["UTMALDG"] for c in fns.values()]
+        copies = "UTMALDG" if kernel in TMA_LOADS else "LDGSTS/UTMALDG"
+        ld = [c["UTMALDG"] + (0 if kernel in TMA_LOADS else c["LDGSTS"]) for c in fns.values()]
         print(f"  sass: {kernel}: {len(fns)} instantiations, {product} {min(mm, default=0)}-"
-              f"{max(mm, default=0)} and LDGSTS/UTMALDG {min(ld, default=0)}-"
+              f"{max(mm, default=0)} and {copies} {min(ld, default=0)}-"
               f"{max(ld, default=0)} each")
         if not fns or min(mm) == 0 or min(ld) == 0:
             fail(f"{kernel}: an instantiation without wgmma or asynchronous copies in its SASS")
     ptx = ptxas_report(log)
     gemms = {**counts[GEMM_SM90], **counts[INT8_SM90], **counts[SSD_SM90], **counts[PAGED_SM90],
-             **counts[SSD_BWD_KEYS], **counts[SSD_BWD_QUERIES]}
+             **counts[SSD_BWD_KEYS], **counts[SSD_BWD_QUERIES], **counts[EXPERT_TMA]}
     for fn, c in sorted(gemms.items(), key=lambda kv: gemm_instance(kv[0])):
         rep = ptx.get(fn)
         if rep is None:
@@ -2603,6 +2624,25 @@ def ssd_bwd_ab_phase() -> None:
             print(f"  {name}: {line.strip()}")
 
 
+def expert_ab_phase() -> None:
+    """With `--parent DIR`: the expert-batched launches of the parent's tree
+    and of this one in turns (parent, change, change, parent), each
+    `tuning/expert_gemm_times.py` in its own process against that tree's
+    package (MOE_EXPERT_SHAPES' forward, MOE_BWD_SHAPES' dgrad, wgrad, dgrad
+    pair, recompute and whole backward, beside torch.bmm)."""
+    script = str(ROOT / "src" / "repro_torch" / "tuning" / "expert_gemm_times.py")
+    trees = {"parent": Path(PARENT).resolve(), "change": ROOT}
+    print(f"expert gemm a/b in turns (parent {trees['parent']}):")
+    for name in ("parent", "change", "change", "parent"):
+        env = {**os.environ, "PYTHONPATH": str(trees[name] / "src")}
+        out = subprocess.run([sys.executable, script], capture_output=True, text=True, env=env,
+                             cwd=trees[name])
+        if out.returncode:
+            fail(f"expert gemm a/b: the {name} tree's times failed: {out.stderr[-2000:]}")
+        for line in out.stdout.splitlines()[1:-1]:
+            print(f"  {name}: {line.strip()}")
+
+
 def _ssm_counters():
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden
     from repro_torch.kernels.matmul.ops import matmul
@@ -3087,15 +3127,20 @@ def moe_kernel_phase(torch) -> dict:
         del got, wg, wu
         xd = randn(e, cap, f)
         wd = randn(e, f, h, scale=f ** -0.5)
+        tma = mm_ops.matmul_expert.tma
         got = mm_ops.matmul_expert(xd, wd)
+        _took_tma(mm_ops.matmul_expert, tma, f"matmul_expert w_down ({label})")
         err = _check_chunks(torch, got, lambda s: matmul_expert_ref(xd[s], wd[s]),
                             lambda s, want: matmul_tol(xd[s], wd[s], want),
                             f"matmul_expert {e} x ({cap}x{f}x{h}) w_down ({label})")
+        (tm, tn, _), _ = mm_ops.geometry(cap, f, h, bf)
+        depth = -(-f // mm_ops.BLOCK_K) * mm_ops.BLOCK_K
+        _per_expert_identical(torch, got, lambda z: mm_ops._matmul_cuda(
+            xd[z], wd[z], None, None, forced=(tm, tn, depth)), e,
+            f"matmul_expert w_down ({label}) at tile {tm}x{tn}")
         ms, host = time_ms(torch, [lambda: mm_ops.matmul_expert(xd, wd)], EXPERT_ITERS)
         plain, _ = time_ms(torch, [lambda: matmul_expert_ref(xd, wd)], 2)
         lib, lib_host = time_ms(torch, [lambda: torch.bmm(xd, wd)], EXPERT_ITERS)
-        (tm, tn, _), _ = mm_ops.geometry(cap, f, h, bf)
-        depth = -(-f // mm_ops.BLOCK_K) * mm_ops.BLOCK_K
         loop, loop_host = time_ms(torch, [lambda: [mm_ops._matmul_cuda(
             xd[z], wd[z], None, None, forced=(tm, tn, depth)) for z in range(e)]], 2)
         bnd, by = bound(*kernel_cost("matmul_expert", e, cap, f, h, 2))
@@ -3114,7 +3159,7 @@ def moe_kernel_phase(torch) -> dict:
     torch.cuda.empty_cache()
     rows = {}
     for name, src, rep in (
-            ("matmul_expert", "src/repro_torch/kernels/csrc/matmul.cu",
+            ("matmul_expert", "src/repro_torch/kernels/csrc/matmul_expert.cu",
              "src/repro/kernels/matmul/kernel.py:35"),
             ("fused_mlp_hidden_expert", "src/repro_torch/kernels/csrc/fused_mlp.cu",
              "src/repro/kernels/fused_mlp/kernel.py:64")):
@@ -3141,6 +3186,13 @@ MOE_BWD_SHAPES = {"deepseek-v3 train": (16, 2560, 7168, 2048),
                   "llama4-maverick train": (8, 640, 5120, 8192),
                   "deepseek-v3 decode": (256, 8, 7168, 2048)}
 MOE_INT8_SHAPES = {**MOE_BWD_SHAPES, "llama4-maverick decode": (128, 8, 5120, 8192)}
+
+
+def _took_tma(fn, before: int, what: str) -> None:
+    """The wrapper's last launch took the TMA route (its `tma` count moved):
+    every MoE shape's stacks are whole 16-byte rows."""
+    if fn.tma != before + 1:
+        fail(f"{what}: the launch took the grid-z route, not the TMA route")
 
 
 def _per_expert_identical(torch, got, one, e: int, what: str) -> None:
@@ -3210,7 +3262,9 @@ def moe_backward_kernels(torch) -> dict:
         e, M, K = a.shape
         N = b.shape[2]
         pair = () if a1 is None else (a1, b1)
+        tma = mm_ops.matmul_expert.tma
         got = mm_ops.matmul_expert(a, b, *pair)
+        _took_tma(mm_ops.matmul_expert, tma, f"matmul_expert {what} ({label})")
         err = _check_chunks(
             torch, got, lambda s: matmul_expert_ref(a[s], b[s], *(t[s] for t in pair)),
             lambda s, want: matmul_tol(a[s], b[s], want, *(t[s] for t in pair)),
@@ -3247,7 +3301,9 @@ def moe_backward_kernels(torch) -> dict:
         dh = randn(e, cap, f)
         wg, wu = randn(e, h, f, scale=h ** -0.5), randn(e, h, f, scale=h ** -0.5)
         # the recompute: dg, du of every expert
+        tma = fused_ops.fused_mlp_bwd_expert.tma
         dg, du = fused_ops._recompute_expert_cuda(x, wg, wu, dh, "swiglu")
+        _took_tma(fused_ops.fused_mlp_bwd_expert, tma, f"fused_mlp_bwd_expert recompute ({label})")
         for i, part in enumerate(("dg", "du")):
             _per_expert_identical(torch, (dg, du)[i], lambda z: fused_ops._recompute_cuda(
                 x[z], wg[z], wu[z], dh[z], "swiglu")[i], e,
@@ -3295,11 +3351,11 @@ def moe_backward_kernels(torch) -> dict:
         _sum_row(tot, "fused_mlp_bwd_expert", ms, plain, bnd, by, None, err)
         del x, dh, wg, wu
     torch.cuda.empty_cache()
-    mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
+    mm_src = "src/repro_torch/kernels/csrc/matmul_expert.cu"
     mm_rep = "src/repro/kernels/matmul/kernel.py:35"
     return _rows_of(tot, {
         "matmul_expert_dgrad": (mm_src, mm_rep), "matmul_expert_wgrad": (mm_src, mm_rep),
-        "fused_mlp_bwd_expert": ("src/repro_torch/kernels/csrc/fused_mlp_bwd.cu",
+        "fused_mlp_bwd_expert": ("src/repro_torch/kernels/csrc/fused_mlp_bwd_expert.cu",
                                  "src/repro/kernels/fused_mlp/backward.py:109")})
 
 
@@ -4507,10 +4563,12 @@ def moe_train_launches(cfg) -> dict:
     "none"), per MoE layer: the batched fused hidden and w_down's batched
     GEMM ("nn") forward; w_down's dgrad ("nt") and wgrad ("tn"); the
     batched fused-MLP backward: its recompute, dx over both pairs ("nt"),
-    dWg and dWu ("tn")."""
+    dWg and dWu ("tn").  Every batched matmul and recompute takes the TMA
+    route (`.tma`: the stacks' rows are whole 16 bytes)."""
     n = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     return {"matmul_expert_nn": n, "matmul_expert_nt": 2 * n, "matmul_expert_tn": 3 * n,
-            "fused_mlp_hidden_expert": n, "fused_mlp_bwd_expert": n}
+            "matmul_expert_tma": 6 * n, "fused_mlp_hidden_expert": n,
+            "fused_mlp_bwd_expert": n, "fused_mlp_bwd_expert_tma": n}
 
 
 def _moe_train_counters():
@@ -4519,13 +4577,16 @@ def _moe_train_counters():
 
     def read():
         out = {f"matmul_expert_{k}": v for k, v in mm_ops.matmul_expert.by_layout.items()}
-        out.update(fused_mlp_hidden_expert=fused_ops.fused_mlp_hidden_expert.launches,
-                   fused_mlp_bwd_expert=fused_ops.fused_mlp_bwd_expert.launches)
+        out.update(matmul_expert_tma=mm_ops.matmul_expert.tma,
+                   fused_mlp_hidden_expert=fused_ops.fused_mlp_hidden_expert.launches,
+                   fused_mlp_bwd_expert=fused_ops.fused_mlp_bwd_expert.launches,
+                   fused_mlp_bwd_expert_tma=fused_ops.fused_mlp_bwd_expert.tma)
         return out
 
     def reset():
         mm_ops.reset_launches()
         fused_ops.fused_mlp_hidden_expert.launches = fused_ops.fused_mlp_bwd_expert.launches = 0
+        fused_ops.fused_mlp_bwd_expert.tma = 0
     return read, reset
 
 
@@ -6477,7 +6538,8 @@ def parallel_kernel_phase(torch) -> None:
     backward at 24 (mamba2-780m) and 40 (zamba2-2.7b) heads; flash forward
     and backward at the KV-replicated shards of model=16 (1 / 4 / 6 / 6 query
     heads over one KV head: internlm2-1.8b, internvl2-76b, command-r-plus-104b,
-    nemotron-4-340b at d 192)."""
+    nemotron-4-340b at d 192), and the slot paged-decode kernel there (8 rows
+    of up to 2048 tokens)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_hidden_expert
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_hidden_ref
@@ -6559,6 +6621,44 @@ def parallel_kernel_phase(torch) -> None:
         c = get_config(arch)
         _flash_case(torch, randn, f"{arch} model=16", 1, 4096, 4096, c.num_heads // 16, 1,
                     c.head_dim, True, True, 1, 10)
+    print("paged decode at the KV-replicated per-shard shapes (model=16, one KV head a rank):")
+    for arch in ("internlm2-1.8b", "internvl2-76b", "command-r-plus-104b", "nemotron-4-340b"):
+        c = get_config(arch)
+        _paged_kv_replicated_case(torch, randn, gen, arch, c.num_heads // 16, c.head_dim)
+
+
+# a decode step's rows over a slot pool at the KV-replicated shards: 8 rows of
+# up to 2048 tokens (tests/test_torch_cuda.py test_kv_replicated_shard_shapes)
+KV_REPLICATED_LENGTHS = (2048, 1, 1500, 64, 2047, 700, 1024, 333)
+
+
+def _paged_kv_replicated_case(torch, randn, gen, arch: str, a: int, d: int) -> None:
+    """The slot paged-decode kernel at a query heads over one KV head of d,
+    bf16: against its plain version within its bound, timed over pool copies
+    past L2 beside the plain version and its bytes bound."""
+    from repro_torch.kernels.flash_attention.ops import paged_decode
+    from repro_torch.kernels.flash_attention.ref import paged_decode_ref
+    from repro_torch.kernels.tolerance import paged_decode_tol
+    dev = torch.device("cuda")
+    b, s_max = len(KV_REPLICATED_LENGTHS), max(KV_REPLICATED_LENGTHS)
+    q = randn(b, a, d)
+    kp, vp = randn(b, s_max, 1, d), randn(b, s_max, 1, d)
+    slot_idx = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+    lengths = torch.tensor(KV_REPLICATED_LENGTHS, dtype=torch.int32, device=dev)
+    want = paged_decode_ref(q, kp, vp, slot_idx, lengths)
+    label = f"paged_decode {arch} model=16 (g={a}, d={d}, {b} rows)"
+    compare(torch, paged_decode(q, kp, vp, slot_idx, lengths), want,
+            paged_decode_tol(q, kp, vp, slot_idx, lengths, want), label)
+    # K/V copies past L2, so each call reads its pool from device memory
+    pools = copies(torch, lambda: (randn(b, s_max, 1, d), randn(b, s_max, 1, d)),
+                   2 * b * s_max * d * 2)
+    ms, _ = time_ms(torch, [lambda kv=kv: paged_decode(q, *kv, slot_idx, lengths)
+                            for kv in pools])
+    plain, _ = time_ms(torch, [lambda: paged_decode_ref(q, kp, vp, slot_idx, lengths)], 5)
+    live = int(lengths.sum().item())
+    bnd, by = bound(*kernel_cost("paged", b, a, 1, d, live, 2, 2, b))
+    print(f"    {ms:.4f} ms ({paged_pick(b, 1, a, d, s_max, 2)}; plain {plain:.4f}, bound "
+          f"{bnd:.4f} by {by}, {live} live tokens)")
 
 
 def _ssd_shard_case(torch, gen, arch: str, t: int) -> None:
@@ -7982,6 +8082,7 @@ def main() -> None:
     phase("parallel kernels", parallel_kernel_phase, torch)
     if PARENT:
         phase("ssd backward a/b", ssd_bwd_ab_phase)
+        phase("expert gemm a/b", expert_ab_phase)
     counts = phase("serve", serve_phase, torch)
     prefix = phase("prefix serve", prefix_serve_phase, torch)
     quantized = phase("quantized serve", quantized_serve_phase, torch)

@@ -164,6 +164,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_int8_matmul_expert.restype = i
     lib.repro_fused_mlp_bwd_expert.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.repro_fused_mlp_bwd_expert.restype = i
+    lib.repro_matmul_expert_tma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.repro_matmul_expert_tma.restype = i
+    lib.repro_fused_mlp_bwd_expert_tma.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                                   i, p]
+    lib.repro_fused_mlp_bwd_expert_tma.restype = i
     lib.repro_ssd_chunk.argtypes = [p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
                                     i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
     lib.repro_ssd_chunk.restype = i

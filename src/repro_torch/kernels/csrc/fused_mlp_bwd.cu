@@ -147,7 +147,13 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* wg, const void* wu
 // z in one launch (the grid's z axis), each at the 2-D kernel's tile.  The
 // wrapper (fused_mlp/ops.py `fused_mlp_bwd_expert`) finishes with the
 // batched tile GEMM: dx over both pairs in one nt launch, dWg and dWu in
-// two tn launches (csrc/matmul.cu `repro_matmul_expert`).
+// two tn launches (`matmul_expert`).  This grid-z launch is the route of
+// f32 stacks and of bf16 stacks whose bases or rows are not whole 16 bytes;
+// every other bf16 stack takes the TMA route (fused_mlp_bwd_expert.cu
+// `repro_fused_mlp_bwd_expert_tma` on gemm_sm90_tma.cuh: a producer warp,
+// a persistent walk, dh loaded and dg / du stored by TMA), which the
+// wrapper picks (`recompute_route`): deepseek-v3's training recompute
+// ran 5.68 ms here, 3.50 there, on the H100 (PERF.md row 7b).
 //
 // Replaces: src/repro/kernels/fused_mlp/backward.py `fused_mlp_bwd_pallas`
 // per expert, which JAX runs through `fused_mlp_hidden`'s custom VJP under

@@ -2,7 +2,15 @@
 // (matmul.cu: the forward, the dgrad and wgrad on transposed views, the
 // dgrad pair), the fused MLP forward (fused_mlp.cu) and the fused-MLP
 // backward's recompute (fused_mlp_bwd.cu).  Their f32 branches stay on
-// gemm_tile.cuh's FMA path.
+// gemm_tile.cuh's FMA path.  Its BATCH instantiation (the expert on the
+// grid's z axis) runs the expert-batched fused MLP forward, and the
+// expert-batched GEMM and recompute only for stacks whose bases or rows
+// are not whole 16 bytes: those take gemm_sm90_tma.cuh's warp-specialized
+// mainloop (a TMA producer warp, a persistent tile walk, staged stores),
+// whose products are this file's `GemmMainloop::mma_ab`, so each expert
+// stays bit-identical to the 2-D kernel at the same tile (on the H100 it
+// took the 8-row expert wgrad from 8.00 to 2.50 ms and deepseek-v3's
+// expert backward from 17.9 to 12.6 ms, PERF.md rows 1b, 7b).
 //
 // A block owns a TM x TN output tile: TM = 128 rows for two consumer
 // warpgroups of 64 rows each, TM = 64 for one (decode and prefill rows of
@@ -15,7 +23,7 @@
 // `wgmma.mma_async`, both operands in shared memory, one m64nTNk16
 // instruction per B operand and k16 step, and keeps one group in flight
 // (wgmma_wait<1>) while the next steps land.  All threads copy and
-// multiply; there is no producer warp.
+// multiply; there is no producer warp (gemm_sm90_tma.cuh has one).
 //
 // Ring: step t lives in slot t % 4.  At step t every thread waits for its
 // own copies of step t, fences them into the async proxy and meets the
@@ -169,20 +177,26 @@ template <int TM, int TN, int NB, bool TA, bool TB, int PAIRS> struct GemmMainlo
     }
   }
 
-  // acc[nb] += (this warpgroup's 64 rows of A) . B[nb] over one slot's 64 k.
-  static __device__ __forceinline__ void mma(float (&acc)[NB][TN / 2],
-                                             const __nv_bfloat16* slot, int wg) {
+  // acc[nb] += (this warpgroup's 64 rows of the A tile at `a`) . (the B
+  // tile nb, NB of them from `b`) over one step's 64 k.
+  static __device__ __forceinline__ void mma_ab(float (&acc)[NB][TN / 2], const __nv_bfloat16* a,
+                                                const __nv_bfloat16* b, int wg) {
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      const uint64_t da = TA ? sm90::desc_mn<GEMM_BK>(slot, kk, 64 * wg)
-                             : sm90::desc_k<64>(slot + wg * 64 * GEMM_BK, kk);
+      const uint64_t da = TA ? sm90::desc_mn<GEMM_BK>(a, kk, 64 * wg)
+                             : sm90::desc_k<64>(a + wg * 64 * GEMM_BK, kk);
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
-        const __nv_bfloat16* Bs = slot + S::A_ELEMS + nb * S::B_ELEMS;
+        const __nv_bfloat16* Bs = b + nb * S::B_ELEMS;
         const uint64_t db = TB ? sm90::desc_k<TN>(Bs, kk) : sm90::desc_mn<GEMM_BK>(Bs, kk, 0);
         sm90::Wgmma<TN, TA ? 1 : 0, TB ? 0 : 1>::ss(acc[nb], da, db, 1);
       }
     }
+  }
+  // ... with the step's A and B tiles in one ring slot
+  static __device__ __forceinline__ void mma(float (&acc)[NB][TN / 2],
+                                             const __nv_bfloat16* slot, int wg) {
+    mma_ab(acc, slot, slot + S::A_ELEMS, wg);
   }
 
   // acc[nb] += A . B[nb] (+ A1 . B1) over k in [k0, k1) for the tile at (row0, col0).
@@ -212,6 +226,22 @@ __device__ __forceinline__ void gemm_put2(__nv_bfloat16* p, size_t o, float v0, 
   } else {
     p[o] = __float2bfloat16_rn(v0);
     if (two) p[o + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// The backward epilogue at one element: dh against the recomputed
+// pre-activations g (the gate, gated only) and u; dg (gated only) and du.
+// One definition for the 2-D and the expert kernels, so their epilogues
+// are the same arithmetic.
+template <int ACT>
+__device__ __forceinline__ void gemm_bwd_elem(float dh, float g, float u, float& dg, float& du) {
+  if (ACT == ACT_SWIGLU) {
+    dg = dh * u * dsilu(g);
+    du = dh * silu(g);
+  } else if (ACT == ACT_GELU) {
+    du = dh * dgelu_tanh(u);
+  } else {
+    du = dh * drelu2(u);
   }
 }
 
@@ -271,18 +301,8 @@ __global__ void __launch_bounds__(TM / 64 * 128, 1) gemm_sm90_kernel(const GemmA
         dh[1] = two ? to_f(g.dh[o + 1]) : 0.0f;
         float dg[2], du[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float u = acc[NB - 1][i + e];
-          if (ACT == ACT_SWIGLU) {
-            const float gv = acc[0][i + e];
-            dg[e] = dh[e] * u * dsilu(gv);
-            du[e] = dh[e] * silu(gv);
-          } else if (ACT == ACT_GELU) {
-            du[e] = dh[e] * dgelu_tanh(u);
-          } else {
-            du[e] = dh[e] * drelu2(u);
-          }
-        }
+        for (int e = 0; e < 2; ++e)
+          gemm_bwd_elem<ACT>(dh[e], acc[0][i + e], acc[NB - 1][i + e], dg[e], du[e]);
         if (ACT == ACT_SWIGLU) gemm_put2(g.dg, o, dg[0], dg[1], two, even);
         gemm_put2(g.du, o, du[0], du[1], two, even);
       } else {

@@ -119,7 +119,12 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
 // launch (the grid's z axis), each expert at the 2-D kernel's tile and
 // unsplit, in the 2-D kernel's layouts: nn (the forward), nt (the dgrad
 // g[z] . w[z]^T, and its two-pair form dg[z] . Wg[z]^T + du[z] . Wu[z]^T
-// for the fused-MLP backward's dx) and tn (the wgrad x[z]^T . g[z]).
+// for the fused-MLP backward's dx) and tn (the wgrad x[z]^T . g[z]).  This
+// grid-z launch is the route of f32 stacks and of bf16 stacks whose bases
+// or rows are not whole 16 bytes; every other bf16 stack takes the TMA
+// route (matmul_expert.cu `repro_matmul_expert_tma`, gemm_sm90_tma.cuh's
+// warp-specialized persistent mainloop), which the wrapper picks
+// (kernels/matmul/ops.py `expert_route`); its times are matmul_expert.cu's.
 //
 // Replaces: src/repro/models/linear.py `expert_linear` (:212-235), which
 // runs one `matmul_pallas` per expert under `jax.lax.map`: a sequential
@@ -138,7 +143,10 @@ static cudaError_t launch_matmul(const void* a, const void* b, const void* a1, c
 // for deepseek-v3's w_down at decode), so no split of k is needed to fill
 // the card.  The transposed operands are `.mT` views of row-major (E, ., .)
 // stacks, read in place by the descriptors as in the 2-D kernel; the wgrad
-// contracts over the capacity rows.
+// contracts over the capacity rows.  Each block owns one tile, copies with
+// all its threads two steps ahead and stores from the accumulators, so a
+// tile's prologue and epilogue are never hidden (the 8-row wgrad ran 8.0 ms
+// here against a 2.25 ms bound, PERF.md row 1b).
 template <int TM, int TN, bool TA, bool TB, int PAIRS>
 static cudaError_t launch_expert_bf16(const GemmArgs& g, int experts, cudaStream_t stream) {
   return gemm_sm90_launch<TM, TN, TA, TB, PAIRS, ACT_NONE, false, true>(g, experts, stream);

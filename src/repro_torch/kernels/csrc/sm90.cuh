@@ -2,7 +2,9 @@
 // the bf16 GEMM mainloop (gemm_sm90.cuh): cp.async copies with zero fill,
 // the async-proxy fence, shared-memory matrix descriptors, and the
 // warpgroup matrix product `wgmma` (bf16 in, f32 accumulators in
-// registers), as PTX.
+// registers), as PTX; and for the warp-specialized expert GEMM
+// (gemm_sm90_tma.cuh) TMA loads and stores of 3-D tensor maps, mbarriers,
+// bulk groups, named barriers and `setmaxnreg`.
 //
 // Shared-memory tiles use the 128-byte swizzle of the descriptors (and of
 // TMA): a tile of R rows is cut into atoms 64 columns (128 bytes) wide,
@@ -284,6 +286,95 @@ template <int TA, int TB> struct Wgmma<128, TA, TB> {
         : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
+
+// --- TMA, mbarriers and warp specialization (gemm_sm90_tma.cuh) -----------------------
+
+// A shared-memory barrier expecting `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// The barriers' initialization made visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// One arrival that also expects `bytes` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait that
+// outlasts ~2^26 polls (seconds) traps: a barrier nobody will complete is
+// a fault, reported as a launch error rather than a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void prefetch_tmap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
+// completing `bytes` of transactions on `bar` (out-of-bounds elements
+// arrive as zeros).
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// ... and back: the box at (c0, c1, c2) from shared memory (out-of-bounds
+// elements are not written), in this thread's current bulk group.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// At most N of this thread's bulk groups still reading shared memory.
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... or still writing device memory.
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers a thread of this warpgroup may hold, lowered or raised (all 128
+// threads execute it; raised registers come from those a lowering freed).
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// A barrier among `threads` threads of the block (id 1-15; 0 is
+// __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // Any N that is a multiple of 16 (up to 256), A from registers, B MN-major:
 // one m64n64 piece per 64-column atom, then one narrower; B's descriptor

@@ -27,7 +27,11 @@ of a stack in ONE launch of the forward kernel (the grid's z axis is the
 expert), swiglu or gelu.  `fused_mlp_bwd_expert` is its backward: ONE
 launch of the batched recompute kernel, then the batched tile GEMM
 (`matmul_expert`): dx over both pairs in one nt launch, dwg and dwu in two
-tn launches.  Each counts its own launches.
+tn launches.  Each counts its own launches.  The recompute takes the TMA
+route (`csrc/fused_mlp_bwd_expert.cu` on `gemm_sm90_tma.cuh`) where every
+bf16 operand takes a tensor map (`matmul.ops.tma_operand`), else the
+grid-z launch of `csrc/fused_mlp_bwd.cu`; `fused_mlp_bwd_expert.tma`
+counts the TMA route's launches.
 
 `cost` (the forward kernel) and `bwd_cost` (the recompute kernel) are the
 kernels' work; `bwd_launches` lists every launch of the backward, its tile
@@ -54,8 +58,8 @@ from ...core import op_analysis
 from ...core.hardware import get_hardware
 from ...tuning.cache import TunedConfig, dtype_name, lookup
 from .. import _build
+from ..matmul.ops import TMA_BOX, matmul, matmul_expert, tma_a_rows, tma_descs
 from ..matmul.ops import cost as matmul_cost
-from ..matmul.ops import matmul, matmul_expert
 from .backward import fused_mlp_bwd_expert_ref, fused_mlp_bwd_ref
 from .ref import MLP_TYPES, fused_mlp_hidden_ref, is_gated
 
@@ -417,16 +421,21 @@ def fused_mlp_bwd_expert(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned
     `matmul_expert` three times: dx over both pairs (nt), dwg and dwu (tn),
     operands read in place; `tuned` and `hw_name` pass to those.  A CPU
     tensor runs the plain version, per expert (`fused_mlp_bwd_expert_ref`).
-    `fused_mlp_bwd_expert.launches` counts the recompute launches."""
+    `fused_mlp_bwd_expert.launches` counts the recompute launches,
+    `fused_mlp_bwd_expert.tma` those of the TMA route."""
     _check_expert_type("fused_mlp_bwd_expert", mlp_type)
     if not is_gated(mlp_type):
         w_gate = None
     cpu = _build.dispatch_device("fused_mlp_bwd_expert", x) == "cpu"
     if obs.enabled():
+        blocks = None
+        if not cpu:
+            tile = pick_tile(x.shape[1], x.dtype)
+            # the recompute's route (dg and du are allocated like dh)
+            tma = recompute_route(x, w_gate, w_up, dh, dh, dh, tile) is not None
+            blocks = {"block_m": tile[0], "block_f": tile[1], "tma": int(tma)}
         obs.record_dispatch("fused_mlp_bwd_expert", impl="plain" if cpu else "cuda",
-                            shape=(*x.shape, w_up.shape[-1]), site=mlp_type,
-                            blocks=None if cpu else dict(zip(("block_m", "block_f"),
-                                                             pick_tile(x.shape[1], x.dtype))))
+                            shape=(*x.shape, w_up.shape[-1]), site=mlp_type, blocks=blocks)
     with op_analysis.kernel(None, lambda: bwd_launches(
             *x.shape[1:], w_up.shape[-1], w_gate is not None, x.element_size(), x.shape[0])):
         if cpu:
@@ -435,11 +444,32 @@ def fused_mlp_bwd_expert(x, w_gate, w_up, dh, *, mlp_type: str = "swiglu", tuned
 
 
 fused_mlp_bwd_expert.launches = 0
+fused_mlp_bwd_expert.tma = 0
+
+
+def recompute_route(x, w_gate, w_up, dh, dg, du, tile):
+    """The TMA route's description array for the batched recompute at
+    `tile` (x K-major in boxes of `tma_a_rows`, the weights MN-major, dh in
+    boxes of the tile's rows, dg and du in 64-row boxes), or None: the
+    grid-z route (f32, or a stack the TMA cannot describe)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    tm, tn = tile
+    gated = w_gate is not None
+    # every operand is a row-major stack (`_check_expert_operands`)
+    return tma_descs({"a": (x, 2, tma_a_rows(x.shape[1], tm), False),
+                      "b0": (w_gate if gated else w_up, 1, tn, False),
+                      "b1": (w_up, 1, tn, False) if gated else None,
+                      "dh": (dh, None, tm, False),
+                      "dg": (dg, None, TMA_BOX, False) if gated else None,
+                      "du": (du, None, TMA_BOX, False)})
 
 
 def _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type: str):
-    """Launch csrc/fused_mlp_bwd.cu `repro_fused_mlp_bwd_expert`: (dg, du)
-    of every expert in the compute dtype, dg None for gelu."""
+    """Launch the batched recompute, the TMA route (csrc/fused_mlp_bwd_expert.cu)
+    where `recompute_route` gives descriptions, else csrc/fused_mlp_bwd.cu
+    `repro_fused_mlp_bwd_expert`: (dg, du) of every expert in the compute
+    dtype, dg None for gelu."""
     ws = _check_expert_operands("fused_mlp_bwd_expert", x, w_gate, w_up, dh)
     e, m, h = x.shape
     f = w_up.shape[2]
@@ -451,17 +481,28 @@ def _recompute_expert_cuda(x, w_gate, w_up, dh, mlp_type: str):
     if e and m and f:
         if _build.traced(x.device):
             return dg, du
-        chunk = 16 // x.element_size()
-        vec = int(h % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws, dh))
+        tile = pick_tile(m, x.dtype)
+        desc = recompute_route(x, w_gate, w_up, dh, dg, du, tile)
         lib = _build.build().lib
         with torch.cuda.device(x.device):
-            status = lib.repro_fused_mlp_bwd_expert(
-                _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
-                _build.ptr(dg), _build.ptr(du), e, m, f, h, ACT_CODES[mlp_type],
-                _build.dtype_code(x.dtype), vec, *pick_tile(m, x.dtype),
-                _build.stream_of(x.device))
+            if desc is not None:
+                counter = torch.empty(1, dtype=torch.int32, device=x.device)  # the tile queue's
+                status = lib.repro_fused_mlp_bwd_expert_tma(
+                    _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
+                    _build.ptr(dg), _build.ptr(du), desc.buffer_info()[0], _build.ptr(counter),
+                    e, m, f, h,
+                    ACT_CODES[mlp_type], *tile, _build.num_sms(x.device),
+                    _build.stream_of(x.device))
+            else:
+                chunk = 16 // x.element_size()
+                vec = int(h % chunk == 0 and f % chunk == 0 and _build.aligned16(x, *ws, dh))
+                status = lib.repro_fused_mlp_bwd_expert(
+                    _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up), _build.ptr(dh),
+                    _build.ptr(dg), _build.ptr(du), e, m, f, h, ACT_CODES[mlp_type],
+                    _build.dtype_code(x.dtype), vec, *tile, _build.stream_of(x.device))
         _build.check(status, "fused_mlp_bwd_expert")
         fused_mlp_bwd_expert.launches += 1
+        fused_mlp_bwd_expert.tma += desc is not None
     return dg, du
 
 

@@ -28,12 +28,18 @@ by operand layout: "nn" (forward), "nt" (B transposed: dgrad) and "tn" (A
 transposed: wgrad).
 
 `matmul_expert` is the MoE layer's batched product, X[e] @ W[e] (+ X1[e] @
-W1[e]) for every expert e of a stack in ONE launch of the same mainloop
-(the grid's z axis is the expert; no split of k), in the same layouts:
-each operand a row-major (E, ., .) stack or the `.mT` view of one, so the
-expert dgrad `matmul_expert(g, w.mT)` and wgrad `matmul_expert(x.mT, g)`
-copy nothing.  `matmul_expert.launches` counts it apart from
-`matmul.launches`, and `matmul_expert.by_layout` by layout.
+W1[e]) for every expert e of a stack in ONE launch (no split of k), in the
+same layouts: each operand a row-major (E, ., .) stack or the `.mT` view
+of one, so the expert dgrad `matmul_expert(g, w.mT)` and wgrad
+`matmul_expert(x.mT, g)` copy nothing.  Two routes, by shape: bf16 stacks
+whose bases and stored rows are whole 16 bytes take the TMA mainloop
+(`csrc/matmul_expert.cu` on `gemm_sm90_tma.cuh`: a producer warp, a
+persistent walk over every expert's tiles, staged stores), from tensor
+maps that the C entry encodes from `tma_operand`'s descriptions; other
+stacks, and f32, the grid-z launch of `csrc/matmul.cu` (the 2-D kernel's
+mainloop with the expert on the grid's z axis).  `matmul_expert.launches`
+counts both apart from `matmul.launches`, `matmul_expert.by_layout` by
+layout and `matmul_expert.tma` the TMA route's.
 
 `cost` and `expert_cost` are the kernels' work (FLOPs and the bytes each
 operand read once and the output written once take): what a call
@@ -42,9 +48,12 @@ chip_smoke's bounds are computed from.
 
 With observability on (`repro_torch.obs`), each call records its dispatch
 (`obs.record_dispatch`: op, "cuda" or "plain", (m, k, n), the layout as the
-site, the launch geometry), each distinct one once.
+site, the launch geometry and, for `matmul_expert`, the route: "tma" 1 or
+0), each distinct one once.
 """
 from __future__ import annotations
+
+from array import array
 
 import torch
 
@@ -65,6 +74,9 @@ F32_BLOCK_K = 32         # csrc/gemm_tile.cuh BK
 MIN_SPLIT_STEPS = 4      # k steps per split, at least
 WAVES = 2                # blocks per SM a 64-row tile's split aims for
 LAYOUTS = ("nn", "nt", "tn")  # the (A, B) layouts csrc/matmul.cu instantiates
+TMA_BOX = 64             # csrc/gemm_sm90_tma.cuh: a box's elements of the stored row (one 128-byte atom)
+# csrc/gemm_sm90_tma.cuh `TmaSlot`: the operand slots of a description array
+TMA_SLOTS = ("a", "a1", "b0", "b1", "c", "dh", "dg", "du")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -196,6 +208,7 @@ def reset_launches() -> None:
     matmul.tuned_hits = matmul.tuned_misses = 0
     matmul_expert.launches = 0
     matmul_expert.by_layout = dict.fromkeys(LAYOUTS, 0)
+    matmul_expert.tma = 0
 
 
 def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype=None,
@@ -268,15 +281,68 @@ def _matmul_cuda(a, b, a1, b1, tuned=False, hw_name=None, op="matmul", key_dtype
 
 def expert_transposed(what: str, t: torch.Tensor) -> bool:
     """False for a row-major (E, r, c) stack, True for the `.mT` view of
-    one (each expert's matrix transposed); raise for any other strides."""
+    one (each expert's matrix transposed); raise for any other strides.  A
+    stack with a row or column of one element is both; it reads as its
+    strides show (a strided last axis: the view, as `x.mT` of a one-row
+    capacity)."""
     if t.dim() != 3:
         raise ValueError(f"{what}: expert stacks are 3-D (got shape {tuple(t.shape)})")
+    if t.mT.is_contiguous() and (t.stride(2) != 1 or not t.is_contiguous()):
+        return True
     if t.is_contiguous():
         return False
-    if t.mT.is_contiguous():
-        return True
     raise ValueError(f"{what}: the kernel takes row-major expert stacks or their .mT views "
                      f"(got strides {t.stride()} for shape {tuple(t.shape)})")
+
+
+def tma_operand(t: torch.Tensor, k_axis: int | None, box_rows: int, tr: bool | None = None):
+    """How csrc/gemm_sm90_tma.cuh's tensor map reads a 3-D expert operand
+    `t` (a row-major (E, r, c) stack or the `.mT` view of one; `tr`, when
+    known, `expert_transposed(t)`) from its storage: (dims innermost first
+    (the stored row's length, the stored rows, E), the byte strides of dims
+    1 and 2, the box (TMA_BOX elements of the stored row, rows), K-major),
+    or None where the TMA cannot take it (a base or a stored row not a whole
+    16 bytes).  `k_axis` is t's contraction axis as the GEMM sees it (2 for
+    A, 1 for B, None for an output); the operand is K-major when its stored
+    row runs along it, and its box then spans `box_rows` rows (the tile's TM
+    or TN, or `tma_a_rows`), else 64 (whole 128-byte swizzle atoms of
+    k-rows).  An output's box spans `box_rows` rows."""
+    e, r, c = t.shape
+    if tr is None:
+        tr = expert_transposed("matmul_expert", t)
+    inner, outer = (r, c) if tr else (c, r)
+    s1 = inner * t.itemsize
+    if t.data_ptr() % 16 or s1 % 16:      # (then the expert stride s1 * outer is whole too)
+        return None
+    k_major = k_axis is not None and k_axis == (1 if tr else 2)
+    rows = box_rows if k_major or k_axis is None else TMA_BOX
+    return (inner, outer, e), (s1, s1 * outer), (TMA_BOX, rows), k_major
+
+
+def tma_descs(slots: dict):
+    """The description array of csrc/gemm_sm90_tma.cuh (8 int64 fields a
+    slot of TMA_SLOTS: dims, strides, box, K-major; zeros where a slot is
+    unused; an `array` of int64, passed by its address) from {slot:
+    `tma_operand`'s arguments}, or None when an operand takes no tensor
+    map."""
+    flat = [0] * (8 * len(TMA_SLOTS))
+    for i, name in enumerate(TMA_SLOTS):
+        args = slots.get(name)
+        if args is None:
+            continue
+        d = tma_operand(*args)
+        if d is None:
+            return None
+        flat[8 * i:8 * i + 8] = (*d[0], *d[1], *d[2], int(d[3]))
+    return array("q", flat)
+
+
+def tma_a_rows(m: int, tm: int) -> int:
+    """The rows of a K-major A box (csrc/gemm_sm90_tma.cuh `tma_a_rows`):
+    the tile's tm, or, where an expert has fewer rows, those rounded up to
+    8 (the rows past them are never loaded; the products they feed are
+    rows the stores clip)."""
+    return -(-m // 8) * 8 if m < tm else tm
 
 
 def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = None,
@@ -285,12 +351,13 @@ def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = No
     """Per-expert C[e] = X[e] @ W[e] (+ X1[e] @ W1[e]), f32 accumulation,
     output in X's dtype.  x: (E, m, k); w: (E, k, n) -> (E, m, n); x1, w1
     (optional): the shapes and layouts of x and w.  A CUDA tensor launches
-    csrc/matmul.cu `repro_matmul_expert` once for all E experts (the grid's
-    z axis is the expert), each at `geometry(m, k, n)`'s tile and unsplit,
-    so a tuning-cache entry for the per-expert (m, k, n) applies, as JAX's
-    per-expert `tuned=True` key does.  Layouts: nn, nt (w a `.mT` view: the
-    dgrad, alone or with a second pair) and tn (x a `.mT` view: the wgrad).
-    A CPU tensor runs the plain version, a per-expert einsum."""
+    once for all E experts (the TMA route, csrc/matmul_expert.cu, where
+    every operand takes a tensor map; else csrc/matmul.cu
+    `repro_matmul_expert`), each expert at `geometry(m, k, n)`'s tile and
+    unsplit, so a tuning-cache entry for the per-expert (m, k, n) applies,
+    as JAX's per-expert `tuned=True` key does.  Layouts: nn, nt (w a `.mT`
+    view: the dgrad, alone or with a second pair) and tn (x a `.mT` view:
+    the wgrad).  A CPU tensor runs the plain version, a per-expert einsum."""
     cpu = _build.dispatch_device("matmul_expert", x) == "cpu"
     with op_analysis.kernel("matmul_expert", lambda: expert_cost(
             *x.shape, w.shape[-1], x.element_size(), 1 if x1 is None else 2)):
@@ -303,10 +370,26 @@ def matmul_expert(x: torch.Tensor, w: torch.Tensor, x1: torch.Tensor | None = No
 
 matmul_expert.launches = 0
 matmul_expert.by_layout = dict.fromkeys(LAYOUTS, 0)
+matmul_expert.tma = 0
+
+
+def expert_route(x, w, x1, w1, out, tm: int, tn: int, ta: bool | None = None,
+                 tb: bool | None = None):
+    """The TMA route's description array for C = X @ W (+ X1 @ W1) at tile
+    (tm, tn) (`tma_descs`), or None: the grid-z route (f32, or a stack the
+    TMA cannot describe).  ta, tb: `expert_transposed` of x (and x1) and w
+    (and w1), when known."""
+    if x.dtype != torch.bfloat16:
+        return None
+    rows = tma_a_rows(x.shape[1], tm)
+    return tma_descs({"a": (x, 2, rows, ta), "a1": None if x1 is None else (x1, 2, rows, ta),
+                      "b0": (w, 1, tn, tb), "b1": None if w1 is None else (w1, 1, tn, tb),
+                      "c": (out, None, TMA_BOX, False)})
 
 
 def _matmul_expert_cuda(x, w, x1=None, w1=None, tuned=False, hw_name=None) -> torch.Tensor:
-    """Launch csrc/matmul.cu `repro_matmul_expert`."""
+    """Launch the TMA route (csrc/matmul_expert.cu) where `expert_route`
+    gives descriptions, else csrc/matmul.cu `repro_matmul_expert`."""
     pair = (x, w) if x1 is None else (x, w, x1, w1)
     if (x1 is None) != (w1 is None):
         raise ValueError("matmul_expert: x1 and w1 come together")
@@ -337,26 +420,35 @@ def _matmul_expert_cuda(x, w, x1=None, w1=None, tuned=False, hw_name=None) -> to
         return out.zero_()
     (tm, tn, _), cfg = geometry(m, k, n, x.dtype, tuned=tuned, hw_name=hw_name,
                                 num_sms=_build.num_sms(dev))
+    desc = expert_route(x, w, x1, w1, out, tm, tn, ta, tb)
     if obs.enabled():
         obs.record_dispatch("matmul_expert", impl="cuda", shape=(e, m, k, n), site=layout,
-                            blocks={"block_m": tm, "block_n": tn},
+                            blocks={"block_m": tm, "block_n": tn, "tma": int(desc is not None)},
                             tuned_hit=(cfg is not None) if tuned else None)
     if _build.traced(dev):
         return out
-    chunk = 16 // x.element_size()
-    # every operand's row length a multiple of 16 bytes (then so is every
-    # expert's stride, m k or k n elements)
-    lda, ldb = (m if ta else k), (k if tb else n)
-    vec = int(lda % chunk == 0 and ldb % chunk == 0 and _build.aligned16(*pair))
     lib = _build.build().lib
     with torch.cuda.device(dev):
-        status = lib.repro_matmul_expert(_build.ptr(x), _build.ptr(w), _build.ptr(x1),
-                                         _build.ptr(w1), _build.ptr(out), e, m, n, k,
-                                         _build.dtype_code(x.dtype), int(ta), int(tb), vec, tm,
-                                         tn, _build.stream_of(dev))
+        if desc is not None:
+            counter = torch.empty(1, dtype=torch.int32, device=dev)   # the tile queue's
+            status = lib.repro_matmul_expert_tma(
+                _build.ptr(x), _build.ptr(w), _build.ptr(x1), _build.ptr(w1), _build.ptr(out),
+                desc.buffer_info()[0], _build.ptr(counter), e, m, n, k, int(ta), int(tb), tm, tn,
+                _build.num_sms(dev), _build.stream_of(dev))
+        else:
+            chunk = 16 // x.element_size()
+            # every operand's row length a multiple of 16 bytes (then so is
+            # every expert's stride, m k or k n elements)
+            lda, ldb = (m if ta else k), (k if tb else n)
+            vec = int(lda % chunk == 0 and ldb % chunk == 0 and _build.aligned16(*pair))
+            status = lib.repro_matmul_expert(_build.ptr(x), _build.ptr(w), _build.ptr(x1),
+                                             _build.ptr(w1), _build.ptr(out), e, m, n, k,
+                                             _build.dtype_code(x.dtype), int(ta), int(tb), vec,
+                                             tm, tn, _build.stream_of(dev))
     _build.check(status, "matmul_expert")
     matmul_expert.launches += 1
     matmul_expert.by_layout[layout] += 1
+    matmul_expert.tma += desc is not None
     return out
 
 

@@ -1332,10 +1332,15 @@ def test_a_tiny_autotune_writes_an_entry_the_next_call_hits(tuned_cache):
 # (experts, capacity rows, k, n): deepseek-v3's gate/up and w_down at its
 # decode (8 rows) and prefill (160 rows) capacities, llama4-maverick's at 8
 # rows (its experts cut to 3 for time: the per-expert shape is the path's),
-# and ragged ones (rows and widths off the tiles, one expert)
+# and ragged ones (rows and widths off the tiles, one expert); then the
+# TMA route's edges: capacities 1 and 320, k = 8 (one box, zero-filled to
+# the 64-column step) and k = 200 (a ragged last step), n off the 128-column
+# tile
 EXPERT_CASES = [(3, 8, 7168, 2048), (3, 8, 2048, 7168), (2, 160, 7168, 2048),
                 (2, 160, 2048, 7168), (3, 8, 5120, 8192), (3, 8, 8192, 5120),
-                (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45)]
+                (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45),
+                (3, 1, 2048, 512), (2, 320, 1024, 512), (3, 160, 8, 256), (2, 8, 200, 136),
+                (2, 320, 8, 200)]
 
 
 def _expert_operands(cuda, dtype, e, m, k, n, seed):
@@ -1354,10 +1359,13 @@ def test_matmul_expert(cuda, dtype, e, m, k, n):
     from repro_torch.kernels.matmul import ops
     from repro_torch.kernels.matmul.ref import matmul_expert_ref
     x, w = _expert_operands(cuda, dtype, e, m, k, n, 0)
-    before = ops.matmul_expert.launches
+    before = ops.matmul_expert.launches, ops.matmul_expert.tma
     got = ops.matmul_expert(x, w)
     torch.cuda.synchronize()
-    assert ops.matmul_expert.launches == before + 1
+    # the TMA route wherever every stored row is whole 16 bytes (bf16)
+    tma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+    assert (ops.matmul_expert.launches, ops.matmul_expert.tma) == \
+        (before[0] + 1, before[1] + tma)
     want = matmul_expert_ref(x, w)
     _close(got, want, tolerance.matmul_tol(x, w, want))
     (tm, tn, _), _ = ops.geometry(m, k, n, dtype)
@@ -1392,9 +1400,14 @@ def test_fused_mlp_hidden_expert(cuda, dtype, mlp_type, e, m, h, f):
 # (experts, capacity rows, h, f) of the MoE training path's batched
 # backward: deepseek-v3's and llama4-maverick's per-expert shapes at their
 # training capacities (2560 and 640 rows at 4 x 1024 tokens; 3 experts for
-# time), deepseek-v3's decode capacity (8), and ragged ones
+# time), deepseek-v3's decode capacity (8), and ragged ones; then the TMA
+# route's edges: capacities 1, 160 and 320 (the wgrad's k), f = 8 (the
+# dgrad's k = 8), and k off the 64-column step in every layout (72, 136,
+# 200)
 EXPERT_BWD_CASES = [(3, 2560, 7168, 2048), (3, 640, 5120, 8192), (3, 8, 7168, 2048),
-                    (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45)]
+                    (5, 13, 72, 200), (1, 130, 96, 40), (4, 64, 70, 45),
+                    (3, 1, 512, 256), (2, 160, 256, 200), (2, 320, 512, 1024),
+                    (2, 160, 256, 8), (2, 72, 200, 136)]
 
 
 def _unsplit(k: int, dtype) -> int:
@@ -1424,11 +1437,12 @@ def test_matmul_expert_backward_layouts(cuda, dtype, layout, e, m, h, f):
         if layout == "nt pair":
             a1, b1 = torch.flip(g, dims=[1]).contiguous(), w1.transpose(1, 2).contiguous().mT
     key = layout[:2]
-    before = ops.matmul_expert.launches, ops.matmul_expert.by_layout[key]
+    before = ops.matmul_expert.launches, ops.matmul_expert.by_layout[key], ops.matmul_expert.tma
     got = ops.matmul_expert(a, b, a1, b1)
     torch.cuda.synchronize()
-    assert (ops.matmul_expert.launches, ops.matmul_expert.by_layout[key]) == \
-        (before[0] + 1, before[1] + 1)
+    tma = dtype == torch.bfloat16 and h % 8 == 0 and f % 8 == 0
+    assert (ops.matmul_expert.launches, ops.matmul_expert.by_layout[key],
+            ops.matmul_expert.tma) == (before[0] + 1, before[1] + 1, before[2] + tma)
     want = matmul_expert_ref(a, b, a1, b1)
     _close(got, want, tolerance.matmul_tol(a, b, want, a1, b1))
     M, K, N = a.shape[1], a.shape[2], b.shape[2]
@@ -1454,10 +1468,13 @@ def test_fused_mlp_bwd_expert(cuda, dtype, mlp_type, e, m, h, f):
     dh, wu = _expert_operands(cuda, dtype, e, m, f, h, 7)
     wu = (wu.transpose(1, 2) * (f / h) ** 0.5).contiguous()
     wg = wg if mlp_type == "swiglu" else None
-    before = ops.fused_mlp_bwd_expert.launches, dict(mm.matmul_expert.by_layout)
+    before = (ops.fused_mlp_bwd_expert.launches, dict(mm.matmul_expert.by_layout),
+              ops.fused_mlp_bwd_expert.tma)
     dx, dwg, dwu = ops.fused_mlp_bwd_expert(x, wg, wu, dh, mlp_type=mlp_type)
     torch.cuda.synchronize()
     assert ops.fused_mlp_bwd_expert.launches == before[0] + 1
+    tma = dtype == torch.bfloat16 and h % 8 == 0 and f % 8 == 0
+    assert ops.fused_mlp_bwd_expert.tma == before[2] + tma
     assert mm.matmul_expert.by_layout["nt"] == before[1]["nt"] + 1
     assert mm.matmul_expert.by_layout["tn"] == before[1]["tn"] + (2 if wg is not None else 1)
     want = fused_mlp_bwd_expert_ref(x, wg, wu, dh, mlp_type)
