@@ -248,7 +248,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      vocab shard of 46272, 2 x 1024 rows a data rank; llama4-maverick at
      model=2: 20 / 4 heads (g = 5), d_ff 8192, a vocab shard of 101024, 8
      of 16 experts at a 320-row capacity), each against its plain version
-     and timed beside its bound;
+     and timed beside its bound; then the halo-head and int8 per-shard
+     shapes (`halo_kernel_shapes`: flash both ways at qwen1.5-4b's 2 / 3
+     heads, llama4's 3 over one KV head and whisper's 1 / 2 heads; the slot
+     and block-table paged decode at those heads over bf16 and int8 pools;
+     the int8 GEMM at internlm2-1.8b's model=2 shards, 64 and 4096 rows,
+     beside torch._int_mm, and its int8 fused SwiGLU shard);
   18c. parallel: four ranks on the one card over gloo (launch/mesh.spawn;
      NCCL refuses two ranks on one card, so the collectives are
      host-staged), in turn: parallel train (internlm2-1.8b at full width,
@@ -269,7 +274,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      unsharded run of each rank's rows), over all positions and at the
      worst routing-agreed one; one expert's w_down doubled on rank 1 must
      break them), pipeline (the 4 layers in 2 stages, 4 microbatches of 1
-     x 1024: bit-identical to the layers applied in one process);
+     x 1024: bit-identical to the layers applied in one process), and the
+     families, sequence parallelism and KV replication (`_par_ssm` to
+     `_par_kv`); parallel heads (`_par_heads`: smoke variants whose heads
+     do not split over 4 ranks, served and step 0 against the unsharded
+     run within 1e-4, the halo gradient left unsummed and a neighbour's
+     head gathered as faults) and parallel int8 (`_par_int8`:
+     internlm2-1.8b, 2 layers, int8 weights served at model=2 and 4 and
+     step 0 at (2, 2), every row-parallel product's codes bit for bit, the
+     activation and weight scales' MAX dropped as faults);
   19. tuning: autotune (src/repro_torch/tuning/search.py) internlm2-1.8b's
      serve shapes (the bf16 projections and lm_head at 16 and 64 rows, the
      fused SwiGLU), its int8-serve shapes (the int8 GEMM at 64, 128 and 256
@@ -6625,6 +6638,152 @@ def parallel_kernel_phase(torch) -> None:
     for arch in ("internlm2-1.8b", "internvl2-76b", "command-r-plus-104b", "nemotron-4-340b"):
         c = get_config(arch)
         _paged_kv_replicated_case(torch, randn, gen, arch, c.num_heads // 16, c.head_dim)
+    halo_kernel_shapes(torch, randn, gen)
+
+
+# Halo heads: a rank's heads where they do not split over `model`
+# (`sharding.head_span`): flash at (label, b, sq, skv, a, nkv, d, causal,
+# backward), a data rank's one 4096-token training row over qwen1.5-4b's 2
+# MHA heads of 128 (its spans at 16 x 16) and 3 (at model=8), llama4's 3
+# query heads over its one replicated KV head (16 x 16); whisper-small's 1
+# and 2 heads of 64 over its 1500 frames (the encoder) and 8 decoder tokens
+# against them (cross-attention at decode)
+HALO_FLASH = (("qwen1.5-4b model=16", 1, 4096, 4096, 2, 2, 128, True, True),
+              ("qwen1.5-4b model=8", 1, 4096, 4096, 3, 3, 128, True, True),
+              ("llama4 model=16", 1, 4096, 4096, 3, 1, 128, True, True),
+              ("whisper model=16 encoder", 1, 1500, 1500, 1, 1, 64, False, True),
+              ("whisper model=16 encoder", 1, 1500, 1500, 2, 2, 64, False, True),
+              ("whisper model=16 cross at decode", 8, 1, 1500, 1, 1, 64, False, False),
+              ("whisper model=16 cross at decode", 8, 1, 1500, 2, 2, 64, False, False))
+# paged decode at a rank's halo KV heads (label, nkv, g, d): the same ranks'
+# decode steps, 8 rows of up to 2048 tokens
+HALO_PAGED = (("qwen1.5-4b model=16", 2, 1, 128), ("qwen1.5-4b model=8", 3, 1, 128),
+              ("llama4 model=16", 1, 3, 128), ("whisper model=16", 1, 1, 64),
+              ("whisper model=16", 2, 1, 64))
+HALO_BLOCK = 64
+# int8 at internlm2-1.8b's model=2 shards: (what, k, n); column shards keep
+# the whole fan-in, row shards (wo, w_down) carry the whole fan-in's scales
+INT8_SHARDS = (("wq", 2048, 1024), ("wk / wv", 2048, 512), ("wo", 1024, 2048),
+               ("w_down", 4096, 2048))
+
+
+def halo_kernel_shapes(torch, randn, gen) -> None:
+    """The kernels at the halo-head and int8 per-shard shapes, each against
+    its plain version within its bound (the int8 GEMM bit-identical), timed
+    beside its bound and beside SDPA or torch._int_mm where one call
+    computes the function: flash forward and backward (HALO_FLASH), the slot
+    and block-table paged-decode kernels over bf16 and int8 pools
+    (HALO_PAGED), the int8 GEMM at internlm2-1.8b's model=2 shards at 64 and
+    4096 rows, the int8 fused SwiGLU at its 2048 -> 2 x 4096 shard."""
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_q, int8_matmul_q
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref, int8_matmul_ref
+    from repro_torch.kernels.tolerance import int8_fused_mlp_tol
+    from repro_torch.quant import quantize_int8, quantize_weight
+    print("flash at the halo-head shapes (a rank's heads where they do not split over model):")
+    for label, b, sq, skv, a, nkv, d, causal, bwd in HALO_FLASH:
+        _flash_case(torch, randn, label, b, sq, skv, a, nkv, d, causal, bwd, b, 10)
+    print("paged decode at the halo-head shapes (slot and 64-token block-table pools, 8 rows of "
+          "up to 2048 tokens, pools past L2):")
+    for label, nkv, g, d in HALO_PAGED:
+        for quant in (False, True):
+            for table in (False, True):
+                _paged_halo_case(torch, gen, label, nkv, g, d, quant, table)
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    print("int8 at internlm2-1.8b's model=2 shards (K-major weights, bf16 out, CUDA events):")
+    for m in (ROWS, TOKENS):
+        for what, k, n in INT8_SHARDS:
+            a_q, a_s = quantize_int8(torch.randn((m, k), generator=gen, device=dev).to(bf))
+            ws = copies(torch, lambda: tuple(quantize_weight(
+                torch.randn((k, n), generator=gen, device=dev) * k ** -0.5))[:2], k * n)
+            identical(torch, int8_matmul_q(a_q, a_s, *ws[0], bf),
+                      int8_matmul_ref(a_q, a_s, *ws[0], bf),
+                      f"int8_matmul {m}x{k}x{n} (model=2 {what})")
+            ms, _ = time_ms(torch, [lambda w=w: int8_matmul_q(a_q, a_s, *w, bf) for w in ws], 20)
+            plain, _ = time_ms(torch, [lambda w=w: int8_matmul_ref(a_q, a_s, *w, bf)
+                                       for w in ws[:1]], 5)
+            lib, _ = _int_mm_ms(torch, a_q, ws, 20)
+            bnd, by = bound(*kernel_cost("int8", m, k, n, 2), PEAK_INT8_OPS)
+            print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}, "
+                  f"{bnd / ms:.3f} of it; torch._int_mm {lib:.4f}, int32 product only: "
+                  f"{ms / lib:.2f}x)")
+            del ws
+    h, f = 2048, 4096
+    for m in (ROWS, TOKENS):
+        x_q, x_s = quantize_int8(torch.randn((m, h), generator=gen, device=dev).to(bf))
+        ws = copies(torch, lambda: tuple(
+            t for _ in range(2) for t in tuple(quantize_weight(
+                torch.randn((h, f), generator=gen, device=dev) * h ** -0.5))[:2]), 2 * h * f)
+        want = int8_fused_mlp_ref(x_q, x_s, *ws[0], out_dtype=bf)
+        compare(torch, int8_fused_mlp_q(x_q, x_s, *ws[0], out_dtype=bf), want,
+                int8_fused_mlp_tol(x_q, x_s, *ws[0], "swiglu", want),
+                f"int8_fused_mlp swiglu {m}x{h}x{f} (model=2)")
+        ms, _ = time_ms(torch, [lambda w=w: int8_fused_mlp_q(x_q, x_s, *w, out_dtype=bf)
+                                for w in ws], 20)
+        plain, _ = time_ms(torch, [lambda w=w: int8_fused_mlp_ref(x_q, x_s, *w, out_dtype=bf)
+                                   for w in ws[:1]], 5)
+        bnd, by = bound(*kernel_cost("int8_fused", m, h, f, True, 2), PEAK_INT8_OPS)
+        print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}, {bnd / ms:.3f} of "
+              f"it; no single PyTorch call computes it)")
+        del ws, want
+    torch.cuda.empty_cache()
+
+
+def _paged_halo_case(torch, gen, label, nkv, g, d, quant, table) -> None:
+    """The slot (or block-table, 64-token blocks in a permuted order)
+    paged-decode kernel at nkv KV heads of g query heads each, d wide, bf16
+    queries over a bf16 (or int8) pool: against its plain version within
+    its bound, timed over pool copies past L2 beside the plain version and
+    its bytes bound; no single PyTorch call computes it."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels import tolerance
+    from repro_torch.quant import quantize_kv
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    b, s_max = len(KV_REPLICATED_LENGTHS), max(KV_REPLICATED_LENGTHS)
+    lengths = torch.tensor(KV_REPLICATED_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, nkv * g, d), generator=gen, device=dev).to(bf)
+    if table:
+        need = [-(-n // HALO_BLOCK) for n in KV_REPLICATED_LENGTHS]
+        ids = torch.randperm(sum(need), generator=gen, device=dev).to(torch.int32)
+        index = torch.zeros((b, max(need)), dtype=torch.int32, device=dev)
+        at = 0
+        for r, n in enumerate(need):
+            index[r, :n] = ids[at:at + n]
+            at += n
+        shape, entries = (sum(need), HALO_BLOCK, nkv, d), sum(need)
+        fn, ref = fops.paged_decode_blocktable, fref.paged_decode_blocktable_ref
+        tol = tolerance.paged_decode_blocktable_tol
+    else:
+        index = torch.randperm(b, generator=gen, device=dev).to(torch.int32)
+        shape, entries = (b, s_max, nkv, d), b
+        fn, ref, tol = fops.paged_decode, fref.paged_decode_ref, tolerance.paged_decode_tol
+
+    def pool():
+        if quant:
+            (k, ks), (v, vs) = (quantize_kv(torch.randn(shape, generator=gen, device=dev))
+                                for _ in range(2))
+            return k, v, dict(k_scale=ks, v_scale=vs)
+        return (torch.randn(shape, generator=gen, device=dev).to(bf),
+                torch.randn(shape, generator=gen, device=dev).to(bf), {})
+
+    itemsize = 1 if quant else 2
+    pools = copies(torch, pool, 2 * math.prod(shape) * itemsize)
+    kp, vp, sc = pools[0]
+    want = ref(q, kp, vp, index, lengths, **sc)
+    what = (f"{'paged_decode_blocktable' if table else 'paged_decode'} {label} "
+            f"({nkv} KV heads x g={g}, d={d}, {'int8' if quant else 'bf16'} pool)")
+    err = compare(torch, fn(q, kp, vp, index, lengths, **sc), want,
+                  tol(q, kp, vp, index, lengths, want, **sc), what)
+    ms, _ = time_ms(torch, [lambda p=p: fn(q, p[0], p[1], index, lengths, **p[2])
+                            for p in pools])
+    plain, _ = time_ms(torch, [lambda: ref(q, kp, vp, index, lengths, **sc)], 5)
+    live = int(lengths.sum().item())
+    bnd, by = bound(*kernel_cost("paged", b, nkv * g, nkv, d, live, 2, itemsize, entries))
+    print(f"    {ms:.4f} ms (plain {plain:.4f}, bound {bnd:.4f} by {by}, {live} live tokens; "
+          f"max abs err {err:.3e}; no single PyTorch call computes it)")
+    del pools, want
 
 
 # a decode step's rows over a slot pool at the KV-replicated shards: 8 rows of
@@ -6736,7 +6895,8 @@ def _parallel_rank(rank, world, dev, tmp) -> None:
                       ("parallel moe", _par_moe), ("pipeline", _par_pipeline),
                       ("parallel ssm", _par_ssm), ("parallel mla", _par_mla),
                       ("parallel whisper", _par_whisper), ("parallel internvl", _par_internvl),
-                      ("parallel seq", _par_seq), ("parallel kv", _par_kv)):
+                      ("parallel seq", _par_seq), ("parallel kv", _par_kv),
+                      ("parallel heads", _par_heads), ("parallel int8", _par_int8)):
         dist.barrier()
         t0 = time.perf_counter()
         run(torch, rank, dev, tmp)
@@ -7047,6 +7207,238 @@ def _par_kv(torch, rank, dev, tmp) -> None:
                        "flash_attention_bwd"),
                       [("the replicas' wk / wv gradients left unsummed", _kv_grads_unsummed)],
                       mesh_cfg=MeshConfig(data=1, model=4))
+
+
+# Halo heads on the four ranks: smoke variants whose heads do not split over
+# model=4 (`sharding.head_span`), f32, held to the unsharded run within
+# PAR_SMOKE_REL_BOUND: qwen1.5 with 5 heads / 5 KV heads (1.25 a rank at 4,
+# 2.5 at 2; its qkv bias), llama4 with 10 heads over 2 KV heads (KV
+# replicated twice, 2.5 heads a rank), whisper with 6 heads (1.5 a rank).
+HALO_SMOKE = (("qwen1.5-4b", dict(num_heads=5, num_kv_heads=5)),
+              ("llama4-maverick-400b-a17b", dict(num_heads=10, num_kv_heads=2)),
+              ("whisper-small", dict(num_heads=6, num_kv_heads=6)))
+# f32 smoke runs, sharded against unsharded: the logits' and every gradient
+# slice's relative error (f32 sums in another order: ~1e-6; the CPU suite
+# holds the same runs to JAX within 1e-4)
+PAR_SMOKE_REL_BOUND = 1e-4
+
+
+def _halo_grad_unsummed():
+    """Fault: the halo gather's backward keeps each rank's own gradient for
+    its columns (the partials of the other ranks that computed its heads
+    never summed in)."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "gather_heads", lambda real: lambda x, lo, hi, hd: comm.gather_from(
+        x, sh._tp_group(), x.dim() - 1)[..., lo * hd:hi * hd].contiguous())
+
+
+def _neighbour_head(torch):
+    """Fault: each rank gathers its neighbour's heads (the columns one head
+    to the right, wrapping) in place of its own."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+    return _patched(sh, "gather_heads", lambda real: lambda x, lo, hi, hd: torch.roll(
+        comm.fsdp_gather(x, sh._tp_group(), x.dim() - 1), -hd,
+        dims=-1)[..., lo * hd:hi * hd].contiguous())
+
+
+def _par_heads(torch, rank, dev, tmp) -> None:
+    """Halo heads (HALO_SMOKE): each variant served at model=4 (prefill 4 x
+    64 + 4 decode steps through the paged-decode kernel; whisper's encoder
+    and cross-attention through flash) and step 0 at (1, 4) through flash
+    and its backward, against the unsharded run on rank 0 within
+    PAR_SMOKE_REL_BOUND; qwen1.5 also at model=2 and at (2, 2) (2.5 heads a
+    rank).  Planted faults: the halo gradient left unsummed, and a rank
+    gathering its neighbour's head.  No registered full-width config has
+    heads that fail to split over 2 or 4 ranks with d_model split too, so
+    full-width halo heads run as the card tests' per-shard kernel shapes
+    (`halo_kernel_shapes`) and in the dry run."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.parallel import sharding as sh
+    serve_need = ("matmul", "fused_mlp_hidden")
+    train_need = ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
+                  "flash_attention_bwd")
+    neighbour = ("a rank gathering its neighbour's head", lambda: _neighbour_head(torch))
+    unsummed = ("the halo gradient left unsummed", _halo_grad_unsummed)
+    for arch, patch in HALO_SMOKE:
+        base = dataclasses.replace(get_smoke_config(arch), linear_impl="fused", **patch)
+        spans = [sh.head_span(base, 4, r) for r in range(4)]
+        _say(rank, f"parallel heads: {base.name} with {base.num_heads} heads over "
+                   f"{base.num_kv_heads} KV heads of {base.head_dim} at model=4: query heads "
+                   f"{[s.q for s in spans]}, KV heads {[s.kv for s in spans]}")
+        enc = base.is_encoder_decoder
+        scfg = dataclasses.replace(base, attn_impl="flash" if enc else "paged")
+        batch = _family_batch(torch, scfg, 64, 4, dev)
+        for model in ((4, 2) if arch == "qwen1.5-4b" else (4,)):
+            _par_family_serve(torch, rank, dev, f"parallel heads serve {arch}", scfg, batch, 4,
+                              serve_need + (("flash_attention",) if enc else ("paged_decode",)),
+                              [neighbour] if model == 4 else [], model=model,
+                              bound=PAR_SMOKE_REL_BOUND)
+            torch.distributed.barrier()
+        tcfg = dataclasses.replace(base, attn_impl="flash")
+        tbatch = _family_batch(torch, tcfg, 64, 4, dev, kind="train")
+        for mesh_cfg in ((MeshConfig(data=1, model=4), MeshConfig(data=2, model=2))
+                         if arch == "qwen1.5-4b" else (MeshConfig(data=1, model=4),)):
+            faults = [unsummed] + ([neighbour] if arch == "qwen1.5-4b" else [])
+            _par_family_train(torch, rank, dev, f"parallel heads train {arch}", tcfg, tbatch,
+                              PAR_SMOKE_REL_BOUND, train_need,
+                              faults if mesh_cfg.model == 4 else [unsummed], mesh_cfg=mesh_cfg)
+            torch.distributed.barrier()
+
+
+@contextlib.contextmanager
+def _row_codes(torch, record):
+    """Every row-parallel int8 product (`models/linear.py` `_row_int8`)
+    checked against the unsharded quantization of the same operands: the
+    activation's and a per-call weight's int8 codes and f32 scales,
+    gathered over `model`, against `quantize_int8` of the gathered operand;
+    record gets each call's count of unequal codes and scales (0: bit for
+    bit)."""
+    from repro_torch.models import linear as linear_mod
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.quant import QuantizedTensor, quantize_int8
+    real_row, real_q, seen = linear_mod._row_int8, linear_mod.int8_matmul_q, {}
+
+    def q(a_q, a_scale, b_q, b_scale, *args, **kw):
+        seen.update(a_q=a_q, a_scale=a_scale, b_q=b_q, b_scale=b_scale)
+        return real_q(a_q, a_scale, b_q, b_scale, *args, **kw)
+
+    def row(x2, w):
+        out = real_row(x2, w)
+        group = sh._tp_group()
+        want_q, want_s = quantize_int8(comm.all_gather(x2.detach(), group, 1), -1)
+        bad = int((comm.all_gather(seen["a_q"], group, 1) != want_q).sum().item())
+        bad += int((seen["a_scale"] != want_s).sum().item())
+        if not isinstance(w, QuantizedTensor):
+            want_q, want_s = quantize_int8(comm.all_gather(w.detach(), group, 0), -2)
+            got = comm.all_gather(seen["b_q"].contiguous(), group, 0)
+            bad += int((got != want_q).sum().item())
+            bad += int((seen["b_scale"].reshape(want_s.shape) != want_s).sum().item())
+        record.append(bad)
+        return out
+    linear_mod._row_int8, linear_mod.int8_matmul_q = row, q
+    try:
+        yield
+    finally:
+        linear_mod._row_int8, linear_mod.int8_matmul_q = real_row, real_q
+
+
+def _scale_unreduced(which: str):
+    """Fault: a row-parallel int8 product's activation ("activation") or
+    per-call weight ("weight") absmax over this rank's columns / rows only,
+    its MAX over `model` dropped."""
+    from repro_torch.models import linear as linear_mod
+    dim = -1 if which == "activation" else -2
+    return _patched(linear_mod, f"row_{which}_absmax",
+                    lambda real: lambda t: t.float().abs().amax(dim=dim, keepdim=True))
+
+
+def _par_int8(torch, rank, dev, tmp) -> None:
+    """Int8 weights under tensor parallelism: internlm2-1.8b at full width,
+    PAR_LAYERS layers, `linear_impl="quantized"`, bf16.  Served with
+    `quantize_linear_params` weights at model=2 and model=4 (prefill 4 x
+    1024 + PAR_DECODE decode steps through the int8 GEMM, the int8 fused
+    MLP and paged decode) against the unsharded int8 run on rank 0, every
+    row-parallel product's int8 codes and scales equal to the unsharded
+    quantization of its gathered operands, bit for bit (`_row_codes`); step
+    0 at (2, 2) on float weights quantized per call (activation and weight
+    codes the same way; gradients straight-through) against the unsharded
+    step.  Planted faults: the activation scale's MAX over `model` dropped
+    (model=2 serve), the weight scale's (the (2, 2) step's forward)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.models.linear import quantize_linear_params
+    from repro_torch.parallel import sharding as sh
+    cfg = _internlm2_cut(linear_impl="quantized", attn_impl="paged")
+    batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+    _say(rank, f"parallel int8: {cfg.name} at {cfg.num_layers} layers, full width, int8 "
+               f"weights (quantize_linear_params), bf16")
+    V = cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(14)
+    forced = torch.randint(0, V, (TRAIN_BATCH, PAR_DECODE), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for model in (2, 4):
+        mesh = make_mesh(MeshConfig(model=model), ranks=list(range(model)),
+                         kv_rep=sh.kv_replication(cfg, model))
+        if mesh is None:
+            torch.distributed.barrier()
+            continue
+        full = quantize_linear_params(init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                                              device=dev))
+        plan = sh.Plan(cfg, mesh)
+        local = plan.shard(full)
+        if rank:
+            del full
+            torch.cuda.empty_cache()
+        codes = []
+        with _row_codes(torch, codes):
+            (got, _), wall, counts = _counted(
+                torch, lambda: _family_logits(torch, local, cfg, batch, forced, plan))
+        _rank_line(rank, f"parallel int8 serve (model={model}) prefill {TRAIN_BATCH} x "
+                         f"{TRAIN_SEQ} + {PAR_DECODE} decode steps {wall * 1e3:.1f} ms, launches "
+                         f"{json.dumps(counts)}")
+        for name in ("int8_matmul", "int8_fused_mlp_hidden", "paged_decode"):
+            if not counts.get(name):
+                fail(f"parallel int8 serve rank {rank}: no {name} launch")
+        if counts.get("matmul") or counts.get("fused_mlp_hidden"):
+            fail(f"parallel int8 serve rank {rank}: a bf16 GEMM launched on the int8 path")
+        want_calls = 2 * cfg.num_layers * (1 + PAR_DECODE)
+        if len(codes) != want_calls or sum(codes):
+            fail(f"parallel int8 serve rank {rank}: {sum(codes)} unequal codes or scales over "
+                 f"{len(codes)} row-parallel products (want 0 over {want_calls})")
+        if rank == 0:
+            want, _ = _family_logits(torch, full, cfg, batch, forced)
+            rel = _rel(got[..., :V], want[..., :V])
+            print(f"  parallel int8 serve: model={model}, logits rel err {rel:.3e} vs the "
+                  f"unsharded int8 run (bound {LOGITS_REL_BOUND}); {len(codes)} row-parallel "
+                  f"products' activation codes and scales equal the unsharded quantization's "
+                  f"bit for bit", flush=True)
+            if not (bool(torch.isfinite(got).all().item()) and rel <= LOGITS_REL_BOUND):
+                fail("parallel int8 serve: sharded logits differ from the unsharded int8 run's")
+            del want, full
+        if model == 2:
+            bad = []
+            with _scale_unreduced("activation"), _row_codes(torch, bad):
+                _family_logits(torch, local, cfg, batch, forced[:, :1], plan)
+            _say(rank, f"    fault: the activation scale's MAX over model dropped: "
+                       f"{sum(bad)} unequal codes or scales over {len(bad)} products")
+            if not sum(bad):
+                fail("parallel int8 serve: the codes check does not see the activation "
+                     "scale's dropped MAX")
+        del local, got
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    tcfg = dataclasses.replace(cfg, attn_impl="flash")
+    tbatch = _family_batch(torch, tcfg, TRAIN_SEQ, TRAIN_BATCH, dev, kind="train")
+    codes = []
+    with _row_codes(torch, codes):
+        _par_family_train(torch, rank, dev, "parallel int8 train", tcfg, tbatch,
+                          TRAIN_GRAD_REL_BOUND, ("int8_matmul", "int8_fused_mlp_hidden",
+                                                 "matmul", "flash_attention",
+                                                 "flash_attention_bwd"), [])
+    _rank_line(rank, f"parallel int8 train: {len(codes)} row-parallel products, {sum(codes)} "
+                     f"unequal codes or scales (activation and weight)")
+    if not codes or sum(codes):
+        fail(f"parallel int8 train rank {rank}: row-parallel codes differ from the unsharded "
+             f"quantization's")
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    plan = sh.Plan(tcfg, mesh)
+    local = plan.shard(init_lm(torch.Generator(device=dev).manual_seed(0), tcfg, device=dev,
+                               dtype=torch.float32))
+    bad = []
+    with _scale_unreduced("weight"), _row_codes(torch, bad), torch.no_grad(), sh.use(plan):
+        lm_loss(local, plan.batch_rows(tbatch), tcfg)
+    _say(rank, f"    fault: the weight scale's MAX over model dropped: {sum(bad)} unequal codes "
+               f"or scales over {len(bad)} products")
+    if not sum(bad):
+        fail("parallel int8 train: the codes check does not see the weight scale's dropped MAX")
+    del local
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
 
 
 def _greedy_logits(torch, params, cfg, prompts, steps, plan=None):
@@ -7381,7 +7773,7 @@ def _family_batch(torch, cfg, seq, rows, dev, kind="prefill"):
 
 
 def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, other=None,
-                      keep=None, model=2):
+                      keep=None, model=2, bound=LOGITS_REL_BOUND):
     """`cfg` served at model=2 (ranks 0 and 1; `model` ranks) through serve_step: prefill
     and `steps` decode steps on forced tokens, the launches counted on each
     rank (every kernel of `need` launched), the logits against the
@@ -7389,7 +7781,8 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
     each rank holds whole (`keep(caches)`, where given); each planted fault
     ((what, context), run alone) must break one of them.  `other`: a second
     config whose sharded run is held to the same bound against this one's
-    (the same run without a flag)."""
+    (the same run without a flag).  `bound`: the logits' (LOGITS_REL_BOUND
+    at bf16; a tighter one for an f32 smoke config)."""
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_lm
@@ -7430,16 +7823,16 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
         print(f"  {label}: {cfg.name}, model={model} ({mesh.backend}), {cfg.dtype}, prefill {shape} + {steps} "
               f"decode steps on the same tokens: logits rel err {rel:.3e} vs unsharded"
               f"{f', the cache leaf each rank holds whole {rel_c:.3e}' if keep else ''} (bound "
-              f"{LOGITS_REL_BOUND})", flush=True)
-        if not (bool(torch.isfinite(got).all().item()) and max(rel, rel_c) <= LOGITS_REL_BOUND):
+              f"{bound})", flush=True)
+        if not (bool(torch.isfinite(got).all().item()) and max(rel, rel_c) <= bound):
             fail(f"{label}: sharded logits differ from the unsharded run's")
     if other is not None:
         again, _ = _family_logits(torch, local, other, batch, forced, sh.Plan(other, mesh))
         if rank == 0:
             rel = _rel(got[..., :V], again[..., :V])
             print(f"    the same without seq_parallel, against it: logits rel err {rel:.3e} "
-                  f"(bound {LOGITS_REL_BOUND})", flush=True)
-            if rel > LOGITS_REL_BOUND:
+                  f"(bound {bound})", flush=True)
+            if rel > bound:
                 fail(f"{label}: the run with seq_parallel differs from the run without it")
         del again
     del got
@@ -7450,7 +7843,7 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
             rel, rel_c = gaps(bad, bkeep)
             print(f"    fault: {what}: logits rel err {rel:.3e}"
                   f"{f', the cache leaf {rel_c:.3e}' if keep else ''}", flush=True)
-            if max(rel, rel_c) <= LOGITS_REL_BOUND:
+            if max(rel, rel_c) <= bound:
                 fail(f"{label}: the bound does not see {what}")
         del bad, bkeep
     del local, gkeep
@@ -7461,12 +7854,14 @@ def _par_family_serve(torch, rank, dev, label, cfg, batch, steps, need, faults, 
 
 def _counted(torch, fn):
     """fn() with every kernel wrapper's launch count (the expert-batched
-    ones too) set to 0 just before: (fn's result, wall seconds, the counts
-    that moved)."""
+    and int8 ones too) set to 0 just before: (fn's result, wall seconds, the
+    counts that moved)."""
     from repro_torch.models import linear as linear_mod
     matmul_ops, fns = _train_counters()
     expert = {"matmul_expert": linear_mod.matmul_expert,
-              "fused_mlp_hidden_expert": linear_mod.fused_mlp_hidden_expert}
+              "fused_mlp_hidden_expert": linear_mod.fused_mlp_hidden_expert,
+              "int8_matmul": linear_mod.int8_matmul,
+              "int8_fused_mlp_hidden": linear_mod.int8_fused_mlp_hidden}
     torch.cuda.synchronize()
     _reset_counts(matmul_ops, fns)
     for f in expert.values():

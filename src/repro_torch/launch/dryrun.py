@@ -18,9 +18,13 @@ and no partitioner: per cell this module
      times (the HLO walk's trip-count rule);
   4. hands the counts to `roofline.build_report` with the H100's peak, HBM
      and NVLink rates (`core/hardware.py`).
-A refused cell (the plan does not cover it: query heads that do not split
-over `model`, int8 weights under tensor parallelism) is `status: "error"`
-with the refusal.  Serving holds params whole over `data` (the port's
+A cell whose query heads do not split over `model` runs as halo heads
+(`sharding.head_span`): its row's "halo" holds the traced rank's heads
+computed against its own share of them (the attention FLOPs' factor, that
+rank's and the mean over the ranks) and the bytes of the halo gathers,
+which its collective bytes include; `validate_divisibility`'s head entry
+stays among its warnings, as in JAX.  A cell the plan refuses is
+`status: "error"` with the refusal.  Serving holds params whole over `data` (the port's
 serve steps refuse FSDP), so prefill and decode cells run as JAX's
 `serve_tp_only` treatment does.
 
@@ -139,14 +143,16 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
         args = tree_bytes(params) + tree_bytes(opt) + tree_bytes(batch) * rows // \
             batch["tokens"].shape[0]
         step = make_train_step(cfg, tc, n_micro=n_micro, plan=plan)
-        with op_analysis.count(trace_one=True) as counter:
+        with op_analysis.count(trace_one=True) as counter, sh.halo_census() as halo:
             step(params, opt, batch)
+        # the halo gathers run in the microbatch body, traced once
+        halo = {k: v * n_micro for k, v in halo.items()}
         counter.counts.loops.setdefault("microbatch", n_micro)
         meta.update(n_micro=n_micro, optimizer=tc.optimizer, flops_mult=3.0)
     else:
         params = param_structs(cfg, dtype=torch.bfloat16, plan=plan)
         ins = input_specs(cfg, shape, plan, rows=rows)
-        with torch.no_grad():
+        with torch.no_grad(), sh.halo_census() as halo:
             if shape.mode == "prefill":
                 step = make_prefill_step(cfg, shape.seq_len, plan)
                 args = tree_bytes(params) + tree_bytes(ins)
@@ -164,7 +170,24 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
                     step(params, ins["token"], ins["caches"], ins["index"], enc)
         meta.update(flops_mult=1.0)
     meta["argument_bytes"] = args
+    meta["halo"] = halo_row(cfg, mesh_cfg.model, rank, halo)
     return counter, meta
+
+
+def halo_row(cfg: ModelConfig, t: int, rank: int, gathered: dict) -> Optional[dict]:
+    """Halo heads at `model` = t (None where the heads split): rank's query
+    heads computed and its own share of them (num_heads / t), their ratio
+    (the factor on its attention FLOPs) and the mean ratio over the t
+    ranks, and the halo gathers' wire bytes by kind."""
+    if cfg.attn_type != "gqa" or not cfg.num_heads or t == 1 \
+            or not sh.head_span(cfg, t, rank).halo:
+        return None
+    own = cfg.num_heads / t
+    heads = [sh.head_span(cfg, t, r).q for r in range(t)]
+    h0, h1 = heads[rank]
+    return {"heads": h1 - h0, "own_heads": own, "flops_factor": (h1 - h0) / own,
+            "mean_flops_factor": sum(b - a for a, b in heads) / t / own,
+            "gather_bytes": gathered, "gather_total": sum(gathered.values())}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
@@ -218,6 +241,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "n_micro": meta.get("n_micro"),
             "kernels": counts.kernels,
         })
+        if meta["halo"] is not None:
+            row["halo"] = meta["halo"]
     except Exception as e:
         row.update({"status": "error", "error": f"{type(e).__name__}: {e}",
                     "traceback": traceback.format_exc()[-2000:]})

@@ -21,8 +21,12 @@ parallelism a reduce-scatter on the sequence; the input enters through
 `tp_enter`).  Where `model` is a multiple of num_kv_heads larger than it,
 a rank holds num_heads / model query heads and the one KV head they read
 (`sharding.kv_replication`: its wk / wv columns, its cache), and the
-replicas' wk / wv gradients are summed by the train step.  MLA: see
-`apply_mla`.
+replicas' wk / wv gradients are summed by the train step.  Where the heads
+do not split over `model`, a rank's column slices are mid-head (JAX's):
+it gathers the q / k / v columns of the heads its slice touches
+(`sharding.gather_heads`), computes those heads whole, caches their KV
+heads whole, and keeps its own columns for wo (`sharding.head_span`).
+MLA: see `apply_mla`.
 """
 from __future__ import annotations
 
@@ -133,7 +137,10 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     """
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; valid: {list(ATTN_IMPLS)}")
-    a, nkv, hd = cfg.num_heads // sh.tp_size(), sh.local_kv_heads(cfg), cfg.head_dim
+    hd, t = cfg.head_dim, sh.tp_size()
+    span = sh.local_span(cfg) if t > 1 else None
+    a = cfg.num_heads if span is None else span.q[1] - span.q[0]
+    nkv = sh.local_kv_heads(cfg)
     impl = cfg.linear_impl
     x = sh.tp_enter(x)
     b, s, h = x.shape
@@ -145,6 +152,12 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    if span is not None and span.halo:
+        # halo heads: the touched heads made whole from every rank's columns
+        q = sh.gather_heads(q, *span.q, hd)
+        if sh.kv_replication(cfg, t) == 1:
+            k = sh.gather_heads(k, *span.kv, hd)
+            v = sh.gather_heads(v, *span.kv, hd)
     q = q.reshape(b, s, a, hd)
     k = k.reshape(b, src.shape[1], nkv, hd)
     v = v.reshape(b, src.shape[1], nkv, hd)
@@ -186,7 +199,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
                 vg = dequantize_kv(vg, gather_block_kv(scales[1], block_tables), q.dtype)
             out = _sdpa(q, kg.to(q.dtype), vg.to(q.dtype), causal=causal, q_pos=positions,
                         kv_len=lengths)
-        return sh.tp_exit(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl)), cache
+        return _out_proj(p, out, span, impl), cache
 
     kv_len = None
     if cache is not None and kv_input is None:
@@ -226,8 +239,19 @@ def apply_gqa(p, x, cfg: ModelConfig, *, positions, causal=True, cache=None, cac
     else:
         out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=masked,
                     q_pos=positions, kv_len=kv_len)
-    out = sh.tp_exit(linear(out.reshape(b, s, a * hd), p["wo"], impl=impl))
-    return out, cache
+    return _out_proj(p, out, span, impl), cache
+
+
+def _out_proj(p, out, span, impl):
+    """The row-parallel wo on the rank's own columns of the attention
+    output (b, s, heads, hd): under halo heads, the columns of its query
+    slice among the heads it computed."""
+    b, s, _, hd = out.shape
+    out = out.reshape(b, s, -1)
+    if span is not None and span.halo:
+        lo = span.cols[0] - span.q[0] * hd
+        out = out[..., lo:lo + span.cols[1] - span.cols[0]].contiguous()
+    return sh.tp_exit(linear(out, p["wo"], impl=impl, row=True))
 
 
 # --- DeepSeek-V3 Multi-head Latent Attention ------------------------------------------
@@ -305,7 +329,7 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     k_full = torch.cat([k_nope, k_rope.expand(b, skv, a, rope)], dim=-1)
     out = _sdpa(q_full, k_full, v, causal=True,
                 q_pos=positions[0] if positions.dim() > 1 else positions, kv_len=kv_len)
-    out = sh.tp_exit(linear(out.reshape(b, s, a * vd), p["wo"], impl=impl))
+    out = sh.tp_exit(linear(out.reshape(b, s, a * vd), p["wo"], impl=impl, row=True))
     return out, cache
 
 

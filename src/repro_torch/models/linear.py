@@ -62,8 +62,10 @@ from ..kernels.fused_mlp.ops import (fused_mlp_bwd_expert, fused_mlp_hidden,
                                      fused_mlp_hidden_expert)
 from ..kernels.fused_mlp.ref import fused_mlp_hidden_ref
 from ..kernels.matmul.ops import matmul, matmul_expert
-from ..kernels.quantized.ops import int8_fused_mlp_hidden, int8_matmul, int8_matmul_expert
-from ..quant import QuantizedTensor, quantize_weight
+from ..kernels.quantized.ops import (int8_fused_mlp_hidden, int8_matmul, int8_matmul_expert,
+                                     int8_matmul_q)
+from ..parallel import sharding as sh
+from ..quant import QuantizedTensor, k_major, quantize_int8, quantize_weight
 
 LINEAR_IMPLS = ("jnp", "pallas", "tuned", "fused", "quantized")
 
@@ -137,49 +139,99 @@ class _QuantizedLinear(_Linear):
         return int8_matmul(x2, w, tuned=tuned)
 
 
-class _QuantizedLinearFrozen(torch.autograd.Function):
-    """JAX's `_quantized_linear_frozen` (models/linear.py:126-149): a
-    prequantized weight; dx from the de-quantized weight, none for the
-    payload or its scales."""
+class _QuantizedRowLinear(_Linear):
+    """`_QuantizedLinear` of a row-parallel product under tensor
+    parallelism: the int8 forward with the scales taken over `model`
+    (`_row_int8`); `_Linear`'s dgrad and wgrad on the rank's shard."""
 
     @staticmethod
-    def forward(ctx, x2, wq, wscale):
+    def forward(x2, w, tuned):
+        return _row_int8(x2, w)
+
+
+class _QuantizedLinearFrozen(torch.autograd.Function):
+    """JAX's `_quantized_linear_frozen` (models/linear.py:126-149): a
+    prequantized weight; dx from the de-quantized weight (under tensor
+    parallelism, a row-parallel shard's: `row`), none for the payload or
+    its scales."""
+
+    @staticmethod
+    def forward(ctx, x2, wq, wscale, row):
         ctx.dtype = x2.dtype
         ctx.save_for_backward(wq, wscale)
-        return int8_matmul(x2, QuantizedTensor(wq, wscale, -2), tuned=True)
+        return _int8(x2, QuantizedTensor(wq, wscale, -2), row)
 
     @staticmethod
     def backward(ctx, g):
         wq, wscale = ctx.saved_tensors
         w = (wq.float() * wscale).to(ctx.dtype)
-        return matmul(g.contiguous(), w.T, tuned=True), None, None
+        return matmul(g.contiguous(), w.T, tuned=True), None, None, None
+
+
+# --- int8 under tensor parallelism ---------------------------------------------------
+#
+# A column-parallel product (wq / wk / wv, w_gate / w_up, the head) keeps its
+# whole fan-in: its activation's row scales and its weight's column scales
+# are the unsharded run's as they stand.  A row-parallel one (wo, w_down,
+# out_proj) holds a slice of the fan-in, so each scale is taken as a MAX
+# over `model` of the rank's absmax; a maximum is exact, so the int8 codes
+# equal the unsharded run's and only the f32 sum over `model` (`tp_exit`)
+# differs in order.  A prequantized weight was quantized whole before the
+# shard: its payload's rows are sharded, its scales replicated.
+
+def row_activation_absmax(x2):
+    """Each activation row's absmax over the whole (sharded) fan-in."""
+    return sh.max_over_tp(x2.float().abs().amax(dim=-1, keepdim=True))
+
+
+def row_weight_absmax(w):
+    """Each weight column's absmax over the whole (sharded) fan-in."""
+    return sh.max_over_tp(w.float().abs().amax(dim=-2, keepdim=True))
+
+
+def _row_int8(x2, w):
+    """x2 (m, k_shard) @ w (k_shard, n) on the int8 GEMM, quantized with
+    the whole fan-in's scales: the rank's partial sum, in x2's dtype."""
+    a_q, a_scale = quantize_int8(x2, -1, row_activation_absmax(x2))
+    if not isinstance(w, QuantizedTensor):
+        q, scale = quantize_int8(w, -2, row_weight_absmax(w))
+        w = QuantizedTensor(k_major(q), scale, -2)
+    return int8_matmul_q(a_q, a_scale, w.q, w.scale.reshape(1, -1), x2.dtype, tuned=True,
+                         act_dtype=x2.dtype)
+
+
+def _int8(x2, w, row: bool):
+    """The int8 product of x2 and w: a row-parallel one (`row`) with its
+    scales over `model`."""
+    return _row_int8(x2, w) if row else int8_matmul(x2, w, tuned=True)
 
 
 def _grad_recorded(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _quantized_linear(x, w):
+def _quantized_linear(x, w, row: bool):
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     if isinstance(w, QuantizedTensor):
-        if _grad_recorded(x):
-            out = _QuantizedLinearFrozen.apply(x2, w.q, w.scale.reshape(1, -1))
-        else:
-            out = int8_matmul(x2, w, tuned=True)
+        out = (_QuantizedLinearFrozen.apply(x2, w.q, w.scale.reshape(1, -1), row)
+               if _grad_recorded(x) else _int8(x2, w, row))
         return out.reshape(*lead, w.q.shape[-1])
     w = w.to(x.dtype)
-    out = (_QuantizedLinear.apply(x2, w, True) if _grad_recorded(x, w)
-           else int8_matmul(x2, w, tuned=True))
+    fn = _QuantizedRowLinear if row else _QuantizedLinear
+    out = fn.apply(x2, w, True) if _grad_recorded(x, w) else _int8(x2, w, row)
     return out.reshape(*lead, w.shape[-1])
 
 
-def linear(x, w, *, impl: str = "jnp"):
+def linear(x, w, *, impl: str = "jnp", row: bool = False):
     """y = x @ w with dispatched execution.  x: (..., k); w: (k, n), or a
-    `QuantizedLinear` under impl="quantized"."""
+    `QuantizedLinear` under impl="quantized".  `row`: a row-parallel
+    product (wo, w_down, out_proj), whose fan-in is sharded over `model`
+    under tensor parallelism; on the int8 path its scales are then taken
+    over `model` (`_row_int8`)."""
     _check_impl(impl)
     if impl == "quantized":
-        return _quantized_linear(x, w)
+        return _quantized_linear(x, w, row and sh.tp_size() > 1)
     w = w.to(x.dtype)
     if impl == "jnp":
         return x @ w
@@ -361,7 +413,8 @@ def quantized_mlp(x, p, cfg):
     kernel, the down projection the quantized linear.  Float weight leaves
     quantize per call and keep the high-precision gradient; `QuantizedLinear`
     containers (from `quantize_linear_params`) skip re-quantization — the
-    inference path."""
+    inference path.  Under tensor parallelism w_down is row-parallel: its
+    scales are taken over `model` (`_row_int8`)."""
     lead, h = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, h)
     w_gate = p.get("w_gate") if cfg.mlp_type == "swiglu" else None
@@ -375,4 +428,5 @@ def quantized_mlp(x, p, cfg):
             hidden = _QuantizedHidden.apply(x2, w_gate, w_up, cfg.mlp_type)
         else:
             hidden = int8_fused_mlp_hidden(x2, w_gate, w_up, mlp_type=cfg.mlp_type, tuned=True)
-    return linear(hidden.reshape(*lead, hidden.shape[-1]), p["w_down"], impl="quantized")
+    return linear(hidden.reshape(*lead, hidden.shape[-1]), p["w_down"], impl="quantized",
+                  row=True)

@@ -215,7 +215,7 @@ def apply_ssm(p, x, cfg: ModelConfig, *, state=None):
     y = y + xin * p["D"].to(dtype)[None, None, :, None]
     y = y.reshape(b, sp, di)[:, :s]
     y = _gated_norm(p["norm"], y, z)
-    return sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl)), (run, conv_tails)
+    return sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl, row=True)), (run, conv_tails)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None, *,
@@ -274,5 +274,5 @@ def decode_ssm(p, x, cfg: ModelConfig, cache):
     y = torch.einsum("bhnp,bhn->bhp", state, Ch) + xin * p["D"].to(dtype)[None, :, None]
     y = y.reshape(b, di)
     y = _gated_norm(p["norm"], y, z)
-    out = sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl))[:, None]
+    out = sh.reduce_from_tp(linear(y, p["out_proj"], impl=impl, row=True))[:, None]
     return out, {"state": state, "conv_x": ncx, "conv_B": ncB, "conv_C": ncC}

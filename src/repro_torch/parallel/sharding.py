@@ -26,6 +26,18 @@ collective goes and the model calls it:
     entropy (`models/lm.py`);
   * experts are sharded on `model`: each rank runs its own experts'
     assignments and the combine is one all-reduce (`models/moe.py`);
+  * query heads that do not split over `model` (or KV heads that neither
+    split into whole groups nor replicate): halo heads (`head_span`).  The
+    params stay JAX's mid-head column slices; each rank all-gathers the
+    q / k / v columns of the heads its slice touches (`gather_heads`,
+    whose backward reduce-scatters), runs attention on those heads whole
+    and keeps its own output columns for the row-parallel wo;
+  * int8 weights (linear_impl="quantized"): a row-parallel product takes
+    each activation row's absmax and a per-call weight's column absmax as
+    a MAX over `model` (`max_over_tp`), so its int8 codes are the
+    unsharded run's; a prequantized weight (`QuantizedTensor`) shards its
+    payload by the leaf's spec and keeps the reduced axis of its scales
+    whole (`Plan.shard`);
   * MLA: the column-sharded down projections' latents are all-gathered
     (`gather_latent`) before the up projections, which are column-parallel
     over heads (`models/attention.py` `apply_mla`);
@@ -59,11 +71,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..configs.base import MeshConfig, ModelConfig
+from ..quant import QuantizedTensor, k_major
 from . import comm
 
 # --- spec trees (the JAX package's, one to one) ----------------------------------------
@@ -122,6 +135,8 @@ def _base_spec(name: str, path: str, ndim_base: int, fsdp: Optional[str]):
 
 
 def _ndim(leaf) -> int:
+    if isinstance(leaf, QuantizedTensor):
+        leaf = leaf.q
     return leaf.dim() if torch.is_tensor(leaf) else len(leaf.shape)
 
 
@@ -302,8 +317,9 @@ def gather_leaf_to_host(t: torch.Tensor, spec, mesh, rep: int = 1) -> Optional[t
 # --- KV heads replicated over `model` ----------------------------------------------
 #
 # A GQA layer whose KV heads are fewer than `model` ranks (t a multiple of
-# num_kv_heads, num_heads a multiple of t) takes Megatron's route: rank r
-# holds query heads [r a / t, (r + 1) a / t) and the one KV head they read,
+# num_kv_heads) takes Megatron's route: rank r holds query columns
+# [r a hd / t, (r + 1) a hd / t) (whole heads where t divides num_heads,
+# else halo heads: below) and the one KV head they read,
 # r nkv // t, as its wk / wv (bk / bv) columns and its cache.  A KV head's
 # columns then live on t / nkv ranks, whose partial gradients are summed
 # over that replica group (`Plan.kv_group`) before the data axes.  JAX's
@@ -315,50 +331,112 @@ KV_LEAVES = frozenset(("wk", "wv", "bk", "bv"))
 
 def kv_replication(cfg: ModelConfig, t: int) -> int:
     """Ranks of `model` that hold each KV head: t / num_kv_heads where t is
-    a larger multiple of num_kv_heads, else 1 (whole KV groups a rank)."""
+    a larger multiple of num_kv_heads, else 1 (whole KV groups a rank, or
+    halo heads)."""
     nkv = cfg.num_kv_heads
     if cfg.attn_type != "gqa" or not nkv or t <= nkv or t % nkv:
         return 1
     return t // nkv
 
 
+# --- halo heads ---------------------------------------------------------------------
+#
+# Where query heads do not split over `model` (qwen1.5-4b's 20 at 16), or
+# KV heads neither split into whole groups nor replicate, the spec trees
+# still split wq / wk / wv (bq / bk / bv) and wo's rows mid-head over all t
+# ranks, as JAX's GSPMD does.  A rank then computes its column slices of
+# q / k / v, all-gathers them over `model` (`gather_heads`) and keeps the
+# heads its own query columns touch, each head whole: rotary, the flash,
+# paged and naive kernels run unchanged on them, and the rank keeps its own
+# columns of the attention output for wo.  Each head's attention is what
+# one device computes; a head that straddles two ranks is computed on both
+# (a redundancy `head_span` counts), and the gather's backward
+# reduce-scatters the heads' partial gradients onto the owners' columns.
+# Where KV heads replicate (`kv_replication`), a rank's touched query heads
+# lie in its one KV head's group, and only q is gathered.
+
+
+class HeadSpan(NamedTuple):
+    """A rank's attention heads under tensor parallelism (`head_span`)."""
+    cols: Tuple[int, int]    # its own query columns [c0, c1): JAX's wq / bq / wo-row slice
+    q: Tuple[int, int]       # the query heads it computes, whole: [h0, h1)
+    kv: Tuple[int, int]      # the KV heads those read, whole: [k0, k1)
+    halo: bool               # q (and k / v, unless replicated) gathered over `model`
+
+
+def head_span(cfg: ModelConfig, t: int, r: int) -> HeadSpan:
+    """Rank r of t's heads: its own query columns (mid-head where the split
+    falls), the query heads those columns touch, and the KV heads those
+    read.  Replicated KV heads (`kv_replication`): the rank's one KV head,
+    whose group must hold its touched query heads.  Otherwise the touched
+    query heads are widened to whole KV groups, so that each rank's query
+    heads are g = num_heads / num_kv_heads to a KV head, as the kernels
+    take them.  `halo` is False where the heads split evenly: the span is
+    then the rank's own heads and nothing is gathered."""
+    a, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g, w = a // nkv, a * hd // t
+    c0, c1 = r * w, (r + 1) * w
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    rep = kv_replication(cfg, t)
+    if rep > 1:
+        k0 = r // rep
+        if not (k0 * g <= h0 and h1 <= (k0 + 1) * g):
+            raise ValueError(f"{cfg.name}: rank {r} of {t} touches query heads [{h0}, {h1}) "
+                             f"outside KV head {k0}'s group of {g}")
+        k1 = k0 + 1
+    else:
+        k0, k1 = h0 // g, -(-h1 // g)
+        h0, h1 = k0 * g, k1 * g
+    halo = not (a % t == 0 and (rep > 1 or nkv % t == 0))
+    return HeadSpan((c0, c1), (h0, h1), (k0, k1), halo)
+
+
+def local_span(cfg: ModelConfig) -> HeadSpan:
+    """`head_span` of this rank under the plan in force."""
+    return head_span(cfg, tp_size(), tp_rank())
+
+
 def local_kv_heads(cfg: ModelConfig) -> int:
-    """KV heads a rank holds under the plan in force."""
-    t = tp_size()
-    return cfg.num_kv_heads // t if kv_replication(cfg, t) == 1 else 1
+    """KV heads a rank holds (its cache's heads) under the plan in force:
+    the KV heads its query heads read, whole."""
+    if tp_size() == 1:
+        return cfg.num_kv_heads
+    k0, k1 = local_span(cfg).kv
+    return k1 - k0
+
+
+# validate_divisibility's entry that halo heads take: a warning, not an error
+HEADS_ENTRY = "num_heads "
 
 
 def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
-    """Raise for what the explicit plan does not cover.  Every family runs
-    under data and tensor parallelism, and under `seq_parallel`; refused
-    under `model` > 1: int8 weights (a row-parallel shard's per-channel
-    scales differ from the whole weight's), and query heads that do not
-    split over `model` (JAX's GSPMD splits those mid-head).  GQA KV heads
-    split into whole groups, or are replicated where `model` is a multiple
-    of them (`kv_replication`).  Then the widths that must split over
-    `model`."""
+    """Raise for what the explicit plan does not cover: `validate_divisibility`'s
+    entries but the head count (query heads that do not split over `model`
+    run as halo heads, `head_span`; KV heads split into whole groups,
+    replicate where `model` is a multiple of them, or run as halo heads),
+    and the widths that must split over `model`: the q / k / v columns,
+    the padded vocab, the MoE shared expert, MLA's down projections and
+    heads (MLA has no halo), the SSM's heads and groups.  Every family runs
+    under data and tensor parallelism and under `seq_parallel`, int8
+    weights included."""
     t = mesh_cfg.model
     if t == 1:
         return
-    if cfg.linear_impl == "quantized":
-        raise NotImplementedError(
-            f"{cfg.name}: linear_impl='quantized' under tensor parallelism (model={t}) is not "
-            "ported: a row-parallel shard's per-channel int8 scales differ from the whole weight's")
-    if cfg.num_heads and cfg.num_heads % t:
-        raise ValueError(
-            f"{cfg.name}: num_heads {cfg.num_heads} % model {t} != 0: query heads do not split "
-            f"over model (JAX splits them mid-head)")
-    nkv = cfg.num_kv_heads
-    if cfg.attn_type == "gqa" and nkv % t and kv_replication(cfg, t) == 1:
-        raise ValueError(
-            f"{cfg.name}: num_kv_heads {nkv} and model {t}: KV heads neither split into whole "
-            f"groups nor replicate (num_heads {cfg.num_heads})")
-    errs = validate_divisibility(cfg, mesh_cfg, mesh_cfg.dp)
+    errs = [e for e in validate_divisibility(cfg, mesh_cfg, mesh_cfg.dp)
+            if not e.startswith(HEADS_ENTRY)]
     if cfg.padded_vocab_size % t:
         errs.append(f"padded vocab {cfg.padded_vocab_size} % tp {t} != 0")
     if cfg.num_experts and cfg.num_shared_experts and cfg.moe_d_ff % t:
         errs.append(f"moe_d_ff {cfg.moe_d_ff} % tp {t} != 0")
+    if cfg.attn_type == "gqa" and cfg.num_heads:
+        hd = cfg.head_dim
+        cols = [("q columns", cfg.num_heads * hd)]
+        if kv_replication(cfg, t) == 1:
+            cols.append(("k / v columns", cfg.num_kv_heads * hd))
+        errs += [f"{name} {n} % tp {t} != 0" for name, n in cols if n % t]
     if cfg.attn_type == "mla":
+        if cfg.num_heads % t:
+            errs.append(f"MLA num_heads {cfg.num_heads} % tp {t} != 0 (no halo heads)")
         # the down projections are column-sharded (their outputs gathered)
         for name, n in (("q_lora_rank", cfg.q_lora_rank),
                         ("kv_lora_rank + qk_rope_dim", cfg.kv_lora_rank + cfg.qk_rope_dim)):
@@ -415,8 +493,16 @@ class Plan:
         specs = self.specs(tree) if specs is None else specs
 
         def one(path, t):
-            return local_shard(t, _at(specs, path), self.mesh, self.rep_of(path)).to(
-                device or t.device)
+            spec, rep = _at(specs, path), self.rep_of(path)
+            if isinstance(t, QuantizedTensor):
+                # the payload by the leaf's spec; the scales keep the reduced axis whole
+                ax = t.q.dim() + t.axis if t.axis < 0 else t.axis
+                sspec = tuple(None if i == ax else e for i, e in enumerate(spec))
+                return QuantizedTensor(
+                    k_major(local_shard(t.q, spec, self.mesh, rep).to(device or t.q.device)),
+                    local_shard(t.scale, sspec, self.mesh, rep).to(device or t.scale.device),
+                    t.axis)
+            return local_shard(t, spec, self.mesh, rep).to(device or t.device)
         return _map(one, tree)
 
     def gather(self, tree, specs=None) -> Any:
@@ -599,6 +685,65 @@ def scatter_to_tp(x, dim: int):
     """This rank's block of a replicated tensor along `dim` (its heads'
     columns), whose gradient is all-gathered back."""
     return comm.scatter_to(x, _tp_group(), dim % x.dim())
+
+
+def max_over_tp(x):
+    """An absmax of this rank's columns made the whole row's (or a weight
+    column's over this rank's rows, the whole column's): the MAX over
+    `model`, outside autograd.  A maximum is exact, so int8 codes taken
+    with it are the unsharded run's, bit for bit."""
+    return comm.all_reduce(x, _tp_group(), op="max")
+
+
+class _GatherHeads(torch.autograd.Function):
+    """Every rank's columns along the last dim, all-gathered over `model`,
+    then [lo, hi) of them: the whole heads a rank's slice touches.  The
+    backward reduce-scatters: each rank's gradient for [lo, hi) lands on
+    the ranks whose columns they are, summed."""
+
+    @staticmethod
+    def forward(ctx, x, group, lo, hi):
+        ctx.group, ctx.lo, ctx.hi = group, lo, hi
+        with _halo_listen():
+            whole = comm.all_gather(x, group, x.dim() - 1)
+        ctx.width = whole.shape[-1]
+        return whole[..., lo:hi].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros((*g.shape[:-1], ctx.width))
+        full[..., ctx.lo:ctx.hi] = g
+        with _halo_listen():
+            return comm.reduce_scatter(full, ctx.group, g.dim() - 1), None, None, None
+
+
+_HALO: list = []
+
+
+def _halo_listen():
+    """Inside: the halo gathers' wire bytes go to `halo_census()`'s record."""
+    if not _HALO:
+        return contextlib.nullcontext()
+    rec = _HALO[-1]
+    return comm.listen(lambda kind, n: rec.__setitem__(kind, rec.get(kind, 0.0) + n))
+
+
+@contextlib.contextmanager
+def halo_census():
+    """{kind: wire bytes} of the halo heads' gathers (forward all-gathers,
+    backward reduce-scatters) run inside: a share of `comm.census()`."""
+    rec: dict = {}
+    _HALO.append(rec)
+    try:
+        yield rec
+    finally:
+        _HALO.pop()
+
+
+def gather_heads(x, lo: int, hi: int, hd: int):
+    """Heads [lo, hi) of width hd, whole, from every rank's column slice
+    of the last dim (`_GatherHeads`)."""
+    return _GatherHeads.apply(x, _tp_group(), lo * hd, hi * hd)
 
 
 def sum_over_tp(x):

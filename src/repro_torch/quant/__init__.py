@@ -47,10 +47,15 @@ class QuantizedTensor(NamedTuple):
     axis: int             # axis reduced when computing absmax
 
 
-def quantize_int8(x: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q int8, scale f32 with `axis` kept at size 1), q * scale ~= x."""
+def quantize_int8(x: torch.Tensor, axis: int = -1,
+                  absmax: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, scale f32 with `axis` kept at size 1), q * scale ~= x.
+    `absmax` (f32, `axis` at size 1): the absmax to scale by, where x is a
+    shard of the tensor whose absmax it is (a row-parallel product under
+    tensor parallelism); by default x's own."""
     x = x.float()
-    absmax = x.abs().amax(dim=axis, keepdim=True)
+    if absmax is None:
+        absmax = x.abs().amax(dim=axis, keepdim=True)
     scale = absmax.clamp_min(EPS) * torch.tensor(_INV_INT8_MAX, dtype=torch.float32)
     q = torch.round(x / scale).clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
     return q, scale

@@ -1917,3 +1917,119 @@ def test_ssd_chunk_at_the_shard_shapes(cuda, nh, N):
     want = ssd_chunk_bwd_ref(*ops)
     for g, w, tol in zip(got, want, tolerance.ssd_chunk_bwd_tol(*ops, want)):
         _close(g, w, tol)
+
+
+# --- halo heads and int8 shards: tensor parallelism where heads do not split --------
+#
+# Flash forward and backward at a rank's halo heads (b, sq, skv, a, nkv, d,
+# causal): a data rank's 4096-token training row over qwen1.5-4b's 2 MHA
+# heads of 128 (its spans at 16 x 16) and 3 (at model=8), llama4-maverick's 3
+# query heads over its one replicated KV head (at 16 x 16); whisper-small's 1
+# and 2 heads of 64 (at 16 x 16) over its 1500 frames, non-causal (the
+# encoder), and one decoder token against them (cross-attention at decode).
+HALO_FLASH = [(1, 4096, 4096, 2, 2, 128, True), (1, 4096, 4096, 3, 3, 128, True),
+              (1, 4096, 4096, 3, 1, 128, True), (1, 1500, 1500, 1, 1, 64, False),
+              (1, 1500, 1500, 2, 2, 64, False), (1, 1, 1500, 1, 1, 64, False),
+              (1, 1, 1500, 2, 2, 64, False)]
+
+
+@pytest.mark.parametrize("b,sq,skv,a,nkv,d,causal", HALO_FLASH)
+def test_flash_at_the_halo_head_shapes(cuda, b, sq, skv, a, nkv, d, causal):
+    rng = np.random.default_rng(a * 7 + nkv + sq)
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(rng, bf, cuda, b, sq, skv, a, nkv, d)
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    t_out, t_lse = tolerance.flash_attention_tol(q, k, v, want, causal=causal)
+    _close(out, want[0], t_out)
+    _close(lse, want[1], t_lse)
+    got = flash_attention_bwd(q, k, v, *want, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    gwant = flash_attention_bwd_ref(q, k, v, *want, do, causal=causal)
+    for g, w, t in zip(got, gwant, tolerance.flash_attention_bwd_tol(q, k, v, *want, do, gwant,
+                                                                   causal=causal)):
+        _close(g, w, t)
+
+
+# Paged decode at a rank's halo KV heads (nkv, g, d): qwen1.5-4b's 2 and 3
+# KV heads of 128, llama4's 3 query heads over one KV head, whisper-small's
+# decoder at 1 and 2 heads of 64; 8 rows of up to 2048 tokens over a slot
+# pool and over a block-table pool of 64-token blocks, bf16 and int8 pools
+HALO_PAGED = [(2, 1, 128), (3, 1, 128), (1, 3, 128), (1, 1, 64), (2, 1, 64)]
+HALO_LENGTHS = (2048, 1, 1500, 64, 2047, 700, 1024, 333)
+
+
+def _halo_pools(rng, shape, quant, device):
+    if quant:
+        from repro_torch.quant import quantize_kv
+        (kp, ks), (vp, vs) = (quantize_kv(_rand(rng, shape, torch.float32, device))
+                              for _ in range(2))
+        return kp, vp, dict(k_scale=ks, v_scale=vs)
+    return (_rand(rng, shape, torch.bfloat16, device), _rand(rng, shape, torch.bfloat16, device),
+            {})
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nkv,g,d", HALO_PAGED)
+def test_paged_decode_at_the_halo_head_shapes(cuda, quant, nkv, g, d):
+    from repro_torch.kernels.flash_attention.ops import paged_decode_blocktable
+    from repro_torch.kernels.flash_attention.ref import paged_decode_blocktable_ref
+    rng = np.random.default_rng(nkv * 11 + g + d)
+    b, s_max, bs = len(HALO_LENGTHS), max(HALO_LENGTHS), 64
+    q = _rand(rng, (b, nkv * g, d), torch.bfloat16, cuda)
+    lengths = torch.tensor(HALO_LENGTHS, dtype=torch.int32, device=cuda)
+    kp, vp, sc = _halo_pools(rng, (b, s_max, nkv, d), quant, cuda)
+    _check_slot(q, kp, vp, torch.arange(b, dtype=torch.int32, device=cuda).flip(0), lengths, sc)
+    need = [-(-n // bs) for n in HALO_LENGTHS]
+    nb = sum(need)
+    ids = rng.permutation(nb).astype(np.int32)
+    tables = np.zeros((b, max(need)), np.int32)
+    at = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = ids[at:at + n]
+        at += n
+    tables = torch.from_numpy(tables).to(cuda)
+    kp, vp, sc = _halo_pools(rng, (nb, bs, nkv, d), quant, cuda)
+    counter = "int8_launches" if quant else "launches"
+    before = getattr(paged_decode_blocktable, counter)
+    got = paged_decode_blocktable(q, kp, vp, tables, lengths, **sc)
+    torch.cuda.synchronize()
+    assert getattr(paged_decode_blocktable, counter) == before + 1
+    want = paged_decode_blocktable_ref(q, kp, vp, tables, lengths, **sc)
+    _close(got, want, tolerance.paged_decode_blocktable_tol(q, kp, vp, tables, lengths, want,
+                                                             **sc))
+
+
+# The int8 GEMM at internlm2-1.8b's model=2 shards (a decode step's 64 rows
+# and a 4096-row prefill): wq 2048 -> 1024, wk / wv 2048 -> 512 (column
+# shards), wo 1024 -> 2048 and w_down 4096 -> 2048 (row shards, whose
+# operands carry the whole fan-in's scales); the int8 fused MLP at its
+# SwiGLU shard, 2048 -> 2 x 4096
+@pytest.mark.parametrize("m", [64, 4096])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (2048, 512), (1024, 2048), (4096, 2048)])
+def test_int8_matmul_at_the_shard_shapes(cuda, m, k, n):
+    from repro_torch.kernels.quantized.ops import int8_matmul, int8_matmul_q
+    from repro_torch.kernels.quantized.ref import int8_matmul_ref
+    a_q, a_s, [(b_q, b_s)] = _int8_operands(np.random.default_rng(m + k + n), m, k, n, cuda)
+    before = (int8_matmul.launches, int8_matmul.relayouts)
+    got = int8_matmul_q(a_q, a_s, b_q, b_s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (int8_matmul.launches, int8_matmul.relayouts) == (before[0] + 1, before[1])
+    assert torch.equal(got, int8_matmul_ref(a_q, a_s, b_q, b_s, torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [64, 4096])
+def test_int8_fused_mlp_at_the_shard_shape(cuda, m):
+    from repro_torch.kernels.quantized.ops import int8_fused_mlp_hidden, int8_fused_mlp_q
+    from repro_torch.kernels.quantized.ref import int8_fused_mlp_ref
+    x_q, x_s, [(g_q, g_s), (u_q, u_s)] = _int8_operands(np.random.default_rng(m), m, 2048, 4096,
+                                                        cuda, gated=True)
+    before = int8_fused_mlp_hidden.launches
+    got = int8_fused_mlp_q(x_q, x_s, g_q, g_s, u_q, u_s, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert int8_fused_mlp_hidden.launches == before + 1
+    want = int8_fused_mlp_ref(x_q, x_s, g_q, g_s, u_q, u_s, out_dtype=torch.bfloat16)
+    _close(got, want, tolerance.int8_fused_mlp_tol(x_q, x_s, g_q, g_s, u_q, u_s, "swiglu", want))

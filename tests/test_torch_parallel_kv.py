@@ -65,8 +65,19 @@ def test_production_mesh_takes_the_arch(arch):
 
 @pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_production_mesh_refuses_heads_that_do_not_split(arch):
-    with pytest.raises(ValueError, match=rf"num_heads {REFUSED[arch]} % model 16"):
-        sh.check_supported(get_config(arch), production_mesh_config())
+    """The refusal is lifted: query heads that do not split over 16 run as
+    halo heads.  validate_divisibility still lists the head count (JAX's
+    warning); the plan takes the arch, every rank's span is a halo, and
+    llama4's 40 / 8 keeps its KV heads replicated."""
+    cfg = get_config(arch)
+    assert cfg.num_heads == REFUSED[arch]
+    mesh_cfg = production_mesh_config()
+    sh.check_supported(cfg, mesh_cfg)
+    assert f"num_heads {REFUSED[arch]} % tp 16 != 0" in sh.validate_divisibility(
+        cfg, mesh_cfg, mesh_cfg.dp)
+    plan = sh.Plan(cfg, Mesh(mesh_cfg))
+    assert plan.kv_rep == (2 if cfg.num_kv_heads == 8 else 1)
+    assert all(sh.head_span(cfg, 16, r).halo for r in range(16))
 
 
 def test_only_the_plans_replica_group_is_made():

@@ -437,11 +437,11 @@ def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd
     """--data / --model are ported for every family: deepseek-smoke (MLA,
     MoE, MTP) at --model 2 and mamba2-smoke at --data 2 --model 2 run over
     gloo, as internlm2-smoke at --data 2 does, and internlm2-smoke at
-    --model 4, whose 2 KV heads are replicated over 4 ranks.  What tensor
-    parallelism still refuses, before any rank starts, is query heads that
-    do not split over `model` (internlm2-smoke's 4 over --model 3, named);
-    int8 weights, its other refusal, have no launcher flag
-    (test_torch_models.py::test_unported_paths_raise holds it)."""
+    --model 4, whose 2 KV heads are replicated over 4 ranks.  Query heads
+    that do not split over `model` run as halo heads, the head count printed
+    as a warning (internlm2-smoke's 4 over --model 8: half a head's columns
+    a rank); what tensor parallelism still refuses, before any rank starts,
+    is widths that do not split (--model 3: d_ff 256, the q columns)."""
     from repro_torch.launch import train
     base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1", "--global-batch", "2",
             "--seq-len", "8", "--checkpoint-dir", str(tmp_path)]
@@ -451,7 +451,12 @@ def test_train_launcher_refuses_unported_flags(argv, slice_name, tmp_path, capfd
     if "--data" in argv and "--model" not in argv:
         train.main([*base, "--model", "4"])
         assert "done: 4 ranks over gloo" in capfd.readouterr().out
-    with pytest.raises(ValueError, match=r"num_heads 4 % model 3 != 0.*mid-head"):
+    if "--data" in argv and "--model" not in argv:
+        train.main([*base, "--model", "8"])
+        out = capfd.readouterr().out
+        assert "[warn] num_heads 4 % tp 8 != 0: halo heads" in out
+        assert "done: 8 ranks over gloo" in out
+    with pytest.raises(ValueError, match=r"d_ff 256 % tp 3 != 0.*q columns 64 % tp 3 != 0"):
         train.main([*base, "--model", "3"])
 
 
