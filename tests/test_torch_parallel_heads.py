@@ -24,9 +24,10 @@ holding its touched KV heads as JAX's cache holds them) and trained 2 AdamW
 steps (the losses and every param within 1e-4, every gradient leaf of step
 0 within 1e-4 of JAX's relative to the leaf's largest entry), at model=4
 or (data 1, model 4) and, for the odd head counts, model=2 or (data 2,
-model 2); qwen1.5 also under `seq_parallel`.  The planted faults (the halo
-gather's backward left unsummed; each rank gathering its neighbour's head)
-must each break their bound.
+model 2); qwen1.5 also under `seq_parallel`, and its (2, 2) checkpoint
+restored at model=1.  The planted faults (the halo gather's backward left
+unsummed; each rank gathering its neighbour's head) must each break their
+bound.
 """
 import dataclasses
 import functools
@@ -64,6 +65,7 @@ VARIANTS = {"qwen": ("qwen1.5-4b", dict(num_heads=5, num_kv_heads=5)),
             "whisper": ("whisper-small", dict(num_heads=6, num_kv_heads=6)),
             "gqa": ("internlm2-1.8b", dict(num_heads=6, num_kv_heads=3))}
 HALO, NEIGHBOUR = "halo_grad_unsummed", "neighbour_head"
+CHECKPOINTED = "train/qwen/2x2"       # saved at (2, 2), restored at model=1
 # name: (variant, seq_parallel, data, model, planted faults)
 SERVES = {"serve/qwen/model4": ("qwen", False, 1, 4, [NEIGHBOUR]),
           "serve/qwen/model2": ("qwen", False, 1, 2, []),
@@ -173,8 +175,13 @@ def _jobs(root):
             job.update(case="serve", decode=N_DEC, fsdp=False)
         else:
             job.update(case="train", steps=STEPS, total_steps=4, grad_clip=1.0, seq=SEQ,
-                       batch=BATCH, optimizer="adamw", grads=True)
+                       batch=BATCH, optimizer="adamw", grads=True,
+                       checkpoint=name == CHECKPOINTED)
         jobs[name] = job
+    d = root / "restore"
+    d.mkdir()
+    jobs["restore"] = dict(jobs[CHECKPOINTED], case="restore", dir=str(d), data=1, model=1,
+                           ckpt=str(root / CHECKPOINTED / "ckpt"), faults=[])
     return jobs
 
 
@@ -189,7 +196,7 @@ def runs(tmp_path_factory):
     for name, (variant, sp, *_) in {**SERVES, **TRAINS}.items():
         refs[name] = (_jax_serve if name in SERVES else _jax_train)(variant, sp)
     outs = finish_suite(proc, list(jobs.values()), timeout=400)
-    return {name: (refs[name], out) for name, out in zip(jobs, outs)}
+    return {name: (refs.get(name), out) for name, out in zip(jobs, outs)}
 
 
 def _serve_gap(ref, out, key=""):
@@ -318,6 +325,16 @@ def test_train_matches_jax(runs, job):
     to the leaf's largest entry."""
     ref, out = runs[job]
     assert _train_gap(ref, out) <= TOL
+
+
+def test_halo_checkpoint_restores_at_model1(runs):
+    """The (2, 2) run's checkpoint (FSDP and halo heads' mid-head column
+    slices) restored at model=1: every leaf equal to what the mesh held,
+    gathered; the update count restored."""
+    trained, out = runs[CHECKPOINTED][1], runs["restore"][1]
+    assert int(out["step"]) == STEPS and int(out["opt_step"]) == STEPS
+    for path in runs[CHECKPOINTED][0]["params"]:
+        np.testing.assert_array_equal(out[f"restored/{path}"], trained[f"params/{path}"])
 
 
 @pytest.mark.parametrize("job,fault", [(j, f) for j, v in {**SERVES, **TRAINS}.items()
