@@ -6943,7 +6943,7 @@ def _grads_not_summed_over_data():
     from repro_torch.parallel import comm
     from repro_torch.parallel import sharding as sh
 
-    def local(t, group, dim):
+    def local(t, group, dim, kind=None):
         return t.chunk(comm.size(group), dim=dim)[comm.rank(group)].contiguous()
     with _patched(sh.Plan, "reduce_grads", lambda real: lambda self, g, s: g), \
             _patched(comm, "reduce_scatter", lambda real: local):
@@ -7227,30 +7227,28 @@ def _halo_grad_unsummed():
     """Fault: the halo gather's backward keeps each rank's own gradient for
     its columns (the partials of the other ranks that computed its heads
     never summed in)."""
-    from repro_torch.parallel import comm
+    from repro_torch.parallel import audit
     from repro_torch.parallel import sharding as sh
-    return _patched(sh, "gather_heads", lambda real: lambda x, lo, hi, hd: comm.gather_from(
-        x, sh._tp_group(), x.dim() - 1)[..., lo * hd:hi * hd].contiguous())
+    return _patched(sh, "gather_heads", lambda real: audit.halo_grad_unsummed)
 
 
-def _neighbour_head(torch):
+def _neighbour_head():
     """Fault: each rank gathers its neighbour's heads (the columns one head
     to the right, wrapping) in place of its own."""
-    from repro_torch.parallel import comm
+    from repro_torch.parallel import audit
     from repro_torch.parallel import sharding as sh
-    return _patched(sh, "gather_heads", lambda real: lambda x, lo, hi, hd: torch.roll(
-        comm.fsdp_gather(x, sh._tp_group(), x.dim() - 1), -hd,
-        dims=-1)[..., lo * hd:hi * hd].contiguous())
+    return _patched(sh, "gather_heads", lambda real: audit.neighbour_head)
 
 
 def _par_heads(torch, rank, dev, tmp) -> None:
     """Halo heads (HALO_SMOKE): each variant served at model=4 (prefill 4 x
     64 + 4 decode steps through the paged-decode kernel; whisper's encoder
-    and cross-attention through flash) and step 0 at (1, 4) through flash
-    and its backward, against the unsharded run on rank 0 within
-    PAR_SMOKE_REL_BOUND; qwen1.5 also at model=2 and at (2, 2) (2.5 heads a
-    rank).  Planted faults: the halo gradient left unsummed, and a rank
-    gathering its neighbour's head.  No registered full-width config has
+    and cross-attention through flash) and step 0 at (1, 4) and (2, 2)
+    through flash and its backward, against the unsharded run on rank 0
+    within PAR_SMOKE_REL_BOUND; qwen1.5 also served at model=2 (2.5 heads a
+    rank; llama4's 10 and whisper's 6 heads split evenly over 2).  Planted
+    faults, where the mesh makes halo heads: the halo gradient left
+    unsummed, and a rank gathering its neighbour's head.  No registered full-width config has
     heads that fail to split over 2 or 4 ranks with d_model split too, so
     full-width halo heads run as the card tests' per-shard kernel shapes
     (`halo_kernel_shapes`) and in the dry run."""
@@ -7260,7 +7258,7 @@ def _par_heads(torch, rank, dev, tmp) -> None:
     serve_need = ("matmul", "fused_mlp_hidden")
     train_need = ("matmul", "fused_mlp_hidden", "fused_mlp_bwd", "flash_attention",
                   "flash_attention_bwd")
-    neighbour = ("a rank gathering its neighbour's head", lambda: _neighbour_head(torch))
+    neighbour = ("a rank gathering its neighbour's head", _neighbour_head)
     unsummed = ("the halo gradient left unsummed", _halo_grad_unsummed)
     for arch, patch in HALO_SMOKE:
         base = dataclasses.replace(get_smoke_config(arch), linear_impl="fused", **patch)
@@ -7279,61 +7277,34 @@ def _par_heads(torch, rank, dev, tmp) -> None:
             torch.distributed.barrier()
         tcfg = dataclasses.replace(base, attn_impl="flash")
         tbatch = _family_batch(torch, tcfg, 64, 4, dev, kind="train")
-        for mesh_cfg in ((MeshConfig(data=1, model=4), MeshConfig(data=2, model=2))
-                         if arch == "qwen1.5-4b" else (MeshConfig(data=1, model=4),)):
-            faults = [unsummed] + ([neighbour] if arch == "qwen1.5-4b" else [])
+        for mesh_cfg in (MeshConfig(data=1, model=4), MeshConfig(data=2, model=2)):
+            # the faults where the heads are halo heads at this mesh
+            halo = sh.head_span(base, mesh_cfg.model, 0).halo
+            faults = ([unsummed] if halo else []) + \
+                ([neighbour] if halo and arch == "qwen1.5-4b" and mesh_cfg.model == 4 else [])
             _par_family_train(torch, rank, dev, f"parallel heads train {arch}", tcfg, tbatch,
-                              PAR_SMOKE_REL_BOUND, train_need,
-                              faults if mesh_cfg.model == 4 else [unsummed], mesh_cfg=mesh_cfg)
+                              PAR_SMOKE_REL_BOUND, train_need, faults, mesh_cfg=mesh_cfg)
             torch.distributed.barrier()
 
 
-@contextlib.contextmanager
-def _row_codes(torch, record):
-    """Every row-parallel int8 product (`models/linear.py` `_row_int8`)
-    checked against the unsharded quantization of the same operands: the
-    activation's and a per-call weight's int8 codes and f32 scales,
-    gathered over `model`, against `quantize_int8` of the gathered operand;
-    record gets each call's count of unequal codes and scales (0: bit for
-    bit)."""
+def _int8_fault(name: str, fn: str):
+    """Fault: `models/linear.py`'s `name` replaced by `parallel/audit.py`'s
+    `fn` (a row-parallel int8 product's scale or codes taken wrongly)."""
     from repro_torch.models import linear as linear_mod
-    from repro_torch.parallel import comm
-    from repro_torch.parallel import sharding as sh
-    from repro_torch.quant import QuantizedTensor, quantize_int8
-    real_row, real_q, seen = linear_mod._row_int8, linear_mod.int8_matmul_q, {}
-
-    def q(a_q, a_scale, b_q, b_scale, *args, **kw):
-        seen.update(a_q=a_q, a_scale=a_scale, b_q=b_q, b_scale=b_scale)
-        return real_q(a_q, a_scale, b_q, b_scale, *args, **kw)
-
-    def row(x2, w):
-        out = real_row(x2, w)
-        group = sh._tp_group()
-        want_q, want_s = quantize_int8(comm.all_gather(x2.detach(), group, 1), -1)
-        bad = int((comm.all_gather(seen["a_q"], group, 1) != want_q).sum().item())
-        bad += int((seen["a_scale"] != want_s).sum().item())
-        if not isinstance(w, QuantizedTensor):
-            want_q, want_s = quantize_int8(comm.all_gather(w.detach(), group, 0), -2)
-            got = comm.all_gather(seen["b_q"].contiguous(), group, 0)
-            bad += int((got != want_q).sum().item())
-            bad += int((seen["b_scale"].reshape(want_s.shape) != want_s).sum().item())
-        record.append(bad)
-        return out
-    linear_mod._row_int8, linear_mod.int8_matmul_q = row, q
-    try:
-        yield
-    finally:
-        linear_mod._row_int8, linear_mod.int8_matmul_q = real_row, real_q
+    from repro_torch.parallel import audit
+    return _patched(linear_mod, name, lambda real: getattr(audit, fn))
 
 
-def _scale_unreduced(which: str):
-    """Fault: a row-parallel int8 product's activation ("activation") or
-    per-call weight ("weight") absmax over this rank's columns / rows only,
-    its MAX over `model` dropped."""
-    from repro_torch.models import linear as linear_mod
-    dim = -1 if which == "activation" else -2
-    return _patched(linear_mod, f"row_{which}_absmax",
-                    lambda real: lambda t: t.float().abs().amax(dim=dim, keepdim=True))
+def _codes_moved(torch, got, want) -> list:
+    """Per row-parallel product, (codes that differ, codes, the largest
+    difference in int8 steps, row scales that differ) between two runs'
+    `audit.row_codes` records."""
+    out = []
+    for (gq, gs), (wq, ws) in zip(got, want):
+        d = (gq.to(torch.int16) - wq.to(torch.int16)).abs()
+        out.append((int((d > 0).sum().item()), d.numel(), int(d.max().item()),
+                    int((gs != ws).sum().item())))
+    return out
 
 
 def _par_int8(torch, rank, dev, tmp) -> None:
@@ -7341,17 +7312,30 @@ def _par_int8(torch, rank, dev, tmp) -> None:
     PAR_LAYERS layers, `linear_impl="quantized"`, bf16.  Served with
     `quantize_linear_params` weights at model=2 and model=4 (prefill 4 x
     1024 + PAR_DECODE decode steps through the int8 GEMM, the int8 fused
-    MLP and paged decode) against the unsharded int8 run on rank 0, every
-    row-parallel product's int8 codes and scales equal to the unsharded
-    quantization of its gathered operands, bit for bit (`_row_codes`); step
-    0 at (2, 2) on float weights quantized per call (activation and weight
-    codes the same way; gradients straight-through) against the unsharded
-    step.  Planted faults: the activation scale's MAX over `model` dropped
-    (model=2 serve), the weight scale's (the (2, 2) step's forward)."""
+    MLP and paged decode) against the unsharded int8 run on rank 0:
+      * layer 0's wo codes and row scales (gathered over `model`) equal the
+        unsharded run's bit for bit: its input is computed alike on both
+        (int32 sums in the column-parallel GEMMs, whole heads), and the
+        MAX over `model` is exact;
+      * every row-parallel product's codes and scales equal the
+        quantization of its own gathered operands (`audit.row_codes`);
+        from layer 0's first `tp_exit` on, the operands differ from the
+        unsharded run's by the bf16 rounding of each rank's partial sum,
+        which moves some codes by one step: the script prints how many,
+        product by product (the logits' gap from the unsharded run);
+      * the logits within LOGITS_REL_BOUND.
+    Step 0 at (2, 2) on float weights quantized per call (activation and
+    weight codes held the same way; gradients straight-through) against
+    the unsharded step.  Planted faults: the activation scale's MAX over
+    `model` dropped (model=2 serve: layer 0's codes leave the unsharded
+    run's), the codes taken at the shard's absmax under the MAX's scale
+    (model=2 serve: the logits leave LOGITS_REL_BOUND), the weight scale's
+    MAX dropped (the (2, 2) step's forward)."""
     from repro_torch.configs.base import MeshConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_lm, lm_loss
     from repro_torch.models.linear import quantize_linear_params
+    from repro_torch.parallel import audit
     from repro_torch.parallel import sharding as sh
     cfg = _internlm2_cut(linear_impl="quantized", attn_impl="paged")
     batch = _family_batch(torch, cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
@@ -7361,6 +7345,13 @@ def _par_int8(torch, rank, dev, tmp) -> None:
     gen = torch.Generator(device=dev).manual_seed(14)
     forced = torch.randint(0, V, (TRAIN_BATCH, PAR_DECODE), generator=gen, device=dev,
                            dtype=torch.int32)
+    per_step = 2 * cfg.num_layers            # wo and w_down in each layer
+    want_calls = per_step * (1 + PAR_DECODE)
+
+    def product(i: int) -> str:
+        step = "prefill" if i < per_step else f"decode {i // per_step}"
+        return f"layer {i % per_step // 2} {('wo', 'w_down')[i % 2]} ({step})"
+
     for model in (2, 4):
         mesh = make_mesh(MeshConfig(model=model), ranks=list(range(model)),
                          kv_rep=sh.kv_replication(cfg, model))
@@ -7374,8 +7365,7 @@ def _par_int8(torch, rank, dev, tmp) -> None:
         if rank:
             del full
             torch.cuda.empty_cache()
-        codes = []
-        with _row_codes(torch, codes):
+        with audit.row_codes(keep=None) as codes:
             (got, _), wall, counts = _counted(
                 torch, lambda: _family_logits(torch, local, cfg, batch, forced, plan))
         _rank_line(rank, f"parallel int8 serve (model={model}) prefill {TRAIN_BATCH} x "
@@ -7386,55 +7376,84 @@ def _par_int8(torch, rank, dev, tmp) -> None:
                 fail(f"parallel int8 serve rank {rank}: no {name} launch")
         if counts.get("matmul") or counts.get("fused_mlp_hidden"):
             fail(f"parallel int8 serve rank {rank}: a bf16 GEMM launched on the int8 path")
-        want_calls = 2 * cfg.num_layers * (1 + PAR_DECODE)
-        if len(codes) != want_calls or sum(codes):
-            fail(f"parallel int8 serve rank {rank}: {sum(codes)} unequal codes or scales over "
-                 f"{len(codes)} row-parallel products (want 0 over {want_calls})")
+        if len(codes.unequal) != want_calls or sum(codes.unequal):
+            fail(f"parallel int8 serve rank {rank}: {sum(codes.unequal)} codes or scales "
+                 f"unequal to their gathered operands' quantization over "
+                 f"{len(codes.unequal)} row-parallel products (want 0 over {want_calls})")
         if rank == 0:
-            want, _ = _family_logits(torch, full, cfg, batch, forced)
+            with audit.row_codes(keep=None) as ref:
+                want, _ = _family_logits(torch, full, cfg, batch, forced)
             rel = _rel(got[..., :V], want[..., :V])
+            moved = _codes_moved(torch, codes.codes, ref.codes)
             print(f"  parallel int8 serve: model={model}, logits rel err {rel:.3e} vs the "
-                  f"unsharded int8 run (bound {LOGITS_REL_BOUND}); {len(codes)} row-parallel "
-                  f"products' activation codes and scales equal the unsharded quantization's "
-                  f"bit for bit", flush=True)
+                  f"unsharded int8 run (bound {LOGITS_REL_BOUND}); {len(codes.unequal)} "
+                  f"row-parallel products' codes and scales equal their gathered operands' "
+                  f"quantization; against the unsharded run's codes:", flush=True)
+            for i, (n, size, most, scales) in enumerate(moved):
+                if i < per_step or i == len(moved) - 1:
+                    print(f"    {product(i)}: {n} of {size} codes moved ({n / size:.3e}), at "
+                          f"most {most} step(s); {scales} row scales differ", flush=True)
+            if moved[0][0] or moved[0][3]:
+                fail(f"parallel int8 serve: layer 0's wo codes differ from the unsharded "
+                     f"run's ({moved[0][0]} codes, {moved[0][3]} scales)")
             if not (bool(torch.isfinite(got).all().item()) and rel <= LOGITS_REL_BOUND):
                 fail("parallel int8 serve: sharded logits differ from the unsharded int8 run's")
-            del want, full
         if model == 2:
-            bad = []
-            with _scale_unreduced("activation"), _row_codes(torch, bad):
+            with _int8_fault("row_activation_absmax", "activation_absmax_unreduced"), \
+                    audit.row_codes(keep=1) as bad:
                 _family_logits(torch, local, cfg, batch, forced[:, :1], plan)
             _say(rank, f"    fault: the activation scale's MAX over model dropped: "
-                       f"{sum(bad)} unequal codes or scales over {len(bad)} products")
-            if not sum(bad):
+                       f"{sum(bad.unequal)} codes or scales unequal over {len(bad.unequal)} "
+                       f"products")
+            if not sum(bad.unequal):
                 fail("parallel int8 serve: the codes check does not see the activation "
                      "scale's dropped MAX")
-        del local, got
+            if rank == 0:
+                n, _, _, scales = _codes_moved(torch, bad.codes, ref.codes[:1])[0]
+                print(f"    ... layer 0's wo against the unsharded run's: {n} codes, {scales} "
+                      f"row scales differ", flush=True)
+                if not (n or scales):
+                    fail("parallel int8 serve: the unsharded codes check does not see the "
+                         "activation scale's dropped MAX")
+            with _int8_fault("quantize_int8", "codes_at_shard_absmax"):
+                (bad_logits, _) = _family_logits(torch, local, cfg, batch, forced, plan)
+            if rank == 0:
+                rel_bad = _rel(bad_logits[..., :V], want[..., :V])
+                print(f"    fault: the codes taken at the shard's absmax, the scale the MAX "
+                      f"over model: logits rel err {rel_bad:.3e} (bound {LOGITS_REL_BOUND})",
+                      flush=True)
+                if rel_bad <= LOGITS_REL_BOUND:
+                    fail("parallel int8 serve: the logits bound does not see codes taken at "
+                         "the shard's absmax")
+            del bad, bad_logits
+        if rank == 0:
+            del want, full, ref
+        del local, got, codes
         torch.cuda.empty_cache()
         torch.distributed.barrier()
     tcfg = dataclasses.replace(cfg, attn_impl="flash")
     tbatch = _family_batch(torch, tcfg, TRAIN_SEQ, TRAIN_BATCH, dev, kind="train")
-    codes = []
-    with _row_codes(torch, codes):
+    with audit.row_codes() as codes:
         _par_family_train(torch, rank, dev, "parallel int8 train", tcfg, tbatch,
                           TRAIN_GRAD_REL_BOUND, ("int8_matmul", "int8_fused_mlp_hidden",
                                                  "matmul", "flash_attention",
                                                  "flash_attention_bwd"), [])
-    _rank_line(rank, f"parallel int8 train: {len(codes)} row-parallel products, {sum(codes)} "
-                     f"unequal codes or scales (activation and weight)")
-    if not codes or sum(codes):
-        fail(f"parallel int8 train rank {rank}: row-parallel codes differ from the unsharded "
-             f"quantization's")
+    _rank_line(rank, f"parallel int8 train: {len(codes.unequal)} row-parallel products, "
+                     f"{sum(codes.unequal)} codes or scales (activation and weight) unequal to "
+                     f"their gathered operands' quantization")
+    if not codes.unequal or sum(codes.unequal):
+        fail(f"parallel int8 train rank {rank}: row-parallel codes differ from the "
+             f"quantization of their gathered operands")
     mesh = make_mesh(MeshConfig(data=2, model=2))
     plan = sh.Plan(tcfg, mesh)
     local = plan.shard(init_lm(torch.Generator(device=dev).manual_seed(0), tcfg, device=dev,
                                dtype=torch.float32))
-    bad = []
-    with _scale_unreduced("weight"), _row_codes(torch, bad), torch.no_grad(), sh.use(plan):
+    with _int8_fault("row_weight_absmax", "weight_absmax_unreduced"), \
+            audit.row_codes() as bad, torch.no_grad(), sh.use(plan):
         lm_loss(local, plan.batch_rows(tbatch), tcfg)
-    _say(rank, f"    fault: the weight scale's MAX over model dropped: {sum(bad)} unequal codes "
-               f"or scales over {len(bad)} products")
-    if not sum(bad):
+    _say(rank, f"    fault: the weight scale's MAX over model dropped: {sum(bad.unequal)} "
+               f"codes or scales unequal over {len(bad.unequal)} products")
+    if not sum(bad.unequal):
         fail("parallel int8 train: the codes check does not see the weight scale's dropped MAX")
     del local
     torch.cuda.empty_cache()

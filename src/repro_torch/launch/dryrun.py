@@ -48,6 +48,7 @@ from ..configs.base import SHAPES, MeshConfig, ModelConfig, ShapeConfig, TrainCo
 from ..configs.registry import get_config
 from ..core import advisor, op_analysis, roofline
 from ..core.hardware import get_hardware
+from ..parallel import comm
 from ..parallel import sharding as sh
 from ..serving.serve_step import make_decode_step, make_prefill_step
 from ..train.train_step import make_train_step
@@ -143,16 +144,14 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
         args = tree_bytes(params) + tree_bytes(opt) + tree_bytes(batch) * rows // \
             batch["tokens"].shape[0]
         step = make_train_step(cfg, tc, n_micro=n_micro, plan=plan)
-        with op_analysis.count(trace_one=True) as counter, sh.halo_census() as halo:
+        with op_analysis.count(trace_one=True) as counter:
             step(params, opt, batch)
-        # the halo gathers run in the microbatch body, traced once
-        halo = {k: v * n_micro for k, v in halo.items()}
         counter.counts.loops.setdefault("microbatch", n_micro)
         meta.update(n_micro=n_micro, optimizer=tc.optimizer, flops_mult=3.0)
     else:
         params = param_structs(cfg, dtype=torch.bfloat16, plan=plan)
         ins = input_specs(cfg, shape, plan, rows=rows)
-        with torch.no_grad(), sh.halo_census() as halo:
+        with torch.no_grad():
             if shape.mode == "prefill":
                 step = make_prefill_step(cfg, shape.seq_len, plan)
                 args = tree_bytes(params) + tree_bytes(ins)
@@ -170,21 +169,23 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool = False,
                     step(params, ins["token"], ins["caches"], ins["index"], enc)
         meta.update(flops_mult=1.0)
     meta["argument_bytes"] = args
-    meta["halo"] = halo_row(cfg, mesh_cfg.model, rank, halo)
+    meta["halo"] = halo_row(cfg, mesh_cfg.model, rank, counter.counts.coll)
     return counter, meta
 
 
-def halo_row(cfg: ModelConfig, t: int, rank: int, gathered: dict) -> Optional[dict]:
+def halo_row(cfg: ModelConfig, t: int, rank: int, coll: dict) -> Optional[dict]:
     """Halo heads at `model` = t (None where the heads split): rank's query
     heads computed and its own share of them (num_heads / t), their ratio
     (the factor on its attention FLOPs) and the mean ratio over the t
-    ranks, and the halo gathers' wire bytes by kind."""
+    ranks, and the halo gathers' wire bytes by JAX kind (from the census's
+    `coll`, under `comm.HALO_KINDS`)."""
     if cfg.attn_type != "gqa" or not cfg.num_heads or t == 1 \
             or not sh.head_span(cfg, t, rank).halo:
         return None
     own = cfg.num_heads / t
     heads = [sh.head_span(cfg, t, r).q for r in range(t)]
     h0, h1 = heads[rank]
+    gathered = {base: coll.get(kind, 0.0) for kind, base in comm.HALO_KINDS.items()}
     return {"heads": h1 - h0, "own_heads": own, "flops_factor": (h1 - h0) / own,
             "mean_flops_factor": sum(b - a for a, b in heads) / t / own,
             "gather_bytes": gathered, "gather_total": sum(gathered.values())}
@@ -214,6 +215,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         mem_row = {"argument_bytes": meta["argument_bytes"],
                    "peak_bytes": meta["argument_bytes"] + counter.peak_bytes}
         coll = {k: counts.coll.get(k, 0.0) for k in op_analysis.COLLECTIVES}
+        for kind, base in comm.HALO_KINDS.items():
+            coll[base] += counts.coll.get(kind, 0.0)
         coll["total"] = sum(coll.values())
         rep = roofline.build_report(
             arch, shape_name, mesh_name, meta["num_chips"], counts.flops, counts.bytes, coll,

@@ -131,11 +131,9 @@ def main(argv=None):
     # refuse what the plan does not cover before any rank starts; query
     # heads that do not split over `model` run as halo heads (a warning)
     sh.check_supported(cfg, mesh_cfg)
-    errs = sh.validate_divisibility(cfg, mesh_cfg, shape.global_batch)
-    for e in errs:
-        if e.startswith(sh.HEADS_ENTRY):
-            print(f"[warn] {e}: halo heads (each rank computes the heads its columns touch)")
-    errs = [e for e in errs if not e.startswith(sh.HEADS_ENTRY)]
+    errs, warns = sh.divisibility(cfg, mesh_cfg, shape.global_batch)
+    for w in warns:
+        print(f"[warn] {w}: halo heads (each rank computes the heads its columns touch)")
     if errs:
         raise ValueError(f"{cfg.name} on mesh {mesh_cfg.data} x {mesh_cfg.model}: "
                          + "; ".join(errs))

@@ -129,24 +129,23 @@ def products_as_ops():
         _PRODUCTS_AS_OPS = before
 
 
-class _QuantizedLinear(_Linear):
+class _QuantizedLinear(torch.autograd.Function):
     """JAX's `_quantized_linear` (models/linear.py:100-123): the int8 GEMM
-    forward on a float weight; `_Linear`'s dgrad and wgrad on the tile GEMM
-    (straight-through)."""
+    forward on a float weight (a row-parallel product's under tensor
+    parallelism with its scales over `model`: `_int8`); `_Linear`'s dgrad
+    and wgrad on the tile GEMM (straight-through), on the rank's shard."""
 
     @staticmethod
-    def forward(x2, w, tuned):
-        return int8_matmul(x2, w, tuned=tuned)
-
-
-class _QuantizedRowLinear(_Linear):
-    """`_QuantizedLinear` of a row-parallel product under tensor
-    parallelism: the int8 forward with the scales taken over `model`
-    (`_row_int8`); `_Linear`'s dgrad and wgrad on the rank's shard."""
+    def forward(x2, w, row):
+        return _int8(x2, w, row)
 
     @staticmethod
-    def forward(x2, w, tuned):
-        return _row_int8(x2, w)
+    def setup_context(ctx, inputs, output):
+        x2, w, _ = inputs
+        ctx.tuned = True
+        ctx.save_for_backward(x2, w)
+
+    backward = staticmethod(_linear_backward)
 
 
 class _QuantizedLinearFrozen(torch.autograd.Function):
@@ -201,9 +200,9 @@ def _row_int8(x2, w):
 
 
 def _int8(x2, w, row: bool):
-    """The int8 product of x2 and w: a row-parallel one (`row`) with its
-    scales over `model`."""
-    return _row_int8(x2, w) if row else int8_matmul(x2, w, tuned=True)
+    """The int8 product of x2 and w; a row-parallel one (`row`) under tensor
+    parallelism with its scales over `model`."""
+    return _row_int8(x2, w) if row and sh.tp_size() > 1 else int8_matmul(x2, w, tuned=True)
 
 
 def _grad_recorded(*tensors) -> bool:
@@ -218,8 +217,7 @@ def _quantized_linear(x, w, row: bool):
                if _grad_recorded(x) else _int8(x2, w, row))
         return out.reshape(*lead, w.q.shape[-1])
     w = w.to(x.dtype)
-    fn = _QuantizedRowLinear if row else _QuantizedLinear
-    out = fn.apply(x2, w, True) if _grad_recorded(x, w) else _int8(x2, w, row)
+    out = _QuantizedLinear.apply(x2, w, row) if _grad_recorded(x, w) else _int8(x2, w, row)
     return out.reshape(*lead, w.shape[-1])
 
 
@@ -231,7 +229,7 @@ def linear(x, w, *, impl: str = "jnp", row: bool = False):
     over `model` (`_row_int8`)."""
     _check_impl(impl)
     if impl == "quantized":
-        return _quantized_linear(x, w, row and sh.tp_size() > 1)
+        return _quantized_linear(x, w, row)
     w = w.to(x.dtype)
     if impl == "jnp":
         return x @ w

@@ -32,7 +32,9 @@ the wire to its kind (JAX's HLO names: "all-reduce", "all-gather",
 output buffer in the wire's dtype (float32 for a widened sum), as the JAX
 package's HLO walk counts output-shape bytes.  A gloo reduce-scatter, run
 as an all-reduce and a slice, counts as one reduce-scatter of the slice,
-so gloo, NCCL and the dry run's virtual groups agree.
+so gloo, NCCL and the dry run's virtual groups agree.  The halo heads'
+gathers (`sharding.gather_heads`) are counted under kinds of their own,
+`HALO_KINDS`, each an instance of the JAX kind it maps to.
 
 A `VirtualGroup` stands for a group of a mesh that does not exist (the dry
 run, `launch/mesh.virtual_mesh`): each collective makes the same buffers
@@ -83,6 +85,7 @@ def _gloo(group) -> bool:
 
 
 _LISTENERS: List[Callable[[str, float], None]] = []
+HALO_KINDS = {"halo all-gather": "all-gather", "halo reduce-scatter": "reduce-scatter"}
 
 
 @contextlib.contextmanager
@@ -135,8 +138,9 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return buf.to(t.device, t.dtype)
 
 
-def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The group's tensors concatenated along `dim`, in group-rank order."""
+def all_gather(t: torch.Tensor, group, dim: int, kind: str = "all-gather") -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in group-rank order
+    (counted under `kind`)."""
     if group is None:
         return t
     buf = _wire(t.contiguous(), group, widen=False)
@@ -145,26 +149,28 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         parts[rank(group)] = buf
     else:
         dist.all_gather(parts, buf, group=group)
-    _record("all-gather", buf.numel() * len(parts), buf.dtype)
+    _record(kind, buf.numel() * len(parts), buf.dtype)
     return torch.cat(parts, dim=dim).to(t.device)
 
 
-def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """This rank's slice along `dim` of the group's elementwise sum."""
+def reduce_scatter(t: torch.Tensor, group, dim: int,
+                   kind: str = "reduce-scatter") -> torch.Tensor:
+    """This rank's slice along `dim` of the group's elementwise sum
+    (counted under `kind`)."""
     if group is None:
         return t
     n, r = size(group), rank(group)
     if _gloo(group):
         # gloo has no reduce-scatter: the whole sum, then this rank's slice
         buf = _all_reduce(t, group, "sum")
-        _record("reduce-scatter", buf.numel() // n, buf.dtype)
+        _record(kind, buf.numel() // n, buf.dtype)
         return buf.to(t.device, t.dtype).chunk(n, dim=dim)[r].contiguous()
     src = t.movedim(dim, 0).contiguous()
     wide = src.float() if src.dtype in (torch.bfloat16, torch.float16) else src
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=wide.dtype, device=src.device)
     if not _virtual(group):
         dist.reduce_scatter_tensor(out, wide, group=group)
-    _record("reduce-scatter", out.numel(), out.dtype)
+    _record(kind, out.numel(), out.dtype)
     return out.to(t.dtype).movedim(0, dim).contiguous()
 
 

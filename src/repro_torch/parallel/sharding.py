@@ -70,6 +70,7 @@ and the model is the single-device one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -405,25 +406,31 @@ def local_kv_heads(cfg: ModelConfig) -> int:
     return k1 - k0
 
 
-# validate_divisibility's entry that halo heads take: a warning, not an error
-HEADS_ENTRY = "num_heads "
+def divisibility(cfg: ModelConfig, mesh_cfg: MeshConfig,
+                 global_batch: int) -> Tuple[list, list]:
+    """`validate_divisibility`'s entries as (errors, warnings): a query head
+    count that does not divide `model` is a warning (the heads run as halo
+    heads, `head_span`), as JAX's launchers print it; every other entry is
+    an error."""
+    errors = validate_divisibility(dataclasses.replace(cfg, num_heads=0), mesh_cfg,
+                                   global_batch)
+    return errors, [e for e in validate_divisibility(cfg, mesh_cfg, global_batch)
+                    if e not in errors]
 
 
 def check_supported(cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
-    """Raise for what the explicit plan does not cover: `validate_divisibility`'s
-    entries but the head count (query heads that do not split over `model`
-    run as halo heads, `head_span`; KV heads split into whole groups,
-    replicate where `model` is a multiple of them, or run as halo heads),
-    and the widths that must split over `model`: the q / k / v columns,
-    the padded vocab, the MoE shared expert, MLA's down projections and
-    heads (MLA has no halo), the SSM's heads and groups.  Every family runs
-    under data and tensor parallelism and under `seq_parallel`, int8
-    weights included."""
+    """Raise for what the explicit plan does not cover: `divisibility`'s
+    errors (query heads that do not split over `model` run as halo heads,
+    `head_span`; KV heads split into whole groups, replicate where `model`
+    is a multiple of them, or run as halo heads), and the widths that must
+    split over `model`: the q / k / v columns, the padded vocab, the MoE
+    shared expert, MLA's down projections and heads (MLA has no halo), the
+    SSM's heads and groups.  Every family runs under data and tensor
+    parallelism and under `seq_parallel`, int8 weights included."""
     t = mesh_cfg.model
     if t == 1:
         return
-    errs = [e for e in validate_divisibility(cfg, mesh_cfg, mesh_cfg.dp)
-            if not e.startswith(HEADS_ENTRY)]
+    errs, _ = divisibility(cfg, mesh_cfg, mesh_cfg.dp)
     if cfg.padded_vocab_size % t:
         errs.append(f"padded vocab {cfg.padded_vocab_size} % tp {t} != 0")
     if cfg.num_experts and cfg.num_shared_experts and cfg.moe_d_ff % t:
@@ -699,13 +706,13 @@ class _GatherHeads(torch.autograd.Function):
     """Every rank's columns along the last dim, all-gathered over `model`,
     then [lo, hi) of them: the whole heads a rank's slice touches.  The
     backward reduce-scatters: each rank's gradient for [lo, hi) lands on
-    the ranks whose columns they are, summed."""
+    the ranks whose columns they are, summed.  The census counts both
+    under `comm.HALO_KINDS`."""
 
     @staticmethod
     def forward(ctx, x, group, lo, hi):
         ctx.group, ctx.lo, ctx.hi = group, lo, hi
-        with _halo_listen():
-            whole = comm.all_gather(x, group, x.dim() - 1)
+        whole = comm.all_gather(x, group, x.dim() - 1, kind="halo all-gather")
         ctx.width = whole.shape[-1]
         return whole[..., lo:hi].contiguous()
 
@@ -713,31 +720,8 @@ class _GatherHeads(torch.autograd.Function):
     def backward(ctx, g):
         full = g.new_zeros((*g.shape[:-1], ctx.width))
         full[..., ctx.lo:ctx.hi] = g
-        with _halo_listen():
-            return comm.reduce_scatter(full, ctx.group, g.dim() - 1), None, None, None
-
-
-_HALO: list = []
-
-
-def _halo_listen():
-    """Inside: the halo gathers' wire bytes go to `halo_census()`'s record."""
-    if not _HALO:
-        return contextlib.nullcontext()
-    rec = _HALO[-1]
-    return comm.listen(lambda kind, n: rec.__setitem__(kind, rec.get(kind, 0.0) + n))
-
-
-@contextlib.contextmanager
-def halo_census():
-    """{kind: wire bytes} of the halo heads' gathers (forward all-gathers,
-    backward reduce-scatters) run inside: a share of `comm.census()`."""
-    rec: dict = {}
-    _HALO.append(rec)
-    try:
-        yield rec
-    finally:
-        _HALO.pop()
+        return (comm.reduce_scatter(full, ctx.group, g.dim() - 1, kind="halo reduce-scatter"),
+                None, None, None)
 
 
 def gather_heads(x, lo: int, hi: int, hd: int):

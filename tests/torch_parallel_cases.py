@@ -38,9 +38,8 @@ from repro_torch.models import linear as linear_mod  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.linear import quantize_linear_params  # noqa: E402
 from repro_torch.optim.adamw import OptState, init_opt, tree_leaves  # noqa: E402
-from repro_torch.parallel import comm, pipeline  # noqa: E402
+from repro_torch.parallel import audit, comm, pipeline  # noqa: E402
 from repro_torch.parallel import sharding as sh  # noqa: E402
-from repro_torch.quant import quantize_int8  # noqa: E402
 from repro_torch.serving.serve_step import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.train import train_step as train_step_mod  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
@@ -52,7 +51,7 @@ def _local_sq_sum(self, tree, specs):
     return sum(torch.sum(torch.square(t.float())) for t in tree_leaves(tree))
 
 
-def _local_reduce_scatter(t, group, dim):
+def _local_reduce_scatter(t, group, dim, kind=None):
     return t.chunk(comm.size(group), dim=dim)[comm.rank(group)].contiguous()
 
 
@@ -80,19 +79,6 @@ def _encoder_without_allreduce(*args, **kwargs):
         return _apply_encoder(*args, **kwargs)
     finally:
         sh.reduce_from_tp = real
-
-
-def _halo_grad_unsummed(x, lo, hi, hd):
-    """gather_heads whose backward keeps this rank's own gradient for its
-    columns (the other ranks' partials for them never summed in)."""
-    return comm.gather_from(x, sh._tp_group(), x.dim() - 1)[..., lo * hd:hi * hd].contiguous()
-
-
-def _neighbour_head(x, lo, hi, hd):
-    """gather_heads that takes each head's neighbour: the columns one head
-    to the right (wrapping)."""
-    whole = comm.fsdp_gather(x, sh._tp_group(), x.dim() - 1)
-    return torch.roll(whole, -hd, dims=-1)[..., lo * hd:hi * hd].contiguous()
 
 
 FAULTS = {
@@ -130,16 +116,17 @@ FAULTS = {
     # KV heads replicated over `model`: the replicas' wk / wv gradients not summed
     "kv_grads_unsummed": [(sh.Plan, "reduce_grads", _kv_grads_unsummed)],
     # halo heads: the gather's backward keeps each rank's own partial gradient
-    "halo_grad_unsummed": [(sh, "gather_heads", _halo_grad_unsummed)],
+    "halo_grad_unsummed": [(sh, "gather_heads", audit.halo_grad_unsummed)],
     # halo heads: each rank gathers its neighbour's head in place of its own
-    "neighbour_head": [(sh, "gather_heads", _neighbour_head)],
+    "neighbour_head": [(sh, "gather_heads", audit.neighbour_head)],
     # int8 under tensor parallelism: a row-parallel activation's absmax over
     # this rank's columns only (no MAX over `model`)
     "act_scale_unreduced": [(linear_mod, "row_activation_absmax",
-                             lambda x2: x2.float().abs().amax(dim=-1, keepdim=True))],
+                             audit.activation_absmax_unreduced)],
     # ... a per-call weight's column absmax over this rank's rows only
-    "weight_scale_unreduced": [(linear_mod, "row_weight_absmax",
-                                lambda w: w.float().abs().amax(dim=-2, keepdim=True))],
+    "weight_scale_unreduced": [(linear_mod, "row_weight_absmax", audit.weight_absmax_unreduced)],
+    # ... the codes taken at the shard's own absmax, the scale the MAX over `model`
+    "codes_at_shard_absmax": [(linear_mod, "quantize_int8", audit.codes_at_shard_absmax)],
 }
 
 
@@ -367,38 +354,6 @@ def _tree_like(tree, it):
     return next(it)
 
 
-@contextlib.contextmanager
-def recording_row_codes(record):
-    """Every row-parallel int8 product (`linear._row_int8`) checked against
-    the unsharded quantization of the same operands: the activation's and
-    a per-call weight's codes and scales gathered over `model`, against
-    `quantize_int8` of the gathered float operand; record gets each call's
-    count of unequal codes and scales (0: bit for bit)."""
-    real_row, real_q, seen = linear_mod._row_int8, linear_mod.int8_matmul_q, {}
-
-    def q(a_q, a_scale, b_q, b_scale, *args, **kw):
-        seen.update(a_q=a_q, a_scale=a_scale, b_q=b_q, b_scale=b_scale)
-        return real_q(a_q, a_scale, b_q, b_scale, *args, **kw)
-
-    def row(x2, w):
-        out = real_row(x2, w)
-        group = sh._tp_group()
-        want_q, want_s = quantize_int8(comm.all_gather(x2.detach(), group, 1), -1)
-        bad = int((comm.all_gather(seen["a_q"], group, 1) != want_q).sum())
-        bad += int((seen["a_scale"] != want_s).sum())
-        if not isinstance(w, linear_mod.QuantizedTensor):
-            want_q, want_s = quantize_int8(comm.all_gather(w.detach(), group, 0), -2)
-            bad += int((comm.all_gather(seen["b_q"].contiguous(), group, 0) != want_q).sum())
-            bad += int((seen["b_scale"].reshape(want_s.shape) != want_s).sum())
-        record.append(bad)
-        return out
-    linear_mod._row_int8, linear_mod.int8_matmul_q = row, q
-    try:
-        yield
-    finally:
-        linear_mod._row_int8, linear_mod.int8_matmul_q = real_row, real_q
-
-
 def serve_case(mesh, d, job):
     """Prefill and job["decode"] greedy decode steps under tensor
     parallelism: every step's logits and the greedy tokens.  inputs.npz
@@ -420,9 +375,8 @@ def serve_case(mesh, d, job):
     lead = inputs["patch_embeds"].shape[1] if "patch_embeds" in inputs else 0
     out = {}
     for fault in [None] + job.get("faults", []):
-        codes = []
-        with planted(fault), torch.no_grad(), (recording_row_codes(codes) if job.get("codes")
-                                               else contextlib.nullcontext()):
+        with planted(fault), torch.no_grad(), (audit.row_codes(keep=None) if job.get("codes")
+                                               else contextlib.nullcontext()) as codes:
             params = plan.shard(whole)
             s0 = lead + tokens.shape[1]
             logits, caches = make_prefill_step(cfg, s0 + job["decode"], plan)(params, inputs)
@@ -443,7 +397,10 @@ def serve_case(mesh, d, job):
         if "k" in caches[0]:
             out[key + "cache_k"] = caches[0]["k"].numpy()
         if job.get("codes"):
-            out[key + "row_codes_unequal"] = np.array(codes)
+            out[key + "row_codes_unequal"] = np.array(codes.unequal)
+            for i, (q, scale) in enumerate(codes.codes):
+                out[f"{key}row_codes/{i}"] = q.numpy()
+                out[f"{key}row_scales/{i}"] = scale.numpy()
     if mesh.rank == 0:
         np.savez(os.path.join(d, "out.npz"), **out)
 
