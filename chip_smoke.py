@@ -300,7 +300,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each head split C0-C3 (b 4, s 2048, bf16, fused linear, flash),
      forward and backward, after autotuning its GEMM keys, beside the
      advisor's analytic and measurement-calibrated predictions and the
-     orders of all three (printed, not checked).
+     orders of all three (printed, not checked);
+  21. analysis: the port's codesign lint engine (src/repro_torch/analysis)
+     over its own package at the H100, its findings counted by rule and
+     severity (an error fails the run); then its priced fixes on the card:
+     for every SHP101 finding the tile GEMM's lm_head product (4096 x
+     d_model x vocab, bf16, CUDA events, operands rotated past L2) at the
+     declared vocab, checked against the plain version, and at the hint's
+     padded vocab, the predicted gain in useful FLOP/s beside the measured
+     one; for every full-size SHP102 finding with a priced sibling
+     (gpt3-2.7b-c0 -> 10 heads of 256) one dense block of the sibling
+     beside the config's (b 4, s 2048, bf16, fused linear, flash, forward
+     and backward: the codesign timer), with the flash forward at the
+     sibling's head dim held to its bound, the predicted step-time gain
+     beside the measured one (printed, not checked).
 Before the first phase the run installs an empty default tuning cache, so
 phases 2-18 launch the wrappers' rules whatever tuning_cache.json the
 checkout holds.  The last line of standard output is the result object; the
@@ -5757,6 +5770,42 @@ def _layer_gemm_shapes(h: int, f: int, m: int):
             ("matmul", (f, m, h))]
 
 
+def dense_block_ms(torch, gen, cfg, b: int, s: int, what: str) -> float:
+    """Mean device ms (CUDA events, CODESIGN_ITERS steps after two warm
+    ones) of one dense block of `cfg`, forward and backward, over random
+    bf16 weights and a (b, s, d_model) input; fails on a non-finite
+    gradient."""
+    from repro_torch.models.blocks import apply_stack, init_segment
+
+    dev = torch.device("cuda")
+    h = cfg.d_model
+    seg = init_segment(gen, cfg, "dense", 1, device=dev, dtype=torch.bfloat16)
+    for _, t in _paths(seg):
+        t.requires_grad_(True)
+    x = torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+
+    def step():
+        y, _, _ = apply_stack([("dense", seg)], cfg, x, positions=pos)
+        y.backward(dy)
+    step()
+    step()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(CODESIGN_ITERS):
+        step()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / CODESIGN_ITERS
+    if not all(torch.isfinite(t.grad).all() for _, t in _paths(seg)):
+        fail(f"{what}: non-finite gradients")
+    del seg, x, dy
+    torch.cuda.empty_cache()
+    return ms
+
+
 def codesign_phase(torch, cache) -> None:
     """One dense block of each gpt3-2.7b variant C0-C3 (b 4, s 2048, bf16,
     linear_impl="fused", attn_impl="flash"), forward and backward, timed by
@@ -5768,7 +5817,6 @@ def codesign_phase(torch, cache) -> None:
     from repro_torch.configs.gpt3_2p7b import VARIANTS
     from repro_torch.core import gemm_model, transformer_gemms
     from repro_torch.core.hardware import get_hardware
-    from repro_torch.models.blocks import apply_stack, init_segment
     from repro_torch.tuning import search
 
     dev = torch.device("cuda")
@@ -5794,35 +5842,12 @@ def codesign_phase(torch, cache) -> None:
     for name, vcfg in VARIANTS.items():
         cfg = dataclasses.replace(vcfg, linear_impl="fused", attn_impl="flash",
                                   dtype="bfloat16")
-        seg = init_segment(gen, cfg, "dense", 1, device=dev, dtype=torch.bfloat16)
-        for _, t in _paths(seg):
-            t.requires_grad_(True)
-        x = torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
-        dy = torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16)
-        pos = torch.arange(s, device=dev)
-
-        def step():
-            y, _, _ = apply_stack([("dense", seg)], cfg, x, positions=pos)
-            y.backward(dy)
-        step()
-        step()
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(CODESIGN_ITERS):
-            step()
-        ev[1].record()
-        torch.cuda.synchronize()
-        ms = ev[0].elapsed_time(ev[1]) / CODESIGN_ITERS
-        if not all(torch.isfinite(t.grad).all() for _, t in _paths(seg)):
-            fail(f"codesign {name}: non-finite gradients")
+        ms = dense_block_ms(torch, gen, cfg, b, s, f"codesign {name}")
         gemms = transformer_gemms.layer_gemms(cfg, b, s, mode="train")
         flops = 3 * sum(g.flops for g in gemms)
         rows[name] = dict(heads=cfg.num_heads, hd=cfg.head_dim, ms=ms, tflops=flops / ms / 1e9,
                           analytic=3 * gemm_model.total_time(gemms, hw) * 1e3,
                           calibrated=3 * gemm_model.total_time(gemms, hw, profile) * 1e3)
-        del seg, x, dy
-        torch.cuda.empty_cache()
     base = rows["c0"]
     for name, r in rows.items():
         print(f"  {name.upper()} {r['heads']} x {r['hd']}: measured {r['ms']:.3f} ms "
@@ -5834,6 +5859,132 @@ def codesign_phase(torch, cache) -> None:
         order = " < ".join(n.upper() for n in sorted(rows, key=lambda n: rows[n][what]))
         print(f"  order by {'measured' if what == 'ms' else what} time: {order}")
 
+
+
+# --- analysis phase: the codesign lint engine, and its priced fixes on the card --------------
+
+ANALYSIS_ITERS = 10
+
+
+def _registered_configs() -> tuple:
+    """(every registered config, full and smoke, by its own name; the
+    smoke configs' names)."""
+    from repro_torch.configs import registry
+    registry._load_all()
+    smoke = {c.name for c in registry._SMOKE.values()}
+    return {c.name: c for c in (*registry._REGISTRY.values(), *registry._SMOKE.values())}, smoke
+
+
+def _lm_head_case(torch, gen, finding, cfg, hw) -> None:
+    """One SHP101 finding on the card: the tile GEMM at PRICE_TOKENS x
+    d_model x the declared vocab (checked against the plain version) and
+    x the hint's padded vocab, each timed over operand sets rotated past
+    L2; the audit's predicted gain in useful FLOP/s beside the measured
+    one."""
+    from repro_torch.analysis.shape_audit import PRICE_TOKENS, _price_lm_head
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.tolerance import matmul_tol
+
+    dev = torch.device("cuda")
+    m, d, v = PRICE_TOKENS, cfg.d_model, cfg.vocab_size
+    v_pad = int(re.search(r"pad to (\d+)", finding.fix_hint).group(1))
+    times = {}
+    for n in (v, v_pad):
+        sets = copies(torch, lambda: (
+            torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16),
+            (torch.randn((d, n), generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)),
+            2 * (m * d + d * n))
+        a, w = sets[0]
+        try:
+            got = matmul(a, w)
+        except ValueError as e:  # the wrapper's refusal of a shape; a launch error fails
+            print(f"    {cfg.name} lm_head {m} x {d} x {n}: the tile GEMM refuses it ({e}); the "
+                  f"runtime pads the vocab to {cfg.padded_vocab_size} (padded_vocab_size)")
+        else:
+            if n == v:
+                want = matmul_ref(a, w)
+                compare(torch, got, want, matmul_tol(a, w, want),
+                        f"{cfg.name} lm_head {m} x {d} x {n} (declared vocab)")
+                del want
+            del got
+            times[n], _ = time_ms(torch, [lambda t=t: matmul(*t) for t in sets], ANALYSIS_ITERS)
+        del sets, a, w
+        torch.cuda.empty_cache()
+    predicted = _price_lm_head(cfg, hw, v, v_pad)
+    line = (f"  SHP101 {cfg.name} (vocab {v} -> {v_pad}; the runtime pads to "
+            f"{cfg.padded_vocab_size}): predicted +{predicted:.2f}% useful FLOP/s (analytic, "
+            f"{hw.name})")
+    if len(times) == 2:
+        useful = 2.0 * m * d * v
+        t_bad, t_good = times[v], times[v_pad]
+        measured = (useful / v * v_pad / t_good) / (useful / t_bad) * 100 - 100
+        line += (f"; measured {t_bad:.4f} ms at {v} ({useful / t_bad / 1e9:.1f} useful TFLOP/s), "
+                 f"{t_good:.4f} ms at {v_pad} ({useful / v * v_pad / t_good / 1e9:.1f}): "
+                 f"{measured:+.2f}% useful FLOP/s")
+    print(line, flush=True)
+
+
+def _heads_case(torch, gen, finding, cfg, hw) -> None:
+    """One priced SHP102 finding on the card: one dense block of the
+    sibling config the audit priced (`_price_heads`) beside the config's own, timed as the codesign phase times them, the
+    flash forward at the sibling's head dim held to its bound; the
+    predicted step-time gain beside the measured one."""
+    from repro_torch.analysis.shape_audit import _price_heads
+    from repro_torch.core import gemm_model, transformer_gemms
+
+    dev = torch.device("cuda")
+    b, s = GPT3_BATCH, GPT3_SEQ
+    sib, predicted = _price_heads(cfg, hw)
+    a, kv = sib.num_heads, sib.num_kv_heads
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    _flash_case(torch, randn, f"{cfg.name} sibling {a} x {sib.head_dim}", b, s, s, a, kv,
+                sib.head_dim, True, False, 1, ANALYSIS_ITERS)
+    rows = {}
+    for label, c in ((f"{cfg.num_heads} x {cfg.head_dim}", cfg),
+                     (f"{a} x {sib.head_dim}", sib)):
+        c = dataclasses.replace(c, linear_impl="fused", attn_impl="flash", dtype="bfloat16")
+        gemms = transformer_gemms.layer_gemms(c, b, s, mode="train")
+        rows[label] = (dense_block_ms(torch, gen, c, b, s, f"analysis {cfg.name} {label}"),
+                       3 * gemm_model.total_time(gemms, hw) * 1e3)
+    (l0, (ms0, an0)), (l1, (ms1, an1)) = rows.items()
+    print(f"  SHP102 {cfg.name}: {finding.fix_hint} (the whole model's step, the advisor's "
+          f"TRAIN_4K shape); one block at b {b}, s {s}: {l0} {ms0:.3f} ms, {l1} {ms1:.3f} ms, "
+          f"measured {(ms0 / ms1 - 1) * 100:+.1f}% step time (predicted +{predicted:.1f}%; "
+          f"this block's analytic GEMM time {an0:.3f} -> {an1:.3f} ms, "
+          f"{(an0 / an1 - 1) * 100:+.1f}%)", flush=True)
+
+
+def analysis_phase(torch) -> None:
+    """The port's lint engine over its own package at the H100: its
+    findings counted by rule and severity, any error fails the run; then
+    the priced fixes of its SHP101 and SHP102 findings timed on the card
+    (predicted beside measured: findings, not checks)."""
+    from repro_torch.analysis import analyze, count_by_severity
+    from repro_torch.core.hardware import get_hardware
+
+    hw = get_hardware("h100")
+    t0 = time.perf_counter()
+    result = analyze(hw_name=hw.name)
+    by_rule = collections.Counter((f.rule_id, f.severity) for f in result.findings)
+    print(f"analysis: {result.files_scanned} files of src/repro_torch at {hw.name} in "
+          f"{time.perf_counter() - t0:.1f} s: {dict(count_by_severity(result.findings))}; by rule "
+          f"{', '.join(f'{r} {sev} {n}' for (r, sev), n in sorted(by_rule.items()))}")
+    errors = [f for f in result.findings if f.severity == "error"]
+    if errors:
+        fail("analysis: " + "; ".join(f"{f.file}:{f.line} {f.rule_id} {f.message}"
+                                      for f in errors))
+    configs, smoke = _registered_configs()
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
+    for f in result.findings:
+        if f.rule_id == "SHP101" and f.arch not in smoke:
+            _lm_head_case(torch, gen, f, configs[f.arch], hw)
+    for f in result.findings:
+        if (f.rule_id == "SHP102" and "step time" in f.fix_hint and f.arch not in smoke
+                and configs[f.arch].family == "dense"):
+            _heads_case(torch, gen, f, configs[f.arch], hw)
 
 
 # --- the encoder-decoder and VLM slice ------------------------------------------------------
@@ -8524,6 +8675,7 @@ def main() -> None:
     phase("dryrun", dryrun_phase, torch)
     cache = phase("tuning", tuning_phase, torch)
     phase("codesign", codesign_phase, torch, cache)
+    phase("analysis", analysis_phase, torch)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in spent.items()})}; all "
           f"{time.perf_counter() - t0:.1f} s")
     # launches over the main path's runs: the serve run's (the serve-shape

@@ -217,11 +217,11 @@ def _rank_entry(rank: int, world: int, addr: str, backend: str, device: str,
         os._exit(1)
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), *, device="cpu",
+def spawn(fn: Callable, world: int, args: tuple = (), *, device="cuda",
           timeout: Optional[float] = None) -> str:
     """Run fn(rank, world, device, *args) in `world` fresh processes with the
     process group initialised (tcp://127.0.0.1 at a free port); returns the
-    backend.  `fn` must be importable by name.  Raises if any rank exits
+    backend.  The ranks run on the card unless `device="cpu"` is given.  `fn` must be importable by name.  Raises if any rank exits
     non-zero or the world outlives `timeout`; the other ranks are then
     stopped."""
     device = torch.device(device)

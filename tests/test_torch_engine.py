@@ -198,7 +198,8 @@ assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops",
         "repro_torch.obs.view", "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
         "repro_torch.serving.engine.faults", "repro_torch.parallel.sharding",
         "repro_torch.parallel.comm", "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
-        "repro_torch.models.moe_shardmap"} <= set(names), names
+        "repro_torch.models.moe_shardmap", "repro_torch.analysis",
+        "repro_torch.analysis.__main__"} <= set(names), names
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")

@@ -522,7 +522,7 @@ def main():
     d = sys.argv[1]
     with open(os.path.join(d, "suite.json")) as f:
         jobs = json.load(f)
-    mesh_lib.spawn(suite, max(_world(j) for j in jobs), (jobs,), timeout=200)
+    mesh_lib.spawn(suite, max(_world(j) for j in jobs), (jobs,), device="cpu", timeout=200)
 
 
 if __name__ == "__main__":
